@@ -48,11 +48,6 @@ def _kernel(name: str):
     return fn
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    """Where a wrapper decides between the kernel and its plain version."""
-    return t.is_cuda
-
-
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)
@@ -102,7 +97,7 @@ def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths):
     the card, garbage on the CPU -- callers never read them).
     Returns [B, S, H, D] in q.dtype.
     """
-    if not _on_cuda(q):
+    if not q.is_cuda:
         return flash_prefill_attention_plain(q, k_pages, v_pages, block_table,
                                              start, lengths)
     B, S, H, D = q.shape
@@ -173,7 +168,7 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
     [num_blocks, bs, KVH*D]; block_table [B, NB]; positions [B] = the new
     token's position.  Returns (attn [B, 1, H, D], k_pages, v_pages).
     """
-    if not _on_cuda(q):
+    if not q.is_cuda:
         return paged_decode_attention_fused_plain(
             q, k_new, v_new, cos, sin, k_pages, v_pages, block_table,
             positions)

@@ -176,11 +176,18 @@ def test_cpu_wrappers_count_no_launches():
     assert pa.paged_decode_attention_fused.launches == 0
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as lying on the card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
 def test_cuda_path_raises_instead_of_falling_back(monkeypatch, tmp_path):
-    # Pretend the tensors are on the card: the wrapper must go for its
+    # Pretend the query is on the card: the wrapper must go for its
     # kernel, and where that cannot be built (no nvcc here) it raises; it
     # never hands the call to the plain version.
-    monkeypatch.setattr(pa, "_on_cuda", lambda t: True)
     monkeypatch.setattr(pa, "_fns", {})
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -190,7 +197,7 @@ def test_cuda_path_raises_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(pa, "paged_decode_attention_fused_plain", None)
     pa.reset_launch_counts()
     bf = torch.bfloat16
-    q = torch.zeros(1, 16, 4, 128, dtype=bf)
+    q = torch.zeros(1, 16, 4, 128, dtype=bf).as_subclass(_OnCard)
     pages = torch.zeros(4, 16, 256, dtype=bf)
     tab = torch.ones(1, 2, dtype=torch.int32)
     one = torch.ones(1, dtype=torch.int32)
