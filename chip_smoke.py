@@ -8,28 +8,38 @@ Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
          started together) and prints the build seconds.
 Phase 1  each kernel against its plain PyTorch version on the card, at the
-         Llama-3-8B head geometry (H=32, KVH=8, D=128, block 16) in bf16:
-         ragged prefill (S 128 and 1024, a chunk at start > 0, an empty lane,
-         a lane one token below block alignment) and decode (B=32, contexts
-         up to 2048, an inactive lane, a page boundary), outputs and pages.
+         Llama-3-8B head geometry (H=32, KVH=8, D=128, block 16) with bf16
+         activations: flash prefill over bf16, int8 and fp8 pools (ragged
+         S 128 and 1024, a chunk at start > 0, an empty lane, a lane one
+         token below block alignment), fused decode over bf16, int8 and fp8
+         pools (B=32, contexts up to 2048, an inactive lane, a page
+         boundary; outputs, pages, codes and scales), and split paged
+         attention at QS=1 (decode) and QS=5 (verify, ragged).
 Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
-         from a seeded generator on the card, an 8 GiB bf16 paged pool):
-         15 prompts of 20..1500 tokens plus one of 2300 (chunked prefill)
-         through generate / generate_text, greedy, 32 new tokens.  Every
-         request must finish, both kernels must have launched, and a second
+         from a seeded generator on the card): a bf16 pool (8 GiB), an int8
+         and an fp8 pool, and decode_path="pallas".  15 prompts of
+         20..1500 tokens plus one of 2300 (chunked prefill), greedy, 32 new
+         tokens.  For each engine the launch counts are set to 0 just
+         before its run and read just after: every request must finish,
+         every kernel of its path must have launched, and a second
          identical run must give identical ids.  Prints TTFT p50, decode
-         tokens/s, weight and pool bytes.  A third run traces its decode
-         steps (after the last prefill) with torch.profiler: device time
-         per kernel and the device's idle share of the window.
-Phase 3  the kernel path against the plain path: the same weights cut to 4
-         layers, first-token and decode-step logits of flash/fused against
-         dense/gather; and a small float32 model, whose greedy ids on the card
-         must equal the CPU's.
+         tokens/s, weight and pool bytes.  A third run of the bf16 and of the
+         pallas engine traces its decode steps (after the last prefill)
+         with torch.profiler: device time per kernel, the number of device
+         kernels, and the device's idle share of the window.
+Phase 3  the kernel path against the plain path on the same weights cut to
+         4 layers: first-token and decode-step logits of flash/fused and
+         flash/pallas against dense/gather (bf16 pool), and of the int8 and
+         fp8 kernels against their plain versions (not against dense: fresh
+         dense prefill attends to the unquantized in-flight K/V); and a
+         small float32 model, whose greedy ids on the card must equal the
+         CPU's.
 Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          kernel, its plain version, one PyTorch call computing the same
-         function on gathered K/V (scaled_dot_product_attention, a yardstick
-         the port never calls) and the least time the card could take for
-         the same bytes and flops; launches per engine step.
+         function on K/V gathered (and dequantized) beforehand
+         (scaled_dot_product_attention, a yardstick the port never calls)
+         and the least time the card could take for the same bytes and
+         flops; launches per engine step.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -56,6 +66,12 @@ TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs bf16 plain version
 # rows deep in a long context have small outputs, where atol alone is loose.
 ULP_TOL = 2
 LOGIT_ATOL = 0.1                   # bf16 logits after 4 layers
+# ... over an int8/fp8 pool the kernels also round p * v_scale to bf16
+# before the PV product and append codes from their own f32 RoPE (one code
+# step apart at ties), which 4 layers of random weights amplify: the first
+# run measured 0.0625 (int8) and 0.094 (fp8) against the plain versions.
+QUANT_LOGIT_ATOL = 0.2
+MIN_ARGMAX_AGREE = 0.95            # of the 20 logit rows of phase 3
 
 
 class PhaseError(RuntimeError):
@@ -114,26 +130,80 @@ def decode_case(torch, rng, gen, positions, nbl):
     return q, kn, vn, cos, sin, kp, vp, table, pos
 
 
-def prefill_work(starts, lengths, S):
+QUANTS = ("int8", "fp8")
+
+
+def _page_bytes(kv_quant):
+    """Bytes one cached position of one kv head costs in the K or V plane:
+    D page elements, plus a float32 scale on a quantized pool."""
+    return D + 4 if kv_quant else 2 * D
+
+
+def quantize_pages(torch, pages, kv_quant):
+    """(codes, scales) of a bf16 pool, by the port's own quantize_kv."""
+    from k8s_llm_monitor_tpu_torch.models.llama import kv_quant_spec, quantize_kv
+
+    qdtype, qmax = kv_quant_spec(kv_quant)
+    return quantize_kv(pages, KVH, qdtype, qmax)
+
+
+def quant_prefill_case(torch, rng, gen, B, S, starts, lengths, kv_quant):
+    """prefill_case over a quantized pool: (args, scale kwargs)."""
+    q, kp, vp, table, st, ln = prefill_case(torch, rng, gen, B, S, starts,
+                                            lengths)
+    kq, ks = quantize_pages(torch, kp, kv_quant)
+    vq, vs = quantize_pages(torch, vp, kv_quant)
+    return (q, kq, vq, table, st, ln), dict(k_scale=ks, v_scale=vs)
+
+
+def quant_decode_case(torch, rng, gen, positions, nbl, kv_quant):
+    """decode_case over a quantized pool, in the fused quant wrapper's
+    argument order."""
+    q, kn, vn, cos, sin, kp, vp, table, pos = decode_case(torch, rng, gen,
+                                                          positions, nbl)
+    kq, ks = quantize_pages(torch, kp, kv_quant)
+    vq, vs = quantize_pages(torch, vp, kv_quant)
+    return q, kn, vn, cos, sin, kq, vq, ks, vs, table, pos
+
+
+def prefill_work(starts, lengths, S, kv_quant=""):
     """(bytes, flops) the flash prefill must move and do for these inputs:
     each input read once, each output written once, causal pairs only.
     Rows past ``lengths`` are padding no caller reads, so q and out count
     only the valid rows."""
     B = len(starts)
     qo = 2 * sum(lengths) * H * D * 2                   # q in, out
-    kv = sum((s + n) * KVH * D * 2 * 2 for s, n in zip(starts, lengths))
+    kv = sum((s + n) * KVH * _page_bytes(kv_quant) * 2
+             for s, n in zip(starts, lengths))
     table = 4 * B * (2 + max((s + n + BS - 1) // BS for s, n in zip(starts, lengths)))
     pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts, lengths))
     return qo + kv + table, 4 * D * H * pairs
 
 
-def decode_work(positions):
+def decode_work(positions, kv_quant=""):
+    """(bytes, flops) of one fused decode step: the cached rows (and
+    scales) read, q, k_new, v_new, angles and positions read, out and the
+    appended rows (and scales) written."""
     B = len(positions)
-    cached = sum(p * KVH * D * 2 * 2 for p in positions)
-    io = B * (2 * H * D * 2 + 2 * KVH * D * 2 * 2 + 2 * D * 4 + 4)
+    row = KVH * _page_bytes(kv_quant)
+    cached = sum(p * row * 2 for p in positions)
+    io = B * (2 * H * D * 2 + 2 * KVH * D * 2 + 2 * row + 2 * D * 4 + 4)
     table = 4 * sum((p + BS) // BS for p in positions)
     flops = sum(4 * H * D * (p + 1) for p in positions if p > 0)
     return cached + io + table, flops
+
+
+def paged_attn_work(starts, qlens):
+    """(bytes, flops) of the split paged attention: the keys the live
+    tokens see (bf16 K and V), q and out of the live tokens, table,
+    starts and qlens."""
+    keys = [s + n for s, n in zip(starts, qlens)]
+    kv = sum(keys) * KVH * D * 2 * 2
+    qo = 2 * sum(qlens) * H * D * 2
+    table = 4 * sum((k + BS - 1) // BS for k in keys) + 8 * len(starts)
+    flops = sum(4 * H * D * (s + i + 1)
+                for s, n in zip(starts, qlens) for i in range(n))
+    return kv + qo + table, flops
 
 
 def bound(bytes_, flops):
@@ -201,13 +271,38 @@ def phase0(torch, st):
     torch.backends.cudnn.allow_tf32 = False
 
 
+def code_steps(torch, got, want):
+    """Largest difference between two code planes in steps of the storage
+    type: int8 steps are 1; an e4m3 step at x in [2^e, 2^(e+1)) is
+    2^(e-3), at least 2^-9 (subnormals)."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.int8:
+        return float((g - w).abs().max())
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -6)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 3)
+    return float(((g - w).abs() / step).max())
+
+
+def check_rows(torch, name, got, want, rows, errs, ulps):
+    """Hold ``got`` to ``want`` on the rows ``rows`` selects: atol/rtol and
+    bf16 ulps of each (row, head)'s largest value; fold the errors into
+    errs[name] / ulps[name]."""
+    g, w = got[rows].float(), want[rows].float()
+    err = float((g - w).abs().max())
+    ulp = ulp_err(torch, g, w)
+    errs[name] = max(errs.get(name, 0.0), err)
+    ulps[name] = max(ulps.get(name, 0.0), ulp)
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    check(torch.allclose(g, w, **TOL), f"{name}: max abs err {err:.4g}")
+    check(ulp <= ULP_TOL, f"{name}: err {ulp:.3g} ulps")
+
+
 def phase1(torch, np, st):
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {"flash_prefill": 0.0, "fused_decode": 0.0}
-    ulps = {"flash_prefill": 0.0, "fused_decode": 0.0}
+    errs, ulps = {}, {}
     prefill_cases = [
         # fresh, continuation, empty lane, ends one below block alignment
         (128, [0, 37, 0, 300], [128, 91, 0, 19]),
@@ -216,35 +311,34 @@ def phase1(torch, np, st):
         (1024, [0] * 8, [20, 181, 298, 407, 462, 515, 632, 1024]),
         (256, [2048], [252]),
     ]
-    for S, starts, lengths in prefill_cases:
-        case = prefill_case(torch, rng, gen, len(starts), S, starts, lengths)
-        got = pa.flash_prefill_attention(*case)
-        want = pa.flash_prefill_attention_plain(*case)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got.float()).all()),
-              f"flash prefill S={S}: non-finite output")
-        for b, n in enumerate(lengths):
-            if n == 0:
-                check(bool((got[b] == 0).all()),
-                      f"flash prefill S={S}: empty lane {b} not zeroed")
-                continue
-            g, w = got[b, :n].float(), want[b, :n].float()
-            err = float((g - w).abs().max())
-            ulp = ulp_err(torch, g, w)
-            errs["flash_prefill"] = max(errs["flash_prefill"], err)
-            ulps["flash_prefill"] = max(ulps["flash_prefill"], ulp)
-            check(torch.allclose(g, w, **TOL),
-                  f"flash prefill S={S} lane {b}: max abs err {err:.4g}")
-            check(ulp <= ULP_TOL,
-                  f"flash prefill S={S} lane {b}: err {ulp:.3g} ulps")
-        print(f"phase 1: flash_prefill S={S} starts={starts} "
-              f"lengths={lengths}: ok, max abs err {errs['flash_prefill']:.4g}"
-              f", max err {ulps['flash_prefill']:.3g} ulps of the row")
+    for kvq in ("",) + QUANTS:
+        name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
+        for S, starts, lengths in prefill_cases:
+            if kvq:
+                case, scales = quant_prefill_case(
+                    torch, rng, gen, len(starts), S, starts, lengths, kvq)
+            else:
+                case, scales = prefill_case(torch, rng, gen, len(starts), S,
+                                            starts, lengths), {}
+            got = pa.flash_prefill_attention(*case, **scales)
+            want = pa.flash_prefill_attention_plain(*case, **scales)
+            torch.cuda.synchronize()
+            for b, n in enumerate(lengths):
+                if n == 0:
+                    check(bool((got[b] == 0).all()),
+                          f"{name} S={S}: empty lane {b} not zeroed")
+                    continue
+                check_rows(torch, f"{name}", got[b, :n], want[b, :n],
+                           slice(None), errs, ulps)
+            print(f"phase 1: {name} S={S} starts={starts} lengths={lengths}: "
+                  f"ok, max abs err {errs[name]:.4g}, max err "
+                  f"{ulps[name]:.3g} ulps of the row")
 
     # decode: inactive lane, page boundaries, the last row of a 2048 table
     positions = [0, 1, 15, 16, 17, 255, 256, 2047] + list(
         rng.integers(1, 2048, size=24))
     nbl = 2048 // BS
+    act = torch.tensor(positions, device="cuda") > 0
     case = decode_case(torch, rng, gen, positions, nbl)
     ck = [t.clone() for t in case]
     cp = [t.clone() for t in case]
@@ -252,35 +346,152 @@ def phase1(torch, np, st):
     out_p, kp_p, vp_p = pa.paged_decode_attention_fused_plain(*cp)
     torch.cuda.synchronize()
     check(kp_k.data_ptr() == ck[5].data_ptr(), "fused decode: pages not in place")
-    check(bool(torch.isfinite(out_k.float()).all()), "fused decode: non-finite output")
-    act = torch.tensor(positions, device="cuda") > 0
-    g, w = out_k[act].float(), out_p[act].float()
-    err = float((g - w).abs().max())
-    ulps["fused_decode"] = ulp_err(torch, g, w)
-    check(torch.allclose(g, w, **TOL), f"fused decode: max abs err {err:.4g}")
-    check(ulps["fused_decode"] <= ULP_TOL,
-          f"fused decode: err {ulps['fused_decode']:.3g} ulps")
+    check_rows(torch, "fused_decode", out_k, out_p, act, errs, ulps)
     for name, a, b in (("k", kp_k, kp_p), ("v", vp_k, vp_p)):
         perr = float((a.float() - b.float()).abs().max())
-        err = max(err, perr)
+        errs["fused_decode"] = max(errs["fused_decode"], perr)
         check(torch.allclose(a.float(), b.float(), **TOL),
               f"fused decode: {name} pages differ, max abs err {perr:.4g}")
-    errs["fused_decode"] = err
     print(f"phase 1: fused_decode B={len(positions)} positions up to "
-          f"{max(positions)}: ok, max abs err {err:.4g} (outputs and pages)"
-          f", max err {ulps['fused_decode']:.3g} ulps of the row (outputs)")
+          f"{max(positions)}: ok, max abs err {errs['fused_decode']:.4g} "
+          f"(outputs and pages), max err {ulps['fused_decode']:.3g} ulps of "
+          "the row (outputs)")
+
+    for kvq in QUANTS:
+        name = f"fused_decode_{kvq}"
+        case = quant_decode_case(torch, rng, gen, positions, nbl, kvq)
+        ck = [t.clone() for t in case]
+        cp = [t.clone() for t in case]
+        got = pa.paged_decode_attention_fused_quant(*ck)
+        want = pa.paged_decode_attention_fused_quant_plain(*cp)
+        torch.cuda.synchronize()
+        check(got[1].data_ptr() == ck[5].data_ptr()
+              and got[3].data_ptr() == ck[7].data_ptr(),
+              f"{name}: pool not updated in place")
+        check_rows(torch, name, got[0], want[0], act, errs, ulps)
+        steps = max(code_steps(torch, got[i], want[i]) for i in (1, 2))
+        check(steps <= 1.0, f"{name}: codes differ by {steps:.3g} steps")
+        for i in (3, 4):
+            check(torch.allclose(got[i], want[i], rtol=1e-5, atol=0),
+                  f"{name}: scales differ by "
+                  f"{float((got[i] - want[i]).abs().max()):.4g}")
+        print(f"phase 1: {name} B={len(positions)} positions up to "
+              f"{max(positions)}: ok, max abs err {errs[name]:.4g}, max err "
+              f"{ulps[name]:.3g} ulps of the row (outputs); codes within "
+              f"{steps:.3g} steps, scales at rtol 1e-5")
+
+    # split paged attention: decode (QS=1) over the decode case's pages,
+    # verify (QS=5) with ragged starts and lengths, an empty lane.
+    q, _, _, _, _, kp, vp, table, pos = decode_case(torch, rng, gen,
+                                                    positions, nbl)
+    lens = pos + 1
+    got = pa.paged_decode_attention_pallas(q, kp, vp, table, lens)
+    want = pa.flash_prefill_attention_plain(
+        q, kp, vp, table, (lens - 1).clamp(min=0), lens.clamp(max=1))
+    torch.cuda.synchronize()
+    check_rows(torch, "paged_attn", got, want, slice(None), errs, ulps)
+    starts, qlens = [0, 3, 15, 700, 2000, 1, 64, 0], [5, 5, 1, 4, 5, 2, 0, 3]
+    vcase = prefill_case(torch, rng, gen, len(starts), 5, starts, qlens)
+    got = pa.paged_verify_attention_pallas(*vcase)
+    want = pa.flash_prefill_attention_plain(*vcase)
+    torch.cuda.synchronize()
+    for b, n in enumerate(qlens):
+        check(bool((got[b, n:] == 0).all()),
+              f"paged_attn QS=5: rows past qlens of lane {b} not zeroed")
+        if n:
+            check_rows(torch, "paged_attn", got[b, :n], want[b, :n],
+                       slice(None), errs, ulps)
+    print(f"phase 1: paged_attn QS=1 B={len(positions)} and QS=5 "
+          f"starts={starts} qlens={qlens}: ok, max abs err "
+          f"{errs['paged_attn']:.4g}, max err {ulps['paged_attn']:.3g} ulps "
+          "of the row")
     print(f"phase 1: tolerance atol {TOL['atol']} rtol {TOL['rtol']} and "
-          f"{ULP_TOL} bf16 ulps of each (row, head)'s largest value")
+          f"{ULP_TOL} bf16 ulps of each (row, head)'s largest value; codes "
+          "within one step of the storage type")
     st["max_abs_err"] = errs
+
+
+# Engines of phase 2: (label, EngineConfig overrides, expected prefill/decode
+# paths, {record name: wrapper whose count it reads}).
+ENGINES = (
+    ("bf16", {}, ("flash", "fused"),
+     {"flash_prefill": "flash_prefill_attention",
+      "fused_decode": "paged_decode_attention_fused"}),
+    ("int8", {"kv_dtype": "int8"}, ("flash", "fused"),
+     {"flash_prefill_int8": "flash_prefill_attention",
+      "fused_decode_int8": "paged_decode_attention_fused_quant"}),
+    ("fp8", {"kv_dtype": "fp8"}, ("flash", "fused"),
+     {"flash_prefill_fp8": "flash_prefill_attention",
+      "fused_decode_fp8": "paged_decode_attention_fused_quant"}),
+    ("pallas", {"decode_path": "pallas"}, ("flash", "pallas"),
+     {"paged_attn": "paged_decode_attention_pallas"}),
+)
+
+
+def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
+    """One engine of phase 2: two identical runs with the launch counts set
+    to 0 just before the first and read just after it.  Returns the engine
+    and the first run's ids."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    cfg = model.cfg
+    ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
+                        max_blocks_per_seq=256, max_prefills_per_step=8,
+                        decode_steps_per_iter=8, **overrides)
+    eng = InferenceEngine(cfg, model, ecfg, tokenizer=ByteTokenizer())
+    check((eng.prefill_path, eng.decode_path) == paths,
+          f"{label} engine paths {eng.prefill_path}/{eng.decode_path}, "
+          f"expected {'/'.join(paths)}")
+    sp = SamplingParams(max_tokens=32)
+    pa.reset_launch_counts()
+    steps0 = eng.steps
+    t0 = time.monotonic()
+    res = eng.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {rec: getattr(pa, fn).launches for rec, fn in kernels.items()}
+    steps = eng.steps - steps0
+    for r in res:
+        check(r.finish_reason in ("eos", "length"),
+              f"{label} {r.request_id}: finish {r.finish_reason} {r.error}")
+        check(len(r.token_ids) <= 32 and all(
+            0 <= t < cfg.vocab_size for t in r.token_ids),
+            f"{label} {r.request_id}: bad ids")
+    check(all(n > 0 for n in launches.values()),
+          f"{label}: a kernel never launched on the main path: {launches}")
+    check(eng.pool_bytes == eng.pages.nbytes(),
+          f"{label}: pool bytes {eng.pool_bytes} != {eng.pages.nbytes()}")
+    ttft = statistics.median(r.ttft_s for r in res)
+    tok_s = eng.decode_tokens / eng.decode_s
+    st["launches"].update(launches)
+    st["engine_steps"][label] = (steps, eng.decode_steps)
+    print(f"phase 2: {label}: {len(res)} requests done in {wall:.2f} s over "
+          f"{steps} engine steps; launches {launches}")
+    print(f"phase 2: {label}: first (cold) run: ttft p50 {ttft * 1e3:.1f} ms, "
+          f"decode {tok_s:.1f} tok/s ({eng.decode_tokens} tokens in "
+          f"{eng.decode_s:.2f} s, {eng.decode_steps} decode steps), weights "
+          f"{llama.param_bytes(model)} B, pool {eng.pool_bytes} B "
+          f"[{st['gpu']}]")
+    tokens0, secs0 = eng.decode_tokens, eng.decode_s
+    res2 = eng.generate(prompts, sp)
+    check([r.token_ids for r in res] == [r.token_ids for r in res2],
+          f"{label}: second identical run gave different ids")
+    ttft2 = statistics.median(r.ttft_s for r in res2)
+    tok_s2 = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
+    print(f"phase 2: {label}: second (warm) run identical: ttft p50 "
+          f"{ttft2 * 1e3:.1f} ms, decode {tok_s2:.1f} tok/s, pool "
+          f"{eng.pool_bytes} B [{st['gpu']}]")
+    return eng, [r.token_ids for r in res]
 
 
 def phase2(torch, np, st):
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
-    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
-    from k8s_llm_monitor_tpu_torch.serving.engine import (
-        EngineConfig, InferenceEngine, SamplingParams)
-    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
 
     cfg = LLAMA3_8B
     t0 = time.monotonic()
@@ -289,68 +500,34 @@ def phase2(torch, np, st):
     print(f"phase 2: {cfg.name} ({cfg.num_layers} layers, hidden "
           f"{cfg.hidden_size}) random bf16 weights in "
           f"{time.monotonic() - t0:.1f} s")
-    ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
-                        max_blocks_per_seq=256, max_prefills_per_step=8,
-                        decode_steps_per_iter=8)
-    eng = InferenceEngine(cfg, model, ecfg, tokenizer=ByteTokenizer())
-    check(eng.prefill_path == "flash" and eng.decode_path == "fused",
-          f"engine paths {eng.prefill_path}/{eng.decode_path}, "
-          "expected flash/fused")
     rng = np.random.default_rng(2)
     lens = sorted(int(x) for x in rng.integers(20, 1501, size=15)) + [2300]
     lens[0], lens[-2] = 20, 1500
     prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
                for n in lens]
-    sp = SamplingParams(max_tokens=32)
-
-    pa.reset_launch_counts()
-    steps0 = eng.steps
-    t0 = time.monotonic()
-    res = eng.generate(prompts, sp)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"flash_prefill": pa.flash_prefill_attention.launches,
-                "fused_decode": pa.paged_decode_attention_fused.launches}
-    steps = eng.steps - steps0
-    for r in res:
-        check(r.finish_reason in ("eos", "length"),
-              f"{r.request_id}: finish {r.finish_reason} {r.error}")
-        check(len(r.token_ids) <= 32 and all(
-            0 <= t < cfg.vocab_size for t in r.token_ids),
-            f"{r.request_id}: bad ids")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel never launched on the main path: {launches}")
-    ttft = statistics.median(r.ttft_s for r in res)
-    tok_s = eng.decode_tokens / eng.decode_s
-    st.update(launches=launches, engine_steps=steps,
-              decode_steps=eng.decode_steps)
-    print(f"phase 2: {len(res)} requests (prompt lengths {lens}) done in "
-          f"{wall:.2f} s over {steps} engine steps; launches {launches}")
-    print(f"phase 2: first (cold) run: ttft p50 {ttft * 1e3:.1f} ms, decode "
-          f"{tok_s:.1f} tok/s "
-          f"({eng.decode_tokens} tokens in {eng.decode_s:.2f} s, "
-          f"{eng.decode_steps} decode steps), weights "
-          f"{llama.param_bytes(model)} B, pool {eng.pages.nbytes()} B "
-          f"[{st['gpu']}]")
-    tokens0, secs0 = eng.decode_tokens, eng.decode_s
-    res2 = eng.generate(prompts, sp)
-    check([r.token_ids for r in res] == [r.token_ids for r in res2],
-          "second identical run gave different ids")
-    ttft2 = statistics.median(r.ttft_s for r in res2)
-    tok_s2 = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
-    print(f"phase 2: second (warm) run: ttft p50 {ttft2 * 1e3:.1f} ms, "
-          f"decode {tok_s2:.1f} tok/s [{st['gpu']}]")
-    text = eng.generate_text("why is pod web-1 in CrashLoopBackOff?",
-                             SamplingParams(max_tokens=8))
-    check(isinstance(text, str), "generate_text returned no text")
-    print(f"phase 2: second run identical; generate_text ok ({len(text)} chars)")
-    trace_decode(torch, eng, prompts, sp, [r.token_ids for r in res], st)
-    st.update(model=model, prompt_lens=lens, ttft_ms=ttft * 1e3, tok_s=tok_s)
-    del eng
-    torch.cuda.empty_cache()
+    print(f"phase 2: prompt lengths {lens}")
+    st.update(launches={}, engine_steps={})
+    for label, overrides, paths, kernels in ENGINES:
+        eng, ids = run_engine(torch, st, model, prompts, label, overrides,
+                              paths, kernels)
+        if label == "bf16":
+            text = eng.generate_text("why is pod web-1 in CrashLoopBackOff?",
+                                     SamplingParams(max_tokens=8))
+            check(isinstance(text, str), "generate_text returned no text")
+            print(f"phase 2: generate_text ok ({len(text)} chars)")
+        if label in TRACED:
+            trace_decode(torch, eng, prompts, SamplingParams(max_tokens=32),
+                         ids, st, label)
+        del eng
+        torch.cuda.empty_cache()
+    st.update(model=model, prompt_lens=lens)
 
 
-def trace_decode(torch, eng, prompts, sp, want_ids, st):
+# Engines whose decode steps phase 2 traces, and the kernel it reports.
+TRACED = {"bf16": "fused_decode_kernel", "pallas": "paged_attn_kernel"}
+
+
+def trace_decode(torch, eng, prompts, sp, want_ids, st, label):
     """Run the prompts once more; once every prompt is prefilled, trace the
     remaining engine steps (decode only) with torch.profiler and split the
     window's wall time into device time per kernel and device idle time."""
@@ -377,29 +554,43 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st):
     got = [eng._results.pop(rid).token_ids for rid in ids]
     check(got == want_ids, "traced run gave different ids")
     per: dict[str, float] = {}
+    per_n: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            per_n[e.name] = per_n.get(e.name, 0) + 1
     steps = eng.decode_steps - steps0
     busy = sum(per.values())
     check(steps > 0, "no decode step in the traced window")
     check(busy > 0, "the profiler saw no device time in the decode window")
-    fused = sum(v for k, v in per.items() if "fused_decode_kernel" in k)
-    print(f"phase 2: traced decode window: {steps} decode steps, "
+    kernel = TRACED[label]
+    kms = sum(v for k, v in per.items() if kernel in k)
+    print(f"phase 2: {label}: traced decode window: {steps} decode steps, "
           f"{eng.decode_tokens - tokens0} tokens, wall {wall_ms:.2f} ms "
           f"({wall_ms / steps:.3f} ms/step); device busy {busy:.2f} ms, idle "
-          f"share {1 - busy / wall_ms:.3f}; fused_decode_kernel {fused:.2f} ms "
-          f"= {fused / wall_ms:.3f} of wall [{st['gpu']}]")
+          f"share {1 - busy / wall_ms:.3f}; {kernel} {kms:.2f} ms "
+          f"= {kms / wall_ms:.3f} of wall; {sum(per_n.values())} device "
+          f"kernels [{st['gpu']}]")
     for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"phase 2: trace: {ms:9.3f} ms {ms / wall_ms:6.3f} of wall  "
-              f"{name[:90]}")
+        print(f"phase 2: {label}: trace: {ms:9.3f} ms {ms / wall_ms:6.3f} of "
+              f"wall  {name[:90]}")
+
+
+def marked(fn, **markers):
+    """``fn`` as an attention impl carrying the wrapper markers that
+    models/llama.py dispatches on (to run a plain version on the card)."""
+    def impl(*args, **kwargs):
+        return fn(*args, **kwargs)
+
+    impl.__dict__.update(markers)
+    return impl
 
 
 def phase3(torch, np, st):
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
-    from k8s_llm_monitor_tpu_torch.ops.attention import (
-        select_decode_impl, select_prefill_impl)
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.ops.attention import paged_decode_attention
     from k8s_llm_monitor_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine, SamplingParams)
 
@@ -419,32 +610,48 @@ def phase3(torch, np, st):
     len_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     feed = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(4, B))
                             .astype(np.int32)).to(dev)
-    runs = {}
-    for name, pmode, dmode in (("kernel", "auto", "auto"),
-                               ("plain", "dense", "gather")):
-        pages = llama.init_kv_pages(cfg, B * nbl + 1, BS, dev)
-        pimpl = select_prefill_impl(dev, cfg, pmode)
-        dimpl = select_decode_impl(dev, cfg, dmode)
+
+    def run(kv_quant, pimpl, dimpl):
+        pages = llama.init_kv_pages(cfg, B * nbl + 1, BS, dev,
+                                    kv_quant=kv_quant)
         logits, _ = llama.prefill(model, tok_t, len_t, pages, tables,
                                   attn_impl=pimpl)
         steps = [logits]
         ctx = len_t.clone()
-        for nxt in feed:           # the same tokens on both paths
+        for nxt in feed:           # the same tokens on every path
             lg, _ = llama.decode_step(model, nxt, ctx, pages, tables,
                                       attn_impl=dimpl)
             steps.append(lg)
             ctx = ctx + 1
-        runs[name] = steps
-    torch.cuda.synchronize()
-    errs = [float((a - b).abs().max())
-            for a, b in zip(runs["kernel"], runs["plain"])]
-    agree = float(sum((a.argmax(-1) == b.argmax(-1)).float().mean()
-                      for a, b in zip(runs["kernel"], runs["plain"]))) / len(errs)
-    print(f"phase 3: 4-layer Llama-3-8B, flash/fused vs dense/gather: logit "
-          f"max abs err prefill {errs[0]:.4g}, decode steps "
-          f"{[round(e, 4) for e in errs[1:]]} (tolerance {LOGIT_ATOL}); "
-          f"argmax agreement {agree:.3f}")
-    check(max(errs) <= LOGIT_ATOL, f"kernel path logits differ by {max(errs):.4g}")
+        torch.cuda.synchronize()
+        return steps
+
+    flash_plain = marked(pa.flash_prefill_attention_plain, flash_prefill=True)
+    quant_plain = marked(pa.paged_decode_attention_fused_quant_plain,
+                         fused_decode=True, quant_kv=True)
+    pairs = [
+        ("flash/fused vs dense/gather", "",
+         (pa.flash_prefill_attention, pa.paged_decode_attention_fused),
+         (None, paged_decode_attention)),
+        ("flash/pallas vs dense/gather", "",
+         (pa.flash_prefill_attention, pa.paged_decode_attention_pallas),
+         (None, paged_decode_attention)),
+    ] + [(f"{q} flash/fused kernels vs their plain versions", q,
+          (pa.flash_prefill_attention, pa.paged_decode_attention_fused_quant),
+          (flash_plain, quant_plain)) for q in QUANTS]
+    for label, kv_quant, kernel, plain in pairs:
+        got, want = run(kv_quant, *kernel), run(kv_quant, *plain)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        agree = float(sum((a.argmax(-1) == b.argmax(-1)).float().mean()
+                          for a, b in zip(got, want))) / len(errs)
+        tol = QUANT_LOGIT_ATOL if kv_quant else LOGIT_ATOL
+        print(f"phase 3: 4-layer Llama-3-8B, {label}: logit max abs err "
+              f"prefill {errs[0]:.4g}, decode steps "
+              f"{[round(e, 4) for e in errs[1:]]} (tolerance {tol}); "
+              f"argmax agreement {agree:.3f} (at least {MIN_ARGMAX_AGREE})")
+        check(max(errs) <= tol, f"{label}: logits differ by {max(errs):.4g}")
+        check(agree >= MIN_ARGMAX_AGREE,
+              f"{label}: argmax agreement {agree:.3f}")
 
     # Small float32 model: the engine on the card against the CPU.  The
     # kernels take bf16, so auto selects the plain path for float32 here.
@@ -471,22 +678,53 @@ def phase3(torch, np, st):
           "equal on the card and the CPU")
 
 
+SOURCES = {
+    "flash_prefill": "k8s_llm_monitor_tpu_torch/csrc/flash_prefill.cu",
+    "fused_decode": "k8s_llm_monitor_tpu_torch/csrc/fused_decode.cu",
+    "paged_attn": "k8s_llm_monitor_tpu_torch/csrc/paged_attn.cu",
+}
+REPLACES = {   # k8s_llm_monitor_tpu/ops/pallas_attention.py:<line>
+    "flash_prefill": 1150, "fused_decode": 471, "paged_attn": 190,
+    "flash_prefill_int8": 1150, "flash_prefill_fp8": 1150,
+    "fused_decode_int8": 822, "fused_decode_fp8": 822,
+}
+
+
 def phase4(torch, np, st):
     import torch.nn.functional as F
 
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
-    from k8s_llm_monitor_tpu_torch.ops.attention import gather_pages
+    from k8s_llm_monitor_tpu_torch.ops.attention import (
+        gather_dequant, gather_pages)
 
     rng = np.random.default_rng(4)
     gen = torch.Generator(device="cuda").manual_seed(4)
     lens = st.get("prompt_lens") or [20, 300, 700, 1500]
     records = []
 
-    def sdpa_inputs(q, kp, vp, table, ctx_max, mask):
+    def record(name, ms, plain_ms, lib_ms, b_ms, by):
+        records.append(dict(
+            name=name, route="cuda",
+            source=SOURCES[name.replace("_int8", "").replace("_fp8", "")],
+            replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:"
+                     f"{REPLACES[name]}",
+            launches=st["launches"][name], max_abs_err=st["max_abs_err"][name],
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+            library_ms=lib_ms))
+
+    def sdpa_inputs(q, kp, vp, table, ctx_max, mask, scales):
+        """q, K, V and mask for one SDPA call: K/V gathered (and
+        dequantized to bf16) beforehand, heads repeated, batch-head major."""
         B = q.shape[0]
         nb = (ctx_max + BS - 1) // BS
-        k = gather_pages(kp, table[:, :nb]).reshape(B, -1, KVH, D)[:, :ctx_max]
-        v = gather_pages(vp, table[:, :nb]).reshape(B, -1, KVH, D)[:, :ctx_max]
+        if scales:
+            k = gather_dequant(kp, scales["k_scale"], table[:, :nb], D)
+            v = gather_dequant(vp, scales["v_scale"], table[:, :nb], D)
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        else:
+            k = gather_pages(kp, table[:, :nb]).reshape(B, -1, KVH, D)
+            v = gather_pages(vp, table[:, :nb]).reshape(B, -1, KVH, D)
+        k, v = k[:, :ctx_max], v[:, :ctx_max]
         rep = H // KVH
         k = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
         v = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
@@ -496,72 +734,105 @@ def phase4(torch, np, st):
     # phase 2's, bucket 1024) and the long prompt's first chunk (printed).
     shapes = [("admission", 1024, [0] * 8, [min(n, 1024) for n in lens[:8]]),
               ("chunk", 2048, [0], [2048])]
-    for label, S, starts, lengths in shapes:
-        case = prefill_case(torch, rng, gen, len(starts), S, starts, lengths)
-        q = case[0]
-        ms = time_ms(torch, lambda: pa.flash_prefill_attention(*case))
-        plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(*case), reps=5)
-        ctx_max = max(s + n for s, n in zip(starts, lengths))
-        pos = torch.arange(S, device="cuda")[None, :, None] + case[4][:, None, None]
-        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
-        mask = keys <= pos
-        qs, k, v, m = sdpa_inputs(q * D ** -0.5, case[1], case[2], case[3],
-                                  ctx_max, mask)
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=m, scale=1.0), reps=5)
-        b_ms, by = bound(*prefill_work(starts, lengths, S))
-        print(f"phase 4: flash_prefill {label} B={len(starts)} S={S} "
-              f"lengths={lengths}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
-        if label == "admission":
-            records.append(dict(
-                name="flash_prefill", route="cuda",
-                source="k8s_llm_monitor_tpu_torch/csrc/flash_prefill.cu",
-                replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:1150",
-                launches=st["launches"]["flash_prefill"],
-                max_abs_err=st["max_abs_err"]["flash_prefill"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms))
-        del case, k, v, qs
-        torch.cuda.empty_cache()
+    for kvq in ("",) + QUANTS:
+        name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
+        for label, S, starts, lengths in shapes:
+            if kvq:
+                case, scales = quant_prefill_case(
+                    torch, rng, gen, len(starts), S, starts, lengths, kvq)
+            else:
+                case, scales = prefill_case(torch, rng, gen, len(starts), S,
+                                            starts, lengths), {}
+            q = case[0]
+            ms = time_ms(torch, lambda: pa.flash_prefill_attention(
+                *case, **scales))
+            plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+                *case, **scales), reps=5)
+            ctx_max = max(s + n for s, n in zip(starts, lengths))
+            pos = (torch.arange(S, device="cuda")[None, :, None]
+                   + case[4][:, None, None])
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_inputs(q * D ** -0.5, case[1], case[2],
+                                      case[3], ctx_max, keys <= pos, scales)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m, scale=1.0), reps=5)
+            b_ms, by = bound(*prefill_work(starts, lengths, S, kvq))
+            print(f"phase 4: {name} {label} B={len(starts)} S={S} "
+                  f"lengths={lengths}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({by}) [{st['gpu']}]")
+            if label == "admission":
+                record(name, ms, plain_ms, lib_ms, b_ms, by)
+            del case, k, v, qs
+            torch.cuda.empty_cache()
 
     # fused decode: phase 2's 16 requests mid-decode in 32 slots (16 idle
     # lanes at pos 0), and a full batch of mixed contexts (printed).
     mid = [n + 16 for n in lens] + [0] * (32 - len(lens))
     full = [int(x) for x in rng.integers(1, 2048, size=32)]
-    for label, positions in (("engine", mid), ("full", full)):
-        nbl = (max(positions) + BS) // BS + 1
-        case = decode_case(torch, rng, gen, positions, nbl)
-        ms = time_ms(torch, lambda: pa.paged_decode_attention_fused(*case))
-        plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(*case), reps=5)
-        q, pos_t = case[0], case[8]
-        ctx_max = max(positions) + 1
-        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
-        mask = keys <= pos_t[:, None, None]
-        qs, k, v, m = sdpa_inputs(q, case[5], case[6], case[7], ctx_max, mask)
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=m), reps=5)
-        b_ms, by = bound(*decode_work(positions))
-        print(f"phase 4: fused_decode {label} B=32 active="
-              f"{sum(p > 0 for p in positions)} max pos {max(positions)}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
-        if label == "engine":
-            records.append(dict(
-                name="fused_decode", route="cuda",
-                source="k8s_llm_monitor_tpu_torch/csrc/fused_decode.cu",
-                replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:471",
-                launches=st["launches"]["fused_decode"],
-                max_abs_err=st["max_abs_err"]["fused_decode"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms))
-        del case, k, v, qs
-        torch.cuda.empty_cache()
-    steps = st["engine_steps"]
-    print(f"phase 4: launches per engine step: flash_prefill "
-          f"{st['launches']['flash_prefill'] / steps:.2f}, fused_decode "
-          f"{st['launches']['fused_decode'] / steps:.2f} over {steps} steps "
-          f"({st['decode_steps']} decode steps x 32 layers)")
+    for kvq in ("",) + QUANTS:
+        name = f"fused_decode_{kvq}" if kvq else "fused_decode"
+        for label, positions in (("engine", mid), ("full", full)):
+            nbl = (max(positions) + BS) // BS + 1
+            if kvq:
+                case = quant_decode_case(torch, rng, gen, positions, nbl, kvq)
+                kernel = pa.paged_decode_attention_fused_quant
+                plain = pa.paged_decode_attention_fused_quant_plain
+                kp, vp, table, pos_t = case[5], case[6], case[9], case[10]
+                scales = dict(k_scale=case[7], v_scale=case[8])
+            else:
+                case = decode_case(torch, rng, gen, positions, nbl)
+                kernel = pa.paged_decode_attention_fused
+                plain = pa.paged_decode_attention_fused_plain
+                kp, vp, table, pos_t = case[5], case[6], case[7], case[8]
+                scales = {}
+            ms = time_ms(torch, lambda: kernel(*case))
+            plain_ms = time_ms(torch, lambda: plain(*case), reps=5)
+            ctx_max = max(positions) + 1
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_inputs(case[0], kp, vp, table, ctx_max,
+                                      keys <= pos_t[:, None, None], scales)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m), reps=5)
+            b_ms, by = bound(*decode_work(positions, kvq))
+            print(f"phase 4: {name} {label} B=32 active="
+                  f"{sum(p > 0 for p in positions)} max pos {max(positions)}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
+            if label == "engine":
+                record(name, ms, plain_ms, lib_ms, b_ms, by)
+            del case, k, v, qs
+            torch.cuda.empty_cache()
+
+    # split paged attention at the decode_path="pallas" engine's shape:
+    # the 16 requests mid-decode, idle lanes at length 1 (the null block).
+    lengths = [p + 1 for p in mid]
+    nbl = (max(mid) + BS) // BS + 1
+    q, _, _, _, _, kp, vp, table, _ = decode_case(torch, rng, gen, mid, nbl)
+    len_t = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, table, len_t)
+    starts_t, qlens_t = (len_t - 1).clamp(min=0), len_t.clamp(max=1)
+    ms = time_ms(torch, lambda: pa.paged_decode_attention_pallas(*args))
+    plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+        q, kp, vp, table, starts_t, qlens_t), reps=5)
+    ctx_max = max(lengths)
+    keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+    qs, k, v, m = sdpa_inputs(q * D ** -0.5, kp, vp, table, ctx_max,
+                              keys < len_t[:, None, None], {})
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=m, scale=1.0), reps=5)
+    b_ms, by = bound(*paged_attn_work([n - 1 for n in lengths],
+                                      [1] * len(lengths)))
+    print(f"phase 4: paged_attn engine B=32 QS=1 max length {max(lengths)}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
+    record("paged_attn", ms, plain_ms, lib_ms, b_ms, by)
+
+    for label, (steps, dsteps) in st["engine_steps"].items():
+        per = {k: round(v / steps, 2) for k, v in st["launches"].items()
+               if k in dict((e[0], e[3]) for e in ENGINES)[label]}
+        print(f"phase 4: {label} engine: launches per engine step {per} over "
+              f"{steps} steps ({dsteps} decode steps x 32 layers)")
     st["records"] = records
 
 

@@ -1,7 +1,9 @@
-// Flash paged prefill attention for Hopper (sm_90a).
+// Flash paged prefill attention for Hopper (sm_90a), over a bf16 pool or
+// an int8 / fp8 (e4m3) pool with per-(token, head) float32 scales.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:
-//           flash_prefill_attention (_flash_prefill_kernel), bf16 pool.
+//           flash_prefill_attention (_flash_prefill_kernel), the bf16 pool
+//           and the quant branch (k_scale / v_scale, quant=True).
 //
 // Computes causal attention for q [B, S, H, D]: query i of lane b sits at
 // absolute position start[b] + i and sees keys at positions <= start[b] + i.
@@ -13,23 +15,33 @@
 //
 // What bounds it on this card: at long S, tensor-core flops -- each K/V
 // row is reused by every query row of the tile, 4 * D flops per (query,
-// key) pair against 4 * D bytes per key row.  The design keeps the tensor
-// cores fed from shared memory and reads each K/V row once per tile:
+// key) pair against 4 * D bytes per key row (2 * D with 1-byte pages).  The
+// design keeps the tensor cores fed from shared memory and reads each K/V
+// row once per tile:
 //   * one block per (query tile, kv group, lane); the block holds the
 //     tile's rows for all qpk = H / KVH query heads of its group (128 rows:
 //     TQ = 128 / qpk query positions x qpk heads), so every K/V row it loads
 //     serves all of them.  The TPU kernel's block-diagonal query trick is an
 //     MXU workaround and is not carried over;
 //   * K/V tiles of 64 keys are gathered by block id -- each row slice is
-//     D = 128 contiguous bf16 (256 bytes) -- with 16-byte cp.async into
-//     padded shared memory, double-buffered so the next tile loads while
-//     this one computes;
+//     D = 128 contiguous elements (256 bytes bf16, 128 bytes int8/fp8) --
+//     with 16-byte cp.async into padded shared memory in the pool's own
+//     type, double-buffered so the next tile loads while this one computes;
 //   * QK^T and PV run on mma.sync m16n8k16 (bf16 in, f32 accumulate); the
 //     accumulator layout of mma.sync is fixed by the PTX ISA, so the online
 //     softmax rescales rows in registers and P feeds the PV product without
 //     a trip through shared memory;
 //   * key tiles past the tile's last visible position are skipped.
 // wgmma, TMA and warp specialisation are later work.
+//
+// Quantized pool: int8 codes and e4m3 values are exact in bf16, so the
+// fragments widen 1-byte codes to bf16 as they are built and the same
+// mma.sync path runs.  This group's scale of each key row (one float at
+// scale[blk, off, g]) is staged beside the tile with 4-byte cp.async.  K
+// scales multiply the score tile after the QK product; V scales multiply P
+// before the PV product, while the row sum l is taken from the unscaled P
+// (pallas_attention.py:1117-1119) -- otherwise the softmax denominator is
+// wrong.  Rows past the context are zero-filled codes and scales: finite.
 //
 // Dead lanes (lengths == 0) and tiles wholly past lengths write zeros and
 // read nothing; rows past lengths inside a live tile attend to the
@@ -40,19 +52,19 @@
 // as pallas_attention.py:1200 does), so the kernel applies no scale.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int D = 128;        // head_dim (the wrapper checks)
-constexpr int DP = D + 8;     // padded smem row: 272 B, conflict-free frags
+constexpr int DP = D + 8;     // padded bf16 smem row: 272 B, conflict-free frags
 constexpr int KT = 64;        // keys per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS = WARPS * 16;  // query rows per block (all heads)
-constexpr int CHUNKS = D / 8;     // 16-byte chunks per row
-constexpr size_t SMEM_BYTES = sizeof(__nv_bfloat16) * (size_t)(ROWS + 4 * KT) * DP;
+constexpr int CHUNKS = D / 8;     // 16-byte chunks per bf16 row
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -64,6 +76,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
 }
 
 template <int N>
@@ -96,16 +115,76 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int QPK>
+// Page element types.  pair(): two adjacent elements as one bf16x2
+// fragment register; one(): one element as bf16.  Exact for int8 codes and
+// e4m3 values, whose values bf16 holds.
+template <typename T>
+struct Page;
+
+template <>
+struct Page<__nv_bfloat16> {
+  static constexpr bool kQuant = false;
+  static __device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
+    return ld32(p);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(__nv_bfloat16 v) {
+    return v;
+  }
+};
+
+template <>
+struct Page<int8_t> {
+  static constexpr bool kQuant = true;
+  static __device__ __forceinline__ uint32_t pair(const int8_t* p) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    return pack_f32(static_cast<float>(c.x), static_cast<float>(c.y));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(int8_t v) {
+    return __float2bfloat16_rn(static_cast<float>(v));
+  }
+};
+
+template <>
+struct Page<__nv_fp8_e4m3> {
+  static constexpr bool kQuant = true;
+  static __device__ __forceinline__ uint32_t pair(const __nv_fp8_e4m3* p) {
+    const float2 f =
+        static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e4m3*>(p));
+    return pack_f32(f.x, f.y);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(__nv_fp8_e4m3 v) {
+    return __float2bfloat16_rn(static_cast<float>(v));
+  }
+};
+
+// Shared memory of one block: the bf16 query tile, two K and two V tiles
+// in the page type (rows padded by 16 bytes: conflict-free fragment loads
+// for both widths), and for a quantized pool two K and two V scale tiles.
+template <typename T>
+struct Smem {
+  static constexpr int KP = D + 16 / sizeof(T);          // padded row, elements
+  static constexpr int KCHUNKS = D * sizeof(T) / 16;      // 16-byte chunks/row
+  static constexpr size_t kQ = sizeof(__nv_bfloat16) * (size_t)ROWS * DP;
+  static constexpr size_t kKV = sizeof(T) * (size_t)4 * KT * KP;
+  static constexpr size_t kScales = Page<T>::kQuant ? sizeof(float) * 4 * KT : 0;
+  static constexpr size_t kBytes = kQ + kKV + kScales;
+};
+
+template <int QPK, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre-scaled
-                     const __nv_bfloat16* __restrict__ kp,  // [nb, bs, KVH*D]
-                     const __nv_bfloat16* __restrict__ vp,
+                     const T* __restrict__ kp,              // [nb, bs, KVH*D]
+                     const T* __restrict__ vp,
+                     const float* __restrict__ ks,          // [nb, bs, KVH] or null
+                     const float* __restrict__ vs,
                      const int* __restrict__ table,         // [B, NB]
                      const int* __restrict__ starts,        // [B]
                      const int* __restrict__ lens,          // [B]
                      __nv_bfloat16* __restrict__ out,       // [B, S, H, D]
                      int S, int KVH, int bs, int NB) {
+  using P = Page<T>;
+  using M = Smem<T>;
+  constexpr int KP = M::KP;
   constexpr int TQ = ROWS / QPK;   // query positions per tile
   const int t = blockIdx.x;        // query tile
   const int gq = blockIdx.y;       // kv group
@@ -140,9 +219,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
   const int n_kt = (ctx + KT - 1) / KT;
 
   extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + ROWS * DP;        // [2][KT][DP]
-  __nv_bfloat16* Vs = Ks + 2 * KT * DP;      // [2][KT][DP]
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(base);
+  T* Ks = reinterpret_cast<T*>(base + M::kQ);          // [2][KT][KP]
+  T* Vs = Ks + 2 * KT * KP;                            // [2][KT][KP]
+  float* KSs = reinterpret_cast<float*>(base + M::kQ + M::kKV);  // [2][KT]
+  float* VSs = KSs + 2 * KT;                                     // [2][KT]
 
   for (int c = tid; c < ROWS * CHUNKS; c += THREADS) {
     const int r = c / CHUNKS;
@@ -150,20 +232,36 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
     cp_async16(Qs + r * DP + (c % CHUNKS) * 8,
                ok ? q + q_offset(r) + (c % CHUNKS) * 8 : q, ok ? 16 : 0);
   }
+  constexpr int PER_CHUNK = 16 / sizeof(T);
   auto load_kv = [&](int kt, int buf) {
-    for (int c = tid; c < KT * CHUNKS; c += THREADS) {
-      const int rr = c / CHUNKS;
+    for (int c = tid; c < KT * M::KCHUNKS; c += THREADS) {
+      const int rr = c / M::KCHUNKS;
       const int p = kt * KT + rr;
       long off = 0;
       int n = 0;
       if (p < ctx) {
         const int blk = table[(long)b * NB + min(p / bs, NB - 1)];
-        off = ((long)blk * bs + p % bs) * F + (long)gq * D + (c % CHUNKS) * 8;
+        off = ((long)blk * bs + p % bs) * F + (long)gq * D +
+              (c % M::KCHUNKS) * PER_CHUNK;
         n = 16;
       }
-      const int so = (buf * KT + rr) * DP + (c % CHUNKS) * 8;
+      const int so = (buf * KT + rr) * KP + (c % M::KCHUNKS) * PER_CHUNK;
       cp_async16(Ks + so, kp + off, n);
       cp_async16(Vs + so, vp + off, n);
+    }
+    if constexpr (P::kQuant) {
+      for (int rr = tid; rr < KT; rr += THREADS) {
+        const int p = kt * KT + rr;
+        long off = 0;
+        int n = 0;
+        if (p < ctx) {
+          const int blk = table[(long)b * NB + min(p / bs, NB - 1)];
+          off = ((long)blk * bs + p % bs) * KVH + gq;
+          n = 4;
+        }
+        cp_async4(KSs + buf * KT + rr, ks + off, n);
+        cp_async4(VSs + buf * KT + rr, vs + off, n);
+      }
     }
   };
   load_kv(0, 0);
@@ -201,8 +299,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
         qa[kc][3] = ld32(qr + r1 * DP + 8);
       }
     }
-    const __nv_bfloat16* Kb = Ks + (kt & 1) * KT * DP;
-    const __nv_bfloat16* Vb = Vs + (kt & 1) * KT * DP;
+    const T* Kb = Ks + (kt & 1) * KT * KP;
+    const T* Vb = Vs + (kt & 1) * KT * KP;
+    const float* KSb = KSs + (kt & 1) * KT;
+    const float* VSb = VSs + (kt & 1) * KT;
 
     // S = Q K^T for this warp's 16 rows x 64 keys.
     float sc[KT / 8][4];
@@ -211,12 +311,24 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* kr = Kb + (nt * 8 + g) * DP + kc * 16 + 2 * tig;
-        mma16816(sc[nt], qa[kc], ld32(kr), ld32(kr + 8));
+        const T* kr = Kb + (nt * 8 + g) * KP + kc * 16 + 2 * tig;
+        mma16816(sc[nt], qa[kc], P::pair(kr), P::pair(kr + 8));
       }
     }
 
-    // Causal mask + online softmax on rows r0 (c0, c1) and r1 (c2, c3).
+    // K scales onto the scores (key column nt*8 + 2*tig + e), then the
+    // causal mask + online softmax on rows r0 (c0, c1) and r1 (c2, c3).
+    if constexpr (P::kQuant) {
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float kscale = KSb[nt * 8 + 2 * tig + e];
+          sc[nt][e] *= kscale;
+          sc[nt][2 + e] *= kscale;
+        }
+      }
+    }
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int nt = 0; nt < KT / 8; ++nt) {
@@ -252,7 +364,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
       sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
       sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
     }
-    l0 = a0 * l0 + sum0;
+    l0 = a0 * l0 + sum0;   // from the unscaled P
     l1 = a1 * l1 + sum1;
     m0 = mn0;
     m1 = mn1;
@@ -263,20 +375,26 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
     }
 
     // O += P V: the S accumulators of key tiles 2c, 2c+1 are exactly the
-    // A fragment of keys [16c, 16c+16).
+    // A fragment of keys [16c, 16c+16).  V scales multiply P here, after
+    // the row sum.
 #pragma unroll
     for (int kc = 0; kc < KT / 16; ++kc) {
+      float w0 = 1.f, w1 = 1.f, w8 = 1.f, w9 = 1.f;
+      if constexpr (P::kQuant) {
+        const float* vsr = VSb + kc * 16 + 2 * tig;
+        w0 = vsr[0]; w1 = vsr[1]; w8 = vsr[8]; w9 = vsr[9];
+      }
       uint32_t pa[4];
-      pa[0] = pack_f32(sc[2 * kc][0], sc[2 * kc][1]);
-      pa[1] = pack_f32(sc[2 * kc][2], sc[2 * kc][3]);
-      pa[2] = pack_f32(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
-      pa[3] = pack_f32(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
-      const __nv_bfloat16* vr = Vb + (kc * 16 + 2 * tig) * DP + g;
+      pa[0] = pack_f32(sc[2 * kc][0] * w0, sc[2 * kc][1] * w1);
+      pa[1] = pack_f32(sc[2 * kc][2] * w0, sc[2 * kc][3] * w1);
+      pa[2] = pack_f32(sc[2 * kc + 1][0] * w8, sc[2 * kc + 1][1] * w9);
+      pa[3] = pack_f32(sc[2 * kc + 1][2] * w8, sc[2 * kc + 1][3] * w9);
+      const T* vr = Vb + (kc * 16 + 2 * tig) * KP + g;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* v = vr + n * 8;
-        const uint32_t b0 = pack_bf16(v[0], v[DP]);
-        const uint32_t b1 = pack_bf16(v[8 * DP], v[9 * DP]);
+        const T* v = vr + n * 8;
+        const uint32_t b0 = pack_bf16(P::one(v[0]), P::one(v[KP]));
+        const uint32_t b1 = pack_bf16(P::one(v[8 * KP]), P::one(v[9 * KP]));
         mma16816(o[n], pa, b0, b1);
       }
     }
@@ -299,27 +417,45 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
   }
 }
 
-template <int QPK>
+template <int QPK, typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* table, const void* starts, const void* lens,
-                   void* out, int B, int S, int KVH, int bs, int NB,
-                   cudaStream_t stream) {
+                   const void* ks, const void* vs, const void* table,
+                   const void* starts, const void* lens, void* out, int B,
+                   int S, int KVH, int bs, int NB, cudaStream_t stream) {
+  constexpr size_t smem = Smem<T>::kBytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<QPK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
+        flash_prefill_kernel<QPK, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = true;
   }
   constexpr int TQ = ROWS / QPK;
   dim3 grid((S + TQ - 1) / TQ, KVH, B);
-  flash_prefill_kernel<QPK><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
+  flash_prefill_kernel<QPK, T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(starts), static_cast<const int*>(lens),
       static_cast<__nv_bfloat16*>(out), S, KVH, bs, NB);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
+             const void* vs, const void* table, const void* starts,
+             const void* lens, void* out, int B, int S, int H, int KVH,
+             int bs, int NB, void* stream) {
+  if (B == 0 || S == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (H / KVH) {
+    case 1: return launch<1, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 2: return launch<2, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 4: return launch<4, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 8: return launch<8, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -329,13 +465,28 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k_pages,
                                   const void* starts, const void* lens,
                                   void* out, int B, int S, int H, int KVH,
                                   int bs, int NB, void* stream) {
-  if (B == 0 || S == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H / KVH) {
-    case 1: return launch<1>(q, k_pages, v_pages, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 2: return launch<2>(q, k_pages, v_pages, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 4: return launch<4>(q, k_pages, v_pages, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 8: return launch<8>(q, k_pages, v_pages, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, table,
+                                 starts, lens, out, B, S, H, KVH, bs, NB,
+                                 stream);
+}
+
+extern "C" int flash_prefill_int8(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* k_scale,
+                                  const void* v_scale, const void* table,
+                                  const void* starts, const void* lens,
+                                  void* out, int B, int S, int H, int KVH,
+                                  int bs, int NB, void* stream) {
+  return dispatch<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table,
+                          starts, lens, out, B, S, H, KVH, bs, NB, stream);
+}
+
+extern "C" int flash_prefill_fp8(const void* q, const void* k_pages,
+                                 const void* v_pages, const void* k_scale,
+                                 const void* v_scale, const void* table,
+                                 const void* starts, const void* lens,
+                                 void* out, int B, int S, int H, int KVH,
+                                 int bs, int NB, void* stream) {
+  return dispatch<__nv_fp8_e4m3>(q, k_pages, v_pages, k_scale, v_scale, table,
+                                 starts, lens, out, B, S, H, KVH, bs, NB,
+                                 stream);
 }

@@ -11,8 +11,9 @@ The paged KV cache is one ``[num_blocks, block_size, kv_heads * head_dim]``
 tensor per layer for K and for V (kv-head-major fused rows), block 0 the
 null block that masked lanes write to.  Where the JAX package donates the
 page arrays to a jitted program and gets new ones back, this port updates
-them in place: ``_scatter_pages`` and the fused decode kernel write into
-the tensors they are given and return the same tensors.
+them in place: ``_scatter_pages``, ``_scatter_pages_quant`` and the fused
+decode kernels write into the tensors they are given (pages, and scale
+planes of an int8/fp8 pool) and return the same tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +26,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
-from k8s_llm_monitor_tpu_torch.ops.attention import causal_attention, gather_pages
+from k8s_llm_monitor_tpu_torch.ops.attention import (
+    causal_attention,
+    gather_dequant,
+    gather_pages,
+    paged_decode_attention_quant,
+)
 from k8s_llm_monitor_tpu_torch.ops.norms import rms_norm
 from k8s_llm_monitor_tpu_torch.ops.rope import apply_rope, rope_angles
 
@@ -48,10 +54,17 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass
 class KVPages:
     """Paged KV cache: per-layer page tensors
-    ``k[i], v[i]: [num_blocks, block_size, kv_heads * head_dim]``."""
+    ``k[i], v[i]: [num_blocks, block_size, kv_heads * head_dim]``.
+
+    A quantized pool (``kv_quant`` "int8"/"fp8") holds 1-byte codes in the
+    pages plus per-(token, head) float32 scales
+    ``k_scale[i], v_scale[i]: [num_blocks, block_size, kv_heads]``; an
+    unquantized pool leaves the scale lists empty."""
 
     k: list[torch.Tensor]
     v: list[torch.Tensor]
+    k_scale: list[torch.Tensor] = dataclasses.field(default_factory=list)
+    v_scale: list[torch.Tensor] = dataclasses.field(default_factory=list)
 
     @property
     def num_blocks(self) -> int:
@@ -61,20 +74,86 @@ class KVPages:
     def block_size(self) -> int:
         return self.k[0].shape[1]
 
+    @property
+    def quantized(self) -> bool:
+        return len(self.k_scale) > 0
+
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+        return sum(t.numel() * t.element_size()
+                   for t in self.k + self.v + self.k_scale + self.v_scale)
+
+
+def kv_quant_spec(kv_quant: str) -> tuple[torch.dtype, float]:
+    """(storage dtype, qmax) of a KV quantization mode: ``int8`` codes
+    round and clip at 127, ``fp8`` (float8_e4m3fn) saturates at 448."""
+    if kv_quant == "fp8":
+        return torch.float8_e4m3fn, 448.0
+    if kv_quant == "int8":
+        return torch.int8, 127.0
+    raise ValueError(f"unknown kv_quant {kv_quant!r} (int8 | fp8)")
+
+
+def _qmax_for(dtype: torch.dtype) -> float:
+    return 127.0 if dtype == torch.int8 else 448.0
+
+
+def _quantize_heads(xf: torch.Tensor, qmax: float, is_int8: bool):
+    """Symmetric per-head quantization of float32 ``xf [..., D]``: returns
+    (codes as float32 before the storage cast, scale [...]).
+
+    Division by the scale, not a reciprocal multiply, and round half to
+    even, as the JAX package does: either change moves codes at ties."""
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / qmax, min=1e-8)
+    xq = xf / scale[..., None]
+    if is_int8:
+        xq = torch.clamp(torch.round(xq), -qmax, qmax)
+    return xq, scale
+
+
+def quantize_kv(x: torch.Tensor, num_kv_heads: int, qdtype: torch.dtype,
+                qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric quantization of fused-lane KV rows.
+
+    x [..., KVH*D] -> (x_q [..., KVH*D] qdtype, scale [..., KVH] float32).
+    int8 rounds and clips; fp8 casts (torch's cast saturates).
+    """
+    shp = x.shape
+    xr = x.float().reshape(*shp[:-1], num_kv_heads, shp[-1] // num_kv_heads)
+    xq, scale = _quantize_heads(xr, qmax, qdtype == torch.int8)
+    return xq.to(qdtype).reshape(shp), scale
+
+
+def dequantize_kv(x_q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_kv``: x_q [..., KVH*D] + scale [..., KVH]
+    -> float rows [..., KVH*D]."""
+    shp = x_q.shape
+    KVH = scale.shape[-1]
+    xr = x_q.float().reshape(*shp[:-1], KVH, shp[-1] // KVH)
+    return (xr * scale[..., None]).reshape(shp).to(dtype)
 
 
 def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
-                  device, dtype: Optional[torch.dtype] = None) -> KVPages:
+                  device, dtype: Optional[torch.dtype] = None,
+                  kv_quant: str = "") -> KVPages:
+    """Allocate the paged KV pool.  ``kv_quant`` ("int8"/"fp8") selects the
+    quantized tier: pages in the storage dtype plus float32 scale planes;
+    "" keeps pages in ``dtype`` (default: the model's)."""
     shape = (num_blocks, block_size, cfg.num_kv_heads * cfg.head_dim_)
+
+    def planes(shp, dt):
+        return [torch.zeros(shp, dtype=dt, device=device)
+                for _ in range(cfg.num_layers)]
+
+    if kv_quant:
+        qdtype, _ = kv_quant_spec(kv_quant)
+        sshape = (num_blocks, block_size, cfg.num_kv_heads)
+        return KVPages(k=planes(shape, qdtype), v=planes(shape, qdtype),
+                       k_scale=planes(sshape, torch.float32),
+                       v_scale=planes(sshape, torch.float32))
     dtype = dtype or cfg.torch_dtype
-    return KVPages(
-        k=[torch.zeros(shape, dtype=dtype, device=device)
-           for _ in range(cfg.num_layers)],
-        v=[torch.zeros(shape, dtype=dtype, device=device)
-           for _ in range(cfg.num_layers)],
-    )
+    return KVPages(k=planes(shape, dtype), v=planes(shape, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +296,13 @@ def is_fused_decode_impl(attn_impl) -> bool:
     return bool(getattr(attn_impl, "fused_decode", False))
 
 
+def is_fused_quant_decode_impl(attn_impl) -> bool:
+    """True for the quantized-pool fused decode kernel (takes and updates
+    the scale planes).  A fused impl without this marker never touches a
+    quantized pool: decode_step takes its gather/dequant branch instead."""
+    return bool(getattr(attn_impl, "quant_kv", False))
+
+
 def is_flash_prefill_impl(attn_impl) -> bool:
     """True for the flash paged-prefill calling convention."""
     return bool(getattr(attn_impl, "flash_prefill", False))
@@ -286,6 +372,20 @@ def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
     return pages
 
 
+def _scatter_pages_quant(pages: torch.Tensor, spages: torch.Tensor,
+                         vals: torch.Tensor, block_table: torch.Tensor,
+                         positions: torch.Tensor, valid: torch.Tensor):
+    """Quantize-on-append twin of ``_scatter_pages``: per-(token, head)
+    quantization of ``vals`` [B, S, KVH, D] into the 1-byte ``pages`` and a
+    scatter of the float32 scales into ``spages`` [num_blocks, bs, KVH],
+    both in place with the same null-block redirect.  Returns (pages,
+    spages)."""
+    xq, scale = _quantize_heads(vals.float(), _qmax_for(pages.dtype),
+                                pages.dtype == torch.int8)
+    return (_scatter_pages(pages, xq, block_table, positions, valid),
+            _scatter_pages(spages, scale, block_table, positions, valid))
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
@@ -301,24 +401,41 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
     already wrote this chunk's K/V, so fresh prefill and continuation
     chunks are the same call); otherwise ``attend_to_pages`` gathers the
     paged prefix (chunks) or uses the in-flight k/v (fresh prefill).
+
+    A quantized pool quantizes on scatter; the flash kernel takes the
+    scale planes and dequantizes inside, a chunk's gather dequantizes the
+    gathered prefix, and fresh dense prefill attends to the unquantized
+    in-flight k/v (so it differs from flash by quantization noise).
     """
     cfg = model.cfg
     B, S = tokens.shape
     cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta,
                            scaling=cfg.rope_scaling)
     flash = paged_attn_fn is not None and is_flash_prefill_impl(paged_attn_fn)
+    quant = pages.quantized
     x = _embed_lookup(model, tokens)
     uo = cfg.rmsnorm_unit_offset
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, uo)
         q, k, v = _qkv(layer, cfg, h, cos, sin)
-        pk = _scatter_pages(pages.k[li], k, block_tables, positions, valid)
-        pv = _scatter_pages(pages.v[li], v, block_tables, positions, valid)
-        if flash:
-            attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
-                                 lengths)
+        if quant:
+            pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
+                                           block_tables, positions, valid)
+            pv, psv = _scatter_pages_quant(pages.v[li], pages.v_scale[li], v,
+                                           block_tables, positions, valid)
         else:
-            if attend_to_pages:
+            pk = _scatter_pages(pages.k[li], k, block_tables, positions, valid)
+            pv = _scatter_pages(pages.v[li], v, block_tables, positions, valid)
+        if flash:
+            scales = dict(k_scale=psk, v_scale=psv) if quant else {}
+            attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
+                                 lengths, **scales)
+        else:
+            if attend_to_pages and quant:
+                D = cfg.head_dim_
+                kk = gather_dequant(pk, psk, block_tables, D).to(k.dtype)
+                vv = gather_dequant(pv, psv, block_tables, D).to(v.dtype)
+            elif attend_to_pages:
                 kk = gather_pages(pk, block_tables).reshape(
                     B, -1, cfg.num_kv_heads, cfg.head_dim_)
                 vv = gather_pages(pv, block_tables).reshape(
@@ -384,8 +501,11 @@ def decode_step(model: LlamaModel, tokens, context_lens, pages: KVPages,
 
     tokens [B]: the token fed per slot.  context_lens [B]: tokens already
     cached, i.e. the new token's position; 0 marks an inactive slot whose
-    writes go to the null block.  ``attn_impl``: the fused wrapper (RoPE +
-    append + attention in one kernel) or ``paged_decode_attention``.
+    writes go to the null block.  ``attn_impl``: a fused wrapper (RoPE +
+    append + attention in one kernel; the ``quant_kv`` one for a quantized
+    pool), the split paged-attention wrapper or ``paged_decode_attention``.
+    A quantized pool without the fused quant wrapper runs the gather/
+    dequant branch whatever impl is handed in.
     Returns (logits [B, V] float32, pages updated in place).
     """
     cfg = model.cfg
@@ -394,16 +514,32 @@ def decode_step(model: LlamaModel, tokens, context_lens, pages: KVPages,
     active = (context_lens > 0)[:, None]
     cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta,
                            scaling=cfg.rope_scaling)
-    fused = is_fused_decode_impl(attn_impl)
+    quant = pages.quantized
+    fused_q = quant and is_fused_quant_decode_impl(attn_impl)
+    # A fused impl without scale support never touches a quantized pool.
+    fused = is_fused_decode_impl(attn_impl) and (fused_q or not quant)
     x = _embed_lookup(model, tokens)[:, None, :]
     uo = cfg.rmsnorm_unit_offset
     new_lens = context_lens + 1
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, uo)
-        if fused:
+        if fused_q:
+            q, k, v = _qkv_proj(layer, cfg, h)
+            attn = attn_impl(q, k, v, cos, sin, pages.k[li], pages.v[li],
+                             pages.k_scale[li], pages.v_scale[li],
+                             block_tables, context_lens)[0]
+        elif fused:
             q, k, v = _qkv_proj(layer, cfg, h)
             attn, _, _ = attn_impl(q, k, v, cos, sin, pages.k[li],
                                    pages.v[li], block_tables, context_lens)
+        elif quant:
+            q, k, v = _qkv(layer, cfg, h, cos, sin)
+            pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
+                                           block_tables, positions, active)
+            pv, psv = _scatter_pages_quant(pages.v[li], pages.v_scale[li], v,
+                                           block_tables, positions, active)
+            attn = paged_decode_attention_quant(q, pk, pv, psk, psv,
+                                                block_tables, new_lens)
         else:
             q, k, v = _qkv(layer, cfg, h, cos, sin)
             pk = _scatter_pages(pages.k[li], k, block_tables, positions, active)

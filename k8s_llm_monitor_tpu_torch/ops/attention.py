@@ -8,13 +8,18 @@ Layouts follow the JAX package so the tests compare like with like:
   block table  [batch, max_blocks_per_seq] int32 (0 = the null block)
 
 Every function here is plain PyTorch: the semantics reference and the CPU
-path.  The hand-written CUDA kernels live behind ops/paged_attention.py and
+path (``paged_decode_attention_quant`` and ``gather_dequant`` for int8/fp8
+pools).  The hand-written CUDA kernels live behind ops/paged_attention.py and
 are picked by ``select_prefill_impl`` / ``select_decode_impl``.
 """
 
 from __future__ import annotations
 
+import logging
+
 import torch
+
+logger = logging.getLogger("k8s_llm_monitor_tpu_torch.ops")
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -122,6 +127,39 @@ def paged_decode_attention(
     return decode_attention(q, k, v, lengths, scale=scale)
 
 
+def gather_dequant(pages: torch.Tensor, scales: torch.Tensor,
+                   block_table: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Gather a quantized pool's pages and scales and dequantize the
+    gathered rows (never the resident pool): pages [num_blocks, bs,
+    KVH*D] int8/fp8, scales [num_blocks, bs, KVH] float32 ->
+    [B, max_blocks * bs, KVH, D] float32."""
+    B = block_table.shape[0]
+    s = gather_pages(scales, block_table)                 # [B, T, KVH]
+    x = gather_pages(pages, block_table).float()
+    return x.reshape(B, -1, s.shape[-1], head_dim) * s[..., None]
+
+
+def paged_decode_attention_quant(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Quantized-pool twin of ``paged_decode_attention``: gather pages and
+    per-(token, head) scales, dequantize, cast to q.dtype (as the JAX
+    oracle does), then masked ``decode_attention``.  The gather/dequant
+    branch of ``decode_step``."""
+    D = q.shape[-1]
+    k = gather_dequant(k_pages, k_scale, block_table, D).to(q.dtype)
+    v = gather_dequant(v_pages, v_scale, block_table, D).to(q.dtype)
+    return decode_attention(q, k, v, lengths, scale=scale)
+
+
 def paged_verify_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -147,10 +185,10 @@ def paged_verify_attention(
 
 
 def _kernel_geometry_ok(cfg, device: torch.device) -> bool:
-    """What the CUDA kernels take: bf16 activations and pool, head_dim 128,
-    1/2/4/8 query heads per kv group (csrc/*.cu template instances).  On
-    the CPU the wrappers run their plain versions, which take any
-    geometry."""
+    """What the CUDA kernels take: bf16 activations over a bf16, int8 or
+    fp8 pool, head_dim 128, 1/2/4/8 query heads per kv group (csrc/*.cu
+    template instances).  On the CPU the wrappers run their plain
+    versions, which take any geometry."""
     if cfg is None or cfg.has_attn_extras or cfg.head_dim_ % 2:
         return False
     if device.type != "cuda":
@@ -169,6 +207,8 @@ def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
       * ``"flash"`` -- the kernel wrapper (its plain version on CPU
         tensors); raises ``ValueError`` when the model cannot take it;
       * ``"dense"`` -- None: models/llama.py's dense branches.
+    The pool's dtype does not enter: for an int8/fp8 pool models/llama.py
+    hands the wrapper the scale planes and it dequantizes in the kernel.
     """
     if mode == "dense":
         return None
@@ -190,33 +230,50 @@ def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
     return flash_prefill_attention
 
 
-def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto"):
+def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
+                       kv_quant: str = ""):
     """Pick the decode-step attention path.
 
     ``mode`` (EngineConfig.decode_path):
       * ``"auto"``   -- the fused RoPE+append+attention CUDA kernel on a
         CUDA device when the model takes it; the gather path otherwise;
-      * ``"fused"``  -- the kernel wrapper (its plain version on CPU
+      * ``"fused"``  -- the fused kernel wrapper (its plain version on CPU
         tensors); raises ``ValueError`` when the model cannot take it;
+      * ``"pallas"`` -- the split path: RoPE and the page scatter in
+        PyTorch around the paged-attention kernel wrapper (the name of
+        the JAX package's mode); raises like ``"fused"``;
       * ``"gather"`` -- ``paged_decode_attention`` (the numerics oracle).
+    ``kv_quant`` ("int8"/"fp8", EngineConfig.kv_dtype) selects the
+    quantized pool: the fused path becomes the fused quant kernel (marked
+    ``quant_kv``); the split kernel takes no scales, so ``"pallas"`` gives
+    way to the gather/dequant oracle with a logged warning.  On a
+    quantized pool every non-fused return is a sentinel: decode_step runs
+    its gather/dequant branch.
     Fused impls carry ``fused_decode = True`` and take the extended calling
     convention (raw q/k/v + angles in, attention + pages out).
     """
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
     if mode == "gather":
         return paged_decode_attention
-    if mode not in ("auto", "fused"):
+    if mode not in ("auto", "fused", "pallas"):
         raise ValueError(f"unknown decode_path {mode!r}; expected "
-                         "'auto', 'fused', or 'gather'")
+                         "'auto', 'fused', 'gather', or 'pallas'")
+    if mode == "pallas" and kv_quant:
+        logger.warning(
+            "decode_path='pallas' has no quantized-KV support; the split "
+            "kernel is bypassed for the gather/dequant reference")
+        return paged_decode_attention
     ok = _kernel_geometry_ok(cfg, device)
-    if mode == "fused" and not ok:
+    if mode != "auto" and not ok:
         raise ValueError(
-            "decode_path='fused' but the model can't take the fused kernel "
+            f"decode_path={mode!r} but the model can't take the kernel "
             "(attn extras, odd head_dim, or on CUDA: not bf16 / head_dim != "
             "128 / unsupported GQA ratio); use decode_path='auto'")
+    if mode == "pallas":
+        return pa.paged_decode_attention_pallas
     if mode == "auto" and (device.type != "cuda" or not ok):
         return paged_decode_attention
-    from k8s_llm_monitor_tpu_torch.ops.paged_attention import (
-        paged_decode_attention_fused,
-    )
-
-    return paged_decode_attention_fused
+    if kv_quant:
+        return pa.paged_decode_attention_fused_quant
+    return pa.paged_decode_attention_fused

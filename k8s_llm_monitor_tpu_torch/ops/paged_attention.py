@@ -1,12 +1,13 @@
-"""Paged-attention kernel wrappers: flash paged prefill and fused decode.
+"""Paged-attention kernel wrappers: flash paged prefill, fused decode and
+split paged attention, over bf16 or int8/fp8 pools.
 
 The counterpart of the JAX package's ``ops/pallas_attention.py``.  Each
 wrapper launches a hand-written CUDA kernel (``csrc/flash_prefill.cu``,
-``csrc/fused_decode.cu``) for CUDA tensors and counts the launch in its
-``launches`` attribute; for CPU tensors it runs its plain PyTorch version
-(``*_plain``) beside it, built from the oracles of ops/attention.py.  There
-is no fallback between the two: a CUDA tensor that the kernel cannot take,
-a failed build or a refused launch raises.
+``csrc/fused_decode.cu``, ``csrc/paged_attn.cu``) for CUDA tensors and
+counts the launch in its ``launches`` attribute; for CPU tensors it runs its
+plain PyTorch version (``*_plain``) beside it, built from the oracles of
+ops/attention.py.  There is no fallback between the two: a CUDA tensor that
+the kernel cannot take, a failed build or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -15,9 +16,16 @@ import ctypes
 
 import torch
 
-from k8s_llm_monitor_tpu_torch.models.llama import _scatter_pages
+from k8s_llm_monitor_tpu_torch.models.llama import (
+    _qmax_for,
+    _quantize_heads,
+    _scatter_pages,
+)
 from k8s_llm_monitor_tpu_torch.ops import _build
 from k8s_llm_monitor_tpu_torch.ops.attention import (
+    NEG_INF,
+    causal_attention,
+    gather_dequant,
     paged_decode_attention,
     paged_verify_attention,
 )
@@ -25,26 +33,36 @@ from k8s_llm_monitor_tpu_torch.ops.rope import apply_rope
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# symbol -> (library, argtypes); the int8/fp8 symbols add the two scale
+# planes after the pages.
+_FLASH = [_P] * 7 + [_I] * 6 + [_P]      # q, kp, vp, table, start, lengths,
+#                                          out, B, S, H, KVH, bs, NB, stream
+_FUSED = [_P] * 10 + [_I] * 5 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
+#                           table, positions, out, B, H, KVH, bs, NB, scale,
+#                           stream
 _SIGNATURES = {
-    # q, k_pages, v_pages, table, start, lengths, out,
-    # B, S, H, KVH, bs, NB, stream
-    "flash_prefill": ("flash_prefill_bf16", [_P] * 7 + [_I] * 6 + [_P]),
-    # q, k_new, v_new, cos, sin, k_pages, v_pages, table, positions, out,
-    # B, H, KVH, bs, NB, scale, stream
-    "fused_decode": ("fused_decode_bf16",
-                     [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]),
+    "flash_prefill_bf16": ("flash_prefill", _FLASH),
+    "flash_prefill_int8": ("flash_prefill", [_P] * 2 + _FLASH),
+    "flash_prefill_fp8": ("flash_prefill", [_P] * 2 + _FLASH),
+    "fused_decode_bf16": ("fused_decode", _FUSED),
+    "fused_decode_int8": ("fused_decode", [_P] * 2 + _FUSED),
+    "fused_decode_fp8": ("fused_decode", [_P] * 2 + _FUSED),
+    # q, kp, vp, table, starts, qlens, out, B, QS, H, KVH, bs, NB, stream
+    "paged_attn_bf16": ("paged_attn", [_P] * 7 + [_I] * 6 + [_P]),
 }
+_QUANT_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 _fns: dict[str, object] = {}
 
 
-def _kernel(name: str):
-    fn = _fns.get(name)
+def _kernel(sym: str):
+    fn = _fns.get(sym)
     if fn is None:
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.load(name), sym)
+        lib, argtypes = _SIGNATURES[sym]
+        fn = getattr(_build.load(lib), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[sym] = fn
     return fn
 
 
@@ -72,19 +90,53 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def flash_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
-                                  lengths):
+                                  lengths, *, k_scale=None, v_scale=None):
     """Plain version of the flash kernel: gather + dense causal attention.
 
     The query scale is applied in q's dtype before attention, exactly where
     the kernel (and the TPU kernel, pallas_attention.py:1200) applies it;
-    scaling the f32 logits instead drifts in bf16.
+    scaling the f32 logits instead drifts in bf16.  With scale planes the
+    gathered pages are dequantized in float32, which is what the kernel's
+    (q . codes) * k_scale and (p * v_scale) . codes compute.
     """
     D = q.shape[-1]
-    return paged_verify_attention(q * (D ** -0.5), k_pages, v_pages,
-                                  block_table, start, lengths, scale=1.0)
+    qs = q * (D ** -0.5)
+    if k_scale is None:
+        return paged_verify_attention(qs, k_pages, v_pages, block_table,
+                                      start, lengths, scale=1.0)
+    B, S = q.shape[:2]
+    kk = gather_dequant(k_pages, k_scale, block_table, D)
+    vv = gather_dequant(v_pages, v_scale, block_table, D)
+    positions = start[:, None] + torch.arange(S, dtype=torch.int32,
+                                              device=q.device)[None, :]
+    return causal_attention(qs, kk, vv, q_positions=positions,
+                            kv_len=start + lengths, scale=1.0)
 
 
-def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths):
+def _check_pool(k_pages, v_pages, k_scale, v_scale, D, what):
+    """The pool a kernel takes: contiguous bf16 pages, or contiguous
+    int8/fp8 pages with float32 scale planes [num_blocks, bs, KVH].
+    Returns the symbol suffix ("bf16", "int8", "fp8")."""
+    nb, bs, F = k_pages.shape
+    _check(k_pages.is_contiguous() and v_pages.is_contiguous()
+           and v_pages.shape == k_pages.shape
+           and v_pages.dtype == k_pages.dtype, f"{what}: pages must be "
+           "contiguous and alike")
+    if k_scale is None:
+        _check(k_pages.dtype == torch.bfloat16 and v_scale is None,
+               f"{what}: an unquantized pool must be bf16")
+        return "bf16"
+    _check(k_pages.dtype in _QUANT_SUFFIX, f"{what}: a quantized pool must "
+           f"be int8 or float8_e4m3fn, got {k_pages.dtype}")
+    _check(v_scale is not None and all(
+        t.dtype == torch.float32 and t.is_contiguous()
+        and t.shape == (nb, bs, F // D) for t in (k_scale, v_scale)),
+        f"{what}: scale planes must be contiguous float32 [nb, bs, KVH]")
+    return _QUANT_SUFFIX[k_pages.dtype]
+
+
+def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths,
+                            *, k_scale=None, v_scale=None):
     """Causal prefill attention reading K/V straight from the paged pool.
 
     Query ``i`` of lane ``b`` sits at ``start[b] + i`` and attends causally
@@ -95,32 +147,37 @@ def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths):
     q [B, S, H, D]; pages [num_blocks, bs, KVH*D]; block_table [B, NB];
     start, lengths [B] (0 = inactive lane: its rows come back as zeros on
     the card, garbage on the CPU -- callers never read them).
+    ``k_scale``/``v_scale`` ([num_blocks, bs, KVH] float32) switch on
+    dequantization of int8/fp8 pages inside the kernel: K scales multiply
+    the scores, V scales the probabilities (the row sum stays unscaled).
     Returns [B, S, H, D] in q.dtype.
     """
     if not q.is_cuda:
         return flash_prefill_attention_plain(q, k_pages, v_pages, block_table,
-                                             start, lengths)
+                                             start, lengths, k_scale=k_scale,
+                                             v_scale=v_scale)
     B, S, H, D = q.shape
     nb, bs, F = k_pages.shape
     KVH = F // D
-    _check(q.dtype == torch.bfloat16 and k_pages.dtype == torch.bfloat16
-           and v_pages.dtype == torch.bfloat16, "flash prefill takes bf16")
+    _check(q.dtype == torch.bfloat16, "flash prefill takes bf16 queries")
     _check(D == 128 and F == KVH * D and H % KVH == 0
            and H // KVH in (1, 2, 4, 8),
            f"flash prefill geometry unsupported (H={H}, F={F}, D={D})")
-    _check(k_pages.is_contiguous() and v_pages.is_contiguous()
-           and v_pages.shape == k_pages.shape, "pages must be contiguous")
+    suffix = _check_pool(k_pages, v_pages, k_scale, v_scale, D,
+                         "flash prefill")
     # Trap: the scale is applied in q's dtype before the kernel, as the
     # plain version and the TPU kernel do.
     qs = (q * (D ** -0.5)).contiguous()
     table = _int32(block_table)
     st, ln = _int32(start), _int32(lengths)
     out = torch.empty_like(qs)
-    err = _kernel("flash_prefill")(
-        qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    scales = ([] if k_scale is None
+              else [k_scale.data_ptr(), v_scale.data_ptr()])
+    err = _kernel(f"flash_prefill_{suffix}")(
+        qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
         table.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(),
         B, S, H, KVH, bs, table.shape[1], _stream(q.device))
-    _raise_on(err, "flash_prefill")
+    _raise_on(err, f"flash_prefill_{suffix}")
     flash_prefill_attention.launches += 1
     return out
 
@@ -191,12 +248,12 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
     table = _int32(block_table)
     pos = _int32(positions)
     out = torch.empty_like(qc)
-    err = _kernel("fused_decode")(
+    err = _kernel("fused_decode_bf16")(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cs.data_ptr(),
         sn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         B, H, KVH, bs, table.shape[1], D ** -0.5, _stream(q.device))
-    _raise_on(err, "fused_decode")
+    _raise_on(err, "fused_decode_bf16")
     paged_decode_attention_fused.launches += 1
     return out, k_pages, v_pages
 
@@ -205,7 +262,190 @@ paged_decode_attention_fused.launches = 0
 # Marker read by models/llama.py:is_fused_decode_impl.
 paged_decode_attention_fused.fused_decode = True
 
-KERNEL_WRAPPERS = (flash_prefill_attention, paged_decode_attention_fused)
+# ---------------------------------------------------------------------------
+# Fused decode on a quantized pool: quantize-on-append + dequantize in-kernel
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_attention_fused_quant_plain(q, k_new, v_new, cos, sin,
+                                             k_pages, v_pages, k_scale,
+                                             v_scale, block_table, positions):
+    """Plain version of the fused quant kernel (not the gather path): RoPE
+    in float32 on the bf16-pre-scaled q and on the new k; per-head
+    quantization of the new k/v row, written with its scales in place at
+    ``positions`` (null-block redirect as ``_scatter_pages``); attention
+    over the dequantized cached rows ``< positions`` plus the current
+    token, folded as ``codes * scale`` where int8 codes are rounded and fp8
+    ones are not (pallas_attention.py:657-660 -- the pages get the fp8
+    cast, the softmax the unrounded quotient).  Returns (attn [B, 1, H, D],
+    k_pages, v_pages, k_scale, v_scale), the pool updated in place.
+    """
+    B, _, H, D = q.shape
+    KVH = k_new.shape[2]
+    pos = positions[:, None]
+    active = (positions > 0)[:, None]
+    qf = apply_rope((q * (D ** -0.5)).float(), cos, sin)     # [B, 1, H, D]
+    kf = apply_rope(k_new.float(), cos, sin)                 # [B, 1, KVH, D]
+    qmax, is_int8 = _qmax_for(k_pages.dtype), k_pages.dtype == torch.int8
+    cur = []
+    for x, pages, spages in ((kf, k_pages, k_scale),
+                             (v_new.float(), v_pages, v_scale)):
+        xq, sc = _quantize_heads(x, qmax, is_int8)
+        _scatter_pages(pages, xq, block_table, pos, active)
+        _scatter_pages(spages, sc, block_table, pos, active)
+        cur.append(xq * sc[..., None])                       # [B, 1, KVH, D]
+    # Cached rows < positions, then the current token as one more key.
+    kk = torch.cat([gather_dequant(k_pages, k_scale, block_table, D), cur[0]],
+                   dim=1).repeat_interleave(H // KVH, dim=2)
+    vv = torch.cat([gather_dequant(v_pages, v_scale, block_table, D), cur[1]],
+                   dim=1).repeat_interleave(H // KVH, dim=2)
+    T = kk.shape[1] - 1
+    keys = torch.arange(T + 1, device=q.device)[None, :]
+    valid = (keys < positions[:, None]) | (keys == T)        # [B, T + 1]
+    logits = torch.einsum("bshd,bthd->bhst", qf, kk)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    attn = torch.einsum("bhst,bthd->bshd", probs, vv).to(q.dtype)
+    return attn, k_pages, v_pages, k_scale, v_scale
+
+
+def paged_decode_attention_fused_quant(q, k_new, v_new, cos, sin, k_pages,
+                                       v_pages, k_scale, v_scale, block_table,
+                                       positions):
+    """``paged_decode_attention_fused`` on an int8/fp8 pool: the new k (roped)
+    and v rows are quantized per head (amax / qmax, scale floor 1e-8; int8
+    rounds half to even and clips at 127, fp8 saturates at 448) and
+    appended with their scales in place; cached rows score as
+    ``(q . codes) * k_scale`` and accumulate ``p * v_scale * codes``.
+
+    As ``paged_decode_attention_fused`` plus k_scale, v_scale
+    [num_blocks, bs, KVH] float32.  Returns (attn [B, 1, H, D], k_pages,
+    v_pages, k_scale, v_scale), the four pool tensors updated in place.
+    """
+    if not q.is_cuda:
+        return paged_decode_attention_fused_quant_plain(
+            q, k_new, v_new, cos, sin, k_pages, v_pages, k_scale, v_scale,
+            block_table, positions)
+    B, S, H, D = q.shape
+    nb, bs, F = k_pages.shape
+    KVH = F // D
+    _check(S == 1, f"fused quant decode takes one query token, got {S}")
+    _check(all(t.dtype == torch.bfloat16 for t in (q, k_new, v_new)),
+           "fused quant decode takes bf16 activations")
+    _check(D == 128 and F == KVH * D and H % KVH == 0
+           and H // KVH in (1, 2, 4, 8)
+           and k_new.shape == (B, 1, KVH, D) and v_new.shape == k_new.shape,
+           f"fused quant decode geometry unsupported (H={H}, F={F}, D={D})")
+    _check(k_scale is not None, "fused quant decode needs the scale planes")
+    suffix = _check_pool(k_pages, v_pages, k_scale, v_scale, D,
+                         "fused quant decode")
+    qc, kc, vc = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    cs = cos.to(torch.float32).reshape(B, D).contiguous()
+    sn = sin.to(torch.float32).reshape(B, D).contiguous()
+    table = _int32(block_table)
+    pos = _int32(positions)
+    out = torch.empty_like(qc)
+    err = _kernel(f"fused_decode_{suffix}")(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cs.data_ptr(),
+        sn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
+        pos.data_ptr(), out.data_ptr(),
+        B, H, KVH, bs, table.shape[1], D ** -0.5, _stream(q.device))
+    _raise_on(err, f"fused_decode_{suffix}")
+    paged_decode_attention_fused_quant.launches += 1
+    return out, k_pages, v_pages, k_scale, v_scale
+
+
+paged_decode_attention_fused_quant.launches = 0
+# Markers read by models/llama.py:is_fused_decode_impl and
+# is_fused_quant_decode_impl.
+paged_decode_attention_fused_quant.fused_decode = True
+paged_decode_attention_fused_quant.quant_kv = True
+
+
+# ---------------------------------------------------------------------------
+# Split paged attention: QS query tokens per lane, no append, no RoPE
+# ---------------------------------------------------------------------------
+
+MAX_QUERY_TOKENS = 8     # spec_k + 1 at the JAX package's largest spec_k
+
+# The kernel computes the flash kernel's function (q scaled by D**-0.5 in
+# its dtype, as pallas_attention.py:208 does, then causal attention over
+# the pages), so its plain version is flash_prefill_attention_plain.
+
+
+def _paged_attn(q, k_pages, v_pages, block_table, starts, qlens):
+    """Launch csrc/paged_attn.cu for CUDA tensors (checks as the other
+    wrappers); the callers count the launch."""
+    B, QS, H, D = q.shape
+    nb, bs, F = k_pages.shape
+    KVH = F // D
+    _check(q.dtype == torch.bfloat16, "paged attention takes bf16 queries")
+    _check(D == 128 and F == KVH * D and H % KVH == 0
+           and H // KVH in (1, 2, 4, 8),
+           f"paged attention geometry unsupported (H={H}, F={F}, D={D})")
+    _check(1 <= QS <= MAX_QUERY_TOKENS, f"paged attention takes 1.."
+           f"{MAX_QUERY_TOKENS} query tokens per lane, got {QS}")
+    _check_pool(k_pages, v_pages, None, None, D, "paged attention")
+    qs = (q * (D ** -0.5)).contiguous()
+    table = _int32(block_table)
+    st, ql = _int32(starts), _int32(qlens)
+    out = torch.empty_like(qs)
+    err = _kernel("paged_attn_bf16")(
+        qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), st.data_ptr(), ql.data_ptr(), out.data_ptr(),
+        B, QS, H, KVH, bs, table.shape[1], _stream(q.device))
+    _raise_on(err, "paged_attn_bf16")
+    return out
+
+
+def paged_verify_attention_pallas(q, k_pages, v_pages, block_table, start,
+                                  lengths):
+    """Multi-query paged attention (speculative verify, small chunks):
+    query ``i`` of lane ``b`` sits at ``start[b] + i`` and attends causally
+    through itself over the pages, which already hold the chunk's K/V.
+
+    q [B, QS, H, D] with QS <= 8; start, lengths [B] (0 = inactive lane:
+    its rows, and rows past ``lengths``, come back as zeros on the card and
+    garbage on the CPU -- callers never read them).  Returns
+    [B, QS, H, D] in q.dtype.
+    """
+    if not q.is_cuda:
+        return flash_prefill_attention_plain(q, k_pages, v_pages, block_table,
+                                             start, lengths)
+    out = _paged_attn(q, k_pages, v_pages, block_table, start, lengths)
+    paged_verify_attention_pallas.launches += 1
+    return out
+
+
+paged_verify_attention_pallas.launches = 0
+
+
+def paged_decode_attention_pallas(q, k_pages, v_pages, block_table, lengths):
+    """One decode token per lane over the pages, which already hold it (the
+    split ``decode_path="pallas"``: RoPE and the scatter run before): the
+    paged-attention kernel at ``starts = lengths - 1``, ``qlens =
+    min(lengths, 1)`` (pallas_attention.py:281-282).  The calling
+    convention of ``paged_decode_attention``: q [B, 1, H, D], lengths [B]
+    valid keys.  Returns [B, 1, H, D]."""
+    starts = (lengths - 1).clamp(min=0)
+    qlens = lengths.clamp(max=1)
+    if not q.is_cuda:
+        return flash_prefill_attention_plain(q, k_pages, v_pages, block_table,
+                                             starts, qlens)
+    _check(q.shape[1] == 1, f"paged decode takes one query token, got "
+           f"{q.shape[1]}")
+    out = _paged_attn(q, k_pages, v_pages, block_table, starts, qlens)
+    paged_decode_attention_pallas.launches += 1
+    return out
+
+
+paged_decode_attention_pallas.launches = 0
+
+KERNEL_WRAPPERS = (flash_prefill_attention, paged_decode_attention_fused,
+                   paged_decode_attention_fused_quant,
+                   paged_verify_attention_pallas,
+                   paged_decode_attention_pallas)
 
 
 def reset_launch_counts() -> None:

@@ -23,7 +23,8 @@ Reconciliation is synchronous: each dispatch is read back before the next
 (no dispatch-ahead).  Where the JAX engine donates the page arrays to its
 jitted programs, this engine updates them in place.  Preemption,
 deadlines, SLO classes, tenancy, tracing, speculative decoding, prefix
-reuse and KV tiers are not ported yet.
+reuse and the host KV tier are not ported yet; the resident pool may be
+int8/fp8 (``EngineConfig.kv_dtype``).
 """
 
 from __future__ import annotations
@@ -39,11 +40,16 @@ import torch
 from k8s_llm_monitor_tpu_torch.models import llama
 from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
 from k8s_llm_monitor_tpu_torch.ops.attention import (
+    paged_decode_attention,
     select_decode_impl,
     select_prefill_impl,
 )
 from k8s_llm_monitor_tpu_torch.ops.sampling import greedy_tokens, sample_tokens
-from k8s_llm_monitor_tpu_torch.serving.kv_cache import BlockAllocator, OutOfBlocks
+from k8s_llm_monitor_tpu_torch.serving.kv_cache import (
+    BlockAllocator,
+    OutOfBlocks,
+    page_slice_bytes,
+)
 
 
 @dataclasses.dataclass
@@ -97,10 +103,15 @@ class EngineConfig:
     max_admission_rounds: int = 4
     # Decode steps per decode call between host reads.
     decode_steps_per_iter: int = 8
-    # ops/attention.py:select_decode_impl -- "auto" | "fused" | "gather".
+    # ops/attention.py:select_decode_impl -- "auto" | "fused" | "pallas" |
+    # "gather".
     decode_path: str = "auto"
     # ops/attention.py:select_prefill_impl -- "auto" | "flash" | "dense".
     prefill_path: str = "auto"
+    # Resident KV representation: "auto" keeps the model's dtype ("fp16",
+    # "bf16" and "none" mean the same); "int8" / "fp8" hold 1-byte codes
+    # plus per-(token, head) float32 scales (models/llama.py:KVPages).
+    kv_dtype: str = "auto"
 
 
 class _Slot:
@@ -143,15 +154,36 @@ class InferenceEngine:
         self.tokenizer = tokenizer
         self.eos_id = eos_id if eos_id is not None else (
             tokenizer.eos_id if tokenizer is not None else -1)
+        # Resolved before the pool is allocated: "" for a pool in the
+        # model's dtype, "int8" / "fp8" for the quantized tier.
+        if ec.kv_dtype in ("auto", "fp16", "bf16", "none"):
+            self.kv_quant = ""
+        elif ec.kv_dtype in ("int8", "fp8"):
+            self.kv_quant = ec.kv_dtype
+        else:
+            raise ValueError(
+                f"unknown kv_dtype {ec.kv_dtype!r} (auto | int8 | fp8)")
         self._prefill_attn = select_prefill_impl(self.device, cfg,
                                                  ec.prefill_path)
-        self._decode_attn = select_decode_impl(self.device, cfg, ec.decode_path)
+        self._decode_attn = select_decode_impl(
+            self.device, cfg, ec.decode_path, kv_quant=self.kv_quant)
         self.prefill_path = "flash" if self._prefill_attn is not None else "dense"
-        self.decode_path = ("fused" if llama.is_fused_decode_impl(
-            self._decode_attn) else "gather")
+        impl = self._decode_attn
+        if self.kv_quant:
+            # Without the fused quant kernel, decode_step runs its gather/
+            # dequant branch whatever impl it is handed.
+            self.decode_path = ("fused" if llama.is_fused_quant_decode_impl(
+                impl) else "gather")
+        elif llama.is_fused_decode_impl(impl):
+            self.decode_path = "fused"
+        elif impl is paged_decode_attention:
+            self.decode_path = "gather"
+        else:
+            self.decode_path = "pallas"
         self.pages = llama.init_kv_pages(cfg, ec.num_blocks, ec.block_size,
                                          self.device,
-                                         model.embed.weight.dtype)
+                                         model.embed.weight.dtype,
+                                         kv_quant=self.kv_quant)
         self.allocator = BlockAllocator(ec.num_blocks, ec.block_size)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._tok_state = torch.zeros(ec.max_slots, dtype=torch.int32,
@@ -167,6 +199,16 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device bytes of the paged KV pool, pages and scales, over every
+        layer (serving/kv_cache.py:page_slice_bytes per block)."""
+        cfg, ec = self.cfg, self.ecfg
+        return cfg.num_layers * ec.num_blocks * page_slice_bytes(
+            cfg.num_kv_heads, cfg.head_dim_, ec.block_size,
+            self.pages.k[0].element_size(),
+            scale_bytes=4 if self.kv_quant else 0)
 
     @property
     def capacity_tokens(self) -> int:

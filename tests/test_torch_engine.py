@@ -125,3 +125,66 @@ def test_cancel_and_generate_text(weights):
         tokenizer=ByteTokenizer(), device="cpu")
     assert isinstance(text_eng.generate_text(
         "why crashloop?", tengine.SamplingParams(max_tokens=4)), str)
+
+
+# ------------------------------------------- quantized pool, split decode
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_pool_greedy_ids_match_jax_engine(weights, kv_dtype):
+    # On the CPU both engines prefill densely (fresh prompts attend to the
+    # in-flight K/V, chunks to the dequantized pages) and decode through
+    # the gather/dequant path; the pools quantize alike, so the ids agree.
+    want = jengine.InferenceEngine(
+        JModelConfig(**CFG_KW), weights[0],
+        jengine.EngineConfig(kv_dtype=kv_dtype, **ECFG_KW), eos_id=-1
+    ).generate(_prompts(), jengine.SamplingParams(max_tokens=MAX_TOKENS))
+    eng = tengine.InferenceEngine(
+        ModelConfig(**CFG_KW), weights[1],
+        tengine.EngineConfig(kv_dtype=kv_dtype, **ECFG_KW), eos_id=-1,
+        device="cpu")
+    got = eng.generate(_prompts(), tengine.SamplingParams(max_tokens=MAX_TOKENS))
+    assert eng.kv_quant == kv_dtype and eng.pages.quantized
+    assert (eng.prefill_path, eng.decode_path) == ("dense", "gather")
+    assert [r.token_ids for r in got] == [r.token_ids for r in want]
+
+
+def test_pallas_decode_path_matches_gather(weights):
+    ids = {}
+    for path in ("pallas", "gather"):
+        eng = tengine.InferenceEngine(
+            ModelConfig(**CFG_KW), weights[1],
+            tengine.EngineConfig(decode_path=path, **ECFG_KW), device="cpu")
+        assert eng.decode_path == path
+        ids[path] = [r.token_ids for r in eng.generate(
+            _prompts(), tengine.SamplingParams(max_tokens=MAX_TOKENS))]
+    assert ids["pallas"] == ids["gather"]
+
+
+@pytest.mark.parametrize("kv_dtype,kv_quant", [
+    ("auto", ""), ("bf16", ""), ("fp16", ""), ("none", ""), ("int8", "int8"),
+    ("fp8", "fp8")])
+def test_kv_dtype_resolution_and_pool_bytes(weights, kv_dtype, kv_quant):
+    eng = tengine.InferenceEngine(
+        ModelConfig(**CFG_KW), weights[1],
+        tengine.EngineConfig(kv_dtype=kv_dtype, **ECFG_KW), device="cpu")
+    assert eng.kv_quant == kv_quant
+    assert eng.pool_bytes == eng.pages.nbytes()
+    if kv_quant:
+        # 1-byte codes plus one float32 scale per (token, head): the
+        # float32 toy holds 128 / 48 = 2.67x the tokens in the same bytes.
+        assert eng.pool_bytes * 128 == 48 * tengine.InferenceEngine(
+            ModelConfig(**CFG_KW), weights[1],
+            tengine.EngineConfig(**ECFG_KW), device="cpu").pool_bytes
+
+
+def test_quant_pool_with_pallas_decode_takes_gather(weights):
+    eng = tengine.InferenceEngine(
+        ModelConfig(**CFG_KW), weights[1],
+        tengine.EngineConfig(kv_dtype="int8", decode_path="pallas", **ECFG_KW),
+        device="cpu")
+    assert eng.decode_path == "gather"
+    with pytest.raises(ValueError):
+        tengine.InferenceEngine(
+            ModelConfig(**CFG_KW), weights[1],
+            tengine.EngineConfig(kv_dtype="int4", **ECFG_KW), device="cpu")

@@ -176,8 +176,13 @@ def test_selection_modes():
         t_select_decode(CPU, gemma_like, "fused")
     with pytest.raises(ValueError, match="not ported"):
         tllama.LlamaModel(gemma_like, device="cpu")
+    # "pallas" is the split path (the paged-attention wrapper); unknown
+    # modes raise.
+    split = t_select_decode(CPU, tcfg, "pallas")
+    assert split.__name__ == "paged_decode_attention_pallas"
+    assert not tllama.is_fused_decode_impl(split)
     with pytest.raises(ValueError):
-        t_select_decode(CPU, tcfg, "pallas")
+        t_select_decode(CPU, tcfg, "split")
     # On a CUDA device the kernels take bf16 at head_dim 128 only.
     cuda = torch.device("cuda", 0)
     with pytest.raises(ValueError):

@@ -19,6 +19,12 @@ from k8s_llm_monitor_tpu.ops.pallas_attention import (
 from k8s_llm_monitor_tpu.ops.pallas_attention import (
     paged_decode_attention_fused as j_fused,
 )
+from k8s_llm_monitor_tpu.ops.pallas_attention import (
+    paged_decode_attention_pallas as j_paged_decode,
+)
+from k8s_llm_monitor_tpu.ops.pallas_attention import (
+    paged_verify_attention_pallas as j_paged_verify,
+)
 from k8s_llm_monitor_tpu.ops.rope import rope_angles as j_rope_angles
 from k8s_llm_monitor_tpu_torch.ops import _build
 from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
@@ -159,6 +165,35 @@ def test_fused_plain_page_boundaries_inactive_and_past_table():
     assert np.isfinite(out.numpy()).all()
 
 
+# ------------------------------------------------- split paged attention
+
+
+def test_paged_decode_plain_matches_pallas():
+    # One query token per lane at lengths - 1: a lane at length 1, a page
+    # boundary (length 9 = the first row of block 2), a full table.
+    lengths = [1, 9, 16, 40, 23]
+    case = _paged_case(5, B=5, S=1, KVH=2, D=16, qpk=2, bs=8, max_blocks=5,
+                       num_blocks=30, starts=[0] * 5, lengths=lengths)
+    q, k, v, tables = case[:4]
+    ln = np.asarray(lengths, np.int32)
+    want = j_paged_decode(*_j(q, k, v, tables, ln), interpret=True)
+    got = pa.paged_decode_attention_pallas(*_t(q, k, v, tables, ln))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("qpk", [1, 4])
+def test_paged_verify_plain_matches_pallas(qpk):
+    # spec_k + 1 = 5 query tokens: fresh, mid-context, a short chunk, an
+    # inactive lane, a chunk ending one token below block alignment.
+    starts, lengths = [0, 9, 30, 4, 26], [5, 5, 2, 0, 5]
+    case = _paged_case(6 + qpk, B=5, S=5, KVH=2, D=16, qpk=qpk, bs=8,
+                       max_blocks=5, num_blocks=30, starts=starts,
+                       lengths=lengths)
+    want = j_paged_verify(*_j(*case), interpret=True)
+    got = pa.paged_verify_attention_pallas(*_t(*case))
+    _assert_valid_rows_close(got, want, lengths)
+
+
 # --------------------------------------------------- dispatch, no fallback
 
 
@@ -172,8 +207,10 @@ def test_cpu_wrappers_count_no_launches():
     tc, ts = t_rope_angles(torch.tensor([[5], [9]]), 16, THETA)
     tq, tk, tv, tkp, tvp, ttab, tpos = _t(*fcase)
     pa.paged_decode_attention_fused(tq, tk, tv, tc, ts, tkp, tvp, ttab, tpos)
-    assert pa.flash_prefill_attention.launches == 0
-    assert pa.paged_decode_attention_fused.launches == 0
+    pa.paged_decode_attention_pallas(*_t(case[0][:, :1], *case[1:4],
+                                         case[5]))
+    pa.paged_verify_attention_pallas(*_t(*case))
+    assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
 
 
 class _OnCard(torch.Tensor):
@@ -213,3 +250,55 @@ def test_cuda_path_raises_instead_of_falling_back(monkeypatch, tmp_path):
         pa.flash_prefill_attention(q.float(), pages, pages, tab, one, one)
     assert pa.flash_prefill_attention.launches == 0
     assert pa.paged_decode_attention_fused.launches == 0
+
+
+def test_new_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
+    # The wrappers of the quantized pool and of the split path: on a card
+    # tensor each goes for its kernel and raises where it cannot be built;
+    # an input the kernel cannot take raises ValueError first.
+    monkeypatch.setattr(pa, "_fns", {})
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    for plain in ("flash_prefill_attention_plain",
+                  "paged_decode_attention_fused_quant_plain"):
+        monkeypatch.setattr(pa, plain, None)
+    pa.reset_launch_counts()
+    bf = torch.bfloat16
+    q = torch.zeros(1, 5, 4, 128, dtype=bf).as_subclass(_OnCard)
+    pages = torch.zeros(4, 16, 256, dtype=bf)
+    codes = torch.zeros(4, 16, 256, dtype=torch.int8)
+    scales = torch.zeros(4, 16, 2)
+    tab = torch.ones(1, 2, dtype=torch.int32)
+    one = torch.ones(1, dtype=torch.int32)
+    kn = torch.zeros(1, 1, 2, 128, dtype=bf)
+    cs = torch.zeros(1, 1, 128)
+    with pytest.raises(_build.KernelBuildError):
+        pa.flash_prefill_attention(q, codes, codes, tab, one * 0, one * 5,
+                                   k_scale=scales, v_scale=scales)
+    for fp8 in (False, True):
+        c = codes.to(torch.float8_e4m3fn) if fp8 else codes
+        with pytest.raises(_build.KernelBuildError):
+            pa.paged_decode_attention_fused_quant(
+                q[:, :1], kn, kn, cs, cs, c, c, scales, scales, tab, one)
+    with pytest.raises(_build.KernelBuildError):
+        pa.paged_decode_attention_pallas(q[:, :1], pages, pages, tab, one)
+    with pytest.raises(_build.KernelBuildError):
+        pa.paged_verify_attention_pallas(q, pages, pages, tab, one, one * 5)
+    # Inputs the kernels cannot take: 1-byte pages without scales, a bf16
+    # pool handed to the quant kernel, scales of the wrong shape, more than
+    # 8 query tokens.
+    with pytest.raises(ValueError):
+        pa.flash_prefill_attention(q, codes, codes, tab, one, one)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention_fused_quant(
+            q[:, :1], kn, kn, cs, cs, pages, pages, scales, scales, tab, one)
+    with pytest.raises(ValueError):
+        pa.flash_prefill_attention(q, codes, codes, tab, one, one,
+                                   k_scale=scales[:, :, :1],
+                                   v_scale=scales[:, :, :1])
+    q9 = torch.zeros(1, 9, 4, 128, dtype=bf).as_subclass(_OnCard)
+    with pytest.raises(ValueError):
+        pa.paged_verify_attention_pallas(q9, pages, pages, tab, one, one)
+    assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
