@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # every phase, one GPU
     python3 chip_smoke.py --phases 0,1    # build + kernel checks only
+    python3 chip_smoke.py --phases 0,1,4 --only flash_prefill
+                                          # check + time one kernel
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -11,10 +13,13 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          Llama-3-8B head geometry (H=32, KVH=8, D=128, block 16) with bf16
          activations: flash prefill over bf16, int8 and fp8 pools (ragged
          S 128 and 1024, a chunk at start > 0, an empty lane, a lane one
-         token below block alignment), fused decode over bf16, int8 and fp8
-         pools (B=32, contexts up to 2048, an inactive lane, a page
-         boundary; outputs, pages, codes and scales), and split paged
-         attention at QS=1 (decode) and QS=5 (verify, ragged).
+         token below block alignment, the S=2048 chunk shape, a
+         continuation chunk starting inside a key tile, qpk 8 (64/8 heads)
+         and qpk 1 (32/32) at ragged lengths, and blocks of 12 tokens),
+         fused decode over bf16, int8 and fp8 pools (B=32, contexts up to
+         2048, an inactive lane, a page boundary; outputs, pages, codes and
+         scales), and split paged attention at QS=1 (decode) and QS=5
+         (verify, ragged).
 Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          from a seeded generator on the card): a bf16 pool (8 GiB), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
@@ -39,7 +44,10 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          function on K/V gathered (and dequantized) beforehand
          (scaled_dot_product_attention, a yardstick the port never calls)
          and the least time the card could take for the same bytes and
-         flops; launches per engine step.
+         flops; launches per engine step.  Flash prefill is recorded at two
+         shapes (the ``shape`` key): an admission round and a 2048 chunk;
+         beside the wrapper's time it prints the kernel's alone (launched on
+         pre-scaled q), which leaves out the wrapper's q-scale pass.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -99,14 +107,18 @@ def _tables(torch, rng, B, nb_per_lane, num_blocks):
     return torch.as_tensor(perm.reshape(B, nb_per_lane), dtype=torch.int32)
 
 
-def prefill_case(torch, rng, gen, B, S, starts, lengths):
+def prefill_case(torch, rng, gen, B, S, starts, lengths, heads=(H, KVH),
+                 bs=BS):
+    """q, pages, table, starts, lengths of one flash prefill call;
+    ``heads`` = (query heads, kv heads), ``bs`` tokens per block."""
+    nh, nkv = heads
     ctx = max(s + n for s, n in zip(starts, lengths))
-    nbl = (ctx + BS - 1) // BS + 1
+    nbl = (ctx + bs - 1) // bs + 1
     num_blocks = B * nbl + 1
     dev = "cuda"
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    kp = torch.randn(num_blocks, BS, KVH * D, generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn(num_blocks, BS, KVH * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, S, nh, D, generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
     table = _tables(torch, rng, B, nbl, num_blocks).to(dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -144,13 +156,14 @@ def quantize_pages(torch, pages, kv_quant):
     from k8s_llm_monitor_tpu_torch.models.llama import kv_quant_spec, quantize_kv
 
     qdtype, qmax = kv_quant_spec(kv_quant)
-    return quantize_kv(pages, KVH, qdtype, qmax)
+    return quantize_kv(pages, pages.shape[-1] // D, qdtype, qmax)
 
 
-def quant_prefill_case(torch, rng, gen, B, S, starts, lengths, kv_quant):
+def quant_prefill_case(torch, rng, gen, B, S, starts, lengths, kv_quant,
+                       heads=(H, KVH), bs=BS):
     """prefill_case over a quantized pool: (args, scale kwargs)."""
     q, kp, vp, table, st, ln = prefill_case(torch, rng, gen, B, S, starts,
-                                            lengths)
+                                            lengths, heads, bs)
     kq, ks = quantize_pages(torch, kp, kv_quant)
     vq, vs = quantize_pages(torch, vp, kv_quant)
     return (q, kq, vq, table, st, ln), dict(k_scale=ks, v_scale=vs)
@@ -219,6 +232,28 @@ def ulp_err(torch, got, want):
     _, e = torch.frexp(w.abs().amax(-1))
     ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
     return float(((got.float() - w).abs().amax(-1) / ulp).max())
+
+
+def flash_alone(torch, pa, case, scales):
+    """A call that launches the flash kernel alone on pre-scaled q: the
+    wrapper's time less its q-scale pass, checks and allocation."""
+    q, kp, vp, table, st, ln = case
+    qs = (q * D ** -0.5).contiguous()
+    out = torch.empty_like(qs)
+    suffix = {torch.bfloat16: "bf16", torch.int8: "int8",
+              torch.float8_e4m3fn: "fp8"}[kp.dtype]
+    sc = ([] if not scales else
+          [scales["k_scale"].data_ptr(), scales["v_scale"].data_ptr()])
+    fn = pa._kernel(f"flash_prefill_{suffix}")
+    args = (qs.data_ptr(), kp.data_ptr(), vp.data_ptr(), *sc,
+            table.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(),
+            *q.shape[:3], kp.shape[-1] // D, kp.shape[1], table.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        check(fn(*args) == 0, "flash kernel launch failed")
+    call.tensors = qs, out          # what the pointers in args point into
+    return call
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -297,29 +332,47 @@ def check_rows(torch, name, got, want, rows, errs, ulps):
     check(ulp <= ULP_TOL, f"{name}: err {ulp:.3g} ulps")
 
 
+# Flash prefill cases of phase 1: (query heads, kv heads, S, starts,
+# lengths, tokens per block).  The Llama-3-8B heads (qpk 4) and block 16
+# unless stated.
+PREFILL_CASES = [
+    # fresh, continuation, empty lane, ends one below block alignment
+    (H, KVH, 128, [0, 37, 0, 300], [128, 91, 0, 19], BS),
+    (H, KVH, 1024, [0, 1000], [1024, 700], BS),
+    # an admission round of 8 prompts and a long prompt's last chunk
+    (H, KVH, 1024, [0] * 8, [20, 181, 298, 407, 462, 515, 632, 1024], BS),
+    (H, KVH, 256, [2048], [252], BS),
+    # the chunk shape phase 4 times, and a continuation chunk that starts
+    # inside a 64-key tile and crosses several
+    (H, KVH, 2048, [0], [2048], BS),
+    (H, KVH, 512, [1000], [500], BS),
+    # qpk 8 (Qwen2-72B: 64 query heads over 8 kv heads) and qpk 1 (32
+    # heads, no grouping), ragged
+    (64, 8, 256, [0, 700, 5, 0], [256, 200, 77, 0], BS),
+    (32, 32, 256, [0, 300, 13], [256, 131, 1], BS),
+    # blocks of 12 tokens: the kernel divides positions by the block size
+    # itself, by multiply and shift
+    (H, KVH, 128, [0, 37, 300], [128, 91, 19], 12),
+]
+
+
 def phase1(torch, np, st):
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs, ulps = {}, {}
-    prefill_cases = [
-        # fresh, continuation, empty lane, ends one below block alignment
-        (128, [0, 37, 0, 300], [128, 91, 0, 19]),
-        (1024, [0, 1000], [1024, 700]),
-        # an admission round of 8 prompts and a long prompt's last chunk
-        (1024, [0] * 8, [20, 181, 298, 407, 462, 515, 632, 1024]),
-        (256, [2048], [252]),
-    ]
     for kvq in ("",) + QUANTS:
         name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
-        for S, starts, lengths in prefill_cases:
+        for nh, nkv, S, starts, lengths, bs in PREFILL_CASES:
             if kvq:
                 case, scales = quant_prefill_case(
-                    torch, rng, gen, len(starts), S, starts, lengths, kvq)
+                    torch, rng, gen, len(starts), S, starts, lengths, kvq,
+                    (nh, nkv), bs)
             else:
                 case, scales = prefill_case(torch, rng, gen, len(starts), S,
-                                            starts, lengths), {}
+                                            starts, lengths, (nh, nkv),
+                                            bs), {}
             got = pa.flash_prefill_attention(*case, **scales)
             want = pa.flash_prefill_attention_plain(*case, **scales)
             torch.cuda.synchronize()
@@ -330,9 +383,15 @@ def phase1(torch, np, st):
                     continue
                 check_rows(torch, f"{name}", got[b, :n], want[b, :n],
                            slice(None), errs, ulps)
-            print(f"phase 1: {name} S={S} starts={starts} lengths={lengths}: "
-                  f"ok, max abs err {errs[name]:.4g}, max err "
-                  f"{ulps[name]:.3g} ulps of the row")
+            print(f"phase 1: {name} H={nh} KVH={nkv} bs={bs} S={S} "
+                  f"starts={starts} lengths={lengths}: ok, max abs err "
+                  f"{errs[name]:.4g}, max err {ulps[name]:.3g} ulps of the "
+                  "row")
+            del case, scales, got, want
+        torch.cuda.empty_cache()
+    if st.get("only") == "flash_prefill":
+        st["max_abs_err"] = errs
+        return
 
     # decode: inactive lane, page boundaries, the last row of a 2048 table
     positions = [0, 1, 15, 16, 17, 255, 256, 2047] + list(
@@ -488,6 +547,14 @@ def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
     return eng, [r.token_ids for r in res]
 
 
+def prompt_lengths(rng):
+    """Phase 2's 16 prompt lengths (the first draws of ``rng``): 15 of
+    20..1500 tokens, sorted, and one of 2300."""
+    lens = sorted(int(x) for x in rng.integers(20, 1501, size=15)) + [2300]
+    lens[0], lens[-2] = 20, 1500
+    return lens
+
+
 def phase2(torch, np, st):
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
@@ -501,8 +568,7 @@ def phase2(torch, np, st):
           f"{cfg.hidden_size}) random bf16 weights in "
           f"{time.monotonic() - t0:.1f} s")
     rng = np.random.default_rng(2)
-    lens = sorted(int(x) for x in rng.integers(20, 1501, size=15)) + [2300]
-    lens[0], lens[-2] = 20, 1500
+    lens = prompt_lengths(rng)
     prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
                for n in lens]
     print(f"phase 2: prompt lengths {lens}")
@@ -649,6 +715,15 @@ def phase3(torch, np, st):
               f"prefill {errs[0]:.4g}, decode steps "
               f"{[round(e, 4) for e in errs[1:]]} (tolerance {tol}); "
               f"argmax agreement {agree:.3f} (at least {MIN_ARGMAX_AGREE})")
+        # A row whose argmax moves: how far apart the plain path's two
+        # candidates were (a near-tie is within the logit tolerance).
+        for step, (a, b) in enumerate(zip(got, want)):
+            ia, ib = a.argmax(-1), b.argmax(-1)
+            for r in (ia != ib).nonzero().flatten().tolist():
+                gap = float(b[r, ib[r]] - b[r, ia[r]])
+                print(f"phase 3: {label}: step {step} row {r}: argmax "
+                      f"{int(ia[r])} vs {int(ib[r])}, plain-path logits "
+                      f"{gap:.4g} apart")
         check(max(errs) <= tol, f"{label}: logits differ by {max(errs):.4g}")
         check(agree >= MIN_ARGMAX_AGREE,
               f"{label}: argmax agreement {agree:.3f}")
@@ -699,16 +774,17 @@ def phase4(torch, np, st):
 
     rng = np.random.default_rng(4)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    lens = st.get("prompt_lens") or [20, 300, 700, 1500]
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
     records = []
 
-    def record(name, ms, plain_ms, lib_ms, b_ms, by):
+    def record(name, shape, ms, plain_ms, lib_ms, b_ms, by):
         records.append(dict(
-            name=name, route="cuda",
+            name=name, shape=shape, route="cuda",
             source=SOURCES[name.replace("_int8", "").replace("_fp8", "")],
             replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:"
                      f"{REPLACES[name]}",
-            launches=st["launches"][name], max_abs_err=st["max_abs_err"][name],
+            launches=st.get("launches", {}).get(name),
+            max_abs_err=st.get("max_abs_err", {}).get(name),
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
             library_ms=lib_ms))
 
@@ -731,7 +807,7 @@ def phase4(torch, np, st):
         return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
 
     # flash prefill: an admission round of 8 prompts (the 8 shortest of
-    # phase 2's, bucket 1024) and the long prompt's first chunk (printed).
+    # phase 2's, bucket 1024) and the long prompt's first chunk.
     shapes = [("admission", 1024, [0] * 8, [min(n, 1024) for n in lens[:8]]),
               ("chunk", 2048, [0], [2048])]
     for kvq in ("",) + QUANTS:
@@ -746,6 +822,7 @@ def phase4(torch, np, st):
             q = case[0]
             ms = time_ms(torch, lambda: pa.flash_prefill_attention(
                 *case, **scales))
+            alone_ms = time_ms(torch, flash_alone(torch, pa, case, scales))
             plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
                 *case, **scales), reps=5)
             ctx_max = max(s + n for s, n in zip(starts, lengths))
@@ -758,13 +835,16 @@ def phase4(torch, np, st):
                 qs, k, v, attn_mask=m, scale=1.0), reps=5)
             b_ms, by = bound(*prefill_work(starts, lengths, S, kvq))
             print(f"phase 4: {name} {label} B={len(starts)} S={S} "
-                  f"lengths={lengths}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({by}) [{st['gpu']}]")
-            if label == "admission":
-                record(name, ms, plain_ms, lib_ms, b_ms, by)
+                  f"lengths={lengths}: kernel {ms:.4f} ms (alone, on "
+                  f"pre-scaled q: {alone_ms:.4f} ms), plain {plain_ms:.4f} "
+                  f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
+                  f"[{st['gpu']}]")
+            record(name, label, ms, plain_ms, lib_ms, b_ms, by)
             del case, k, v, qs
             torch.cuda.empty_cache()
+    if st.get("only") == "flash_prefill":
+        st["records"] = records
+        return
 
     # fused decode: phase 2's 16 requests mid-decode in 32 slots (16 idle
     # lanes at pos 0), and a full batch of mixed contexts (printed).
@@ -800,7 +880,7 @@ def phase4(torch, np, st):
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                   f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
             if label == "engine":
-                record(name, ms, plain_ms, lib_ms, b_ms, by)
+                record(name, label, ms, plain_ms, lib_ms, b_ms, by)
             del case, k, v, qs
             torch.cuda.empty_cache()
 
@@ -826,9 +906,9 @@ def phase4(torch, np, st):
     print(f"phase 4: paged_attn engine B=32 QS=1 max length {max(lengths)}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
           f"ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
-    record("paged_attn", ms, plain_ms, lib_ms, b_ms, by)
+    record("paged_attn", "engine", ms, plain_ms, lib_ms, b_ms, by)
 
-    for label, (steps, dsteps) in st["engine_steps"].items():
+    for label, (steps, dsteps) in st.get("engine_steps", {}).items():
         per = {k: round(v / steps, 2) for k, v in st["launches"].items()
                if k in dict((e[0], e[3]) for e in ENGINES)[label]}
         print(f"phase 4: {label} engine: launches per engine step {per} over "
@@ -840,6 +920,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0,1,2,3,4",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--only", choices=("flash_prefill",),
+                    help="limit phases 1 and 4 to this kernel")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -857,7 +939,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    st: dict = {}
+    st: dict = {"only": args.only}
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (4, phase4)]
     for n, fn in runners:
         if n not in phases and n != 0:
