@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 0,1    # build + kernel checks only
     python3 chip_smoke.py --phases 0,1,4 --only flash_prefill
                                           # check + time one kernel
+    python3 chip_smoke.py --phases 0,1,4 --only fused_decode
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -16,10 +17,12 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          token below block alignment, the S=2048 chunk shape, a
          continuation chunk starting inside a key tile, qpk 8 (64/8 heads)
          and qpk 1 (32/32) at ragged lengths, and blocks of 12 tokens),
-         fused decode over bf16, int8 and fp8 pools (B=32, contexts up to
-         2048, an inactive lane, a page boundary; outputs, pages, codes and
-         scales), and split paged attention at QS=1 (decode) and QS=5
-         (verify, ragged).
+         fused decode over bf16, int8 and fp8 pools (decode_cases: B=32
+         at contexts up to 2048, qpk 8 and 1, blocks of 12; each with
+         positions on both sides of the split kernel's chunk boundaries,
+         one cached row, an inactive lane, the table's last row and a
+         lane past the table; outputs, pages, codes and scales), and split
+         paged attention at QS=1 (decode) and QS=5 (verify, ragged).
 Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          from a seeded generator on the card): a bf16 pool (8 GiB), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
@@ -28,10 +31,11 @@ Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          before its run and read just after: every request must finish,
          every kernel of its path must have launched, and a second
          identical run must give identical ids.  Prints TTFT p50, decode
-         tokens/s, weight and pool bytes.  A third run of the bf16 and of the
-         pallas engine traces its decode steps (after the last prefill)
-         with torch.profiler: device time per kernel, the number of device
-         kernels, and the device's idle share of the window.
+         tokens/s, weight and pool bytes.  A third run of the bf16, the
+         int8 and the pallas engine traces its decode steps (after the last
+         prefill) with torch.profiler: device time per kernel (the
+         attention kernels by name, each must show time), the number of
+         device kernels, and the device's idle share of the window.
 Phase 3  the kernel path against the plain path on the same weights cut to
          4 layers: first-token and decode-step logits of flash/fused and
          flash/pallas against dense/gather (bf16 pool), and of the int8 and
@@ -47,7 +51,12 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          flops; launches per engine step.  Flash prefill is recorded at two
          shapes (the ``shape`` key): an admission round and a 2048 chunk;
          beside the wrapper's time it prints the kernel's alone (launched on
-         pre-scaled q), which leaves out the wrapper's q-scale pass.
+         pre-scaled q), which leaves out the wrapper's q-scale pass.  Fused
+         decode is recorded at the engine's mid-decode batch and a full
+         batch, both over the engine's 256-block table, with the kernels'
+         time alone (20 launches on prepared arguments replayed from one
+         CUDA graph: device time only) and, at the engine shape, alone at
+         chunks of 128, 256 and 512 keys.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -69,6 +78,7 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 H, KVH, D, BS = 32, 8, 128, 16
+ENGINE_TABLE = 256                 # phase 2's EngineConfig.max_blocks_per_seq
 TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 kernel vs bf16 plain version
 # ... and, scale-aware, in bf16 ulps of each (row, head)'s largest value:
 # rows deep in a long context have small outputs, where atol alone is loose.
@@ -125,17 +135,20 @@ def prefill_case(torch, rng, gen, B, S, starts, lengths, heads=(H, KVH),
     return q, kp, vp, table, st, ln
 
 
-def decode_case(torch, rng, gen, positions, nbl):
+def decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS):
+    """q, k_new, v_new, cos, sin, pages, table, positions of one fused
+    decode call; ``nbl`` table blocks per lane."""
     B = len(positions)
     num_blocks = B * nbl + 1
+    nh, nkv = heads
     dev = "cuda"
     from k8s_llm_monitor_tpu_torch.ops.rope import rope_angles
 
-    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    kn = torch.randn(B, 1, KVH, D, generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn(B, 1, KVH, D, generator=gen, device=dev).to(torch.bfloat16)
-    kp = torch.randn(num_blocks, BS, KVH * D, generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn(num_blocks, BS, KVH * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, 1, nh, D, generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, nkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, nkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
     table = _tables(torch, rng, B, nbl, num_blocks).to(dev)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     cos, sin = rope_angles(pos[:, None], D, 500_000.0)
@@ -169,11 +182,12 @@ def quant_prefill_case(torch, rng, gen, B, S, starts, lengths, kv_quant,
     return (q, kq, vq, table, st, ln), dict(k_scale=ks, v_scale=vs)
 
 
-def quant_decode_case(torch, rng, gen, positions, nbl, kv_quant):
+def quant_decode_case(torch, rng, gen, positions, nbl, kv_quant,
+                      heads=(H, KVH), bs=BS):
     """decode_case over a quantized pool, in the fused quant wrapper's
     argument order."""
-    q, kn, vn, cos, sin, kp, vp, table, pos = decode_case(torch, rng, gen,
-                                                          positions, nbl)
+    q, kn, vn, cos, sin, kp, vp, table, pos = decode_case(
+        torch, rng, gen, positions, nbl, heads, bs)
     kq, ks = quantize_pages(torch, kp, kv_quant)
     vq, vs = quantize_pages(torch, vp, kv_quant)
     return q, kn, vn, cos, sin, kq, vq, ks, vs, table, pos
@@ -256,18 +270,68 @@ def flash_alone(torch, pa, case, scales):
     return call
 
 
-def time_ms(torch, fn, reps=20, warmup=3):
+def decode_alone(torch, pa, case):
+    """A call that launches the fused decode kernels alone (the split
+    kernel and its merge) on arguments prepared once: the wrapper's time
+    less its checks, casts and allocations (timed by graph_ms)."""
+    q, kn, vn, cos, sin, kp, vp = case[:7]
+    scales, (table, pos) = case[7:-2], case[-2:]
+    B, _, nh, _ = q.shape
+    nkv = kp.shape[-1] // D
+    cs = cos.float().reshape(B, D).contiguous()
+    sn = sin.float().reshape(B, D).contiguous()
+    nsplit, chunk = pa.decode_splits(table.shape[1], kp.shape[1],
+                                     kp.element_size())
+    ws = torch.empty(pa.decode_workspace_floats(B, nkv, nh // nkv, nsplit, D),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    suffix = {torch.bfloat16: "bf16", torch.int8: "int8",
+              torch.float8_e4m3fn: "fp8"}[kp.dtype]
+    fn = pa._kernel(f"fused_decode_{suffix}")
+    args = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cs.data_ptr(),
+            sn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            *(t.data_ptr() for t in scales), table.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), B, nh, nkv, kp.shape[1],
+            table.shape[1], nsplit, chunk, D ** -0.5)
+
+    def call():      # on the current stream: graph_ms captures it
+        check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0,
+              "fused decode launch failed")
+    call.tensors = cs, sn, ws, out   # what the pointers in args point into
+    return call
+
+
+def time_ms(torch, fn, reps=20, warmup=3, rounds=1):
+    """ms per call over ``reps`` back-to-back calls, the best of
+    ``rounds`` such batches (a call whose host work outlasts its kernels
+    measures the host, which other processes on the machine slow down)."""
     for _ in range(warmup):
         fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
+def graph_ms(torch, fn, reps=20, rounds=5):
+    """Device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed, the best of ``rounds`` replays; no host time is in it."""
+    fn()                       # outside the capture: builds, configures
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(torch, graph.replay, reps=1, warmup=1,
+                   rounds=rounds) / reps
 
 
 def truncated(model, n_layers):
@@ -328,6 +392,14 @@ def check_rows(torch, name, got, want, rows, errs, ulps):
     errs[name] = max(errs.get(name, 0.0), err)
     ulps[name] = max(ulps.get(name, 0.0), ulp)
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    if not (ulp <= ULP_TOL and torch.allclose(g, w, **TOL)):
+        # Which lanes, and how far: the first index of ``got``.
+        lanes = (rows.nonzero().flatten().tolist() if torch.is_tensor(rows)
+                 else list(range(got.shape[0]))[rows])
+        per = [(lane, round(ulp_err(torch, g[i], w[i]), 3),
+                float((g[i] - w[i]).abs().max())) for i, lane in
+               enumerate(lanes)]
+        print(f"phase 1: {name}: (lane, ulps, max abs err) {per}")
     check(torch.allclose(g, w, **TOL), f"{name}: max abs err {err:.4g}")
     check(ulp <= ULP_TOL, f"{name}: err {ulp:.3g} ulps")
 
@@ -356,13 +428,36 @@ PREFILL_CASES = [
 ]
 
 
+def decode_cases(rng, chunks):
+    """Fused decode cases of phase 1: (heads, positions, table blocks per
+    lane, tokens per block).  Every case has an inactive lane (0), a lane
+    with one cached row (1), both sides of the split kernel's chunk
+    boundaries (chunk - 1, chunk, chunk + 1, 2 chunk, for the chunk of
+    every page type), the last row of the table and a lane past it (its
+    output is undefined and not compared; its row goes to the null
+    block)."""
+    edges = sorted({0, 1} | {p for c in chunks
+                             for p in (c - 1, c, c + 1, 2 * c)})
+    fixed = edges + [15, 16, 17, 2047, 2051]
+    return [
+        # B=32 at the Llama-3-8B heads, page boundaries, random contexts
+        ((H, KVH), fixed + [int(x) for x in rng.integers(
+            1, 2048, size=32 - len(fixed))], 128, BS),
+        # qpk 8 (64/8 heads) and qpk 1 (32/32)
+        ((64, 8), edges + [1000, 2047, 2051], 128, BS),
+        ((32, 32), edges + [1000, 2047, 2051], 128, BS),
+        # blocks of 12 tokens: the kernel divides by multiply and shift
+        ((H, KVH), edges + [11, 12, 1535, 1539], 128, 12),
+    ]
+
+
 def phase1(torch, np, st):
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs, ulps = {}, {}
-    for kvq in ("",) + QUANTS:
+    for kvq in ("",) + QUANTS if st.get("only") != "fused_decode" else ():
         name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
         for nh, nkv, S, starts, lengths, bs in PREFILL_CASES:
             if kvq:
@@ -393,51 +488,84 @@ def phase1(torch, np, st):
         st["max_abs_err"] = errs
         return
 
-    # decode: inactive lane, page boundaries, the last row of a 2048 table
+    # fused decode over bf16, int8 and fp8 pools, every case of
+    # decode_cases: outputs of the lanes the table covers (bf16: an
+    # inactive lane's output is exactly its v_new), pages, codes, scales.
+    for heads, positions, nbl, bs in decode_cases(
+            rng, set(pa.DECODE_CHUNK.values())):
+        nh, nkv = heads
+        pos_t = torch.tensor(positions, device="cuda")
+        covered = (pos_t > 0) & (pos_t < nbl * bs)
+        for kvq in ("",) + QUANTS:
+            name = f"fused_decode_{kvq}" if kvq else "fused_decode"
+            if kvq:
+                case = quant_decode_case(torch, rng, gen, positions, nbl,
+                                         kvq, heads, bs)
+                kernel = pa.paged_decode_attention_fused_quant
+                plain = pa.paged_decode_attention_fused_quant_plain
+            else:
+                case = decode_case(torch, rng, gen, positions, nbl, heads, bs)
+                kernel = pa.paged_decode_attention_fused
+                plain = pa.paged_decode_attention_fused_plain
+            ck = [t.clone() for t in case]
+            cp = [t.clone() for t in case]
+            got = kernel(*ck)
+            if kvq:
+                # On the CPU: PyTorch on the card computes the plain
+                # version's amax / qmax (a Python float) as a multiply by
+                # the reciprocal, one ulp off the quotient the kernel, the
+                # CPU and the TPU kernel's source take; where a head's
+                # bf16 v row falls on exact rounding ties, that moves its
+                # codes by a step.
+                want = [t.to("cuda") for t in plain(*(t.cpu() for t in cp))]
+            else:
+                want = plain(*cp)
+            torch.cuda.synchronize()
+            check(got[1].data_ptr() == ck[5].data_ptr()
+                  and (not kvq or got[3].data_ptr() == ck[7].data_ptr()),
+                  f"{name}: pool not updated in place")
+            # The quant plain version folds the current token alone for an
+            # inactive lane, as the kernel does; the bf16 one reads the
+            # lane's table, so there the kernel is held to v_new itself.
+            check_rows(torch, name, got[0], want[0],
+                       covered | (pos_t == 0) if kvq else covered, errs, ulps)
+            if not kvq:
+                idle = (pos_t == 0).nonzero().flatten().tolist()
+                vnew = case[2].repeat_interleave(nh // nkv, dim=2)
+                check(all(bool((got[0][b] == vnew[b]).all()) for b in idle),
+                      f"{name}: an inactive lane's output is not v_new")
+                for pname, a, b in (("k", got[1], want[1]),
+                                    ("v", got[2], want[2])):
+                    perr = float((a.float() - b.float()).abs().max())
+                    errs[name] = max(errs[name], perr)
+                    check(torch.allclose(a.float(), b.float(), **TOL),
+                          f"{name}: {pname} pages differ, max abs err "
+                          f"{perr:.4g}")
+                extra = "outputs and pages"
+            else:
+                steps = max(code_steps(torch, got[i], want[i]) for i in (1, 2))
+                check(steps <= 1.0, f"{name}: codes differ by {steps:.3g} "
+                      "steps")
+                for i in (3, 4):
+                    check(torch.allclose(got[i], want[i], rtol=1e-5, atol=0),
+                          f"{name}: scales differ by "
+                          f"{float((got[i] - want[i]).abs().max()):.4g}")
+                extra = (f"outputs; codes within {steps:.3g} steps, scales "
+                         "at rtol 1e-5")
+            print(f"phase 1: {name} H={nh} KVH={nkv} bs={bs} table "
+                  f"{nbl}x{bs} B={len(positions)} positions "
+                  f"{positions[:12]}{'...' if len(positions) > 12 else ''}: "
+                  f"ok, max abs err {errs[name]:.4g}, max err "
+                  f"{ulps[name]:.3g} ulps of the row ({extra})")
+            del case, ck, cp, got, want
+        torch.cuda.empty_cache()
+    if st.get("only") == "fused_decode":
+        st["max_abs_err"] = errs
+        return
+
     positions = [0, 1, 15, 16, 17, 255, 256, 2047] + list(
         rng.integers(1, 2048, size=24))
     nbl = 2048 // BS
-    act = torch.tensor(positions, device="cuda") > 0
-    case = decode_case(torch, rng, gen, positions, nbl)
-    ck = [t.clone() for t in case]
-    cp = [t.clone() for t in case]
-    out_k, kp_k, vp_k = pa.paged_decode_attention_fused(*ck)
-    out_p, kp_p, vp_p = pa.paged_decode_attention_fused_plain(*cp)
-    torch.cuda.synchronize()
-    check(kp_k.data_ptr() == ck[5].data_ptr(), "fused decode: pages not in place")
-    check_rows(torch, "fused_decode", out_k, out_p, act, errs, ulps)
-    for name, a, b in (("k", kp_k, kp_p), ("v", vp_k, vp_p)):
-        perr = float((a.float() - b.float()).abs().max())
-        errs["fused_decode"] = max(errs["fused_decode"], perr)
-        check(torch.allclose(a.float(), b.float(), **TOL),
-              f"fused decode: {name} pages differ, max abs err {perr:.4g}")
-    print(f"phase 1: fused_decode B={len(positions)} positions up to "
-          f"{max(positions)}: ok, max abs err {errs['fused_decode']:.4g} "
-          f"(outputs and pages), max err {ulps['fused_decode']:.3g} ulps of "
-          "the row (outputs)")
-
-    for kvq in QUANTS:
-        name = f"fused_decode_{kvq}"
-        case = quant_decode_case(torch, rng, gen, positions, nbl, kvq)
-        ck = [t.clone() for t in case]
-        cp = [t.clone() for t in case]
-        got = pa.paged_decode_attention_fused_quant(*ck)
-        want = pa.paged_decode_attention_fused_quant_plain(*cp)
-        torch.cuda.synchronize()
-        check(got[1].data_ptr() == ck[5].data_ptr()
-              and got[3].data_ptr() == ck[7].data_ptr(),
-              f"{name}: pool not updated in place")
-        check_rows(torch, name, got[0], want[0], act, errs, ulps)
-        steps = max(code_steps(torch, got[i], want[i]) for i in (1, 2))
-        check(steps <= 1.0, f"{name}: codes differ by {steps:.3g} steps")
-        for i in (3, 4):
-            check(torch.allclose(got[i], want[i], rtol=1e-5, atol=0),
-                  f"{name}: scales differ by "
-                  f"{float((got[i] - want[i]).abs().max()):.4g}")
-        print(f"phase 1: {name} B={len(positions)} positions up to "
-              f"{max(positions)}: ok, max abs err {errs[name]:.4g}, max err "
-              f"{ulps[name]:.3g} ulps of the row (outputs); codes within "
-              f"{steps:.3g} steps, scales at rtol 1e-5")
 
     # split paged attention: decode (QS=1) over the decode case's pages,
     # verify (QS=5) with ragged starts and lengths, an empty lane.
@@ -499,7 +627,8 @@ def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
 
     cfg = model.cfg
     ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
-                        max_blocks_per_seq=256, max_prefills_per_step=8,
+                        max_blocks_per_seq=ENGINE_TABLE,
+                        max_prefills_per_step=8,
                         decode_steps_per_iter=8, **overrides)
     eng = InferenceEngine(cfg, model, ecfg, tokenizer=ByteTokenizer())
     check((eng.prefill_path, eng.decode_path) == paths,
@@ -589,8 +718,11 @@ def phase2(torch, np, st):
     st.update(model=model, prompt_lens=lens)
 
 
-# Engines whose decode steps phase 2 traces, and the kernel it reports.
-TRACED = {"bf16": "fused_decode_kernel", "pallas": "paged_attn_kernel"}
+# Engines whose decode steps phase 2 traces, and the attention kernels it
+# reports (by name: each must show device time in the window).
+FUSED_KERNELS = ("fused_decode_split_kernel", "fused_decode_merge_kernel")
+TRACED = {"bf16": FUSED_KERNELS, "int8": FUSED_KERNELS,
+          "pallas": ("paged_attn_kernel",)}
 
 
 def trace_decode(torch, eng, prompts, sp, want_ids, st, label):
@@ -629,14 +761,19 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, label):
     busy = sum(per.values())
     check(steps > 0, "no decode step in the traced window")
     check(busy > 0, "the profiler saw no device time in the decode window")
-    kernel = TRACED[label]
-    kms = sum(v for k, v in per.items() if kernel in k)
+    kms = {}
+    for kernel in TRACED[label]:
+        kms[kernel] = sum(v for k, v in per.items() if kernel in k)
+        check(kms[kernel] > 0, f"{label}: no device time for {kernel} in "
+              "the traced decode window")
+    attn = sum(kms.values())
     print(f"phase 2: {label}: traced decode window: {steps} decode steps, "
           f"{eng.decode_tokens - tokens0} tokens, wall {wall_ms:.2f} ms "
           f"({wall_ms / steps:.3f} ms/step); device busy {busy:.2f} ms, idle "
-          f"share {1 - busy / wall_ms:.3f}; {kernel} {kms:.2f} ms "
-          f"= {kms / wall_ms:.3f} of wall; {sum(per_n.values())} device "
-          f"kernels [{st['gpu']}]")
+          f"share {1 - busy / wall_ms:.3f}; attention "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in kms.items())
+          + f" = {attn / wall_ms:.3f} of wall, {attn / steps:.3f} ms/step; "
+          f"{sum(per_n.values())} device kernels [{st['gpu']}]")
     for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
         print(f"phase 2: {label}: trace: {ms:9.3f} ms {ms / wall_ms:6.3f} of "
               f"wall  {name[:90]}")
@@ -810,7 +947,7 @@ def phase4(torch, np, st):
     # phase 2's, bucket 1024) and the long prompt's first chunk.
     shapes = [("admission", 1024, [0] * 8, [min(n, 1024) for n in lens[:8]]),
               ("chunk", 2048, [0], [2048])]
-    for kvq in ("",) + QUANTS:
+    for kvq in ("",) + QUANTS if st.get("only") != "fused_decode" else ():
         name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
         for label, S, starts, lengths in shapes:
             if kvq:
@@ -847,13 +984,15 @@ def phase4(torch, np, st):
         return
 
     # fused decode: phase 2's 16 requests mid-decode in 32 slots (16 idle
-    # lanes at pos 0), and a full batch of mixed contexts (printed).
+    # lanes at pos 0), and a full batch of mixed contexts, both over the
+    # engine's table width (the grid phase 2 launches).  At the engine
+    # shape every instance is also timed at other chunk sizes.
     mid = [n + 16 for n in lens] + [0] * (32 - len(lens))
     full = [int(x) for x in rng.integers(1, 2048, size=32)]
+    nbl = ENGINE_TABLE
     for kvq in ("",) + QUANTS:
         name = f"fused_decode_{kvq}" if kvq else "fused_decode"
         for label, positions in (("engine", mid), ("full", full)):
-            nbl = (max(positions) + BS) // BS + 1
             if kvq:
                 case = quant_decode_case(torch, rng, gen, positions, nbl, kvq)
                 kernel = pa.paged_decode_attention_fused_quant
@@ -866,7 +1005,8 @@ def phase4(torch, np, st):
                 plain = pa.paged_decode_attention_fused_plain
                 kp, vp, table, pos_t = case[5], case[6], case[7], case[8]
                 scales = {}
-            ms = time_ms(torch, lambda: kernel(*case))
+            ms = time_ms(torch, lambda: kernel(*case), rounds=5)
+            alone_ms = graph_ms(torch, decode_alone(torch, pa, case))
             plain_ms = time_ms(torch, lambda: plain(*case), reps=5)
             ctx_max = max(positions) + 1
             keys = torch.arange(ctx_max, device="cuda")[None, None, :]
@@ -875,14 +1015,32 @@ def phase4(torch, np, st):
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=m), reps=5)
             b_ms, by = bound(*decode_work(positions, kvq))
+            nsplit, chunk = pa.decode_splits(nbl, BS, kp.element_size())
             print(f"phase 4: {name} {label} B=32 active="
-                  f"{sum(p > 0 for p in positions)} max pos {max(positions)}: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
+                  f"{sum(p > 0 for p in positions)} max pos {max(positions)} "
+                  f"table {nbl}x{BS} ({nsplit} splits of {chunk}): kernel "
+                  f"{ms:.4f} ms (alone: {alone_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
+            record(name, label, ms, plain_ms, lib_ms, b_ms, by)
             if label == "engine":
-                record(name, label, ms, plain_ms, lib_ms, b_ms, by)
+                sweep, chunk0 = {}, pa.DECODE_CHUNK
+                for c in (128, 256, 512):
+                    pa.DECODE_CHUNK = {2: c, 1: c}
+                    try:
+                        sweep[c] = graph_ms(torch, decode_alone(torch, pa,
+                                                                case))
+                    finally:
+                        pa.DECODE_CHUNK = chunk0
+                print(f"phase 4: {name} engine chunk sweep (alone): "
+                      + ", ".join(f"{c} keys {t:.4f} ms"
+                                  for c, t in sweep.items())
+                      + f" [{st['gpu']}]")
             del case, k, v, qs
             torch.cuda.empty_cache()
+    if st.get("only") == "fused_decode":
+        st["records"] = records
+        return
 
     # split paged attention at the decode_path="pallas" engine's shape:
     # the 16 requests mid-decode, idle lanes at length 1 (the null block).
@@ -920,7 +1078,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0,1,2,3,4",
                     help="comma-separated phases to run (default: all)")
-    ap.add_argument("--only", choices=("flash_prefill",),
+    ap.add_argument("--only", choices=("flash_prefill", "fused_decode"),
                     help="limit phases 1 and 4 to this kernel")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}

@@ -1,61 +1,72 @@
 // Fused decode attention for Hopper (sm_90a): RoPE + KV append + paged
-// attention for one new token per lane, in one kernel.
+// attention for one new token per lane, as split-KV flash-decoding.  One
+// template over the page type serves the bf16 pool and the int8 / fp8
+// (e4m3) pools with per-(token, head) float32 scale planes.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:
-//           paged_decode_attention_fused (_fused_decode_kernel).
+//   paged_decode_attention_fused (_fused_decode_kernel), bf16 pages, and
+//   paged_decode_attention_fused_quant (_fused_decode_quant_kernel), int8 /
+//   fp8 pages with quantize-on-append.
 //
 // What bounds it on this card: the bytes of the KV read.  Each lane reads
-// pos * KVH * D * 2 (K and V) bf16 values once and does 4 * H * D flops per
-// cached position -- about 2 * qpk flops per byte, far below the ~295
-// flops/byte where an H100's bf16 tensor cores become the limit.  So the
-// design moves each byte once and does the arithmetic in CUDA cores:
-//   * one block per (kv group, lane): every K/V row slice it reads (D = 128
-//     contiguous bf16, 256 bytes) serves all qpk query heads of the group
-//     (the TPU kernel's block-diagonal query matrix is an MXU workaround
-//     and is not carried over);
-//   * four warps stride over the cached positions; a warp reads one row
-//     slice per position as one 8-byte load per lane (coalesced 256 B) and
-//     keeps its own online-softmax state (m, l, acc) in registers; the four
-//     partial states merge through shared memory at the end;
-//   * RoPE runs in f32 in registers (the concatenated-halves rotation: the
-//     partner of dim d is d +- 64, held by lane l ^ 16), the roped k and the
-//     raw v row are written straight into the page, and the current token
-//     is folded into the softmax from registers, never read back.
-// Splitting one lane's KV over several blocks (flash-decoding), for batches
-// too small to fill 132 SMs, is later work.
+// pos * KVH * D page elements of K and of V once (plus two 4-byte scales
+// per position and group on a quantized pool) and does 4 * H * D flops per
+// cached position: about 2 * qpk flops per byte, far below the ~295
+// flops/byte where the tensor cores become the limit.  So the arithmetic
+// runs in f32 on CUDA cores and the design is about keeping enough bytes in
+// flight.  The earlier design (one block of four warps per (group, lane),
+// each warp walking one cached row at a time: a table load, then a
+// dependent row load, then a warp sum and a rescale per key) left most SMs
+// idle at small batch and ran at 4% of the card's bandwidth.  Now:
+//   * the grid is (KVH, B, NSPLIT): each lane's context is cut into chunks
+//     of `chunk` keys, one block each (NSPLIT = ceil(NB * bs / chunk) from
+//     the table width, a host integer; a split that starts at or past the
+//     lane's position exits at once), so a small batch still fills the SMs
+//     and the grid depends on the table width only;
+//   * a block loads its chunk's block-table entries into shared memory
+//     once, divides positions by the block size by multiply and shift, and
+//     stages K and V tiles of 32 keys with 16-byte cp.async in a ring of
+//     STAGES tiles (rows past the context are zero-filled);
+//   * a tile is scored for all qpk heads of the group at once: warp w
+//     takes dims [32w, 32w + 32) of every key (lane = key, K rows padded by
+//     16 bytes so the lanes' reads hit distinct banks, q broadcast from
+//     shared memory), the four partial sums meet in shared memory;
+//   * one max, one exp per key and one rescale per tile and head; PV from
+//     shared memory with thread d owning output dim d of every head;
+//   * each split writes its f32 partial (m, l, acc) to a workspace; a
+//     second small kernel on the same stream merges the live splits by
+//     log-sum-exp in a fixed order (no atomics: a rerun gives the same
+//     bits) and writes the bf16 output.
+// RoPE runs in f32 (the concatenated-halves rotation, the partner of dim d
+// is d +- 64), and split 0 alone ropes k, appends the new row and folds the
+// current token into its partial from registers, never from the page.
 //
-// Safety of the in-place append: a block writes only row `pos` of its own
-// lane, and only its group's D-slice of that row; it reads only rows
-// `< pos` of its own lane's blocks.  Lanes own disjoint blocks (the
-// allocator hands out distinct tail blocks), so no block reads a row that
-// another block writes.  The one shared target is the null block 0, which
-// inactive lanes (pos == 0) and positions past the table write and no
-// active lane ever reads.
+// Safety of the in-place append: split 0 of (group, lane) writes only row
+// `pos` of its lane, and only its group's D-slice of that row; every split
+// reads only rows `< pos` of its own lane's blocks.  Lanes own disjoint
+// blocks (the allocator hands out distinct tail blocks), so no block reads
+// a row that another block writes.  The one shared target is the null
+// block 0, which inactive lanes (pos == 0) and positions past the table
+// write and no active lane ever reads.
 //
-// Traps mirrored from the TPU kernel:
+// Traps mirrored from the TPU kernels:
 //   * q is scaled by D**-0.5 in bf16 *before* RoPE (pallas_attention.py:521);
 //   * RoPE runs in f32, and only the page copy of k is rounded to bf16
 //     (:373-382, :390) -- the current token's score uses the f32 roped k;
 //   * `positions` is the new token's position; 0 marks an inactive lane,
-//     whose output is v_new (only the current token is visible).
-//
-// fused_decode_quant_kernel, below, is the same kernel on an int8 / fp8
-// (e4m3) pool with per-(token, head) float32 scale planes.
-// Replaces: pallas_attention.py:paged_decode_attention_fused_quant
-//           (_fused_decode_quant_kernel).
-// It moves half the page bytes plus 8 bytes of scales per cached position
-// and group, so the same byte bound applies at about 0.53x the bf16 time.
-// Quantize-on-append: the group's D-slice of the roped k (and of the raw v)
-// is one warp's 4 x 32 values, so the per-head amax is a warp max; then
-// scale = max(amax / qmax, 1e-8), codes = x / scale rounded half to even
-// and clipped at 127 (int8) or converted saturating at 448 (fp8), and the
-// code row and its scale go to the lane's block at `pos` (block 0 for
-// inactive lanes and past the table, pallas_attention.py:716-719).  Cached
-// rows score as (q . codes) * k_scale and accumulate p * v_scale * codes,
-// with the row sum l of the unscaled p.  Trap mirrored from the TPU kernel
-// (:657-660): the current token is folded from registers as codes * scale,
-// where the int8 codes are rounded but the fp8 ones are NOT -- the pages
-// get the fp8 value, the softmax the unrounded quotient x / scale.
+//     whose output is v_new (only the current token is visible);
+//   * the table index is clamped, min(t / bs, NB - 1); keys past
+//     NSPLIT * chunk (only a lane past the table has them) are not read.
+// Quantized pools: the group's D-slice of the roped k (and of the raw v)
+// is quantized per head, scale = max(amax / qmax, 1e-8), codes = x / scale
+// rounded half to even and clipped at 127 (int8) or converted saturating
+// at 448 (fp8), and the code row and its scale go to the lane's block at
+// `pos` (block 0 for inactive lanes and past the table,
+// pallas_attention.py:716-719).  Cached rows score as (q . codes) * k_scale
+// and accumulate p * v_scale * codes, with the row sum l of the unscaled p.
+// The current token is folded as codes * scale, where the int8 codes are
+// rounded but the fp8 ones are NOT (:657-660): the pages get the fp8 value,
+// the softmax the unrounded quotient x / scale.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -64,9 +75,12 @@
 
 namespace {
 
-constexpr int D = 128;          // head_dim (the wrapper checks)
-constexpr int WARPS = 4;
-constexpr int PER_LANE = D / 32;  // 4 dims per lane
+constexpr int D = 128;              // head_dim (the wrapper checks)
+constexpr int THREADS = 128;        // thread d owns output dim d
+constexpr int WARPS = THREADS / 32;
+constexpr int PART = D / WARPS;     // dims each warp scores: 32
+constexpr int TILE = 32;            // keys per tile (lane = key)
+constexpr int STAGES = 2;           // tiles in the cp.async ring
 #define kNegInf __int_as_float(0xff800000)  // -inf
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -75,240 +89,155 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  float2 a = __bfloat1622float2(h[0]);
-  float2 b = __bfloat1622float2(h[1]);
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  uint2 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// x * cos + rotate_half(x) * sin for this lane's four dims; the partner
-// dims (d +- 64) live in lane ^ 16.
-__device__ __forceinline__ void rope4(float x[4], const float c[4],
-                                      const float s[4], int lane) {
-  float rot[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float partner = __shfl_xor_sync(0xffffffffu, x[i], 16);
-    rot[i] = lane < 16 ? -partner : partner;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = x[i] * c[i] + rot[i] * s[i];
-}
-
-template <int QPK>
-__global__ void __launch_bounds__(WARPS * 32)
-fused_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
-                    const __nv_bfloat16* __restrict__ k_new,  // [B, KVH, D]
-                    const __nv_bfloat16* __restrict__ v_new,  // [B, KVH, D]
-                    const float* __restrict__ cos_t,          // [B, D]
-                    const float* __restrict__ sin_t,          // [B, D]
-                    __nv_bfloat16* k_pages,                   // [nb, bs, KVH*D]
-                    __nv_bfloat16* v_pages,
-                    const int* __restrict__ table,            // [B, NB]
-                    const int* __restrict__ positions,        // [B]
-                    __nv_bfloat16* __restrict__ out,          // [B, H, D]
-                    int KVH, int bs, int NB, float scale) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int d0 = lane * PER_LANE;
-  const int H = KVH * QPK;
-  const long F = (long)KVH * D;
-  const int pos = positions[b];
-
-  float c[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    c[i] = cos_t[(long)b * D + d0 + i];
-    s[i] = sin_t[(long)b * D + d0 + i];
-  }
-
-  // Queries of this group's heads: scaled in bf16, then roped in f32.
-  float qf[QPK][4];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    load4(q + ((long)b * H + g * QPK + j) * D + d0, qf[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qf[j][i] = __bfloat162float(__float2bfloat16_rn(qf[j][i] * scale));
-    rope4(qf[j], c, s, lane);
-  }
-  float kf[4], vc[4];
-  load4(k_new + ((long)b * KVH + g) * D + d0, kf);
-  rope4(kf, c, s, lane);
-  load4(v_new + ((long)b * KVH + g) * D + d0, vc);
-
-  // Append the roped k and the raw v row (warp 0 owns the write).
-  if (warp == 0) {
-    const int raw_blk = pos / bs;
-    const int blk = (pos > 0 && raw_blk < NB) ? table[(long)b * NB + raw_blk] : 0;
-    const long row = ((long)blk * bs + pos % bs) * F + (long)g * D + d0;
-    store4(k_pages + row, kf);
-    store4(v_pages + row, vc);
-  }
-
-  // Cached positions < pos, strided over the warps, online softmax.
-  float m[QPK], l[QPK], acc[QPK][4];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    m[j] = kNegInf;
-    l[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  }
-  for (int t = warp; t < pos; t += WARPS) {
-    // Clamp the table index like the TPU kernel (positions past the table
-    // never reach here from the engine, which caps every request).
-    const int bi = min(t / bs, NB - 1);
-    const int blk = table[(long)b * NB + bi];
-    const long row = ((long)blk * bs + t % bs) * F + (long)g * D + d0;
-    float kv[4], vv[4];
-    load4(k_pages + row, kv);
-    load4(v_pages + row, vv);
-#pragma unroll
-    for (int j = 0; j < QPK; ++j) {
-      float sc = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc += qf[j][i] * kv[i];
-      sc = warp_sum(sc);
-      const float m_new = fmaxf(m[j], sc);
-      const float alpha = __expf(m[j] - m_new);
-      const float p = __expf(sc - m_new);
-      l[j] = alpha * l[j] + p;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = alpha * acc[j][i] + p * vv[i];
-      m[j] = m_new;
-    }
-  }
-
-  // Current token's score, from registers (every warp computes it).
-  float s_cur[QPK];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    float sc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sc += qf[j][i] * kf[i];
-    s_cur[j] = warp_sum(sc);
-  }
-
-  __shared__ float sm_m[WARPS][QPK];
-  __shared__ float sm_l[WARPS][QPK];
-  __shared__ float sm_acc[WARPS][QPK][D];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    if (lane == 0) {
-      sm_m[warp][j] = m[j];
-      sm_l[warp][j] = l[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sm_acc[warp][j][d0 + i] = acc[j][i];
-  }
-  __syncthreads();
-
-  // Merge the warps' partial states and the current token; warp w
-  // finalizes heads w, w + WARPS, ...  M is finite (s_cur is), so warps
-  // that saw no position (m = -inf) contribute exp(-inf) = 0.
-  for (int j = warp; j < QPK; j += WARPS) {
-    float M = s_cur[j];
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w][j]);
-    const float pc = __expf(s_cur[j] - M);
-    float L = pc;
-    float o[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = pc * vc[i];
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = __expf(sm_m[w][j] - M);
-      L += f * sm_l[w][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] += f * sm_acc[w][j][d0 + i];
-    }
-    const float inv = 1.f / L;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] *= inv;
-    store4(out + ((long)b * H + g * QPK + j) * D + d0, o);
-  }
-}
-
-// int8 / e4m3 codes: four consecutive ones in one 32-bit word.
-template <typename T>
-struct Code;
-
-template <>
-struct Code<int8_t> {
-  static constexpr float kQmax = 127.f;
-  static __device__ __forceinline__ float quantize(float x) {
-    return fminf(fmaxf(rintf(x), -kQmax), kQmax);   // rounded, for the fold
-  }
-  static __device__ __forceinline__ uint32_t to_bits(float xq) {
-    return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(xq)));
-  }
-  static __device__ __forceinline__ void load4(const int8_t* p, float out[4]) {
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    out[0] = c.x; out[1] = c.y; out[2] = c.z; out[3] = c.w;
-  }
-};
-
-template <>
-struct Code<__nv_fp8_e4m3> {
-  static constexpr float kQmax = 448.f;
-  static __device__ __forceinline__ float quantize(float x) {
-    return x;   // not rounded: the TPU kernel folds the unrounded quotient
-  }
-  static __device__ __forceinline__ uint32_t to_bits(float xq) {
-    return static_cast<uint32_t>(
-        __nv_cvt_float_to_fp8(xq, __NV_SATFINITE, __NV_E4M3));
-  }
-  static __device__ __forceinline__ void load4(const __nv_fp8_e4m3* p,
-                                               float out[4]) {
-    const __nv_fp8x2_e4m3* h = reinterpret_cast<const __nv_fp8x2_e4m3*>(p);
-    const float2 a = static_cast<float2>(h[0]);
-    const float2 b = static_cast<float2>(h[1]);
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  }
-};
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-// Quantize this warp's copy of one head's D-slice (4 values per lane):
-// returns the scale; `bits` gets the four codes packed for one 32-bit
-// store and `deq` the values the softmax folds in (codes * scale).
+__device__ __forceinline__ void cp_async16(void* dst, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Page element types: widening 16 bytes of a row, one element, and (for
+// the 1-byte types) quantize-on-append.
 template <typename T>
-__device__ __forceinline__ float quantize4(const float x[4], uint32_t& bits,
-                                           float deq[4]) {
-  float amax = 0.f;
+struct Page;
+
+template <>
+struct Page<__nv_bfloat16> {
+  static constexpr bool kQuant = false;
+  static __device__ __forceinline__ void widen(const uint4& raw, float out[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(x[i]));
-  const float scale = fmaxf(warp_max(amax) / Code<T>::kQmax, 1e-8f);
-  bits = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float xq = Code<T>::quantize(x[i] / scale);
-    bits |= Code<T>::to_bits(xq) << (8 * i);
-    deq[i] = xq * scale;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
   }
-  return scale;
+  static __device__ __forceinline__ float one(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+};
+
+template <>
+struct Page<int8_t> {
+  static constexpr bool kQuant = true;
+  static constexpr float kQmax = 127.f;
+  static __device__ __forceinline__ void widen(const uint4& raw, float out[16]) {
+    const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[4 * i] = c[i].x;
+      out[4 * i + 1] = c[i].y;
+      out[4 * i + 2] = c[i].z;
+      out[4 * i + 3] = c[i].w;
+    }
+  }
+  static __device__ __forceinline__ float one(const int8_t* p) { return *p; }
+  static __device__ __forceinline__ float quantize(float x) {
+    return fminf(fmaxf(rintf(x), -kQmax), kQmax);   // rounded, for the fold
+  }
+  static __device__ __forceinline__ int8_t code(float xq) {
+    return static_cast<int8_t>(xq);
+  }
+};
+
+template <>
+struct Page<__nv_fp8_e4m3> {
+  static constexpr bool kQuant = true;
+  static constexpr float kQmax = 448.f;
+  static __device__ __forceinline__ void widen(const uint4& raw, float out[16]) {
+    const __nv_fp8x2_e4m3* h = reinterpret_cast<const __nv_fp8x2_e4m3*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 f = static_cast<float2>(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ float one(const __nv_fp8_e4m3* p) {
+    return static_cast<float>(*p);
+  }
+  static __device__ __forceinline__ float quantize(float x) {
+    return x;   // not rounded: the TPU kernel folds the unrounded quotient
+  }
+  static __device__ __forceinline__ __nv_fp8_e4m3 code(float xq) {
+    __nv_fp8_e4m3 c;
+    c.__x = __nv_cvt_float_to_fp8(xq, __NV_SATFINITE, __NV_E4M3);
+    return c;
+  }
+};
+
+// x[d] * cos + rotate_half(x)[d] * sin, the partner of dim d at d +- 64.
+// Each product and the sum rounded on its own, as the plain version's
+// separate PyTorch ops round them, so the roped k and the codes appended
+// from it match the plain version bit for bit (a fused multiply-add may
+// differ by an ulp).
+__device__ __forceinline__ float rope(const float* x, int d, float c, float sn) {
+  const float partner = x[d ^ 64];
+  const float rot = d < 64 ? -partner : partner;
+  return __fadd_rn(__fmul_rn(x[d], c), __fmul_rn(rot, sn));
+}
+
+// Shared-memory layout of the split kernel (bytes, 16-aligned pieces).
+template <int QPK, typename T>
+struct Smem {
+  static constexpr int kRow = D * sizeof(T);        // page row slice
+  static constexpr int kKRow = kRow + 16;           // padded: lanes on banks
+  static constexpr int kK = 0;
+  static constexpr int kV = TILE * kKRow;
+  static constexpr int kScales = kV + TILE * kRow;  // k_scale[TILE], v_scale[TILE]
+  static constexpr int kStage =
+      kScales + (Page<T>::kQuant ? 2 * TILE * 4 : 0);
+  static constexpr int kQ = STAGES * kStage;                // f32 [QPK][D]
+  static constexpr int kS = kQ + QPK * D * 4;               // f32 [WARPS][QPK][TILE]
+  static constexpr int kP = kS + WARPS * QPK * TILE * 4;    // f32 [TILE][QPK]
+  static constexpr int kCur = kP + TILE * QPK * 4;          // f32 k, v, raw k [D]
+  static constexpr int kHead = kCur + 3 * D * 4;            // f32 alpha, p_cur [8]
+  static constexpr int kRed = kHead + 2 * 8 * 4;            // f32 [2][WARPS]
+  static constexpr int kTable = kRed + 2 * WARPS * 4;       // int [table_n]
+  static_assert(WARPS * TILE == D, "the partial scores reuse the q staging");
+};
+
+// QPK consecutive floats from shared memory, 16 bytes at a time.
+template <int QPK>
+__device__ __forceinline__ void load_heads(const float* p, float out[QPK]) {
+  if constexpr (QPK % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < QPK; j += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + j);
+      out[j] = f.x; out[j + 1] = f.y; out[j + 2] = f.z; out[j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < QPK; ++j) out[j] = p[j];
+  }
 }
 
 template <int QPK, typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-fused_decode_quant_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
+__global__ void __launch_bounds__(THREADS)
+fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
                           const __nv_bfloat16* __restrict__ k_new,  // [B, KVH, D]
                           const __nv_bfloat16* __restrict__ v_new,  // [B, KVH, D]
                           const float* __restrict__ cos_t,          // [B, D]
@@ -316,212 +245,440 @@ fused_decode_quant_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
                           T* k_pages,                               // [nb, bs, KVH*D]
                           T* v_pages,
                           float* k_scale,                           // [nb, bs, KVH]
-                          float* v_scale,
+                          float* v_scale,                           // (quant only)
                           const int* __restrict__ table,            // [B, NB]
                           const int* __restrict__ positions,        // [B]
-                          __nv_bfloat16* __restrict__ out,          // [B, H, D]
-                          int KVH, int bs, int NB, float scale) {
+                          float* __restrict__ ws_acc,  // [B, KVH, NSPLIT, QPK, D]
+                          float* __restrict__ ws_ml,   // [B, KVH, NSPLIT, QPK, 2]
+                          int KVH, int bs, int NB, int nsplit, int chunk,
+                          unsigned bs_mul, unsigned bs_shr, float scale) {
+  using L = Smem<QPK, T>;
+  using P = Page<T>;
+  constexpr int HPW = (QPK + WARPS - 1) / WARPS;   // heads per warp (softmax)
+  constexpr int E = 16 / sizeof(T);                // elements per 16 bytes
+  constexpr int CPR = L::kRow / 16;                // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+
   const int g = blockIdx.x;
   const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int d0 = lane * PER_LANE;
+  const int s = blockIdx.z;
+  const int d = threadIdx.x;
+  const int warp = d / 32;
+  const int lane = d % 32;
   const int H = KVH * QPK;
   const long F = (long)KVH * D;
   const int pos = positions[b];
+  const int k0 = s * chunk;
+  if (s > 0 && k0 >= pos) return;        // no key: the merge never reads it
+  const int k1 = min(k0 + chunk, pos);   // keys [k0, k1) of this split
 
-  float c[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    c[i] = cos_t[(long)b * D + d0 + i];
-    s[i] = sin_t[(long)b * D + d0 + i];
-  }
-  float qf[QPK][4];
+  float* qs = reinterpret_cast<float*>(smem + L::kQ);
+  float* sp = reinterpret_cast<float*>(smem + L::kS);
+  float* pt = reinterpret_cast<float*>(smem + L::kP);
+  float* kcur = reinterpret_cast<float*>(smem + L::kCur);
+  float* vcur = kcur + D;
+  float* kraw = vcur + D;
+  float* alpha_s = reinterpret_cast<float*>(smem + L::kHead);
+  float* pcur = alpha_s + 8;
+  float* red = reinterpret_cast<float*>(smem + L::kRed);
+  int* tbl = reinterpret_cast<int*>(smem + L::kTable);
+
+  // pos / bs by multiply and shift (mul = 0 marks bs == 1).
+  auto div_bs = [&](int t) {
+    return bs_mul ? static_cast<int>(__umulhi(static_cast<unsigned>(t), bs_mul) >> bs_shr) : t;
+  };
+
+  // Stage the bf16-scaled q (in the partial-score buffer), split 0's raw
+  // k, and the table entries this split's keys use.
+  const float c = cos_t[(long)b * D + d];
+  const float sn = sin_t[(long)b * D + d];
 #pragma unroll
   for (int j = 0; j < QPK; ++j) {
-    load4(q + ((long)b * H + g * QPK + j) * D + d0, qf[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qf[j][i] = __bfloat162float(__float2bfloat16_rn(qf[j][i] * scale));
-    rope4(qf[j], c, s, lane);
+    const float x = __bfloat162float(q[((long)b * H + g * QPK + j) * D + d]);
+    sp[j * D + d] = __bfloat162float(__float2bfloat16_rn(x * scale));
   }
-  float kf[4], vf[4];
-  load4(k_new + ((long)b * KVH + g) * D + d0, kf);
-  rope4(kf, c, s, lane);
-  load4(v_new + ((long)b * KVH + g) * D + d0, vf);
-
-  // Quantize-on-append (every warp computes it; warp 0 writes).
-  uint32_t kbits, vbits;
-  float kdeq[4], vdeq[4];
-  const float ks_cur = quantize4<T>(kf, kbits, kdeq);
-  const float vs_cur = quantize4<T>(vf, vbits, vdeq);
-  if (warp == 0) {
-    const int raw_blk = pos / bs;
-    const int blk = (pos > 0 && raw_blk < NB) ? table[(long)b * NB + raw_blk] : 0;
-    const long slot = (long)blk * bs + pos % bs;
-    *reinterpret_cast<uint32_t*>(k_pages + slot * F + (long)g * D + d0) = kbits;
-    *reinterpret_cast<uint32_t*>(v_pages + slot * F + (long)g * D + d0) = vbits;
-    if (lane == 0) {
-      k_scale[slot * KVH + g] = ks_cur;
-      v_scale[slot * KVH + g] = vs_cur;
-    }
+  float kx = 0.f, vx = 0.f;
+  if (s == 0) {
+    kx = __bfloat162float(k_new[((long)b * KVH + g) * D + d]);
+    vx = __bfloat162float(v_new[((long)b * KVH + g) * D + d]);
+    kraw[d] = kx;
   }
-
-  // Cached positions < pos, strided over the warps, online softmax.
-  float m[QPK], l[QPK], acc[QPK][4];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    m[j] = kNegInf;
-    l[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  }
-  for (int t = warp; t < pos; t += WARPS) {
-    const int bi = min(t / bs, NB - 1);
-    const int blk = table[(long)b * NB + bi];
-    const long slot = (long)blk * bs + t % bs;
-    float kv[4], vv[4];
-    Code<T>::load4(k_pages + slot * F + (long)g * D + d0, kv);
-    Code<T>::load4(v_pages + slot * F + (long)g * D + d0, vv);
-    const float ks_t = k_scale[slot * KVH + g];
-    const float vs_t = v_scale[slot * KVH + g];
-#pragma unroll
-    for (int j = 0; j < QPK; ++j) {
-      float sc = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc += qf[j][i] * kv[i];
-      sc = warp_sum(sc) * ks_t;
-      const float m_new = fmaxf(m[j], sc);
-      const float alpha = __expf(m[j] - m_new);
-      const float p = __expf(sc - m_new);
-      l[j] = alpha * l[j] + p;
-      const float pv = p * vs_t;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = alpha * acc[j][i] + pv * vv[i];
-      m[j] = m_new;
-    }
-  }
-
-  // Current token's score, from registers: q . (codes * scale).
-  float s_cur[QPK];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    float sc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sc += qf[j][i] * kdeq[i];
-    s_cur[j] = warp_sum(sc);
-  }
-
-  __shared__ float sm_m[WARPS][QPK];
-  __shared__ float sm_l[WARPS][QPK];
-  __shared__ float sm_acc[WARPS][QPK][D];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) {
-    if (lane == 0) {
-      sm_m[warp][j] = m[j];
-      sm_l[warp][j] = l[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sm_acc[warp][j][d0 + i] = acc[j][i];
+  const int fb = min(div_bs(k0), NB - 1);
+  if (k1 > k0) {
+    const int nt = min(div_bs(k1 - 1), NB - 1) - fb + 1;
+    for (int i = d; i < nt; i += THREADS) tbl[i] = table[(long)b * NB + fb + i];
   }
   __syncthreads();
 
-  for (int j = warp; j < QPK; j += WARPS) {
-    float M = s_cur[j];
+  // RoPE: x * cos + rotate_half(x) * sin, partner dim d +- 64.
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w][j]);
-    const float pc = __expf(s_cur[j] - M);
-    float L = pc;
-    float o[4];
+  for (int j = 0; j < QPK; ++j) qs[j * D + d] = rope(sp + j * D, d, c, sn);
+  if (s == 0) {
+    const float kf = rope(kraw, d, c, sn);
+    // Append the roped k and the raw v row at `pos` (quantized per head on
+    // a 1-byte pool), and keep what the current token folds in.
+    const int raw_blk = pos / bs;
+    const int blk = (pos > 0 && raw_blk < NB) ? table[(long)b * NB + raw_blk] : 0;
+    const long slot = (long)blk * bs + pos % bs;
+    const long at = slot * F + (long)g * D + d;
+    if constexpr (P::kQuant) {
+      const float ka = warp_max(fabsf(kf));
+      const float va = warp_max(fabsf(vx));
+      if (lane == 0) {
+        red[warp] = ka;
+        red[WARPS + warp] = va;
+      }
+      __syncthreads();
+      float kam = red[0], vam = red[WARPS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = pc * vdeq[i];
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = __expf(sm_m[w][j] - M);
-      L += f * sm_l[w][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] += f * sm_acc[w][j][d0 + i];
+      for (int w = 1; w < WARPS; ++w) {
+        kam = fmaxf(kam, red[w]);
+        vam = fmaxf(vam, red[WARPS + w]);
+      }
+      const float ks_cur = fmaxf(kam / P::kQmax, 1e-8f);
+      const float vs_cur = fmaxf(vam / P::kQmax, 1e-8f);
+      const float kq = P::quantize(kf / ks_cur);
+      const float vq = P::quantize(vx / vs_cur);
+      k_pages[at] = P::code(kq);
+      v_pages[at] = P::code(vq);
+      if (d == 0) {
+        k_scale[slot * KVH + g] = ks_cur;
+        v_scale[slot * KVH + g] = vs_cur;
+      }
+      kcur[d] = kq * ks_cur;
+      vcur[d] = vq * vs_cur;
+    } else {
+      k_pages[at] = __float2bfloat16_rn(kf);
+      v_pages[at] = v_new[((long)b * KVH + g) * D + d];
+      kcur[d] = kf;
+      vcur[d] = vx;
     }
-    const float inv = 1.f / L;
+  }
+
+  // Online softmax state: m, l per head (warp w owns heads w, w + WARPS,
+  // ...; its lanes hold copies), acc[j] = output dim d of head j.
+  float m[HPW], l[HPW], acc[QPK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] *= inv;
-    store4(out + ((long)b * H + g * QPK + j) * D + d0, o);
+  for (int jj = 0; jj < HPW; ++jj) {
+    m[jj] = kNegInf;
+    l[jj] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < QPK; ++j) acc[j] = 0.f;
+
+  // Copy tile i (keys k0 + 32 i ...) into ring stage st; rows past k1 are
+  // zero-filled (src-size 0), so no stale value meets a zero weight.
+  auto load_tile = [&](int i, int st) {
+    unsigned char* base = smem + st * L::kStage;
+    const int t0 = k0 + i * TILE;
+#pragma unroll
+    for (int it = 0; it < TILE * CPR / THREADS; ++it) {
+      const int idx = d + it * THREADS;
+      const int r = idx / CPR, ch = idx % CPR;
+      const int t = t0 + r;
+      const bool ok = t < k1;
+      const int q_ = div_bs(t);
+      const int blk = ok ? tbl[min(q_, NB - 1) - fb] : 0;
+      const long off = ((long)blk * bs + (t - q_ * bs)) * F + (long)g * D;
+      const unsigned char* kp = reinterpret_cast<const unsigned char*>(k_pages);
+      const unsigned char* vp = reinterpret_cast<const unsigned char*>(v_pages);
+      const long bo = off * (long)sizeof(T) + ch * 16;
+      cp_async16(base + L::kK + r * L::kKRow + ch * 16, ok ? kp + bo : kp, ok ? 16 : 0);
+      cp_async16(base + L::kV + r * L::kRow + ch * 16, ok ? vp + bo : vp, ok ? 16 : 0);
+    }
+    if constexpr (P::kQuant) {
+      if (d < 2 * TILE) {
+        const int r = d % TILE;
+        const int t = t0 + r;
+        const bool ok = t < k1;
+        const int q_ = div_bs(t);
+        const int blk = ok ? tbl[min(q_, NB - 1) - fb] : 0;
+        const long at = ((long)blk * bs + (t - q_ * bs)) * KVH + g;
+        const float* src = d < TILE ? k_scale : v_scale;
+        cp_async4(base + L::kScales + d * 4, ok ? src + at : src, ok ? 4 : 0);
+      }
+    }
+  };
+
+  const int ntiles = k1 > k0 ? (k1 - k0 + TILE - 1) / TILE : 0;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ntiles) load_tile(i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();          // tile i landed for all; stage (i-1) is free
+    {
+      const int nx = i + STAGES - 1;
+      if (nx < ntiles) load_tile(nx, nx % STAGES);
+      cp_async_commit();
+    }
+    const unsigned char* base = smem + (i % STAGES) * L::kStage;
+
+    // Scores: warp w, lane = key, dims [32w, 32w + 32), every head.
+    {
+      float sc[QPK];
+#pragma unroll
+      for (int j = 0; j < QPK; ++j) sc[j] = 0.f;
+      const unsigned char* krow = base + L::kK + lane * L::kKRow + warp * PART * sizeof(T);
+#pragma unroll
+      for (int ch = 0; ch < PART * (int)sizeof(T) / 16; ++ch) {
+        float kv[E];
+        P::widen(*reinterpret_cast<const uint4*>(krow + ch * 16), kv);
+        const int d0 = warp * PART + ch * E;
+#pragma unroll
+        for (int j = 0; j < QPK; ++j) {
+#pragma unroll
+          for (int e = 0; e < E; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qs + j * D + d0 + e);
+            sc[j] += qv.x * kv[e] + qv.y * kv[e + 1] + qv.z * kv[e + 2] + qv.w * kv[e + 3];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QPK; ++j) sp[(warp * QPK + j) * TILE + lane] = sc[j];
+    }
+    __syncthreads();
+
+    // Softmax: warp w takes heads w, w + WARPS, ...; lane = key.
+    {
+      const int t = k0 + i * TILE + lane;
+      const bool ok = t < k1;
+      const float* scl = reinterpret_cast<const float*>(base + L::kScales);
+#pragma unroll
+      for (int jj = 0; jj < HPW; ++jj) {
+        const int j = warp + jj * WARPS;
+        if (j < QPK) {
+          float x = sp[(0 * QPK + j) * TILE + lane];
+#pragma unroll
+          for (int w = 1; w < WARPS; ++w) x += sp[(w * QPK + j) * TILE + lane];
+          if constexpr (P::kQuant) x *= scl[lane];
+          x = ok ? x : kNegInf;
+          const float m_new = fmaxf(m[jj], warp_max(x));   // key 0 is live
+          const float alpha = __expf(m[jj] - m_new);
+          const float p = ok ? __expf(x - m_new) : 0.f;
+          l[jj] = alpha * l[jj] + warp_sum(p);
+          m[jj] = m_new;
+          float pv = p;
+          if constexpr (P::kQuant) pv *= scl[TILE + lane];
+          pt[lane * QPK + j] = pv;
+          if (lane == 0) alpha_s[j] = alpha;
+        }
+      }
+    }
+    __syncthreads();
+
+    // PV: thread d, every head, every key of the tile.
+    {
+      float al[QPK];
+#pragma unroll
+      for (int j = 0; j < QPK; ++j) {
+        al[j] = alpha_s[j];
+        acc[j] *= al[j];
+      }
+      const T* vcol = reinterpret_cast<const T*>(base + L::kV) + d;
+#pragma unroll 8
+      for (int k = 0; k < TILE; ++k) {
+        const float v = P::one(vcol + k * D);
+        float pk[QPK];
+        load_heads<QPK>(pt + k * QPK, pk);
+#pragma unroll
+        for (int j = 0; j < QPK; ++j) acc[j] += pk[j] * v;
+      }
+    }
+  }
+
+  // Split 0 folds the current token in, from registers and shared memory
+  // (never from the page): q . k_cur in the lanes' four dims, warp sum.
+  if (s == 0) {
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < HPW; ++jj) {
+      const int j = warp + jj * WARPS;
+      if (j < QPK) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x += qs[j * D + lane * 4 + e] * kcur[lane * 4 + e];
+        x = warp_sum(x);
+        const float m_new = fmaxf(m[jj], x);
+        const float alpha = __expf(m[jj] - m_new);
+        const float pc = __expf(x - m_new);
+        l[jj] = alpha * l[jj] + pc;
+        m[jj] = m_new;
+        if (lane == 0) {
+          alpha_s[j] = alpha;
+          pcur[j] = pc;
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < QPK; ++j) acc[j] = alpha_s[j] * acc[j] + pcur[j] * vcur[d];
+  }
+
+  // The split's partial state.
+  const long base = (((long)b * KVH + g) * nsplit + s) * QPK;
+#pragma unroll
+  for (int j = 0; j < QPK; ++j) ws_acc[(base + j) * D + d] = acc[j];
+#pragma unroll
+  for (int jj = 0; jj < HPW; ++jj) {
+    const int j = warp + jj * WARPS;
+    if (j < QPK && lane == 0) {
+      ws_ml[(base + j) * 2] = m[jj];
+      ws_ml[(base + j) * 2 + 1] = l[jj];
+    }
   }
 }
 
+// Merge the live splits of (group, lane) by log-sum-exp.  Split 0 always
+// holds the current token, so M is finite; splits past the lane's position
+// wrote nothing and are not read.  Warp w takes the weights exp(m_s - M)
+// and L of heads w, w + WARPS, ... (lane = split); thread d then sums its
+// dim of every head over the splits, in split order, with independent
+// loads.  Every sum has a fixed order: a rerun gives the same bits.
+constexpr int MAX_SPLITS = 64;   // ops/paged_attention.py:DECODE_MAX_SPLITS
+
 template <int QPK>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   const void* cos_t, const void* sin_t, void* k_pages,
-                   void* v_pages, const void* table, const void* positions,
-                   void* out, int B, int KVH, int bs, int NB, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(KVH, B);
-  fused_decode_kernel<QPK><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<__nv_bfloat16*>(k_pages), static_cast<__nv_bfloat16*>(v_pages),
-      static_cast<const int*>(table), static_cast<const int*>(positions),
-      static_cast<__nv_bfloat16*>(out), KVH, bs, NB, scale);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(THREADS)
+fused_decode_merge_kernel(const float* __restrict__ ws_acc,
+                          const float* __restrict__ ws_ml,
+                          const int* __restrict__ positions,
+                          __nv_bfloat16* __restrict__ out,   // [B, H, D]
+                          int KVH, int nsplit, int chunk) {
+  constexpr int HPW = (QPK + WARPS - 1) / WARPS;
+  __shared__ float sm_ml[MAX_SPLITS * QPK * 2];
+  __shared__ __align__(16) float sm_f[MAX_SPLITS * QPK];
+  __shared__ float sm_l[QPK];
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int d = threadIdx.x;
+  const int warp = d / 32;
+  const int lane = d % 32;
+  const int pos = positions[b];
+  const int n = min(nsplit, max(1, (pos + chunk - 1) / chunk));
+  const long base = ((long)b * KVH + g) * nsplit * QPK;
+  for (int i = d; i < n * QPK * 2; i += THREADS) sm_ml[i] = ws_ml[base * 2 + i];
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < HPW; ++jj) {
+    const int j = warp + jj * WARPS;
+    if (j < QPK) {
+      float M = kNegInf;
+      for (int s = lane; s < n; s += 32) M = fmaxf(M, sm_ml[(s * QPK + j) * 2]);
+      M = warp_max(M);
+      float L = 0.f;
+      for (int s = lane; s < n; s += 32) {
+        const float f = __expf(sm_ml[(s * QPK + j) * 2] - M);
+        sm_f[s * QPK + j] = f;
+        L += f * sm_ml[(s * QPK + j) * 2 + 1];
+      }
+      L = warp_sum(L);
+      if (lane == 0) sm_l[j] = L;
+    }
+  }
+  __syncthreads();
+  float o[QPK];
+#pragma unroll
+  for (int j = 0; j < QPK; ++j) o[j] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n; ++s) {
+    float f[QPK];
+    load_heads<QPK>(sm_f + s * QPK, f);
+#pragma unroll
+    for (int j = 0; j < QPK; ++j)
+      o[j] += f[j] * ws_acc[(base + s * QPK + j) * D + d];
+  }
+#pragma unroll
+  for (int j = 0; j < QPK; ++j)
+    out[((long)b * KVH * QPK + g * QPK + j) * D + d] =
+        __float2bfloat16_rn(o[j] / sm_l[j]);
 }
 
 template <int QPK, typename T>
-cudaError_t launch_quant(const void* q, const void* k_new, const void* v_new,
-                         const void* cos_t, const void* sin_t, void* k_pages,
-                         void* v_pages, void* k_scale, void* v_scale,
-                         const void* table, const void* positions, void* out,
-                         int B, int KVH, int bs, int NB, float scale,
-                         cudaStream_t stream) {
-  dim3 grid(KVH, B);
-  fused_decode_quant_kernel<QPK, T><<<grid, WARPS * 32, 0, stream>>>(
+cudaError_t launch(const void* q, const void* k_new, const void* v_new,
+                   const void* cos_t, const void* sin_t, void* k_pages,
+                   void* v_pages, void* k_scale, void* v_scale,
+                   const void* table, const void* positions, void* out,
+                   void* ws, int B, int KVH, int bs, int NB, int nsplit,
+                   int chunk, float scale, cudaStream_t stream) {
+  using L = Smem<QPK, T>;
+  if (bs < 1 || NB < 1 || chunk < TILE || chunk % TILE != 0 || nsplit < 1 ||
+      nsplit > MAX_SPLITS || (long)nsplit * chunk < (long)NB * bs)
+    return cudaErrorInvalidValue;
+  const int table_n = (chunk - 1) / bs + 2;
+  const size_t smem = L::kTable + 4 * (size_t)table_n;
+  static size_t configured = 48 * 1024;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_decode_split_kernel<QPK, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  // pos / bs == __umulhi(pos, mul) >> shr for pos < 2^31, with mul =
+  // ceil(2^p / bs), p = 31 + ceil(log2 bs); mul = 0 marks bs == 1.
+  unsigned mul = 0, shr = 0;
+  if (bs > 1) {
+    int lg = 31 - __builtin_clz(static_cast<unsigned>(bs));
+    lg += (bs & (bs - 1)) != 0;
+    mul = static_cast<unsigned>(((1ull << (31 + lg)) + bs - 1) / bs);
+    shr = static_cast<unsigned>(lg - 1);
+  }
+  float* acc = static_cast<float*>(ws);
+  float* ml = acc + (size_t)B * KVH * nsplit * QPK * D;
+  fused_decode_split_kernel<QPK, T><<<dim3(KVH, B, nsplit), THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<T*>(k_pages), static_cast<T*>(v_pages),
       static_cast<float*>(k_scale), static_cast<float*>(v_scale),
-      static_cast<const int*>(table), static_cast<const int*>(positions),
-      static_cast<__nv_bfloat16*>(out), KVH, bs, NB, scale);
+      static_cast<const int*>(table), static_cast<const int*>(positions), acc,
+      ml, KVH, bs, NB, nsplit, chunk, mul, shr, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  fused_decode_merge_kernel<QPK><<<dim3(KVH, B), THREADS, 0, stream>>>(
+      acc, ml, static_cast<const int*>(positions),
+      static_cast<__nv_bfloat16*>(out), KVH, nsplit, chunk);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_quant(const void* q, const void* k_new, const void* v_new,
-                   const void* cos_t, const void* sin_t, void* k_pages,
-                   void* v_pages, void* k_scale, void* v_scale,
-                   const void* table, const void* positions, void* out, int B,
-                   int H, int KVH, int bs, int NB, float scale, void* stream) {
+int dispatch(const void* q, const void* k_new, const void* v_new,
+             const void* cos_t, const void* sin_t, void* k_pages,
+             void* v_pages, void* k_scale, void* v_scale, const void* table,
+             const void* positions, void* out, void* ws, int B, int H,
+             int KVH, int bs, int NB, int nsplit, int chunk, float scale,
+             void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H / KVH) {
-    case 1: return launch_quant<1, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, B, KVH, bs, NB, scale, st);
-    case 2: return launch_quant<2, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, B, KVH, bs, NB, scale, st);
-    case 4: return launch_quant<4, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, B, KVH, bs, NB, scale, st);
-    case 8: return launch_quant<8, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, B, KVH, bs, NB, scale, st);
+    case 1: return launch<1, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
+    case 2: return launch<2, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
+    case 4: return launch<4, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
+    case 8: return launch<8, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// `workspace` holds B * KVH * nsplit * qpk * (D + 2) floats; nsplit and
+// chunk (a multiple of 32, nsplit * chunk >= NB * bs) come from
+// ops/paged_attention.py:decode_splits.
 extern "C" int fused_decode_bf16(const void* q, const void* k_new,
                                  const void* v_new, const void* cos_t,
                                  const void* sin_t, void* k_pages,
                                  void* v_pages, const void* table,
-                                 const void* positions, void* out, int B,
-                                 int H, int KVH, int bs, int NB, float scale,
-                                 void* stream) {
-  if (B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H / KVH) {
-    case 1: return launch<1>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, table, positions, out, B, KVH, bs, NB, scale, st);
-    case 2: return launch<2>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, table, positions, out, B, KVH, bs, NB, scale, st);
-    case 4: return launch<4>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, table, positions, out, B, KVH, bs, NB, scale, st);
-    case 8: return launch<8>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, table, positions, out, B, KVH, bs, NB, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                 const void* positions, void* out,
+                                 void* workspace, int B, int H, int KVH,
+                                 int bs, int NB, int nsplit, int chunk,
+                                 float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k_new, v_new, cos_t, sin_t, k_pages,
+                                 v_pages, nullptr, nullptr, table, positions,
+                                 out, workspace, B, H, KVH, bs, NB, nsplit,
+                                 chunk, scale, stream);
 }
 
 extern "C" int fused_decode_int8(const void* q, const void* k_new,
@@ -529,11 +686,12 @@ extern "C" int fused_decode_int8(const void* q, const void* k_new,
                                  const void* sin_t, void* k_pages,
                                  void* v_pages, void* k_scale, void* v_scale,
                                  const void* table, const void* positions,
-                                 void* out, int B, int H, int KVH, int bs,
-                                 int NB, float scale, void* stream) {
-  return dispatch_quant<int8_t>(q, k_new, v_new, cos_t, sin_t, k_pages,
-                                v_pages, k_scale, v_scale, table, positions,
-                                out, B, H, KVH, bs, NB, scale, stream);
+                                 void* out, void* workspace, int B, int H,
+                                 int KVH, int bs, int NB, int nsplit,
+                                 int chunk, float scale, void* stream) {
+  return dispatch<int8_t>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages,
+                          k_scale, v_scale, table, positions, out, workspace,
+                          B, H, KVH, bs, NB, nsplit, chunk, scale, stream);
 }
 
 extern "C" int fused_decode_fp8(const void* q, const void* k_new,
@@ -541,10 +699,11 @@ extern "C" int fused_decode_fp8(const void* q, const void* k_new,
                                 const void* sin_t, void* k_pages,
                                 void* v_pages, void* k_scale, void* v_scale,
                                 const void* table, const void* positions,
-                                void* out, int B, int H, int KVH, int bs,
-                                int NB, float scale, void* stream) {
-  return dispatch_quant<__nv_fp8_e4m3>(q, k_new, v_new, cos_t, sin_t, k_pages,
-                                       v_pages, k_scale, v_scale, table,
-                                       positions, out, B, H, KVH, bs, NB,
-                                       scale, stream);
+                                void* out, void* workspace, int B, int H,
+                                int KVH, int bs, int NB, int nsplit,
+                                int chunk, float scale, void* stream) {
+  return dispatch<__nv_fp8_e4m3>(q, k_new, v_new, cos_t, sin_t, k_pages,
+                                 v_pages, k_scale, v_scale, table, positions,
+                                 out, workspace, B, H, KVH, bs, NB, nsplit,
+                                 chunk, scale, stream);
 }

@@ -38,9 +38,9 @@ _F = ctypes.c_float
 # planes after the pages.
 _FLASH = [_P] * 7 + [_I] * 6 + [_P]      # q, kp, vp, table, start, lengths,
 #                                          out, B, S, H, KVH, bs, NB, stream
-_FUSED = [_P] * 10 + [_I] * 5 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
-#                           table, positions, out, B, H, KVH, bs, NB, scale,
-#                           stream
+_FUSED = [_P] * 11 + [_I] * 7 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
+#             table, positions, out, workspace, B, H, KVH, bs, NB, nsplit,
+#             chunk, scale, stream
 _SIGNATURES = {
     "flash_prefill_bf16": ("flash_prefill", _FLASH),
     "flash_prefill_int8": ("flash_prefill", [_P] * 2 + _FLASH),
@@ -72,6 +72,8 @@ def _check(cond: bool, what: str) -> None:
 
 
 def _int32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
 
 
@@ -82,6 +84,38 @@ def _stream(device: torch.device) -> int:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# Split-KV decode (csrc/fused_decode.cu): each lane's context is cut into
+# chunks of keys, one block each, at most DECODE_MAX_SPLITS per lane (the
+# chunk grows past that); chunks are whole 32-key tiles.  Keys per chunk
+# by page element bytes: chip_smoke.py phase 4's sweep found 256 fastest
+# on bf16 pages and 128 on int8/fp8 pages, whose tiles carry half the
+# bytes for the same arithmetic.
+DECODE_CHUNK = {2: 256, 1: 128}
+DECODE_MAX_SPLITS = 64
+DECODE_TILE = 32
+
+
+def decode_splits(max_blocks: int, block_size: int,
+                  page_bytes: int) -> tuple[int, int]:
+    """(nsplit, chunk) of the split decode kernel for a block table of
+    ``max_blocks`` x ``block_size`` keys on pages of ``page_bytes``-byte
+    elements: host integers from the table width, never from the
+    positions, so the grid is fixed for a table."""
+    keys = max(max_blocks * block_size, 1)
+    chunk = DECODE_CHUNK[page_bytes]
+    if -(-keys // chunk) > DECODE_MAX_SPLITS:
+        per = -(-keys // DECODE_MAX_SPLITS)
+        chunk = -(-per // DECODE_TILE) * DECODE_TILE
+    return -(-keys // chunk), chunk
+
+
+def decode_workspace_floats(B: int, KVH: int, qpk: int, nsplit: int,
+                            D: int = 128) -> int:
+    """float32 slots of the split decode workspace: a partial (m, l,
+    acc[D]) per (lane, kv head, split, query head of the group)."""
+    return B * KVH * nsplit * qpk * (D + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -118,21 +152,26 @@ def _check_pool(k_pages, v_pages, k_scale, v_scale, D, what):
     int8/fp8 pages with float32 scale planes [num_blocks, bs, KVH].
     Returns the symbol suffix ("bf16", "int8", "fp8")."""
     nb, bs, F = k_pages.shape
-    _check(k_pages.is_contiguous() and v_pages.is_contiguous()
-           and v_pages.shape == k_pages.shape
-           and v_pages.dtype == k_pages.dtype, f"{what}: pages must be "
-           "contiguous and alike")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()
+            and v_pages.shape == k_pages.shape
+            and v_pages.dtype == k_pages.dtype):
+        raise ValueError(f"{what}: pages must be contiguous and alike")
     if k_scale is None:
-        _check(k_pages.dtype == torch.bfloat16 and v_scale is None,
-               f"{what}: an unquantized pool must be bf16")
+        if not (k_pages.dtype == torch.bfloat16 and v_scale is None):
+            raise ValueError(f"{what}: an unquantized pool must be bf16")
         return "bf16"
-    _check(k_pages.dtype in _QUANT_SUFFIX, f"{what}: a quantized pool must "
-           f"be int8 or float8_e4m3fn, got {k_pages.dtype}")
-    _check(v_scale is not None and all(
-        t.dtype == torch.float32 and t.is_contiguous()
-        and t.shape == (nb, bs, F // D) for t in (k_scale, v_scale)),
-        f"{what}: scale planes must be contiguous float32 [nb, bs, KVH]")
-    return _QUANT_SUFFIX[k_pages.dtype]
+    suffix = _QUANT_SUFFIX.get(k_pages.dtype)
+    if suffix is None:
+        raise ValueError(f"{what}: a quantized pool must be int8 or "
+                         f"float8_e4m3fn, got {k_pages.dtype}")
+    planes = (nb, bs, F // D)
+    if not (v_scale is not None
+            and k_scale.dtype == v_scale.dtype == torch.float32
+            and k_scale.is_contiguous() and v_scale.is_contiguous()
+            and k_scale.shape == planes and v_scale.shape == planes):
+        raise ValueError(f"{what}: scale planes must be contiguous float32 "
+                         "[nb, bs, KVH]")
+    return suffix
 
 
 def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths,
@@ -213,6 +252,48 @@ def paged_decode_attention_fused_plain(q, k_new, v_new, cos, sin, k_pages,
     return attn, k_pages, v_pages
 
 
+def _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
+                  block_table, positions, scales=()):
+    """Launch csrc/fused_decode.cu (checks as the other wrappers): the
+    split kernel and its merge, on the workspace of ``decode_splits``."""
+    B, S, H, D = q.shape
+    _, bs, F = k_pages.shape
+    KVH = F // D
+    # One test, and a message formatted only on failure: this runs once
+    # per layer and decode step.
+    if not (S == 1 and q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16
+            and D == 128 and F == KVH * D and H % KVH == 0
+            and H // KVH in (1, 2, 4, 8) and k_new.shape == (B, 1, KVH, D)
+            and v_new.shape == k_new.shape):
+        raise ValueError(
+            f"fused decode takes one bf16 query token per lane, head_dim "
+            f"128 and 1, 2, 4 or 8 query heads per kv head: got q "
+            f"{tuple(q.shape)} {q.dtype}, k_new {tuple(k_new.shape)} "
+            f"{k_new.dtype}, v_new {tuple(v_new.shape)} {v_new.dtype}, "
+            f"pages {tuple(k_pages.shape)}")
+    qc, kc, vc = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    # [B, 1, D] angles: the kernel reads B * D contiguous floats.
+    cs, sn = (t if t.dtype == torch.float32 and t.is_contiguous()
+              else t.float().contiguous() for t in (cos, sin))
+    table = _int32(block_table)
+    pos = _int32(positions)
+    nsplit, chunk = decode_splits(table.shape[1], bs, k_pages.element_size())
+    fn = _kernel(f"fused_decode_{suffix}")
+    # Allocated per call (the caching allocator makes that cheap); only
+    # the live splits touch it.
+    ws = torch.empty(decode_workspace_floats(B, KVH, H // KVH, nsplit, D),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty_like(qc)
+    err = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cs.data_ptr(),
+             sn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             *(t.data_ptr() for t in scales), table.data_ptr(),
+             pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             B, H, KVH, bs, table.shape[1], nsplit, chunk, D ** -0.5,
+             _stream(q.device))
+    _raise_on(err, f"fused_decode_{suffix}")
+    return out
+
+
 def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
                                  block_table, positions):
     """One decode token per lane: RoPE on q and the new k, append the roped
@@ -229,31 +310,9 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
         return paged_decode_attention_fused_plain(
             q, k_new, v_new, cos, sin, k_pages, v_pages, block_table,
             positions)
-    B, S, H, D = q.shape
-    nb, bs, F = k_pages.shape
-    KVH = F // D
-    _check(S == 1, f"fused decode takes one query token, got {S}")
-    _check(all(t.dtype == torch.bfloat16
-               for t in (q, k_new, v_new, k_pages, v_pages)),
-           "fused decode takes bf16")
-    _check(D == 128 and F == KVH * D and H % KVH == 0
-           and H // KVH in (1, 2, 4, 8)
-           and k_new.shape == (B, 1, KVH, D) and v_new.shape == k_new.shape,
-           f"fused decode geometry unsupported (H={H}, F={F}, D={D})")
-    _check(k_pages.is_contiguous() and v_pages.is_contiguous()
-           and v_pages.shape == k_pages.shape, "pages must be contiguous")
-    qc, kc, vc = q.contiguous(), k_new.contiguous(), v_new.contiguous()
-    cs = cos.to(torch.float32).reshape(B, D).contiguous()
-    sn = sin.to(torch.float32).reshape(B, D).contiguous()
-    table = _int32(block_table)
-    pos = _int32(positions)
-    out = torch.empty_like(qc)
-    err = _kernel("fused_decode_bf16")(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cs.data_ptr(),
-        sn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, H, KVH, bs, table.shape[1], D ** -0.5, _stream(q.device))
-    _raise_on(err, "fused_decode_bf16")
+    _check_pool(k_pages, v_pages, None, None, q.shape[-1], "fused decode")
+    out = _fused_decode("bf16", q, k_new, v_new, cos, sin, k_pages, v_pages,
+                        block_table, positions)
     paged_decode_attention_fused.launches += 1
     return out, k_pages, v_pages
 
@@ -326,32 +385,12 @@ def paged_decode_attention_fused_quant(q, k_new, v_new, cos, sin, k_pages,
         return paged_decode_attention_fused_quant_plain(
             q, k_new, v_new, cos, sin, k_pages, v_pages, k_scale, v_scale,
             block_table, positions)
-    B, S, H, D = q.shape
-    nb, bs, F = k_pages.shape
-    KVH = F // D
-    _check(S == 1, f"fused quant decode takes one query token, got {S}")
-    _check(all(t.dtype == torch.bfloat16 for t in (q, k_new, v_new)),
-           "fused quant decode takes bf16 activations")
-    _check(D == 128 and F == KVH * D and H % KVH == 0
-           and H // KVH in (1, 2, 4, 8)
-           and k_new.shape == (B, 1, KVH, D) and v_new.shape == k_new.shape,
-           f"fused quant decode geometry unsupported (H={H}, F={F}, D={D})")
-    _check(k_scale is not None, "fused quant decode needs the scale planes")
-    suffix = _check_pool(k_pages, v_pages, k_scale, v_scale, D,
+    if k_scale is None:
+        raise ValueError("fused quant decode needs the scale planes")
+    suffix = _check_pool(k_pages, v_pages, k_scale, v_scale, q.shape[-1],
                          "fused quant decode")
-    qc, kc, vc = q.contiguous(), k_new.contiguous(), v_new.contiguous()
-    cs = cos.to(torch.float32).reshape(B, D).contiguous()
-    sn = sin.to(torch.float32).reshape(B, D).contiguous()
-    table = _int32(block_table)
-    pos = _int32(positions)
-    out = torch.empty_like(qc)
-    err = _kernel(f"fused_decode_{suffix}")(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cs.data_ptr(),
-        sn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-        pos.data_ptr(), out.data_ptr(),
-        B, H, KVH, bs, table.shape[1], D ** -0.5, _stream(q.device))
-    _raise_on(err, f"fused_decode_{suffix}")
+    out = _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
+                        block_table, positions, (k_scale, v_scale))
     paged_decode_attention_fused_quant.launches += 1
     return out, k_pages, v_pages, k_scale, v_scale
 
