@@ -68,54 +68,19 @@
 // rounded but the fp8 ones are NOT (:657-660): the pages get the fp8 value,
 // the softmax the unrounded quotient x / scale.
 
-#include <cuda_bf16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "split_kv.cuh"
 
 namespace {
 
-constexpr int D = 128;              // head_dim (the wrapper checks)
-constexpr int THREADS = 128;        // thread d owns output dim d
-constexpr int WARPS = THREADS / 32;
-constexpr int PART = D / WARPS;     // dims each warp scores: 32
-constexpr int TILE = 32;            // keys per tile (lane = key)
-constexpr int STAGES = 2;           // tiles in the cp.async ring
 #define kNegInf __int_as_float(0xff800000)  // -inf
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* gmem,
                                           int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Page element types: widening 16 bytes of a row, one element, and (for
@@ -220,21 +185,6 @@ struct Smem {
   static_assert(WARPS * TILE == D, "the partial scores reuse the q staging");
 };
 
-// QPK consecutive floats from shared memory, 16 bytes at a time.
-template <int QPK>
-__device__ __forceinline__ void load_heads(const float* p, float out[QPK]) {
-  if constexpr (QPK % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < QPK; j += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(p + j);
-      out[j] = f.x; out[j + 1] = f.y; out[j + 2] = f.z; out[j + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < QPK; ++j) out[j] = p[j];
-  }
-}
-
 template <int QPK, typename T>
 __global__ void __launch_bounds__(THREADS)
 fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
@@ -283,10 +233,7 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
   float* red = reinterpret_cast<float*>(smem + L::kRed);
   int* tbl = reinterpret_cast<int*>(smem + L::kTable);
 
-  // pos / bs by multiply and shift (mul = 0 marks bs == 1).
-  auto div_bs = [&](int t) {
-    return bs_mul ? static_cast<int>(__umulhi(static_cast<unsigned>(t), bs_mul) >> bs_shr) : t;
-  };
+  auto div_bs = [&](int t) { return div_block(t, bs_mul, bs_shr); };
 
   // Stage the bf16-scaled q (in the partial-score buffer), split 0's raw
   // k, and the table entries this split's keys use.
@@ -531,14 +478,9 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
   }
 }
 
-// Merge the live splits of (group, lane) by log-sum-exp.  Split 0 always
-// holds the current token, so M is finite; splits past the lane's position
-// wrote nothing and are not read.  Warp w takes the weights exp(m_s - M)
-// and L of heads w, w + WARPS, ... (lane = split); thread d then sums its
-// dim of every head over the splits, in split order, with independent
-// loads.  Every sum has a fixed order: a rerun gives the same bits.
-constexpr int MAX_SPLITS = 64;   // ops/paged_attention.py:DECODE_MAX_SPLITS
-
+// Merge the live splits of (group, lane) by log-sum-exp (split_kv.cuh).
+// Split 0 always holds the current token, so its m is real; splits past
+// the lane's position wrote nothing and are not read.
 template <int QPK>
 __global__ void __launch_bounds__(THREADS)
 fused_decode_merge_kernel(const float* __restrict__ ws_acc,
@@ -546,53 +488,12 @@ fused_decode_merge_kernel(const float* __restrict__ ws_acc,
                           const int* __restrict__ positions,
                           __nv_bfloat16* __restrict__ out,   // [B, H, D]
                           int KVH, int nsplit, int chunk) {
-  constexpr int HPW = (QPK + WARPS - 1) / WARPS;
-  __shared__ float sm_ml[MAX_SPLITS * QPK * 2];
-  __shared__ __align__(16) float sm_f[MAX_SPLITS * QPK];
-  __shared__ float sm_l[QPK];
   const int g = blockIdx.x;
   const int b = blockIdx.y;
-  const int d = threadIdx.x;
-  const int warp = d / 32;
-  const int lane = d % 32;
   const int pos = positions[b];
   const int n = min(nsplit, max(1, (pos + chunk - 1) / chunk));
-  const long base = ((long)b * KVH + g) * nsplit * QPK;
-  for (int i = d; i < n * QPK * 2; i += THREADS) sm_ml[i] = ws_ml[base * 2 + i];
-  __syncthreads();
-#pragma unroll
-  for (int jj = 0; jj < HPW; ++jj) {
-    const int j = warp + jj * WARPS;
-    if (j < QPK) {
-      float M = kNegInf;
-      for (int s = lane; s < n; s += 32) M = fmaxf(M, sm_ml[(s * QPK + j) * 2]);
-      M = warp_max(M);
-      float L = 0.f;
-      for (int s = lane; s < n; s += 32) {
-        const float f = __expf(sm_ml[(s * QPK + j) * 2] - M);
-        sm_f[s * QPK + j] = f;
-        L += f * sm_ml[(s * QPK + j) * 2 + 1];
-      }
-      L = warp_sum(L);
-      if (lane == 0) sm_l[j] = L;
-    }
-  }
-  __syncthreads();
-  float o[QPK];
-#pragma unroll
-  for (int j = 0; j < QPK; ++j) o[j] = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < n; ++s) {
-    float f[QPK];
-    load_heads<QPK>(sm_f + s * QPK, f);
-#pragma unroll
-    for (int j = 0; j < QPK; ++j)
-      o[j] += f[j] * ws_acc[(base + s * QPK + j) * D + d];
-  }
-#pragma unroll
-  for (int j = 0; j < QPK; ++j)
-    out[((long)b * KVH * QPK + g * QPK + j) * D + d] =
-        __float2bfloat16_rn(o[j] / sm_l[j]);
+  merge_splits<QPK>(ws_acc, ws_ml, ((long)b * KVH + g) * nsplit * QPK, QPK, n,
+                    out + ((long)b * KVH + g) * QPK * D + threadIdx.x);
 }
 
 template <int QPK, typename T>
@@ -603,9 +504,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* ws, int B, int KVH, int bs, int NB, int nsplit,
                    int chunk, float scale, cudaStream_t stream) {
   using L = Smem<QPK, T>;
-  if (bs < 1 || NB < 1 || chunk < TILE || chunk % TILE != 0 || nsplit < 1 ||
-      nsplit > MAX_SPLITS || (long)nsplit * chunk < (long)NB * bs)
-    return cudaErrorInvalidValue;
+  if (!splits_ok(bs, NB, nsplit, chunk)) return cudaErrorInvalidValue;
   const int table_n = (chunk - 1) / bs + 2;
   const size_t smem = L::kTable + 4 * (size_t)table_n;
   static size_t configured = 48 * 1024;
@@ -616,15 +515,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  // pos / bs == __umulhi(pos, mul) >> shr for pos < 2^31, with mul =
-  // ceil(2^p / bs), p = 31 + ceil(log2 bs); mul = 0 marks bs == 1.
-  unsigned mul = 0, shr = 0;
-  if (bs > 1) {
-    int lg = 31 - __builtin_clz(static_cast<unsigned>(bs));
-    lg += (bs & (bs - 1)) != 0;
-    mul = static_cast<unsigned>(((1ull << (31 + lg)) + bs - 1) / bs);
-    shr = static_cast<unsigned>(lg - 1);
-  }
+  const BlockDiv div = block_div(bs);
   float* acc = static_cast<float*>(ws);
   float* ml = acc + (size_t)B * KVH * nsplit * QPK * D;
   fused_decode_split_kernel<QPK, T><<<dim3(KVH, B, nsplit), THREADS, smem, stream>>>(
@@ -635,7 +526,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
       static_cast<T*>(k_pages), static_cast<T*>(v_pages),
       static_cast<float*>(k_scale), static_cast<float*>(v_scale),
       static_cast<const int*>(table), static_cast<const int*>(positions), acc,
-      ml, KVH, bs, NB, nsplit, chunk, mul, shr, scale);
+      ml, KVH, bs, NB, nsplit, chunk, div.mul, div.shr, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   fused_decode_merge_kernel<QPK><<<dim3(KVH, B), THREADS, 0, stream>>>(

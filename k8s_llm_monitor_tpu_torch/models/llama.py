@@ -102,9 +102,13 @@ def _quantize_heads(xf: torch.Tensor, qmax: float, is_int8: bool):
     (codes as float32 before the storage cast, scale [...]).
 
     Division by the scale, not a reciprocal multiply, and round half to
-    even, as the JAX package does: either change moves codes at ties."""
+    even, as the JAX package does: either change moves codes at ties.
+    ``qmax`` divides as a tensor on ``amax``'s device: PyTorch on CUDA
+    turns division by a Python number (or a CPU scalar) into a multiply by
+    its reciprocal, one ulp off the quotient for some amax.  ``new_full``
+    fills it on the device, with no host-to-device copy to wait for."""
     amax = xf.abs().amax(dim=-1)
-    scale = torch.clamp(amax / qmax, min=1e-8)
+    scale = torch.clamp(amax / amax.new_full((), qmax), min=1e-8)
     xq = xf / scale[..., None]
     if is_int8:
         xq = torch.clamp(torch.round(xq), -qmax, qmax)

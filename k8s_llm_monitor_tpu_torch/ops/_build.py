@@ -8,9 +8,10 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
-them; a library is rebuilt when its source is newer.  ``ptxas``' register
-and shared-memory report is kept beside each library as
-``build/<name>.ptxas.txt``.  Nothing here runs at import time.
+them; a library is rebuilt when its source, or a header of ``csrc/``
+(``split_kv.cuh``, which the split-KV kernels share), is newer.
+``ptxas``' register and shared-memory report is kept beside each library
+as ``build/<name>.ptxas.txt``.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ def lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     out = lib_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not out.exists() or out.stat().st_mtime < src.stat().st_mtime
+    if not out.exists():
+        return True
+    sources = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return out.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names=KERNELS) -> list[str]:

@@ -48,8 +48,12 @@ _SIGNATURES = {
     "fused_decode_bf16": ("fused_decode", _FUSED),
     "fused_decode_int8": ("fused_decode", [_P] * 2 + _FUSED),
     "fused_decode_fp8": ("fused_decode", [_P] * 2 + _FUSED),
-    # q, kp, vp, table, starts, qlens, out, B, QS, H, KVH, bs, NB, stream
-    "paged_attn_bf16": ("paged_attn", [_P] * 7 + [_I] * 6 + [_P]),
+    # q, kp, vp, table, starts, qlens, out, workspace, B, QS, H, KVH, bs,
+    # NB, nsplit, chunk, scale, stream
+    "paged_attn_bf16": ("paged_attn", [_P] * 8 + [_I] * 8 + [_F, _P]),
+    # q, kp, vp, table, lengths, out, workspace, B, H, KVH, bs, NB, nsplit,
+    # chunk, scale, stream
+    "paged_attn_decode_bf16": ("paged_attn", [_P] * 7 + [_I] * 7 + [_F, _P]),
 }
 _QUANT_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 _fns: dict[str, object] = {}
@@ -86,12 +90,13 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-# Split-KV decode (csrc/fused_decode.cu): each lane's context is cut into
-# chunks of keys, one block each, at most DECODE_MAX_SPLITS per lane (the
-# chunk grows past that); chunks are whole 32-key tiles.  Keys per chunk
-# by page element bytes: chip_smoke.py phase 4's sweep found 256 fastest
-# on bf16 pages and 128 on int8/fp8 pages, whose tiles carry half the
-# bytes for the same arithmetic.
+# Split-KV kernels (csrc/fused_decode.cu, csrc/paged_attn.cu): each lane's
+# context is cut into chunks of keys, one block each, at most
+# DECODE_MAX_SPLITS per lane (the chunk grows past that); chunks are whole
+# 32-key tiles.  Keys per chunk by page element bytes: chip_smoke.py phase
+# 4's sweeps found 256 fastest on bf16 pages (fused decode, and split paged
+# attention at 1 and at 8 query tokens per lane) and 128 on int8/fp8
+# pages, whose tiles carry half the bytes for the same arithmetic.
 DECODE_CHUNK = {2: 256, 1: 128}
 DECODE_MAX_SPLITS = 64
 DECODE_TILE = 32
@@ -99,7 +104,7 @@ DECODE_TILE = 32
 
 def decode_splits(max_blocks: int, block_size: int,
                   page_bytes: int) -> tuple[int, int]:
-    """(nsplit, chunk) of the split decode kernel for a block table of
+    """(nsplit, chunk) of a split-KV kernel for a block table of
     ``max_blocks`` x ``block_size`` keys on pages of ``page_bytes``-byte
     elements: host integers from the table width, never from the
     positions, so the grid is fixed for a table."""
@@ -111,11 +116,13 @@ def decode_splits(max_blocks: int, block_size: int,
     return -(-keys // chunk), chunk
 
 
-def decode_workspace_floats(B: int, KVH: int, qpk: int, nsplit: int,
+def decode_workspace_floats(B: int, KVH: int, rows: int, nsplit: int,
                             D: int = 128) -> int:
-    """float32 slots of the split decode workspace: a partial (m, l,
-    acc[D]) per (lane, kv head, split, query head of the group)."""
-    return B * KVH * nsplit * qpk * (D + 2)
+    """float32 slots of a split kernel's workspace: a partial (m, l,
+    acc[D]) per (lane, kv head, split, row of the group), where a group
+    has ``rows`` = qpk query heads for one token per lane (fused decode)
+    and QS * qpk for QS tokens (split paged attention)."""
+    return B * KVH * nsplit * rows * (D + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -413,28 +420,45 @@ MAX_QUERY_TOKENS = 8     # spec_k + 1 at the JAX package's largest spec_k
 # the pages), so its plain version is flash_prefill_attention_plain.
 
 
-def _paged_attn(q, k_pages, v_pages, block_table, starts, qlens):
+def _paged_attn(q, k_pages, v_pages, block_table, *, lengths=None,
+                starts=None, qlens=None):
     """Launch csrc/paged_attn.cu for CUDA tensors (checks as the other
-    wrappers); the callers count the launch."""
+    wrappers): the split kernel and its merge, on the workspace of
+    ``decode_splits``.  Decode passes ``lengths`` and the kernels derive
+    starts and qlens from them; verify passes ``starts`` and ``qlens``.
+    The callers count the launch."""
     B, QS, H, D = q.shape
-    nb, bs, F = k_pages.shape
+    _, bs, F = k_pages.shape
     KVH = F // D
-    _check(q.dtype == torch.bfloat16, "paged attention takes bf16 queries")
-    _check(D == 128 and F == KVH * D and H % KVH == 0
-           and H // KVH in (1, 2, 4, 8),
-           f"paged attention geometry unsupported (H={H}, F={F}, D={D})")
-    _check(1 <= QS <= MAX_QUERY_TOKENS, f"paged attention takes 1.."
-           f"{MAX_QUERY_TOKENS} query tokens per lane, got {QS}")
+    # One test, and a message formatted only on failure: this runs once
+    # per layer and decode step.
+    if not (q.dtype == torch.bfloat16 and D == 128 and F == KVH * D
+            and H % KVH == 0 and H // KVH in (1, 2, 4, 8)
+            and 1 <= QS <= MAX_QUERY_TOKENS):
+        raise ValueError(
+            f"paged attention takes 1..{MAX_QUERY_TOKENS} bf16 query tokens "
+            f"per lane, head_dim 128 and 1, 2, 4 or 8 query heads per kv "
+            f"head: got q {tuple(q.shape)} {q.dtype}, pages "
+            f"{tuple(k_pages.shape)}")
     _check_pool(k_pages, v_pages, None, None, D, "paged attention")
-    qs = (q * (D ** -0.5)).contiguous()
+    qc = q.contiguous()
     table = _int32(block_table)
-    st, ql = _int32(starts), _int32(qlens)
-    out = torch.empty_like(qs)
-    err = _kernel("paged_attn_bf16")(
-        qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), st.data_ptr(), ql.data_ptr(), out.data_ptr(),
-        B, QS, H, KVH, bs, table.shape[1], _stream(q.device))
-    _raise_on(err, "paged_attn_bf16")
+    out = torch.empty_like(qc)
+    nsplit, chunk = decode_splits(table.shape[1], bs, 2)
+    ws = torch.empty(decode_workspace_floats(B, KVH, QS * (H // KVH), nsplit,
+                                             D),
+                     dtype=torch.float32, device=q.device)
+    if lengths is not None:
+        sym, lanes, dims = "paged_attn_decode_bf16", (_int32(lengths),), (B,)
+    else:
+        sym, lanes, dims = ("paged_attn_bf16", (_int32(starts), _int32(qlens)),
+                            (B, QS))
+    err = _kernel(sym)(
+        qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), *(t.data_ptr() for t in lanes), out.data_ptr(),
+        ws.data_ptr(), *dims, H, KVH, bs, table.shape[1], nsplit, chunk,
+        D ** -0.5, _stream(q.device))
+    _raise_on(err, sym)
     return out
 
 
@@ -452,7 +476,8 @@ def paged_verify_attention_pallas(q, k_pages, v_pages, block_table, start,
     if not q.is_cuda:
         return flash_prefill_attention_plain(q, k_pages, v_pages, block_table,
                                              start, lengths)
-    out = _paged_attn(q, k_pages, v_pages, block_table, start, lengths)
+    out = _paged_attn(q, k_pages, v_pages, block_table, starts=start,
+                      qlens=lengths)
     paged_verify_attention_pallas.launches += 1
     return out
 
@@ -464,17 +489,18 @@ def paged_decode_attention_pallas(q, k_pages, v_pages, block_table, lengths):
     """One decode token per lane over the pages, which already hold it (the
     split ``decode_path="pallas"``: RoPE and the scatter run before): the
     paged-attention kernel at ``starts = lengths - 1``, ``qlens =
-    min(lengths, 1)`` (pallas_attention.py:281-282).  The calling
-    convention of ``paged_decode_attention``: q [B, 1, H, D], lengths [B]
-    valid keys.  Returns [B, 1, H, D]."""
-    starts = (lengths - 1).clamp(min=0)
-    qlens = lengths.clamp(max=1)
+    min(lengths, 1)`` (pallas_attention.py:281-282), which the kernel
+    derives itself on the card.  The calling convention of
+    ``paged_decode_attention``: q [B, 1, H, D], lengths [B] valid keys.
+    Returns [B, 1, H, D]."""
     if not q.is_cuda:
-        return flash_prefill_attention_plain(q, k_pages, v_pages, block_table,
-                                             starts, qlens)
-    _check(q.shape[1] == 1, f"paged decode takes one query token, got "
-           f"{q.shape[1]}")
-    out = _paged_attn(q, k_pages, v_pages, block_table, starts, qlens)
+        return flash_prefill_attention_plain(
+            q, k_pages, v_pages, block_table, (lengths - 1).clamp(min=0),
+            lengths.clamp(max=1))
+    if q.shape[1] != 1:
+        raise ValueError(f"paged decode takes one query token, got "
+                         f"{q.shape[1]}")
+    out = _paged_attn(q, k_pages, v_pages, block_table, lengths=lengths)
     paged_decode_attention_pallas.launches += 1
     return out
 

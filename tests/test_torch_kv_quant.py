@@ -91,6 +91,32 @@ def test_quantize_dequantize_match_jax(kv_quant):
 
 
 @pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_quantize_heads_divides_by_qmax(kv_quant):
+    # Every bf16 amax mantissa at a few exponents: the scale is the float32
+    # quotient amax / qmax, bit for bit, as the JAX package and the kernels
+    # take it -- not amax times the float32 reciprocal of qmax, which
+    # PyTorch on CUDA computes for a Python-number divisor and which is one
+    # ulp off for some of these (moving codes at rounding ties).
+    _, qmax = tllama.kv_quant_spec(kv_quant)
+    mant = 1.0 + np.arange(128) / 128.0
+    amax = np.concatenate([mant * 2.0 ** e for e in (-6, -1, 0, 3, 9)])
+    amax = amax.astype(np.float32)
+    D = 8
+    x = np.zeros((amax.size, D), np.float32)
+    x[:, 0] = amax
+    x[:, 1:] = amax[:, None] * np.linspace(-0.9, 0.9, D - 1, dtype=np.float32)
+    _, scale = tllama._quantize_heads(torch.from_numpy(x), qmax,
+                                      kv_quant == "int8")
+    want = amax / np.float32(qmax)
+    assert scale.dtype == torch.float32
+    np.testing.assert_array_equal(scale.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    # The test can see the fault: the reciprocal product differs for some.
+    recip = amax * (np.float32(1.0) / np.float32(qmax))
+    assert (recip.view(np.uint32) != want.view(np.uint32)).any()
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
 def test_scatter_pages_quant_matches_jax(kv_quant):
     rng = np.random.default_rng(1)
     B, S, KVH, D, bs, num_blocks = 3, 6, 2, 16, 4, 12
