@@ -7,6 +7,7 @@
                                           # check + time one kernel
     python3 chip_smoke.py --phases 0,1,4 --only fused_decode
     python3 chip_smoke.py --phases 0,1,4 --only paged_attn
+    python3 chip_smoke.py --phases 0,2,5  # the engine, then the request's way in
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -52,7 +53,7 @@ Phase 3  the kernel path against the plain path on the same weights cut to
          argmax agreement over the 20 rows (a row whose plain-path top two
          logits lie within the logit tolerance counts as agreeing); and a
          small float32 model, whose greedy ids on the card must equal the
-         CPU's.
+         CPU's, free and under the verdict grammar (constrained greedy).
 Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          kernel, its plain version, one PyTorch call computing the same
          function on K/V gathered (and dequantized) beforehand
@@ -71,6 +72,22 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          (QS=1) and a verify shape (the same lanes, 8 query tokens ending
          at the engine position), through the wrapper, alone, and alone at
          chunks of 128, 256 and 512 keys.
+
+Phase 5  the request's way in: phase 2's Llama-3-8B model in an engine
+         with a bf16 pool, ByteTokenizer and the verdict grammar's token
+         FSM, wrapped in the port's LocalEngineBackend (EngineService step
+         thread).  A burst from 25 threads: 16 generate_constrained
+         evidence questions of 200..1500 bytes, 8 generate calls at
+         temperature 0.7 and top_k 40 (the bounded sampler) and 1
+         generate_stream.  The launch counts are set to 0 just before the
+         burst and read once every handle has resolved: flash prefill and
+         fused decode must have launched.  Every verdict must parse, no
+         result may be an error, and a lone constrained question must give
+         the same ids through the service as through engine.generate.
+         Prints the burst's TTFT p50/p99, decode tokens/s,
+         constrained_decode_overhead_ms, and the wall time per sampled
+         decode step with sample_topk_cap 64 against 0 (in turns), beside
+         the two samplers alone on [32, 128256] logits (CUDA events).
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -368,6 +385,25 @@ def time_ms(torch, fn, reps=20, warmup=3, rounds=1):
         torch.cuda.synchronize()
         best = min(best, t0.elapsed_time(t1) / reps)
     return best
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn`` (the sum of its kernels' times in a
+    torch.profiler trace of ``reps`` calls): what the card spends, without
+    the host time between launches that CUDA events also count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / 1e3 / reps
 
 
 def graph_ms(torch, fn, reps=20, rounds=5):
@@ -888,12 +924,15 @@ def marked(fn, **markers):
 
 
 def phase3(torch, np, st):
+    from k8s_llm_monitor_tpu_torch.diagnosis.grammar import (
+        parse_verdict, verdict_fsm)
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.ops.attention import paged_decode_attention
     from k8s_llm_monitor_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
 
     dev = torch.device("cuda")
     model = truncated(st["model"], 4)
@@ -987,16 +1026,225 @@ def phase3(torch, np, st):
     m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
     prompts = [[int(t) for t in rng.integers(3, 512, size=n)]
                for n in (5, 40, 100, 300)]        # 100: chunked, 300: cut
-    ids = {}
+    ids, verdicts = {}, {}
+    # Constrained: a table of 64 blocks holds prompt + the longest verdict.
+    ec_v = dataclasses.replace(ec, max_blocks_per_seq=64)
     for name, m, d in (("gpu", m_gpu, dev), ("cpu", m_cpu, "cpu")):
         eng = InferenceEngine(small, m, ec, eos_id=-1, device=d)
         ids[name] = [r.token_ids for r in eng.generate(
             prompts, SamplingParams(max_tokens=12))]
         if name == "gpu":
             paths = f"{eng.prefill_path}/{eng.decode_path}"
+        eng = InferenceEngine(small, m, ec_v, tokenizer=ByteTokenizer(),
+                              device=d)
+        eng.set_grammar(verdict_fsm(eos_id=ByteTokenizer.EOS))
+        verdicts[name] = [(r.token_ids, r.finish_reason) for r in eng.generate(
+            prompts[:3], SamplingParams(max_tokens=1, constrained=True))]
     check(ids["gpu"] == ids["cpu"], "float32 greedy ids differ card vs CPU")
+    check(verdicts["gpu"] == verdicts["cpu"],
+          "float32 constrained greedy ids differ card vs CPU")
+    for toks, reason in verdicts["gpu"]:
+        check(reason == "eos", f"constrained verdict ended {reason}")
+        parse_verdict(ByteTokenizer().decode(toks))
     print(f"phase 3: float32 small model ({paths} on the card): greedy ids "
-          "equal on the card and the CPU")
+          "equal on the card and the CPU, free and constrained (3 verdicts "
+          f"of {[len(t) for t, _ in verdicts['gpu']]} tokens, all parse)")
+
+
+# Evidence lines of phase 5's questions (a seeded draw per line).
+EVIDENCE = (
+    '- pod "{ns}/{pod}" CrashLoopBackOff, restarts={n}, last exit code 137',
+    '- event Warning BackOff {ns}/{pod}: back-off restarting failed container',
+    '- node "node-{n}" condition MemoryPressure=True for {n}m',
+    '- pod "{ns}/{pod}" OOMKilled, memory limit 512Mi, usage peak {n}Mi',
+    '- service "{ns}/{pod}" has 0 ready endpoints of {n}',
+    '- log {ns}/{pod}: dial tcp 10.0.{n}.7:5432: connect: connection refused',
+)
+
+
+def evidence_question(rng, n_bytes: int) -> str:
+    """A diagnosis prompt of about ``n_bytes`` bytes: evidence lines drawn
+    from ``rng``, then the question."""
+    pods = ("web-1", "api-0", "db-2", "cache-3", "worker-4")
+    nss = ("default", "kube-system", "payments")
+    pod, ns = pods[rng.integers(len(pods))], nss[rng.integers(len(nss))]
+    question = f"## Question\nwhy is pod {ns}/{pod} failing?\n"
+    lines = ["## Evidence"]
+    while sum(len(x) + 1 for x in lines) + len(question) < n_bytes:
+        lines.append(EVIDENCE[rng.integers(len(EVIDENCE))].format(
+            ns=nss[rng.integers(len(nss))], pod=pods[rng.integers(len(pods))],
+            n=int(rng.integers(1, 999))))
+    text = "\n".join(lines) + "\n" + question
+    return text[len(text) - n_bytes:] if len(text) > n_bytes else text
+
+
+def burst(backend, questions, frees, stream_q):
+    """Fire every call of the burst from its own thread at once; returns
+    (per-request results seen by the service, outputs by call, exceptions,
+    burst wall seconds)."""
+    import threading
+
+    results, outs, errors = [], {}, []
+    backend.service.observer = (
+        lambda rid, toks, res: res is not None and results.append(res))
+    calls = [(f"verdict-{i}", backend.generate_constrained, (q,), {})
+             for i, q in enumerate(questions)]
+    calls += [(f"free-{i}", backend.generate, (q,),
+               dict(max_tokens=64, temperature=0.7, top_k=40))
+              for i, q in enumerate(frees)]
+    calls.append(("stream", lambda q, **kw: list(
+        backend.generate_stream(q, **kw)), (stream_q,),
+        dict(max_tokens=64, temperature=0.0)))
+    go = threading.Event()
+
+    def run(name, fn, args, kw):
+        go.wait()
+        try:
+            outs[name] = fn(*args, **kw)
+        except Exception as exc:            # reported by the caller
+            errors.append(f"{name}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=run, args=c) for c in calls]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    go.set()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    backend.service.observer = None
+    check(not any(t.is_alive() for t in threads), "a burst call hung")
+    return results, outs, errors, wall
+
+
+def phase5(torch, np, st):
+    from k8s_llm_monitor_tpu_torch.diagnosis.grammar import (
+        parse_verdict, verdict_fsm)
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.monitor.analysis import LocalEngineBackend
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.ops import sampling
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    gpu = st["gpu"]
+    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+    cfg, tok = model.cfg, ByteTokenizer()
+    # 256 blocks of 16 per sequence: a 1500-byte question and the longest
+    # verdict (469 tokens) fit, so no verdict is cut.
+    ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
+                        max_blocks_per_seq=ENGINE_TABLE,
+                        max_prefills_per_step=8, decode_steps_per_iter=8)
+    eng = InferenceEngine(cfg, model, ecfg, tokenizer=tok)
+    check((eng.prefill_path, eng.decode_path, eng.kv_quant)
+          == ("flash", "fused", ""),
+          f"engine paths {eng.prefill_path}/{eng.decode_path} "
+          f"pool {eng.kv_quant or 'bf16'}")
+    fsm = verdict_fsm(eos_id=tok.eos_id)
+    eng.set_grammar(fsm)
+    rng = np.random.default_rng(5)
+    sizes = sorted(int(x) for x in rng.integers(200, 1501, size=16))
+    sizes[0], sizes[-1] = 200, 1500
+    questions = [evidence_question(rng, n) for n in sizes]
+    frees = [evidence_question(rng, int(n))
+             for n in rng.integers(200, 1501, size=8)]
+    stream_q = evidence_question(rng, 600)
+    print(f"phase 5: {cfg.name}, bf16 pool, verdict grammar {fsm.trans.shape} "
+          f"max_len {fsm.max_len}; 16 questions of {sizes} bytes, 8 sampled "
+          f"generate calls, 1 stream")
+
+    # The lone question through engine.generate, before the service owns
+    # the engine (one thread touches it at a time).
+    constrained = SamplingParams(max_tokens=1, constrained=True)
+    lone_ids = tok.encode(questions[0])
+    [ref] = eng.generate([lone_ids], constrained)
+    check(ref.finish_reason == "eos", f"lone verdict ended {ref.finish_reason}")
+    parse_verdict(tok.decode(ref.token_ids))
+
+    backend = LocalEngineBackend(engine=eng, tokenizer=tok)
+    try:
+        steps0 = (eng.decode_steps, eng.bounded_decode_steps)
+        tokens0, secs0 = eng.decode_tokens, eng.decode_s
+        pa.reset_launch_counts()
+        results, outs, errors, wall = burst(backend, questions, frees,
+                                            stream_q)
+        torch.cuda.synchronize()
+        launches = {"flash_prefill": pa.flash_prefill_attention.launches,
+                    "fused_decode": pa.paged_decode_attention_fused.launches}
+        check(not errors, f"burst calls failed: {errors}")
+        check(len(results) == 25, f"{len(results)} results of 25")
+        bad = [r.request_id for r in results if r.finish_reason == "error"]
+        check(not bad, f"error results: {bad}")
+        for i in range(16):
+            parse_verdict(outs[f"verdict-{i}"])
+        check(all(n > 0 for n in launches.values()),
+              f"a kernel never launched on the burst's path: {launches}")
+        bounded = eng.bounded_decode_steps - steps0[1]
+        check(bounded > 0, "no decode step took the bounded sampler")
+        ttfts = sorted(r.ttft_s for r in results)
+        tok_s = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
+        lens = [len(outs[f"verdict-{i}"]) for i in range(16)]
+        print(f"phase 5: burst of 25 through LocalEngineBackend -> "
+              f"EngineService: {wall:.2f} s wall, {eng.decode_steps - steps0[0]}"
+              f" decode steps ({bounded} bounded-sampled); ttft p50 "
+              f"{np.percentile(ttfts, 50) * 1e3:.1f} ms, p99 "
+              f"{np.percentile(ttfts, 99) * 1e3:.1f} ms; decode {tok_s:.1f} "
+              f"tok/s; constrained_decode_overhead_ms "
+              f"{backend.constrained_decode_overhead_ms:.3f}; launches "
+              f"{launches} [{gpu}]")
+        print(f"phase 5: 16 verdicts parse ({min(lens)}..{max(lens)} chars); "
+              f"8 sampled and 1 streamed answer, no error [{gpu}]")
+        via = backend.service.submit(lone_ids, constrained).result(timeout=300)
+        check(via.token_ids == ref.token_ids and
+              via.finish_reason == ref.finish_reason,
+              "the lone question's ids differ through the service")
+        print(f"phase 5: lone verdict ({len(ref.token_ids)} tokens): the same "
+              f"ids through the service as through engine.generate [{gpu}]")
+    finally:
+        backend.service.stop()
+    eng.token_sink = None
+
+    # The sampled decode step with the bounded sampler (cap 64) against the
+    # full-vocabulary sort (cap 0), in turns on the same engine.
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=100)]
+               for _ in range(32)]
+    sp = SamplingParams(max_tokens=64, temperature=0.7, top_k=40)
+    per_step = {64: [], 0: []}
+    for cap in (64, 0, 0, 64):
+        eng.ecfg.sample_topk_cap = cap
+        s0, d0, b0 = eng.decode_s, eng.decode_steps, eng.bounded_decode_steps
+        res = eng.generate(prompts, sp)
+        check(all(r.finish_reason in ("eos", "length") for r in res),
+              f"sampled run at cap {cap}: {[r.error for r in res]}")
+        check((eng.bounded_decode_steps > b0) == (cap > 0), "sampler choice")
+        per_step[cap].append((eng.decode_s - s0) / (eng.decode_steps - d0))
+    eng.ecfg.sample_topk_cap = 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(32, cfg.vocab_size, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    kw = dict(temperature=torch.full((32,), 0.7, device="cuda"),
+              top_k=torch.full((32,), 40, dtype=torch.int32, device="cuda"),
+              top_p=torch.ones(32, device="cuda"))
+    samplers = {
+        "full sort": lambda: sampling.sample_tokens(gen, logits, **kw),
+        "bounded top-64": lambda: sampling.sample_tokens_bounded(
+            gen, logits, k_cap=64, **kw)}
+    alone = {name: (time_ms(torch, fn), device_ms(torch, fn))
+             for name, fn in samplers.items()}
+    print(f"phase 5: sampled decode step (32 lanes, top_k 40), wall per step "
+          f"cap 64 / cap 0 / cap 0 / cap 64: "
+          + " / ".join(f"{t * 1e3:.3f}" for t in (
+              per_step[64][0], per_step[0][0], per_step[0][1],
+              per_step[64][1]))
+          + f" ms; the samplers alone on [32, {cfg.vocab_size}] bf16 logits "
+          "(per call, CUDA events / device time in the profiler): "
+          + ", ".join(f"{name} {ev:.4f} / {dev:.4f} ms"
+                      for name, (ev, dev) in alone.items())
+          + f" [{gpu}]")
+    del eng
+    torch.cuda.empty_cache()
 
 
 SOURCES = {
@@ -1225,7 +1473,7 @@ def phase4(torch, np, st):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
+    ap.add_argument("--phases", default="0,1,2,3,4,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -1248,7 +1496,8 @@ def main(argv=None) -> int:
         return 2
 
     st: dict = {"only": args.only}
-    runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (4, phase4)]
+    runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (4, phase4),
+               (5, phase5)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

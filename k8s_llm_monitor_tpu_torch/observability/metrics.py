@@ -1,0 +1,97 @@
+"""Latency histograms with OpenMetrics exemplars (docs/observability.md).
+
+:class:`ClassHistogram` keeps one Prometheus histogram per SLO class
+(non-cumulative bucket counts internally; the exporter renders the
+cumulative ``le`` series) plus the most recent exemplar per bucket —
+``(trace_id, value, unix_ts)`` — so a bad p99 bucket on a dashboard
+links straight to the trace that produced it.
+
+All mutation happens via GIL-atomic ops on per-class state that is in
+practice touched by a single thread (the engine step thread); there is
+deliberately no lock on this path.
+"""
+
+from __future__ import annotations
+
+import bisect
+import time
+from typing import Optional
+
+__all__ = ["ClassHistogram"]
+
+
+class _ClassState:
+    __slots__ = ("counts", "sum", "count", "exemplars")
+
+    def __init__(self, n_buckets: int) -> None:
+        self.counts = [0] * (n_buckets + 1)  # +Inf last
+        self.sum = 0.0
+        self.count = 0
+        # bucket index -> (trace_id, value, unix_ts); most recent wins
+        self.exemplars: dict[int, tuple[str, float, float]] = {}
+
+
+class ClassHistogram:
+    """Per-class histogram over fixed ``buckets`` (upper bounds in the
+    metric's native unit, usually seconds)."""
+
+    def __init__(self, buckets: tuple[float, ...] | list[float]) -> None:
+        bs = tuple(sorted(float(b) for b in buckets))
+        if not bs:
+            raise ValueError("histogram needs at least one bucket")
+        self.buckets = bs
+        self._by_class: dict[str, _ClassState] = {}
+
+    def observe(self, value: float, slo_class: str,
+                trace_id: str = "") -> None:
+        st = self._by_class.get(slo_class)
+        if st is None:
+            # Benign race: two threads may both build a state; one write
+            # wins and at most one observation is lost at first touch.
+            st = _ClassState(len(self.buckets))
+            self._by_class[slo_class] = st
+        i = bisect.bisect_left(self.buckets, value)
+        st.counts[i] += 1
+        st.sum += value
+        st.count += 1
+        if trace_id:
+            st.exemplars[i] = (trace_id, float(value), time.time())
+
+    # -- exporter surface ------------------------------------------------
+
+    def classes(self) -> list[str]:
+        return sorted(self._by_class)
+
+    def total_count(self) -> int:
+        return sum(st.count for st in self._by_class.values())
+
+    def series(self, slo_class: str):
+        """``(cumulative_counts, sum, count, exemplars)`` for one class;
+        cumulative_counts has ``len(buckets)+1`` entries (last = +Inf ==
+        count).  Exemplars keyed by the same bucket index."""
+        st = self._by_class.get(slo_class)
+        if st is None:
+            n = len(self.buckets) + 1
+            return [0] * n, 0.0, 0, {}
+        cum, running = [], 0
+        for c in st.counts:
+            running += c
+            cum.append(running)
+        return cum, st.sum, st.count, dict(st.exemplars)
+
+    def quantile(self, slo_class: str, q: float) -> Optional[float]:
+        """Linear-interpolated quantile estimate from bucket counts
+        (bench assertions; None with no data)."""
+        cum, _, count, _ = self.series(slo_class)
+        if count == 0:
+            return None
+        target = q * count
+        lo = 0.0
+        for i, b in enumerate(self.buckets):
+            if cum[i] >= target:
+                prev = cum[i - 1] if i else 0
+                width = b - lo
+                frac = (target - prev) / max(1, cum[i] - prev)
+                return lo + width * frac
+            lo = b
+        return self.buckets[-1]

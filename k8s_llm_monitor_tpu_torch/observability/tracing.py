@@ -1,0 +1,393 @@
+"""Sampled, bounded-overhead request tracing (docs/observability.md).
+
+A :class:`Tracer` records completed :class:`Span`\\ s into a fixed-size
+per-process ring.  The ring is lock-free: slots are claimed with an
+``itertools.count`` (``next()`` on a count is a single GIL-atomic C
+call) and each slot write is one list-item assignment, so recording
+from the step thread, HTTP handler threads, and router pump threads
+never contends and never blocks — a full ring simply overwrites the
+oldest spans.  Nothing here may run inside a traced (jitted) program.
+
+Trace identity follows W3C Trace Context: 32-hex ``trace_id``, 16-hex
+``span_id``, and a sampled flag carried in the ``traceparent`` header
+flags byte.  The sampling decision is *deterministic in the trace id*
+(a hash of the leading 8 hex digits against the configured rate), so
+every process along a request's path agrees on whether to record
+without coordination, and seeded tests are reproducible.
+
+Cross-layer contract:
+
+- HTTP servers parse ``traceparent`` into the handler thread's local
+  context (:meth:`Tracer.use`); :class:`~..monitor.client.ApiClient`
+  attaches the current context to every outbound hop, so hedge legs,
+  failover replays, and ``/api/v1/kv/*`` migration calls all join the
+  originating trace.
+- ``EngineService.submit`` snapshots the current context onto the
+  :class:`~..serving.engine.GenerationRequest` (host-side metadata
+  only); the engine step thread records phase spans against it.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import random
+import re
+import threading
+import time
+from typing import Any, NamedTuple, Optional
+
+__all__ = [
+    "Span",
+    "TraceContext",
+    "Tracer",
+    "format_traceparent",
+    "get_tracer",
+    "parse_traceparent",
+]
+
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
+
+
+class TraceContext(NamedTuple):
+    """Immutable position inside a trace: which trace, which span is the
+    current parent, whether the trace is recorded, and (for spans that
+    are themselves recorded later, e.g. the per-request engine span)
+    the span's own parent."""
+
+    trace_id: str
+    span_id: str
+    sampled: bool
+    parent_id: str = ""
+
+
+class Span:
+    """One completed (or in-flight) operation.  Mutable so handler code
+    can attach attributes mid-flight; pushed to the ring only once, at
+    end time."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name",
+                 "start", "end", "start_unix", "attrs", "status")
+
+    def __init__(self, trace_id: str, span_id: str, parent_id: str,
+                 name: str, start: float, start_unix: float,
+                 attrs: Optional[dict] = None) -> None:
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.start = start          # time.monotonic()
+        self.end = start            # set at finish
+        self.start_unix = start_unix  # wall clock, for cross-process merge
+        self.attrs: dict[str, Any] = attrs or {}
+        self.status = "ok"
+
+    @property
+    def duration_s(self) -> float:
+        return max(0.0, self.end - self.start)
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "start_unix": self.start_unix,
+            "start_mono": self.start,
+            "duration_s": self.duration_s,
+            "status": self.status,
+            "attrs": dict(self.attrs),
+        }
+
+
+def format_traceparent(ctx: TraceContext) -> str:
+    return f"00-{ctx.trace_id}-{ctx.span_id}-{'01' if ctx.sampled else '00'}"
+
+
+def parse_traceparent(header: str) -> Optional[TraceContext]:
+    """Parse a W3C ``traceparent`` header; None on any malformation
+    (an invalid header must never fail the request carrying it)."""
+    if not header:
+        return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if m is None:
+        return None
+    version, trace_id, span_id, flags = m.groups()
+    if version == "ff" or trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return TraceContext(trace_id, span_id, bool(int(flags, 16) & 1))
+
+
+class _SpanScope:
+    """Context manager returned by :meth:`Tracer.span`: establishes the
+    child context thread-locally for the with-block, then records the
+    span (status ``error`` if the block raised)."""
+
+    __slots__ = ("_tracer", "_ctx", "_prev", "span")
+
+    def __init__(self, tracer: "Tracer", ctx: TraceContext, span: Span):
+        self._tracer = tracer
+        self._ctx = ctx
+        self.span = span
+
+    def __enter__(self) -> Span:
+        self._prev = self._tracer._swap_local(self._ctx)
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._tracer._swap_local(self._prev)
+        sp = self.span
+        sp.end = time.monotonic()
+        if exc_type is not None and sp.status == "ok":
+            sp.status = "error"
+            sp.attrs.setdefault("error", exc_type.__name__)
+        if self._ctx.sampled:
+            self._tracer._push(sp)
+        return False
+
+
+class Tracer:
+    """Per-process span recorder.  All methods are safe to call from any
+    thread without locks (see module docstring); the only shared
+    mutations are GIL-atomic container ops, and the worst race outcome
+    is a slightly stale ring snapshot — never corruption, never a
+    block on a hot path."""
+
+    def __init__(self, ring_size: int = 4096,
+                 sample: Optional[float] = None,
+                 seed: Optional[int] = None) -> None:
+        if sample is None:
+            try:
+                sample = float(os.environ.get("K8SLLM_TRACE_SAMPLE", "1.0"))
+            except ValueError:
+                sample = 1.0
+        self.sample = min(1.0, max(0.0, sample))
+        if seed is None:
+            env_seed = os.environ.get("K8SLLM_TRACE_SEED", "")
+            seed = int(env_seed) if env_seed.isdigit() else None
+        self._rand = random.Random(seed)
+        self._size = max(16, int(ring_size))
+        self._ring: list[Optional[Span]] = [None] * self._size
+        self._ring_idx = itertools.count()
+        self._tls = threading.local()
+        # request_id -> trace_id, bounded FIFO (endpoint lookup by either
+        # id).  dict/deque ops are GIL-atomic; eviction races are benign.
+        self._rid_index: dict[str, str] = {}
+        self._rid_order: list[str] = []
+        self._rid_cap = 1024
+        self.recorded = 0   # spans pushed to the ring
+        self.unsampled = 0  # record attempts on unsampled traces
+
+    # -- identity --------------------------------------------------------
+
+    def _new_trace_id(self) -> str:
+        return f"{self._rand.getrandbits(128):032x}"
+
+    def _new_span_id(self) -> str:
+        return f"{self._rand.getrandbits(64):016x}"
+
+    def sampled(self, trace_id: str) -> bool:
+        """Deterministic head-sampling decision for ``trace_id``."""
+        if self.sample >= 1.0:
+            return True
+        if self.sample <= 0.0:
+            return False
+        return int(trace_id[:8], 16) / 0x100000000 < self.sample
+
+    def new_trace(self) -> Optional[TraceContext]:
+        """Start a new root trace, or None when sampling is fully off
+        (so untraced paths pay nothing, not even id generation's ring
+        bookkeeping downstream)."""
+        if self.sample <= 0.0:
+            return None
+        tid = self._new_trace_id()
+        return TraceContext(tid, self._new_span_id(), self.sampled(tid))
+
+    @staticmethod
+    def child(ctx: TraceContext) -> TraceContext:
+        """A child context under ``ctx``: same trace, fresh span id,
+        parent recorded so the child span can be emitted later."""
+        return TraceContext(ctx.trace_id, _GLOBAL_IDS.span_id(),
+                            ctx.sampled, parent_id=ctx.span_id)
+
+    # -- thread-local context -------------------------------------------
+
+    def _swap_local(self, ctx: Optional[TraceContext]) -> Optional[TraceContext]:
+        prev = getattr(self._tls, "ctx", None)
+        self._tls.ctx = ctx
+        return prev
+
+    def current(self) -> Optional[TraceContext]:
+        return getattr(self._tls, "ctx", None)
+
+    def current_traceparent(self) -> str:
+        ctx = self.current()
+        return format_traceparent(ctx) if ctx is not None else ""
+
+    def use(self, ctx: Optional[TraceContext]) -> "_UseScope":
+        """Establish ``ctx`` as the thread's current context for a
+        with-block (router pump/hedge threads re-entering a flight's
+        trace before replica calls)."""
+        return _UseScope(self, ctx)
+
+    # -- span creation ---------------------------------------------------
+
+    def span(self, name: str, *, parent: Optional[TraceContext] = None,
+             attrs: Optional[dict] = None, root: bool = False) -> _SpanScope:
+        """Open a span for a with-block.  Parent resolution: explicit
+        ``parent``, else the thread's current context, else a new root
+        trace (unless sampling is fully off, in which case the scope is
+        inert)."""
+        pctx = parent if parent is not None else (
+            None if root else self.current())
+        if pctx is None:
+            ctx = self.new_trace()
+            if ctx is None:  # sampling fully off: inert scope
+                ctx = TraceContext("0" * 32, "0" * 16, False)
+            sp_id, par = ctx.span_id, ""
+        else:
+            ctx = self.child(pctx)
+            sp_id, par = ctx.span_id, ctx.parent_id
+        sp = Span(ctx.trace_id, sp_id, par, name,
+                  time.monotonic(), time.time(), attrs)
+        return _SpanScope(self, ctx, sp)
+
+    def record(self, name: str, t0: float, t1: float,
+               ctx: Optional[TraceContext], *,
+               attrs: Optional[dict] = None, status: str = "ok",
+               span_id: str = "", parent_id: Optional[str] = None,
+               t0_unix: Optional[float] = None) -> str:
+        """Record an already-completed span under ``ctx`` (the engine
+        path: dispatch/reconcile times are known after the fact).
+        Parent defaults to ``ctx.span_id``; pass ``span_id=ctx.span_id,
+        parent_id=ctx.parent_id`` to emit the context's own span (the
+        per-request root).  Returns the span id, or "" unrecorded."""
+        if ctx is None:
+            return ""
+        if not ctx.sampled:
+            self.unsampled += 1
+            return ""
+        sid = span_id or self._new_span_id()
+        pid = ctx.span_id if parent_id is None else parent_id
+        if t0_unix is None:
+            # Derive wall-clock start from the monotonic offset so merge
+            # ordering is consistent with spans stamped at open time.
+            t0_unix = time.time() - (time.monotonic() - t0)
+        sp = Span(ctx.trace_id, sid, pid, name, t0, t0_unix, attrs)
+        sp.end = t1
+        sp.status = status
+        self._push(sp)
+        return sid
+
+    def _push(self, span: Span) -> None:
+        self._ring[next(self._ring_idx) % self._size] = span
+        self.recorded += 1
+
+    # -- request-id index ------------------------------------------------
+
+    def bind(self, request_id: str, ctx: Optional[TraceContext]) -> None:
+        """Associate a request id with its trace for endpoint lookup."""
+        if ctx is None or not request_id:
+            return
+        if request_id not in self._rid_index:
+            self._rid_order.append(request_id)
+            while len(self._rid_order) > self._rid_cap:
+                old = self._rid_order.pop(0)
+                self._rid_index.pop(old, None)
+        self._rid_index[request_id] = ctx.trace_id
+
+    def lookup(self, request_or_trace_id: str) -> Optional[str]:
+        """Resolve either a request id or a literal 32-hex trace id."""
+        s = request_or_trace_id.strip()
+        hit = self._rid_index.get(s)
+        if hit is not None:
+            return hit
+        low = s.lower()
+        if len(low) == 32 and all(c in "0123456789abcdef" for c in low):
+            return low
+        return None
+
+    # -- inspection ------------------------------------------------------
+
+    def _snapshot_spans(self) -> list[Span]:
+        return [s for s in list(self._ring) if s is not None]
+
+    def spans_for(self, trace_id: str) -> list[dict]:
+        """All ring-resident spans of one trace, merge-ordered by wall
+        clock start."""
+        out = [s.to_dict() for s in self._snapshot_spans()
+               if s.trace_id == trace_id]
+        out.sort(key=lambda d: d["start_unix"])
+        return out
+
+    def recent(self, limit: int = 20) -> list[dict]:
+        """Most recent traces in the ring: id, span count, root name."""
+        by_trace: dict[str, list[Span]] = {}
+        for s in self._snapshot_spans():
+            by_trace.setdefault(s.trace_id, []).append(s)
+        rows = []
+        for tid, spans in by_trace.items():
+            spans.sort(key=lambda s: s.start_unix)
+            roots = [s for s in spans if not s.parent_id]
+            rows.append({
+                "trace_id": tid,
+                "n_spans": len(spans),
+                "root": (roots[0].name if roots else spans[0].name),
+                "start_unix": spans[0].start_unix,
+                "last_unix": max(s.start_unix + s.duration_s for s in spans),
+            })
+        rows.sort(key=lambda r: r["last_unix"], reverse=True)
+        return rows[:max(1, int(limit))]
+
+    def snapshot(self) -> list[dict]:
+        """Every ring-resident span (flight-recorder dump payload)."""
+        out = [s.to_dict() for s in self._snapshot_spans()]
+        out.sort(key=lambda d: d["start_unix"])
+        return out
+
+
+class _UseScope:
+    __slots__ = ("_tracer", "_ctx", "_prev")
+
+    def __init__(self, tracer: Tracer, ctx: Optional[TraceContext]):
+        self._tracer = tracer
+        self._ctx = ctx
+
+    def __enter__(self) -> Optional[TraceContext]:
+        self._prev = self._tracer._swap_local(self._ctx)
+        return self._ctx
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._tracer._swap_local(self._prev)
+        return False
+
+
+class _Ids:
+    """Process-wide span-id source for TraceContext.child (static method
+    — cannot reach an instance's RNG; ids only need uniqueness)."""
+
+    def __init__(self) -> None:
+        self._rand = random.Random()
+
+    def span_id(self) -> str:
+        return f"{self._rand.getrandbits(64):016x}"
+
+
+_GLOBAL_IDS = _Ids()
+_TRACER: Optional[Tracer] = None
+
+
+def get_tracer() -> Tracer:
+    """The per-process tracer singleton (created on first use, env-
+    configured: K8SLLM_TRACE_SAMPLE, K8SLLM_TRACE_SEED)."""
+    global _TRACER
+    if _TRACER is None:
+        _TRACER = Tracer()
+    return _TRACER
+
+
+def set_tracer(tracer: Optional[Tracer]) -> None:
+    """Swap the process tracer (tests)."""
+    global _TRACER
+    _TRACER = tracer

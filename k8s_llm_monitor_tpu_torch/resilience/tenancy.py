@@ -1,0 +1,387 @@
+"""Tenant identity, admission quotas, and KV namespacing (docs/resilience.md).
+
+Multi-tenant hardening has three legs, all host-side (no tenant value ever
+enters a jitted program, so the plumbing is recompile-free by construction):
+
+  * **Identity** — every request carries a tenant id, normalized once at
+    the trust boundary (:func:`normalize_tenant`, the ``slo_class`` idiom)
+    and threaded through ``GenerationRequest``, the WAL journal, and the
+    fleet router unchanged.
+  * **Admission** — :class:`TenantGovernor` holds a per-tenant request-rate
+    :class:`TokenBucket` plus a generated-token quota bucket.  Quota runs
+    *before* SLO-class shedding and refuses with a tenant-tagged 429, so an
+    over-quota tenant's traffic never enters the queue and can never cause
+    a within-quota tenant to shed.  Token quota is *reserved* at admission
+    (``max_tokens``), converted to consumption as tokens are delivered, and
+    the unused remainder refunded at settlement — hedge losers and failover
+    replays therefore cannot double-charge: only the single logical
+    admission reserves, and only delivered tokens stay charged.
+  * **Namespacing** — :func:`tenant_seed` folds the tenant id into the
+    prefix-cache chain-digest seed and the ``KVX1`` blob header, making a
+    cross-tenant prefix hit structurally impossible (two tenants hashing
+    identical token prefixes produce disjoint digest chains).  graftcheck's
+    ``tenant-namespace`` rule gates every cache/tier call site statically.
+
+Runtime toggles (registered in ``monitor/config.py`` ``ENV_KEYS``):
+``K8SLLM_TENANT_ENFORCE`` force-enables quota enforcement even when the
+config leaves tenancy accounting-only, and ``K8SLLM_TENANT_DEFAULT``
+overrides the tenant assigned to unlabeled requests.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import re
+import time
+from dataclasses import dataclass, field
+
+from k8s_llm_monitor_tpu_torch.devtools.lockcheck import guarded_by, make_lock
+from k8s_llm_monitor_tpu_torch.resilience.errors import OverloadedError
+
+# The tenant every unlabeled request belongs to.  Single-tenant deployments
+# never see another value; the accounting still runs so enabling quotas
+# later needs no migration.
+DEFAULT_TENANT = "public"
+
+# DNS-label-ish: lowercase alphanumeric start, then [a-z0-9_.-], 64 chars
+# max.  Tight on purpose — tenant ids become metric label values, journal
+# payload fields, and digest-seed inputs.
+_TENANT_RE = re.compile(r"^[a-z0-9][a-z0-9_.-]{0,63}$")
+
+# Domain-separation tag for the digest seed: distinct from every other
+# sha256 use in the tree, so a tenant id can never collide with a token
+# block's contribution to a chain digest.
+_SEED_TAG = b"k8sllm.tenant.v1\x00"
+
+
+def default_tenant() -> str:
+    """The tenant for unlabeled requests; ``K8SLLM_TENANT_DEFAULT``
+    overrides the built-in ``"public"`` (read per call: tests flip it)."""
+    raw = os.environ.get("K8SLLM_TENANT_DEFAULT", "")
+    return normalize_tenant(raw, default=DEFAULT_TENANT) if raw else DEFAULT_TENANT
+
+
+def normalize_tenant(value, default: str | None = None) -> str:
+    """Coerce a tenant id: empty/None → the default tenant, malformed →
+    ValueError.
+
+    Callers at trust boundaries (HTTP handlers) catch the ValueError and
+    map it to a 400; internal callers pass validated values through.
+    """
+    if value is None or value == "":
+        return default if default is not None else default_tenant()
+    tenant = str(value).strip().lower()
+    if not _TENANT_RE.match(tenant):
+        raise ValueError(
+            f"invalid tenant {value!r}; expected lowercase alphanumeric "
+            "start, then [a-z0-9_.-], at most 64 chars")
+    return tenant
+
+
+def tenant_seed(tenant: str) -> bytes:
+    """The 32-byte digest-chain seed namespacing all KV keys for a tenant.
+
+    ``PrefixCache`` seeds its chain digests with this instead of ``b""``,
+    and ``HostKVTier`` keys inherit the same digests — so two tenants
+    hashing identical token prefixes produce disjoint chains and a
+    cross-tenant prefix hit is impossible by construction, not by check.
+    """
+    return hashlib.sha256(_SEED_TAG + tenant.encode("utf-8")).digest()
+
+
+@guarded_by("_lock", "_level", "_stamp", "takes", "refusals")
+class TokenBucket:
+    """A monotone token bucket with an injectable clock.
+
+    ``rate <= 0`` disables the bucket (every take succeeds) so config
+    defaults can leave a dimension unlimited.  ``force_take`` may drive
+    the level negative — that models quota *debt* (a supervisor-rebuild
+    replay re-reserving work the tenant already holds): refills pay the
+    debt down before new admissions succeed again.
+    """
+
+    def __init__(self, rate: float, burst: float,
+                 clock=time.monotonic, name: str = "bucket"):
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self._clock = clock
+        self._level = float(burst)
+        self._stamp = float(clock())
+        self.takes = 0
+        self.refusals = 0
+        # Created last: lockcheck's guarded_by treats writes before the
+        # lock exists as construction, not races.
+        self._lock = make_lock(f"resilience.tenancy.{name}")
+
+    def _refill_locked(self) -> None:
+        now = self._clock()
+        dt = max(0.0, now - self._stamp)
+        self._stamp = now
+        if self.rate > 0:
+            self._level = min(self.burst, self._level + dt * self.rate)
+
+    def try_take(self, n: float = 1.0) -> float:
+        """0.0 on success; else a positive retry-after hint (seconds until
+        ``n`` tokens will have refilled)."""
+        if self.rate <= 0:
+            return 0.0
+        with self._lock:
+            self._refill_locked()
+            if self._level >= n:
+                self._level -= n
+                self.takes += 1
+                return 0.0
+            self.refusals += 1
+            return max(0.001, (n - self._level) / self.rate)
+
+    def force_take(self, n: float) -> None:
+        """Take without refusal (replay/restore); may go negative."""
+        if self.rate <= 0 or n <= 0:
+            return
+        with self._lock:
+            self._refill_locked()
+            self._level -= n
+
+    def give(self, n: float) -> None:
+        """Refund unused reservation, clamped at the burst ceiling."""
+        if self.rate <= 0 or n <= 0:
+            return
+        with self._lock:
+            self._refill_locked()
+            self._level = min(self.burst, self._level + n)
+
+    def available(self) -> float:
+        """Current level (negative while in debt); +inf when disabled."""
+        if self.rate <= 0:
+            return float("inf")
+        with self._lock:
+            self._refill_locked()
+            return self._level
+
+
+@dataclass
+class _Reservation:
+    """One admitted logical request's outstanding token reservation."""
+
+    tenant: str
+    reserved: float       # tokens taken from the quota bucket at admit
+    delivered: int = 0    # tokens actually streamed to the caller so far
+
+
+@dataclass
+class _TenantState:
+    """Per-tenant buckets + monotonic accounting totals."""
+
+    requests: TokenBucket
+    tokens: TokenBucket
+    admitted: int = 0          # admissions granted
+    quota_refusals: int = 0    # 429s from this governor
+    sheds: int = 0             # SLO-class sheds charged to this tenant
+    charged_tokens: int = 0    # delivered tokens, settled
+    admitted_bytes: int = 0    # prompt bytes accepted (accounting only)
+    extra: dict = field(default_factory=dict)
+
+
+@guarded_by("_lock", "_tenants", "_reservations")
+class TenantGovernor:
+    """Per-tenant admission: request-rate limiting + token-quota accounting.
+
+    The reservation protocol makes "charged tokens == delivered tokens"
+    hold exactly across hedges, failovers, and supervisor rebuilds:
+
+      * :meth:`admit` — take 1 from the tenant's request bucket and reserve
+        ``max_tokens`` from its token bucket, or raise a tenant-tagged
+        retriable :class:`OverloadedError` (HTTP 429).  Exactly one admit
+        per *logical* request: replica-level hedge/failover dispatches
+        behind a fleet router never call it.
+      * :meth:`note_delivered` — count tokens as they stream to the caller
+        (winner stream only; hedge losers are cancelled unobserved).
+      * :meth:`settle` — refund the unused reservation, fold delivered into
+        the tenant's charged total, drop the reservation.  Idempotent.
+      * :meth:`restore` — supervisor warm start: re-create a reservation
+        from the WAL without refusal (``force_take`` may drive the bucket
+        into debt, which refills pay down).
+
+    ``enforce=False`` keeps the full accounting but never refuses — the
+    safe default for single-tenant deployments; ``K8SLLM_TENANT_ENFORCE=1``
+    flips enforcement on at runtime without a config change.
+    """
+
+    def __init__(self, *, requests_per_s: float = 0.0,
+                 request_burst: float = 0.0,
+                 tokens_per_s: float = 0.0, token_burst: float = 0.0,
+                 enforce: bool = True, max_tenants: int = 1024,
+                 clock=time.monotonic):
+        self.requests_per_s = float(requests_per_s)
+        self.request_burst = float(request_burst or max(1.0, requests_per_s))
+        self.tokens_per_s = float(tokens_per_s)
+        self.token_burst = float(token_burst or max(1.0, tokens_per_s))
+        self.enforce = bool(enforce)
+        self.max_tenants = int(max_tenants)
+        self._clock = clock
+        self._tenants: dict[str, _TenantState] = {}
+        self._reservations: dict[str, _Reservation] = {}
+        # Created last: lockcheck's guarded_by treats writes before the
+        # lock exists as construction, not races.
+        self._lock = make_lock("resilience.tenancy.governor")
+
+    # -- internals ---------------------------------------------------------
+
+    def _enforcing(self) -> bool:
+        if os.environ.get("K8SLLM_TENANT_ENFORCE", "") not in ("", "0"):
+            return True
+        return self.enforce
+
+    def _state_locked(self, tenant: str) -> _TenantState:
+        st = self._tenants.get(tenant)
+        if st is not None:
+            # dict insertion order doubles as the idle-LRU: re-insert.
+            self._tenants.pop(tenant)
+            self._tenants[tenant] = st
+            return st
+        # Cap the map: evict the longest-idle tenant with nothing in
+        # flight (abandoning only its bucket levels and totals — the
+        # exporter's top-K cut has long since stopped showing it).
+        if len(self._tenants) >= self.max_tenants:
+            busy = {r.tenant for r in self._reservations.values()}
+            for victim in list(self._tenants):
+                if victim not in busy:
+                    del self._tenants[victim]
+                    break
+        st = _TenantState(
+            requests=TokenBucket(self.requests_per_s, self.request_burst,
+                                 clock=self._clock, name="req"),
+            tokens=TokenBucket(self.tokens_per_s, self.token_burst,
+                               clock=self._clock, name="tok"),
+        )
+        self._tenants[tenant] = st
+        return st
+
+    # -- the reservation protocol ------------------------------------------
+
+    def admit(self, tenant: str, request_id: str, *, max_tokens: int,
+              prompt_bytes: int = 0, slo_class: str = "") -> None:
+        """Charge one request + reserve ``max_tokens``; raise a retriable
+        tenant-tagged :class:`OverloadedError` when over quota."""
+        with self._lock:
+            st = self._state_locked(tenant)
+            enforcing = self._enforcing()
+            wait_r = st.requests.try_take(1.0)
+            if wait_r > 0.0 and enforcing:
+                st.quota_refusals += 1
+                st.sheds += 1
+                raise OverloadedError(
+                    f"tenant {tenant!r} over request-rate quota",
+                    retriable=True, retry_after_s=wait_r,
+                    slo_class=slo_class, request_id=request_id,
+                    tenant=tenant)
+            reserve = float(max(0, max_tokens))
+            wait_t = st.tokens.try_take(reserve)
+            if wait_t > 0.0 and enforcing:
+                # Give the request token back: this admission never
+                # happened, and the next (smaller) request may fit.
+                st.requests.give(1.0)
+                st.quota_refusals += 1
+                st.sheds += 1
+                raise OverloadedError(
+                    f"tenant {tenant!r} over token quota",
+                    retriable=True, retry_after_s=wait_t,
+                    slo_class=slo_class, request_id=request_id,
+                    tenant=tenant)
+            if wait_t > 0.0:
+                # Accounting-only mode refused nothing; still reserve so
+                # settlement math stays uniform (debt is fine here).
+                st.tokens.force_take(reserve)
+            st.admitted += 1
+            st.admitted_bytes += max(0, int(prompt_bytes))
+            self._reservations[request_id] = _Reservation(
+                tenant=tenant, reserved=reserve)
+
+    def note_delivered(self, request_id: str, n: int) -> None:
+        """Count ``n`` tokens streamed to the caller (exactly once each)."""
+        if n <= 0:
+            return
+        with self._lock:
+            res = self._reservations.get(request_id)
+            if res is not None:
+                res.delivered += n
+
+    def settle(self, request_id: str) -> int:
+        """Refund the unused reservation and finalize charges; idempotent.
+        Returns the tokens charged (0 for an unknown/already-settled id)."""
+        with self._lock:
+            res = self._reservations.pop(request_id, None)
+            if res is None:
+                return 0
+            st = self._state_locked(res.tenant)
+            st.tokens.give(max(0.0, res.reserved - res.delivered))
+            st.charged_tokens += res.delivered
+            return res.delivered
+
+    def restore(self, request_id: str, tenant: str, *, max_tokens: int,
+                delivered: int = 0) -> None:
+        """Warm-start re-reservation from the WAL (never refuses).
+
+        The remaining budget is force-taken — possibly into debt — so a
+        rebuilt engine's replayed work stays charged to its tenant and the
+        tenant cannot launder quota through a crash."""
+        with self._lock:
+            if request_id in self._reservations:
+                return
+            st = self._state_locked(tenant)
+            remaining = float(max(0, max_tokens - delivered))
+            st.tokens.force_take(remaining)
+            st.requests.force_take(1.0)
+            st.admitted += 1
+            self._reservations[request_id] = _Reservation(
+                tenant=tenant, reserved=remaining + delivered,
+                delivered=delivered)
+
+    # -- accounting taps ---------------------------------------------------
+
+    def note_shed(self, tenant: str) -> None:
+        """An SLO-class shed downstream of admission, charged to its
+        tenant (folds into ``tenant_shed_total`` with quota refusals)."""
+        with self._lock:
+            self._state_locked(tenant).sheds += 1
+
+    def reservation_tenant(self, request_id: str) -> str | None:
+        with self._lock:
+            res = self._reservations.get(request_id)
+            return res.tenant if res is not None else None
+
+    def charged_tokens(self, tenant: str) -> int:
+        """Settled (delivered) tokens for a tenant — the bench's exactness
+        probe: after all streams settle this equals tokens received."""
+        with self._lock:
+            st = self._tenants.get(tenant)
+            return st.charged_tokens if st is not None else 0
+
+    def quota_remaining(self, tenant: str) -> float:
+        with self._lock:
+            st = self._tenants.get(tenant)
+        return st.tokens.available() if st is not None else float("inf")
+
+    def snapshot(self) -> dict:
+        """Per-tenant accounting block for ``/api/v1/stats`` + exporter."""
+        with self._lock:
+            tenants = dict(self._tenants)
+            inflight: dict[str, int] = {}
+            for res in self._reservations.values():
+                inflight[res.tenant] = inflight.get(res.tenant, 0) + 1
+        out: dict = {}
+        for tenant, st in tenants.items():
+            remaining = st.tokens.available()
+            out[tenant] = {
+                "admitted": st.admitted,
+                "quota_refusals": st.quota_refusals,
+                "sheds": st.sheds,
+                "charged_tokens": st.charged_tokens,
+                "admitted_bytes": st.admitted_bytes,
+                "inflight": inflight.get(tenant, 0),
+                "quota_remaining": (
+                    -1.0 if remaining == float("inf")
+                    else round(remaining, 3)),
+            }
+        return out

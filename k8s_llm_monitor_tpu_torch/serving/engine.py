@@ -18,13 +18,28 @@ block.
     host reads the ``[K, B]`` token matrix once per call.
   * Retirement on EOS or on ``max_tokens``; submit-time tail truncation
     keeps ``prompt + max_tokens`` within the per-sequence capacity.
+  * Grammar-constrained sampling (``set_grammar``, ``SamplingParams.
+    constrained``): a device-resident ``[max_slots]`` FSM state masks each
+    lane's logits before sampling and advances with the sampled token, at
+    admission, at the final chunk and through the K-step loop.  State 0 is
+    FREE, so free and constrained lanes share every call.
+  * Sampled decode steps take ``sample_tokens_bounded`` (one top-k over
+    ``sample_topk_cap`` logits) when every sampling lane has ``0 < top_k
+    <= sample_topk_cap``.
+  * The surface ``serving/service.py`` drives: ``token_sink`` (tokens as
+    they reach the host, then the result), ``poll``, the queue gauges,
+    class-ordered ``should_shed``, queue TTL and per-request deadlines, the
+    ``health`` and ``brownout`` slots, SLO-class admission order, and the
+    request and phase spans (observability/tracing.py).
 
-Reconciliation is synchronous: each dispatch is read back before the next
-(no dispatch-ahead).  Where the JAX engine donates the page arrays to its
-jitted programs, this engine updates them in place.  Preemption,
-deadlines, SLO classes, tenancy, tracing, speculative decoding, prefix
-reuse and the host KV tier are not ported yet; the resident pool may be
-int8/fp8 (``EngineConfig.kv_dtype``).
+Reconciliation is synchronous: each dispatch is read back before the next.
+Dispatch-ahead, the inflight watchdog and pipeline resets are not ported
+(they wait for the decode loop as a CUDA graph and streams).  Where the
+JAX engine donates the page arrays to its jitted programs, this engine
+updates them in place.  Preemption (and with it voluntary class-ordered
+eviction, ``max_preemptions``), speculative decoding, prefix reuse and the
+host KV tier are not ported yet; the resident pool may be int8/fp8
+(``EngineConfig.kv_dtype``).
 """
 
 from __future__ import annotations
@@ -32,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -44,7 +59,20 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
     select_decode_impl,
     select_prefill_impl,
 )
-from k8s_llm_monitor_tpu_torch.ops.sampling import greedy_tokens, sample_tokens
+from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
+from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
+from k8s_llm_monitor_tpu_torch.ops.sampling import (
+    fsm_advance,
+    fsm_mask_logits,
+    greedy_tokens,
+    sample_tokens,
+    sample_tokens_bounded,
+)
+from k8s_llm_monitor_tpu_torch.resilience.slo import DEFAULT_CLASS, SLO_RANK
+from k8s_llm_monitor_tpu_torch.resilience.tenancy import (
+    DEFAULT_TENANT,
+    normalize_tenant,
+)
 from k8s_llm_monitor_tpu_torch.serving.kv_cache import (
     BlockAllocator,
     OutOfBlocks,
@@ -58,6 +86,11 @@ class SamplingParams:
     temperature: float = 0.0   # <= 0 -> greedy
     top_k: int = 0             # <= 0 -> disabled
     top_p: float = 1.0         # >= 1 -> disabled
+    # Grammar-constrained decoding (diagnosis/grammar.py): every sampled
+    # token is masked by the engine's installed TokenFSM.  Needs
+    # ``set_grammar()`` before submit; max_tokens is raised to the
+    # grammar's max_len so the forced EOS is always reachable.
+    constrained: bool = False
 
 
 @dataclasses.dataclass
@@ -66,7 +99,23 @@ class GenerationRequest:
     prompt_ids: list[int]
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     submit_time: float = dataclasses.field(default_factory=time.monotonic)
+    # Set on first admission; tokens past this index in prompt_ids would be
+    # generated output folded back in (by preemption, not ported yet).
+    orig_prompt_len: int = -1
     first_token_time: float = 0.0
+    # Wall-clock budget from submit (seconds); 0 = none.  Enforced at
+    # admission and per step(): an expired request fails with a
+    # "deadline exceeded" cause.
+    deadline_s: float = 0.0
+    # SLO class (resilience/slo.py): "interactive" | "standard" | "batch";
+    # orders admission and shedding.  Host-side metadata only.
+    slo_class: str = DEFAULT_CLASS
+    # Tenant namespace (resilience/tenancy.py).  Host-side metadata only.
+    tenant: str = DEFAULT_TENANT
+    # Trace context (observability/tracing.py TraceContext) captured at
+    # EngineService.submit; the engine records phase spans against it.
+    # None when the request is untraced.
+    trace: Any = None
 
 
 @dataclasses.dataclass
@@ -112,11 +161,37 @@ class EngineConfig:
     # "bf16" and "none" mean the same); "int8" / "fp8" hold 1-byte codes
     # plus per-(token, head) float32 scales (models/llama.py:KVPages).
     kv_dtype: str = "auto"
+    # When every sampling lane of a decode call has 0 < top_k <= this cap,
+    # it samples from the top ``sample_topk_cap`` logits (one torch.topk)
+    # instead of sorting the whole vocabulary each step; exact in that
+    # regime (ops/sampling.py:sample_tokens_bounded).  0 disables.
+    sample_topk_cap: int = 64
+    # Time-to-live for requests waiting in the pending queue (seconds;
+    # 0 = none).  A request with its own deadline_s uses that instead.
+    queue_ttl_s: float = 0.0
+    # Load-shedding thresholds (0 = disabled): should_shed() reports a
+    # reason when the queued prompt tokens of a class and above, or the
+    # admission-wait EMA, cross them.
+    shed_queue_tokens: int = 0
+    shed_slot_wait_s: float = 0.0
+    # Brownout clamp on batch-class max_tokens at admission while the
+    # ladder sits at DEGRADED or worse; 0 disables the clamp.
+    brownout_batch_max_tokens: int = 64
+    # What counts as KV headroom in should_shed()'s capacity clause:
+    # "tier" arms it only with a host KV tier (not ported: unarmed),
+    # "device" counts free device blocks, "off" disables it.
+    kv_admission: str = "tier"
+
+
+# Sink signature: (request_id, new_token_ids, result_or_none).  ``result`` is
+# set exactly once per request, when it completes (or errors); new tokens are
+# delivered as they reach the host, the EOS token included.
+TokenSink = Callable[[str, list[int], Optional[GenerationResult]], None]
 
 
 class _Slot:
     __slots__ = ("req", "blocks", "ctx_len", "generated", "prefill_pos",
-                 "prefilling", "cancel_requested")
+                 "prefilling", "cancel_requested", "abort_cause")
 
     def __init__(self, req: GenerationRequest, blocks: list[int]):
         self.req = req
@@ -128,6 +203,9 @@ class _Slot:
         self.prefill_pos = 0
         self.prefilling = False
         self.cancel_requested = False
+        # When set, retirement gives an error result with this cause
+        # (deadline expiry, out of KV blocks) instead of eos/length.
+        self.abort_cause = ""
 
     @property
     def remaining(self) -> int:
@@ -138,7 +216,8 @@ class InferenceEngine:
     """Single-process engine over batched prefill and K-step decode.
 
     ``device`` defaults to ``cuda`` (llama.resolve_device); the model's
-    weights must live there.  Not thread-safe: one thread owns the engine.
+    weights must live there.  Not thread-safe: one thread owns the engine
+    (serving/service.py is the concurrent front end).
     """
 
     def __init__(self, cfg: ModelConfig, model: llama.LlamaModel,
@@ -154,6 +233,11 @@ class InferenceEngine:
         self.tokenizer = tokenizer
         self.eos_id = eos_id if eos_id is not None else (
             tokenizer.eos_id if tokenizer is not None else -1)
+        self.token_sink: Optional[TokenSink] = None
+        # Attached by EngineService: a resilience.health.HealthMonitor and
+        # a brownout-level source (callable -> 0..2).
+        self.health = None
+        self.brownout = None
         # Resolved before the pool is allocated: "" for a pool in the
         # model's dtype, "int8" / "fp8" for the quantized tier.
         if ec.kv_dtype in ("auto", "fp16", "bf16", "none"):
@@ -188,6 +272,16 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._tok_state = torch.zeros(ec.max_slots, dtype=torch.int32,
                                       device=self.device)
+        # Grammar-constrained decoding (set_grammar): the host TokenFSM, its
+        # table on the device, the all-False block that pads the allowed
+        # mask past the grammar vocab, and the per-lane FSM state on the
+        # device (0 = FREE), rewritten for every lane admitted once a
+        # grammar is installed.
+        self._grammar = None
+        self._fsm_trans: Optional[torch.Tensor] = None
+        self._fsm_pad: Optional[torch.Tensor] = None
+        self._fsm_state = torch.zeros(ec.max_slots, dtype=torch.int32,
+                                      device=self.device)
         self._pending: deque[GenerationRequest] = deque()
         self._slots: list[Optional[_Slot]] = [None] * ec.max_slots
         self._results: dict[str, GenerationResult] = {}
@@ -195,6 +289,19 @@ class InferenceEngine:
         self.decode_steps = 0     # decode_step calls
         self.decode_tokens = 0    # tokens emitted by decode calls
         self.decode_s = 0.0       # wall time of decode calls (synchronized)
+        self.bounded_decode_steps = 0   # decode steps sampled top-k bounded
+        self.deadline_expired = 0
+        self.brownout_clamps = 0
+        # EMA of submit -> admission wait: a shed signal when slots churn
+        # slower than requests arrive.
+        self.slot_wait_ema_s = 0.0
+        # Request-lifecycle histograms per SLO class, with exemplar trace
+        # ids, observed on the step thread only.
+        _lat = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+        self.hist_ttft = ClassHistogram(_lat)
+        self.hist_e2e = ClassHistogram(_lat)
+        self.hist_queue_wait = ClassHistogram(_lat)
+        self._tracer = get_tracer()
 
     # ------------------------------------------------------------------
     # public API
@@ -227,14 +334,76 @@ class InferenceEngine:
         overflow = len(req.prompt_ids) + sp.max_tokens - cap
         if overflow > 0:
             req.prompt_ids = req.prompt_ids[overflow:]
+            if req.orig_prompt_len >= 0:
+                req.orig_prompt_len = max(0, req.orig_prompt_len - overflow)
+
+    def set_grammar(self, fsm) -> None:
+        """Install the ``diagnosis.grammar.TokenFSM`` constrained requests
+        decode against (one grammar per engine).  The table moves to the
+        device here, once; the mask's pad past the grammar vocab is built
+        here too, for the widest call (decode lanes or prefill lanes)."""
+        if fsm.vocab_size > self.cfg.vocab_size:
+            raise ValueError(
+                f"grammar vocab {fsm.vocab_size} exceeds model vocab "
+                f"{self.cfg.vocab_size}")
+        if fsm.eos_id != self.eos_id:
+            raise ValueError(
+                f"grammar eos_id {fsm.eos_id} != engine eos_id {self.eos_id}")
+        extra = self.cfg.vocab_size - fsm.vocab_size
+        if extra > 0 and (self._fsm_pad is None
+                          or self._fsm_pad.shape[1] != extra):
+            rows = max(self.ecfg.max_slots, self.ecfg.max_prefills_per_step)
+            self._fsm_pad = torch.zeros((rows, extra), dtype=torch.bool,
+                                        device=self.device)
+        elif extra == 0:
+            self._fsm_pad = None
+        self._grammar = fsm
+        self._fsm_trans = torch.from_numpy(
+            np.ascontiguousarray(fsm.trans, np.int32)).to(self.device)
+
+    def _fsm_entry(self, req: GenerationRequest) -> int:
+        """FSM state for ``req``'s next sampled token: the grammar start
+        walked through any generated tokens folded back into the prompt; a
+        fold the grammar rejects restarts from the start state."""
+        if not req.sampling.constrained or self._grammar is None:
+            return 0
+        gen = (req.prompt_ids[req.orig_prompt_len:]
+               if req.orig_prompt_len >= 0 else [])
+        state = self._grammar.walk(gen)
+        return state if state > 0 else self._grammar.start
 
     def submit(self, req: GenerationRequest) -> None:
         if not req.prompt_ids:
             raise ValueError("empty prompt")
         if req.sampling.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
+        # The service normalized already; a raw-engine caller must not
+        # smuggle an unvalidated namespace in.
+        req.tenant = normalize_tenant(req.tenant, default=DEFAULT_TENANT)
+        if req.sampling.constrained:
+            if self._grammar is None:
+                raise ValueError(
+                    "constrained sampling requires set_grammar() first")
+            # The grammar's longest accepted sequence bounds generation:
+            # raising max_tokens to it never produces more tokens, it only
+            # keeps the forced EOS reachable (before the capacity cap).
+            ml = self._grammar.max_len
+            if ml > 0 and req.sampling.max_tokens < ml:
+                req.sampling = dataclasses.replace(req.sampling,
+                                                   max_tokens=ml)
         self._cap_request(req)
         self._pending.append(req)
+
+    def submit_text(self, request_id: str, prompt: str,
+                    sampling: SamplingParams | None = None) -> None:
+        if self.tokenizer is None:
+            raise ValueError("submit_text needs a tokenizer")
+        self.submit(GenerationRequest(
+            request_id=request_id, prompt_ids=self.tokenizer.encode(prompt),
+            sampling=sampling or SamplingParams()))
+
+    def poll(self, request_id: str) -> Optional[GenerationResult]:
+        return self._results.pop(request_id, None)
 
     def cancel(self, request_id: str) -> bool:
         """Stop generating for a request.  A pending request fails at once;
@@ -255,6 +424,71 @@ class InferenceEngine:
     def has_work(self) -> bool:
         return bool(self._pending) or any(s is not None for s in self._slots)
 
+    @property
+    def queue_depth(self) -> int:
+        return len(self._pending)
+
+    @property
+    def queue_tokens(self) -> int:
+        """Prompt-token backlog waiting for admission (shed signal)."""
+        return sum(len(r.prompt_ids) for r in self._pending)
+
+    def queue_tokens_by_class(self) -> dict[str, int]:
+        """Prompt-token backlog per SLO class (only classes with queued
+        work appear)."""
+        out: dict[str, int] = {}
+        for r in self._pending:
+            out[r.slo_class] = out.get(r.slo_class, 0) + len(r.prompt_ids)
+        return out
+
+    @property
+    def active_slots(self) -> int:
+        return sum(1 for s in self._slots if s is not None)
+
+    def admission_headroom_tokens(self) -> int:
+        """KV capacity (tokens) admission may count on: the free device
+        blocks.  The JAX engine's "tier" policy adds prefix-cache blocks a
+        host spill could reclaim; without a prefix cache and a host tier
+        that bonus is 0."""
+        return self.allocator.free_blocks * self.ecfg.block_size
+
+    def should_shed(self, slo_class: str = DEFAULT_CLASS,
+                    need_tokens: int = 0) -> str:
+        """Non-empty reason when new work of ``slo_class`` should be shed:
+        queue-token backlog or admission-wait EMA above the configured
+        thresholds, or (``kv_admission="device"``) a KV footprint
+        ``need_tokens`` beyond the free blocks.  EngineService.submit turns
+        it into a retriable ``OverloadedError``.
+
+        Class-ordered: a request is charged only for backlog of its own
+        class and above, and none is shed while strictly lower-class work
+        is queued.  With single-class traffic this is the flat threshold."""
+        ec = self.ecfg
+        rank = SLO_RANK.get(slo_class, SLO_RANK[DEFAULT_CLASS])
+        by_class = self.queue_tokens_by_class()
+        ahead = sum(t for c, t in by_class.items()
+                    if SLO_RANK.get(c, SLO_RANK[DEFAULT_CLASS]) <= rank)
+        lower_queued = any(
+            t > 0 and SLO_RANK.get(c, SLO_RANK[DEFAULT_CLASS]) > rank
+            for c, t in by_class.items())
+        if lower_queued:
+            return ""
+        if 0 < ec.shed_queue_tokens <= ahead:
+            return (f"queue token backlog {ahead} >= "
+                    f"{ec.shed_queue_tokens} for class {slo_class}")
+        if 0 < ec.shed_slot_wait_s <= self.slot_wait_ema_s:
+            return (f"admission wait EMA {self.slot_wait_ema_s:.2f}s >= "
+                    f"{ec.shed_slot_wait_s:.2f}s")
+        # "tier" arms the capacity clause only with a host tier, which the
+        # port does not have yet: as in the JAX engine without one.
+        if need_tokens > 0 and ec.kv_admission == "device":
+            headroom = self.admission_headroom_tokens()
+            if need_tokens > headroom:
+                return (f"kv capacity: request needs {need_tokens} tokens, "
+                        f"admission headroom is {headroom} "
+                        f"(kv_admission={ec.kv_admission})")
+        return ""
+
     def generate(self, prompts: list[list[int]],
                  sampling: SamplingParams | None = None) -> list[GenerationResult]:
         """Synchronous batch generation (runs the loop to completion)."""
@@ -274,14 +508,124 @@ class InferenceEngine:
         return self.tokenizer.decode(res.token_ids)
 
     # ------------------------------------------------------------------
+    # deadlines, SLO classes, brownout, spans
+    # ------------------------------------------------------------------
+
+    def _deadline_of(self, req: GenerationRequest, queued: bool) -> float:
+        """Absolute monotonic deadline for ``req``; +inf when unbounded.  A
+        per-request deadline_s always applies; the queue TTL only bounds
+        time spent waiting."""
+        if req.deadline_s > 0:
+            return req.submit_time + req.deadline_s
+        if queued and self.ecfg.queue_ttl_s > 0:
+            return req.submit_time + self.ecfg.queue_ttl_s
+        return float("inf")
+
+    def _enforce_deadlines(self) -> None:
+        """Fail expired queued requests and abort expired running slots
+        (they retire with the cause at the cancel check of this step)."""
+        now = time.monotonic()
+        if self._pending:
+            keep: deque[GenerationRequest] = deque()
+            for req in self._pending:
+                if now > self._deadline_of(req, queued=True):
+                    self.deadline_expired += 1
+                    self._fail_request(
+                        req, f"deadline exceeded after "
+                             f"{now - req.submit_time:.2f}s in queue")
+                else:
+                    keep.append(req)
+            self._pending = keep
+        for s in self._slots:
+            if (s is not None and not s.cancel_requested
+                    and now > self._deadline_of(s.req, queued=False)):
+                self.deadline_expired += 1
+                s.abort_cause = (f"deadline exceeded after "
+                                 f"{now - s.req.submit_time:.2f}s "
+                                 f"({len(s.generated)} tokens generated)")
+                s.cancel_requested = True
+
+    def _note_admission_wait(self, req: GenerationRequest) -> None:
+        """Track how long requests wait for a slot (the shed_slot_wait_s
+        signal) and record the queue-wait span."""
+        now = time.monotonic()
+        wait = now - req.submit_time
+        self.slot_wait_ema_s = (wait if self.slot_wait_ema_s == 0.0
+                                else 0.9 * self.slot_wait_ema_s + 0.1 * wait)
+        self.hist_queue_wait.observe(wait, req.slo_class, self._trace_id(req))
+        self._span("engine.queue_wait", req.submit_time, now, req)
+
+    def _sort_pending_by_class(self) -> None:
+        """Stable-sort the pending queue by SLO rank (FIFO within a class);
+        skipped for single-class traffic.  The JAX engine follows this with
+        voluntary eviction of lower-class lanes (``max_preemptions``), which
+        waits for preemption."""
+        if len(self._pending) > 1 and len(
+                {r.slo_class for r in self._pending}) > 1:
+            self._pending = deque(sorted(
+                self._pending,
+                key=lambda r: SLO_RANK.get(r.slo_class,
+                                           SLO_RANK[DEFAULT_CLASS])))
+
+    def _brownout_level(self) -> int:
+        """Current brownout ladder level; 0 when no controller attached."""
+        return 0 if self.brownout is None else int(self.brownout())
+
+    def _clamp_for_brownout(self, req: GenerationRequest) -> None:
+        """At DEGRADED or worse, clamp batch-class budgets at admission.
+        Constrained requests are exempt: the grammar's forced EOS needs its
+        longest accepting path reachable."""
+        cap = self.ecfg.brownout_batch_max_tokens
+        if (cap <= 0 or req.slo_class != "batch"
+                or req.sampling.constrained
+                or req.sampling.max_tokens <= cap
+                or self._brownout_level() < 1):
+            return
+        req.sampling = dataclasses.replace(req.sampling, max_tokens=cap)
+        self.brownout_clamps += 1
+
+    @staticmethod
+    def _trace_id(req: GenerationRequest) -> str:
+        """Exemplar trace id for histograms ('' when untraced/unsampled)."""
+        ctx = req.trace
+        return ctx.trace_id if ctx is not None and ctx.sampled else ""
+
+    def _span(self, name: str, t0: float, t1: float,
+              req: GenerationRequest, status: str = "ok", **attrs) -> None:
+        """Record one engine phase span under ``req``'s trace; a no-op for
+        untraced or unsampled requests."""
+        ctx = req.trace
+        if ctx is None or not ctx.sampled:
+            return
+        attrs["request_id"] = req.request_id
+        attrs["class"] = req.slo_class
+        self._tracer.record(name, t0, t1, ctx, attrs=attrs, status=status)
+
+    def _end_request_span(self, req: GenerationRequest, status: str,
+                          **attrs) -> None:
+        """Close the per-request root span (submit -> terminal outcome)
+        under the context's own span id, so phase spans nest under it."""
+        ctx = req.trace
+        if ctx is None or not ctx.sampled:
+            return
+        attrs["request_id"] = req.request_id
+        attrs["class"] = req.slo_class
+        self._tracer.record(
+            "engine.request", req.submit_time, time.monotonic(), ctx,
+            span_id=ctx.span_id, parent_id=ctx.parent_id,
+            attrs=attrs, status=status)
+
+    # ------------------------------------------------------------------
     # engine loop
     # ------------------------------------------------------------------
 
     def step(self) -> None:
-        """One scheduler iteration: retire cancelled slots, run up to
-        ``max_admission_rounds`` batched prefills, one chunk round and one
-        K-step decode call."""
+        """One scheduler iteration: expire deadlines, order the queue by SLO
+        class, retire cancelled slots, run up to ``max_admission_rounds``
+        batched prefills, one chunk round and one K-step decode call."""
         self.steps += 1
+        self._enforce_deadlines()
+        self._sort_pending_by_class()
         for i, s in enumerate(self._slots):
             if s is not None and s.cancel_requested:
                 self._retire(i)
@@ -318,17 +662,45 @@ class InferenceEngine:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _first_tokens(self, logits, temp, topk, topp, greedy: bool):
+    def _first_tokens(self, logits, temp, topk, topp, greedy: bool,
+                      fstate: Optional[np.ndarray] = None):
+        """First tokens of a prefill call's lanes, and with ``fstate`` (the
+        lanes' FSM states, 0 for free lanes) their logits masked by the
+        grammar first and the states after the sampled tokens.  Returns
+        (tokens, next FSM states or None)."""
+        fnext = None
+        if fstate is not None:
+            fst = self._t(fstate)
+            logits = fsm_mask_logits(logits, fst, self._fsm_trans,
+                                     self._fsm_pad)
         if greedy:
-            return greedy_tokens(logits)
-        return sample_tokens(self._gen, logits, temperature=self._t(temp),
-                             top_k=self._t(topk), top_p=self._t(topp))
+            first = greedy_tokens(logits)
+        else:
+            first = sample_tokens(self._gen, logits,
+                                  temperature=self._t(temp),
+                                  top_k=self._t(topk), top_p=self._t(topp))
+        if fstate is not None:
+            fnext = fsm_advance(fst, self._fsm_trans, first)
+        return first, fnext
 
     def _fail_request(self, req: GenerationRequest, msg: str) -> None:
-        self._results[req.request_id] = GenerationResult(
-            request_id=req.request_id, token_ids=[], finish_reason="error",
-            ttft_s=0.0, latency_s=time.monotonic() - req.submit_time,
-            error=msg)
+        result = GenerationResult(
+            request_id=req.request_id,
+            token_ids=(req.prompt_ids[req.orig_prompt_len:]
+                       if req.orig_prompt_len >= 0 else []),
+            finish_reason="error", ttft_s=0.0,
+            latency_s=time.monotonic() - req.submit_time, error=msg)
+        self._results[req.request_id] = result
+        self.hist_e2e.observe(result.latency_s, req.slo_class,
+                              self._trace_id(req))
+        self._end_request_span(req, "error", finish_reason="error",
+                               error=msg[:200])
+        if self.token_sink is not None:
+            self.token_sink(req.request_id, [], result)
+
+    def _emit(self, req: GenerationRequest, toks: list[int]) -> None:
+        if self.token_sink is not None and toks:
+            self.token_sink(req.request_id, toks, None)
 
     def _admit_round(self) -> bool:
         """Admit pending prompts into free slots: short ones in one batched
@@ -342,6 +714,13 @@ class InferenceEngine:
         batch: list[tuple[int, GenerationRequest, list[int]]] = []
         while len(batch) < ec.max_prefills_per_step and self._pending and free:
             req = self._pending[0]
+            if time.monotonic() > self._deadline_of(req, queued=True):
+                self._pending.popleft()
+                self.deadline_expired += 1
+                self._fail_request(
+                    req, f"deadline exceeded after "
+                         f"{time.monotonic() - req.submit_time:.2f}s in queue")
+                continue
             L = len(req.prompt_ids)
             if L + 1 > self.capacity_tokens:
                 # submit() caps requests, so only internal misuse gets here.
@@ -352,7 +731,11 @@ class InferenceEngine:
             if not self.allocator.can_alloc(L + 1):
                 break
             self._pending.popleft()
+            if req.orig_prompt_len < 0:
+                req.orig_prompt_len = L
             blocks = self.allocator.alloc(L + 1)
+            self._note_admission_wait(req)
+            self._clamp_for_brownout(req)
             if L > top:
                 slot = _Slot(req, blocks)
                 slot.ctx_len = L
@@ -368,6 +751,7 @@ class InferenceEngine:
         bucket = self._bucket(max(len(r.prompt_ids) for _, r, _ in batch))
         tokens, _, lengths, tables, temp, topk, topp = self._lane_buffers(
             P, bucket, ec.max_blocks_per_seq)
+        fstate = np.zeros((P,), np.int32)
         for j, (_, req, blocks) in enumerate(batch):
             L = len(req.prompt_ids)
             tokens[j, :L] = req.prompt_ids
@@ -375,18 +759,24 @@ class InferenceEngine:
             tables[j, :len(blocks)] = blocks
             sp = req.sampling
             temp[j], topk[j], topp[j] = sp.temperature, sp.top_k, sp.top_p
+            fstate[j] = self._fsm_entry(req)
+        t0 = time.monotonic()
         logits, _ = llama.prefill(self.model, self._t(tokens),
                                   self._t(lengths), self.pages,
                                   self._t(tables), attn_impl=self._prefill_attn)
         greedy = all(r.sampling.temperature <= 0.0 for _, r, _ in batch)
-        first = self._first_tokens(logits, temp, topk, topp, greedy)
+        # Any constrained lane masks the call; free lanes ride at state 0.
+        constrained = any(r.sampling.constrained for _, r, _ in batch)
+        first, fnext = self._first_tokens(logits, temp, topk, topp, greedy,
+                                          fstate if constrained else None)
         lanes = []
         for j, (slot_idx, req, blocks) in enumerate(batch):
             slot = _Slot(req, blocks)
             slot.ctx_len = len(req.prompt_ids)
             self._slots[slot_idx] = slot
             lanes.append((j, slot_idx))
-        self._place_first_tokens(first, lanes)
+        self._place_first_tokens(first, lanes, fnext, "engine.prefill", t0,
+                                 {"bucket": bucket, "lanes": len(batch)})
         return True
 
     def _prefill_chunks(self) -> bool:
@@ -410,8 +800,10 @@ class InferenceEngine:
             for _, s in cands))
         tokens, start, lengths, tables, temp, topk, topp = self._lane_buffers(
             P, bucket, W)
+        fstate = np.zeros((P,), np.int32)
         lanes = []
         greedy = True
+        constrained = False
         for j, (i, s) in enumerate(cands):
             L = len(s.req.prompt_ids)
             n = min(bucket, L - s.prefill_pos)
@@ -426,28 +818,50 @@ class InferenceEngine:
                 sp = s.req.sampling
                 temp[j], topk[j], topp[j] = sp.temperature, sp.top_k, sp.top_p
                 greedy = greedy and sp.temperature <= 0.0
+                # Only final lanes sample, so only they consult the FSM.
+                fstate[j] = self._fsm_entry(s.req)
+                constrained = constrained or sp.constrained
                 lanes.append((j, i))
+        t0 = time.monotonic()
         logits, _ = llama.prefill_chunk(
             self.model, self._t(tokens), self._t(start), self._t(lengths),
             self.pages, self._t(tables), attn_impl=self._prefill_attn)
         if lanes:
-            first = self._first_tokens(logits, temp, topk, topp, greedy)
-            self._place_first_tokens(first, lanes)
+            first, fnext = self._first_tokens(
+                logits, temp, topk, topp, greedy,
+                fstate if constrained else None)
+            self._place_first_tokens(first, lanes, fnext,
+                                     "engine.prefill_chunk", t0,
+                                     {"bucket": bucket, "lanes": len(cands)})
         return True
 
-    def _place_first_tokens(self, first: torch.Tensor, lanes) -> None:
-        """Write first tokens into the device token buffer and reconcile
-        them: emission, TTFT, retirement."""
+    def _place_first_tokens(self, first: torch.Tensor, lanes,
+                            fnext: Optional[torch.Tensor], span: str,
+                            t0: float, span_attrs: dict) -> None:
+        """Write first tokens (and, with a grammar installed, every admitted
+        lane's FSM state: the state after its first token for a constrained
+        lane, 0 for a free one, which clears what a constrained occupant of
+        a reused slot left) into the device buffers, then reconcile them:
+        emission, TTFT, retirement."""
         rows = torch.tensor([j for j, _ in lanes], device=self.device)
         idx = torch.tensor([i for _, i in lanes], device=self.device)
         self._tok_state[idx] = first[rows]
+        if self._fsm_trans is not None:
+            self._fsm_state[idx] = (fnext[rows] if fnext is not None else 0)
         host = first.cpu().tolist()
         now = time.monotonic()
         for j, slot_idx in lanes:
             s = self._slots[slot_idx]
-            s.generated.append(int(host[j]))
-            if s.req.first_token_time == 0.0:
-                s.req.first_token_time = now
+            tok = int(host[j])
+            s.generated.append(tok)
+            req = s.req
+            if req.first_token_time == 0.0:
+                req.first_token_time = now
+                self.hist_ttft.observe(now - req.submit_time, req.slo_class,
+                                       self._trace_id(req))
+            self._span(span, t0, now, req,
+                       constrained=req.sampling.constrained, **span_attrs)
+            self._emit(req, [tok])
             if self._is_finished(s):
                 self._retire(slot_idx)
 
@@ -474,7 +888,8 @@ class InferenceEngine:
                 self.allocator.extend(s.blocks, s.ctx_len + steps_i)
             except OutOfBlocks as exc:
                 # Preemption is not ported: the lane ends with an error.
-                self._retire(i, error=f"out of KV blocks: {exc}")
+                s.abort_cause = f"out of KV blocks: {exc}"
+                self._retire(i)
                 lanes.remove((i, s))
                 continue
             ctx[i] = s.ctx_len
@@ -485,32 +900,54 @@ class InferenceEngine:
         if not lanes:
             return False
         greedy = all(s.req.sampling.temperature <= 0.0 for _, s in lanes)
+        # Any constrained lane masks the call (free lanes at state 0); greedy
+        # lanes then take the argmax of the masked logits.
+        constrained = self._fsm_trans is not None and any(
+            s.req.sampling.constrained for _, s in lanes)
+        cap = ec.sample_topk_cap
+        bounded = not greedy and cap > 0 and all(
+            0 < s.req.sampling.top_k <= cap
+            for _, s in lanes if s.req.sampling.temperature > 0.0)
         t0 = time.monotonic()
         toks = self._decode_call(K, self._t(ctx), self._t(remaining),
-                                 self._t(table), temp, topk, topp, greedy)
+                                 self._t(table), temp, topk, topp, greedy,
+                                 bounded, constrained)
         arr = toks.cpu().numpy()
-        self.decode_s += time.monotonic() - t0
+        now = time.monotonic()
+        self.decode_s += now - t0
         self.decode_steps += K
+        if bounded:
+            self.bounded_decode_steps += K
         for i, s in lanes:
             new = [int(t) for t in arr[:, i] if t >= 0]
             self.decode_tokens += len(new)
+            self._span("engine.decode", t0, now, s.req,
+                       steps=int(remaining[i]), emitted=len(new))
+            if not new:
+                continue
             s.ctx_len += len(new)
             s.generated.extend(new)
+            self._emit(s.req, new)
             if self._is_finished(s):
                 self._retire(i)
         return True
 
     def _decode_call(self, K: int, ctx, remaining, table, temp, topk, topp,
-                     greedy: bool) -> torch.Tensor:
+                     greedy: bool, bounded: bool,
+                     constrained: bool) -> torch.Tensor:
         """K decode steps with on-device token feedback.  The masking is the
         JAX scan's: a lane is active while it started active, has not hit
         EOS and has steps left; an idle lane runs at ctx 0 (null block) and
-        emits -1.  Returns the [K, max_slots] token matrix."""
+        emits -1.  ``constrained`` carries the per-lane FSM state through
+        the steps (masked logits, advanced on active lanes only);
+        ``bounded`` samples from the top ``sample_topk_cap`` logits.
+        Returns the [K, max_slots] token matrix."""
         if not greedy:
             temp_t, topk_t, topp_t = self._t(temp), self._t(topk), self._t(topp)
         active0 = ctx > 0
         done = torch.zeros_like(active0)
         tokens = self._tok_state
+        fstate = self._fsm_state
         outs = []
         for i in range(K):
             act = active0 & ~done & (i < remaining)
@@ -518,17 +955,28 @@ class InferenceEngine:
             logits, _ = llama.decode_step(self.model, tokens, ctx_eff,
                                           self.pages, table,
                                           attn_impl=self._decode_attn)
+            if constrained:
+                logits = fsm_mask_logits(logits, fstate, self._fsm_trans,
+                                         self._fsm_pad)
             if greedy:
                 nxt = greedy_tokens(logits)
+            elif bounded:
+                nxt = sample_tokens_bounded(
+                    self._gen, logits, temperature=temp_t, top_k=topk_t,
+                    top_p=topp_t, k_cap=self.ecfg.sample_topk_cap)
             else:
                 nxt = sample_tokens(self._gen, logits, temperature=temp_t,
                                     top_k=topk_t, top_p=topp_t)
             nxt = torch.where(act, nxt, tokens)
+            if constrained:
+                fstate = torch.where(
+                    act, fsm_advance(fstate, self._fsm_trans, nxt), fstate)
             done = done | (act & (nxt == self.eos_id))
             ctx = torch.where(act, ctx + 1, ctx)
             outs.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
             tokens = nxt
         self._tok_state = tokens
+        self._fsm_state = fstate
         return torch.stack(outs)
 
     def _is_finished(self, s: _Slot) -> bool:
@@ -536,20 +984,29 @@ class InferenceEngine:
             s.generated[-1] == self.eos_id
             or len(s.generated) >= s.req.sampling.max_tokens)
 
-    def _retire(self, slot_idx: int, error: str = "") -> None:
+    def _retire(self, slot_idx: int) -> None:
         s = self._slots[slot_idx]
         now = time.monotonic()
-        toks = list(s.generated)
+        req = s.req
+        toks = req.prompt_ids[req.orig_prompt_len:] + s.generated
         reason = "eos" if toks and toks[-1] == self.eos_id else "length"
         if reason == "eos":
             toks = toks[:-1]
+        error = s.abort_cause
         if error:
             reason = "error"
-        req = s.req
-        self._results[req.request_id] = GenerationResult(
+        result = GenerationResult(
             request_id=req.request_id, token_ids=toks, finish_reason=reason,
             ttft_s=(req.first_token_time - req.submit_time
                     if req.first_token_time > 0.0 else 0.0),
             latency_s=now - req.submit_time, error=error)
+        self._results[req.request_id] = result
+        self.hist_e2e.observe(result.latency_s, req.slo_class,
+                              self._trace_id(req))
+        self._end_request_span(
+            req, "error" if error else "ok", finish_reason=reason,
+            tokens=len(toks), ttft_s=round(result.ttft_s, 6))
         self.allocator.free(s.blocks)
         self._slots[slot_idx] = None
+        if self.token_sink is not None:
+            self.token_sink(req.request_id, [], result)

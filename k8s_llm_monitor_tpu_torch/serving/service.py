@@ -1,0 +1,658 @@
+"""Concurrent front-end for the inference engine.
+
+``InferenceEngine`` is single-threaded by design (one thread owns device
+state); ``EngineService`` wraps it in a background step-loop thread plus a
+thread-safe submit API, so N concurrent callers (e.g. the HTTP server's
+request threads) share prefill batches and decode steps instead of
+serializing whole generations.  The step thread is the only thread that
+touches the engine and the card: it runs the engine on the engine's device
+(``cuda`` unless the engine was built with ``device="cpu"``) with the
+engine's own ``torch.Generator``.
+
+Per-request ``RequestHandle``s deliver tokens as the engine fetches them from
+device (streaming seam for SSE in monitor/server.py) and a final
+``GenerationResult``.
+"""
+
+from __future__ import annotations
+
+import atexit
+import dataclasses
+import itertools
+import logging
+import queue
+import threading
+import time
+from typing import Callable, Iterator, Optional
+
+from k8s_llm_monitor_tpu_torch.devtools.lockcheck import guarded_by, make_lock
+from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
+from k8s_llm_monitor_tpu_torch.observability.tracing import Tracer, get_tracer
+from k8s_llm_monitor_tpu_torch.resilience.errors import OverloadedError
+from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
+from k8s_llm_monitor_tpu_torch.resilience.health import HealthMonitor
+from k8s_llm_monitor_tpu_torch.resilience.retry import Backoff
+from k8s_llm_monitor_tpu_torch.resilience.slo import (
+    DEFAULT_CLASS,
+    BrownoutController,
+    normalize_slo_class,
+)
+from k8s_llm_monitor_tpu_torch.resilience.tenancy import (
+    DEFAULT_TENANT,
+    TenantGovernor,
+    normalize_tenant,
+)
+from k8s_llm_monitor_tpu_torch.serving.engine import (
+    GenerationRequest,
+    GenerationResult,
+    InferenceEngine,
+    SamplingParams,
+)
+
+__all__ = [
+    "EngineService",
+    "OverloadedError",  # re-export: defined in resilience/errors.py
+    "RequestHandle",
+]
+
+logger = logging.getLogger("serving.service")
+
+
+class RequestHandle:
+    """Ticket for one in-flight generation.
+
+    ``stream()`` yields token ids as they are generated (EOS excluded);
+    ``result()`` blocks for the final GenerationResult.  Both may be used on
+    the same handle from different threads.
+    """
+
+    def __init__(self, request_id: str, eos_id: int, cancel_fn=None):
+        self.request_id = request_id
+        self._eos_id = eos_id
+        self._tokens: "queue.Queue[Optional[int]]" = queue.Queue()
+        self._done = threading.Event()
+        self._result: Optional[GenerationResult] = None
+        self._cancel_fn = cancel_fn
+        # Tokens delivered by a previous engine incarnation (supervisor
+        # replay): already streamed to the caller, prepended to the final
+        # result so token_ids stays the complete output.
+        self._replay_prefix: list[int] = []
+
+    def cancel(self) -> None:
+        """Ask the engine to stop generating (client went away).  The final
+        result still arrives (finish_reason per whatever completed)."""
+        if self._cancel_fn is not None and not self._done.is_set():
+            self._cancel_fn(self.request_id)
+
+    # -- engine side ----------------------------------------------------
+
+    def _push(self, toks: list[int], result: Optional[GenerationResult]) -> None:
+        for t in toks:
+            if t != self._eos_id:
+                self._tokens.put(t)
+        if result is not None:
+            if self._replay_prefix:
+                result = dataclasses.replace(
+                    result,
+                    token_ids=self._replay_prefix + list(result.token_ids))
+            self._result = result
+            self._done.set()
+            self._tokens.put(None)  # stream sentinel
+
+    # -- caller side ----------------------------------------------------
+
+    def stream(self, timeout: Optional[float] = None) -> Iterator[int]:
+        """Yield generated token ids until completion (EOS not yielded).
+
+        ``timeout`` bounds the wait for each *next* token; on expiry a
+        TimeoutError is raised (matching ``result()``'s contract)."""
+        while True:
+            try:
+                tok = self._tokens.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"generation {self.request_id}: no token within "
+                    f"{timeout}s") from None
+            if tok is None:
+                return
+            yield tok
+
+    def poll_token(self, timeout: Optional[float] = None) -> Optional[int]:
+        """Single-step variant of ``stream()``: the next token id, or None
+        once the stream has ended (idempotent — the end sentinel is re-armed
+        so callers racing several handles may poll past it).  Raises
+        TimeoutError when nothing arrives within ``timeout``; the fleet
+        router uses that to multiplex a hedged pair of handles from one
+        thread."""
+        try:
+            tok = self._tokens.get(timeout=timeout)
+        except queue.Empty:
+            raise TimeoutError(
+                f"generation {self.request_id}: no token within "
+                f"{timeout}s") from None
+        if tok is None:
+            self._tokens.put(None)
+            return None
+        return tok
+
+    def result(self, timeout: Optional[float] = None) -> GenerationResult:
+        if not self._done.wait(timeout=timeout):
+            raise TimeoutError(
+                f"generation {self.request_id} not done within {timeout}s")
+        assert self._result is not None
+        return self._result
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+
+@guarded_by("_handles_lock", "_draining", "_dead", "shed_count",
+            "shed_count_by_class", "_shed_streaks")
+class EngineService:
+    """Background step-loop over an ``InferenceEngine`` with thread-safe
+    submission.  The loop thread is the only toucher of engine state; callers
+    talk through a submission queue and per-request handles.
+
+    Lifecycle hooks (for a supervisor, which the port does not have yet):
+    ``on_death`` is called instead of failing the handles when the step
+    loop dies, so a supervisor can rebuild the engine and replay the
+    survivors; ``observer`` sees every
+    (request_id, toks, result) delivery *before* the handle does, which is
+    where the request journal checkpoints progress.
+    """
+
+    def __init__(self, engine: InferenceEngine,
+                 health: HealthMonitor | None = None,
+                 on_death: Callable[[str], None] | None = None,
+                 brownout: BrownoutController | None = None,
+                 governor: TenantGovernor | None = None):
+        self.engine = engine
+        # Per-tenant admission + quota accountant (resilience/tenancy.py).
+        # Owned by the supervisor on single-replica roles so reservations
+        # survive engine rebuilds; replicas behind a FleetRouter get None —
+        # the router charges once per logical request, and a replica-level
+        # governor would double-charge hedges and failover replays.
+        self.governor = governor
+        engine.token_sink = self._sink
+        # One health monitor per service: the engine reports dispatch
+        # failures / watchdog trips into it, submit() reports shed/admit,
+        # and /health + /readyz read it.
+        self.health = health or HealthMonitor()
+        engine.health = self.health
+        # Brownout ladder over the health state (resilience/slo.py): the
+        # engine consults the level for spec-decode gating and batch
+        # max_tokens clamping; the fleet/router tiers read it from stats.
+        self.brownout = brownout or BrownoutController(self.health.state)
+        engine.brownout = self.brownout.level
+        self.on_death = on_death
+        self.observer: Callable[
+            [str, list[int], Optional[GenerationResult]], None] | None = None
+        self._faults = get_injector()
+        self._submissions: "queue.Queue[GenerationRequest]" = queue.Queue()
+        self._cancels: "queue.Queue[str]" = queue.Queue()
+        # Control-plane calls executed ON the step thread (the engine's
+        # only legal toucher): prefix export/install for the fleet
+        # migration path, tier stats snapshots.  Each item is
+        # (fn, reply_queue); the reply carries ("ok", value) or
+        # ("err", exc) back to the blocked caller.
+        self._calls: "queue.Queue[tuple[Callable, queue.Queue]]" = (
+            queue.Queue())
+        self._cancelled: set[str] = set()
+        self._handles: dict[str, RequestHandle] = {}
+        self._ids = itertools.count()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._draining = False
+        self.shed_count = 0
+        self.shed_count_by_class: dict[str, int] = {}
+        # Consecutive sheds per SLO class -> per-class Retry-After hints:
+        # a shed batch caller backs off on the batch streak while the
+        # interactive lane's hint stays at the base delay.
+        self._shed_streaks: dict[str, int] = {}
+        self._shed_backoff = Backoff(base_s=1.0, cap_s=8.0, jitter=0.0)
+        self._dead: str | None = None  # set when the step loop dies
+        # Step-loop liveness beat: refreshed every iteration; a stale beat
+        # with work pending means the loop is wedged inside a dispatch
+        # (supervisor's rebuild trigger alongside _dead).
+        self.last_heartbeat = time.monotonic()
+        # Created last: lockcheck's guarded_by treats writes before the
+        # lock exists as construction, not races.
+        self._handles_lock = make_lock("service.handles")
+        self._thread = threading.Thread(
+            target=self._run, name="engine-service", daemon=True)
+        self._thread.start()
+        # Interpreter shutdown kills daemon threads wherever they stand; a
+        # step loop torn down inside a device call can abort the whole
+        # process.  atexit runs before daemon
+        # teardown, so stop the loop first — hosts that call stop()
+        # themselves just make this a no-op.
+        atexit.register(self.stop)
+
+    # -- submission -----------------------------------------------------
+
+    def _record_shed(self, slo_class: str = DEFAULT_CLASS,
+                     request_id: str = "", reason: str = "",
+                     trace_ctx=None, tenant: str = "") -> float:
+        """Bump shed counters; returns a Retry-After hint that backs off
+        with consecutive sheds *of this class* (reset by the class's next
+        successful admit) — overloaded batch lanes escalate their hint
+        without inflating the interactive lane's.  Also records the shed
+        decision as an instant span and a flight-recorder event so a
+        refusal shows up in the request's timeline."""
+        with self._handles_lock:
+            self.shed_count += 1
+            self.shed_count_by_class[slo_class] = (
+                self.shed_count_by_class.get(slo_class, 0) + 1)
+            self._shed_streaks[slo_class] = (
+                self._shed_streaks.get(slo_class, 0) + 1)
+            streak = self._shed_streaks[slo_class]
+        self.health.record_shed()
+        if tenant and self.governor is not None:
+            self.governor.note_shed(tenant)
+        now = time.monotonic()
+        get_tracer().record(
+            "service.shed", now, now, trace_ctx, status="error",
+            attrs={"request_id": request_id, "class": slo_class,
+                   "reason": reason, "tenant": tenant})
+        get_flight_recorder().note(
+            "shed", request_id=request_id, slo_class=slo_class,
+            reason=reason, tenant=tenant)
+        return self._shed_backoff.delay(min(streak - 1, 4))
+
+    def submit(
+        self,
+        prompt_ids: list[int],
+        sampling: SamplingParams | None = None,
+        request_id: str | None = None,
+        deadline_s: float = 0.0,
+        force: bool = False,
+        handle: RequestHandle | None = None,
+        slo_class: str = DEFAULT_CLASS,
+        tenant: str = DEFAULT_TENANT,
+    ) -> RequestHandle:
+        """Admit a generation request.
+
+        ``force`` bypasses drain/shed/quota checks (supervisor replay: the
+        request was already accepted once and must not be refused — or
+        re-charged — on its way back in).  ``handle`` re-installs an
+        existing RequestHandle under the same request id so a replayed
+        request keeps streaming to the original caller with no token gap.
+        ``slo_class`` orders admission, shedding, and eviction
+        (resilience/slo.py); ``tenant`` is the quota/namespace owner
+        (resilience/tenancy.py) — quota refusals raise a tenant-tagged
+        OverloadedError *before* the SLO shed check, so an over-quota
+        tenant's traffic never reaches the queue and cannot push a
+        within-quota tenant into shedding.
+        """
+        slo_class = normalize_slo_class(slo_class)
+        tenant = normalize_tenant(tenant)
+        sampling = sampling or SamplingParams()
+        # The id exists BEFORE any shed decision so every 429/503 body
+        # carries it — a refused request is joinable with traces and
+        # journal records even though it never reached the engine.
+        if request_id is None:
+            request_id = f"svc-{next(self._ids)}"
+        # Trace context: join the caller's trace (HTTP handler thread set
+        # it from ``traceparent``) or start a fresh one; the request's own
+        # span is a child so engine phase spans nest under it.  None when
+        # sampling is fully off — the engine then skips all span work.
+        tracer = get_tracer()
+        parent_ctx = tracer.current() or tracer.new_trace()
+        trace_ctx = Tracer.child(parent_ctx) if parent_ctx is not None else None
+        tracer.bind(request_id, trace_ctx)
+        with self._handles_lock:
+            dead = self._dead
+            draining = self._draining
+        if dead is not None:
+            raise RuntimeError(f"engine service is dead: {dead}")
+        if not force:
+            if draining or self._stop.is_set():
+                # Not retriable *here* — this replica is going away; the
+                # client should retry against another replica.
+                hint = self._record_shed(slo_class, request_id, "draining",
+                                         trace_ctx, tenant)
+                raise OverloadedError("draining", retriable=False,
+                                      retry_after_s=hint,
+                                      slo_class=slo_class,
+                                      request_id=request_id,
+                                      tenant=tenant)
+            # Quota gate FIRST: over-quota work is refused before it can
+            # occupy queue slots that would push should_shed() into
+            # refusing a within-quota tenant.  Raises a tenant-tagged
+            # OverloadedError (HTTP 429 + Retry-After) and reserves
+            # max_tokens on success.
+            if self.governor is not None:
+                self.governor.admit(
+                    tenant, request_id,
+                    max_tokens=sampling.max_tokens,
+                    prompt_bytes=len(prompt_ids) * 4,
+                    slo_class=slo_class)
+            # Prompt + first sampled token is the KV footprint admission
+            # must eventually place (engine._admit_round allocates L+1) —
+            # the tier-aware capacity clause checks it against headroom.
+            reason = self.engine.should_shed(
+                slo_class, need_tokens=len(prompt_ids) + 1)
+            if reason:
+                if self.governor is not None:
+                    # SLO shed after a successful quota reservation:
+                    # release the token reservation (nothing was
+                    # generated) but keep the request-rate charge — a
+                    # shed retry storm still counts against the tenant.
+                    self.governor.settle(request_id)
+                hint = self._record_shed(slo_class, request_id, reason,
+                                         trace_ctx, tenant)
+                raise OverloadedError(
+                    reason,
+                    queue_depth=self.engine.queue_depth,
+                    queue_tokens=self.engine.queue_tokens,
+                    retry_after_s=hint,
+                    slo_class=slo_class,
+                    request_id=request_id,
+                    tenant=tenant)
+        self.health.record_admit()
+        with self._handles_lock:
+            self._shed_streaks.pop(slo_class, None)
+        if handle is None:
+            handle = RequestHandle(request_id, self.engine.eos_id,
+                                   cancel_fn=self._request_cancel)
+        else:
+            handle._eos_id = self.engine.eos_id
+            handle._cancel_fn = self._request_cancel
+        # Kept on the handle so _fail_all can close the request span when
+        # the engine dies before retiring it (no orphan parents in the
+        # trace even across a replica kill).
+        handle.trace = trace_ctx
+        with self._handles_lock:
+            self._handles[request_id] = handle
+        self._submissions.put(GenerationRequest(
+            request_id=request_id,
+            prompt_ids=list(prompt_ids),
+            sampling=sampling,
+            deadline_s=deadline_s,
+            slo_class=slo_class,
+            tenant=tenant,
+            trace=trace_ctx,
+        ))
+        self._wake.set()
+        return handle
+
+    def submit_text(self, prompt: str,
+                    sampling: SamplingParams | None = None) -> RequestHandle:
+        tok = self.engine.tokenizer
+        assert tok is not None, "engine has no tokenizer"
+        return self.submit(tok.encode(prompt), sampling)
+
+    def generate_text(self, prompt: str,
+                      sampling: SamplingParams | None = None,
+                      timeout: Optional[float] = None) -> str:
+        """Submit and block for the decoded completion."""
+        res = self.submit_text(prompt, sampling).result(timeout=timeout)
+        if res.finish_reason == "error":
+            raise RuntimeError(f"generation failed: {res.error}")
+        tok = self.engine.tokenizer
+        return tok.decode(res.token_ids)
+
+    def _request_cancel(self, request_id: str) -> None:
+        self._cancels.put(request_id)
+        self._wake.set()
+
+    # -- control plane ---------------------------------------------------
+
+    def call(self, fn: Callable[[InferenceEngine], object],
+             timeout: float = 30.0):
+        """Run ``fn(engine)`` on the step-loop thread and return its value.
+
+        The step thread is the sole toucher of engine/device state, so
+        anything that reads or writes the KV pool outside the generate
+        path — prefix export for the migration endpoint, host-tier
+        installs, tier stats — must funnel through here rather than
+        calling the engine from an HTTP thread.  Exceptions raised by
+        ``fn`` propagate to the caller; the step loop survives them."""
+        with self._handles_lock:
+            dead = self._dead
+        if dead is not None:
+            raise RuntimeError(f"engine service is dead: {dead}")
+        reply: "queue.Queue[tuple[str, object]]" = queue.Queue(maxsize=1)
+        self._calls.put((fn, reply))
+        self._wake.set()
+        try:
+            kind, value = reply.get(timeout=timeout)
+        except queue.Empty:
+            raise TimeoutError(
+                f"engine call not serviced within {timeout}s") from None
+        if kind == "err":
+            raise value  # type: ignore[misc]
+        return value
+
+    def _drain_calls(self) -> None:
+        while True:
+            try:
+                fn, reply = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                out = ("ok", fn(self.engine))
+            except Exception as exc:  # noqa: BLE001 — caller's exception
+                out = ("err", exc)
+            try:
+                reply.put_nowait(out)
+            except queue.Full:  # caller timed out and left; drop it
+                pass
+
+    # -- drain / shutdown -----------------------------------------------
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Stop admitting new work (submit() sheds with ``draining``) and
+        wait for queued + inflight requests to finish and their streams to
+        flush.  Returns True when fully drained within ``timeout``."""
+        with self._handles_lock:
+            self._draining = True
+        self.health.set_draining(True)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._handles_lock:
+                idle = not self._handles
+            if (idle and self._submissions.empty()
+                    and not self.engine.has_work):
+                return True
+            time.sleep(0.01)
+        return False
+
+    def stop(self, timeout: float = 10.0, drain_s: float = 0.0) -> None:
+        """Stop the step loop.  ``drain_s > 0`` first drains gracefully
+        (finish inflight, flush streams); any handle still unresolved when
+        the loop exits is failed so no client blocks forever."""
+        with self._handles_lock:
+            self._draining = True  # no admission races the shutdown
+            dead = self._dead
+        if drain_s > 0 and dead is None:
+            self.drain(timeout=drain_s)
+        self._stop.set()
+        self._wake.set()
+        self._thread.join(timeout=timeout)
+        atexit.unregister(self.stop)
+        with self._handles_lock:
+            dead = self._dead
+        if dead is None:
+            self._fail_all("service stopped")
+            self._fail_calls("service stopped")
+
+    # -- loop -----------------------------------------------------------
+
+    def _fail_handle(self, request_id: str, msg: str) -> None:
+        result = GenerationResult(
+            request_id=request_id, token_ids=[], finish_reason="error",
+            ttft_s=0.0, latency_s=0.0, error=msg,
+        )
+        if self.governor is not None:
+            # Failed before/without generating: settle refunds whatever
+            # the reservation still holds beyond tokens already streamed.
+            self.governor.settle(request_id)
+        # Terminal outcome: the observer (journal) must tombstone it so a
+        # restart doesn't resurrect an invalid/cancelled request.
+        if self.observer is not None:
+            try:
+                self.observer(request_id, [], result)
+            except Exception:  # noqa: BLE001 — observer must not kill the loop
+                logger.exception("observer failed for %s", request_id)
+        with self._handles_lock:
+            handle = self._handles.pop(request_id, None)
+        if handle is not None:
+            handle._push([], result)
+
+    def _drain_submissions(self) -> None:
+        # Cancels first: a cancel aimed at a request still sitting in the
+        # submission queue (never admitted to the engine) must release the
+        # caller immediately, not after a full generation.
+        while True:
+            try:
+                self._cancelled.add(self._cancels.get_nowait())
+            except queue.Empty:
+                break
+        while True:
+            try:
+                req = self._submissions.get_nowait()
+            except queue.Empty:
+                break
+            if req.request_id in self._cancelled:
+                self._cancelled.discard(req.request_id)
+                self._fail_handle(req.request_id, "cancelled before admission")
+                continue
+            try:
+                self.engine.submit(req)
+            except ValueError as exc:
+                # Invalid request (empty prompt, bad sampling): fail its
+                # handle instead of killing the step loop.
+                self._fail_handle(req.request_id, str(exc))
+        for rid in list(self._cancelled):
+            # Unknown ids (already finished, duplicate cancel) are dropped;
+            # the handle has already resolved either way.
+            self.engine.cancel(rid)
+            self._cancelled.discard(rid)
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                self.last_heartbeat = time.monotonic()
+                self._faults.maybe_raise("step_loop_crash")
+                self._drain_submissions()
+                self._drain_calls()
+                if self.engine.has_work:
+                    self.engine.step()
+                else:
+                    # Idle: sleep until a submission arrives.
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+        except Exception as exc:  # engine is corrupt — fail or hand off
+            msg = f"engine step failed: {exc!r}"
+            with self._handles_lock:
+                self._dead = msg
+            self._fail_calls(msg)
+            self.health.set_dead(msg)
+            if self.on_death is not None:
+                # A supervisor owns recovery: keep the handles alive so
+                # their requests can be replayed on the rebuilt engine.
+                # Exit quietly — the exception IS handled (by the rebuild),
+                # so don't trip thread-excepthook noise.
+                try:
+                    self.on_death(msg)
+                except Exception:  # noqa: BLE001 — dying thread, best effort
+                    logger.exception("on_death callback failed")
+                logger.warning("step loop dead, awaiting supervisor: %s", msg)
+            else:
+                self._fail_all(msg)
+                raise
+
+    def _fail_calls(self, msg: str) -> None:
+        # Control calls that raced the death of the loop error out
+        # immediately instead of blocking their callers until timeout.
+        while True:
+            try:
+                _fn, reply = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                reply.put_nowait(
+                    ("err", RuntimeError(f"engine service is dead: {msg}")))
+            except queue.Full:
+                pass
+
+    def _fail_all(self, msg: str) -> None:
+        # Failure edge: dump the flight recorder (span ring + recent
+        # engine events) so the mass-failure has a postmortem timeline.
+        # A clean stop with nothing in flight is not a failure — skip the
+        # artifact so routine shutdowns don't litter the flight dir.
+        with self._handles_lock:
+            had_work = bool(self._handles)
+        if had_work or not self._submissions.empty():
+            get_flight_recorder().dump("fail_all", extra={"msg": msg})
+        # Drain submissions that raced the death of the loop so their
+        # handles fail instead of hanging until timeout.
+        while True:
+            try:
+                self._submissions.get_nowait()
+            except queue.Empty:
+                break
+        with self._handles_lock:
+            handles = list(self._handles.values())
+            self._handles.clear()
+        now = time.monotonic()
+        for h in handles:
+            if self.governor is not None:
+                # Terminal failure (no supervisor to replay): settle so
+                # the tenant is only charged for tokens actually streamed.
+                self.governor.settle(h.request_id)
+            # The engine died before retiring this request, so its
+            # "engine.request" span (the parent of any phase spans already
+            # recorded) would never be emitted — close it here so the
+            # trace has no orphan parents.
+            ctx = getattr(h, "trace", None)
+            if ctx is not None:
+                get_tracer().record(
+                    "engine.request", now, now, ctx, status="error",
+                    span_id=ctx.span_id, parent_id=ctx.parent_id,
+                    attrs={"request_id": h.request_id, "error": msg[:200]})
+            h._push([], GenerationResult(
+                request_id=h.request_id, token_ids=[], finish_reason="error",
+                ttft_s=0.0, latency_s=0.0, error=msg,
+            ))
+
+    def _sink(self, request_id: str, toks: list[int],
+              result: Optional[GenerationResult]) -> None:
+        # Observer first, and outside the handles lock: the journal must
+        # checkpoint tokens BEFORE they reach the caller (a token streamed
+        # but never journaled would be re-generated on replay — a
+        # duplicate), and the observer takes the supervisor's lock (lock
+        # order: supervisor -> service, never the reverse).
+        if self.observer is not None:
+            try:
+                self.observer(request_id, toks, result)
+            except Exception:  # noqa: BLE001 — observer must not kill the loop
+                logger.exception("observer failed for %s", request_id)
+        # Quota accounting mirrors the journal's view: tokens are charged
+        # as emitted (delivered once, here) and the reservation settles on
+        # the terminal result — refunding reserved-but-ungenerated tokens.
+        if self.governor is not None:
+            if toks:
+                self.governor.note_delivered(request_id, len(toks))
+            if result is not None:
+                self.governor.settle(request_id)
+        with self._handles_lock:
+            handle = self._handles.get(request_id)
+            if result is not None:
+                self._handles.pop(request_id, None)
+        if handle is not None:
+            handle._push(toks, result)
+        if result is not None:
+            # Results are delivered through handles; drop the engine's copy.
+            self.engine.poll(request_id)
+
+    def detach_handles(self) -> dict[str, RequestHandle]:
+        """Hand every live handle to the supervisor (rebuild path): the
+        dying service must not fail them — they will be re-attached to the
+        replacement service via ``submit(handle=...)``."""
+        with self._handles_lock:
+            handles = dict(self._handles)
+            self._handles.clear()
+        return handles
