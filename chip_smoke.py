@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 0,1,4 --only fused_decode
     python3 chip_smoke.py --phases 0,1,4 --only paged_attn
     python3 chip_smoke.py --phases 0,2,5  # the engine, then the request's way in
+    python3 chip_smoke.py --phases 0,6    # the monitor's front door alone
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -88,6 +89,30 @@ Phase 5  the request's way in: phase 2's Llama-3-8B model in an engine
          constrained_decode_overhead_ms, and the wall time per sampled
          decode step with sample_topk_cap 64 against 0 (in turns), beside
          the two samplers alone on [32, 128256] logits (CUDA events).
+Phase 6  the monitor's front door: the earlier phases' model is freed, then
+         the port's build_server boots in process on port 0 over the demo
+         FakeCluster with llm.provider "tpu" at llama3-8b (bf16 weights and
+         pool, kv_blocks 4096, max_batch 32, spec_k 0, max_tokens 64, a
+         journal in a temporary directory, telemetry and remediation off):
+         cmd/server's chain down to EngineSupervisor -> EngineService ->
+         InferenceEngine.step.  One cold one-step request must not trip the
+         heartbeat watchdog; /health and /readyz must be ready.  A burst
+         over HTTP from 24 threads (16 POST /api/v1/query, 4 POST
+         /api/v1/analyze root_cause, 1 streamed query, 3 GET /api/v1/stats)
+         with the launch counts set to 0 just before it and read after it:
+         every response 200 and "success", every verdict of the grammar's
+         schema, flash prefill and fused decode launched.  Then Warning
+         BackOff events in the FakeCluster reach the diagnosis pipeline
+         through the Watcher, and GET /api/v1/diagnoses must show a verdict;
+         eight greedy backend.generate calls run without and then with one
+         step_loop_crash partway through: one restart, the same texts, no
+         token delivered twice, every journaled admit tombstoned, and the
+         dead engine's pool released before the new one is allocated
+         (memory_allocated before/after, max_memory_allocated across);
+         supervisor.shutdown flips /readyz to 503 and seals the journal.
+         Last, python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster
+         fake (tiny model) in its own process answers a query and exits 0
+         on SIGTERM.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -1247,6 +1272,442 @@ def phase5(torch, np, st):
     torch.cuda.empty_cache()
 
 
+QUERIES = (
+    "why is the web frontend pod restarting?",
+    "which nodes are under memory pressure?",
+    "is the api backend reachable from the web frontend?",
+    "what should I fix first in this cluster?",
+)
+SHUTDOWN_GRACE_S = 60.0          # phase 6: supervisor.shutdown(grace_s)
+
+
+def http_call(port, method, path, body=None, timeout=600.0):
+    """One HTTP request to the server under test: (status, JSON body or
+    raw bytes, wall seconds)."""
+    import http.client
+
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = json.dumps(body).encode() if body is not None else None
+        conn.request(method, path, body=data, headers=(
+            {"Content-Type": "application/json"} if data else {}))
+        resp = conn.getresponse()
+        raw = resp.read()
+        ctype = resp.getheader("Content-Type") or ""
+    finally:
+        conn.close()
+    out = json.loads(raw) if ctype.startswith("application/json") else raw
+    return resp.status, out, time.monotonic() - t0
+
+
+def http_stream(port, question, timeout=600.0):
+    """POST /api/v1/query with ``stream``: (status, events, seconds to the
+    first event, wall seconds)."""
+    import http.client
+
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/api/v1/query", body=json.dumps(
+            {"question": question, "stream": True}).encode(),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        first, buf = None, b""
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            if first is None and b"data:" in buf + chunk:
+                first = time.monotonic() - t0
+            buf += chunk
+    finally:
+        conn.close()
+    events = [json.loads(line[len("data: "):])
+              for line in buf.decode().split("\n") if line.startswith("data: ")]
+    return resp.status, events, first, time.monotonic() - t0
+
+
+def check_verdict(v, what):
+    """``v`` (a verdict as the API returns it, parsed by parse_verdict)
+    satisfies VERDICT_SCHEMA: its keys, the severity enum, the string
+    lengths and a numeric confidence."""
+    from k8s_llm_monitor_tpu_torch.diagnosis.grammar import VERDICT_SCHEMA
+
+    props = VERDICT_SCHEMA["properties"]
+    ok = isinstance(v, dict) and set(v) == set(VERDICT_SCHEMA["required"])
+    ok = ok and v["severity"] in props["severity"]["enum"]
+    for key in ("component", "root_cause", "recommendation"):
+        ok = ok and isinstance(v[key], str) and (
+            props[key]["minLength"] <= len(v[key]) <= props[key]["maxLength"])
+    ok = ok and isinstance(v["confidence"], (int, float))
+    check(ok, f"{what}: not a verdict of the grammar's schema: {v!r}")
+
+
+def front_door_burst(port):
+    """24 threads at once: 16 queries, 4 root-cause analyses, 1 streamed
+    query, 3 stats reads.  Returns {name: (status, body, wall)} and the
+    stream's (status, events, first-event seconds, wall)."""
+    import threading
+
+    calls = [(f"query-{i}", "POST", "/api/v1/query",
+              {"question": QUERIES[i % len(QUERIES)] + f" (case {i})"})
+             for i in range(16)]
+    calls += [(f"analyze-{i}", "POST", "/api/v1/analyze",
+               {"type": "root_cause", "parameters": {
+                   "namespace": "default",
+                   "pod": ("web-frontend-7d4b9c6f5-x2x1p",
+                           "api-backend-6f5d8b7c9-k3k2m", "", "")[i],
+                   "symptom": "restarts and timeouts"}})
+              for i in range(4)]
+    calls += [(f"stats-{i}", "GET", "/api/v1/stats", None) for i in range(3)]
+    out, errors, stream = {}, [], {}
+    go = threading.Event()
+
+    def run(name, method, path, body):
+        go.wait()
+        try:
+            out[name] = http_call(port, method, path, body)
+        except Exception as exc:            # reported by the caller
+            errors.append(f"{name}: {type(exc).__name__}: {exc}")
+
+    def run_stream():
+        go.wait()
+        try:
+            stream["s"] = http_stream(port, QUERIES[0] + " (streamed)")
+        except Exception as exc:
+            errors.append(f"stream: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=run, args=c) for c in calls]
+    threads.append(threading.Thread(target=run_stream))
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    go.set()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    check(not any(t.is_alive() for t in threads), "a burst request hung")
+    check(not errors, f"burst requests failed: {errors}")
+    return out, stream["s"], wall
+
+
+def greedy_eight(backend, eng, prompts, arm_after_steps=None):
+    """Eight greedy backend.generate calls at once; with
+    ``arm_after_steps`` the step_loop_crash injector is armed once, after
+    that many decode steps of this run.  Returns the texts and the seconds
+    from arming to the supervisor serving again (None without a crash)."""
+    import threading
+
+    from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
+
+    texts, errors = {}, []
+
+    def run(i):
+        try:
+            texts[i] = backend.generate(prompts[i], max_tokens=48,
+                                        temperature=0.0)
+        except Exception as exc:
+            errors.append(f"generate {i}: {type(exc).__name__}: {exc}")
+
+    d0 = eng.decode_steps
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    if arm_after_steps is not None:
+        deadline = time.monotonic() + 300
+        while (eng.decode_steps < d0 + arm_after_steps
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        check(eng.decode_steps >= d0 + arm_after_steps,
+              "the greedy calls never reached the crash point")
+        sup = backend.supervisor
+        restarts = sup.restarts
+        t0 = time.monotonic()
+        get_injector().arm("step_loop_crash", rate=1.0, times=1)
+        while ((sup.restarts == restarts or sup.state != "serving")
+               and time.monotonic() - t0 < 300):
+            time.sleep(0.001)
+        rebuild_s = time.monotonic() - t0
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a greedy call hung")
+    check(not errors, f"greedy calls failed: {errors}")
+    return ([texts[i] for i in range(8)],
+            rebuild_s if arm_after_steps is not None else None)
+
+
+def journal_ids(directory, prompts_ids):
+    """The journal's two admits of each prompt, in admission order (the
+    uncrashed run, then the crashed one); their progress records carry
+    every token delivered to the caller."""
+    from k8s_llm_monitor_tpu_torch.resilience.journal import scan_journal
+
+    reqs, _ = scan_journal(directory)
+    by_prompt = {}
+    for rid in sorted(reqs, key=lambda r: int(r.rsplit("-", 1)[1])):
+        by_prompt.setdefault(tuple(reqs[rid].prompt_ids), []).append(reqs[rid])
+    out = [by_prompt.get(tuple(p), []) for p in prompts_ids]
+    check(all(len(rs) == 2 for rs in out),
+          f"journaled admits per prompt: {[len(rs) for rs in out]}, wanted 2")
+    return out
+
+
+def phase6(torch, np, st):
+    import gc
+    import os
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from k8s_llm_monitor_tpu_torch.monitor.cluster import (
+        FakeCluster, seed_demo_cluster)
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.server import build_server
+    from k8s_llm_monitor_tpu_torch.monitor.watcher import Watcher
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.resilience.journal import scan_journal
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+
+    gpu = st["gpu"]
+    # The earlier phases' model goes first: the server builds its own.
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_door_")
+    journal_dir = os.path.join(tmp, "journal")
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    cfg.llm.provider = "tpu"
+    cfg.llm.max_tokens = 64
+    tc = cfg.llm.tpu
+    tc.model, tc.quantize, tc.spec_k = "llama3-8b", "", 0
+    tc.kv_blocks, tc.max_batch = 4096, 32
+    cfg.lifecycle.journal_dir = journal_dir
+    cfg.telemetry.enabled = False
+    cfg.remediation.enabled = False
+    cfg.diagnosis.enabled = True
+    fake = seed_demo_cluster(FakeCluster())
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    srv = build_server(cfg, backend=fake)
+    boot_s = time.monotonic() - t0
+    backend = srv.analysis.backend
+    sup = backend.supervisor
+    watcher = None
+    try:
+        check(sup is not None, "the backend is not supervised")
+        check(backend.supports_grammar, "no verdict grammar on the engine")
+        eng = backend.engine
+        check((eng.prefill_path, eng.decode_path, eng.kv_quant, eng.device.type)
+              == ("flash", "fused", "", "cuda"),
+              f"engine paths {eng.prefill_path}/{eng.decode_path} pool "
+              f"{eng.kv_quant or 'bf16'} on {eng.device}")
+        print(f"phase 6: build_server(llama3-8b, bf16 pool of "
+              f"{eng.pool_bytes} B, {tc.max_batch} slots) in {boot_s:.2f} s, "
+              f"{torch.cuda.memory_allocated() - mem0} B allocated [{gpu}]")
+        # The first step, cold (cuBLAS set-up, first 8B prefill), must not
+        # trip the supervisor's heartbeat watchdog.
+        cold = sup.submit(backend.tokenizer.encode("warm-up"),
+                          SamplingParams(max_tokens=1, temperature=0.0)
+                          ).result(timeout=300)
+        check(cold.finish_reason in ("eos", "length"),
+              f"first request ended {cold.finish_reason}: {cold.error}")
+        check(sup.restarts == 0, "the first step tripped a restart")
+        print(f"phase 6: first request (one step, cold): "
+              f"{cold.latency_s * 1e3:.1f} ms; heartbeat timeout "
+              f"{sup.heartbeat_timeout_s:.0f} s, restarts 0 [{gpu}]")
+        srv.start()
+        port = srv.port
+        for path in ("/health", "/readyz"):
+            status, body, _ = http_call(port, "GET", path)
+            check(status == 200 and body["ready"], f"{path}: {status} {body}")
+
+        pa.reset_launch_counts()
+        out, stream, wall = front_door_burst(port)
+        torch.cuda.synchronize()
+        launches = {"flash_prefill": pa.flash_prefill_attention.launches,
+                    "fused_decode": pa.paged_decode_attention_fused.launches}
+        for name, (status, body, _) in out.items():
+            # /api/v1/stats' envelope has no "status" key (as in the JAX
+            # server): it must carry the engine block instead.
+            ok = (body["engine"] is not None if name.startswith("stats")
+                  else body.get("status") == "success")
+            check(status == 200 and ok, f"{name}: HTTP {status} "
+                                        f"{str(body)[:300]}")
+        for i in range(4):
+            check_verdict(out[f"analyze-{i}"][1]["result"]["verdict"],
+                          f"analyze-{i}")
+        s_status, events, first_s, s_wall = stream
+        check(s_status == 200 and events and events[-1].get("done")
+              and not any("error" in e for e in events),
+              f"stream: HTTP {s_status}, events {events[-3:]}")
+        check(all(n > 0 for n in launches.values()),
+              f"a kernel never launched on the front door's path: {launches}")
+        st["front_door_launches"] = launches
+        for rec in st.get("records", []):
+            if rec["name"] in launches:
+                rec["launches_front_door"] = launches[rec["name"]]
+        q_walls = sorted(out[f"query-{i}"][2] for i in range(16))
+        a_walls = sorted(out[f"analyze-{i}"][2] for i in range(4))
+        print(f"phase 6: burst of 24 over HTTP (16 query, 4 analyze "
+              f"root_cause, 1 streamed query, 3 stats) in {wall:.2f} s: "
+              f"query wall p50 {np.percentile(q_walls, 50) * 1e3:.1f} ms, "
+              f"p99 {np.percentile(q_walls, 99) * 1e3:.1f} ms; analyze wall "
+              f"p50 {np.percentile(a_walls, 50) * 1e3:.1f} ms; stream first "
+              f"event {first_s * 1e3:.1f} ms of {s_wall * 1e3:.1f} ms "
+              f"({len(events)} events); all 200/success, 4 verdicts parse; "
+              f"launches {launches} [{gpu}]")
+
+        # The standing diagnosis loop: a crash-loop burst of Warning events
+        # in the cluster, through the watcher, to a verdict.
+        watcher = Watcher(srv.client, srv.diagnosis.handler,
+                          namespaces=cfg.k8s.watch_namespaces)
+        watcher.start()
+        t0 = time.monotonic()
+        added = 0
+        while srv.diagnosis.triggers_total == 0 and added < 60:
+            time.sleep(0.2)         # the watch streams subscribe
+            for i in range(cfg.diagnosis.burst_threshold + 1):
+                fake.add_event(type_="Warning", reason="BackOff",
+                               message="Back-off restarting failed "
+                                       f"container web (try {added + i})",
+                               involved_object="web-frontend-7d4b9c6f5-x2x1p")
+            added += cfg.diagnosis.burst_threshold + 1
+            time.sleep(1.0)
+        check(srv.diagnosis.triggers_total >= 1,
+              f"{added} Warning events never triggered a diagnosis")
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            status, payload, _ = http_call(port, "GET", "/api/v1/diagnoses")
+            if payload.get("count", 0) >= 1:
+                break
+            time.sleep(0.25)
+        check(status == 200 and payload.get("count", 0) >= 1,
+              f"no diagnosis within 300 s: {str(payload)[:300]}")
+        entry = payload["diagnoses"][0]
+        check_verdict(entry["verdict"], "diagnosis")
+        check("BackOff" in entry["trigger"], f"trigger {entry['trigger']!r}")
+        print(f"phase 6: diagnosis pipeline: {added} Warning BackOff events "
+              f"-> verdict {entry['verdict']['severity']} in "
+              f"{time.monotonic() - t0:.2f} s (queries "
+              f"{payload['pipeline']['queries']}) [{gpu}]")
+        watcher.stop()
+        watcher = None
+
+        # A rebuild: eight greedy calls without, then with one step-loop
+        # crash partway through.
+        prompts = [f"Summarize the health of node k3d-demo-agent-{i} and its "
+                   f"pods in one paragraph ({i})." for i in range(8)]
+        ids_of = [backend.tokenizer.encode(p) for p in prompts]
+        ref, _ = greedy_eight(backend, eng, prompts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+        t_run = time.monotonic()
+        got, rebuild_s = greedy_eight(backend, eng, prompts,
+                                      arm_after_steps=2)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        snap = sup.snapshot()
+        status, health, _ = http_call(port, "GET", "/health")
+        check(health["lifecycle"]["restarts"] == 1 and snap["restarts"] == 1,
+              f"restarts {health['lifecycle']['restarts']}, wanted 1")
+        check(got == ref, "greedy texts differ after the rebuild: "
+              + str([(i, a, b) for i, (a, b) in enumerate(zip(ref, got))
+                     if a != b])[:600])
+        n_same = 0
+        for i, (first, second) in enumerate(journal_ids(journal_dir, ids_of)):
+            check(len(second.emitted) <= 48,
+                  f"prompt {i}: {len(second.emitted)} tokens delivered for a "
+                  "48-token budget (a duplicate)")
+            n_same += second.emitted == first.emitted
+        reqs, _ = scan_journal(journal_dir)
+        check(all(r.completed for r in reqs.values()),
+              "a journaled admit is not tombstoned")
+        new_eng = backend.engine
+        check(new_eng is not eng and eng.pages is None,
+              "the rebuilt engine did not release the dead one's pool")
+        print(f"phase 6: rebuild: 1 restart, {snap['replayed_total']} "
+              f"replayed, {rebuild_s:.3f} s from the crash to serving again "
+              f"(backoff {cfg.lifecycle.restart_backoff_s} s), "
+              f"{time.monotonic() - t_run:.2f} s for the crashed run; 8 "
+              f"greedy texts equal the uncrashed run's, {n_same} of 8 "
+              f"id sequences equal; {len(reqs)} journaled admits, all "
+              f"tombstoned; memory_allocated {mem_before} B before, "
+              f"{mem_after} B after, max_memory_allocated {peak} B across "
+              f"the rebuild (pool {new_eng.pool_bytes} B) [{gpu}]")
+
+        drained = sup.shutdown(grace_s=SHUTDOWN_GRACE_S)
+        status, body, _ = http_call(port, "GET", "/readyz")
+        check(status == 503 and not body["ready"],
+              f"/readyz after shutdown: {status} {body}")
+        check(scan_journal(journal_dir)[1], "the journal is not sealed")
+        print(f"phase 6: shutdown: drained={drained}, /readyz 503 "
+              f"({body['reason']}), journal sealed")
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        sup.shutdown(grace_s=0.0)
+        srv.stop()
+        del backend, sup, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # cmd.server in its own process: boot, one query, SIGTERM, exit 0.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, LLM_TPU_MODEL="tiny", LLM_TPU_QUANTIZE="",
+               LLM_TPU_SPEC_K="0", TELEMETRY_ENABLED="false",
+               REMEDIATION_ENABLED="false", LLM_MAX_TOKENS="16",
+               LIFECYCLE_JOURNAL_DIR=os.path.join(tmp, "cmd-journal"),
+               K8SLLM_FLIGHT_DIR=os.path.join(tmp, "flight"))
+    log_path = os.path.join(tmp, "cmd_server.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_llm_monitor_tpu_torch.cmd.server",
+             "--cluster", "fake", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        ready = False
+        while time.monotonic() - t0 < 180 and proc.poll() is None:
+            try:
+                status, body, _ = http_call(port, "GET", "/readyz",
+                                            timeout=5.0)
+                ready = status == 200 and body["ready"]
+            except OSError:
+                pass
+            if ready:
+                break
+            time.sleep(0.25)
+        check(ready, f"cmd.server never became ready (rc {proc.poll()})")
+        ready_s = time.monotonic() - t0
+        status, body, q_s = http_call(port, "POST", "/api/v1/query",
+                                      {"question": "why crashloop?"})
+        check(status == 200 and body["status"] == "success",
+              f"cmd.server query: {status} {str(body)[:300]}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"cmd.server exited {rc} on SIGTERM")
+        print(f"phase 6: cmd.server (tiny, --cluster fake): ready in "
+              f"{ready_s:.1f} s, query 200 in {q_s * 1e3:.1f} ms "
+              f"({body['result']['model']}), SIGTERM -> exit 0")
+    except BaseException:
+        with open(log_path) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 SOURCES = {
     "flash_prefill": "k8s_llm_monitor_tpu_torch/csrc/flash_prefill.cu",
     "fused_decode": "k8s_llm_monitor_tpu_torch/csrc/fused_decode.cu",
@@ -1473,7 +1934,7 @@ def phase4(torch, np, st):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -1497,7 +1958,7 @@ def main(argv=None) -> int:
 
     st: dict = {"only": args.only}
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (4, phase4),
-               (5, phase5)]
+               (5, phase5), (6, phase6)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

@@ -1,2 +1,3 @@
-"""Grammar-constrained verdicts (copy of the JAX package's jax-free
-``diagnosis/grammar.py``)."""
+"""Grammar-constrained verdicts, follow-up sessions and the standing
+diagnosis pipeline (copies of the JAX package's jax-free ``diagnosis/``
+modules)."""

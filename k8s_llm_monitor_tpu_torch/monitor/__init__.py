@@ -1,1 +1,2 @@
-"""The monitor's LLM backends over the port's engine (``analysis``)."""
+"""The monitor over the port's engine: cluster access, metrics, the
+Analysis Engine (``analysis``) and the HTTP API server (``server``)."""

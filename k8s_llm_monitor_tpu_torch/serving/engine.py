@@ -31,6 +31,11 @@ block.
     class-ordered ``should_shed``, queue TTL and per-request deadlines, the
     ``health`` and ``brownout`` slots, SLO-class admission order, and the
     request and phase spans (observability/tracing.py).
+  * What the supervisor and the server read: ``release_pool`` (the
+    factory frees a dead engine's pages before building the next),
+    ``ttft_ema_by_class``, ``kv_tier_stats`` (the device tier) and the
+    counters of the mechanisms not ported, at their values with the
+    mechanism off.
 
 Reconciliation is synchronous: each dispatch is read back before the next.
 Dispatch-ahead, the inflight watchdog and pipeline resets are not ported
@@ -292,6 +297,20 @@ class InferenceEngine:
         self.bounded_decode_steps = 0   # decode steps sampled top-k bounded
         self.deadline_expired = 0
         self.brownout_clamps = 0
+        # Per-class TTFT EMA (seconds), keyed on first observation; the
+        # server's /api/v1/stats reads it.
+        self.ttft_ema_by_class: dict[str, float] = {}
+        # Counters of mechanisms not ported yet, read by the server's
+        # /health and /api/v1/stats: the values the JAX engine has with the
+        # mechanism off.  Dispatch-ahead and its watchdog (ROADMAP A2):
+        self.dispatch_failures = 0
+        self.consecutive_dispatch_failures = 0
+        self.watchdog_trips = 0
+        # Preemption and the prefix cache (ROADMAP A3):
+        self.requeues = 0
+        self.preemptions_by_class: dict[str, int] = {}
+        self.prefix_cache = None
+        self.prefix_deferrals = 0
         # EMA of submit -> admission wait: a shed signal when slots churn
         # slower than requests arrive.
         self.slot_wait_ema_s = 0.0
@@ -316,6 +335,29 @@ class InferenceEngine:
             cfg.num_kv_heads, cfg.head_dim_, ec.block_size,
             self.pages.k[0].element_size(),
             scale_bytes=4 if self.kv_quant else 0)
+
+    def kv_tier_stats(self) -> dict:
+        """KV tier byte accounting for /api/v1/stats, in the JAX engine's
+        keys.  Only the device tier exists here (the host tier is ROADMAP
+        A5), so its counters are 0."""
+        return {
+            "kv_quant": self.kv_quant,
+            "page_dtype": str(self.pages.k[0].dtype).removeprefix("torch."),
+            "device_bytes": self.pool_bytes,
+            "host_bytes": 0,
+            "host_entries": 0,
+            "spills": 0,
+            "restores": 0,
+            "host_lost": 0,
+        }
+
+    def release_pool(self) -> None:
+        """Drop the KV pool so the caching allocator can give its memory to
+        the engine that replaces this one (the supervisor's factory calls
+        it on the engine it rebuilds, which serves nothing afterwards).  A
+        thread still inside a step keeps the tensors it holds alive until
+        it lets go of them."""
+        self.pages = None
 
     @property
     def capacity_tokens(self) -> int:
@@ -857,8 +899,12 @@ class InferenceEngine:
             req = s.req
             if req.first_token_time == 0.0:
                 req.first_token_time = now
-                self.hist_ttft.observe(now - req.submit_time, req.slo_class,
+                ttft = now - req.submit_time
+                self.hist_ttft.observe(ttft, req.slo_class,
                                        self._trace_id(req))
+                prev = self.ttft_ema_by_class.get(req.slo_class)
+                self.ttft_ema_by_class[req.slo_class] = (
+                    ttft if prev is None else 0.9 * prev + 0.1 * ttft)
             self._span(span, t0, now, req,
                        constrained=req.sampling.constrained, **span_attrs)
             self._emit(req, [tok])

@@ -6,7 +6,8 @@ port's backend equals the JAX package's ``LocalEngineBackend`` verdict and
 parses; ``generate_stream``'s chunks concatenate to ``generate``'s text
 under greedy; ``generate_with_grammar`` decodes under another grammar and
 restores the verdict grammar; a shed surfaces as ``OverloadedError`` with
-the request's class.
+the request's class; the supervised (``engine_factory=``) mode gives the
+pinned engine's greedy text.
 """
 
 import jax
@@ -129,9 +130,27 @@ def test_shed_surfaces_as_overloaded_with_class(backend):
                                                    "interactive": 1}
 
 
-def test_supervised_mode_and_other_backends(weights):
-    with pytest.raises(NotImplementedError, match="supervisor"):
-        LocalEngineBackend(engine_factory=lambda: None)
+def test_supervised_mode_and_other_backends(weights, backend):
+    # engine_factory= puts an EngineSupervisor under the backend: the same
+    # greedy text as the pinned engine's backend; a factory that does not
+    # install the verdict grammar leaves the render path for verdicts.
+    with pytest.raises(ValueError, match="engine_factory"):
+        LocalEngineBackend()
+    sup_backend = LocalEngineBackend(
+        engine_factory=lambda: InferenceEngine(
+            ModelConfig(**CFG_KW), weights[1], EngineConfig(**ECFG_KW),
+            tokenizer=ByteTokenizer(), device="cpu"),
+        tokenizer=ByteTokenizer())
+    try:
+        assert sup_backend.supervisor is not None
+        assert sup_backend.service is sup_backend.supervisor.service
+        assert not sup_backend.supports_grammar
+        assert sup_backend.generate(QUESTION, max_tokens=8,
+                                    temperature=0.0) == \
+            backend.generate(QUESTION, max_tokens=8, temperature=0.0)
+        parse_verdict(sup_backend.generate_constrained(QUESTION))
+    finally:
+        sup_backend.supervisor.shutdown(grace_s=1.0)
     # Without the byte tokenizer no grammar is installed and the verdict
     # comes from the render path; the template backend renders directly.
     eng = InferenceEngine(ModelConfig(**CFG_KW), weights[1],
