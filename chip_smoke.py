@@ -35,17 +35,24 @@ Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          from a seeded generator on the card): a bf16 pool (8 GiB), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
          20..1500 tokens plus one of 2300 (chunked prefill), greedy, 32 new
-         tokens.  For each engine the launch counts are set to 0 just
-         before its run and read just after: every request must finish,
-         every kernel of its path must have launched, and a second
-         identical run must give identical ids.  Prints TTFT p50, decode
-         tokens/s, weight and pool bytes.  A third run of the bf16, the
-         int8 and the pallas engine traces its decode steps (after the last
-         prefill) with torch.profiler: device time per kernel (the
-         attention kernels by name, each must show time: the split and
-         merge kernels of the fused and of the split paged attention), the
-         number of device kernels, and the device's idle share of the
-         window.
+         tokens.  Each engine runs at the defaults (the K-step decode
+         programs as CUDA graphs, max_inflight 2); the bf16, int8 and
+         pallas engines also run the eager loop that reconciles each decode
+         call in its own step (decode_graphs=False, max_inflight=0), and
+         bf16 the eager loop with dispatch-ahead: greedy ids and launch
+         counts must be equal across one engine's settings.  For each run
+         the launch counts are set to 0 just before it and read just
+         after: every request must finish, every kernel of its path must
+         have launched, and a second identical run must give identical
+         ids.  Prints TTFT p50, decode tokens/s, weight and pool bytes, and
+         the decode graphs captured, their seconds and the graph pool's
+         bytes.  A third run of each bf16, int8 and pallas setting traces
+         its decode steps (after the last prefill) with torch.profiler,
+         which sees the kernels a graph replays: wall and device busy ms
+         per step, the device's idle share of the window, device time per
+         kernel (the attention kernels by name, each must show time: the
+         split and merge kernels of the fused and of the split paged
+         attention) and the number of device kernels.
 Phase 3  the kernel path against the plain path on the same weights cut to
          4 layers: first-token and decode-step logits of flash/fused and
          flash/pallas against dense/gather (bf16 pool), and of the int8 and
@@ -86,8 +93,10 @@ Phase 5  the request's way in: phase 2's Llama-3-8B model in an engine
          result may be an error, and a lone constrained question must give
          the same ids through the service as through engine.generate.
          Prints the burst's TTFT p50/p99, decode tokens/s,
-         constrained_decode_overhead_ms, and the wall time per sampled
-         decode step with sample_topk_cap 64 against 0 (in turns), beside
+         constrained_decode_overhead_ms, the decode graphs captured (their
+         seconds, the graph pool's bytes), and the wall time per sampled
+         decode step with sample_topk_cap 64 against 0 (one run at each
+         that captures their graphs, then in turns), beside
          the two samplers alone on [32, 128256] logits (CUDA events).
 Phase 6  the monitor's front door: the earlier phases' model is freed, then
          the port's build_server boots in process on port 0 over the demo
@@ -95,13 +104,18 @@ Phase 6  the monitor's front door: the earlier phases' model is freed, then
          pool, kv_blocks 4096, max_batch 32, spec_k 0, max_tokens 64, a
          journal in a temporary directory, telemetry and remediation off):
          cmd/server's chain down to EngineSupervisor -> EngineService ->
-         InferenceEngine.step.  One cold one-step request must not trip the
-         heartbeat watchdog; /health and /readyz must be ready.  A burst
+         InferenceEngine.step.  One cold request of 8 greedy tokens (a
+         prefill and three decode calls, each one's graph captured) must
+         not trip the heartbeat watchdog; /health and /readyz must be
+         ready.  A burst
          over HTTP from 24 threads (16 POST /api/v1/query, 4 POST
          /api/v1/analyze root_cause, 1 streamed query, 3 GET /api/v1/stats)
          with the launch counts set to 0 just before it and read after it:
          every response 200 and "success", every verdict of the grammar's
-         schema, flash prefill and fused decode launched.  Then Warning
+         schema, flash prefill and fused decode launched (it prints
+         constrained_decode_overhead_ms and the graph captures); then the
+         same burst again, its graphs captured, for the warm walls.  Then
+         Warning
          BackOff events in the FakeCluster reach the diagnosis pipeline
          through the Watcher, and GET /api/v1/diagnoses must show a verdict;
          eight greedy backend.generate calls run without and then with one
@@ -774,10 +788,25 @@ ENGINES = (
 )
 
 
-def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
-    """One engine of phase 2: two identical runs with the launch counts set
-    to 0 just before the first and read just after it.  Returns the engine
-    and the first run's ids."""
+def graph_pool_bytes(torch, eng) -> int:
+    """Device bytes of the segments in ``eng``'s CUDA-graph memory pool."""
+    pool = tuple(eng._graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def graph_line(torch, eng) -> str:
+    """The engine's decode-graph captures, their seconds and pool bytes."""
+    return (f"{eng.graph_captures} decode graphs captured in "
+            f"{eng.graph_capture_s:.2f} s, graph pool "
+            f"{graph_pool_bytes(torch, eng)} B")
+
+
+def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
+    """One engine of phase 2 at one decode setting: two identical runs with
+    the launch counts set to 0 just before the first and read just after
+    it.  Returns the engine, the first run's ids, its launch counts and its
+    (engine steps, decode steps)."""
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.serving.engine import (
@@ -791,7 +820,7 @@ def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
                         decode_steps_per_iter=8, **overrides)
     eng = InferenceEngine(cfg, model, ecfg, tokenizer=ByteTokenizer())
     check((eng.prefill_path, eng.decode_path) == paths,
-          f"{label} engine paths {eng.prefill_path}/{eng.decode_path}, "
+          f"{name} engine paths {eng.prefill_path}/{eng.decode_path}, "
           f"expected {'/'.join(paths)}")
     sp = SamplingParams(max_tokens=32)
     pa.reset_launch_counts()
@@ -804,21 +833,21 @@ def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
     steps = eng.steps - steps0
     for r in res:
         check(r.finish_reason in ("eos", "length"),
-              f"{label} {r.request_id}: finish {r.finish_reason} {r.error}")
+              f"{name} {r.request_id}: finish {r.finish_reason} {r.error}")
         check(len(r.token_ids) <= 32 and all(
             0 <= t < cfg.vocab_size for t in r.token_ids),
-            f"{label} {r.request_id}: bad ids")
+            f"{name} {r.request_id}: bad ids")
     check(all(n > 0 for n in launches.values()),
-          f"{label}: a kernel never launched on the main path: {launches}")
+          f"{name}: a kernel never launched on the main path: {launches}")
     check(eng.pool_bytes == eng.pages.nbytes(),
-          f"{label}: pool bytes {eng.pool_bytes} != {eng.pages.nbytes()}")
+          f"{name}: pool bytes {eng.pool_bytes} != {eng.pages.nbytes()}")
+    first_run = (steps, eng.decode_steps)
     ttft = statistics.median(r.ttft_s for r in res)
     tok_s = eng.decode_tokens / eng.decode_s
-    st["launches"].update(launches)
-    st["engine_steps"][label] = (steps, eng.decode_steps)
-    print(f"phase 2: {label}: {len(res)} requests done in {wall:.2f} s over "
-          f"{steps} engine steps; launches {launches}")
-    print(f"phase 2: {label}: first (cold) run: ttft p50 {ttft * 1e3:.1f} ms, "
+    graphs = f"; {graph_line(torch, eng)}" if ecfg.decode_graphs else ""
+    print(f"phase 2: {name}: {len(res)} requests done in {wall:.2f} s over "
+          f"{steps} engine steps; launches {launches}{graphs}")
+    print(f"phase 2: {name}: first (cold) run: ttft p50 {ttft * 1e3:.1f} ms, "
           f"decode {tok_s:.1f} tok/s ({eng.decode_tokens} tokens in "
           f"{eng.decode_s:.2f} s, {eng.decode_steps} decode steps), weights "
           f"{llama.param_bytes(model)} B, pool {eng.pool_bytes} B "
@@ -826,13 +855,13 @@ def run_engine(torch, st, model, prompts, label, overrides, paths, kernels):
     tokens0, secs0 = eng.decode_tokens, eng.decode_s
     res2 = eng.generate(prompts, sp)
     check([r.token_ids for r in res] == [r.token_ids for r in res2],
-          f"{label}: second identical run gave different ids")
+          f"{name}: second identical run gave different ids")
     ttft2 = statistics.median(r.ttft_s for r in res2)
     tok_s2 = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
-    print(f"phase 2: {label}: second (warm) run identical: ttft p50 "
+    print(f"phase 2: {name}: second (warm) run identical: ttft p50 "
           f"{ttft2 * 1e3:.1f} ms, decode {tok_s2:.1f} tok/s, pool "
           f"{eng.pool_bytes} B [{st['gpu']}]")
-    return eng, [r.token_ids for r in res]
+    return eng, [r.token_ids for r in res], launches, first_run
 
 
 def prompt_lengths(rng):
@@ -841,6 +870,19 @@ def prompt_lengths(rng):
     lens = sorted(int(x) for x in rng.integers(20, 1501, size=15)) + [2300]
     lens[0], lens[-2] = 20, 1500
     return lens
+
+
+# Decode settings phase 2 compares on one engine: the eager loop that
+# reconciles each decode call in the step that dispatched it (the loop
+# before the decode graphs), the eager loop with dispatch-ahead, and the
+# defaults (CUDA graphs, max_inflight 2).
+SETTINGS = {"eager": {"decode_graphs": False, "max_inflight": 0},
+            "eager+ahead": {"decode_graphs": False},
+            "graph": {}}
+# The settings each engine runs, the defaults last: that run's launch
+# counts are the main path's.
+RUNS = {"bf16": ("eager", "eager+ahead", "graph"), "int8": ("eager", "graph"),
+        "fp8": ("graph",), "pallas": ("eager", "graph")}
 
 
 def phase2(torch, np, st):
@@ -862,18 +904,36 @@ def phase2(torch, np, st):
     print(f"phase 2: prompt lengths {lens}")
     st.update(launches={}, engine_steps={})
     for label, overrides, paths, kernels in ENGINES:
-        eng, ids = run_engine(torch, st, model, prompts, label, overrides,
-                              paths, kernels)
-        if label == "bf16":
-            text = eng.generate_text("why is pod web-1 in CrashLoopBackOff?",
-                                     SamplingParams(max_tokens=8))
-            check(isinstance(text, str), "generate_text returned no text")
-            print(f"phase 2: generate_text ok ({len(text)} chars)")
-        if label in TRACED:
-            trace_decode(torch, eng, prompts, SamplingParams(max_tokens=32),
-                         ids, st, label)
-        del eng
-        torch.cuda.empty_cache()
+        ref = None
+        for setting in RUNS[label]:
+            name = f"{label} {setting}"
+            eng, ids, launches, steps = run_engine(
+                torch, st, model, prompts, name,
+                dict(overrides, **SETTINGS[setting]), paths, kernels)
+            if ref is None:
+                ref = (setting, ids, launches)
+            else:
+                check(ids == ref[1], f"{name}: greedy ids differ from the "
+                                     f"{ref[0]} run's")
+                check(launches == ref[2], f"{name}: launches {launches}, the "
+                                          f"{ref[0]} run's {ref[2]}")
+            if label == "bf16" and setting == "graph":
+                text = eng.generate_text(
+                    "why is pod web-1 in CrashLoopBackOff?",
+                    SamplingParams(max_tokens=8))
+                check(isinstance(text, str), "generate_text returned no text")
+                print(f"phase 2: generate_text ok ({len(text)} chars)")
+            if label in TRACED:
+                trace_decode(torch, eng, prompts,
+                             SamplingParams(max_tokens=32), ids, st, name,
+                             TRACED[label])
+            del eng
+            torch.cuda.empty_cache()
+        if len(RUNS[label]) > 1:
+            print(f"phase 2: {label}: greedy ids and launches equal across "
+                  f"{', '.join(RUNS[label])}")
+        st["launches"].update(launches)
+        st["engine_steps"][label] = steps
     st.update(model=model, prompt_lens=lens)
 
 
@@ -884,10 +944,12 @@ TRACED = {"bf16": FUSED_KERNELS, "int8": FUSED_KERNELS,
           "pallas": ("paged_attn_split_kernel", "paged_attn_merge_kernel")}
 
 
-def trace_decode(torch, eng, prompts, sp, want_ids, st, label):
+def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels):
     """Run the prompts once more; once every prompt is prefilled, trace the
     remaining engine steps (decode only) with torch.profiler and split the
-    window's wall time into device time per kernel and device idle time."""
+    window's wall time into device time per kernel and device idle time.
+    The profiler sees the kernels a CUDA graph replays as it sees the
+    others; each of ``kernels`` (attention, by name) must show time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,7 +971,7 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, label):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     got = [eng._results.pop(rid).token_ids for rid in ids]
-    check(got == want_ids, "traced run gave different ids")
+    check(got == want_ids, f"{name}: traced run gave different ids")
     per: dict[str, float] = {}
     per_n: dict[str, int] = {}
     for e in prof.events():
@@ -918,24 +980,28 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, label):
             per_n[e.name] = per_n.get(e.name, 0) + 1
     steps = eng.decode_steps - steps0
     busy = sum(per.values())
-    check(steps > 0, "no decode step in the traced window")
-    check(busy > 0, "the profiler saw no device time in the decode window")
+    n_kernels = sum(per_n.values())
+    check(steps > 0, f"{name}: no decode step in the traced window")
+    check(busy > 0, f"{name}: the profiler saw no device time in the decode "
+                    "window")
     kms = {}
-    for kernel in TRACED[label]:
+    for kernel in kernels:
         kms[kernel] = sum(v for k, v in per.items() if kernel in k)
-        check(kms[kernel] > 0, f"{label}: no device time for {kernel} in "
+        check(kms[kernel] > 0, f"{name}: no device time for {kernel} in "
               "the traced decode window")
     attn = sum(kms.values())
-    print(f"phase 2: {label}: traced decode window: {steps} decode steps, "
+    print(f"phase 2: {name}: traced decode window: {steps} decode steps, "
           f"{eng.decode_tokens - tokens0} tokens, wall {wall_ms:.2f} ms "
-          f"({wall_ms / steps:.3f} ms/step); device busy {busy:.2f} ms, idle "
-          f"share {1 - busy / wall_ms:.3f}; attention "
+          f"({wall_ms / steps:.3f} ms/step); device busy {busy:.2f} ms "
+          f"({busy / steps:.3f} ms/step), idle share "
+          f"{1 - busy / wall_ms:.3f}; attention "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in kms.items())
           + f" = {attn / wall_ms:.3f} of wall, {attn / steps:.3f} ms/step; "
-          f"{sum(per_n.values())} device kernels [{st['gpu']}]")
-    for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"phase 2: {label}: trace: {ms:9.3f} ms {ms / wall_ms:6.3f} of "
-              f"wall  {name[:90]}")
+          f"{n_kernels} device kernels ({n_kernels / steps:.1f} per step) "
+          f"[{st['gpu']}]")
+    for kname, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"phase 2: {name}: trace: {ms:9.3f} ms {ms / wall_ms:6.3f} of "
+              f"wall  {kname[:90]}")
 
 
 def marked(fn, **markers):
@@ -1220,7 +1286,8 @@ def phase5(torch, np, st):
               f"{backend.constrained_decode_overhead_ms:.3f}; launches "
               f"{launches} [{gpu}]")
         print(f"phase 5: 16 verdicts parse ({min(lens)}..{max(lens)} chars); "
-              f"8 sampled and 1 streamed answer, no error [{gpu}]")
+              f"8 sampled and 1 streamed answer, no error; "
+              f"{graph_line(torch, eng)} [{gpu}]")
         via = backend.service.submit(lone_ids, constrained).result(timeout=300)
         check(via.token_ids == ref.token_ids and
               via.finish_reason == ref.finish_reason,
@@ -1232,19 +1299,21 @@ def phase5(torch, np, st):
     eng.token_sink = None
 
     # The sampled decode step with the bounded sampler (cap 64) against the
-    # full-vocabulary sort (cap 0), in turns on the same engine.
+    # full-vocabulary sort (cap 0), in turns on the same engine, after one
+    # untimed run at each cap that captures their decode graphs.
     prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=100)]
                for _ in range(32)]
     sp = SamplingParams(max_tokens=64, temperature=0.7, top_k=40)
-    per_step = {64: [], 0: []}
-    for cap in (64, 0, 0, 64):
+    per_step = {64: [], 0: [], "cold": []}
+    for cap in (64, 0, 64, 0, 0, 64):
         eng.ecfg.sample_topk_cap = cap
         s0, d0, b0 = eng.decode_s, eng.decode_steps, eng.bounded_decode_steps
         res = eng.generate(prompts, sp)
         check(all(r.finish_reason in ("eos", "length") for r in res),
               f"sampled run at cap {cap}: {[r.error for r in res]}")
         check((eng.bounded_decode_steps > b0) == (cap > 0), "sampler choice")
-        per_step[cap].append((eng.decode_s - s0) / (eng.decode_steps - d0))
+        per_step[cap if len(per_step["cold"]) == 2 else "cold"].append(
+            (eng.decode_s - s0) / (eng.decode_steps - d0))
     eng.ecfg.sample_topk_cap = 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     logits = torch.randn(32, cfg.vocab_size, generator=gen, device="cuda",
@@ -1259,7 +1328,9 @@ def phase5(torch, np, st):
     alone = {name: (time_ms(torch, fn), device_ms(torch, fn))
              for name, fn in samplers.items()}
     print(f"phase 5: sampled decode step (32 lanes, top_k 40), wall per step "
-          f"cap 64 / cap 0 / cap 0 / cap 64: "
+          f"with the captures, cap 64 / cap 0: "
+          + " / ".join(f"{t * 1e3:.3f}" for t in per_step["cold"])
+          + " ms; then cap 64 / cap 0 / cap 0 / cap 64: "
           + " / ".join(f"{t * 1e3:.3f}" for t in (
               per_step[64][0], per_step[0][0], per_step[0][1],
               per_step[64][1]))
@@ -1507,16 +1578,19 @@ def phase6(torch, np, st):
         print(f"phase 6: build_server(llama3-8b, bf16 pool of "
               f"{eng.pool_bytes} B, {tc.max_batch} slots) in {boot_s:.2f} s, "
               f"{torch.cuda.memory_allocated() - mem0} B allocated [{gpu}]")
-        # The first step, cold (cuBLAS set-up, first 8B prefill), must not
-        # trip the supervisor's heartbeat watchdog.
+        # The first request, cold (cuBLAS set-up, the first 8B prefill, and
+        # the captures of its decode graphs: 7 greedy decode steps as calls
+        # of 4, 2 and 1), must not trip the supervisor's heartbeat watchdog.
         cold = sup.submit(backend.tokenizer.encode("warm-up"),
-                          SamplingParams(max_tokens=1, temperature=0.0)
+                          SamplingParams(max_tokens=8, temperature=0.0)
                           ).result(timeout=300)
         check(cold.finish_reason in ("eos", "length"),
               f"first request ended {cold.finish_reason}: {cold.error}")
-        check(sup.restarts == 0, "the first step tripped a restart")
-        print(f"phase 6: first request (one step, cold): "
-              f"{cold.latency_s * 1e3:.1f} ms; heartbeat timeout "
+        check(sup.restarts == 0, "the first request tripped a restart")
+        print(f"phase 6: first request (8 tokens, cold): "
+              f"{cold.latency_s * 1e3:.1f} ms with "
+              f"{eng.graph_captures} decode graphs captured in "
+              f"{eng.graph_capture_s:.2f} s; heartbeat timeout "
               f"{sup.heartbeat_timeout_s:.0f} s, restarts 0 [{gpu}]")
         srv.start()
         port = srv.port
@@ -1558,7 +1632,22 @@ def phase6(torch, np, st):
               f"p50 {np.percentile(a_walls, 50) * 1e3:.1f} ms; stream first "
               f"event {first_s * 1e3:.1f} ms of {s_wall * 1e3:.1f} ms "
               f"({len(events)} events); all 200/success, 4 verdicts parse; "
-              f"launches {launches} [{gpu}]")
+              f"constrained_decode_overhead_ms "
+              f"{backend.constrained_decode_overhead_ms:.3f}; launches "
+              f"{launches}; {graph_line(torch, eng)} [{gpu}]")
+        # The same burst again, once the decode graphs it uses exist.
+        out2, _, wall2 = front_door_burst(port)
+        check(all(status == 200 for status, _, _ in out2.values()),
+              "the second burst: a request failed")
+        q2 = sorted(out2[f"query-{i}"][2] for i in range(16))
+        a2 = sorted(out2[f"analyze-{i}"][2] for i in range(4))
+        print(f"phase 6: the same burst again in {wall2:.2f} s: query wall "
+              f"p50 {np.percentile(q2, 50) * 1e3:.1f} ms, p99 "
+              f"{np.percentile(q2, 99) * 1e3:.1f} ms; analyze wall p50 "
+              f"{np.percentile(a2, 50) * 1e3:.1f} ms; "
+              f"constrained_decode_overhead_ms "
+              f"{backend.constrained_decode_overhead_ms:.3f}; "
+              f"{graph_line(torch, eng)} [{gpu}]")
 
         # The standing diagnosis loop: a crash-loop burst of Warning events
         # in the cluster, through the watcher, to a verdict.
@@ -1638,7 +1727,8 @@ def phase6(torch, np, st):
               f"id sequences equal; {len(reqs)} journaled admits, all "
               f"tombstoned; memory_allocated {mem_before} B before, "
               f"{mem_after} B after, max_memory_allocated {peak} B across "
-              f"the rebuild (pool {new_eng.pool_bytes} B) [{gpu}]")
+              f"the rebuild (pool {new_eng.pool_bytes} B; the new engine: "
+              f"{graph_line(torch, new_eng)}) [{gpu}]")
 
         drained = sup.shutdown(grace_s=SHUTDOWN_GRACE_S)
         status, body, _ = http_call(port, "GET", "/readyz")

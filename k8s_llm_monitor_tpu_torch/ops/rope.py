@@ -7,6 +7,7 @@ and applied in float32, then cast back to the activation dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional
 
 import numpy as np
@@ -41,6 +42,22 @@ def _llama3_scale_inv_freq(
     return np.where(mid, smoothed, out).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _inv_freq(head_dim: int, theta: float, llama3: Optional[tuple],
+              device: torch.device) -> torch.Tensor:
+    """The [head_dim // 2] float32 frequency table on ``device`` (with the
+    ``llama3`` scaling items, when given), computed in numpy once per
+    table and device: a decode step captured into a CUDA graph may not
+    copy from the host."""
+    half = head_dim // 2
+    inv_freq = 1.0 / (
+        theta ** (np.arange(0, half, dtype=np.float32) / half)
+    )
+    if llama3 is not None:
+        inv_freq = _llama3_scale_inv_freq(inv_freq, dict(llama3))
+    return torch.from_numpy(np.asarray(inv_freq, np.float32)).to(device)
+
+
 def rope_angles(
     positions: torch.Tensor,
     head_dim: int,
@@ -55,20 +72,17 @@ def rope_angles(
     Returns (cos, sin), float32 ``[..., head_dim]`` on ``positions``' device:
     the half-dim frequency table tiled twice (rotate_half convention).
     """
-    half = head_dim // 2
-    inv_freq = 1.0 / (
-        theta ** (np.arange(0, half, dtype=np.float32) / half)
-    )
     pos = positions.to(torch.float32)
+    kind = "default"
     if scaling:
         kind = scaling.get("rope_type", scaling.get("type", "default"))
-        if kind == "llama3":
-            inv_freq = _llama3_scale_inv_freq(inv_freq, scaling)
-        elif kind == "linear":
+        if kind == "linear":
             pos = pos / float(scaling.get("factor", 1.0))
-        elif kind not in ("default", None):
+        elif kind not in ("llama3", "default", None):
             raise NotImplementedError(f"rope_scaling type {kind!r}")
-    freq = torch.from_numpy(np.asarray(inv_freq, np.float32)).to(pos.device)
+    freq = _inv_freq(head_dim, float(theta),
+                     tuple(sorted(scaling.items())) if kind == "llama3"
+                     else None, pos.device)
     ang = pos[..., None] * freq                       # [..., half]
     ang = torch.cat([ang, ang], dim=-1)               # [..., head_dim]
     return torch.cos(ang), torch.sin(ang)

@@ -11,11 +11,22 @@ block.
   * **Chunked prefill** -- a prompt longer than the top bucket occupies a
     *prefilling* slot; its chunks stream one batched round per step
     (fewest remaining tokens first), attending to the paged prefix.
-  * **K-step decode** -- ``decode_steps_per_iter`` decode steps run as a
-    Python loop on device tensors with per-lane ``act``/``done``/
-    ``remaining`` masking exactly as the JAX scan does it: ``-1`` marks a
-    step where a lane was idle and a masked lane runs at ``ctx = 0``.  The
-    host reads the ``[K, B]`` token matrix once per call.
+  * **K-step decode program** -- ``decode_steps_per_iter`` decode steps
+    run as one program per (K, sampler, constrained), the counterpart of
+    the JAX engine's compiled scan (``_DecodeProgram``), with per-lane
+    ``act``/``done``/``remaining`` masking exactly as the scan does it:
+    ``-1`` marks a step where a lane was idle and a masked lane runs at
+    ``ctx = 0``.  On CUDA each program is captured into a CUDA graph at
+    first use and replayed (``EngineConfig.decode_graphs``).
+  * **Dispatch-ahead** -- up to ``max_inflight`` decode calls stay in
+    flight after ``step()`` returns: each copies its ``[K, B]`` token
+    matrix to a pinned host buffer of its own behind a CUDA event, and
+    the next call is planned from the lanes' predicted state
+    (``ctx_pred``, ``remaining_pred``).  Reconciliation emits tokens and
+    retires lanes; a lane's steps past its EOS in a later call (zombie
+    steps) write its own pages and are dropped, and a retired lane's
+    pages are freed once the newest call that may reference them is
+    reconciled.
   * Retirement on EOS or on ``max_tokens``; submit-time tail truncation
     keeps ``prompt + max_tokens`` within the per-sequence capacity.
   * Grammar-constrained sampling (``set_grammar``, ``SamplingParams.
@@ -37,13 +48,15 @@ block.
     counters of the mechanisms not ported, at their values with the
     mechanism off.
 
-Reconciliation is synchronous: each dispatch is read back before the next.
-Dispatch-ahead, the inflight watchdog and pipeline resets are not ported
-(they wait for the decode loop as a CUDA graph and streams).  Where the
-JAX engine donates the page arrays to its jitted programs, this engine
-updates them in place.  Preemption (and with it voluntary class-ordered
-eviction, ``max_preemptions``), speculative decoding, prefix reuse and the
-host KV tier are not ported yet; the resident pool may be int8/fp8
+Admission and chunk rounds stay synchronous: they read their first tokens
+back as they run, behind the decode calls in flight.  The JAX engine's
+in-flight admission and chunk calls, the inflight watchdog
+(``dispatch_timeout_s``), pipeline resets and dispatch-failure accounting
+need recompute requeue and are not ported.  Where the JAX engine donates
+the page arrays to its jitted programs, this engine updates them in
+place.  Preemption (and with it voluntary class-ordered eviction,
+``max_preemptions``), speculative decoding, prefix reuse and the host KV
+tier are not ported yet; the resident pool may be int8/fp8
 (``EngineConfig.kv_dtype``).
 """
 
@@ -66,6 +79,7 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
 )
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
 from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
+from k8s_llm_monitor_tpu_torch.ops.paged_attention import KERNEL_WRAPPERS
 from k8s_llm_monitor_tpu_torch.ops.sampling import (
     fsm_advance,
     fsm_mask_logits,
@@ -157,6 +171,17 @@ class EngineConfig:
     max_admission_rounds: int = 4
     # Decode steps per decode call between host reads.
     decode_steps_per_iter: int = 8
+    # Dispatch-ahead depth: decode calls left in flight when step()
+    # returns; 0 reconciles each call in the step that dispatched it.
+    max_inflight: int = 2
+    # While chunk rounds are pending, a decode call is dispatched only every
+    # Nth step, so a long prompt's chunks reach its first token sooner; N
+    # bounds the stall of lanes already decoding.  1 = strict alternation.
+    decode_every_n_chunk_rounds: int = 3
+    # On CUDA, run each K-step decode program as a CUDA graph captured at
+    # its first call; False runs it eagerly (to compare the two on the
+    # card).  The CPU always runs it eagerly.
+    decode_graphs: bool = True
     # ops/attention.py:select_decode_impl -- "auto" | "fused" | "pallas" |
     # "gather".
     decode_path: str = "auto"
@@ -195,14 +220,16 @@ TokenSink = Callable[[str, list[int], Optional[GenerationResult]], None]
 
 
 class _Slot:
-    __slots__ = ("req", "blocks", "ctx_len", "generated", "prefill_pos",
-                 "prefilling", "cancel_requested", "abort_cause")
+    __slots__ = ("req", "blocks", "ctx_len", "generated", "inflight_decode",
+                 "prefill_pos", "prefilling", "cancel_requested",
+                 "abort_cause")
 
     def __init__(self, req: GenerationRequest, blocks: list[int]):
         self.req = req
         self.blocks = blocks
-        self.ctx_len = 0          # tokens in the KV cache
-        self.generated: list[int] = []
+        self.ctx_len = 0          # reconciled tokens in the KV cache
+        self.generated: list[int] = []   # reconciled sampled tokens
+        self.inflight_decode = 0  # decode steps dispatched, unreconciled
         # Long-prompt streaming admission: tokens ingested so far and
         # whether chunks remain (decode skips prefilling slots).
         self.prefill_pos = 0
@@ -212,9 +239,169 @@ class _Slot:
         # (deadline expiry, out of KV blocks) instead of eos/length.
         self.abort_cause = ""
 
+    # -- predicted (dispatch-side) state: every dispatched step emits a
+    # token unless the lane hits EOS first.
+
     @property
-    def remaining(self) -> int:
-        return self.req.sampling.max_tokens - len(self.generated)
+    def ctx_pred(self) -> int:
+        return self.ctx_len + self.inflight_decode
+
+    @property
+    def remaining_pred(self) -> int:
+        return (self.req.sampling.max_tokens - len(self.generated)
+                - self.inflight_decode)
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched decode call, until it is reconciled."""
+    call_id: int
+    K: int
+    # [(slot_idx, slot, steps_i)]: the slot object, since by reconcile time
+    # the index may hold another request (a lane retired in between).
+    lanes: list[tuple]
+    stage: "_Stage"
+    event: Any                # torch.cuda.Event after the copy; None on CPU
+    t0: float                 # dispatch time (host clock)
+
+
+def _decode_inputs(buf, B: int, f32):
+    """(ctx, remaining, top_k, temperature, top_p, table) views of a packed
+    int32 decode-input buffer of ``B * (5 + table width)`` entries, numpy
+    or torch; the temperature and top_p planes hold float32 bits
+    (``f32`` = that library's float32)."""
+    ctx, rem, topk, temp, topp = (buf[i * B:(i + 1) * B] for i in range(5))
+    return (ctx, rem, topk, temp.view(f32), topp.view(f32),
+            buf[5 * B:].reshape(B, -1))
+
+
+class _Stage:
+    """Host buffers of one decode call: its packed inputs and its token
+    matrix, pinned on CUDA so both copies run without the host waiting.
+    A call holds its stage until it is reconciled, so no dispatch rewrites
+    inputs that a copy still reads."""
+
+    def __init__(self, B: int, NB: int, kmax: int, pinned: bool):
+        self.inp = torch.zeros(B * (5 + NB), dtype=torch.int32,
+                               pin_memory=pinned)
+        self.toks = torch.zeros((kmax, B), dtype=torch.int32,
+                                pin_memory=pinned)
+        self.views = _decode_inputs(self.inp.numpy(), B, np.float32)
+        self.toks_np = self.toks.numpy()
+
+
+class _DecodeProgram:
+    """K decode steps with on-device token feedback: the counterpart of the
+    JAX engine's ``_decode_program`` (``serving/engine.py:2379``, a
+    ``lax.scan``), one per (K, sampler, constrained, top-k cap).
+
+    The masking is the scan's: a lane is active while it started active
+    (``ctx > 0``), has not hit EOS and has steps left; an idle lane runs at
+    ctx 0 (the null block) and emits -1.  ``constrained`` carries the
+    per-lane FSM state through the steps (masked logits, advanced on active
+    lanes only); ``sampler`` is "greedy", "bounded" (the top ``k_cap``
+    logits) or "full".
+
+    It works on static buffers only: the engine's packed inputs
+    (``_dec_in``), pages, grammar table and pad, the carried ``_tok_state``
+    and ``_fsm_state`` (updated in place) and its own [K, max_slots] token
+    matrix ``out``.  On CUDA with ``EngineConfig.decode_graphs`` the first
+    call runs the steps eagerly on the engine's capture stream -- that
+    call's work, and the warm-up that sets the kernels' first-launch
+    attributes and cuBLAS's workspace -- then captures them into a CUDA
+    graph in the engine's graph pool, with the engine's generator
+    registered for a sampler; later calls replay the graph and add the
+    kernel launches the capture recorded to the wrappers' counts.  A
+    capture or replay that fails raises.  Elsewhere the steps run eagerly
+    on the same buffers.
+    """
+
+    def __init__(self, eng: "InferenceEngine", K: int, sampler: str,
+                 constrained: bool, k_cap: int):
+        self.eng = eng
+        self.K = K
+        self.sampler = sampler
+        self.constrained = constrained
+        self.k_cap = k_cap
+        self.out = torch.full((K, eng.ecfg.max_slots), -1, dtype=torch.int32,
+                              device=eng.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        # Kernel launches of one run, per KERNEL_WRAPPERS entry.
+        self.launches: list[int] = []
+
+    def __call__(self) -> torch.Tensor:
+        eng = self.eng
+        if eng.device.type != "cuda" or not eng.ecfg.decode_graphs:
+            self._run()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            for fn, n in zip(KERNEL_WRAPPERS, self.launches):
+                fn.launches += n
+        return self.out
+
+    def _capture(self) -> None:
+        eng = self.eng
+        t0 = time.monotonic()
+        main = torch.cuda.current_stream(eng.device)
+        side = eng._graph_stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._run()
+        main.wait_stream(side)
+        before = [fn.launches for fn in KERNEL_WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        if self.sampler != "greedy":
+            graph.register_generator_state(eng._gen)
+        with torch.cuda.graph(graph, pool=eng._graph_pool, stream=side,
+                              capture_error_mode="thread_local"):
+            self._run()
+        # The capture launched nothing: take back what the wrappers counted.
+        self.launches = [fn.launches - b
+                         for fn, b in zip(KERNEL_WRAPPERS, before)]
+        for fn, b in zip(KERNEL_WRAPPERS, before):
+            fn.launches = b
+        self.graph = graph
+        eng.graph_captures += 1
+        eng.graph_capture_s += time.monotonic() - t0
+
+    def _run(self) -> None:
+        eng = self.eng
+        ctx, remaining, topk, temp, topp, table = eng._dec_views
+        active0 = ctx > 0
+        done = torch.zeros_like(active0)
+        tokens = eng._tok_state
+        fstate = eng._fsm_state
+        for i in range(self.K):
+            act = active0 & ~done & (i < remaining)
+            ctx_eff = torch.where(act, ctx, torch.zeros_like(ctx))
+            logits, _ = llama.decode_step(eng.model, tokens, ctx_eff,
+                                          eng.pages, table,
+                                          attn_impl=eng._decode_attn)
+            if self.constrained:
+                logits = fsm_mask_logits(logits, fstate, eng._fsm_trans,
+                                         eng._fsm_pad)
+            if self.sampler == "greedy":
+                nxt = greedy_tokens(logits)
+            elif self.sampler == "bounded":
+                nxt = sample_tokens_bounded(
+                    eng._gen, logits, temperature=temp, top_k=topk,
+                    top_p=topp, k_cap=self.k_cap)
+            else:
+                nxt = sample_tokens(eng._gen, logits, temperature=temp,
+                                    top_k=topk, top_p=topp)
+            nxt = torch.where(act, nxt, tokens)
+            if self.constrained:
+                fstate = torch.where(
+                    act, fsm_advance(fstate, eng._fsm_trans, nxt), fstate)
+            done = done | (act & (nxt == eng.eos_id))
+            ctx = torch.where(act, ctx + 1, ctx)
+            self.out[i].copy_(torch.where(act, nxt, torch.full_like(nxt, -1)))
+            tokens = nxt
+        eng._tok_state.copy_(tokens)
+        if self.constrained:
+            eng._fsm_state.copy_(fstate)
 
 
 class InferenceEngine:
@@ -287,13 +474,42 @@ class InferenceEngine:
         self._fsm_pad: Optional[torch.Tensor] = None
         self._fsm_state = torch.zeros(ec.max_slots, dtype=torch.int32,
                                       device=self.device)
+        if ec.max_inflight < 0 or ec.decode_every_n_chunk_rounds < 1:
+            raise ValueError(
+                f"max_inflight {ec.max_inflight} must be >= 0 and "
+                f"decode_every_n_chunk_rounds "
+                f"{ec.decode_every_n_chunk_rounds} >= 1")
+        # The decode programs' packed inputs on the device (_decode_inputs)
+        # and their views; each call copies its _Stage in.
+        self._dec_in = torch.zeros(ec.max_slots * (5 + ec.max_blocks_per_seq),
+                                   dtype=torch.int32, device=self.device)
+        self._dec_views = _decode_inputs(self._dec_in, ec.max_slots,
+                                         torch.float32)
+        self._programs: dict[tuple, _DecodeProgram] = {}
+        # CUDA graphs of the decode programs: one capture stream and one
+        # memory pool for all of them (replays never overlap: one stream).
+        cuda = self.device.type == "cuda"
+        self._graph_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.graph_captures = 0
+        self.graph_capture_s = 0.0
+        self._inflight: deque[_Inflight] = deque()
+        self._stages: list[_Stage] = []
+        self._next_call_id = 0
+        # (newest call id at retirement, blocks): a retired lane's pages,
+        # freed once that call is reconciled (its zombie steps write them).
+        self._deferred_frees: list[tuple[int, list[int]]] = []
+        self._chunks_since_decode = 0
         self._pending: deque[GenerationRequest] = deque()
         self._slots: list[Optional[_Slot]] = [None] * ec.max_slots
         self._results: dict[str, GenerationResult] = {}
         self.steps = 0            # step() calls
-        self.decode_steps = 0     # decode_step calls
+        self.decode_steps = 0     # decode steps dispatched (JAX ``steps``)
         self.decode_tokens = 0    # tokens emitted by decode calls
-        self.decode_s = 0.0       # wall time of decode calls (synchronized)
+        # Host wall time with a decode call in flight (dispatch to
+        # reconcile, overlapping calls counted once).
+        self.decode_s = 0.0
+        self._decode_mark = 0.0
         self.bounded_decode_steps = 0   # decode steps sampled top-k bounded
         self.deadline_expired = 0
         self.brownout_clamps = 0
@@ -302,7 +518,8 @@ class InferenceEngine:
         self.ttft_ema_by_class: dict[str, float] = {}
         # Counters of mechanisms not ported yet, read by the server's
         # /health and /api/v1/stats: the values the JAX engine has with the
-        # mechanism off.  Dispatch-ahead and its watchdog (ROADMAP A2):
+        # mechanism off.  The inflight watchdog and dispatch-failure
+        # accounting (ROADMAP A3):
         self.dispatch_failures = 0
         self.consecutive_dispatch_failures = 0
         self.watchdog_trips = 0
@@ -352,12 +569,15 @@ class InferenceEngine:
         }
 
     def release_pool(self) -> None:
-        """Drop the KV pool so the caching allocator can give its memory to
-        the engine that replaces this one (the supervisor's factory calls
-        it on the engine it rebuilds, which serves nothing afterwards).  A
-        thread still inside a step keeps the tensors it holds alive until
-        it lets go of them."""
+        """Drop the KV pool, the decode programs and their CUDA graphs (and
+        with them the graph pool), so the caching allocator can give the
+        memory to the engine that replaces this one (the supervisor's
+        factory calls it on the engine it rebuilds, which serves nothing
+        afterwards).  A thread still inside a step keeps the tensors it
+        holds alive until it lets go of them."""
         self.pages = None
+        self._programs.clear()
+        self._graph_pool = None
 
     @property
     def capacity_tokens(self) -> int:
@@ -381,9 +601,14 @@ class InferenceEngine:
 
     def set_grammar(self, fsm) -> None:
         """Install the ``diagnosis.grammar.TokenFSM`` constrained requests
-        decode against (one grammar per engine).  The table moves to the
-        device here, once; the mask's pad past the grammar vocab is built
-        here too, for the widest call (decode lanes or prefill lanes)."""
+        decode against (one grammar at a time).  The table is copied into
+        one device buffer that keeps its address while grammars of the same
+        vocab and no more states replace each other (rows past a grammar's
+        states are unreachable), so the captured constrained programs read
+        the installed grammar; a wider or taller table gets a new buffer,
+        and the constrained programs are dropped with the old one.  The
+        mask's pad past the grammar vocab is built with the buffer, for
+        the widest call (decode lanes or prefill lanes)."""
         if fsm.vocab_size > self.cfg.vocab_size:
             raise ValueError(
                 f"grammar vocab {fsm.vocab_size} exceeds model vocab "
@@ -391,17 +616,24 @@ class InferenceEngine:
         if fsm.eos_id != self.eos_id:
             raise ValueError(
                 f"grammar eos_id {fsm.eos_id} != engine eos_id {self.eos_id}")
-        extra = self.cfg.vocab_size - fsm.vocab_size
-        if extra > 0 and (self._fsm_pad is None
-                          or self._fsm_pad.shape[1] != extra):
-            rows = max(self.ecfg.max_slots, self.ecfg.max_prefills_per_step)
-            self._fsm_pad = torch.zeros((rows, extra), dtype=torch.bool,
-                                        device=self.device)
-        elif extra == 0:
-            self._fsm_pad = None
+        trans = np.ascontiguousarray(fsm.trans, np.int32)
+        states, vg = trans.shape
+        old = self._fsm_trans
+        if old is None or old.shape[1] != vg or old.shape[0] < states:
+            rows = states if old is None or old.shape[1] != vg else max(
+                states, old.shape[0])
+            self._fsm_trans = torch.empty((rows, vg), dtype=torch.int32,
+                                          device=self.device)
+            extra = self.cfg.vocab_size - vg
+            self._fsm_pad = None if extra == 0 else torch.zeros(
+                (max(self.ecfg.max_slots, self.ecfg.max_prefills_per_step),
+                 extra), dtype=torch.bool, device=self.device)
+            self._programs = {k: p for k, p in self._programs.items()
+                              if not p.constrained}
+        table = np.full(self._fsm_trans.shape, -1, np.int32)
+        table[:states] = trans
+        self._fsm_trans.copy_(torch.from_numpy(table))
         self._grammar = fsm
-        self._fsm_trans = torch.from_numpy(
-            np.ascontiguousarray(fsm.trans, np.int32)).to(self.device)
 
     def _fsm_entry(self, req: GenerationRequest) -> int:
         """FSM state for ``req``'s next sampled token: the grammar start
@@ -449,8 +681,9 @@ class InferenceEngine:
 
     def cancel(self, request_id: str) -> bool:
         """Stop generating for a request.  A pending request fails at once;
-        an active slot retires at the start of the next step.  Returns True
-        if found."""
+        an active slot takes no new decode steps and retires once the
+        decode calls in flight for it are reconciled (their tokens are
+        still delivered).  Returns True if found."""
         for i, req in enumerate(self._pending):
             if req.request_id == request_id:
                 del self._pending[i]
@@ -464,7 +697,8 @@ class InferenceEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._pending) or any(s is not None for s in self._slots)
+        return (bool(self._pending) or bool(self._inflight)
+                or any(s is not None for s in self._slots))
 
     @property
     def queue_depth(self) -> int:
@@ -662,20 +896,56 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def step(self) -> None:
-        """One scheduler iteration: expire deadlines, order the queue by SLO
-        class, retire cancelled slots, run up to ``max_admission_rounds``
-        batched prefills, one chunk round and one K-step decode call."""
+        """One scheduler iteration (the JAX engine's ``step``): expire
+        deadlines, order the queue by SLO class, retire cancelled slots
+        whose decode calls have settled, run up to ``max_admission_rounds``
+        batched prefills and one chunk round, dispatch one K-step decode
+        call (while chunk rounds are pending, only every
+        ``decode_every_n_chunk_rounds``-th step), then reconcile: every
+        call the device has finished, then the oldest calls down to
+        ``max_inflight`` in flight, or one call when nothing was
+        dispatched."""
+        ec = self.ecfg
         self.steps += 1
         self._enforce_deadlines()
         self._sort_pending_by_class()
         for i, s in enumerate(self._slots):
-            if s is not None and s.cancel_requested:
+            if (s is not None and s.cancel_requested
+                    and s.inflight_decode == 0):
                 self._retire(i)
+        dispatched = False
         rounds = 0
-        while rounds < self.ecfg.max_admission_rounds and self._admit_round():
+        while rounds < ec.max_admission_rounds and self._admit_round():
             rounds += 1
-        self._prefill_chunks()
-        self._decode()
+            dispatched = True
+        chunked = self._prefill_chunks()
+        if chunked:
+            dispatched = True
+            self._chunks_since_decode += 1
+        if (not chunked or self._chunks_since_decode
+                >= ec.decode_every_n_chunk_rounds):
+            if self._dispatch_decode():
+                dispatched = True
+                self._chunks_since_decode = 0
+        # Results the device already has cost no wait, and reconciling them
+        # frees slots and pages a step earlier.
+        while self._inflight and self._call_ready(self._inflight[0]):
+            self._reconcile_one()
+        if dispatched:
+            while len(self._inflight) > ec.max_inflight:
+                self._reconcile_one()
+        elif self._inflight:
+            self._reconcile_one()
+
+    @staticmethod
+    def _call_ready(call: _Inflight) -> bool:
+        """True when reconciling ``call`` would not wait for the device (a
+        CPU call is done when it returns)."""
+        return call.event is None or call.event.query()
+
+    def _reconcile_all(self) -> None:
+        while self._inflight:
+            self._reconcile_one()
 
     def _bucket(self, n: int) -> int:
         return prefill_bucket_for(n, self.ecfg.prefill_buckets)
@@ -911,40 +1181,65 @@ class InferenceEngine:
             if self._is_finished(s):
                 self._retire(slot_idx)
 
-    def _decode(self) -> bool:
-        """One K-step decode call over the lanes with budget left."""
+    def _decode_lanes(self) -> list[tuple[int, _Slot]]:
+        """Slots a decode call may take now: decoding, with predicted
+        budget left, not cancelled."""
+        return [(i, s) for i, s in enumerate(self._slots)
+                if s is not None and not s.prefilling
+                and s.remaining_pred > 0 and not s.cancel_requested]
+
+    def _dispatch_decode(self) -> bool:
+        """Dispatch one K-step decode call over the lanes with predicted
+        budget (JAX ``_dispatch_decode``): extend each lane's pages for its
+        steps, fill a host stage with the call's inputs, copy it in, run
+        the program and start the copy of its tokens back.  Returns True
+        if a call was dispatched."""
         ec = self.ecfg
         B = ec.max_slots
-        lanes = [(i, s) for i, s in enumerate(self._slots)
-                 if s is not None and not s.prefilling and s.remaining > 0
-                 and not s.cancel_requested]
+        lanes = self._decode_lanes()
         if not lanes:
             return False
-        kmax = min(ec.decode_steps_per_iter, max(s.remaining for _, s in lanes))
+        kmax = min(ec.decode_steps_per_iter,
+                   max(s.remaining_pred for _, s in lanes))
         K = 1 << (kmax.bit_length() - 1)
-        ctx = np.zeros((B,), np.int32)
-        remaining = np.zeros((B,), np.int32)
-        table = np.zeros((B, ec.max_blocks_per_seq), np.int32)
-        temp = np.zeros((B,), np.float32)
-        topk = np.zeros((B,), np.int32)
-        topp = np.ones((B,), np.float32)
-        for i, s in list(lanes):
-            steps_i = min(K, s.remaining)
+        for i, s in sorted(lanes, key=lambda t: t[1].req.submit_time):
+            if self._slots[i] is not s:
+                continue                # retired while reconciling below
+            steps_i = min(K, s.remaining_pred)
             try:
-                self.allocator.extend(s.blocks, s.ctx_len + steps_i)
+                self.allocator.extend(s.blocks, s.ctx_pred + steps_i)
+                continue
+            except OutOfBlocks:
+                # Retirements waiting in the calls in flight may free
+                # pages: reconcile everything, then try once more.
+                self._reconcile_all()
+            if self._slots[i] is not s:
+                continue
+            try:
+                self.allocator.extend(s.blocks, s.ctx_pred + steps_i)
             except OutOfBlocks as exc:
                 # Preemption is not ported: the lane ends with an error.
                 s.abort_cause = f"out of KV blocks: {exc}"
                 self._retire(i)
-                lanes.remove((i, s))
-                continue
-            ctx[i] = s.ctx_len
+        lanes = self._decode_lanes()
+        if not lanes:
+            return False
+        stage = self._stages.pop() if self._stages else _Stage(
+            B, ec.max_blocks_per_seq, ec.decode_steps_per_iter,
+            pinned=self.device.type == "cuda")
+        ctx, remaining, topk, temp, topp, table = stage.views
+        stage.inp.zero_()
+        topp[:] = 1.0
+        meta = []
+        for i, s in lanes:
+            steps_i = min(K, s.remaining_pred)
+            ctx[i] = s.ctx_pred
             remaining[i] = steps_i
             table[i, :len(s.blocks)] = s.blocks
             sp = s.req.sampling
             temp[i], topk[i], topp[i] = sp.temperature, sp.top_k, sp.top_p
-        if not lanes:
-            return False
+            s.inflight_decode += steps_i
+            meta.append((i, s, steps_i))
         greedy = all(s.req.sampling.temperature <= 0.0 for _, s in lanes)
         # Any constrained lane masks the call (free lanes at state 0); greedy
         # lanes then take the argmax of the masked logits.
@@ -954,76 +1249,68 @@ class InferenceEngine:
         bounded = not greedy and cap > 0 and all(
             0 < s.req.sampling.top_k <= cap
             for _, s in lanes if s.req.sampling.temperature > 0.0)
+        sampler = "greedy" if greedy else "bounded" if bounded else "full"
+        key = (K, sampler, constrained, cap if bounded else 0)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _DecodeProgram(
+                self, K, sampler, constrained, cap)
         t0 = time.monotonic()
-        toks = self._decode_call(K, self._t(ctx), self._t(remaining),
-                                 self._t(table), temp, topk, topp, greedy,
-                                 bounded, constrained)
-        arr = toks.cpu().numpy()
-        now = time.monotonic()
-        self.decode_s += now - t0
+        self._dec_in.copy_(stage.inp, non_blocking=True)
+        toks = prog()
+        stage.toks[:K].copy_(toks, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._inflight.append(_Inflight(
+            call_id=self._next_call_id, K=K, lanes=meta, stage=stage,
+            event=event, t0=t0))
+        self._next_call_id += 1
         self.decode_steps += K
         if bounded:
             self.bounded_decode_steps += K
-        for i, s in lanes:
-            new = [int(t) for t in arr[:, i] if t >= 0]
-            self.decode_tokens += len(new)
-            self._span("engine.decode", t0, now, s.req,
-                       steps=int(remaining[i]), emitted=len(new))
-            if not new:
-                continue
-            s.ctx_len += len(new)
-            s.generated.extend(new)
-            self._emit(s.req, new)
-            if self._is_finished(s):
-                self._retire(i)
         return True
 
-    def _decode_call(self, K: int, ctx, remaining, table, temp, topk, topp,
-                     greedy: bool, bounded: bool,
-                     constrained: bool) -> torch.Tensor:
-        """K decode steps with on-device token feedback.  The masking is the
-        JAX scan's: a lane is active while it started active, has not hit
-        EOS and has steps left; an idle lane runs at ctx 0 (null block) and
-        emits -1.  ``constrained`` carries the per-lane FSM state through
-        the steps (masked logits, advanced on active lanes only);
-        ``bounded`` samples from the top ``sample_topk_cap`` logits.
-        Returns the [K, max_slots] token matrix."""
-        if not greedy:
-            temp_t, topk_t, topp_t = self._t(temp), self._t(topk), self._t(topp)
-        active0 = ctx > 0
-        done = torch.zeros_like(active0)
-        tokens = self._tok_state
-        fstate = self._fsm_state
-        outs = []
-        for i in range(K):
-            act = active0 & ~done & (i < remaining)
-            ctx_eff = torch.where(act, ctx, torch.zeros_like(ctx))
-            logits, _ = llama.decode_step(self.model, tokens, ctx_eff,
-                                          self.pages, table,
-                                          attn_impl=self._decode_attn)
-            if constrained:
-                logits = fsm_mask_logits(logits, fstate, self._fsm_trans,
-                                         self._fsm_pad)
-            if greedy:
-                nxt = greedy_tokens(logits)
-            elif bounded:
-                nxt = sample_tokens_bounded(
-                    self._gen, logits, temperature=temp_t, top_k=topk_t,
-                    top_p=topp_t, k_cap=self.ecfg.sample_topk_cap)
-            else:
-                nxt = sample_tokens(self._gen, logits, temperature=temp_t,
-                                    top_k=topk_t, top_p=topp_t)
-            nxt = torch.where(act, nxt, tokens)
-            if constrained:
-                fstate = torch.where(
-                    act, fsm_advance(fstate, self._fsm_trans, nxt), fstate)
-            done = done | (act & (nxt == self.eos_id))
-            ctx = torch.where(act, ctx + 1, ctx)
-            outs.append(torch.where(act, nxt, torch.full_like(nxt, -1)))
-            tokens = nxt
-        self._tok_state = tokens
-        self._fsm_state = fstate
-        return torch.stack(outs)
+    def _reconcile_one(self) -> None:
+        """Wait for the oldest call in flight, apply its tokens, then free
+        the pages of retired lanes that no call in flight references."""
+        call = self._inflight.popleft()
+        if call.event is not None:
+            call.event.synchronize()
+        self._apply_call(call)
+        self._stages.append(call.stage)
+        if self._deferred_frees:
+            still = []
+            for after_id, blocks in self._deferred_frees:
+                if after_id <= call.call_id:
+                    self.allocator.free(blocks)
+                else:
+                    still.append((after_id, blocks))
+            self._deferred_frees = still
+
+    def _apply_call(self, call: _Inflight) -> None:
+        """Emit one reconciled call's tokens and retire the lanes that are
+        done (JAX ``_apply_call``, decode kind)."""
+        arr = call.stage.toks_np[:call.K]
+        now = time.monotonic()
+        self.decode_s += now - max(call.t0, self._decode_mark)
+        self._decode_mark = now
+        for slot_idx, s, steps_i in call.lanes:
+            if self._slots[slot_idx] is not s:
+                continue      # retired since dispatch: drop zombie steps
+            new = [int(t) for t in arr[:, slot_idx] if t >= 0]
+            s.inflight_decode -= steps_i
+            self.decode_tokens += len(new)
+            self._span("engine.decode", call.t0, now, s.req, steps=steps_i,
+                       emitted=len(new))
+            if new:
+                s.ctx_len += len(new)
+                s.generated.extend(new)
+                self._emit(s.req, new)
+            if self._is_finished(s) or (s.cancel_requested
+                                        and s.inflight_decode == 0):
+                self._retire(slot_idx)
 
     def _is_finished(self, s: _Slot) -> bool:
         return bool(s.generated) and (
@@ -1052,7 +1339,12 @@ class InferenceEngine:
         self._end_request_span(
             req, "error" if error else "ok", finish_reason=reason,
             tokens=len(toks), ttft_s=round(result.ttft_s, 6))
-        self.allocator.free(s.blocks)
+        if self._inflight:
+            # A call in flight may still write these pages (zombie steps):
+            # free them once the newest dispatched call is reconciled.
+            self._deferred_frees.append((self._next_call_id - 1, s.blocks))
+        else:
+            self.allocator.free(s.blocks)
         self._slots[slot_idx] = None
         if self.token_sink is not None:
             self.token_sink(req.request_id, [], result)
