@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 0,1,4 --only paged_attn
     python3 chip_smoke.py --phases 0,2,5  # the engine, then the request's way in
     python3 chip_smoke.py --phases 0,6    # the monitor's front door alone
+    python3 chip_smoke.py --phases 0,7    # prefix reuse, preemption, recovery
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -19,7 +20,9 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          S 128 and 1024, a chunk at start > 0, an empty lane, a lane one
          token below block alignment, the S=2048 chunk shape, a
          continuation chunk starting inside a key tile, qpk 8 (64/8 heads)
-         and qpk 1 (32/32) at ragged lengths, and blocks of 12 tokens),
+         and qpk 1 (32/32) at ragged lengths, blocks of 12 tokens, a
+         prefix-hit admission round (8 lanes in the 256 bucket, starts 0
+         and 1,024..1,536, suffixes 32..160) and the 4096 bucket),
          fused decode over bf16, int8 and fp8 pools (decode_cases: B=32
          at contexts up to 2048, qpk 8 and 1, blocks of 12; each with
          positions on both sides of the split kernel's chunk boundaries,
@@ -35,18 +38,21 @@ Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          from a seeded generator on the card): a bf16 pool (8 GiB), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
          20..1500 tokens plus one of 2300 (chunked prefill), greedy, 32 new
-         tokens.  Each engine runs at the defaults (the K-step decode
-         programs as CUDA graphs, max_inflight 2); the bf16, int8 and
-         pallas engines also run the eager loop that reconciles each decode
-         call in its own step (decode_graphs=False, max_inflight=0), and
-         bf16 the eager loop with dispatch-ahead: greedy ids and launch
+         tokens, the prefix cache off.  Each engine runs at the defaults
+         (the K-step decode programs as CUDA graphs, admission, chunk and
+         decode calls in flight, max_inflight 2); the bf16, int8 and
+         pallas engines also run the eager loop that reads each admission
+         round back as it runs and reconciles each decode call in its own
+         step (decode_graphs=False, max_inflight=0, admit_inflight=False),
+         and bf16 the eager loop with dispatch-ahead: greedy ids and launch
          counts must be equal across one engine's settings.  For each run
          the launch counts are set to 0 just before it and read just
          after: every request must finish, every kernel of its path must
          have launched, and a second identical run must give identical
-         ids.  Prints TTFT p50, decode tokens/s, weight and pool bytes, and
-         the decode graphs captured, their seconds and the graph pool's
-         bytes.  A third run of each bf16, int8 and pallas setting traces
+         ids.  Prints TTFT p50, decode tokens/s, weight and pool bytes, the
+         share of steps that waited on the device while dispatching, the
+         prefill rounds by bucket, and the decode graphs captured, their
+         seconds and the graph pool's bytes.  A third run of each bf16, int8 and pallas setting traces
          its decode steps (after the last prefill) with torch.profiler,
          which sees the kernels a graph replays: wall and device busy ms
          per step, the device's idle share of the window, device time per
@@ -67,8 +73,9 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          function on K/V gathered (and dequantized) beforehand
          (scaled_dot_product_attention, a yardstick the port never calls)
          and the least time the card could take for the same bytes and
-         flops; launches per engine step.  Flash prefill is recorded at two
-         shapes (the ``shape`` key): an admission round and a 2048 chunk;
+         flops; launches per engine step.  Flash prefill is recorded at
+         three shapes (the ``shape`` key): an admission round, a 2048 chunk
+         and phase 1's prefix-hit round;
          beside the wrapper's time it prints the kernel's alone (launched on
          pre-scaled q), which leaves out the wrapper's q-scale pass.  Fused
          decode is recorded at the engine's mid-decode batch and a full
@@ -82,7 +89,8 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          chunks of 128, 256 and 512 keys.
 
 Phase 5  the request's way in: phase 2's Llama-3-8B model in an engine
-         with a bf16 pool, ByteTokenizer and the verdict grammar's token
+         with a bf16 pool (the prefix cache off), ByteTokenizer and the
+         verdict grammar's token
          FSM, wrapped in the port's LocalEngineBackend (EngineService step
          thread).  A burst from 25 threads: 16 generate_constrained
          evidence questions of 200..1500 bytes, 8 generate calls at
@@ -114,7 +122,8 @@ Phase 6  the monitor's front door: the earlier phases' model is freed, then
          every response 200 and "success", every verdict of the grammar's
          schema, flash prefill and fused decode launched (it prints
          constrained_decode_overhead_ms and the graph captures); then the
-         same burst again, its graphs captured, for the warm walls.  Then
+         same burst again, its graphs captured, for the warm walls, and
+         the prefix cache's hits and the deferrals (the cache on).  Then
          Warning
          BackOff events in the FakeCluster reach the diagnosis pipeline
          through the Watcher, and GET /api/v1/diagnoses must show a verdict;
@@ -127,6 +136,26 @@ Phase 6  the monitor's front door: the earlier phases' model is freed, then
          Last, python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster
          fake (tiny model) in its own process answers a query and exits 0
          on SIGTERM.
+Phase 7  prefix reuse, preemption and recovery at full Llama-3-8B width
+         (phase 2's model; it runs before phase 6, which frees it).  7a:
+         32 greedy requests sharing a 1,536-token prefix, each with its own
+         32..160-token tail, 32 new tokens, submitted at once, on phase 2's
+         bf16 engine with the prefix cache on and off and on the int8 engine
+         with it on: hits >= 31 and the prefill rows computed with the
+         cache on at most a quarter of those with it off; prints hits,
+         misses, deferrals, rows, flash launches, burst wall, TTFT p50/p99,
+         decode tokens/s and the id sequences equal to the cache-off run's;
+         every run complete and its free count back at the idle baseline.
+         Then, on 4 layers, the first-token logits of 4 prompts prefilled
+         as hits (their tails over a publisher's pages) against whole
+         prefills, by phase 3's rule.  7b: 16 slots over a pool of 512 x
+         16 tokens, 16 greedy requests of 300..400-token prompts with 400
+         new tokens in two SLO classes: lanes are preempted, every request
+         returns its 400 tokens, the free count returns; the id sequences
+         equal to an unpressured run's are printed.  7c: on the 7b engine
+         (dispatch_timeout_s 2.0), decode_stuck, prefill_dispatch and
+         lane_eviction armed once each: one watchdog trip or dispatch
+         failure each, every request complete, no decode graph recaptured.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -528,6 +557,12 @@ def check_rows(torch, name, got, want, rows, errs, ulps):
     check(ulp <= ULP_TOL, f"{name}: err {ulp:.3g} ulps")
 
 
+# A prefix-hit admission round (phase 7a's): 8 lanes in the 256 bucket,
+# hits that start past a cached prefix of 1,024..1,536 tokens beside
+# misses that start at 0, suffixes of 32..160 tokens.
+HIT_SHAPE = ([0, 1536, 1024, 1536, 0, 1280, 1536, 1100],
+             [160, 32, 96, 128, 48, 160, 77, 140])
+
 # Flash prefill cases of phase 1: (query heads, kv heads, S, starts,
 # lengths, tokens per block).  The Llama-3-8B heads (qpk 4) and block 16
 # unless stated.
@@ -549,6 +584,10 @@ PREFILL_CASES = [
     # blocks of 12 tokens: the kernel divides positions by the block size
     # itself, by multiply and shift
     (H, KVH, 128, [0, 37, 300], [128, 91, 19], 12),
+    # a prefix-hit admission round (HIT_SHAPE) and the 4096 bucket the
+    # flash path adds (a 2,300-token prompt admitted in one round)
+    (H, KVH, 256, *HIT_SHAPE, BS),
+    (H, KVH, 4096, [0], [2300], BS),
 ]
 
 
@@ -814,21 +853,26 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
     from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
 
     cfg = model.cfg
+    # The prefix cache off: the second and third runs of the same prompts
+    # must give the first run's ids, and a hit computes its prefill as
+    # another sum (phase 7 holds the hits).
     ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
                         max_blocks_per_seq=ENGINE_TABLE,
-                        max_prefills_per_step=8,
-                        decode_steps_per_iter=8, **overrides)
+                        max_prefills_per_step=8, decode_steps_per_iter=8,
+                        prefix_cache_entries=0, **overrides)
     eng = InferenceEngine(cfg, model, ecfg, tokenizer=ByteTokenizer())
     check((eng.prefill_path, eng.decode_path) == paths,
           f"{name} engine paths {eng.prefill_path}/{eng.decode_path}, "
           f"expected {'/'.join(paths)}")
     sp = SamplingParams(max_tokens=32)
     pa.reset_launch_counts()
-    steps0 = eng.steps
+    steps0, waits0 = eng.steps, eng.admission_waits
     t0 = time.monotonic()
     res = eng.generate(prompts, sp)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    waits = eng.admission_waits - waits0
+    pre_s = eng.prefill_dispatch_s
     launches = {rec: getattr(pa, fn).launches for rec, fn in kernels.items()}
     steps = eng.steps - steps0
     for r in res:
@@ -839,6 +883,9 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
             f"{name} {r.request_id}: bad ids")
     check(all(n > 0 for n in launches.values()),
           f"{name}: a kernel never launched on the main path: {launches}")
+    check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+          f"{name}: {eng.dispatch_failures} dispatch failures, "
+          f"{eng.watchdog_trips} watchdog trips")
     check(eng.pool_bytes == eng.pages.nbytes(),
           f"{name}: pool bytes {eng.pool_bytes} != {eng.pages.nbytes()}")
     first_run = (steps, eng.decode_steps)
@@ -846,7 +893,11 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
     tok_s = eng.decode_tokens / eng.decode_s
     graphs = f"; {graph_line(torch, eng)}" if ecfg.decode_graphs else ""
     print(f"phase 2: {name}: {len(res)} requests done in {wall:.2f} s over "
-          f"{steps} engine steps; launches {launches}{graphs}")
+          f"{steps} engine steps ({waits} waited on the device while "
+          f"dispatching, share {waits / steps:.3f}; prefill rounds by "
+          f"bucket {eng.prefill_bucket_rounds}, {pre_s * 1e3:.1f} ms of host "
+          f"time dispatching them); launches "
+          f"{launches}{graphs}")
     print(f"phase 2: {name}: first (cold) run: ttft p50 {ttft * 1e3:.1f} ms, "
           f"decode {tok_s:.1f} tok/s ({eng.decode_tokens} tokens in "
           f"{eng.decode_s:.2f} s, {eng.decode_steps} decode steps), weights "
@@ -873,10 +924,12 @@ def prompt_lengths(rng):
 
 
 # Decode settings phase 2 compares on one engine: the eager loop that
-# reconciles each decode call in the step that dispatched it (the loop
-# before the decode graphs), the eager loop with dispatch-ahead, and the
-# defaults (CUDA graphs, max_inflight 2).
-SETTINGS = {"eager": {"decode_graphs": False, "max_inflight": 0},
+# reads each admission round back as it runs and reconciles each decode
+# call in the step that dispatched it (the loop before the decode graphs
+# and in-flight admission), the eager loop with dispatch-ahead, and the
+# defaults (CUDA graphs, every call kind in flight, max_inflight 2).
+SETTINGS = {"eager": {"decode_graphs": False, "max_inflight": 0,
+                      "admit_inflight": False},
             "eager+ahead": {"decode_graphs": False},
             "graph": {}}
 # The settings each engine runs, the defaults last: that run's launch
@@ -1004,6 +1057,21 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels):
               f"wall  {kname[:90]}")
 
 
+def argmax_agreement(got, want, tol):
+    """(share of rows whose argmax agrees, near-ties, rows) over the logit
+    tensors ``got`` and ``want``.  A row whose ``want`` top two logits lie
+    within ``tol`` is a near-tie of that path itself, which another
+    summation order may flip: it counts as agreeing."""
+    n_rows = n_agree = n_ties = 0
+    for a, b in zip(got, want):
+        top2 = b.float().topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= tol
+        n_agree += int(((a.argmax(-1) == b.argmax(-1)) | tie).sum())
+        n_ties += int(tie.sum())
+        n_rows += tie.numel()
+    return n_agree / n_rows, n_ties, n_rows
+
+
 def marked(fn, **markers):
     """``fn`` as an attention impl carrying the wrapper markers that
     models/llama.py dispatches on (to run a plain version on the card)."""
@@ -1074,17 +1142,7 @@ def phase3(torch, np, st):
         got, want = run(kv_quant, *kernel), run(kv_quant, *plain)
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
         tol = QUANT_LOGIT_ATOL if kv_quant else LOGIT_ATOL
-        # A row whose plain-path top two logits lie within the logit
-        # tolerance is a near-tie of the plain path itself, which another
-        # summation order may flip: it counts as agreeing.
-        n_rows = n_agree = n_ties = 0
-        for a, b in zip(got, want):
-            top2 = b.float().topk(2, dim=-1).values
-            tie = (top2[:, 0] - top2[:, 1]) <= tol
-            n_agree += int(((a.argmax(-1) == b.argmax(-1)) | tie).sum())
-            n_ties += int(tie.sum())
-            n_rows += tie.numel()
-        agree = n_agree / n_rows
+        agree, n_ties, n_rows = argmax_agreement(got, want, tol)
         print(f"phase 3: 4-layer Llama-3-8B, {label}: logit max abs err "
               f"prefill {errs[0]:.4g}, decode steps "
               f"{[round(e, 4) for e in errs[1:]]} (tolerance {tol}); "
@@ -1224,10 +1282,13 @@ def phase5(torch, np, st):
     model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
     cfg, tok = model.cfg, ByteTokenizer()
     # 256 blocks of 16 per sequence: a 1500-byte question and the longest
-    # verdict (469 tokens) fit, so no verdict is cut.
+    # verdict (469 tokens) fit, so no verdict is cut.  The prefix cache is
+    # off: the lone question runs twice and its ids are compared, and a
+    # hit computes its prefill as another sum (phase 7 holds the hits).
     ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
                         max_blocks_per_seq=ENGINE_TABLE,
-                        max_prefills_per_step=8, decode_steps_per_iter=8)
+                        max_prefills_per_step=8, decode_steps_per_iter=8,
+                        prefix_cache_entries=0)
     eng = InferenceEngine(cfg, model, ecfg, tokenizer=tok)
     check((eng.prefill_path, eng.decode_path, eng.kv_quant)
           == ("flash", "fused", ""),
@@ -1266,6 +1327,9 @@ def phase5(torch, np, st):
                     "fused_decode": pa.paged_decode_attention_fused.launches}
         check(not errors, f"burst calls failed: {errors}")
         check(len(results) == 25, f"{len(results)} results of 25")
+        check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+              f"{eng.dispatch_failures} dispatch failures, "
+              f"{eng.watchdog_trips} watchdog trips in the burst")
         bad = [r.request_id for r in results if r.finish_reason == "error"]
         check(not bad, f"error results: {bad}")
         for i in range(16):
@@ -1284,7 +1348,10 @@ def phase5(torch, np, st):
               f"{np.percentile(ttfts, 99) * 1e3:.1f} ms; decode {tok_s:.1f} "
               f"tok/s; constrained_decode_overhead_ms "
               f"{backend.constrained_decode_overhead_ms:.3f}; launches "
-              f"{launches} [{gpu}]")
+              f"{launches}; steps that waited on the device while "
+              f"dispatching {eng.admission_waits} of {eng.steps}; "
+              f"{eng.prefill_dispatch_s * 1e3:.1f} ms of host time "
+              f"dispatching prefill rounds [{gpu}]")
         print(f"phase 5: 16 verdicts parse ({min(lens)}..{max(lens)} chars); "
               f"8 sampled and 1 streamed answer, no error; "
               f"{graph_line(torch, eng)} [{gpu}]")
@@ -1294,6 +1361,19 @@ def phase5(torch, np, st):
               "the lone question's ids differ through the service")
         print(f"phase 5: lone verdict ({len(ref.token_ids)} tokens): the same "
               f"ids through the service as through engine.generate [{gpu}]")
+        # The same burst again, once the decode graphs it uses exist: a
+        # first token is read back when its admission call is reconciled,
+        # so in the cold burst it waits behind the captures.
+        results, outs, errors, wall = burst(backend, questions, frees,
+                                            stream_q)
+        check(not errors and len(results) == 25 and not any(
+            r.finish_reason == "error" for r in results),
+              f"the warm burst: {errors or [r.error for r in results]}")
+        ttfts = sorted(r.ttft_s for r in results)
+        print(f"phase 5: the same burst again (warm): {wall:.2f} s wall; "
+              f"ttft p50 {np.percentile(ttfts, 50) * 1e3:.1f} ms, p99 "
+              f"{np.percentile(ttfts, 99) * 1e3:.1f} ms; "
+              f"{graph_line(torch, eng)} [{gpu}]")
     finally:
         backend.service.stop()
     eng.token_sink = None
@@ -1648,6 +1728,16 @@ def phase6(torch, np, st):
               f"constrained_decode_overhead_ms "
               f"{backend.constrained_decode_overhead_ms:.3f}; "
               f"{graph_line(torch, eng)} [{gpu}]")
+        pc = eng.prefix_cache
+        check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+              f"{eng.dispatch_failures} dispatch failures, "
+              f"{eng.watchdog_trips} watchdog trips in the bursts")
+        print(f"phase 6: the engine after both bursts: prefix cache hits "
+              f"{pc.hits}, misses {pc.misses}, entries {len(pc)}; "
+              f"deferrals {eng.prefix_deferrals}; prefill rows "
+              f"{eng.prefill_tokens}; steps that waited on the device "
+              f"while dispatching {eng.admission_waits} of {eng.steps} "
+              f"[{gpu}]")
 
         # The standing diagnosis loop: a crash-loop burst of Warning events
         # in the cluster, through the watcher, to a verdict.
@@ -1798,6 +1888,301 @@ def phase6(torch, np, st):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+PREFIX_LEN = 1536                # phase 7a: the burst's shared prefix
+HIT_TOL = LOGIT_ATOL             # phase 7a: a hit's logits, 4 layers, bf16
+
+
+def drive(eng, reqs, sp_of):
+    """Submit ``reqs`` ((id, prompt, SLO class)) together, step the engine
+    to the end and return (results by id, wall seconds)."""
+    import torch
+
+    from k8s_llm_monitor_tpu_torch.serving.engine import GenerationRequest
+
+    t0 = time.monotonic()
+    for rid, prompt, cls in reqs:
+        eng.submit(GenerationRequest(rid, list(prompt), sp_of(rid),
+                                     slo_class=cls))
+    steps = 0
+    while eng.has_work:
+        eng.step()
+        steps += 1
+        check(steps < 20_000, "the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {rid: eng.poll(rid) for rid, _, _ in reqs}, wall
+
+
+def check_complete(res, n_tokens, what):
+    """Every result ``length`` with exactly ``n_tokens`` valid ids."""
+    for rid, r in res.items():
+        check(r.finish_reason == "length" and len(r.token_ids) == n_tokens,
+              f"{what} {rid}: {r.finish_reason} with {len(r.token_ids)} "
+              f"tokens {r.error}")
+
+
+def check_baseline(eng, baseline, what):
+    """Idle, and the allocator back at its idle free count once the prefix
+    cache lets go of its own blocks."""
+    check(not eng._inflight and not eng._deferred_frees
+          and not any(eng._slots), f"{what}: the engine is not idle")
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.clear()
+    check(eng.allocator.free_blocks == baseline,
+          f"{what}: {eng.allocator.free_blocks} blocks free after the run, "
+          f"{baseline} before")
+
+
+def prefix_burst(torch, np, st, model, prompts, name, overrides):
+    """Phase 7a: the 32 requests at once on one engine (phase 2's bf16
+    geometry).  Returns the run's figures and its ids."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+
+    eng = InferenceEngine(model.cfg, model, EngineConfig(
+        max_slots=32, num_blocks=4096, block_size=16,
+        max_blocks_per_seq=ENGINE_TABLE, max_prefills_per_step=8,
+        decode_steps_per_iter=8, **overrides))
+    baseline = eng.allocator.free_blocks
+    sp = SamplingParams(max_tokens=32)
+    reqs = [(f"{name}-{i}", p, "standard") for i, p in enumerate(prompts)]
+    pa.reset_launch_counts()
+    res, wall = drive(eng, reqs, lambda rid: sp)
+    flash = pa.flash_prefill_attention.launches
+    check_complete(res, 32, name)
+    check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+          f"{name}: {eng.dispatch_failures} dispatch failures, "
+          f"{eng.watchdog_trips} watchdog trips")
+    check(flash > 0, f"{name}: flash prefill never launched")
+    pc = eng.prefix_cache
+    ttfts = sorted(r.ttft_s for r in res.values())
+    fig = dict(hits=pc.hits if pc else 0, misses=pc.misses if pc else 0,
+               deferrals=eng.prefix_deferrals, rows=eng.prefill_tokens,
+               flash=flash, wall=wall,
+               ttft50=float(np.percentile(ttfts, 50)),
+               ttft99=float(np.percentile(ttfts, 99)),
+               tok_s=eng.decode_tokens / eng.decode_s,
+               rounds=dict(eng.prefill_bucket_rounds),
+               dispatch_s=eng.prefill_dispatch_s)
+    check_baseline(eng, baseline, name)
+    del eng
+    torch.cuda.empty_cache()
+    return fig, [res[rid].token_ids for rid, _, _ in reqs]
+
+
+def hit_logits(torch, np, st, model, prompts):
+    """Phase 7a's model-level check on 4 layers: the first-token logits of
+    4 prompts prefilled as prefix hits (``prefill_chunk`` of their tails
+    over the pages a publisher wrote) against a whole ``prefill`` of the
+    same prompts, both through the flash kernel."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    m4 = truncated(model, 4)
+    B = len(prompts)
+    lens = [len(p) for p in prompts]
+    nbl = (max(lens) + BS - 1) // BS + 1
+    shared = PREFIX_LEN // BS
+
+    def table(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+    # Whole prompts, each over blocks of its own.
+    pages = llama.init_kv_pages(m4.cfg, B * nbl + 1, BS, dev)
+    toks = np.zeros((B, 2048), np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+    whole, _ = llama.prefill(
+        m4, torch.from_numpy(toks).to(dev), table(lens), pages,
+        table([[1 + b * nbl + i for i in range(nbl)] for b in range(B)]),
+        attn_impl=pa.flash_prefill_attention)
+    # Hits: a publisher (the first prompt) writes the prefix's blocks, the
+    # tails attend to them from their own blocks.
+    pages = llama.init_kv_pages(m4.cfg, B * nbl + shared + 1, BS, dev)
+    pub = [1 + i for i in range(nbl)]
+    llama.prefill(m4, torch.from_numpy(toks[:1]).to(dev), table(lens[:1]),
+                  pages, table([pub]), attn_impl=pa.flash_prefill_attention)
+    rows, tails = [], np.zeros((B, 256), np.int32)
+    for b, p in enumerate(prompts):
+        own = [1 + nbl + b * (nbl - shared) + i for i in range(nbl - shared)]
+        rows.append(pub[:shared] + own)
+        tails[b, :len(p) - PREFIX_LEN] = p[PREFIX_LEN:]
+    hit, _ = llama.prefill_chunk(
+        m4, torch.from_numpy(tails).to(dev),
+        table([PREFIX_LEN] * B), table([n - PREFIX_LEN for n in lens]),
+        pages, table(rows), attn_impl=pa.flash_prefill_attention)
+    torch.cuda.synchronize()
+    err = float((hit - whole).abs().max())
+    agree, ties, n = argmax_agreement([hit], [whole], HIT_TOL)
+    print(f"phase 7: 4-layer model, {B} prompts as prefix hits "
+          f"(prefill_chunk of their {[n - PREFIX_LEN for n in lens]}-token "
+          f"tails over the {PREFIX_LEN} shared tokens) against whole "
+          f"prefills: first-token logit max abs err {err:.4g} (tolerance "
+          f"{HIT_TOL}); argmax agreement {agree:.3f} (at least "
+          f"{MIN_ARGMAX_AGREE}; {ties} of {n} rows near-ties within "
+          f"{HIT_TOL}) [{st['gpu']}]")
+    check(bool(torch.isfinite(hit).all()), "hit logits not finite")
+    check(err <= HIT_TOL, f"hit logits differ by {err:.4g}")
+    check(agree >= MIN_ARGMAX_AGREE, f"hit argmax agreement {agree:.3f}")
+    del pages
+    torch.cuda.empty_cache()
+
+
+def pressure_engine(model, **overrides):
+    """Phase 7b's engine: 16 slots over a pool of 512 x 16 tokens (8,192),
+    bf16, the watchdog at 2 s."""
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine)
+
+    return InferenceEngine(model.cfg, model, EngineConfig(**dict(dict(
+        max_slots=16, num_blocks=512, block_size=16, max_blocks_per_seq=64,
+        max_prefills_per_step=8, decode_steps_per_iter=8,
+        dispatch_timeout_s=2.0), **overrides)))
+
+
+def phase7(torch, np, st):
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+
+    gpu = st["gpu"]
+    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+    st["model"] = model
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(7)
+
+    # 7a: 32 greedy requests sharing a 1,536-token prefix, each with its own
+    # tail of 32..160 tokens, 32 new tokens, submitted at once.
+    prefix = [int(t) for t in rng.integers(3, V, size=PREFIX_LEN)]
+    tails = [int(n) for n in rng.integers(32, 161, size=32)]
+    prompts = [prefix + [int(t) for t in rng.integers(3, V, size=n)]
+               for n in tails]
+    runs = {}
+    for name, overrides in (("bf16 cache on", {}),
+                            ("bf16 cache off", {"prefix_cache_entries": 0}),
+                            ("int8 cache on", {"kv_dtype": "int8"})):
+        runs[name] = prefix_burst(torch, np, st, model, prompts, name,
+                                  overrides)
+    off_ids = runs["bf16 cache off"][1]
+    for name, (fig, ids) in runs.items():
+        same = sum(a == b for a, b in zip(ids, off_ids))
+        print(f"phase 7: {name}: 32 requests sharing {PREFIX_LEN} tokens "
+              f"(tails {min(tails)}..{max(tails)}): prefix hits "
+              f"{fig['hits']}, misses {fig['misses']}, deferrals "
+              f"{fig['deferrals']}; prefill rows computed {fig['rows']} "
+              f"(rounds by bucket {fig['rounds']}, dispatched in "
+              f"{fig['dispatch_s'] * 1e3:.1f} ms of host time); flash "
+              f"prefill launches "
+              f"{fig['flash']}; burst wall {fig['wall']:.3f} s, ttft p50 "
+              f"{fig['ttft50'] * 1e3:.1f} ms, p99 {fig['ttft99'] * 1e3:.1f} "
+              f"ms, decode {fig['tok_s']:.1f} tok/s; {same} of 32 id "
+              f"sequences equal the cache-off run's [{gpu}]")
+    on, off = runs["bf16 cache on"][0], runs["bf16 cache off"][0]
+    for name in ("bf16 cache on", "int8 cache on"):
+        fig = runs[name][0]
+        check(fig["hits"] >= 31, f"{name}: {fig['hits']} prefix hits")
+        check(4 * fig["rows"] <= off["rows"],
+              f"{name}: {fig['rows']} prefill rows against {off['rows']} "
+              "with the cache off")
+    print(f"phase 7: prefill rows with the cache on / off: {on['rows']} / "
+          f"{off['rows']} = {on['rows'] / off['rows']:.3f} (at most 0.25; "
+          f"{PREFIX_LEN} + the tails {sum(tails)} = "
+          f"{PREFIX_LEN + sum(tails)} expected on) [{gpu}]")
+    hit_logits(torch, np, st, model, prompts[:4])
+
+    # 7b: 16 greedy requests of 300..400-token prompts, 400 new tokens
+    # each, in two SLO classes, against 8,192 cached tokens: lanes must be
+    # preempted.  Then the same requests on a pool that holds them all.
+    reqs = [(f"p{i}", [int(t) for t in rng.integers(3, V, size=int(n))],
+             "standard" if i % 2 == 0 else "batch")
+            for i, n in enumerate(rng.integers(300, 401, size=16))]
+    need = sum(len(p) + 400 for _, p, _ in reqs)
+    sp = SamplingParams(max_tokens=400)
+    eng = pressure_engine(model)
+    baseline = eng.allocator.free_blocks
+    res, wall = drive(eng, reqs, lambda rid: sp)
+    check_complete(res, 400, "7b")
+    check(sum(eng.preemptions_by_class.values()) > 0,
+          "7b: no lane was preempted")
+    check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+          f"7b: {eng.dispatch_failures} dispatch failures, "
+          f"{eng.watchdog_trips} watchdog trips")
+    ttfts = sorted(r.ttft_s for r in res.values())
+    print(f"phase 7: 7b: 16 requests of 300..400 prompt tokens and 400 new "
+          f"(about {need} tokens) on a pool of {eng.allocator.num_blocks} x "
+          f"16: all complete in {wall:.2f} s, preemptions by class "
+          f"{eng.preemptions_by_class}, requeues {eng.requeues}, prefill "
+          f"rows {eng.prefill_tokens}, decode steps {eng.decode_steps}, "
+          f"ttft p50 {np.percentile(ttfts, 50) * 1e3:.1f} ms; "
+          f"{graph_line(torch, eng)} [{gpu}]")
+    check_baseline(eng, baseline, "7b")
+    free_eng = pressure_engine(model, num_blocks=2048)
+    ref, ref_wall = drive(free_eng, reqs, lambda rid: sp)
+    check_complete(ref, 400, "7b unpressured")
+    check(sum(free_eng.preemptions_by_class.values()) == 0,
+          "7b: the unpressured run preempted")
+    same = sum(res[rid].token_ids == ref[rid].token_ids for rid, _, _ in reqs)
+    print(f"phase 7: 7b: {same} of 16 id sequences equal the unpressured "
+          f"run's (a pool of 2048 x 16, {ref_wall:.2f} s, no preemption) "
+          f"[{gpu}]")
+    del free_eng
+    torch.cuda.empty_cache()
+
+    # 7c: recovery on the 7b engine (its graphs captured): a stuck decode
+    # call trips the watchdog and the reset requeues every lane without
+    # recapturing a graph; a failed admission dispatch is requeued; a
+    # lane_eviction fault during 7b's traffic falls back to the lane itself.
+    inj = get_injector()
+    short = SamplingParams(max_tokens=64)
+    programs = dict(eng._programs)
+    captures = eng.graph_captures
+    for point, traffic, sp_run in (("decode_stuck", reqs[:8], short),
+                                   ("prefill_dispatch", reqs[:8], short),
+                                   ("lane_eviction", reqs, sp)):
+        trips, fails, requeues = (eng.watchdog_trips, eng.dispatch_failures,
+                                  eng.requeues)
+        inj.arm(point, rate=1.0, times=1)
+        try:
+            res, wall = drive(eng, [(f"{point}-{rid}", p, c)
+                                    for rid, p, c in traffic],
+                              lambda rid: sp_run)
+        finally:
+            fired = inj.fired(point)
+            inj.disarm(point)
+        check(fired == 1, f"7c: {point} fired {fired} times")
+        check_complete(res, sp_run.max_tokens, f"7c {point}")
+        d_trips = eng.watchdog_trips - trips
+        d_fails = eng.dispatch_failures - fails
+        d_requeues = eng.requeues - requeues
+        want = {"decode_stuck": (1, 0), "prefill_dispatch": (0, 1),
+                "lane_eviction": (0, 1)}[point]
+        check((d_trips, d_fails) == want,
+              f"7c {point}: {d_trips} watchdog trips, {d_fails} dispatch "
+              f"failures, wanted {want}")
+        if point != "lane_eviction":
+            check(d_requeues >= 1, f"7c {point}: nothing requeued")
+        print(f"phase 7: 7c: {point} armed once: fired {fired}, watchdog "
+              f"trips +{d_trips}, dispatch failures +{d_fails}, requeues "
+              f"+{d_requeues}; {len(res)} requests complete in {wall:.2f} "
+              f"s [{gpu}]")
+        check_baseline(eng, baseline, f"7c {point}")
+    grown = {k: p for k, p in eng._programs.items() if k not in programs}
+    check(all(eng._programs[k] is p and p.graph is not None
+              for k, p in programs.items()),
+          "7c: a decode program was rebuilt across the resets")
+    check(eng.graph_captures == captures + len(grown),
+          f"7c: {eng.graph_captures - captures} captures for "
+          f"{len(grown)} new programs: a graph was recaptured")
+    print(f"phase 7: 7c: decode graphs {captures} before the faults, "
+          f"{eng.graph_captures} after ({len(grown)} new programs, none "
+          f"recaptured) [{gpu}]")
+    del eng
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "flash_prefill": "k8s_llm_monitor_tpu_torch/csrc/flash_prefill.cu",
     "fused_decode": "k8s_llm_monitor_tpu_torch/csrc/fused_decode.cu",
@@ -1852,9 +2237,11 @@ def phase4(torch, np, st):
         return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
 
     # flash prefill: an admission round of 8 prompts (the 8 shortest of
-    # phase 2's, bucket 1024) and the long prompt's first chunk.
+    # phase 2's, bucket 1024), a 2048 chunk, and a prefix-hit admission
+    # round (HIT_SHAPE, phase 7a's).
     shapes = [("admission", 1024, [0] * 8, [min(n, 1024) for n in lens[:8]]),
-              ("chunk", 2048, [0], [2048])]
+              ("chunk", 2048, [0], [2048]),
+              ("hit", 256, *HIT_SHAPE)]
     for kvq in ("",) + QUANTS if wanted(st, "flash_prefill") else ():
         name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
         for label, S, starts, lengths in shapes:
@@ -2024,7 +2411,7 @@ def phase4(torch, np, st):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -2047,8 +2434,9 @@ def main(argv=None) -> int:
         return 2
 
     st: dict = {"only": args.only}
+    # Phase 7 before 6: it reuses phase 2's model, which phase 6 frees.
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (4, phase4),
-               (5, phase5), (6, phase6)]
+               (5, phase5), (7, phase7), (6, phase6)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

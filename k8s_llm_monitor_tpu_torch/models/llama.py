@@ -395,7 +395,7 @@ def _scatter_pages_quant(pages: torch.Tensor, spages: torch.Tensor,
 
 def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                   kv_len, pages: KVPages, block_tables, attend_to_pages: bool,
-                  paged_attn_fn=None):
+                  paged_attn_fn=None, on_layer=None):
     """Shared prefill layer loop: embed, qkv+rope, scatter into the pages,
     attention, residual/MLP, last-valid-token unembed.
 
@@ -408,6 +408,10 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
     scale planes and dequantizes inside, a chunk's gather dequantizes the
     gathered prefix, and fresh dense prefill attends to the unquantized
     in-flight k/v (so it differs from flash by quantization noise).
+
+    ``on_layer``, when given, is called after each layer's launches: the
+    host may act on earlier work the device has finished while it waits
+    for room in the launch queue.
     """
     cfg = model.cfg
     B, S = tokens.shape
@@ -448,6 +452,8 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                                     kv_len=kv_len)
         o = _linear(layer.o, attn.reshape(B, S, -1))
         x = _residual_tail(layer, cfg, x, o)
+        if on_layer is not None:
+            on_layer()
     last_idx = (lengths - 1).clamp(min=0).long()
     x_last = x[torch.arange(B, device=x.device), last_idx][:, None, :]
     return _unembed(model, x_last)[:, 0, :], pages
@@ -455,7 +461,7 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
 
 @torch.no_grad()
 def prefill(model: LlamaModel, tokens, lengths, pages: KVPages, block_tables,
-            *, attn_impl=None):
+            *, attn_impl=None, on_layer=None):
     """Ingest right-padded prompts, writing K/V into the paged cache.
 
     tokens [B, S_pad]; lengths [B] (0 = inactive lane); ``attn_impl``: the
@@ -469,12 +475,12 @@ def prefill(model: LlamaModel, tokens, lengths, pages: KVPages, block_tables,
     valid = positions < lengths[:, None]
     return _prefill_impl(model, tokens, positions, valid, lengths, lengths,
                          pages, block_tables, attend_to_pages=False,
-                         paged_attn_fn=attn_impl)
+                         paged_attn_fn=attn_impl, on_layer=on_layer)
 
 
 @torch.no_grad()
 def prefill_chunk(model: LlamaModel, tokens, start, lengths, pages: KVPages,
-                  block_tables, *, attn_impl=None):
+                  block_tables, *, attn_impl=None, on_layer=None):
     """Continuation prefill: a chunk of a prompt whose first ``start``
     tokens are already cached; attention runs against the paged prefix +
     the chunk, masked causally by absolute position.
@@ -488,7 +494,8 @@ def prefill_chunk(model: LlamaModel, tokens, start, lengths, pages: KVPages,
     valid = offs[None, :] < lengths[:, None]
     return _prefill_impl(model, tokens, positions, valid, lengths,
                          start + lengths, pages, block_tables,
-                         attend_to_pages=True, paged_attn_fn=attn_impl)
+                         attend_to_pages=True, paged_attn_fn=attn_impl,
+                         on_layer=on_layer)
 
 
 # ---------------------------------------------------------------------------

@@ -365,8 +365,9 @@ class LocalEngineBackend(LLMBackend):
 
         The knobs the port does not serve yet raise ``NotImplementedError``
         naming their ROADMAP item: ``quantize`` int8/w8a8 and
-        ``checkpoint`` (A6), ``spec_k > 0`` (A4), ``mesh_shape`` (A7) and
-        a tenant KV share below 1 (A3, the prefix cache it caps).  On the
+        ``checkpoint`` (A6), ``spec_k > 0`` (A4) and ``mesh_shape`` (A7).
+        ``tenancy.max_kv_share`` caps each tenant's share of the engine's
+        prefix cache (``EngineConfig.kv_max_tenant_share``).  On the
         GPU the CUDA kernels are built here, before the supervisor's step
         loop starts, so no compile runs inside a heartbeat window.
         """
@@ -388,10 +389,6 @@ class LocalEngineBackend(LLMBackend):
             raise NotImplementedError(
                 f"llm.tpu.mesh_shape={tpu_cfg.mesh_shape!r}: multi-GPU "
                 "serving is not ported (ROADMAP A7)")
-        if tenancy is not None and float(tenancy.max_kv_share) < 1.0:
-            raise NotImplementedError(
-                f"tenancy.max_kv_share={tenancy.max_kv_share}: the prefix "
-                "cache it caps is not ported (ROADMAP A3)")
         device = llama.resolve_device(device)
         if device.type == "cuda":
             _build.build_all()
@@ -405,13 +402,16 @@ class LocalEngineBackend(LLMBackend):
         # the supervisor still holds the dead engine while the new one is
         # built, and two pools at once would not fit a card sized for one.
         built: list = []
+        max_kv_share = (float(tenancy.max_kv_share)
+                        if tenancy is not None else 1.0)
 
         def engine_factory() -> InferenceEngine:
             if built:
                 built.pop().release_pool()
             engine = InferenceEngine(
                 cfg, model, EngineConfig(max_slots=tpu_cfg.max_batch,
-                                         num_blocks=tpu_cfg.kv_blocks),
+                                         num_blocks=tpu_cfg.kv_blocks,
+                                         kv_max_tenant_share=max_kv_share),
                 tokenizer=tokenizer, device=device)
             # Inside the factory: a rebuilt engine without the grammar
             # would refuse every constrained submit.

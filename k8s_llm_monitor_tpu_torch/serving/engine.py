@@ -7,10 +7,22 @@ block.
 
   * **Batched bucketed prefill** -- up to ``max_prefills_per_step`` pending
     prompts are ingested in one ``[P, bucket]`` prefill call (padding lanes
-    inactive) and their first tokens are sampled from its logits.
-  * **Chunked prefill** -- a prompt longer than the top bucket occupies a
-    *prefilling* slot; its chunks stream one batched round per step
-    (fewest remaining tokens first), attending to the paged prefix.
+    inactive) and their first tokens are sampled from its logits.  With
+    the flash prefill kernel the bucket ladder gains 4096 and 8192 where
+    the per-sequence capacity allows, as in the JAX engine.
+  * **Prefix reuse** (``prefix_cache_entries``, serving/kv_cache.py:
+    ``PrefixCache``) -- each candidate looks up its longest cached prefix
+    (tenant-namespaced digests) and prefills only its suffix over the
+    shared pages; a round with any hit runs the chunked program with
+    per-lane starts.  Pages publish at dispatch.  Cold-burst dedup holds a
+    candidate back one round behind a same-prefix lane of the round, and a
+    chunk-path candidate behind a streaming publisher (``defer_budget``,
+    ``prefix_deferrals``).
+  * **Chunked prefill** -- a prompt (suffix) longer than the top bucket
+    occupies a *prefilling* slot; its chunks stream one batched round per
+    step (fewest remaining tokens first), attending to the paged prefix;
+    ``interactive_chunk_bucket`` shrinks rounds while interactive work
+    waits.
   * **K-step decode program** -- ``decode_steps_per_iter`` decode steps
     run as one program per (K, sampler, constrained), the counterpart of
     the JAX engine's compiled scan (``_DecodeProgram``), with per-lane
@@ -18,15 +30,34 @@ block.
     ``-1`` marks a step where a lane was idle and a masked lane runs at
     ``ctx = 0``.  On CUDA each program is captured into a CUDA graph at
     first use and replayed (``EngineConfig.decode_graphs``).
-  * **Dispatch-ahead** -- up to ``max_inflight`` decode calls stay in
-    flight after ``step()`` returns: each copies its ``[K, B]`` token
-    matrix to a pinned host buffer of its own behind a CUDA event, and
-    the next call is planned from the lanes' predicted state
-    (``ctx_pred``, ``remaining_pred``).  Reconciliation emits tokens and
+  * **Calls in flight** -- admission rounds (``admit``), chunk rounds
+    (``chunk``) and decode calls (``decode``) are queued in dispatch order;
+    up to ``max_inflight`` stay in flight after ``step()`` returns.  Each
+    call fills a pinned host stage of its own, copies it in and its sampled
+    tokens back with ``non_blocking`` copies behind a CUDA event, so the
+    host never waits for a call to dispatch the next; first tokens are
+    placed into the device token and FSM buffers on the stream.  The next
+    call is planned from the lanes' predicted state (``pending_admit``,
+    ``ctx_pred``, ``remaining_pred``).  Reconciliation emits tokens and
     retires lanes; a lane's steps past its EOS in a later call (zombie
-    steps) write its own pages and are dropped, and a retired lane's
-    pages are freed once the newest call that may reference them is
-    reconciled.
+    steps) write its own pages and are dropped, and a retired lane's pages
+    are freed once the newest call that may reference them is reconciled.
+  * **Preemption** -- a lane that cannot extend its pages first evicts LRU
+    prefix entries, then reconciles everything in flight, then preempts
+    the lowest-class, youngest lane by recompute (its generated tokens
+    folded into the prompt, requeued at the head of the queue); a strictly
+    higher-class request waiting with no free slot evicts lower-class
+    lanes the same way (``max_preemptions`` per step).
+  * **Recovery** -- fault points (resilience/faults.py:
+    ``prefill_dispatch``, ``decode_dispatch``, ``decode_stuck``,
+    ``lane_eviction``, ``slow_host_callback``, the allocator's
+    ``alloc_exhaustion``), dispatch-failure accounting with rollback, the
+    in-flight watchdog (``dispatch_timeout_s``) and the pipeline reset:
+    calls in flight are dropped, the prefix cache is cleared and every
+    live lane is requeued by recompute (``max_requeues``).  The port's
+    pages are updated in place on one stream, so a dropped call cannot
+    poison them; the reset keeps the JAX engine's semantics all the same
+    (ids and counters match), and keeps the decode graphs.
   * Retirement on EOS or on ``max_tokens``; submit-time tail truncation
     keeps ``prompt + max_tokens`` within the per-sequence capacity.
   * Grammar-constrained sampling (``set_grammar``, ``SamplingParams.
@@ -40,23 +71,16 @@ block.
   * The surface ``serving/service.py`` drives: ``token_sink`` (tokens as
     they reach the host, then the result), ``poll``, the queue gauges,
     class-ordered ``should_shed``, queue TTL and per-request deadlines, the
-    ``health`` and ``brownout`` slots, SLO-class admission order, and the
+    ``health`` and ``brownout`` slots, SLO-class scheduling, and the
     request and phase spans (observability/tracing.py).
   * What the supervisor and the server read: ``release_pool`` (the
     factory frees a dead engine's pages before building the next),
-    ``ttft_ema_by_class``, ``kv_tier_stats`` (the device tier) and the
-    counters of the mechanisms not ported, at their values with the
-    mechanism off.
+    ``ttft_ema_by_class``, ``kv_tier_stats`` (the device tier and its
+    per-tenant cached blocks), the prefix cache's counters and the
+    recovery counters.
 
-Admission and chunk rounds stay synchronous: they read their first tokens
-back as they run, behind the decode calls in flight.  The JAX engine's
-in-flight admission and chunk calls, the inflight watchdog
-(``dispatch_timeout_s``), pipeline resets and dispatch-failure accounting
-need recompute requeue and are not ported.  Where the JAX engine donates
-the page arrays to its jitted programs, this engine updates them in
-place.  Preemption (and with it voluntary class-ordered eviction,
-``max_preemptions``), speculative decoding, prefix reuse and the host KV
-tier are not ported yet; the resident pool may be int8/fp8
+Not ported: speculative decoding (ROADMAP A4), the host KV tier and prefix
+export/install (A5) and meshes (A7); the resident pool may be int8/fp8
 (``EngineConfig.kv_dtype``).
 """
 
@@ -77,6 +101,7 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
     select_decode_impl,
     select_prefill_impl,
 )
+from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
 from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
 from k8s_llm_monitor_tpu_torch.ops.paged_attention import KERNEL_WRAPPERS
@@ -87,6 +112,7 @@ from k8s_llm_monitor_tpu_torch.ops.sampling import (
     sample_tokens,
     sample_tokens_bounded,
 )
+from k8s_llm_monitor_tpu_torch.resilience.faults import FaultError, get_injector
 from k8s_llm_monitor_tpu_torch.resilience.slo import DEFAULT_CLASS, SLO_RANK
 from k8s_llm_monitor_tpu_torch.resilience.tenancy import (
     DEFAULT_TENANT,
@@ -95,7 +121,9 @@ from k8s_llm_monitor_tpu_torch.resilience.tenancy import (
 from k8s_llm_monitor_tpu_torch.serving.kv_cache import (
     BlockAllocator,
     OutOfBlocks,
+    PrefixCache,
     page_slice_bytes,
+    shareable_blocks,
 )
 
 
@@ -118,18 +146,26 @@ class GenerationRequest:
     prompt_ids: list[int]
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     submit_time: float = dataclasses.field(default_factory=time.monotonic)
-    # Set on first admission; tokens past this index in prompt_ids would be
-    # generated output folded back in (by preemption, not ported yet).
+    # Set on first admission; tokens past this index in prompt_ids are
+    # generated output folded back in by preemption or a requeue.
     orig_prompt_len: int = -1
     first_token_time: float = 0.0
+    # Cold-burst dedup: set the first time admission holds this request
+    # back so a same-prefix lane can publish the shared pages first; caps
+    # the same-round rule at one round and counts each request once.
+    prefix_deferred: bool = False
     # Wall-clock budget from submit (seconds); 0 = none.  Enforced at
     # admission and per step(): an expired request fails with a
     # "deadline exceeded" cause.
     deadline_s: float = 0.0
+    # Recompute requeues by pipeline resets and failed admissions,
+    # bounded by EngineConfig.max_requeues.
+    requeues: int = 0
     # SLO class (resilience/slo.py): "interactive" | "standard" | "batch";
-    # orders admission and shedding.  Host-side metadata only.
+    # orders admission, shedding and eviction.  Host-side metadata only.
     slo_class: str = DEFAULT_CLASS
-    # Tenant namespace (resilience/tenancy.py).  Host-side metadata only.
+    # Tenant namespace (resilience/tenancy.py): seeds the request's
+    # prefix-cache digest chain, so its KV reuse stays within its tenant.
     tenant: str = DEFAULT_TENANT
     # Trace context (observability/tracing.py TraceContext) captured at
     # EngineService.submit; the engine records phase spans against it.
@@ -171,13 +207,23 @@ class EngineConfig:
     max_admission_rounds: int = 4
     # Decode steps per decode call between host reads.
     decode_steps_per_iter: int = 8
-    # Dispatch-ahead depth: decode calls left in flight when step()
-    # returns; 0 reconciles each call in the step that dispatched it.
+    # Dispatch-ahead depth: calls (admission, chunk and decode) left in
+    # flight when step() returns; 0 reconciles each call in the step that
+    # dispatched it.
     max_inflight: int = 2
+    # False reads each admission and chunk round's first tokens back in the
+    # round that dispatched it, waiting for every call in flight (the loop
+    # before admission calls went in flight; kept to compare the two).
+    admit_inflight: bool = True
     # While chunk rounds are pending, a decode call is dispatched only every
     # Nth step, so a long prompt's chunks reach its first token sooner; N
     # bounds the stall of lanes already decoding.  1 = strict alternation.
     decode_every_n_chunk_rounds: int = 3
+    # While an interactive-class request waits in the queue, chunk rounds
+    # clamp their bucket to this size (rounded up to a prefill bucket), so
+    # the queued request's admission is not held behind a full chunk.
+    # 0 disables.
+    interactive_chunk_bucket: int = 0
     # On CUDA, run each K-step decode program as a CUDA graph captured at
     # its first call; False runs it eagerly (to compare the two on the
     # card).  The CPU always runs it eagerly.
@@ -196,14 +242,34 @@ class EngineConfig:
     # instead of sorting the whole vocabulary each step; exact in that
     # regime (ops/sampling.py:sample_tokens_bounded).  0 disables.
     sample_topk_cap: int = 64
+    # Prompt-prefix KV reuse (serving/kv_cache.py:PrefixCache): LRU entry
+    # cap, one entry per cached prefix length; 0 disables.
+    prefix_cache_entries: int = 1024
+    # Multi-tenant fairness of the prefix cache: the share of cached
+    # blocks one tenant may hold while another is resident before its own
+    # LRU entries go first.  1.0 disables the cap.
+    kv_max_tenant_share: float = 1.0
     # Time-to-live for requests waiting in the pending queue (seconds;
     # 0 = none).  A request with its own deadline_s uses that instead.
     queue_ttl_s: float = 0.0
+    # In-flight watchdog: seconds the oldest call in flight may take to
+    # become ready at reconcile time (0 = wait forever).  On expiry the
+    # pipeline resets: calls in flight are dropped and live lanes are
+    # requeued by recompute.
+    dispatch_timeout_s: float = 0.0
+    # Recompute requeues per request across resets and failed admissions;
+    # past it the request fails with the cause.
+    max_requeues: int = 2
     # Load-shedding thresholds (0 = disabled): should_shed() reports a
     # reason when the queued prompt tokens of a class and above, or the
     # admission-wait EMA, cross them.
     shed_queue_tokens: int = 0
     shed_slot_wait_s: float = 0.0
+    # Voluntary class-ordered preemptions per step(): with no free slot and
+    # a strictly higher-class request queued, the lowest-class running lane
+    # is evicted by recompute.  0 disables (page-pressure preemption in the
+    # decode path still runs).
+    max_preemptions: int = 2
     # Brownout clamp on batch-class max_tokens at admission while the
     # ladder sits at DEGRADED or worse; 0 disables the clamp.
     brownout_batch_max_tokens: int = 64
@@ -220,27 +286,37 @@ TokenSink = Callable[[str, list[int], Optional[GenerationResult]], None]
 
 
 class _Slot:
-    __slots__ = ("req", "blocks", "ctx_len", "generated", "inflight_decode",
-                 "prefill_pos", "prefilling", "cancel_requested",
-                 "abort_cause")
+    __slots__ = ("req", "blocks", "ctx_len", "generated", "pending_admit",
+                 "inflight_decode", "first_token_time", "retired",
+                 "cancel_requested", "prefill_pos", "prefilling",
+                 "inflight_chunks", "abort_cause")
 
     def __init__(self, req: GenerationRequest, blocks: list[int]):
         self.req = req
         self.blocks = blocks
         self.ctx_len = 0          # reconciled tokens in the KV cache
         self.generated: list[int] = []   # reconciled sampled tokens
-        self.inflight_decode = 0  # decode steps dispatched, unreconciled
-        # Long-prompt streaming admission: tokens ingested so far and
+        self.pending_admit = True        # first token not yet reconciled
+        self.inflight_decode = 0         # decode steps dispatched, unreconciled
+        self.first_token_time = 0.0
+        self.retired = False
+        self.cancel_requested = False
+        # When set, retirement gives an error result with this cause
+        # (deadline expiry, a requeue given up) instead of eos/length.
+        self.abort_cause = ""
+        # Long-prompt streaming admission: tokens dispatched so far and
         # whether chunks remain (decode skips prefilling slots).
         self.prefill_pos = 0
         self.prefilling = False
-        self.cancel_requested = False
-        # When set, retirement gives an error result with this cause
-        # (deadline expiry, out of KV blocks) instead of eos/length.
-        self.abort_cause = ""
+        self.inflight_chunks = 0         # chunk calls dispatched, unreconciled
 
     # -- predicted (dispatch-side) state: every dispatched step emits a
     # token unless the lane hits EOS first.
+
+    @property
+    def gen_pred(self) -> int:
+        return (len(self.generated) + self.inflight_decode
+                + (1 if self.pending_admit else 0))
 
     @property
     def ctx_pred(self) -> int:
@@ -248,21 +324,32 @@ class _Slot:
 
     @property
     def remaining_pred(self) -> int:
-        return (self.req.sampling.max_tokens - len(self.generated)
-                - self.inflight_decode)
+        return self.req.sampling.max_tokens - self.gen_pred
 
 
 @dataclasses.dataclass
 class _Inflight:
-    """One dispatched decode call, until it is reconciled."""
+    """One dispatched call, until it is reconciled."""
+    kind: str                 # "admit" | "chunk" | "decode"
     call_id: int
-    K: int
-    # [(slot_idx, slot, steps_i)]: the slot object, since by reconcile time
-    # the index may hold another request (a lane retired in between).
+    # admit: [(slot_idx, req)], row j of the call is lane j; chunk:
+    # [(row, slot_idx, req)] for the final lanes; decode: [(slot_idx, slot,
+    # steps_i)] -- the slot object, since by reconcile time the index may
+    # hold another request.
     lanes: list[tuple]
     stage: "_Stage"
     event: Any                # torch.cuda.Event after the copy; None on CPU
     t0: float                 # dispatch time (host clock)
+    K: int = 0                # decode steps of a decode call
+    # chunk: every slot the call advanced (inflight_chunks drains).
+    touched: list = dataclasses.field(default_factory=list)
+    span_attrs: dict = dataclasses.field(default_factory=dict)
+    # The ``decode_stuck`` fault: the call never reads as ready and its
+    # tokens cannot be read (the JAX engine's ``_StuckPayload``).
+    stuck: bool = False
+    # An admission or chunk call whose first tokens were delivered before
+    # its reconcile (_deliver_first_tokens).
+    delivered: bool = False
 
 
 def _decode_inputs(buf, B: int, f32):
@@ -275,19 +362,32 @@ def _decode_inputs(buf, B: int, f32):
             buf[5 * B:].reshape(B, -1))
 
 
-class _Stage:
-    """Host buffers of one decode call: its packed inputs and its token
-    matrix, pinned on CUDA so both copies run without the host waiting.
-    A call holds its stage until it is reconciled, so no dispatch rewrites
-    inputs that a copy still reads."""
+def _prefill_inputs(buf, P: int, S: int, W: int, f32):
+    """(tokens [P, S], start, lengths, rows, idx, top_k, temperature,
+    top_p, FSM state, table [P, W]) views of a packed int32 prefill-input
+    buffer of ``P * (S + 8 + W)`` entries, numpy or torch.  ``rows`` and
+    ``idx`` pair the call's rows whose first token is placed with their
+    slots (the first n entries, n known to the host)."""
+    n = P * S
+    planes = [buf[n + i * P:n + (i + 1) * P] for i in range(8)]
+    start, lengths, rows, idx, topk, temp, topp, fstate = planes
+    return (buf[:n].reshape(P, S), start, lengths, rows, idx, topk,
+            temp.view(f32), topp.view(f32), fstate,
+            buf[n + 8 * P:n + 8 * P + P * W].reshape(P, W))
 
-    def __init__(self, B: int, NB: int, kmax: int, pinned: bool):
-        self.inp = torch.zeros(B * (5 + NB), dtype=torch.int32,
-                               pin_memory=pinned)
-        self.toks = torch.zeros((kmax, B), dtype=torch.int32,
-                                pin_memory=pinned)
-        self.views = _decode_inputs(self.inp.numpy(), B, np.float32)
-        self.toks_np = self.toks.numpy()
+
+class _Stage:
+    """Host buffers of one call in flight: its packed inputs and its
+    sampled tokens, pinned on CUDA so both copies run without the host
+    waiting.  A call holds its stage until it is reconciled, so no dispatch
+    rewrites inputs that a copy still reads; a call dropped by a pipeline
+    reset still runs on the stream, so its stage waits for its event."""
+
+    def __init__(self, n_in: int, n_out: int, pinned: bool):
+        self.inp = torch.zeros(n_in, dtype=torch.int32, pin_memory=pinned)
+        self.out = torch.zeros(n_out, dtype=torch.int32, pin_memory=pinned)
+        self.inp_np = self.inp.numpy()
+        self.out_np = self.out.numpy()
 
 
 class _DecodeProgram:
@@ -441,9 +541,21 @@ class InferenceEngine:
                 f"unknown kv_dtype {ec.kv_dtype!r} (auto | int8 | fp8)")
         self._prefill_attn = select_prefill_impl(self.device, cfg,
                                                  ec.prefill_path)
+        self.prefill_path = "flash" if self._prefill_attn is not None else "dense"
+        if self._prefill_attn is not None:
+            # The flash kernel reads K/V from the pages, so long prompts
+            # take 4096/8192-token rounds where the per-sequence capacity
+            # allows (the dense path would build [B, H, S, T] scores).
+            cap = min(ec.max_blocks_per_seq,
+                      ec.num_blocks - 1) * ec.block_size
+            extra = tuple(b for b in (4096, 8192)
+                          if b > max(ec.prefill_buckets) and b <= cap)
+            if extra:
+                ec = dataclasses.replace(
+                    ec, prefill_buckets=tuple(ec.prefill_buckets) + extra)
+                self.ecfg = ec
         self._decode_attn = select_decode_impl(
             self.device, cfg, ec.decode_path, kv_quant=self.kv_quant)
-        self.prefill_path = "flash" if self._prefill_attn is not None else "dense"
         impl = self._decode_attn
         if self.kv_quant:
             # Without the fused quant kernel, decode_step runs its gather/
@@ -461,6 +573,13 @@ class InferenceEngine:
                                          model.embed.weight.dtype,
                                          kv_quant=self.kv_quant)
         self.allocator = BlockAllocator(ec.num_blocks, ec.block_size)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.allocator, ec.prefix_cache_entries,
+                        max_tenant_share=ec.kv_max_tenant_share)
+            if ec.prefix_cache_entries > 0 else None)
+        # Cold-burst dedup: requests whose admission waited for a lane to
+        # publish their prefix.
+        self.prefix_deferrals = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._tok_state = torch.zeros(ec.max_slots, dtype=torch.int32,
                                       device=self.device)
@@ -494,7 +613,18 @@ class InferenceEngine:
         self.graph_captures = 0
         self.graph_capture_s = 0.0
         self._inflight: deque[_Inflight] = deque()
+        # Stage sizes: the larger of a decode call's and of the widest
+        # prefill round's inputs and tokens.
+        top = ec.prefill_buckets[-1]
+        self._stage_in = max(
+            ec.max_slots * (5 + ec.max_blocks_per_seq),
+            ec.max_prefills_per_step * (top + 8 + ec.max_blocks_per_seq))
+        self._stage_out = max(ec.decode_steps_per_iter * ec.max_slots,
+                              ec.max_prefills_per_step)
         self._stages: list[_Stage] = []
+        # (stage, event) of calls dropped by a reset: back to _stages once
+        # the event has completed (their copies may still land).
+        self._limbo: list[tuple[_Stage, Any]] = []
         self._next_call_id = 0
         # (newest call id at retirement, blocks): a retired lane's pages,
         # freed once that call is reconciled (its zombie steps write them).
@@ -506,28 +636,42 @@ class InferenceEngine:
         self.steps = 0            # step() calls
         self.decode_steps = 0     # decode steps dispatched (JAX ``steps``)
         self.decode_tokens = 0    # tokens emitted by decode calls
+        self.prefills = 0         # prompts whose first token was dispatched
         # Host wall time with a decode call in flight (dispatch to
         # reconcile, overlapping calls counted once).
         self.decode_s = 0.0
         self._decode_mark = 0.0
         self.bounded_decode_steps = 0   # decode steps sampled top-k bounded
+        # Prompt tokens (rows) the prefill calls computed, padding excluded,
+        # and the host seconds their dispatch took (on the card the launch
+        # queue holds the host back while the device is a round behind).
+        self.prefill_tokens = 0
+        self.prefill_dispatch_s = 0.0
+        # step() calls in which the host waited, before the step's last
+        # dispatch, for a call the device had not finished.
+        self.admission_waits = 0
+        self._step_waited = False
+        self._dispatching = False
+        # EMA of a prefill call's dispatch -> reconcile ms; rounds per
+        # bucket; chunk rounds clamped by interactive_chunk_bucket and the
+        # bucket of the newest chunk round.
+        self.prefill_attn_ms = 0.0
+        self.prefill_bucket_rounds: dict[int, int] = {}
+        self.chunk_shrinks = 0
+        self.last_chunk_bucket = 0
         self.deadline_expired = 0
         self.brownout_clamps = 0
-        # Per-class TTFT EMA (seconds), keyed on first observation; the
-        # server's /api/v1/stats reads it.
-        self.ttft_ema_by_class: dict[str, float] = {}
-        # Counters of mechanisms not ported yet, read by the server's
-        # /health and /api/v1/stats: the values the JAX engine has with the
-        # mechanism off.  The inflight watchdog and dispatch-failure
-        # accounting (ROADMAP A3):
+        # Recovery (resilience/faults.py points, the watchdog, resets).
+        self._faults = get_injector()
         self.dispatch_failures = 0
         self.consecutive_dispatch_failures = 0
         self.watchdog_trips = 0
-        # Preemption and the prefix cache (ROADMAP A3):
         self.requeues = 0
+        self.preemptions = 0
         self.preemptions_by_class: dict[str, int] = {}
-        self.prefix_cache = None
-        self.prefix_deferrals = 0
+        # Per-class TTFT EMA (seconds), keyed on first observation; the
+        # server's /api/v1/stats reads it.
+        self.ttft_ema_by_class: dict[str, float] = {}
         # EMA of submit -> admission wait: a shed signal when slots churn
         # slower than requests arrive.
         self.slot_wait_ema_s = 0.0
@@ -538,6 +682,7 @@ class InferenceEngine:
         self.hist_e2e = ClassHistogram(_lat)
         self.hist_queue_wait = ClassHistogram(_lat)
         self._tracer = get_tracer()
+        self._flight = get_flight_recorder()
 
     # ------------------------------------------------------------------
     # public API
@@ -555,9 +700,10 @@ class InferenceEngine:
 
     def kv_tier_stats(self) -> dict:
         """KV tier byte accounting for /api/v1/stats, in the JAX engine's
-        keys.  Only the device tier exists here (the host tier is ROADMAP
-        A5), so its counters are 0."""
-        return {
+        keys: the device tier, and with a prefix cache its distinct cached
+        blocks per tenant.  The host tier is ROADMAP A5, so its counters
+        are 0."""
+        out = {
             "kv_quant": self.kv_quant,
             "page_dtype": str(self.pages.k[0].dtype).removeprefix("torch."),
             "device_bytes": self.pool_bytes,
@@ -567,6 +713,9 @@ class InferenceEngine:
             "restores": 0,
             "host_lost": 0,
         }
+        if self.prefix_cache is not None:
+            out["tenant_blocks"] = self.prefix_cache.blocks_by_tenant()
+        return out
 
     def release_pool(self) -> None:
         """Drop the KV pool, the decode programs and their CUDA graphs (and
@@ -597,6 +746,8 @@ class InferenceEngine:
         if overflow > 0:
             req.prompt_ids = req.prompt_ids[overflow:]
             if req.orig_prompt_len >= 0:
+                # A folded prompt re-capped: the dropped tokens come off the
+                # original prompt, not the generated tail.
                 req.orig_prompt_len = max(0, req.orig_prompt_len - overflow)
 
     def set_grammar(self, fsm) -> None:
@@ -652,7 +803,7 @@ class InferenceEngine:
         if req.sampling.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
         # The service normalized already; a raw-engine caller must not
-        # smuggle an unvalidated namespace in.
+        # smuggle an unvalidated namespace into the digest seeds.
         req.tenant = normalize_tenant(req.tenant, default=DEFAULT_TENANT)
         if req.sampling.constrained:
             if self._grammar is None:
@@ -681,9 +832,9 @@ class InferenceEngine:
 
     def cancel(self, request_id: str) -> bool:
         """Stop generating for a request.  A pending request fails at once;
-        an active slot takes no new decode steps and retires once the
-        decode calls in flight for it are reconciled (their tokens are
-        still delivered).  Returns True if found."""
+        an active slot takes no new decode steps and retires once its calls
+        in flight settle (its first token's call retires it at once).
+        Returns True if found."""
         for i, req in enumerate(self._pending):
             if req.request_id == request_id:
                 del self._pending[i]
@@ -724,8 +875,8 @@ class InferenceEngine:
     def admission_headroom_tokens(self) -> int:
         """KV capacity (tokens) admission may count on: the free device
         blocks.  The JAX engine's "tier" policy adds prefix-cache blocks a
-        host spill could reclaim; without a prefix cache and a host tier
-        that bonus is 0."""
+        host spill could reclaim; without a host tier (ROADMAP A5) that
+        bonus is 0."""
         return self.allocator.free_blocks * self.ecfg.block_size
 
     def should_shed(self, slo_class: str = DEFAULT_CLASS,
@@ -784,7 +935,7 @@ class InferenceEngine:
         return self.tokenizer.decode(res.token_ids)
 
     # ------------------------------------------------------------------
-    # deadlines, SLO classes, brownout, spans
+    # deadlines, failure recovery, SLO classes, brownout, spans
     # ------------------------------------------------------------------
 
     def _deadline_of(self, req: GenerationRequest, queued: bool) -> float:
@@ -799,7 +950,7 @@ class InferenceEngine:
 
     def _enforce_deadlines(self) -> None:
         """Fail expired queued requests and abort expired running slots
-        (they retire with the cause at the cancel check of this step)."""
+        (they retire with the cause once their calls in flight settle)."""
         now = time.monotonic()
         if self._pending:
             keep: deque[GenerationRequest] = deque()
@@ -813,13 +964,26 @@ class InferenceEngine:
                     keep.append(req)
             self._pending = keep
         for s in self._slots:
-            if (s is not None and not s.cancel_requested
+            if (s is not None and not s.retired and not s.cancel_requested
                     and now > self._deadline_of(s.req, queued=False)):
                 self.deadline_expired += 1
                 s.abort_cause = (f"deadline exceeded after "
                                  f"{now - s.req.submit_time:.2f}s "
                                  f"({len(s.generated)} tokens generated)")
                 s.cancel_requested = True
+
+    def _record_dispatch_failure(self, exc: BaseException) -> None:
+        self.dispatch_failures += 1
+        self.consecutive_dispatch_failures += 1
+        self._flight.note("dispatch_failure", error=repr(exc)[:200],
+                          consecutive=self.consecutive_dispatch_failures)
+        if self.health is not None:
+            self.health.record_dispatch_failure()
+
+    def _record_dispatch_ok(self) -> None:
+        self.consecutive_dispatch_failures = 0
+        if self.health is not None:
+            self.health.record_dispatch_ok()
 
     def _note_admission_wait(self, req: GenerationRequest) -> None:
         """Track how long requests wait for a slot (the shed_slot_wait_s
@@ -830,18 +994,6 @@ class InferenceEngine:
                                 else 0.9 * self.slot_wait_ema_s + 0.1 * wait)
         self.hist_queue_wait.observe(wait, req.slo_class, self._trace_id(req))
         self._span("engine.queue_wait", req.submit_time, now, req)
-
-    def _sort_pending_by_class(self) -> None:
-        """Stable-sort the pending queue by SLO rank (FIFO within a class);
-        skipped for single-class traffic.  The JAX engine follows this with
-        voluntary eviction of lower-class lanes (``max_preemptions``), which
-        waits for preemption."""
-        if len(self._pending) > 1 and len(
-                {r.slo_class for r in self._pending}) > 1:
-            self._pending = deque(sorted(
-                self._pending,
-                key=lambda r: SLO_RANK.get(r.slo_class,
-                                           SLO_RANK[DEFAULT_CLASS])))
 
     def _brownout_level(self) -> int:
         """Current brownout ladder level; 0 when no controller attached."""
@@ -859,6 +1011,147 @@ class InferenceEngine:
             return
         req.sampling = dataclasses.replace(req.sampling, max_tokens=cap)
         self.brownout_clamps += 1
+
+    def _eviction_victim(self, worse_than: int = -1) -> int:
+        """Running lane to evict under pressure: lowest SLO class first,
+        youngest within a class.  ``worse_than`` >= 0 keeps only lanes
+        strictly below that rank (voluntary preemption evicts only lanes a
+        queued request outranks).  Cancelled lanes are skipped.  Returns -1
+        when no lane qualifies."""
+        best = -1
+        best_key: tuple[int, float] | None = None
+        for j, sl in enumerate(self._slots):
+            if sl is None or sl.retired or sl.cancel_requested:
+                continue
+            r = SLO_RANK.get(sl.req.slo_class, SLO_RANK[DEFAULT_CLASS])
+            if 0 <= worse_than < r or worse_than < 0:
+                key = (r, sl.req.submit_time)
+                if best_key is None or key > best_key:
+                    best, best_key = j, key
+        return best
+
+    def _schedule_classes(self) -> None:
+        """Stable-sort the pending queue by SLO rank, then evict
+        lower-class running lanes by recompute while a strictly
+        higher-class request waits with no free slot, at most
+        ``max_preemptions`` per step."""
+        self._sort_pending_by_class()
+        budget = self.ecfg.max_preemptions
+        preempted = 0
+        while preempted < budget and self._pending:
+            if any(s is None for s in self._slots):
+                return          # a free slot exists: admission fills it
+            best = min(SLO_RANK.get(r.slo_class, SLO_RANK[DEFAULT_CLASS])
+                       for r in self._pending)
+            if self._eviction_victim(worse_than=best) < 0:
+                return
+            # Recompute preemption needs reconciled lanes: the folded
+            # prompt must hold every sampled token.
+            self._reconcile_all()
+            if any(s is None for s in self._slots):
+                continue        # the drain freed a slot
+            victim = self._eviction_victim(worse_than=best)
+            if victim < 0:
+                return
+            try:
+                self._faults.maybe_raise("lane_eviction")
+            except FaultError as exc:
+                # Running lanes are untouched and every lane preempted so
+                # far is queued: record it and stop evicting this step.
+                self._record_dispatch_failure(exc)
+                return
+            self._preempt(victim)
+            # The victim went to the queue head: re-sort so the request it
+            # was evicted for is admitted first (else the victim reclaims
+            # its slot and is evicted again next step).
+            self._sort_pending_by_class()
+            preempted += 1
+
+    def _sort_pending_by_class(self) -> None:
+        """Stable-sort the pending queue by SLO rank (FIFO within a class);
+        skipped for single-class traffic."""
+        if len(self._pending) > 1 and len(
+                {r.slo_class for r in self._pending}) > 1:
+            self._pending = deque(sorted(
+                self._pending,
+                key=lambda r: SLO_RANK.get(r.slo_class,
+                                           SLO_RANK[DEFAULT_CLASS])))
+
+    def _requeue_or_fail(self, slot_idx: int, cause: str) -> None:
+        """Recover a lane whose calls in flight were dropped (a pipeline
+        reset): requeue it by recompute, its generated tokens folded into
+        the prompt, at most ``max_requeues`` times, then fail it with the
+        cause.  The caller has zeroed its in-flight counts and released
+        the deferred frees."""
+        s = self._slots[slot_idx]
+        self.allocator.free(s.blocks)
+        self._slots[slot_idx] = None
+        s.retired = True
+        req = s.req
+        if s.cancel_requested or req.requeues >= self.ecfg.max_requeues:
+            # Nobody to retry for, or the budget is spent: finish now, the
+            # partial output folded into the prompt so the error carries it.
+            if s.generated:
+                req.prompt_ids = req.prompt_ids + s.generated
+            if s.cancel_requested:
+                self._fail_request(req, s.abort_cause or "cancelled")
+            else:
+                self._fail_request(
+                    req, f"{cause} (gave up after {req.requeues} requeues)")
+            return
+        req.requeues += 1
+        self.requeues += 1
+        consumed = len(s.generated)
+        if consumed:
+            req.prompt_ids = req.prompt_ids + s.generated
+            req.sampling = dataclasses.replace(
+                req.sampling,
+                max_tokens=max(1, req.sampling.max_tokens - consumed))
+        self._cap_request(req)
+        self._pending.appendleft(req)
+        t_now = time.monotonic()
+        self._span("engine.requeue", t_now, t_now, req, status="error",
+                   cause=cause[:200], requeues=req.requeues)
+        self._flight.note("requeue", request_id=req.request_id,
+                          cause=cause, requeues=req.requeues)
+
+    def _reset_pipeline(self, cause: str, extra_calls: tuple = ()) -> None:
+        """Drop every call in flight and requeue every live lane by
+        recompute after a stuck or failed call (the JAX engine's reset).
+
+        The JAX engine's pages are suspect after a lost call (later calls
+        consumed its donated buffers).  Here they are updated in place on
+        one stream, so a dropped call, which still runs, writes before any
+        later one; the reset keeps the JAX semantics all the same -- the
+        prefix cache is cleared and lanes recompute -- so ids and counters
+        match.  The decode graphs stay.  The allocator's free count
+        returns to its idle baseline."""
+        self._flight.note("pipeline_reset", cause=cause,
+                          inflight=len(self._inflight) + len(extra_calls),
+                          watchdog_trips=self.watchdog_trips)
+        self._flight.dump("pipeline_reset", extra={"cause": cause})
+        calls = list(extra_calls) + list(self._inflight)
+        self._inflight.clear()
+        for call in calls:
+            if call.kind == "decode":
+                for _, s, _steps in call.lanes:
+                    s.inflight_decode = 0
+            elif call.kind == "chunk":
+                for s in call.touched:
+                    s.inflight_chunks = 0
+            # Its copy into the stage may still land.
+            self._limbo.append((call.stage, call.event))
+        for _, blocks in self._deferred_frees:
+            self.allocator.free(blocks)
+        self._deferred_frees.clear()
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            s.inflight_decode = 0
+            s.inflight_chunks = 0
+            self._requeue_or_fail(i, cause)
 
     @staticmethod
     def _trace_id(req: GenerationRequest) -> str:
@@ -897,36 +1190,35 @@ class InferenceEngine:
 
     def step(self) -> None:
         """One scheduler iteration (the JAX engine's ``step``): expire
-        deadlines, order the queue by SLO class, retire cancelled slots
-        whose decode calls have settled, run up to ``max_admission_rounds``
-        batched prefills and one chunk round, dispatch one K-step decode
-        call (while chunk rounds are pending, only every
-        ``decode_every_n_chunk_rounds``-th step), then reconcile: every
-        call the device has finished, then the oldest calls down to
-        ``max_inflight`` in flight, or one call when nothing was
-        dispatched."""
+        deadlines, schedule by SLO class (voluntary eviction), dispatch up
+        to ``max_admission_rounds`` admission rounds and one chunk round,
+        dispatch one K-step decode call (while chunk rounds are pending,
+        only every ``decode_every_n_chunk_rounds``-th step), then
+        reconcile: every call the device has finished, then the oldest
+        calls down to ``max_inflight`` in flight, or one call when nothing
+        was dispatched."""
         ec = self.ecfg
         self.steps += 1
+        self._step_waited = False
+        self._dispatching = True
         self._enforce_deadlines()
-        self._sort_pending_by_class()
-        for i, s in enumerate(self._slots):
-            if (s is not None and s.cancel_requested
-                    and s.inflight_decode == 0):
-                self._retire(i)
+        self._schedule_classes()
         dispatched = False
         rounds = 0
         while rounds < ec.max_admission_rounds and self._admit_round():
             rounds += 1
             dispatched = True
-        chunked = self._prefill_chunks()
+        chunked = self._dispatch_prefill_chunks()
         if chunked:
             dispatched = True
             self._chunks_since_decode += 1
+        self._deliver_first_tokens()
         if (not chunked or self._chunks_since_decode
                 >= ec.decode_every_n_chunk_rounds):
             if self._dispatch_decode():
                 dispatched = True
                 self._chunks_since_decode = 0
+        self._dispatching = False
         # Results the device already has cost no wait, and reconciling them
         # frees slots and pages a step earlier.
         while self._inflight and self._call_ready(self._inflight[0]):
@@ -936,19 +1228,68 @@ class InferenceEngine:
                 self._reconcile_one()
         elif self._inflight:
             self._reconcile_one()
+        if self._step_waited:
+            self.admission_waits += 1
+
+    def _deliver_first_tokens(self) -> None:
+        """On the card, deliver the first tokens of the admission and chunk
+        calls in flight that the device has finished, ahead of their
+        reconcile: after each layer of a later round's prefill and before
+        the step's decode call.  The device's launch queue holds the host
+        back while it dispatches a step's rounds (each is about a thousand
+        launches), so the dispatches last about as long as the prefill
+        work, and the first tokens would otherwise wait for the step's
+        end.  Each lane's token is recorded, stamped and emitted; the
+        call's reconcile still retires the lanes that are done, so slots
+        change hands when they would without this.  A CPU call has no
+        event and waits for its reconcile, as in the JAX engine."""
+        for call in self._inflight:
+            if (call.kind != "decode" and not call.delivered
+                    and not call.stuck and call.event is not None
+                    and call.event.query()):
+                call.delivered = True
+                self._first_tokens(call, time.monotonic())
 
     @staticmethod
     def _call_ready(call: _Inflight) -> bool:
         """True when reconciling ``call`` would not wait for the device (a
-        CPU call is done when it returns)."""
-        return call.event is None or call.event.query()
+        CPU call is done when it returns; a stuck call never is)."""
+        return not call.stuck and (call.event is None or call.event.query())
 
     def _reconcile_all(self) -> None:
         while self._inflight:
             self._reconcile_one()
 
+    def _take_stage(self) -> _Stage:
+        """A free host stage: one of a reconciled call's, one of a dropped
+        call's whose copies have landed, or a new one."""
+        if self._limbo:
+            keep = []
+            for stage, event in self._limbo:
+                if event is None or event.query():
+                    self._stages.append(stage)
+                else:
+                    keep.append((stage, event))
+            self._limbo = keep
+        if self._stages:
+            return self._stages.pop()
+        return _Stage(self._stage_in, self._stage_out,
+                      pinned=self.device.type == "cuda")
+
+    def _drop_stage(self, stage: _Stage) -> None:
+        """Give back the stage of a dispatch that failed: whatever it
+        queued on the stream may still read it."""
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._limbo.append((stage, event))
+
     def _bucket(self, n: int) -> int:
         return prefill_bucket_for(n, self.ecfg.prefill_buckets)
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self._slots) if s is None]
 
     def _lane_count(self, n: int) -> int:
         """Smallest power of two covering ``n``, capped at
@@ -959,41 +1300,11 @@ class InferenceEngine:
         return min(P, self.ecfg.max_prefills_per_step)
 
     def _table_width(self, max_tokens_covered: int) -> int:
-        """Block-table width for a chunk round: the deepest lane's blocks,
+        """Block-table width for a chunked call: the deepest lane's blocks,
         rounded up to 32 (the gather path reads table-width keys)."""
         bs = self.ecfg.block_size
         need = (max_tokens_covered + bs - 1) // bs
         return min(self.ecfg.max_blocks_per_seq, (need + 31) // 32 * 32)
-
-    def _lane_buffers(self, P: int, bucket: int, table_width: int):
-        return (np.zeros((P, bucket), np.int32), np.zeros((P,), np.int32),
-                np.zeros((P,), np.int32), np.zeros((P, table_width), np.int32),
-                np.zeros((P,), np.float32), np.zeros((P,), np.int32),
-                np.ones((P,), np.float32))
-
-    def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
-    def _first_tokens(self, logits, temp, topk, topp, greedy: bool,
-                      fstate: Optional[np.ndarray] = None):
-        """First tokens of a prefill call's lanes, and with ``fstate`` (the
-        lanes' FSM states, 0 for free lanes) their logits masked by the
-        grammar first and the states after the sampled tokens.  Returns
-        (tokens, next FSM states or None)."""
-        fnext = None
-        if fstate is not None:
-            fst = self._t(fstate)
-            logits = fsm_mask_logits(logits, fst, self._fsm_trans,
-                                     self._fsm_pad)
-        if greedy:
-            first = greedy_tokens(logits)
-        else:
-            first = sample_tokens(self._gen, logits,
-                                  temperature=self._t(temp),
-                                  top_k=self._t(topk), top_p=self._t(topp))
-        if fstate is not None:
-            fnext = fsm_advance(fst, self._fsm_trans, first)
-        return first, fnext
 
     def _fail_request(self, req: GenerationRequest, msg: str) -> None:
         result = GenerationResult(
@@ -1014,17 +1325,118 @@ class InferenceEngine:
         if self.token_sink is not None and toks:
             self.token_sink(req.request_id, toks, None)
 
+    # -- prefix cache ---------------------------------------------------
+
+    def _ensure_free(self, num_tokens: int) -> bool:
+        """Make room for ``num_tokens`` of new blocks, evicting LRU prefix
+        entries if needed (a block returns to the free list only when no
+        live slot shares it)."""
+        while not self.allocator.can_alloc(num_tokens):
+            if not self._evict_prefix_lru():
+                return False
+        return True
+
+    def _evict_prefix_lru(self) -> bool:
+        """Drop the prefix cache's next victim (the JAX engine first
+        spills it to the host tier, ROADMAP A5)."""
+        pc = self.prefix_cache
+        return pc is not None and pc.evict_lru()
+
+    def _pending_prefix_gain(self, cand: list[int],
+                             publishers: list[list[int]]) -> int:
+        """Tokens of ``cand``'s prefix that become cache-sharable once the
+        ``publishers`` prompts register their pages (whole blocks, capped
+        at both prompts' shareable spans)."""
+        bs = self.ecfg.block_size
+        cand_blocks = shareable_blocks(len(cand), bs)
+        if cand_blocks <= 0:
+            return 0
+        best = 0
+        for other in publishers:
+            if cand[:bs] != other[:bs]:
+                continue
+            nb = min(shareable_blocks(len(other), bs), cand_blocks)
+            if nb <= 0:
+                continue
+            k = 1
+            while k < nb and cand[k * bs:(k + 1) * bs] == other[k * bs:(k + 1) * bs]:
+                k += 1
+            best = max(best, k * bs)
+        return best
+
+    # -- admission and chunk rounds -------------------------------------
+
+    def _prefill_call(self, stage: _Stage, P: int, S: int, W: int,
+                      chunked: bool, greedy: bool, constrained: bool):
+        """Copy a round's packed inputs in from its stage, run the prefill
+        (``prefill_chunk`` with per-lane starts over the paged prefix when
+        ``chunked``) and sample each row's first token, the logits masked by
+        the lanes' FSM states when ``constrained``.  Returns (first tokens
+        [P], next FSM states or None, rows, idx) on the device."""
+        t0 = time.monotonic()
+        n = P * (S + 8 + W)
+        buf = torch.empty(n, dtype=torch.int32, device=self.device)
+        buf.copy_(stage.inp[:n], non_blocking=True)
+        (tokens, start, lengths, rows, idx, topk, temp, topp, fstate,
+         table) = _prefill_inputs(buf, P, S, W, torch.float32)
+        if chunked:
+            logits, _ = llama.prefill_chunk(
+                self.model, tokens, start, lengths, self.pages, table,
+                attn_impl=self._prefill_attn,
+                on_layer=self._deliver_first_tokens)
+        else:
+            logits, _ = llama.prefill(self.model, tokens, lengths,
+                                      self.pages, table,
+                                      attn_impl=self._prefill_attn,
+                                      on_layer=self._deliver_first_tokens)
+        if constrained:
+            logits = fsm_mask_logits(logits, fstate, self._fsm_trans,
+                                     self._fsm_pad)
+        if greedy:
+            first = greedy_tokens(logits)
+        else:
+            first = sample_tokens(self._gen, logits, temperature=temp,
+                                  top_k=topk, top_p=topp).to(torch.int32)
+        fnext = fsm_advance(fstate, self._fsm_trans, first) if constrained \
+            else None
+        self.prefill_dispatch_s += time.monotonic() - t0
+        return first, fnext, rows, idx
+
     def _admit_round(self) -> bool:
-        """Admit pending prompts into free slots: short ones in one batched
-        prefill call (first token sampled from its logits), long ones into
-        prefilling slots for chunk rounds.  Returns True if anything was
-        admitted."""
+        """Admit pending prompts into free slots through one batched
+        prefill call (the JAX engine's ``_admit_round``).  Returns True if
+        anything was admitted.
+
+        Each candidate first consults the prefix cache; a hit prefills only
+        its suffix over the shared pages, and a round with any hit runs the
+        chunked program over a table narrowed to the deepest prompt.  A
+        suffix longer than the top bucket occupies a prefilling slot for
+        chunk rounds instead.  Cold-burst dedup, both rules gated on the
+        published span covering at least half the candidate's remaining
+        prefill: a candidate sharing a prefix with a lane admitted this
+        round (pages publish at dispatch) is held back one round; a
+        chunk-path candidate sharing one with a slot still streaming its
+        chunks waits until that publisher's final chunk registers."""
         ec = self.ecfg
         top = ec.prefill_buckets[-1]
-        free = [i for i, s in enumerate(self._slots) if s is None]
+        free = self._free_slots()
         admitted_long = 0
-        batch: list[tuple[int, GenerationRequest, list[int]]] = []
+        deferred: list[GenerationRequest] = []
+        round_prompts: list[list[int]] = []
+        # Prompts whose pages register when their chunks complete.
+        publishing: list[list[int]] = (
+            [s.req.prompt_ids for s in self._slots
+             if s is not None and s.prefilling and not s.retired
+             and not s.cancel_requested]
+            if self.prefix_cache is not None else [])
+        # Past this many held-back candidates the scan stops: a deep cold
+        # queue must not stall the step inside one round.
+        defer_budget = 4 * ec.max_prefills_per_step
+        # (slot_idx, req, blocks, shared tokens)
+        batch: list[tuple[int, GenerationRequest, list[int], int]] = []
         while len(batch) < ec.max_prefills_per_step and self._pending and free:
+            if len(deferred) >= defer_budget:
+                break
             req = self._pending[0]
             if time.monotonic() > self._deadline_of(req, queued=True):
                 self._pending.popleft()
@@ -1040,65 +1452,160 @@ class InferenceEngine:
                 self._fail_request(req, f"prompt of {L} tokens exceeds "
                                         f"capacity {self.capacity_tokens}")
                 continue
-            if not self.allocator.can_alloc(L + 1):
+            shared: list[int] = []
+            shared_toks = 0
+            if self.prefix_cache is not None:
+                shared, shared_toks = self.prefix_cache.lookup(
+                    req.prompt_ids, tenant=req.tenant)
+                suffix = L - shared_toks
+
+                def worth(gain: int) -> bool:
+                    return (gain > shared_toks
+                            and 2 * (gain - shared_toks) >= suffix)
+
+                defer = False
+                if not req.prefix_deferred and round_prompts:
+                    defer = worth(self._pending_prefix_gain(
+                        req.prompt_ids, round_prompts))
+                if not defer and suffix > top and publishing:
+                    defer = worth(self._pending_prefix_gain(
+                        req.prompt_ids, publishing))
+                if defer:
+                    if shared:
+                        self.allocator.free(shared)
+                    if not req.prefix_deferred:
+                        req.prefix_deferred = True
+                        self.prefix_deferrals += 1
+                    self._pending.popleft()
+                    deferred.append(req)
+                    continue
+            if not self._ensure_free(L + 1 - shared_toks):
+                if shared:
+                    self.allocator.free(shared)
                 break
             self._pending.popleft()
+            if self.prefix_cache is not None:
+                # Admissions count, not lookups (a deferred request looks up
+                # again).
+                if shared_toks > 0:
+                    self.prefix_cache.hits += 1
+                else:
+                    self.prefix_cache.misses += 1
             if req.orig_prompt_len < 0:
                 req.orig_prompt_len = L
-            blocks = self.allocator.alloc(L + 1)
+            try:
+                blocks = shared + self.allocator.alloc(L + 1 - shared_toks)
+            except OutOfBlocks:
+                # Injected exhaustion (or a racing sharer): push back.
+                if shared:
+                    self.allocator.free(shared)
+                self._pending.appendleft(req)
+                break
             self._note_admission_wait(req)
             self._clamp_for_brownout(req)
-            if L > top:
+            if L - shared_toks > top:
                 slot = _Slot(req, blocks)
                 slot.ctx_len = L
+                slot.prefill_pos = shared_toks
                 slot.prefilling = True
                 self._slots[free.pop(0)] = slot
                 admitted_long += 1
+                if self.prefix_cache is not None:
+                    publishing.append(req.prompt_ids)
                 continue
-            batch.append((free.pop(0), req, blocks))
+            batch.append((free.pop(0), req, blocks, shared_toks))
+            round_prompts.append(req.prompt_ids)
+        if deferred:
+            # Back to the queue head in order: the next round's lookups hit
+            # the pages this round publishes.
+            self._pending.extendleft(reversed(deferred))
         if not batch:
             return admitted_long > 0
 
         P = self._lane_count(len(batch))
-        bucket = self._bucket(max(len(r.prompt_ids) for _, r, _ in batch))
-        tokens, _, lengths, tables, temp, topk, topp = self._lane_buffers(
-            P, bucket, ec.max_blocks_per_seq)
-        fstate = np.zeros((P,), np.int32)
-        for j, (_, req, blocks) in enumerate(batch):
+        any_shared = any(st > 0 for _, _, _, st in batch)
+        bucket = self._bucket(
+            max(len(r.prompt_ids) - st for _, r, _, st in batch))
+        # The chunked program reads table-width keys per lane on the gather
+        # path: narrow it to the deepest prompt.
+        W = (self._table_width(max(len(r.prompt_ids) for _, r, _, _ in batch))
+             if any_shared else ec.max_blocks_per_seq)
+        stage = self._take_stage()
+        n_in = P * (bucket + 8 + W)
+        stage.inp_np[:n_in] = 0
+        (tokens, start, lengths, rows, idx, topk, temp, topp, fstate,
+         tables) = _prefill_inputs(stage.inp_np, P, bucket, W, np.float32)
+        topp[:] = 1.0
+        for j, (slot_idx, req, blocks, st) in enumerate(batch):
             L = len(req.prompt_ids)
-            tokens[j, :L] = req.prompt_ids
-            lengths[j] = L
-            tables[j, :len(blocks)] = blocks
+            tokens[j, :L - st] = req.prompt_ids[st:]
+            start[j] = st
+            lengths[j] = L - st
+            # blocks cover L + 1 tokens; the prefill touches positions < L.
+            nb = min(len(blocks), W)
+            tables[j, :nb] = blocks[:nb]
+            rows[j] = j
+            idx[j] = slot_idx
             sp = req.sampling
             temp[j], topk[j], topp[j] = sp.temperature, sp.top_k, sp.top_p
             fstate[j] = self._fsm_entry(req)
-        t0 = time.monotonic()
-        logits, _ = llama.prefill(self.model, self._t(tokens),
-                                  self._t(lengths), self.pages,
-                                  self._t(tables), attn_impl=self._prefill_attn)
-        greedy = all(r.sampling.temperature <= 0.0 for _, r, _ in batch)
+        greedy = all(r.sampling.temperature <= 0.0 for _, r, _, _ in batch)
         # Any constrained lane masks the call; free lanes ride at state 0.
-        constrained = any(r.sampling.constrained for _, r, _ in batch)
-        first, fnext = self._first_tokens(logits, temp, topk, topp, greedy,
-                                          fstate if constrained else None)
+        constrained = any(r.sampling.constrained for _, r, _, _ in batch)
+        t0 = time.monotonic()
+        try:
+            self._faults.maybe_raise("prefill_dispatch")
+            out = self._prefill_call(stage, P, bucket, W, any_shared, greedy,
+                                     constrained)
+        except Exception as exc:
+            # No slot is occupied and nothing is registered: free the
+            # round's pages and requeue its candidates, at most
+            # max_requeues times each, then fail them with the cause.
+            self._drop_stage(stage)
+            self._record_dispatch_failure(exc)
+            requeue: list[GenerationRequest] = []
+            for _, req, blocks, _ in batch:
+                self.allocator.free(blocks)
+                if req.requeues >= ec.max_requeues:
+                    self._fail_request(
+                        req, f"prefill dispatch failed: {exc} "
+                             f"(gave up after {req.requeues} requeues)")
+                else:
+                    req.requeues += 1
+                    self.requeues += 1
+                    requeue.append(req)
+            self._pending.extendleft(reversed(requeue))
+            return admitted_long > 0
+        self._record_dispatch_ok()
+        self.prefill_bucket_rounds[bucket] = (
+            self.prefill_bucket_rounds.get(bucket, 0) + 1)
+        self.prefill_tokens += int(lengths.sum())
+        if self.prefix_cache is not None:
+            for _, req, blocks, _ in batch:
+                self.prefix_cache.register(req.prompt_ids, blocks,
+                                           tenant=req.tenant)
         lanes = []
-        for j, (slot_idx, req, blocks) in enumerate(batch):
+        for slot_idx, req, blocks, _ in batch:
             slot = _Slot(req, blocks)
             slot.ctx_len = len(req.prompt_ids)
             self._slots[slot_idx] = slot
-            lanes.append((j, slot_idx))
-        self._place_first_tokens(first, lanes, fnext, "engine.prefill", t0,
-                                 {"bucket": bucket, "lanes": len(batch)})
+            lanes.append((slot_idx, req))
+        self.prefills += len(batch)
+        self._queue_inflight("admit", out, len(lanes), P, stage, lanes, t0,
+                             span_attrs={"bucket": bucket,
+                                         "lanes": len(batch),
+                                         "shared": any_shared})
         return True
 
-    def _prefill_chunks(self) -> bool:
+    def _dispatch_prefill_chunks(self) -> bool:
         """One batched chunk round for slots in prefilling state, fewest
         remaining tokens first; lanes whose chunk is final sample their
-        first token from its logits."""
+        first token from its logits and publish their prompt's pages."""
         ec = self.ecfg
         top = ec.prefill_buckets[-1]
         cands = [(i, s) for i, s in enumerate(self._slots)
-                 if s is not None and s.prefilling]
+                 if s is not None and s.prefilling and not s.retired
+                 and not s.cancel_requested]
         if not cands:
             return False
         cands.sort(key=lambda t: (len(t[1].req.prompt_ids) - t[1].prefill_pos,
@@ -1107,15 +1614,32 @@ class InferenceEngine:
         P = self._lane_count(len(cands))
         bucket = self._bucket(min(top, max(
             len(s.req.prompt_ids) - s.prefill_pos for _, s in cands)))
+        # Queued interactive work shrinks the round, so its admission is
+        # not held behind a full-bucket chunk.
+        icb = ec.interactive_chunk_bucket
+        if icb > 0 and any(r.slo_class == "interactive"
+                           for r in self._pending):
+            small = self._bucket(min(icb, top))
+            if small < bucket:
+                bucket = small
+                self.chunk_shrinks += 1
+        self.last_chunk_bucket = bucket
         W = self._table_width(max(
             s.prefill_pos + min(bucket, len(s.req.prompt_ids) - s.prefill_pos)
             for _, s in cands))
-        tokens, start, lengths, tables, temp, topk, topp = self._lane_buffers(
-            P, bucket, W)
-        fstate = np.zeros((P,), np.int32)
+        stage = self._take_stage()
+        n_in = P * (bucket + 8 + W)
+        stage.inp_np[:n_in] = 0
+        (tokens, start, lengths, rows, idx, topk, temp, topp, fstate,
+         tables) = _prefill_inputs(stage.inp_np, P, bucket, W, np.float32)
+        topp[:] = 1.0
         lanes = []
+        touched: list[_Slot] = []
         greedy = True
         constrained = False
+        # (slot, chunk length, became final): enough to roll back.
+        muts: list[tuple[_Slot, int, bool]] = []
+        to_register: list[_Slot] = []
         for j, (i, s) in enumerate(cands):
             L = len(s.req.prompt_ids)
             n = min(bucket, L - s.prefill_pos)
@@ -1125,77 +1649,111 @@ class InferenceEngine:
             nb = min(len(s.blocks), W)
             tables[j, :nb] = s.blocks[:nb]
             s.prefill_pos += n
+            s.inflight_chunks += 1
+            touched.append(s)
+            became_final = False
             if s.prefill_pos >= L:
                 s.prefilling = False
+                became_final = True
                 sp = s.req.sampling
                 temp[j], topk[j], topp[j] = sp.temperature, sp.top_k, sp.top_p
                 greedy = greedy and sp.temperature <= 0.0
                 # Only final lanes sample, so only they consult the FSM.
                 fstate[j] = self._fsm_entry(s.req)
                 constrained = constrained or sp.constrained
-                lanes.append((j, i))
+                rows[len(lanes)] = j
+                idx[len(lanes)] = i
+                lanes.append((j, i, s.req))
+                if self.prefix_cache is not None:
+                    to_register.append(s)
+            muts.append((s, n, became_final))
         t0 = time.monotonic()
-        logits, _ = llama.prefill_chunk(
-            self.model, self._t(tokens), self._t(start), self._t(lengths),
-            self.pages, self._t(tables), attn_impl=self._prefill_attn)
-        if lanes:
-            first, fnext = self._first_tokens(
-                logits, temp, topk, topp, greedy,
-                fstate if constrained else None)
-            self._place_first_tokens(first, lanes, fnext,
-                                     "engine.prefill_chunk", t0,
-                                     {"bucket": bucket, "lanes": len(cands)})
+        try:
+            self._faults.maybe_raise("prefill_dispatch")
+            out = self._prefill_call(stage, P, bucket, W, True, greedy,
+                                     constrained)
+        except Exception as exc:
+            # Rewind the round, so the next step dispatches the same chunks.
+            self._drop_stage(stage)
+            for s, n, became_final in muts:
+                s.prefill_pos -= n
+                s.inflight_chunks -= 1
+                if became_final:
+                    s.prefilling = True
+            self._record_dispatch_failure(exc)
+            return False
+        self._record_dispatch_ok()
+        self.prefill_bucket_rounds[bucket] = (
+            self.prefill_bucket_rounds.get(bucket, 0) + 1)
+        self.prefill_tokens += int(lengths.sum())
+        for s in to_register:
+            self.prefix_cache.register(s.req.prompt_ids, s.blocks,
+                                       tenant=s.req.tenant)
+        self.prefills += len(lanes)
+        self._queue_inflight("chunk", out, len(lanes), P, stage, lanes, t0,
+                             touched=touched,
+                             span_attrs={"bucket": bucket,
+                                         "lanes": len(cands)})
         return True
 
-    def _place_first_tokens(self, first: torch.Tensor, lanes,
-                            fnext: Optional[torch.Tensor], span: str,
-                            t0: float, span_attrs: dict) -> None:
-        """Write first tokens (and, with a grammar installed, every admitted
-        lane's FSM state: the state after its first token for a constrained
-        lane, 0 for a free one, which clears what a constrained occupant of
-        a reused slot left) into the device buffers, then reconcile them:
-        emission, TTFT, retirement."""
-        rows = torch.tensor([j for j, _ in lanes], device=self.device)
-        idx = torch.tensor([i for _, i in lanes], device=self.device)
-        self._tok_state[idx] = first[rows]
-        if self._fsm_trans is not None:
-            self._fsm_state[idx] = (fnext[rows] if fnext is not None else 0)
-        host = first.cpu().tolist()
-        now = time.monotonic()
-        for j, slot_idx in lanes:
-            s = self._slots[slot_idx]
-            tok = int(host[j])
-            s.generated.append(tok)
-            req = s.req
-            if req.first_token_time == 0.0:
-                req.first_token_time = now
-                ttft = now - req.submit_time
-                self.hist_ttft.observe(ttft, req.slo_class,
-                                       self._trace_id(req))
-                prev = self.ttft_ema_by_class.get(req.slo_class)
-                self.ttft_ema_by_class[req.slo_class] = (
-                    ttft if prev is None else 0.9 * prev + 0.1 * ttft)
-            self._span(span, t0, now, req,
-                       constrained=req.sampling.constrained, **span_attrs)
-            self._emit(req, [tok])
-            if self._is_finished(s):
-                self._retire(slot_idx)
+    def _queue_inflight(self, kind: str, out, n: int, P: int, stage: _Stage,
+                        lanes, t0: float, touched=(), span_attrs=None) -> None:
+        """Tail of an admission or chunk dispatch: place the first tokens of
+        the call's ``n`` placed rows into the device token buffer (and,
+        with a grammar installed, those lanes' FSM states: the state after
+        the first token for a constrained lane, 0 for a free one, which
+        clears what a constrained occupant of a reused slot left), start
+        the copy of the tokens into the stage, and queue the call."""
+        first, fnext, rows, idx = out
+        if n:
+            ix, rw = idx[:n].long(), rows[:n].long()
+            self._tok_state.index_copy_(0, ix, first.index_select(0, rw))
+            if self._fsm_trans is not None:
+                self._fsm_state.index_copy_(
+                    0, ix, fnext.index_select(0, rw) if fnext is not None
+                    else torch.zeros(n, dtype=torch.int32,
+                                     device=self.device))
+        stage.out[:P].copy_(first, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._inflight.append(_Inflight(
+            kind=kind, call_id=self._next_call_id, lanes=list(lanes),
+            stage=stage, event=event, t0=t0, touched=list(touched),
+            span_attrs=span_attrs or {}))
+        self._next_call_id += 1
+        if not self.ecfg.admit_inflight:
+            self._reconcile_all()
+
+    # -- decode ---------------------------------------------------------
 
     def _decode_lanes(self) -> list[tuple[int, _Slot]]:
         """Slots a decode call may take now: decoding, with predicted
         budget left, not cancelled."""
         return [(i, s) for i, s in enumerate(self._slots)
-                if s is not None and not s.prefilling
+                if s is not None and not s.retired and not s.prefilling
                 and s.remaining_pred > 0 and not s.cancel_requested]
 
     def _dispatch_decode(self) -> bool:
         """Dispatch one K-step decode call over the lanes with predicted
-        budget (JAX ``_dispatch_decode``): extend each lane's pages for its
-        steps, fill a host stage with the call's inputs, copy it in, run
-        the program and start the copy of its tokens back.  Returns True
-        if a call was dispatched."""
+        budget (JAX ``_dispatch_decode``): retire cancelled lanes that have
+        settled, extend each lane's pages for its steps -- under pressure
+        evicting prefix entries, then reconciling every call in flight,
+        then preempting the lowest-class youngest lane (the lane itself as
+        the last resort) -- fill a host stage with the call's inputs, copy
+        it in, run the program and start the copy of its tokens back.
+        Returns True if a call was dispatched."""
         ec = self.ecfg
         B = ec.max_slots
+        # A cancelled slot still mid-prefill never reaches the admission
+        # reconcile that clears pending_admit: it settles once its chunk
+        # calls drain.
+        for i, s in enumerate(self._slots):
+            if (s is not None and s.cancel_requested
+                    and s.inflight_decode == 0 and s.inflight_chunks == 0
+                    and (s.prefilling or not s.pending_admit)):
+                self._retire(i)
         lanes = self._decode_lanes()
         if not lanes:
             return False
@@ -1203,32 +1761,45 @@ class InferenceEngine:
                    max(s.remaining_pred for _, s in lanes))
         K = 1 << (kmax.bit_length() - 1)
         for i, s in sorted(lanes, key=lambda t: t[1].req.submit_time):
-            if self._slots[i] is not s:
-                continue                # retired while reconciling below
-            steps_i = min(K, s.remaining_pred)
-            try:
-                self.allocator.extend(s.blocks, s.ctx_pred + steps_i)
-                continue
-            except OutOfBlocks:
-                # Retirements waiting in the calls in flight may free
-                # pages: reconcile everything, then try once more.
-                self._reconcile_all()
-            if self._slots[i] is not s:
-                continue
-            try:
-                self.allocator.extend(s.blocks, s.ctx_pred + steps_i)
-            except OutOfBlocks as exc:
-                # Preemption is not ported: the lane ends with an error.
-                s.abort_cause = f"out of KV blocks: {exc}"
-                self._retire(i)
+            if self._slots[i] is not s or s.retired:
+                continue        # evicted or retired in the loop below
+            steps_i = max(1, min(K, s.remaining_pred))
+            while True:
+                try:
+                    self.allocator.extend(s.blocks, s.ctx_pred + steps_i)
+                    break
+                except OutOfBlocks:
+                    # Cheapest relief first: cached prefixes nobody uses.
+                    if self._evict_prefix_lru():
+                        continue
+                    self._reconcile_all()
+                    if self._slots[i] is not s or s.retired:
+                        break
+                    try:
+                        self.allocator.extend(s.blocks, s.ctx_pred + steps_i)
+                        break
+                    except OutOfBlocks:
+                        victim = self._eviction_victim()
+                        if victim < 0:
+                            victim = i  # only cancelled lanes left
+                        try:
+                            self._faults.maybe_raise("lane_eviction")
+                        except FaultError as exc:
+                            # Evicting the requesting lane itself is always
+                            # safe and leaves no unextended lane behind.
+                            self._record_dispatch_failure(exc)
+                            victim = i
+                        self._preempt(victim)
+                        if victim == i:
+                            break
         lanes = self._decode_lanes()
         if not lanes:
             return False
-        stage = self._stages.pop() if self._stages else _Stage(
-            B, ec.max_blocks_per_seq, ec.decode_steps_per_iter,
-            pinned=self.device.type == "cuda")
-        ctx, remaining, topk, temp, topp, table = stage.views
-        stage.inp.zero_()
+        stage = self._take_stage()
+        n_in = B * (5 + ec.max_blocks_per_seq)
+        stage.inp_np[:n_in] = 0
+        ctx, remaining, topk, temp, topp, table = _decode_inputs(
+            stage.inp_np[:n_in], B, np.float32)
         topp[:] = 1.0
         meta = []
         for i, s in lanes:
@@ -1251,34 +1822,79 @@ class InferenceEngine:
             for _, s in lanes if s.req.sampling.temperature > 0.0)
         sampler = "greedy" if greedy else "bounded" if bounded else "full"
         key = (K, sampler, constrained, cap if bounded else 0)
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = _DecodeProgram(
-                self, K, sampler, constrained, cap)
         t0 = time.monotonic()
-        self._dec_in.copy_(stage.inp, non_blocking=True)
-        toks = prog()
-        stage.toks[:K].copy_(toks, non_blocking=True)
+        try:
+            self._faults.maybe_raise("decode_dispatch")
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._programs[key] = _DecodeProgram(
+                    self, K, sampler, constrained, cap)
+            self._dec_in.copy_(stage.inp[:n_in], non_blocking=True)
+            toks = prog()
+            stage.out[:K * B].view(K, B).copy_(toks, non_blocking=True)
+        except Exception as exc:
+            # Undo the in-flight accounting so the same lanes dispatch
+            # again next step (ctx_pred rewinds with inflight_decode).
+            self._drop_stage(stage)
+            for _, s, steps_i in meta:
+                s.inflight_decode -= steps_i
+            self._record_dispatch_failure(exc)
+            return False
+        self._record_dispatch_ok()
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         self._inflight.append(_Inflight(
-            call_id=self._next_call_id, K=K, lanes=meta, stage=stage,
-            event=event, t0=t0))
+            kind="decode", call_id=self._next_call_id, lanes=meta,
+            stage=stage, event=event, t0=t0, K=K,
+            span_attrs={"steps": K, "lanes": len(lanes),
+                        "constrained": constrained},
+            stuck=self._faults.should_fire("decode_stuck")))
         self._next_call_id += 1
         self.decode_steps += K
         if bounded:
             self.bounded_decode_steps += K
         return True
 
+    # -- reconciliation -------------------------------------------------
+
     def _reconcile_one(self) -> None:
-        """Wait for the oldest call in flight, apply its tokens, then free
-        the pages of retired lanes that no call in flight references."""
+        """Wait for the oldest call in flight, apply it, then free the pages
+        of retired lanes that no call in flight references.  With
+        ``dispatch_timeout_s`` the wait polls, and a call not ready in time
+        resets the pipeline (the watchdog); a call that cannot be applied
+        resets it too."""
         call = self._inflight.popleft()
-        if call.event is not None:
-            call.event.synchronize()
-        self._apply_call(call)
+        budget = self.ecfg.dispatch_timeout_s
+        if budget > 0 and not self._call_ready(call):
+            t0 = time.monotonic()
+            while not self._call_ready(call):
+                if time.monotonic() - t0 >= budget:
+                    self.watchdog_trips += 1
+                    if self.health is not None:
+                        self.health.record_watchdog_trip()
+                    self._reset_pipeline(
+                        f"dispatch watchdog: {call.kind} call not ready "
+                        f"after {budget:.2f}s", extra_calls=(call,))
+                    return
+                time.sleep(0.002)
+        if self._faults.should_fire("slow_host_callback"):
+            time.sleep(self._faults.delay_s("slow_host_callback"))
+        try:
+            if call.event is not None:
+                if self._dispatching and not call.event.query():
+                    self._step_waited = True
+                call.event.synchronize()
+            if call.stuck:
+                raise FaultError("decode_stuck")
+            self._apply_call(call)
+        except Exception as exc:
+            self._record_dispatch_failure(exc)
+            self._reset_pipeline(
+                f"reconcile of {call.kind} call failed: {exc}",
+                extra_calls=(call,))
+            return
         self._stages.append(call.stage)
         if self._deferred_frees:
             still = []
@@ -1290,27 +1906,81 @@ class InferenceEngine:
             self._deferred_frees = still
 
     def _apply_call(self, call: _Inflight) -> None:
-        """Emit one reconciled call's tokens and retire the lanes that are
-        done (JAX ``_apply_call``, decode kind)."""
-        arr = call.stage.toks_np[:call.K]
+        """Apply one reconciled call (JAX ``_apply_call``): an admission or
+        chunk call's first tokens (TTFT, emission, retirement), a decode
+        call's tokens (emission, retirement; a retired lane's zombie steps
+        are dropped)."""
         now = time.monotonic()
+        if call.kind != "decode":
+            pf_ms = max(0.0, now - call.t0) * 1e3
+            self.prefill_attn_ms = (
+                pf_ms if self.prefill_attn_ms == 0.0
+                else 0.9 * self.prefill_attn_ms + 0.1 * pf_ms)
+            for s in call.touched:
+                s.inflight_chunks -= 1
+            if not call.delivered:
+                self._first_tokens(call, now)
+            for _, (slot_idx, req) in self._first_rows(call):
+                s = self._slots[slot_idx]
+                if (s is not None and s.req is req
+                        and (self._is_finished(s) or s.cancel_requested)):
+                    self._retire(slot_idx)
+            return
+        arr = call.stage.out_np[:call.K * self.ecfg.max_slots].reshape(
+            call.K, -1)
         self.decode_s += now - max(call.t0, self._decode_mark)
         self._decode_mark = now
         for slot_idx, s, steps_i in call.lanes:
-            if self._slots[slot_idx] is not s:
+            if self._slots[slot_idx] is not s or s.retired:
                 continue      # retired since dispatch: drop zombie steps
             new = [int(t) for t in arr[:, slot_idx] if t >= 0]
             s.inflight_decode -= steps_i
             self.decode_tokens += len(new)
             self._span("engine.decode", call.t0, now, s.req, steps=steps_i,
                        emitted=len(new))
-            if new:
-                s.ctx_len += len(new)
-                s.generated.extend(new)
-                self._emit(s.req, new)
+            if not new:
+                continue
+            s.ctx_len += len(new)
+            s.generated.extend(new)
+            self._emit(s.req, new)
             if self._is_finished(s) or (s.cancel_requested
                                         and s.inflight_decode == 0):
                 self._retire(slot_idx)
+
+    @staticmethod
+    def _first_rows(call: _Inflight) -> list:
+        """[(row, (slot_idx, req))] of an admission or chunk call's lanes
+        that sample their first token."""
+        if call.kind == "admit":
+            return list(enumerate(call.lanes))
+        return [(row, (slot_idx, req)) for row, slot_idx, req in call.lanes]
+
+    def _first_tokens(self, call: _Inflight, now: float) -> None:
+        """Record, stamp (TTFT) and emit the first token of each lane of an
+        admission or chunk call that still holds its slot."""
+        span = ("engine.prefill" if call.kind == "admit"
+                else "engine.prefill_chunk")
+        arr = call.stage.out_np
+        for j, (slot_idx, req) in self._first_rows(call):
+            s = self._slots[slot_idx]
+            if s is None or s.req is not req:
+                continue        # preempted before reconcile
+            tok = int(arr[j])
+            s.pending_admit = False
+            s.generated.append(tok)
+            if req.first_token_time == 0.0:
+                req.first_token_time = now
+                ttft = now - req.submit_time
+                self.hist_ttft.observe(ttft, req.slo_class,
+                                       self._trace_id(req))
+                prev = self.ttft_ema_by_class.get(req.slo_class)
+                self.ttft_ema_by_class[req.slo_class] = (
+                    ttft if prev is None else 0.9 * prev + 0.1 * ttft)
+            s.first_token_time = req.first_token_time
+            self._span(span, call.t0, now, req,
+                       constrained=req.sampling.constrained,
+                       **call.span_attrs)
+            self._emit(req, [tok])
 
     def _is_finished(self, s: _Slot) -> bool:
         return bool(s.generated) and (
@@ -1321,6 +1991,7 @@ class InferenceEngine:
         s = self._slots[slot_idx]
         now = time.monotonic()
         req = s.req
+        # Tokens generated before a preemption live in the folded prompt.
         toks = req.prompt_ids[req.orig_prompt_len:] + s.generated
         reason = "eos" if toks and toks[-1] == self.eos_id else "length"
         if reason == "eos":
@@ -1330,8 +2001,9 @@ class InferenceEngine:
             reason = "error"
         result = GenerationResult(
             request_id=req.request_id, token_ids=toks, finish_reason=reason,
-            ttft_s=(req.first_token_time - req.submit_time
-                    if req.first_token_time > 0.0 else 0.0),
+            # A slot cancelled mid-prefill retires with no first token.
+            ttft_s=(s.first_token_time - req.submit_time
+                    if s.first_token_time > 0.0 else 0.0),
             latency_s=now - req.submit_time, error=error)
         self._results[req.request_id] = result
         self.hist_e2e.observe(result.latency_s, req.slo_class,
@@ -1339,12 +2011,39 @@ class InferenceEngine:
         self._end_request_span(
             req, "error" if error else "ok", finish_reason=reason,
             tokens=len(toks), ttft_s=round(result.ttft_s, 6))
+        if self.token_sink is not None:
+            self.token_sink(req.request_id, [], result)
         if self._inflight:
             # A call in flight may still write these pages (zombie steps):
             # free them once the newest dispatched call is reconciled.
             self._deferred_frees.append((self._next_call_id - 1, s.blocks))
         else:
             self.allocator.free(s.blocks)
+        s.retired = True
         self._slots[slot_idx] = None
-        if self.token_sink is not None:
-            self.token_sink(req.request_id, [], result)
+
+    def _preempt(self, slot_idx: int) -> None:
+        """Evict a lane by recompute: its generated tokens fold into the
+        prompt, its budget shrinks by as many, and it is requeued at the
+        head of the queue.  Only on reconciled state (the callers drain
+        every call in flight first), so ``generated`` is complete."""
+        s = self._slots[slot_idx]
+        assert s.inflight_decode == 0 and s.inflight_chunks == 0
+        self.allocator.free(s.blocks)
+        self._slots[slot_idx] = None
+        s.retired = True
+        req = s.req
+        consumed = len(s.generated)
+        req.prompt_ids = req.prompt_ids + s.generated
+        req.sampling = dataclasses.replace(
+            req.sampling, max_tokens=max(1, req.sampling.max_tokens - consumed))
+        self._cap_request(req)
+        self._pending.appendleft(req)
+        self.preemptions += 1
+        self.preemptions_by_class[req.slo_class] = (
+            self.preemptions_by_class.get(req.slo_class, 0) + 1)
+        t_now = time.monotonic()
+        self._span("engine.preempt", t_now, t_now, req,
+                   tokens_folded=consumed)
+        self._flight.note("preempt", request_id=req.request_id,
+                          slo_class=req.slo_class, tokens_folded=consumed)

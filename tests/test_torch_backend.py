@@ -62,9 +62,10 @@ def weights():
 
 @pytest.fixture
 def backend(weights):
+    # The prefix cache off, as in the JAX engine the tests compare with.
     eng = InferenceEngine(ModelConfig(**CFG_KW), weights[1],
-                          EngineConfig(**ECFG_KW), tokenizer=ByteTokenizer(),
-                          device="cpu")
+                          EngineConfig(prefix_cache_entries=0, **ECFG_KW),
+                          tokenizer=ByteTokenizer(), device="cpu")
     b = LocalEngineBackend(engine=eng, tokenizer=ByteTokenizer())
     yield b
     b.service.stop()

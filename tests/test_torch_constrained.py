@@ -69,8 +69,10 @@ def jax_engine(weights):
 
 
 def _port_engine(model, grammar=True):
+    # The prefix cache off, as in the JAX engine the tests compare with.
     eng = tengine.InferenceEngine(ModelConfig(**CFG_KW), model,
-                                  tengine.EngineConfig(**ECFG_KW),
+                                  tengine.EngineConfig(prefix_cache_entries=0,
+                                                       **ECFG_KW),
                                   tokenizer=TOK, device="cpu")
     if grammar:
         eng.set_grammar(verdict_fsm(eos_id=TOK.eos_id))
@@ -167,7 +169,8 @@ def test_submit_raises_max_tokens_then_caps(weights):
     fsm = verdict_fsm(eos_id=TOK.eos_id)
     prompt = _prompts()["a"]
     port = tengine.InferenceEngine(ModelConfig(**CFG_KW), weights[1],
-                                   tengine.EngineConfig(**small),
+                                   tengine.EngineConfig(prefix_cache_entries=0,
+                                                        **small),
                                    tokenizer=TOK, device="cpu")
     port.set_grammar(fsm)
     req = tengine.GenerationRequest(

@@ -12,14 +12,22 @@ under the verdict grammar; the free lanes mix lengths, a chunked prompt
 and EOS retirement.  Also: the allocator back at its idle count after a
 run, a retired lane's blocks held while a call in flight references it, a
 lane cancelled with calls in flight, the decode schedule while a prompt
-streams in chunks (``decode_every_n_chunk_rounds``), and the addresses the
-captured decode graphs read staying fixed across calls and grammar swaps.
+streams in chunks (``decode_every_n_chunk_rounds``), the addresses the
+captured decode graphs read staying fixed across calls and grammar swaps,
+the kinds of the calls in flight (admission, chunk, decode) after every
+step against the JAX engine's at ``max_inflight`` 0-3, the flash bucket
+ladder (4096/8192), the synchronous admission loop (``admit_inflight``)
+and first tokens delivered before their call's reconcile on the card.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
 import pytest
 
+from k8s_llm_monitor_tpu.diagnosis.grammar import compile_schema as jcompile
+from k8s_llm_monitor_tpu.diagnosis.grammar import token_fsm as jtoken_fsm
 from k8s_llm_monitor_tpu.diagnosis.grammar import verdict_fsm as jverdict_fsm
 from k8s_llm_monitor_tpu.models import llama as jllama
 from k8s_llm_monitor_tpu.models.config import ModelConfig as JModelConfig
@@ -84,10 +92,13 @@ def slow(monkeypatch):
 
 
 def _port(model, ecfg, eos_id=-1, **overrides):
+    """The port's engine; the prefix cache off, as in the JAX engines these
+    tests compare with."""
     return tengine.InferenceEngine(
         ModelConfig(**CFG_KW), model,
-        tengine.EngineConfig(**dict(ecfg, **overrides)), tokenizer=TOK,
-        eos_id=eos_id, device="cpu")
+        tengine.EngineConfig(**dict(dict(ecfg, prefix_cache_entries=0),
+                                    **overrides)),
+        tokenizer=TOK, eos_id=eos_id, device="cpu")
 
 
 def _run(mod, eng, reqs, on_step=None):
@@ -188,6 +199,8 @@ def test_retired_lane_blocks_wait_for_calls_in_flight(slow, weights,
     def check(e):
         live = {b for s in e._slots if s is not None for b in s.blocks}
         for call in e._inflight:
+            if call.kind != "decode":
+                continue
             for slot_idx, s, _ in call.lanes:
                 if e._slots[slot_idx] is not s:       # retired, in flight
                     held.append(s.req.request_id)
@@ -210,7 +223,10 @@ def test_cancel_with_calls_in_flight(slow, weights):
     calls = []
     eng.token_sink = lambda rid, toks, res: calls.append((list(toks), res))
     eng.submit(tengine.GenerationRequest("r", list(prompt), sp))
-    while len(eng._inflight) < 2:
+    # Two decode calls in flight, the first token's call reconciled (its
+    # reconcile retires a cancelled lane at once, as in the JAX engine).
+    while len(eng._inflight) < 2 or any(c.kind != "decode"
+                                        for c in eng._inflight):
         eng.step()
     [slot] = [s for s in eng._slots if s is not None]
     expect = len(slot.generated) + slot.inflight_decode
@@ -291,3 +307,134 @@ def test_static_buffers_keep_their_address(weights):
     assert eng._fsm_trans.shape[1] == 280
     assert not any(p.constrained for p in eng._programs.values())
     assert any(not p.constrained for p in eng._programs.values())
+
+
+def _kinds_run(mod, eng, reqs):
+    """Greedy ids by request and, after each step, the kinds of the calls
+    left in flight."""
+    for rid, prompt, constrained in reqs:
+        eng.submit(mod.GenerationRequest(rid, list(prompt), mod.SamplingParams(
+            max_tokens=1 if constrained else MAX_TOKENS,
+            constrained=constrained)))
+    kinds = []
+    while eng.has_work:
+        eng.step()
+        kinds.append(tuple(c.kind for c in eng._inflight))
+    return kinds, _ids({rid: eng.poll(rid) for rid, _, _ in reqs})
+
+
+@pytest.fixture(scope="module")
+def jax_kinds_engine(weights):
+    """The JAX engine of the call-kinds test, under the small grammar (a
+    verdict would decode 469 steps per case)."""
+    eng = jengine.InferenceEngine(
+        JModelConfig(**CFG_KW), weights[0],
+        jengine.EngineConfig(prefix_cache_entries=0, **GRAMMAR_ECFG),
+        tokenizer=TOK)
+    eng.set_grammar(jtoken_fsm(jcompile(SMALL_SCHEMA), eos_id=TOK.eos_id))
+    return eng
+
+
+@pytest.mark.parametrize("max_inflight", [0, 1, 2, 3])
+def test_inflight_call_kinds_match_jax_engine(slow, monkeypatch, weights,
+                                              jax_kinds_engine, max_inflight):
+    # Admission, chunk and decode calls stay in flight as in the JAX engine:
+    # a constrained question and a free prompt longer than the 32-token
+    # bucket (both chunked) beside a short free one, every call reporting
+    # not ready on both engines, so only the window reconciles.
+    monkeypatch.setattr(jengine.InferenceEngine, "_call_ready",
+                        staticmethod(lambda call: False))
+    rng = np.random.default_rng(5)
+    reqs = [("long", [int(t) for t in rng.integers(3, 259, size=70)], False),
+            *_grammar_reqs()]
+    jeng = jax_kinds_engine
+    jeng.ecfg = dataclasses.replace(jeng.ecfg, max_inflight=max_inflight)
+    want = _kinds_run(jengine, jeng, reqs)
+    eng = _port(weights[1], GRAMMAR_ECFG, eos_id=TOK.eos_id,
+                max_inflight=max_inflight)
+    eng.set_grammar(token_fsm(compile_schema(SMALL_SCHEMA), eos_id=TOK.eos_id))
+    got = _kinds_run(tengine, eng, reqs)
+    assert got == want
+    # At depth 1 the admission call is reconciled in its own step: the
+    # step's decode call goes out behind it.
+    kinds = {k for step in got[0] for k in step}
+    assert kinds == ({"chunk", "decode"} | ({"admit"} if max_inflight > 1
+                                            else set())
+                     if max_inflight else set())
+    _assert_idle(eng)
+
+
+def test_flash_bucket_ladder_matches_jax_engine(weights):
+    # With the flash prefill path the ladder gains 4096 and 8192 where the
+    # per-sequence capacity allows, as in the JAX engine.
+    for nbps, num_blocks, extra in ((64, 512, ()), (256, 512, (4096,)),
+                                    (512, 600, (4096, 8192))):
+        ecfg = dict(max_slots=2, num_blocks=num_blocks, block_size=16,
+                    max_blocks_per_seq=nbps, prefill_path="flash")
+        jeng = jengine.InferenceEngine(
+            JModelConfig(**CFG_KW), weights[0],
+            jengine.EngineConfig(prefix_cache_entries=0, **ecfg))
+        eng = _port(weights[1], ecfg)
+        assert eng.ecfg.prefill_buckets == jeng.ecfg.prefill_buckets
+        assert eng.ecfg.prefill_buckets == (
+            tengine.EngineConfig().prefill_buckets + extra)
+        dense = _port(weights[1], dict(ecfg, prefill_path="dense"))
+        assert dense.ecfg.prefill_buckets[-1] == 2048
+
+
+def test_synchronous_admission_matches_jax_engine(weights, free_eos,
+                                                  jax_free):
+    # admit_inflight False: each admission and chunk round's first tokens
+    # are read back in its own round (the loop before they went in
+    # flight); no such call outlives its round, and the ids are the same.
+    eng = _port(weights[1], FREE_ECFG, eos_id=free_eos, admit_inflight=False)
+    left = []
+    got = _ids(_run(tengine, eng, _free_reqs(), on_step=lambda e: left.extend(
+        c.kind for c in e._inflight if c.kind != "decode")))
+    assert got == jax_free and not left
+    _assert_idle(eng)
+
+
+class _Done:
+    """Stands in for a CUDA event the device has passed."""
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+
+@pytest.fixture
+def finished_events(monkeypatch):
+    """Every admission and chunk call carries a passed event, as on the
+    card once the device has run it."""
+    queue = tengine.InferenceEngine._queue_inflight
+
+    def patched(self, *args, **kwargs):
+        queue(self, *args, **kwargs)
+        self._inflight[-1].event = _Done()
+
+    monkeypatch.setattr(tengine.InferenceEngine, "_queue_inflight", patched)
+
+
+def test_finished_first_tokens_go_out_before_their_reconcile(
+        slow, finished_events, weights, free_eos, jax_free):
+    # On the card a finished admission or chunk call delivers its first
+    # tokens ahead of its reconcile: each token once and in order, the
+    # JAX engine's ids, slots handed over at the reconcile as without it.
+    eng = _port(weights[1], FREE_ECFG, eos_id=free_eos, max_inflight=2)
+    streamed, early = {}, []
+
+    def sink(rid, toks, res):
+        streamed.setdefault(rid, []).extend(toks)
+        if toks and any(c.delivered for c in eng._inflight):
+            early.append(rid)
+
+    eng.token_sink = sink
+    got = _ids(_run(tengine, eng, _free_reqs()))
+    assert got == jax_free
+    assert set(early) == set(got)
+    for rid, (ids, reason) in got.items():
+        assert streamed[rid] == ids + ([free_eos] if reason == "eos" else [])
+    _assert_idle(eng)

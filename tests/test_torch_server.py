@@ -288,21 +288,24 @@ def _engine_server(server_cls, cfg_cls, client_cls, manager_cls,
     return srv
 
 
-def test_tiny_engine_answers_like_jax():
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_tiny_engine_answers_like_jax(prefix_cache):
     """One set of float32 weights behind both servers: the evidence prompts
     are equal, then /api/v1/query's answer and a root-cause analysis (its
     free text and its constrained verdict) are the same at temperature 0,
-    and /health and /api/v1/stats carry the JAX server's engine keys."""
+    and /health and /api/v1/stats carry the JAX server's engine keys; with
+    the prefix cache at its default on both sides, the stats' prefix-cache
+    counters and per-tenant cached blocks are the JAX engine's too."""
     params = jllama.init_params(jax.random.PRNGKey(0), JModelConfig(**CFG_KW))
     model = params_from_jax(jax.tree.map(np.asarray, params),
                             ModelConfig(**CFG_KW), device="cpu")
+    kw = dict(ECFG_KW) if prefix_cache else dict(ECFG_KW,
+                                                 prefix_cache_entries=0)
     jeng = jengine.InferenceEngine(
-        JModelConfig(**CFG_KW), params,
-        jengine.EngineConfig(prefix_cache_entries=0, **ECFG_KW),
+        JModelConfig(**CFG_KW), params, jengine.EngineConfig(**kw),
         tokenizer=JByteTokenizer())
-    peng = InferenceEngine(ModelConfig(**CFG_KW), model,
-                           EngineConfig(**ECFG_KW), tokenizer=ByteTokenizer(),
-                           device="cpu")
+    peng = InferenceEngine(ModelConfig(**CFG_KW), model, EngineConfig(**kw),
+                           tokenizer=ByteTokenizer(), device="cpu")
     jb = janalysis.LocalEngineBackend(jeng, JByteTokenizer())
     pb = analysis.LocalEngineBackend(engine=peng, tokenizer=ByteTokenizer())
     jsrv = _engine_server(JMonitorServer, JConfig, JClient, JManager,
@@ -328,13 +331,29 @@ def test_tiny_engine_answers_like_jax():
             pbody = _call(psrv.port, "GET", path)[3]
             assert set(pbody["engine"]) == set(jbody["engine"])
         stats = _call(psrv.port, "GET", "/api/v1/stats")[3]["engine"]
-        assert stats["prefix_cache"] is None
+        jstats = _call(jsrv.port, "GET", "/api/v1/stats")[3]["engine"]
         assert stats["preemptions_by_class"] == {}
         assert set(stats["ttft_ema_by_class"]) == {"interactive", "standard"}
-        assert stats["kv_tier"] == {
-            "kv_quant": "", "page_dtype": "float32",
-            "device_bytes": peng.pool_bytes, "host_bytes": 0,
-            "host_entries": 0, "spills": 0, "restores": 0, "host_lost": 0}
+        tier = {"kv_quant": "", "page_dtype": "float32",
+                "device_bytes": peng.pool_bytes, "host_bytes": 0,
+                "host_entries": 0, "spills": 0, "restores": 0,
+                "host_lost": 0}
+        if not prefix_cache:
+            assert stats["prefix_cache"] is None
+            assert stats["kv_tier"] == tier
+        else:
+            # Both servers answered the same questions over the same
+            # evidence: the second query and the analysis reuse the
+            # preamble's pages.
+            assert stats["prefix_cache"]["hits"] > 0
+            assert stats["kv_tier"]["tenant_blocks"]["public"] > 0
+            assert stats["kv_tier"] == dict(
+                tier, tenant_blocks=stats["kv_tier"]["tenant_blocks"])
+        for key in ("prefix_cache", "prefix_deferrals",
+                    "preemptions_by_class", "busy_slots", "queue_depth"):
+            assert stats[key] == jstats[key], key
+        assert (stats["kv_tier"].get("tenant_blocks")
+                == jstats["kv_tier"].get("tenant_blocks"))
     finally:
         for srv in (jsrv, psrv):
             srv.stop()
@@ -370,17 +389,35 @@ def test_remediation_without_a_cluster_boots():
 @pytest.mark.parametrize("knob,value", [
     ("quantize", "w8a8"), ("quantize", "int8"),
     ("checkpoint", "/models/llama"), ("spec_k", 4),
-    ("mesh_shape", "1,1,8"), ("max_kv_share", 0.5)])
+    ("mesh_shape", "1,1,8")])
 def test_from_config_refuses_unported_knobs(knob, value):
     tc = TPULLMConfig(model="tiny", quantize="", spec_k=0)
-    tenancy = TenancyConfig()
-    if knob == "max_kv_share":
-        tenancy.max_kv_share = value
-    else:
-        setattr(tc, knob, value)
+    setattr(tc, knob, value)
     with pytest.raises(NotImplementedError, match=knob):
-        analysis.LocalEngineBackend.from_config(tc, tenancy=tenancy,
+        analysis.LocalEngineBackend.from_config(tc, tenancy=TenancyConfig(),
                                                 device="cpu")
+
+
+def test_from_config_passes_the_tenant_kv_share(tmp_path):
+    """``tenancy.max_kv_share`` reaches the engine's prefix cache as in
+    the JAX backend (``kv_max_tenant_share``), and so does its default."""
+    from k8s_llm_monitor_tpu_torch.monitor.config import LifecycleConfig
+
+    tc = TPULLMConfig(model="tiny", quantize="", spec_k=0, kv_blocks=64,
+                      max_batch=2)
+    for share, want in ((0.5, 0.5), (None, 1.0)):
+        tenancy = TenancyConfig()
+        if share is not None:
+            tenancy.max_kv_share = share
+        backend = analysis.LocalEngineBackend.from_config(
+            tc, lifecycle=LifecycleConfig(journal_dir=str(tmp_path / str(share))),
+            tenancy=tenancy, device="cpu")
+        try:
+            eng = backend.engine
+            assert eng.ecfg.kv_max_tenant_share == want
+            assert eng.prefix_cache.max_tenant_share == want
+        finally:
+            backend.supervisor.shutdown(grace_s=1.0)
 
 
 def test_from_config_builds_a_supervised_backend_on_the_cpu(tmp_path):

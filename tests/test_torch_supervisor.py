@@ -82,7 +82,10 @@ def _fault_isolation():
 
 
 def _mk_engine(model, **overrides):
-    cfg = dict(ECFG)
+    """The port's engine; the prefix cache off, as in the JAX engine these
+    tests compare with (cached prefixes would pin pages past the
+    allocator's baseline)."""
+    cfg = dict(ECFG, prefix_cache_entries=0)
     cfg.update(overrides)
     return InferenceEngine(ModelConfig(**CFG_KW), model, EngineConfig(**cfg),
                            eos_id=-1, device="cpu")
