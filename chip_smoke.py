@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 0,2,5  # the engine, then the request's way in
     python3 chip_smoke.py --phases 0,6    # the monitor's front door alone
     python3 chip_smoke.py --phases 0,7    # prefix reuse, preemption, recovery
+    python3 chip_smoke.py --phases 0,8    # llama-1b and speculative decoding
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -33,7 +34,12 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          wrapper (decode_b3_cases) and at QS=1..8 through the verify
          wrapper (PAGED_CASES): horizons on both sides of the 256-key
          chunk boundaries, qpk 1, 2, 4 and 8, blocks of 12, rows past
-         qlens and empty lanes exactly zero.
+         qlens and empty lanes exactly zero.  The same at head_dim 64
+         (llama-1b's 32/8 heads and 16/2): fused decode over the three
+         pools (decode_cases_d64) and split paged attention at QS=1..8
+         (PAGED_CASES_D64), QS > 1 held as paged_attn_verify_d64; and flash
+         prefill at the spec verify shape (VERIFY_SHAPE: 32 lanes, S=5 at
+         the lanes' positions, some empty), held as flash_prefill_verify.
 Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          from a seeded generator on the card): a bf16 pool (8 GiB), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
@@ -86,7 +92,13 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          over the same table: the decode_path="pallas" engine's shape
          (QS=1) and a verify shape (the same lanes, 8 query tokens ending
          at the engine position), through the wrapper, alone, and alone at
-         chunks of 128, 256 and 512 keys.
+         chunks of 128, 256 and 512 keys.  At head_dim 64 (llama-1b's
+         heads, the same 32 lanes and table): fused decode over the three
+         pools, split paged attention at QS=1 and at QS=5 from each lane's
+         position, and the verify threshold: QS=5 through the kernel
+         against the gather path over tables of 1,024 and 4,096 tokens.
+         Flash prefill at the verify shape (S=5 at each lane's position),
+         bf16 and int8.
 
 Phase 5  the request's way in: phase 2's Llama-3-8B model in an engine
          with a bf16 pool (the prefix cache off), ByteTokenizer and the
@@ -157,6 +169,33 @@ Phase 7  prefix reuse, preemption and recovery at full Llama-3-8B width
          lane_eviction armed once each: one watchdog trip or dispatch
          failure each, every request complete, no decode graph recaptured.
 
+Phase 8  llama-1b and speculative decoding (runs after phase 3, before 4:
+         its launch counts are phase 4's records').  8a: llama-1b at full
+         width (16 layers, hidden 2048, vocab 128,256, random bf16 weights
+         from a seed, 32 slots, 256 x 16 table), phase 2's 16 prompts and
+         32 new tokens on bf16, int8, fp8 and decode_path="pallas" pools,
+         spec off: prefill dense (flash keeps head_dim 128), decode on the
+         fused, fused-quant and split kernels at D=64, each launched.  On 4
+         layers, verify_step's logits (B3 at QS=5) against 5 sequential
+         fused decode steps, by phase 3's rule.  Then the model is made to
+         quote (the JAX bench's spec_quote_accept construction: attention
+         and MLP outputs zeroed, the unembed walking a 200-token cycle) and
+         16 prompts of three cycle periods take 128 tokens, spec off (it
+         must walk the cycle) and spec_k 4 with spec_min_accept 0: the
+         split paged attention kernel launches at QS=5 and the spec program
+         is captured as a graph and replayed.  8b: phase 2's Llama-3-8B
+         model, spec off and spec_k 4 (spec_min_accept 0) on the bf16 and
+         int8 pools: flash prefill launches inside the spec calls (B1, B5);
+         on 4 layers verify_step against sequential decode on both pools.
+         Between the two, 8c: the monitor's default config (llama-1b,
+         spec_k 4, spec_min_accept 1.2, 32 slots, 512 x 16 blocks; bf16
+         weights) through build_server and phase 6's HTTP burst: every
+         response succeeds, the split paged attention kernel launches in
+         spec calls and fused decode in decode calls, no dispatch failure.
+         Each spec run prints its acceptance (tokens per lane-round),
+         decode tokens/s against spec off, spec_accept_ema() and how many
+         id sequences equal the spec-off run's.
+
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
 prints its reason and exits non-zero.
@@ -222,58 +261,60 @@ def _tables(torch, rng, B, nb_per_lane, num_blocks):
 
 
 def prefill_case(torch, rng, gen, B, S, starts, lengths, heads=(H, KVH),
-                 bs=BS):
+                 bs=BS, d=D):
     """q, pages, table, starts, lengths of one flash prefill call;
-    ``heads`` = (query heads, kv heads), ``bs`` tokens per block."""
+    ``heads`` = (query heads, kv heads), ``bs`` tokens per block, ``d`` the
+    head dim."""
     nh, nkv = heads
     ctx = max(s + n for s, n in zip(starts, lengths))
     nbl = (ctx + bs - 1) // bs + 1
     num_blocks = B * nbl + 1
     dev = "cuda"
-    q = torch.randn(B, S, nh, D, generator=gen, device=dev).to(torch.bfloat16)
-    kp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, S, nh, d, generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn(num_blocks, bs, nkv * d, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(num_blocks, bs, nkv * d, generator=gen, device=dev).to(torch.bfloat16)
     table = _tables(torch, rng, B, nbl, num_blocks).to(dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, kp, vp, table, st, ln
 
 
-def decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS):
+def decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS,
+                d=D):
     """q, k_new, v_new, cos, sin, pages, table, positions of one fused
-    decode call; ``nbl`` table blocks per lane."""
+    decode call; ``nbl`` table blocks per lane, ``d`` the head dim."""
     B = len(positions)
     num_blocks = B * nbl + 1
     nh, nkv = heads
     dev = "cuda"
     from k8s_llm_monitor_tpu_torch.ops.rope import rope_angles
 
-    q = torch.randn(B, 1, nh, D, generator=gen, device=dev).to(torch.bfloat16)
-    kn = torch.randn(B, 1, nkv, D, generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn(B, 1, nkv, D, generator=gen, device=dev).to(torch.bfloat16)
-    kp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn(num_blocks, bs, nkv * D, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, 1, nh, d, generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn(B, 1, nkv, d, generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn(B, 1, nkv, d, generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn(num_blocks, bs, nkv * d, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(num_blocks, bs, nkv * d, generator=gen, device=dev).to(torch.bfloat16)
     table = _tables(torch, rng, B, nbl, num_blocks).to(dev)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-    cos, sin = rope_angles(pos[:, None], D, 500_000.0)
+    cos, sin = rope_angles(pos[:, None], d, 500_000.0)
     return q, kn, vn, cos, sin, kp, vp, table, pos
 
 
 QUANTS = ("int8", "fp8")
 
 
-def _page_bytes(kv_quant):
+def _page_bytes(kv_quant, d=D):
     """Bytes one cached position of one kv head costs in the K or V plane:
-    D page elements, plus a float32 scale on a quantized pool."""
-    return D + 4 if kv_quant else 2 * D
+    ``d`` page elements, plus a float32 scale on a quantized pool."""
+    return d + 4 if kv_quant else 2 * d
 
 
-def quantize_pages(torch, pages, kv_quant):
+def quantize_pages(torch, pages, kv_quant, d=D):
     """(codes, scales) of a bf16 pool, by the port's own quantize_kv."""
     from k8s_llm_monitor_tpu_torch.models.llama import kv_quant_spec, quantize_kv
 
     qdtype, qmax = kv_quant_spec(kv_quant)
-    return quantize_kv(pages, pages.shape[-1] // D, qdtype, qmax)
+    return quantize_kv(pages, pages.shape[-1] // d, qdtype, qmax)
 
 
 def quant_prefill_case(torch, rng, gen, B, S, starts, lengths, kv_quant,
@@ -287,13 +328,13 @@ def quant_prefill_case(torch, rng, gen, B, S, starts, lengths, kv_quant,
 
 
 def quant_decode_case(torch, rng, gen, positions, nbl, kv_quant,
-                      heads=(H, KVH), bs=BS):
+                      heads=(H, KVH), bs=BS, d=D):
     """decode_case over a quantized pool, in the fused quant wrapper's
     argument order."""
     q, kn, vn, cos, sin, kp, vp, table, pos = decode_case(
-        torch, rng, gen, positions, nbl, heads, bs)
-    kq, ks = quantize_pages(torch, kp, kv_quant)
-    vq, vs = quantize_pages(torch, vp, kv_quant)
+        torch, rng, gen, positions, nbl, heads, bs, d)
+    kq, ks = quantize_pages(torch, kp, kv_quant, d)
+    vq, vs = quantize_pages(torch, vp, kv_quant, d)
     return q, kn, vn, cos, sin, kq, vq, ks, vs, table, pos
 
 
@@ -311,28 +352,30 @@ def prefill_work(starts, lengths, S, kv_quant=""):
     return qo + kv + table, 4 * D * H * pairs
 
 
-def decode_work(positions, kv_quant=""):
+def decode_work(positions, kv_quant="", heads=(H, KVH), d=D):
     """(bytes, flops) of one fused decode step: the cached rows (and
     scales) read, q, k_new, v_new, angles and positions read, out and the
     appended rows (and scales) written."""
+    nh, nkv = heads
     B = len(positions)
-    row = KVH * _page_bytes(kv_quant)
+    row = nkv * _page_bytes(kv_quant, d)
     cached = sum(p * row * 2 for p in positions)
-    io = B * (2 * H * D * 2 + 2 * KVH * D * 2 + 2 * row + 2 * D * 4 + 4)
+    io = B * (2 * nh * d * 2 + 2 * nkv * d * 2 + 2 * row + 2 * d * 4 + 4)
     table = 4 * sum((p + BS) // BS for p in positions)
-    flops = sum(4 * H * D * (p + 1) for p in positions if p > 0)
+    flops = sum(4 * nh * d * (p + 1) for p in positions if p > 0)
     return cached + io + table, flops
 
 
-def paged_attn_work(starts, qlens):
+def paged_attn_work(starts, qlens, heads=(H, KVH), d=D):
     """(bytes, flops) of the split paged attention: the keys the live
     tokens see (bf16 K and V), q and out of the live tokens, table,
     starts and qlens."""
+    nh, nkv = heads
     keys = [s + n for s, n in zip(starts, qlens)]
-    kv = sum(keys) * KVH * D * 2 * 2
-    qo = 2 * sum(qlens) * H * D * 2
+    kv = sum(keys) * nkv * d * 2 * 2
+    qo = 2 * sum(qlens) * nh * d * 2
     table = 4 * sum((k + BS - 1) // BS for k in keys) + 8 * len(starts)
-    flops = sum(4 * H * D * (s + i + 1)
+    flops = sum(4 * nh * d * (s + i + 1)
                 for s, n in zip(starts, qlens) for i in range(n))
     return kv + qo + table, flops
 
@@ -380,13 +423,13 @@ def decode_alone(torch, pa, case):
     less its checks, casts and allocations (timed by graph_ms)."""
     q, kn, vn, cos, sin, kp, vp = case[:7]
     scales, (table, pos) = case[7:-2], case[-2:]
-    B, _, nh, _ = q.shape
-    nkv = kp.shape[-1] // D
-    cs = cos.float().reshape(B, D).contiguous()
-    sn = sin.float().reshape(B, D).contiguous()
+    B, _, nh, d = q.shape
+    nkv = kp.shape[-1] // d
+    cs = cos.float().reshape(B, d).contiguous()
+    sn = sin.float().reshape(B, d).contiguous()
     nsplit, chunk = pa.decode_splits(table.shape[1], kp.shape[1],
                                      kp.element_size())
-    ws = torch.empty(pa.decode_workspace_floats(B, nkv, nh // nkv, nsplit, D),
+    ws = torch.empty(pa.decode_workspace_floats(B, nkv, nh // nkv, nsplit, d),
                      dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     suffix = {torch.bfloat16: "bf16", torch.int8: "int8",
@@ -395,8 +438,8 @@ def decode_alone(torch, pa, case):
     args = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cs.data_ptr(),
             sn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
             *(t.data_ptr() for t in scales), table.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), B, nh, nkv, kp.shape[1],
-            table.shape[1], nsplit, chunk, D ** -0.5)
+            out.data_ptr(), ws.data_ptr(), B, nh, nkv, d, kp.shape[1],
+            table.shape[1], nsplit, chunk, d ** -0.5)
 
     def call():      # on the current stream: graph_ms captures it
         check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0,
@@ -411,12 +454,12 @@ def paged_alone(torch, pa, q, kp, vp, table, lengths=None, starts=None,
     split kernel and its merge) on arguments prepared once: decode with
     ``lengths``, verify with ``starts`` and ``qlens`` (timed by
     graph_ms)."""
-    B, QS, nh, _ = q.shape
-    nkv = kp.shape[-1] // D
+    B, QS, nh, d = q.shape
+    nkv = kp.shape[-1] // d
     out = torch.empty_like(q)
     nsplit, chunk = pa.decode_splits(table.shape[1], kp.shape[1], 2)
     ws = torch.empty(pa.decode_workspace_floats(B, nkv, QS * (nh // nkv),
-                                                nsplit, D),
+                                                nsplit, d),
                      dtype=torch.float32, device=q.device)
     if lengths is not None:
         sym, lanes, dims = "paged_attn_decode_bf16", (lengths,), (B,)
@@ -425,8 +468,8 @@ def paged_alone(torch, pa, q, kp, vp, table, lengths=None, starts=None,
     fn = pa._kernel(sym)
     args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
             *(t.data_ptr() for t in lanes), out.data_ptr(), ws.data_ptr(),
-            *dims, nh, nkv, kp.shape[1], table.shape[1], nsplit, chunk,
-            D ** -0.5)
+            *dims, nh, nkv, d, kp.shape[1], table.shape[1], nsplit, chunk,
+            d ** -0.5)
 
     def call():      # on the current stream: graph_ms captures it
         check(fn(*args, torch.cuda.current_stream().cuda_stream) == 0,
@@ -563,6 +606,12 @@ def check_rows(torch, name, got, want, rows, errs, ulps):
 HIT_SHAPE = ([0, 1536, 1024, 1536, 0, 1280, 1536, 1100],
              [160, 32, 96, 128, 48, 160, 77, 140])
 
+# A verify call of the spec engines (phase 8): 32 lanes, each verifying
+# spec_k + 1 = 5 tokens from its position (page and chunk boundaries,
+# deep contexts), every fifth lane empty.
+VERIFY_SHAPE = ([(37 * i * i + 11 * i) % 2043 for i in range(32)],
+                [0 if i % 5 == 3 else 5 for i in range(32)])
+
 # Flash prefill cases of phase 1: (query heads, kv heads, S, starts,
 # lengths, tokens per block).  The Llama-3-8B heads (qpk 4) and block 16
 # unless stated.
@@ -588,6 +637,9 @@ PREFILL_CASES = [
     # flash path adds (a 2,300-token prompt admitted in one round)
     (H, KVH, 256, *HIT_SHAPE, BS),
     (H, KVH, 4096, [0], [2300], BS),
+    # speculative verify (VERIFY_SHAPE): 32 lanes, spec_k + 1 = 5 query
+    # tokens at the lanes' positions, some lanes empty
+    (H, KVH, 5, *VERIFY_SHAPE, BS),
 ]
 
 
@@ -614,20 +666,41 @@ def decode_cases(rng, chunks):
     ]
 
 
-def decode_b3_cases(rng):
+# llama-1b's heads: head_dim 64, 32 query heads over 8 kv heads (qpk 4), and
+# a qpk-8 geometry at the same head_dim (16 over 2).
+D64 = 64
+HEADS_1B = (32, 8)
+
+
+def decode_cases_d64(rng, chunks):
+    """decode_cases at head_dim 64: the same positions (chunk boundaries,
+    an inactive lane, one cached row, the table's last row and a lane past
+    it), llama-1b's heads and 16/2, and blocks of 12."""
+    edges = sorted({0, 1} | {p for c in chunks
+                             for p in (c - 1, c, c + 1, 2 * c)})
+    fixed = edges + [15, 16, 17, 2047, 2051]
+    return [
+        (HEADS_1B, fixed + [int(x) for x in rng.integers(
+            1, 2048, size=32 - len(fixed))], 128, BS),
+        ((16, 2), edges + [1000, 2047, 2051], 128, BS),
+        (HEADS_1B, edges + [11, 12, 1535, 1539], 128, 12),
+    ]
+
+
+def decode_b3_cases(rng, heads=((H, KVH), (64, 8), (32, 32))):
     """Split paged attention at QS=1, through the decode wrapper: (heads,
     positions, tokens per block).  Positions (the new token's, length - 1)
     on both sides of the 256-key chunk boundaries, one key (0), and lane
     1, which phase 1 empties (length 0)."""
     edges = [0, 5, 1, 15, 16, 17, 255, 256, 257, 511, 512, 513, 2047]
+    main = heads[0]
     return [
-        ((H, KVH), edges + [int(x) for x in rng.integers(
+        (main, edges + [int(x) for x in rng.integers(
             1, 2048, size=32 - len(edges))], BS),
-        # qpk 8 (64/8 heads) and qpk 1 (32/32)
-        ((64, 8), edges, BS),
-        ((32, 32), edges, BS),
+        # the other query heads per kv head (qpk 8 and 1 at head_dim 128)
+        *((h, edges, BS) for h in heads[1:]),
         # blocks of 12 tokens: the kernel divides by multiply and shift
-        ((H, KVH), edges + [11, 12, 1535], 12),
+        (main, edges + [11, 12, 1535], 12),
     ]
 
 
@@ -659,6 +732,26 @@ PAGED_CASES = [
 ]
 
 
+# PAGED_CASES at head_dim 64: llama-1b's heads (qpk 4) at QS 1..8, the
+# spec verify shape (QS 5: 20 rows, two row tiles) among them, and 16/2
+# heads (qpk 8: 16, 24 and 40 rows, one, two and four row tiles).
+PAGED_CASES_D64 = [
+    (HEADS_1B, 8, [248, 249, 250, 255, 256, 257, 504, 505, 511, 512, 0, 3,
+                   1000, 2040, 766, 0],
+     [8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 5, 3, 8, 8, 0], BS),
+    (HEADS_1B, 5, [0, 3, 15, 700, 2000, 1, 64, 0, 252, 253, 254, 255],
+     [5, 5, 1, 4, 5, 2, 0, 3, 5, 4, 5, 5], BS),
+    (HEADS_1B, 1, [0, 255, 256, 1000, 0], [1, 1, 1, 1, 0], BS),
+    *((HEADS_1B, qs, [0, 256 - qs, 700, 0], [qs, qs, qs - 1, 0], BS)
+      for qs in (2, 3, 4, 6, 7)),
+    ((16, 2), 8, [0, 250, 255, 256, 1000, 0], [8, 8, 8, 8, 6, 0], BS),
+    ((16, 2), 2, [0, 255, 700], [2, 2, 1], BS),
+    ((16, 2), 3, [0, 254, 700], [3, 3, 2], BS),
+    ((16, 2), 5, [0, 253, 700], [5, 5, 4], BS),
+    (HEADS_1B, 5, [0, 37, 250, 255, 300, 0], [5, 5, 5, 5, 3, 0], 12),
+]
+
+
 def phase1(torch, np, st):
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 
@@ -666,8 +759,11 @@ def phase1(torch, np, st):
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs, ulps = {}, {}
     for kvq in ("",) + QUANTS if wanted(st, "flash_prefill") else ():
-        name = f"flash_prefill_{kvq}" if kvq else "flash_prefill"
         for nh, nkv, S, starts, lengths, bs in PREFILL_CASES:
+            # The verify shape (S = spec_k + 1) is held under its own name:
+            # the spec path's kernel record.
+            name = ((f"flash_prefill_{kvq}" if kvq else "flash_prefill")
+                    + ("_verify" if S <= pa.MAX_QUERY_TOKENS else ""))
             if kvq:
                 case, scales = quant_prefill_case(
                     torch, rng, gen, len(starts), S, starts, lengths, kvq,
@@ -696,21 +792,25 @@ def phase1(torch, np, st):
     # fused decode over bf16, int8 and fp8 pools, every case of
     # decode_cases: outputs of the lanes the table covers (bf16: an
     # inactive lane's output is exactly its v_new), pages, codes, scales.
-    for heads, positions, nbl, bs in decode_cases(
-            rng, set(pa.DECODE_CHUNK.values())) if wanted(
-                st, "fused_decode") else ():
+    chunks = set(pa.DECODE_CHUNK.values())
+    dcases = [(D, c) for c in decode_cases(rng, chunks)] + [
+        (D64, c) for c in decode_cases_d64(rng, chunks)]
+    for d, (heads, positions, nbl, bs) in dcases if wanted(
+            st, "fused_decode") else ():
         nh, nkv = heads
         pos_t = torch.tensor(positions, device="cuda")
         covered = (pos_t > 0) & (pos_t < nbl * bs)
         for kvq in ("",) + QUANTS:
-            name = f"fused_decode_{kvq}" if kvq else "fused_decode"
+            name = ((f"fused_decode_{kvq}" if kvq else "fused_decode")
+                    + ("_d64" if d == D64 else ""))
             if kvq:
                 case = quant_decode_case(torch, rng, gen, positions, nbl,
-                                         kvq, heads, bs)
+                                         kvq, heads, bs, d)
                 kernel = pa.paged_decode_attention_fused_quant
                 plain = pa.paged_decode_attention_fused_quant_plain
             else:
-                case = decode_case(torch, rng, gen, positions, nbl, heads, bs)
+                case = decode_case(torch, rng, gen, positions, nbl, heads, bs,
+                                   d)
                 kernel = pa.paged_decode_attention_fused
                 plain = pa.paged_decode_attention_fused_plain
             ck = [t.clone() for t in case]
@@ -756,7 +856,7 @@ def phase1(torch, np, st):
                                       for i in (3, 4))))
                 extra = (f"outputs; {ncodes} codes and {nscales} scales "
                          "differ")
-            print(f"phase 1: {name} H={nh} KVH={nkv} bs={bs} table "
+            print(f"phase 1: {name} H={nh} KVH={nkv} D={d} bs={bs} table "
                   f"{nbl}x{bs} B={len(positions)} positions "
                   f"{positions[:12]}{'...' if len(positions) > 12 else ''}: "
                   f"ok, max abs err {errs[name]:.4g}, max err "
@@ -767,11 +867,17 @@ def phase1(torch, np, st):
     # split paged attention: decode (QS=1, through the decode wrapper, with
     # an empty lane) and PAGED_CASES (through the verify wrapper): rows of
     # live tokens at 2 ulps, rows past qlens and empty lanes exactly zero.
-    if wanted(st, "paged_attn"):
-        for heads, positions, bs in decode_b3_cases(rng):
+    b3 = [(D, "paged_attn", decode_b3_cases(rng), PAGED_CASES),
+          (D64, "paged_attn_d64",
+           decode_b3_cases(rng, (HEADS_1B, (16, 2))), PAGED_CASES_D64)]
+    for d, name, dec_cases, ver_cases in b3 if wanted(
+            st, "paged_attn") else ():
+        # QS > 1 is held under its own name: the spec verify path's record.
+        vname = "paged_attn_verify" + ("_d64" if d == D64 else "")
+        for heads, positions, bs in dec_cases:
             nbl = 2048 // bs + 1
             q, _, _, _, _, kp, vp, table, pos = decode_case(
-                torch, rng, gen, positions, nbl, heads, bs)
+                torch, rng, gen, positions, nbl, heads, bs, d)
             lens = pos + 1
             lens[1] = 0                                  # an empty lane
             got = pa.paged_decode_attention_pallas(q, kp, vp, table, lens)
@@ -779,30 +885,31 @@ def phase1(torch, np, st):
                 q, kp, vp, table, (lens - 1).clamp(min=0), lens.clamp(max=1))
             torch.cuda.synchronize()
             check(bool((got[1] == 0).all()),
-                  "paged_attn QS=1: the empty lane is not zeroed")
-            check_rows(torch, "paged_attn", got, want, lens > 0, errs, ulps)
-            print(f"phase 1: paged_attn QS=1 H={heads[0]} KVH={heads[1]} "
+                  f"{name} QS=1: the empty lane is not zeroed")
+            check_rows(torch, name, got, want, lens > 0, errs, ulps)
+            print(f"phase 1: {name} QS=1 H={heads[0]} KVH={heads[1]} D={d} "
                   f"bs={bs} B={len(positions)} lengths "
                   f"{lens.tolist()[:12]}...: ok, max abs err "
-                  f"{errs['paged_attn']:.4g}, max err "
-                  f"{ulps['paged_attn']:.3g} ulps of the row")
-        for (nh, nkv), QS, starts, qlens, bs in PAGED_CASES:
+                  f"{errs[name]:.4g}, max err "
+                  f"{ulps[name]:.3g} ulps of the row")
+        for (nh, nkv), QS, starts, qlens, bs in ver_cases:
             vcase = prefill_case(torch, rng, gen, len(starts), QS, starts,
-                                 qlens, (nh, nkv), bs)
+                                 qlens, (nh, nkv), bs, d)
             got = pa.paged_verify_attention_pallas(*vcase)
             want = pa.flash_prefill_attention_plain(*vcase)
             torch.cuda.synchronize()
+            rname = vname if QS > 1 else name
             for b, n in enumerate(qlens):
                 check(bool((got[b, n:] == 0).all()),
-                      f"paged_attn QS={QS}: rows past qlens of lane {b} not "
+                      f"{rname} QS={QS}: rows past qlens of lane {b} not "
                       "zeroed")
                 if n:
-                    check_rows(torch, "paged_attn", got[b, :n], want[b, :n],
+                    check_rows(torch, rname, got[b, :n], want[b, :n],
                                slice(None), errs, ulps)
-            print(f"phase 1: paged_attn QS={QS} H={nh} KVH={nkv} bs={bs} "
+            print(f"phase 1: {rname} QS={QS} H={nh} KVH={nkv} D={d} bs={bs} "
                   f"starts={starts} qlens={qlens}: ok, max abs err "
-                  f"{errs['paged_attn']:.4g}, max err "
-                  f"{ulps['paged_attn']:.3g} ulps of the row")
+                  f"{errs[rname]:.4g}, max err "
+                  f"{ulps[rname]:.3g} ulps of the row")
             del vcase, got, want
     print(f"phase 1: tolerance atol {TOL['atol']} rtol {TOL['rtol']} and "
           f"{ULP_TOL} bf16 ulps of each (row, head)'s largest value; "
@@ -1543,6 +1650,25 @@ def front_door_burst(port):
     return out, stream["s"], wall
 
 
+def check_burst(out, stream):
+    """Every response of a front_door_burst 200 and "success", every
+    verdict of the grammar's schema, the stream ended without an error."""
+    for name, (status, body, _) in out.items():
+        # /api/v1/stats' envelope has no "status" key (as in the JAX
+        # server): it must carry the engine block instead.
+        ok = (body["engine"] is not None if name.startswith("stats")
+              else body.get("status") == "success")
+        check(status == 200 and ok, f"{name}: HTTP {status} "
+                                    f"{str(body)[:300]}")
+    for i in range(4):
+        check_verdict(out[f"analyze-{i}"][1]["result"]["verdict"],
+                      f"analyze-{i}")
+    s_status, events, _, _ = stream
+    check(s_status == 200 and events and events[-1].get("done")
+          and not any("error" in e for e in events),
+          f"stream: HTTP {s_status}, events {events[-3:]}")
+
+
 def greedy_eight(backend, eng, prompts, arm_after_steps=None):
     """Eight greedy backend.generate calls at once; with
     ``arm_after_steps`` the step_loop_crash injector is armed once, after
@@ -1683,20 +1809,8 @@ def phase6(torch, np, st):
         torch.cuda.synchronize()
         launches = {"flash_prefill": pa.flash_prefill_attention.launches,
                     "fused_decode": pa.paged_decode_attention_fused.launches}
-        for name, (status, body, _) in out.items():
-            # /api/v1/stats' envelope has no "status" key (as in the JAX
-            # server): it must carry the engine block instead.
-            ok = (body["engine"] is not None if name.startswith("stats")
-                  else body.get("status") == "success")
-            check(status == 200 and ok, f"{name}: HTTP {status} "
-                                        f"{str(body)[:300]}")
-        for i in range(4):
-            check_verdict(out[f"analyze-{i}"][1]["result"]["verdict"],
-                          f"analyze-{i}")
+        check_burst(out, stream)
         s_status, events, first_s, s_wall = stream
-        check(s_status == 200 and events and events[-1].get("done")
-              and not any("error" in e for e in events),
-              f"stream: HTTP {s_status}, events {events[-3:]}")
         check(all(n > 0 for n in launches.values()),
               f"a kernel never launched on the front door's path: {launches}")
         st["front_door_launches"] = launches
@@ -2183,16 +2297,412 @@ def phase7(torch, np, st):
     torch.cuda.empty_cache()
 
 
+def clone_pages(pages):
+    """A deep copy of a KVPages pool (pages and scale planes)."""
+    return dataclasses.replace(
+        pages, k=[t.clone() for t in pages.k], v=[t.clone() for t in pages.v],
+        k_scale=[t.clone() for t in pages.k_scale],
+        v_scale=[t.clone() for t in pages.v_scale])
+
+
+def verify_vs_decode(torch, np, model, label, kv_quant, prefill_impl,
+                     verify_impl, decode_impl):
+    """On ``model`` (4 layers): verify_step's logits at each of the 5
+    positions of a draft chain against 5 sequential decode_step calls fed
+    the same tokens over a copy of the same pool, held by phase 3's rule
+    (logit tolerance, argmax agreement with the near-ties counted)."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    cfg = model.cfg
+    rng = np.random.default_rng(8)
+    lens = [100, 517, 1024, 33]
+    B, S = len(lens), 1024
+    toks = np.zeros((B, S), np.int32)
+    for b, n in enumerate(lens):
+        toks[b, :n] = rng.integers(3, cfg.vocab_size, size=n)
+    nbl = 1024 // BS + 4
+    tables = torch.arange(1, B * nbl + 1, dtype=torch.int32,
+                          device=dev).reshape(B, nbl)
+    len_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pages = llama.init_kv_pages(cfg, B * nbl + 1, BS, dev, kv_quant=kv_quant)
+    llama.prefill(model, torch.from_numpy(toks).to(dev), len_t, pages,
+                  tables, attn_impl=prefill_impl)
+    fed = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, 5))
+                           .astype(np.int32)).to(dev)
+    got, _ = llama.verify_step(model, fed, len_t, torch.full_like(len_t, 5),
+                               clone_pages(pages), tables,
+                               attn_impl=verify_impl)
+    want = []
+    for i in range(5):
+        lg, _ = llama.decode_step(model, fed[:, i], len_t + i, pages, tables,
+                                  attn_impl=decode_impl)
+        want.append(lg)
+    torch.cuda.synchronize()
+    got = [got[:, i] for i in range(5)]
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    tol = QUANT_LOGIT_ATOL if kv_quant else LOGIT_ATOL
+    agree, n_ties, n_rows = argmax_agreement(got, want, tol)
+    print(f"phase 8: 4-layer {cfg.name}, {label}: verify_step vs 5 "
+          f"sequential decode steps: logit max abs err per position "
+          f"{[round(e, 4) for e in errs]} (tolerance {tol}); argmax "
+          f"agreement {agree:.3f} (at least {MIN_ARGMAX_AGREE}; {n_ties} of "
+          f"{n_rows} rows are decode-path near-ties within {tol})")
+    check(max(errs) <= tol, f"{label}: verify logits differ by "
+                            f"{max(errs):.4g}")
+    check(agree >= MIN_ARGMAX_AGREE, f"{label}: argmax agreement {agree:.3f}")
+
+
+class SpecCalls:
+    """While installed, counts the engine's spec program calls and the
+    kernel launches they add to the wrappers' counts (the count deltas
+    around each call: a captured program's first call runs its work once,
+    a replay adds the launches the capture recorded)."""
+
+    def __enter__(self):
+        from k8s_llm_monitor_tpu_torch.ops.paged_attention import (
+            KERNEL_WRAPPERS)
+        from k8s_llm_monitor_tpu_torch.serving.engine import _SpecProgram
+
+        self.calls = 0
+        self.launches = {fn.__name__: 0 for fn in KERNEL_WRAPPERS}
+        # The class inherits __call__: restored by deleting the override.
+        orig = _SpecProgram.__call__
+
+        def call(prog):
+            before = [fn.launches for fn in KERNEL_WRAPPERS]
+            out = orig(prog)
+            self.calls += 1
+            for fn, b in zip(KERNEL_WRAPPERS, before):
+                self.launches[fn.__name__] += fn.launches - b
+            return out
+
+        _SpecProgram.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from k8s_llm_monitor_tpu_torch.serving.engine import _SpecProgram
+
+        del _SpecProgram.__call__
+
+
+def spec_run(torch, st, model, prompts, name, overrides, max_tokens,
+             paths, want_launch):
+    """One phase 8 engine: 32 slots, the 256-block table, greedy; the
+    prompts run twice, launch counts set to 0 just before the first run
+    and read just after it.  Every request must finish, no dispatch may
+    fail, and each wrapper of ``want_launch`` must have launched.  Returns
+    (engine, the first run's ids, its launches, the second (warm) run's
+    decode tok/s: the first captures the graphs, and the two runs'
+    SpecCalls)."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+
+    ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
+                        max_blocks_per_seq=ENGINE_TABLE,
+                        max_prefills_per_step=8, decode_steps_per_iter=8,
+                        prefix_cache_entries=0, **overrides)
+    eng = InferenceEngine(model.cfg, model, ecfg)
+    check((eng.prefill_path, eng.decode_path) == paths,
+          f"{name}: paths {eng.prefill_path}/{eng.decode_path}, expected "
+          f"{'/'.join(paths)}")
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    with SpecCalls() as first:
+        res = eng.generate(prompts, SamplingParams(max_tokens=max_tokens))
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in pa.KERNEL_WRAPPERS}
+    for r in res:
+        check(r.finish_reason in ("eos", "length")
+              and all(0 <= t < model.cfg.vocab_size for t in r.token_ids),
+              f"{name} {r.request_id}: {r.finish_reason} {r.error}")
+    check(all(launches[w] > 0 for w in want_launch),
+          f"{name}: a kernel of its path never launched: {launches}")
+    cold = eng.decode_tokens / eng.decode_s
+    tokens0, secs0 = eng.decode_tokens, eng.decode_s
+    with SpecCalls() as second:
+        res2 = eng.generate(prompts, SamplingParams(max_tokens=max_tokens))
+        torch.cuda.synchronize()
+    check(all(r.finish_reason in ("eos", "length") for r in res2),
+          f"{name}: the second run did not finish")
+    check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+          f"{name}: {eng.dispatch_failures} dispatch failures")
+    tok_s = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
+    same = sum(a.token_ids == b.token_ids for a, b in zip(res, res2))
+    print(f"phase 8: {name}: {len(res)} requests in {wall:.2f} s, decode "
+          f"{cold:.1f} tok/s cold, {tok_s:.1f} tok/s warm ({same} of "
+          f"{len(res)} id sequences equal across the two runs; "
+          f"{eng.decode_tokens} tokens, {eng.decode_steps} decode steps in "
+          f"both), launches { {k: v for k, v in launches.items() if v} } "
+          f"(first run); {graph_line(torch, eng)} [{st['gpu']}]")
+    return eng, [r.token_ids for r in res], launches, tok_s, (first, second)
+
+
+def spec_report(torch, eng, name, ids, ref_ids, tok_s, ref_tok_s, spec,
+                verify):
+    """Print a spec run's acceptance, speed against spec off, EMA and ids
+    against the spec-off run's; require a spec program captured as a graph
+    and replayed, and the ``verify`` wrapper launched once per layer in
+    every round of every spec call of the first run.  Returns those
+    launches."""
+    first, second = spec
+    acc = eng.spec_tokens / max(eng.spec_lane_rounds, 1)
+    progs = [p for k, p in eng._programs.items() if k[0] == "spec"]
+    calls = first.calls + second.calls
+    check(eng.spec_verify_steps > 0 and progs, f"{name}: no spec call ran")
+    check(all(p.graph is not None for p in progs) and calls > len(progs),
+          f"{name}: the spec program was not captured and replayed: "
+          f"{len(progs)} programs, {calls} calls")
+    per_call = eng.ecfg.spec_rounds_per_iter * eng.cfg.num_layers
+    in_spec = first.launches[verify]
+    check(in_spec == first.calls * per_call > 0,
+          f"{name}: {in_spec} {verify} launches in {first.calls} spec calls "
+          f"of the first run, expected {per_call} per call")
+    same = sum(a == b for a, b in zip(ids, ref_ids))
+    print(f"phase 8: {name}: acceptance {acc:.3f} tokens per lane-round "
+          f"({eng.spec_tokens} tokens over {eng.spec_lane_rounds} "
+          f"lane-rounds, {eng.spec_verify_steps} verify forwards, both "
+          f"runs), warm decode "
+          f"{tok_s:.1f} tok/s with spec against {ref_tok_s:.1f} without "
+          f"({tok_s / ref_tok_s:.2f}x), spec_accept_ema "
+          f"{eng.spec_accept_ema()}, spec programs captured "
+          f"{len(progs)} and called {calls} times ({first.calls} in the "
+          f"first run, with {in_spec} {verify} launches); {same} of "
+          f"{len(ids)} id sequences equal to the spec-off run's")
+    return in_spec
+
+
+def quote_checkpoint(torch, model, orbit):
+    """Make ``model`` quote, in place (the JAX bench's spec_quote_accept
+    construction): attention and MLP output projections zeroed, so the
+    residual stream carries the current token's embedding, and the unembed
+    wired so greedy decode walks ``orbit`` cyclically.  Every kernel still
+    runs; a prompt holding periods of the cycle is a quoting workload."""
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.o.weight.zero_()
+            layer.down.weight.zero_()
+        w = model.lm_head.weight
+        w.zero_()
+        idx = torch.tensor(orbit, device=w.device)
+        w[torch.roll(idx, -1)] = model.embed.weight[idx]
+
+
+def phase8(torch, np, st):
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA_1B
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    st.setdefault("launches", {})
+    # (a) llama-1b, the monitor's default model, at full width.
+    cfg = LLAMA_1B
+    t0 = time.monotonic()
+    model = llama.LlamaModel(cfg, seed=1)
+    torch.cuda.synchronize()
+    print(f"phase 8: {cfg.name} ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, head_dim {cfg.head_dim_}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads) random bf16 weights in "
+          f"{time.monotonic() - t0:.1f} s, {llama.param_bytes(model)} B")
+    rng = np.random.default_rng(2)
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    for label, over, paths, wrapper, rec in (
+            ("bf16", {}, ("dense", "fused"),
+             "paged_decode_attention_fused", "fused_decode_d64"),
+            ("int8", {"kv_dtype": "int8"}, ("dense", "fused"),
+             "paged_decode_attention_fused_quant", "fused_decode_int8_d64"),
+            ("fp8", {"kv_dtype": "fp8"}, ("dense", "fused"),
+             "paged_decode_attention_fused_quant", "fused_decode_fp8_d64"),
+            ("pallas", {"decode_path": "pallas"}, ("dense", "pallas"),
+             "paged_decode_attention_pallas", "paged_attn_d64")):
+        eng, _, launches, _, _ = spec_run(
+            torch, st, model, prompts, f"{cfg.name} {label} spec off", over,
+            32, paths, (wrapper,))
+        st["launches"][rec] = launches[wrapper]
+        del eng
+        torch.cuda.empty_cache()
+    verify_vs_decode(torch, np, truncated(model, 4), "B3 verify (QS=5) vs "
+                     "fused decode, bf16 pool", "", None,
+                     pa.paged_verify_attention_pallas,
+                     pa.paged_decode_attention_fused)
+    # The quote burst: 16 requests, each 3 periods of a 200-token cycle
+    # (rotated per lane) and 128 new tokens that walk it on.
+    n_cyc = 200
+    orbit = list(range(1000, 1000 + n_cyc))
+    quote_checkpoint(torch, model, orbit)
+    qprompts = [(orbit[i * 11:] + orbit[:i * 11]) * 3 for i in range(16)]
+    off_eng, off_ids, _, off_tok_s, _ = spec_run(
+        torch, st, model, qprompts, f"{cfg.name} quote burst, spec off", {},
+        128, ("dense", "fused"), ("paged_decode_attention_fused",))
+    for i, got in enumerate(off_ids):
+        want = [orbit[(i * 11 + j) % n_cyc] for j in range(128)]
+        check(got == want, f"quote checkpoint: lane {i} left the cycle")
+    del off_eng
+    eng, ids, launches, tok_s, spec = spec_run(
+        torch, st, model, qprompts, f"{cfg.name} quote burst, spec_k 4",
+        dict(spec_k=4, spec_min_accept=0.0), 128, ("dense", "fused"),
+        ("paged_verify_attention_pallas",))
+    check(eng._verify_attn is pa.paged_verify_attention_pallas,
+          f"llama-1b spec verify path {eng._verify_attn}")
+    in_spec = spec_report(torch, eng, f"{cfg.name} quote burst", ids,
+                          off_ids, tok_s, off_tok_s, spec,
+                          "paged_verify_attention_pallas")
+    check(in_spec == launches["paged_verify_attention_pallas"],
+          "llama-1b: the verify wrapper launched outside spec calls")
+    # The verify wrapper's launches on the spec path, all at head_dim 64:
+    # the Llama-3-8B engines verify through flash prefill, so its head_dim
+    # 128 instance has no caller on the main path.
+    st["launches"]["paged_attn_verify_d64"] = in_spec
+    st["launches"]["paged_attn_verify"] = 0
+    del eng, model
+    torch.cuda.empty_cache()
+    default_front_door(torch, np, st)
+
+    # (b) phase 2's Llama-3-8B model: verify through flash prefill (B1) on
+    # the bf16 pool and through its int8 instance (B5), every call drafting.
+    model = st.get("model")
+    if model is None:
+        from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+
+        model = llama.LlamaModel(LLAMA3_8B, seed=0)
+        st["model"] = model
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    for label, over, rec in (("bf16", {}, "flash_prefill_verify"),
+                             ("int8", {"kv_dtype": "int8"},
+                              "flash_prefill_int8_verify")):
+        off_eng, off_ids, _, off_tok_s, _ = spec_run(
+            torch, st, model, prompts, f"{cfg.name} {label} spec off", over,
+            32, ("flash", "fused"), ("flash_prefill_attention",))
+        del off_eng
+        eng, ids, _, tok_s, spec = spec_run(
+            torch, st, model, prompts, f"{cfg.name} {label} spec_k 4",
+            dict(over, spec_k=4, spec_min_accept=0.0), 32,
+            ("flash", "fused"), ("flash_prefill_attention",))
+        check(eng._verify_attn is pa.flash_prefill_attention,
+              f"{cfg.name} spec verify path {eng._verify_attn}")
+        # Flash prefill inside the first run's spec (verify) calls only:
+        # its prefill launches are not counted here.
+        st["launches"][rec] = spec_report(
+            torch, eng, f"{cfg.name} {label}", ids, off_ids, tok_s,
+            off_tok_s, spec, "flash_prefill_attention")
+        del eng
+        torch.cuda.empty_cache()
+    m4 = truncated(model, 4)
+    verify_vs_decode(torch, np, m4, "B1 verify vs fused decode, bf16 pool",
+                     "", pa.flash_prefill_attention,
+                     pa.flash_prefill_attention,
+                     pa.paged_decode_attention_fused)
+    verify_vs_decode(torch, np, m4, "B5 verify vs fused quant decode, int8 "
+                     "pool", "int8", pa.flash_prefill_attention,
+                     pa.flash_prefill_attention,
+                     pa.paged_decode_attention_fused_quant)
+
+
+def default_front_door(torch, np, st):
+    """8c: the monitor's default model served as load_config(None) gives
+    it (llama-1b from seed 0, spec_k 4, spec_min_accept 1.2, 32 slots, 512
+    blocks of 16: a 1,024-token table), bf16 weights (w8a8 waits for
+    ROADMAP A6), through build_server: the supervisor's step thread
+    captures the spec and decode graphs, and phase 6's HTTP burst puts
+    spec calls beside admissions in flight and constrained lanes under the
+    acceptance gate.  Every response must succeed, the split paged
+    attention kernel must launch in spec calls at QS=5 and the fused
+    kernel in decode calls, with no dispatch failure or restart."""
+    import gc
+    import shutil
+    import tempfile
+
+    from k8s_llm_monitor_tpu_torch.monitor.cluster import (
+        FakeCluster, seed_demo_cluster)
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.server import build_server
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    gpu = st["gpu"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_default_")
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    cfg.llm.provider = "tpu"
+    cfg.llm.max_tokens = 64
+    cfg.llm.tpu.quantize = ""
+    cfg.lifecycle.journal_dir = tmp
+    cfg.telemetry.enabled = False
+    cfg.remediation.enabled = False
+    tc = cfg.llm.tpu
+    t0 = time.monotonic()
+    srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+    boot_s = time.monotonic() - t0
+    backend = srv.analysis.backend
+    sup = backend.supervisor
+    try:
+        eng = backend.engine
+        check((tc.model, eng.ecfg.spec_k, eng.ecfg.spec_min_accept)
+              == ("llama-1b", 4, 1.2), f"not the default config: {tc}")
+        check((eng.prefill_path, eng.decode_path, eng.kv_quant,
+               eng._verify_attn) == ("dense", "fused", "",
+                                     pa.paged_verify_attention_pallas),
+              f"engine paths {eng.prefill_path}/{eng.decode_path} pool "
+              f"{eng.kv_quant or 'bf16'} verify {eng._verify_attn}")
+        srv.start()
+        pa.reset_launch_counts()
+        with SpecCalls() as spec:
+            out, stream, wall = front_door_burst(srv.port)
+            torch.cuda.synchronize()
+        check_burst(out, stream)
+        decode = pa.paged_decode_attention_fused.launches
+        verify = spec.launches["paged_verify_attention_pallas"]
+        check(eng.spec_verify_steps > 0 and spec.calls > 0 and verify > 0
+              and decode > 0,
+              f"default config: {spec.calls} spec calls, {verify} verify "
+              f"and {decode} fused decode launches")
+        check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0
+              and sup.restarts == 0,
+              f"default config: {eng.dispatch_failures} dispatch failures, "
+              f"{eng.watchdog_trips} watchdog trips, {sup.restarts} restarts")
+        q_walls = sorted(out[f"query-{i}"][2] for i in range(16))
+        print(f"phase 8: the default config ({tc.model}, spec_k "
+              f"{tc.spec_k}, spec_min_accept {tc.spec_min_accept}, "
+              f"{tc.max_batch} slots, {tc.kv_blocks} blocks) through "
+              f"build_server in {boot_s:.2f} s; burst of 24 over HTTP in "
+              f"{wall:.2f} s, query wall p50 "
+              f"{np.percentile(q_walls, 50) * 1e3:.1f} ms, all 200/success, "
+              f"4 verdicts parse; {spec.calls} spec calls ("
+              f"{eng.spec_verify_steps} verify forwards, acceptance "
+              f"{eng.spec_tokens / max(eng.spec_lane_rounds, 1):.3f} tokens "
+              f"per lane-round, spec_accept_ema {eng.spec_accept_ema()}), "
+              f"launches: split paged attention QS=5 {verify} (in spec "
+              f"calls), fused decode {decode}; {graph_line(torch, eng)} "
+              f"[{gpu}]")
+    finally:
+        sup.shutdown(grace_s=0.0)
+        srv.stop()
+        del backend, sup, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 SOURCES = {
     "flash_prefill": "k8s_llm_monitor_tpu_torch/csrc/flash_prefill.cu",
     "fused_decode": "k8s_llm_monitor_tpu_torch/csrc/fused_decode.cu",
     "paged_attn": "k8s_llm_monitor_tpu_torch/csrc/paged_attn.cu",
 }
-REPLACES = {   # k8s_llm_monitor_tpu/ops/pallas_attention.py:<line>
-    "flash_prefill": 1150, "fused_decode": 471, "paged_attn": 190,
-    "flash_prefill_int8": 1150, "flash_prefill_fp8": 1150,
-    "fused_decode_int8": 822, "fused_decode_fp8": 822,
-}
+
+
+def replaces(name: str) -> int:
+    """The line of k8s_llm_monitor_tpu/ops/pallas_attention.py whose
+    function reaches the pl.pallas_call that the record's kernel replaces
+    (records are named <kernel>[_int8|_fp8][_verify][_d64])."""
+    if name.startswith("fused_decode"):
+        return 822 if ("_int8" in name or "_fp8" in name) else 471
+    return {"flash_prefill": 1150, "paged_attn": 190}[
+        "_".join(name.split("_")[:2])]
 
 
 def phase4(torch, np, st):
@@ -2200,7 +2710,7 @@ def phase4(torch, np, st):
 
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.ops.attention import (
-        gather_dequant, gather_pages)
+        gather_dequant, gather_pages, paged_verify_attention)
 
     rng = np.random.default_rng(4)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -2210,9 +2720,9 @@ def phase4(torch, np, st):
     def record(name, shape, ms, plain_ms, lib_ms, b_ms, by):
         records.append(dict(
             name=name, shape=shape, route="cuda",
-            source=SOURCES[name.replace("_int8", "").replace("_fp8", "")],
+            source=SOURCES["_".join(name.split("_")[:2])],
             replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:"
-                     f"{REPLACES[name]}",
+                     f"{replaces(name)}",
             launches=st.get("launches", {}).get(name),
             max_abs_err=st.get("max_abs_err", {}).get(name),
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
@@ -2221,17 +2731,18 @@ def phase4(torch, np, st):
     def sdpa_inputs(q, kp, vp, table, ctx_max, mask, scales):
         """q, K, V and mask for one SDPA call: K/V gathered (and
         dequantized to bf16) beforehand, heads repeated, batch-head major."""
-        B = q.shape[0]
+        B, _, nh, d = q.shape
+        nkv = kp.shape[-1] // d
         nb = (ctx_max + BS - 1) // BS
         if scales:
-            k = gather_dequant(kp, scales["k_scale"], table[:, :nb], D)
-            v = gather_dequant(vp, scales["v_scale"], table[:, :nb], D)
+            k = gather_dequant(kp, scales["k_scale"], table[:, :nb], d)
+            v = gather_dequant(vp, scales["v_scale"], table[:, :nb], d)
             k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
         else:
-            k = gather_pages(kp, table[:, :nb]).reshape(B, -1, KVH, D)
-            v = gather_pages(vp, table[:, :nb]).reshape(B, -1, KVH, D)
+            k = gather_pages(kp, table[:, :nb]).reshape(B, -1, nkv, d)
+            v = gather_pages(vp, table[:, :nb]).reshape(B, -1, nkv, d)
         k, v = k[:, :ctx_max], v[:, :ctx_max]
-        rep = H // KVH
+        rep = nh // nkv
         k = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
         v = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
         return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
@@ -2378,13 +2889,14 @@ def phase4(torch, np, st):
                 qs, k, v, attn_mask=m, scale=1.0), reps=5)
             b_ms, by = bound(*paged_attn_work(sts, qls))
             nsplit, chunk = pa.decode_splits(nbl, BS, 2)
-            print(f"phase 4: paged_attn {label} B=32 QS={QS} active="
+            rname = "paged_attn" + ("_verify" if QS > 1 else "")
+            print(f"phase 4: {rname} {label} B=32 QS={QS} active="
                   f"{sum(n > 0 for n in qls)} max length {ctx_max} table "
                   f"{nbl}x{BS} ({nsplit} splits of {chunk}): kernel {ms:.4f} "
                   f"ms (alone: {alone_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                   f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
                   f"[{st['gpu']}]")
-            record("paged_attn", label, ms, plain_ms, lib_ms, b_ms, by)
+            record(rname, label, ms, plain_ms, lib_ms, b_ms, by)
             sweep, chunk0 = {}, pa.DECODE_CHUNK
             for c in (128, 256, 512):
                 pa.DECODE_CHUNK = {2: c, 1: c}
@@ -2401,6 +2913,149 @@ def phase4(torch, np, st):
         del q1, q8, kp, vp, table
         torch.cuda.empty_cache()
 
+    # head_dim 64 (llama-1b, phase 8's engine shape: 32 slots, the 16
+    # requests mid-decode, the 256-block table): fused decode over bf16,
+    # int8 and fp8 pools, split paged attention at QS=1 (decode_path
+    # "pallas") and at QS=5 (spec verify from each lane's position).
+    d = D64
+    for kvq in ("",) + QUANTS if wanted(st, "fused_decode") else ():
+        name = (f"fused_decode_{kvq}" if kvq else "fused_decode") + "_d64"
+        if kvq:
+            case = quant_decode_case(torch, rng, gen, mid, nbl, kvq,
+                                     HEADS_1B, BS, d)
+            kernel = pa.paged_decode_attention_fused_quant
+            plain = pa.paged_decode_attention_fused_quant_plain
+            kp, vp, table, pos_t = case[5], case[6], case[9], case[10]
+            scales = dict(k_scale=case[7], v_scale=case[8])
+        else:
+            case = decode_case(torch, rng, gen, mid, nbl, HEADS_1B, BS, d)
+            kernel = pa.paged_decode_attention_fused
+            plain = pa.paged_decode_attention_fused_plain
+            kp, vp, table, pos_t = case[5], case[6], case[7], case[8]
+            scales = {}
+        ms = time_ms(torch, lambda: kernel(*case), rounds=5)
+        alone_ms = graph_ms(torch, decode_alone(torch, pa, case))
+        plain_ms = time_ms(torch, lambda: plain(*case), reps=5)
+        ctx_max = max(mid) + 1
+        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+        qs, k, v, m = sdpa_inputs(case[0], kp, vp, table, ctx_max,
+                                  keys <= pos_t[:, None, None], scales)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=m), reps=5)
+        b_ms, by = bound(*decode_work(mid, kvq, HEADS_1B, d))
+        nsplit, chunk = pa.decode_splits(nbl, BS, kp.element_size())
+        print(f"phase 4: {name} engine B=32 active="
+              f"{sum(p > 0 for p in mid)} max pos {max(mid)} H={HEADS_1B[0]} "
+              f"KVH={HEADS_1B[1]} D={d} table {nbl}x{BS} ({nsplit} splits of "
+              f"{chunk}): kernel {ms:.4f} ms (alone: {alone_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by}) [{st['gpu']}]")
+        record(name, "engine", ms, plain_ms, lib_ms, b_ms, by)
+        del case, k, v, qs
+        torch.cuda.empty_cache()
+    if wanted(st, "paged_attn"):
+        dev_i = dict(dtype=torch.int32, device="cuda")
+        q1, _, _, _, _, kp, vp, table, _ = decode_case(
+            torch, rng, gen, mid, nbl, HEADS_1B, BS, d)
+        q5 = torch.randn(32, 5, *HEADS_1B[:1], d, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        len_t = torch.tensor([p + 1 for p in mid], **dev_i)
+        vst = [p if p > 0 else 0 for p in mid]
+        vql = [5 if p > 0 else 0 for p in mid]
+        vst_t, vql_t = torch.tensor(vst, **dev_i), torch.tensor(vql, **dev_i)
+        cases = (
+            ("paged_attn_d64", "engine", q1, dict(lengths=len_t),
+             lambda: pa.paged_decode_attention_pallas(q1, kp, vp, table,
+                                                      len_t),
+             ((len_t - 1).clamp(min=0), len_t.clamp(max=1)),
+             ([p for p in mid], [1] * len(mid))),
+            ("paged_attn_verify_d64", "verify", q5,
+             dict(starts=vst_t, qlens=vql_t),
+             lambda: pa.paged_verify_attention_pallas(q5, kp, vp, table,
+                                                      vst_t, vql_t),
+             (vst_t, vql_t), (vst, vql)),
+        )
+        for name, label, q, lanes, wrapper, (st_t, ql_t), (sts, qls) in cases:
+            QS = q.shape[1]
+            ms = time_ms(torch, wrapper, rounds=5)
+            alone_ms = graph_ms(torch, paged_alone(torch, pa, q, kp, vp,
+                                                   table, **lanes))
+            plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+                q, kp, vp, table, st_t, ql_t), reps=5)
+            ctx_max = max(s + n for s, n in zip(sts, qls))
+            pos = (torch.arange(QS, device="cuda")[None, :, None]
+                   + st_t[:, None, None])
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_inputs(q * d ** -0.5, kp, vp, table, ctx_max,
+                                      keys <= pos, {})
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m, scale=1.0), reps=5)
+            b_ms, by = bound(*paged_attn_work(sts, qls, HEADS_1B, d))
+            print(f"phase 4: {name} {label} B=32 QS={QS} active="
+                  f"{sum(n > 0 for n in qls)} max length {ctx_max} "
+                  f"H={HEADS_1B[0]} KVH={HEADS_1B[1]} D={d} table "
+                  f"{nbl}x{BS}: kernel {ms:.4f} ms (alone: {alone_ms:.4f} "
+                  f"ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
+            record(name, label, ms, plain_ms, lib_ms, b_ms, by)
+            del qs, k, v, m
+        # The verify threshold (the JAX package gathers under 2,048
+        # tokens; the port has none): the kernel against the gather path it
+        # replaces, over tables of 1,024 and 4,096 tokens, the same 16
+        # lanes capped to the table.
+        for width in (64, 256):
+            cap = width * BS - 5
+            vs = [min(p, cap) if p > 0 else 0 for p in mid]
+            vs_t = torch.tensor(vs, **dev_i)
+            tab = table[:, :width].contiguous()
+            k_ms = time_ms(torch, lambda: pa.paged_verify_attention_pallas(
+                q5, kp, vp, tab, vs_t, vql_t), rounds=5)
+            g_ms = time_ms(torch, lambda: paged_verify_attention(
+                q5, kp, vp, tab, vs_t, vql_t), reps=5, rounds=3)
+            print(f"phase 4: verify threshold: table {width}x{BS} = "
+                  f"{width * BS} tokens, B=32 QS=5 active 16, D={d}: "
+                  f"split paged attention {k_ms:.4f} ms, gather "
+                  f"(paged_verify_attention) {g_ms:.4f} ms [{st['gpu']}]")
+        del q1, q5, kp, vp, table
+        torch.cuda.empty_cache()
+
+    # Flash prefill at the verify shape (spec_k + 1 = 5 query tokens from
+    # each lane's position, the Llama-3-8B heads, phase 8's 16 requests
+    # mid-decode in 32 slots), bf16 and int8 pools: the spec verify of the
+    # Llama-3-8B engines (B1, B5).
+    vstarts = [p if p > 0 else 0 for p in mid]
+    vlens = [5 if p > 0 else 0 for p in mid]
+    for kvq in ("", "int8") if wanted(st, "flash_prefill") else ():
+        name = (f"flash_prefill_{kvq}" if kvq else "flash_prefill") + "_verify"
+        if kvq:
+            case, scales = quant_prefill_case(torch, rng, gen, 32, 5, vstarts,
+                                              vlens, kvq)
+        else:
+            case, scales = prefill_case(torch, rng, gen, 32, 5, vstarts,
+                                        vlens), {}
+        ms = time_ms(torch, lambda: pa.flash_prefill_attention(
+            *case, **scales), rounds=5)
+        alone_ms = time_ms(torch, flash_alone(torch, pa, case, scales),
+                           rounds=5)
+        plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+            *case, **scales), reps=5)
+        ctx_max = max(s + n for s, n in zip(vstarts, vlens))
+        pos = (torch.arange(5, device="cuda")[None, :, None]
+               + case[4][:, None, None])
+        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+        qs, k, v, m = sdpa_inputs(case[0] * D ** -0.5, case[1], case[2],
+                                  case[3], ctx_max, keys <= pos, scales)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=m, scale=1.0), reps=5)
+        b_ms, by = bound(*prefill_work(vstarts, vlens, 5, kvq))
+        print(f"phase 4: {name} verify B=32 S=5 active 16 max length "
+              f"{ctx_max}: kernel {ms:.4f} ms (alone, on pre-scaled q: "
+              f"{alone_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
+        record(name, "verify", ms, plain_ms, lib_ms, b_ms, by)
+        del case, k, v, qs
+        torch.cuda.empty_cache()
+
     for label, (steps, dsteps) in st.get("engine_steps", {}).items():
         per = {k: round(v / steps, 2) for k, v in st["launches"].items()
                if k in dict((e[0], e[3]) for e in ENGINES)[label]}
@@ -2411,7 +3066,7 @@ def phase4(torch, np, st):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -2434,9 +3089,10 @@ def main(argv=None) -> int:
         return 2
 
     st: dict = {"only": args.only}
-    # Phase 7 before 6: it reuses phase 2's model, which phase 6 frees.
-    runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (4, phase4),
-               (5, phase5), (7, phase7), (6, phase6)]
+    # Phase 8 before 4: phase 4's records read its launch counts.  Phases
+    # 8 and 7 before 6: they reuse phase 2's model, which phase 6 frees.
+    runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
+               (4, phase4), (5, phase5), (7, phase7), (6, phase6)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

@@ -15,8 +15,7 @@ router`` is not ported yet (ROADMAP A8).
 
 Usage:
     python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake --port 8081
-    LLM_TPU_QUANTIZE= LLM_TPU_SPEC_K=0 TELEMETRY_ENABLED=false \\
-        REMEDIATION_ENABLED=false \\
+    LLM_TPU_QUANTIZE= TELEMETRY_ENABLED=false REMEDIATION_ENABLED=false \\
         python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake
 """
 

@@ -30,7 +30,7 @@
 //   * a tile is scored for all qpk heads of the group at once: warp w
 //     takes dims [32w, 32w + 32) of every key (lane = key, K rows padded by
 //     16 bytes so the lanes' reads hit distinct banks, q broadcast from
-//     shared memory), the four partial sums meet in shared memory;
+//     shared memory), the D / 32 partial sums meet in shared memory;
 //   * one max, one exp per key and one rescale per tile and head; PV from
 //     shared memory with thread d owning output dim d of every head;
 //   * each split writes its f32 partial (m, l, acc) to a workspace; a
@@ -38,8 +38,13 @@
 //     log-sum-exp in a fixed order (no atomics: a rerun gives the same
 //     bits) and writes the bf16 output.
 // RoPE runs in f32 (the concatenated-halves rotation, the partner of dim d
-// is d +- 64), and split 0 alone ropes k, appends the new row and folds the
-// current token into its partial from registers, never from the page.
+// is d +- D/2), and split 0 alone ropes k, appends the new row and folds
+// the current token into its partial from registers, never from the page.
+// One template over the head dim D (64: llama-1b; 128: Llama-3-8B): a block
+// has D threads (split_kv.cuh), so at D = 64 two warps score a tile's 32
+// keys over 32 dims each, take four heads each in the softmax, and the
+// partial scores still fit the q staging (2 warps x 32 keys = D floats per
+// head).
 //
 // Safety of the in-place append: split 0 of (group, lane) writes only row
 // `pos` of its lane, and only its group's D-slice of that row; every split
@@ -154,20 +159,22 @@ struct Page<__nv_fp8_e4m3> {
   }
 };
 
-// x[d] * cos + rotate_half(x)[d] * sin, the partner of dim d at d +- 64.
+// x[d] * cos + rotate_half(x)[d] * sin, the partner of dim d at d +- D/2.
 // Each product and the sum rounded on its own, as the plain version's
 // separate PyTorch ops round them, so the roped k and the codes appended
 // from it match the plain version bit for bit (a fused multiply-add may
 // differ by an ulp).
+template <int D>
 __device__ __forceinline__ float rope(const float* x, int d, float c, float sn) {
-  const float partner = x[d ^ 64];
-  const float rot = d < 64 ? -partner : partner;
+  const float partner = x[d ^ (D / 2)];
+  const float rot = d < D / 2 ? -partner : partner;
   return __fadd_rn(__fmul_rn(x[d], c), __fmul_rn(rot, sn));
 }
 
 // Shared-memory layout of the split kernel (bytes, 16-aligned pieces).
-template <int QPK, typename T>
+template <int D, int QPK, typename T>
 struct Smem {
+  static constexpr int WARPS = D / PART;
   static constexpr int kRow = D * sizeof(T);        // page row slice
   static constexpr int kKRow = kRow + 16;           // padded: lanes on banks
   static constexpr int kK = 0;
@@ -185,8 +192,8 @@ struct Smem {
   static_assert(WARPS * TILE == D, "the partial scores reuse the q staging");
 };
 
-template <int QPK, typename T>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int QPK, typename T>
+__global__ void __launch_bounds__(D)
 fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
                           const __nv_bfloat16* __restrict__ k_new,  // [B, KVH, D]
                           const __nv_bfloat16* __restrict__ v_new,  // [B, KVH, D]
@@ -202,11 +209,13 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
                           float* __restrict__ ws_ml,   // [B, KVH, NSPLIT, QPK, 2]
                           int KVH, int bs, int NB, int nsplit, int chunk,
                           unsigned bs_mul, unsigned bs_shr, float scale) {
-  using L = Smem<QPK, T>;
+  using L = Smem<D, QPK, T>;
   using P = Page<T>;
+  constexpr int THREADS = D, WARPS = L::WARPS;
   constexpr int HPW = (QPK + WARPS - 1) / WARPS;   // heads per warp (softmax)
   constexpr int E = 16 / sizeof(T);                // elements per 16 bytes
   constexpr int CPR = L::kRow / 16;                // 16-byte chunks per row
+  static_assert(TILE * CPR % THREADS == 0, "a tile is whole 16-byte loads");
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int g = blockIdx.x;
@@ -257,11 +266,11 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
   }
   __syncthreads();
 
-  // RoPE: x * cos + rotate_half(x) * sin, partner dim d +- 64.
+  // RoPE: x * cos + rotate_half(x) * sin, partner dim d +- D/2.
 #pragma unroll
-  for (int j = 0; j < QPK; ++j) qs[j * D + d] = rope(sp + j * D, d, c, sn);
+  for (int j = 0; j < QPK; ++j) qs[j * D + d] = rope<D>(sp + j * D, d, c, sn);
   if (s == 0) {
-    const float kf = rope(kraw, d, c, sn);
+    const float kf = rope<D>(kraw, d, c, sn);
     // Append the roped k and the raw v row at `pos` (quantized per head on
     // a 1-byte pool), and keep what the current token folds in.
     const int raw_blk = pos / bs;
@@ -437,8 +446,9 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
   }
 
   // Split 0 folds the current token in, from registers and shared memory
-  // (never from the page): q . k_cur in the lanes' four dims, warp sum.
+  // (never from the page): q . k_cur in the lanes' D / 32 dims, warp sum.
   if (s == 0) {
+    constexpr int EPL = D / 32;
     __syncthreads();
 #pragma unroll
     for (int jj = 0; jj < HPW; ++jj) {
@@ -446,7 +456,7 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
       if (j < QPK) {
         float x = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x += qs[j * D + lane * 4 + e] * kcur[lane * 4 + e];
+        for (int e = 0; e < EPL; ++e) x += qs[j * D + lane * EPL + e] * kcur[lane * EPL + e];
         x = warp_sum(x);
         const float m_new = fmaxf(m[jj], x);
         const float alpha = __expf(m[jj] - m_new);
@@ -481,8 +491,8 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
 // Merge the live splits of (group, lane) by log-sum-exp (split_kv.cuh).
 // Split 0 always holds the current token, so its m is real; splits past
 // the lane's position wrote nothing and are not read.
-template <int QPK>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int QPK>
+__global__ void __launch_bounds__(D)
 fused_decode_merge_kernel(const float* __restrict__ ws_acc,
                           const float* __restrict__ ws_ml,
                           const int* __restrict__ positions,
@@ -492,25 +502,25 @@ fused_decode_merge_kernel(const float* __restrict__ ws_acc,
   const int b = blockIdx.y;
   const int pos = positions[b];
   const int n = min(nsplit, max(1, (pos + chunk - 1) / chunk));
-  merge_splits<QPK>(ws_acc, ws_ml, ((long)b * KVH + g) * nsplit * QPK, QPK, n,
+  merge_splits<D, QPK>(ws_acc, ws_ml, ((long)b * KVH + g) * nsplit * QPK, QPK, n,
                     out + ((long)b * KVH + g) * QPK * D + threadIdx.x);
 }
 
-template <int QPK, typename T>
+template <int D, int QPK, typename T>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* cos_t, const void* sin_t, void* k_pages,
                    void* v_pages, void* k_scale, void* v_scale,
                    const void* table, const void* positions, void* out,
                    void* ws, int B, int KVH, int bs, int NB, int nsplit,
                    int chunk, float scale, cudaStream_t stream) {
-  using L = Smem<QPK, T>;
+  using L = Smem<D, QPK, T>;
   if (!splits_ok(bs, NB, nsplit, chunk)) return cudaErrorInvalidValue;
   const int table_n = (chunk - 1) / bs + 2;
   const size_t smem = L::kTable + 4 * (size_t)table_n;
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_decode_split_kernel<QPK, T>,
+        fused_decode_split_kernel<D, QPK, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = smem;
@@ -518,7 +528,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   const BlockDiv div = block_div(bs);
   float* acc = static_cast<float*>(ws);
   float* ml = acc + (size_t)B * KVH * nsplit * QPK * D;
-  fused_decode_split_kernel<QPK, T><<<dim3(KVH, B, nsplit), THREADS, smem, stream>>>(
+  fused_decode_split_kernel<D, QPK, T><<<dim3(KVH, B, nsplit), D, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new),
@@ -529,7 +539,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
       ml, KVH, bs, NB, nsplit, chunk, div.mul, div.shr, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  fused_decode_merge_kernel<QPK><<<dim3(KVH, B), THREADS, 0, stream>>>(
+  fused_decode_merge_kernel<D, QPK><<<dim3(KVH, B), D, 0, stream>>>(
       acc, ml, static_cast<const int*>(positions),
       static_cast<__nv_bfloat16*>(out), KVH, nsplit, chunk);
   return cudaGetLastError();
@@ -540,35 +550,34 @@ int dispatch(const void* q, const void* k_new, const void* v_new,
              const void* cos_t, const void* sin_t, void* k_pages,
              void* v_pages, void* k_scale, void* v_scale, const void* table,
              const void* positions, void* out, void* ws, int B, int H,
-             int KVH, int bs, int NB, int nsplit, int chunk, float scale,
-             void* stream) {
+             int KVH, int D, int bs, int NB, int nsplit, int chunk,
+             float scale, void* stream) {
   if (B == 0) return 0;
+  if (KVH < 1 || H % KVH != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H / KVH) {
-    case 1: return launch<1, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
-    case 2: return launch<2, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
-    case 4: return launch<4, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
-    case 8: return launch<8, T>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale, table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_geometry(D, H / KVH, [&](auto d, auto qpk) {
+    return launch<decltype(d)::value, decltype(qpk)::value, T>(
+        q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale,
+        table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
+  });
 }
 
 }  // namespace
 
 // `workspace` holds B * KVH * nsplit * qpk * (D + 2) floats; nsplit and
 // chunk (a multiple of 32, nsplit * chunk >= NB * bs) come from
-// ops/paged_attention.py:decode_splits.
+// ops/paged_attention.py:decode_splits.  D is 64 or 128.
 extern "C" int fused_decode_bf16(const void* q, const void* k_new,
                                  const void* v_new, const void* cos_t,
                                  const void* sin_t, void* k_pages,
                                  void* v_pages, const void* table,
                                  const void* positions, void* out,
                                  void* workspace, int B, int H, int KVH,
-                                 int bs, int NB, int nsplit, int chunk,
-                                 float scale, void* stream) {
+                                 int D, int bs, int NB, int nsplit,
+                                 int chunk, float scale, void* stream) {
   return dispatch<__nv_bfloat16>(q, k_new, v_new, cos_t, sin_t, k_pages,
                                  v_pages, nullptr, nullptr, table, positions,
-                                 out, workspace, B, H, KVH, bs, NB, nsplit,
+                                 out, workspace, B, H, KVH, D, bs, NB, nsplit,
                                  chunk, scale, stream);
 }
 
@@ -578,11 +587,11 @@ extern "C" int fused_decode_int8(const void* q, const void* k_new,
                                  void* v_pages, void* k_scale, void* v_scale,
                                  const void* table, const void* positions,
                                  void* out, void* workspace, int B, int H,
-                                 int KVH, int bs, int NB, int nsplit,
+                                 int KVH, int D, int bs, int NB, int nsplit,
                                  int chunk, float scale, void* stream) {
   return dispatch<int8_t>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages,
                           k_scale, v_scale, table, positions, out, workspace,
-                          B, H, KVH, bs, NB, nsplit, chunk, scale, stream);
+                          B, H, KVH, D, bs, NB, nsplit, chunk, scale, stream);
 }
 
 extern "C" int fused_decode_fp8(const void* q, const void* k_new,
@@ -591,10 +600,10 @@ extern "C" int fused_decode_fp8(const void* q, const void* k_new,
                                 void* v_pages, void* k_scale, void* v_scale,
                                 const void* table, const void* positions,
                                 void* out, void* workspace, int B, int H,
-                                int KVH, int bs, int NB, int nsplit,
+                                int KVH, int D, int bs, int NB, int nsplit,
                                 int chunk, float scale, void* stream) {
   return dispatch<__nv_fp8_e4m3>(q, k_new, v_new, cos_t, sin_t, k_pages,
                                  v_pages, k_scale, v_scale, table, positions,
-                                 out, workspace, B, H, KVH, bs, NB, nsplit,
+                                 out, workspace, B, H, KVH, D, bs, NB, nsplit,
                                  chunk, scale, stream);
 }

@@ -35,14 +35,15 @@
 //     bytes so neither the lanes' reads nor ldmatrix's collide on banks);
 //   * decode (QS = 1, R <= 8, MT = 0): the tile is scored for all qpk heads
 //     at once on the CUDA cores in f32 -- warp w takes dims [32w, 32w + 32)
-//     of every key (lane = key, q broadcast from shared memory), the four
+//     of every key (lane = key, q broadcast from shared memory), the D / 32
 //     partial sums meet in shared memory; PV with thread d owning output
 //     dim d, P in f32;
 //   * verify (QS > 1, MT = ceil(R / 16) rounded up to 1, 2 or 4 row tiles
 //     of 16): S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 operands,
 //     f32 accumulators; P rounded to bf16 for PV, as csrc/flash_prefill.cu
-//     does against the same plain version).  Warp w scores keys [8w, 8w + 8)
-//     of the tile for every row and owns output dims [32w, 32w + 32);
+//     does against the same plain version).  Warp w scores NKT n-tiles of 8
+//     keys of the tile for every row (NKT = 32 / (8 D / 32): 1 at D = 128,
+//     2 at D = 64) and owns output dims [32w, 32w + 32);
 //   * one online-softmax step per tile and row: TPR threads per row, each
 //     over TILE / TPR keys, one max, one exp per key, one rescale; the
 //     causal mask only on tiles that cross a live row's horizon, by selects
@@ -56,6 +57,11 @@
 // partial by exp(NEG - M) = 0.  Dead and padding rows carry q = 0: finite
 // scores that nothing reads.
 //
+// One template over the head dim D (64: llama-1b; 128: Llama-3-8B): a block
+// has D threads (split_kv.cuh), so at D = 64 the softmax gives each row
+// twice the keys per thread (TPR halves) and each warp scores two key
+// n-tiles; the PV n-tiles per warp stay 4 (32 dims).
+//
 // Trap: the kernels scale q by D**-0.5 and round it to bf16 before use, as
 // the plain version and pallas_attention.py:208 scale in bf16.
 
@@ -63,7 +69,6 @@
 
 namespace {
 
-constexpr int KROW = D * 2 + 16;    // a K, V or q row in shared memory, padded
 constexpr int SROW = TILE + 8;      // a row of S (f32) or P (bf16), padded
 constexpr int MAX_QS = 8;           // ops/paged_attention.py:MAX_QUERY_TOKENS
 constexpr float NEG = -0.7f * 3.402823466e38f;
@@ -111,8 +116,10 @@ __device__ __forceinline__ Span lane_span(const int* starts, const int* qlens,
 // Shared-memory layout of the split kernel (bytes, 16-aligned pieces):
 // qpk heads per group, MT row tiles of 16 on the tensor cores (0: decode
 // on the CUDA cores, rows r < QPK).
-template <int QPK, int MT>
+template <int D, int QPK, int MT>
 struct Smem {
+  static constexpr int WARPS = D / PART;
+  static constexpr int KROW = D * 2 + 16;    // a K, V or q row, padded
   static constexpr bool kMma = MT > 0;
   static constexpr int kRows = kMma ? 16 * MT : 16;          // softmax rows
   static constexpr int kStage = 2 * TILE * KROW;             // K tile, V tile
@@ -125,8 +132,8 @@ struct Smem {
   static constexpr int kTable = kAlpha + kRows * 4;          // int [table_n]
 };
 
-template <int QPK, int MT>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int QPK, int MT>
+__global__ void __launch_bounds__(D)
 paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
                         const __nv_bfloat16* __restrict__ k_pages,  // [nb, bs, KVH*D]
                         const __nv_bfloat16* __restrict__ v_pages,
@@ -138,13 +145,17 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
                         float* __restrict__ ws_ml,   // [B, KVH, NSPLIT, QS*QPK, 2]
                         int QS, int KVH, int bs, int NB, int nsplit, int chunk,
                         unsigned bs_mul, unsigned bs_shr, float scale) {
-  using L = Smem<QPK, MT>;
+  using L = Smem<D, QPK, MT>;
+  constexpr int THREADS = D, WARPS = L::WARPS, KROW = L::KROW;
   constexpr bool MMA = L::kMma;
   constexpr int ROWS = L::kRows;
   constexpr int TPR = THREADS / ROWS;   // softmax threads per row
   constexpr int KPT = TILE / TPR;       // keys per softmax thread
-  static_assert(KPT % 4 == 0, "the softmax moves keys as float4");
+  constexpr int NKT = TILE / (8 * WARPS);   // key n-tiles a warp scores
+  static_assert(THREADS % ROWS == 0 && KPT % 4 == 0,
+                "the softmax moves a row's keys as float4");
   constexpr int CPR = D * 2 / 16;       // 16-byte chunks per page row
+  static_assert(TILE * CPR % THREADS == 0, "a tile is whole 16-byte loads");
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int g = blockIdx.x;
@@ -267,30 +278,35 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
     const int t0 = k0 + i * TILE;
 
     if constexpr (MMA) {
-      // S = Q K^T: warp w, keys [8w, 8w + 8), every row tile.  K rows are
-      // the B operand as they lie (k = dim contiguous).
-      uint32_t kb[D / 16][2];
+      // S = Q K^T: warp w, keys [8 NKT w, 8 NKT (w + 1)) in n-tiles of 8,
+      // every row tile.  K rows are the B operand as they lie (k = dim
+      // contiguous).
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        uint32_t r4[4];
-        ldsm4(r4, base + (8 * warp + lane % 8) * KROW + (32 * c + 8 * (lane / 8)) * 2);
-        kb[2 * c][0] = r4[0];
-        kb[2 * c][1] = r4[1];
-        kb[2 * c + 1][0] = r4[2];
-        kb[2 * c + 1][1] = r4[3];
-      }
+      for (int kt = 0; kt < NKT; ++kt) {
+        const int key0 = 8 * (NKT * warp + kt);
+        uint32_t kb[D / 16][2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        float c4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          uint32_t a[4];
-          ldsm4(a, smem + L::kQ + (16 * mt + lane % 16) * KROW + (16 * ks + 8 * (lane / 16)) * 2);
-          mma16816(c4, a, kb[ks][0], kb[ks][1]);
+        for (int c = 0; c < D / 32; ++c) {
+          uint32_t r4[4];
+          ldsm4(r4, base + (key0 + lane % 8) * KROW + (32 * c + 8 * (lane / 8)) * 2);
+          kb[2 * c][0] = r4[0];
+          kb[2 * c][1] = r4[1];
+          kb[2 * c + 1][0] = r4[2];
+          kb[2 * c + 1][1] = r4[3];
         }
-        float* row0 = sc_s + (16 * mt + gq) * SROW + 8 * warp + 2 * tig;
-        *reinterpret_cast<float2*>(row0) = make_float2(c4[0], c4[1]);
-        *reinterpret_cast<float2*>(row0 + 8 * SROW) = make_float2(c4[2], c4[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float c4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            uint32_t a[4];
+            ldsm4(a, smem + L::kQ + (16 * mt + lane % 16) * KROW + (16 * ks + 8 * (lane / 16)) * 2);
+            mma16816(c4, a, kb[ks][0], kb[ks][1]);
+          }
+          float* row0 = sc_s + (16 * mt + gq) * SROW + key0 + 2 * tig;
+          *reinterpret_cast<float2*>(row0) = make_float2(c4[0], c4[1]);
+          *reinterpret_cast<float2*>(row0 + 8 * SROW) = make_float2(c4[2], c4[3]);
+        }
       }
     } else {
       // Scores: warp w, lane = key, dims [32w, 32w + 32), every head.
@@ -374,8 +390,10 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
         if (seg == 0) alpha_s[sr] = alpha;
       } else if (row_live) {
         float* pt = reinterpret_cast<float*>(smem + L::kP);
-        *reinterpret_cast<float4*>(pt + sr * TILE + seg * KPT) =
-            make_float4(p[0], p[1], p[2], p[3]);
+#pragma unroll
+        for (int e = 0; e < KPT; e += 4)
+          *reinterpret_cast<float4*>(pt + sr * TILE + seg * KPT + e) =
+              make_float4(p[e], p[e + 1], p[e + 2], p[e + 3]);
         if (seg == 0) alpha_s[sr] = alpha;
       }
     }
@@ -465,8 +483,8 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
 // Merge the splits of (group, lane, token i) by log-sum-exp (split_kv.cuh):
 // the splits whose first key the token sees, each with a real m for every
 // head of the token.  A dead token (i >= qlen) writes zeros.
-template <int QPK>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int QPK>
+__global__ void __launch_bounds__(D)
 paged_attn_merge_kernel(const float* __restrict__ ws_acc,
                         const float* __restrict__ ws_ml,
                         const int* __restrict__ starts,
@@ -486,24 +504,24 @@ paged_attn_merge_kernel(const float* __restrict__ ws_acc,
     return;
   }
   const int R = QS * QPK;
-  merge_splits<QPK>(ws_acc, ws_ml, ((long)b * KVH + g) * nsplit * R + i * QPK,
+  merge_splits<D, QPK>(ws_acc, ws_ml, ((long)b * KVH + g) * nsplit * R + i * QPK,
                     R, min(nsplit, (sp.start + i) / chunk + 1), o_row);
 }
 
-template <int QPK, int MT>
+template <int D, int QPK, int MT>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* table, const void* starts, const void* qlens,
                    const void* lengths, void* out, void* ws, int B, int QS,
                    int KVH, int bs, int NB, int nsplit, int chunk, float scale,
                    cudaStream_t stream) {
-  using L = Smem<QPK, MT>;
+  using L = Smem<D, QPK, MT>;
   if (!splits_ok(bs, NB, nsplit, chunk)) return cudaErrorInvalidValue;
   const int table_n = (chunk - 1) / bs + 2;
   const size_t smem = L::kTable + 4 * (size_t)table_n;
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_split_kernel<QPK, MT>,
+        paged_attn_split_kernel<D, QPK, MT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = smem;
@@ -514,13 +532,13 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   const int* ln = static_cast<const int*>(lengths);
   float* acc = static_cast<float*>(ws);
   float* ml = acc + (size_t)B * KVH * nsplit * QS * QPK * D;
-  paged_attn_split_kernel<QPK, MT><<<dim3(KVH, B, nsplit), THREADS, smem, stream>>>(
+  paged_attn_split_kernel<D, QPK, MT><<<dim3(KVH, B, nsplit), D, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table), st,
       ql, ln, acc, ml, QS, KVH, bs, NB, nsplit, chunk, div.mul, div.shr, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  paged_attn_merge_kernel<QPK><<<dim3(KVH, B, QS), THREADS, 0, stream>>>(
+  paged_attn_merge_kernel<D, QPK><<<dim3(KVH, B, QS), D, 0, stream>>>(
       acc, ml, st, ql, ln, static_cast<__nv_bfloat16*>(out), QS, KVH, nsplit,
       chunk);
   return cudaGetLastError();
@@ -528,7 +546,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 // Decode on the CUDA cores; QS > 1 on the tensor cores, in as few row
 // tiles of 16 as hold QS * qpk rows (1, 2 or 4).
-template <int QPK>
+template <int D, int QPK>
 cudaError_t launch_rows(const void* q, const void* kp, const void* vp,
                         const void* table, const void* starts, const void* qlens,
                         const void* lengths, void* out, void* ws, int B, int QS,
@@ -536,33 +554,32 @@ cudaError_t launch_rows(const void* q, const void* kp, const void* vp,
                         float scale, cudaStream_t st) {
   const int rows = QS * QPK;
   if (QS == 1)
-    return launch<QPK, 0>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+    return launch<D, QPK, 0>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   if (rows <= 16)
-    return launch<QPK, 1>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+    return launch<D, QPK, 1>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   if constexpr (QPK >= 4) {
     if (rows <= 32)
-      return launch<QPK, 2>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+      return launch<D, QPK, 2>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   }
   if constexpr (QPK == 8)
-    return launch<QPK, 4>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+    return launch<D, QPK, 4>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   return cudaErrorInvalidValue;
 }
 
 int dispatch(const void* q, const void* kp, const void* vp, const void* table,
              const void* starts, const void* qlens, const void* lengths,
-             void* out, void* ws, int B, int QS, int H, int KVH, int bs,
-             int NB, int nsplit, int chunk, float scale, void* stream) {
+             void* out, void* ws, int B, int QS, int H, int KVH, int D,
+             int bs, int NB, int nsplit, int chunk, float scale,
+             void* stream) {
   if (B == 0) return 0;
   if (KVH < 1 || H % KVH != 0 || QS < 1 || QS > MAX_QS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H / KVH) {
-    case 1: return launch_rows<1>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
-    case 2: return launch_rows<2>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
-    case 4: return launch_rows<4>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
-    case 8: return launch_rows<8>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_geometry(D, H / KVH, [&](auto d, auto qpk) {
+    return launch_rows<decltype(d)::value, decltype(qpk)::value>(
+        q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs,
+        NB, nsplit, chunk, scale, st);
+  });
 }
 
 }  // namespace
@@ -570,14 +587,16 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
 // `workspace` holds B * KVH * nsplit * QS * qpk * (D + 2) floats; nsplit
 // and chunk (a multiple of 32, nsplit * chunk >= NB * bs) come from
 // ops/paged_attention.py:decode_splits.  q is raw: the kernel scales it.
+// D is 64 or 128.
 extern "C" int paged_attn_bf16(const void* q, const void* k_pages,
                                const void* v_pages, const void* table,
                                const void* starts, const void* qlens,
                                void* out, void* workspace, int B, int QS,
-                               int H, int KVH, int bs, int NB, int nsplit,
-                               int chunk, float scale, void* stream) {
+                               int H, int KVH, int D, int bs, int NB,
+                               int nsplit, int chunk, float scale,
+                               void* stream) {
   return dispatch(q, k_pages, v_pages, table, starts, qlens, nullptr, out,
-                  workspace, B, QS, H, KVH, bs, NB, nsplit, chunk, scale,
+                  workspace, B, QS, H, KVH, D, bs, NB, nsplit, chunk, scale,
                   stream);
 }
 
@@ -586,9 +605,9 @@ extern "C" int paged_attn_decode_bf16(const void* q, const void* k_pages,
                                       const void* v_pages, const void* table,
                                       const void* lengths, void* out,
                                       void* workspace, int B, int H, int KVH,
-                                      int bs, int NB, int nsplit, int chunk,
-                                      float scale, void* stream) {
+                                      int D, int bs, int NB, int nsplit,
+                                      int chunk, float scale, void* stream) {
   return dispatch(q, k_pages, v_pages, table, nullptr, nullptr, lengths, out,
-                  workspace, B, 1, H, KVH, bs, NB, nsplit, chunk, scale,
+                  workspace, B, 1, H, KVH, D, bs, NB, nsplit, chunk, scale,
                   stream);
 }

@@ -3,6 +3,11 @@
 // warp reductions, 16-byte cp.async, division of positions by the block
 // size, the launch-argument check, and the log-sum-exp merge of the
 // splits' partial states.  Each kernel library includes it once.
+//
+// The kernels are templates over the head dim D (64 or 128, the extern "C"
+// functions dispatch on it): a block has D threads, thread d owns output
+// dim d, and warp w scores (lane = key) or owns dims [32w, 32w + 32), so
+// D / 32 warps cover a row and every per-warp piece keeps its shape.
 
 #pragma once
 
@@ -10,12 +15,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int D = 128;              // head_dim (the wrappers check)
-constexpr int THREADS = 128;        // thread d owns output dim d
-constexpr int WARPS = THREADS / 32;
-constexpr int PART = D / WARPS;     // dims a warp scores or owns: 32
+constexpr int PART = 32;            // dims a warp scores or owns
 constexpr int TILE = 32;            // keys per tile
 constexpr int STAGES = 2;           // tiles in the cp.async ring
 constexpr int MAX_SPLITS = 64;      // ops/paged_attention.py:DECODE_MAX_SPLITS
@@ -85,6 +89,33 @@ __device__ __forceinline__ int div_block(int t, unsigned mul, unsigned shr) {
   return mul ? static_cast<int>(__umulhi(static_cast<unsigned>(t), mul) >> shr) : t;
 }
 
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+template <int D, typename F>
+int with_qpk(int qpk, F&& f) {
+  switch (qpk) {
+    case 1: return f(Int<D>{}, Int<1>{});
+    case 2: return f(Int<D>{}, Int<2>{});
+    case 4: return f(Int<D>{}, Int<4>{});
+    case 8: return f(Int<D>{}, Int<8>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The template instances of the split kernels: f(Int<D>{}, Int<QPK>{}) for
+// head dim D in {64, 128} and QPK in {1, 2, 4, 8} query heads per kv head,
+// cudaErrorInvalidValue for any other.  A head dim is added here and in
+// ops/paged_attention.py:SPLIT_KV_HEAD_DIMS.
+template <typename F>
+int with_geometry(int D, int qpk, F&& f) {
+  switch (D) {
+    case 64: return with_qpk<64>(qpk, f);
+    case 128: return with_qpk<128>(qpk, f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // What a split kernel takes: chunks of whole tiles that cover the table,
 // at most MAX_SPLITS of them (ops/paged_attention.py:decode_splits).
 inline bool splits_ok(int bs, int NB, int nsplit, int chunk) {
@@ -95,17 +126,18 @@ inline bool splits_ok(int bs, int NB, int nsplit, int chunk) {
 
 // Merge the first n split partials (m, l, acc[D]) of one (group, lane,
 // token) by log-sum-exp and write its QPK heads in bf16 at o_row[j * D]
-// (o_row: this thread's dim of head 0).  Row (split s, head j) of the
-// workspace is base + s * stride + j; each of the n splits has a real m
-// for every head.  Warp w takes the weights exp(m_s - M) and L of heads
+// (o_row: this thread's dim of head 0; the block has D threads).  Row
+// (split s, head j) of the workspace is base + s * stride + j; each of
+// the n splits has a real m for every head.  Warp w takes the weights exp(m_s - M) and L of heads
 // w, w + WARPS, ... (lane = split); thread d then sums its dim of every
 // head over the splits, in split order, with independent loads.  Every
 // sum has a fixed order: a rerun gives the same bits.
-template <int QPK>
+template <int D, int QPK>
 __device__ __forceinline__ void merge_splits(const float* __restrict__ ws_acc,
                                              const float* __restrict__ ws_ml,
                                              long base, int stride, int n,
                                              __nv_bfloat16* __restrict__ o_row) {
+  constexpr int THREADS = D, WARPS = D / PART;
   constexpr int HPW = (QPK + WARPS - 1) / WARPS;
   __shared__ float sm_ml[MAX_SPLITS * QPK * 2];
   __shared__ __align__(16) float sm_f[MAX_SPLITS * QPK];

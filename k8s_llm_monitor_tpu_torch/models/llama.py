@@ -2,7 +2,8 @@
 
 ``LlamaModel`` is an ``nn.Module`` holding the weights; the forward passes
 are module-level functions named as in the JAX package
-(``forward_full``, ``prefill``, ``prefill_chunk``, ``decode_step``) so each
+(``forward_full``, ``prefill``, ``prefill_chunk``, ``verify_step``,
+``decode_step``) so each
 has an obvious counterpart.  Weights follow ``nn.Linear``'s ``[out, in]``
 convention; convert.py is the one place the JAX ``[in, out]`` kernels are
 transposed.
@@ -395,14 +396,18 @@ def _scatter_pages_quant(pages: torch.Tensor, spages: torch.Tensor,
 
 def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                   kv_len, pages: KVPages, block_tables, attend_to_pages: bool,
-                  paged_attn_fn=None, on_layer=None):
+                  paged_attn_fn=None, on_layer=None,
+                  return_all_logits: bool = False):
     """Shared prefill layer loop: embed, qkv+rope, scatter into the pages,
-    attention, residual/MLP, last-valid-token unembed.
+    attention, residual/MLP, last-valid-token unembed (every position's
+    with ``return_all_logits``, for the verify pass).
 
     Attention source: the flash kernel reads the pages (the scatter above
     already wrote this chunk's K/V, so fresh prefill and continuation
-    chunks are the same call); otherwise ``attend_to_pages`` gathers the
-    paged prefix (chunks) or uses the in-flight k/v (fresh prefill).
+    chunks are the same call); a paged multi-query impl (the verify path,
+    ops/attention.py:select_verify_impl) reads them over a bf16 pool;
+    otherwise ``attend_to_pages`` gathers the paged prefix (chunks) or uses
+    the in-flight k/v (fresh prefill).
 
     A quantized pool quantizes on scatter; the flash kernel takes the
     scale planes and dequantizes inside, a chunk's gather dequantizes the
@@ -436,6 +441,12 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
             scales = dict(k_scale=psk, v_scale=psv) if quant else {}
             attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
                                  lengths, **scales)
+        elif attend_to_pages and paged_attn_fn is not None and not quant:
+            # Queries are contiguous at positions[:, 0] + i (verify_step
+            # and prefill_chunk guarantee it); a quantized pool takes the
+            # gather/dequant branch below, as in the JAX package.
+            attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
+                                 lengths)
         else:
             if attend_to_pages and quant:
                 D = cfg.head_dim_
@@ -454,6 +465,8 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
         x = _residual_tail(layer, cfg, x, o)
         if on_layer is not None:
             on_layer()
+    if return_all_logits:
+        return _unembed(model, x), pages
     last_idx = (lengths - 1).clamp(min=0).long()
     x_last = x[torch.arange(B, device=x.device), last_idx][:, None, :]
     return _unembed(model, x_last)[:, 0, :], pages
@@ -496,6 +509,34 @@ def prefill_chunk(model: LlamaModel, tokens, start, lengths, pages: KVPages,
                          start + lengths, pages, block_tables,
                          attend_to_pages=True, paged_attn_fn=attn_impl,
                          on_layer=on_layer)
+
+
+@torch.no_grad()
+def verify_step(model: LlamaModel, tokens, start, lengths, pages: KVPages,
+                block_tables, *, attn_impl=None):
+    """Speculative-decode verify pass: score ``S`` candidate tokens at once.
+
+    The cache semantics of ``prefill_chunk`` (tokens land at positions
+    ``start .. start + lengths - 1`` and attend to the paged prefix and the
+    chunk) with the logits of every position, [B, S, V] float32: position
+    ``i``'s are the distribution of the token after ``tokens[:, i]``.  K/V
+    written for rejected positions stays beyond the accepted context, is
+    masked out of every later read and overwritten when real tokens
+    arrive, so rejection needs no rollback.
+
+    ``attn_impl``: the flash prefill wrapper (any pool; its scale planes
+    ride as kwargs), a paged multi-query impl (ops/attention.py:
+    select_verify_impl; a quantized pool then takes the gather/dequant
+    branch) or None (the gather).  Pages are updated in place.
+    """
+    B, S = tokens.shape
+    offs = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    positions = start[:, None] + offs[None, :]
+    valid = offs[None, :] < lengths[:, None]
+    return _prefill_impl(model, tokens, positions, valid, lengths,
+                         start + lengths, pages, block_tables,
+                         attend_to_pages=True, paged_attn_fn=attn_impl,
+                         return_all_logits=True)
 
 
 # ---------------------------------------------------------------------------

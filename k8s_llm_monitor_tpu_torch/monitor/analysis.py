@@ -365,7 +365,8 @@ class LocalEngineBackend(LLMBackend):
 
         The knobs the port does not serve yet raise ``NotImplementedError``
         naming their ROADMAP item: ``quantize`` int8/w8a8 and
-        ``checkpoint`` (A6), ``spec_k > 0`` (A4) and ``mesh_shape`` (A7).
+        ``checkpoint`` (A6) and ``mesh_shape`` (A7).  ``spec_k`` and
+        ``spec_min_accept`` reach the engine as in the JAX backend.
         ``tenancy.max_kv_share`` caps each tenant's share of the engine's
         prefix cache (``EngineConfig.kv_max_tenant_share``).  On the
         GPU the CUDA kernels are built here, before the supervisor's step
@@ -381,10 +382,6 @@ class LocalEngineBackend(LLMBackend):
             raise NotImplementedError(
                 "llm.tpu.checkpoint: checkpoint loading is not ported "
                 "(ROADMAP A6); leave it empty for random-init dev weights")
-        if tpu_cfg.spec_k > 0:
-            raise NotImplementedError(
-                f"llm.tpu.spec_k={tpu_cfg.spec_k}: speculative decoding is "
-                "not ported (ROADMAP A4); set LLM_TPU_SPEC_K=0")
         if tpu_cfg.mesh_shape:
             raise NotImplementedError(
                 f"llm.tpu.mesh_shape={tpu_cfg.mesh_shape!r}: multi-GPU "
@@ -409,9 +406,12 @@ class LocalEngineBackend(LLMBackend):
             if built:
                 built.pop().release_pool()
             engine = InferenceEngine(
-                cfg, model, EngineConfig(max_slots=tpu_cfg.max_batch,
-                                         num_blocks=tpu_cfg.kv_blocks,
-                                         kv_max_tenant_share=max_kv_share),
+                cfg, model, EngineConfig(
+                    max_slots=tpu_cfg.max_batch,
+                    num_blocks=tpu_cfg.kv_blocks,
+                    spec_k=tpu_cfg.spec_k,
+                    spec_min_accept=tpu_cfg.spec_min_accept,
+                    kv_max_tenant_share=max_kv_share),
                 tokenizer=tokenizer, device=device)
             # Inside the factory: a rebuilt engine without the grammar
             # would refuse every constrained submit.

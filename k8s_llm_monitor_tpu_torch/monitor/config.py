@@ -14,7 +14,7 @@ for the OpenAI-compatible fallback path.  The tree, its defaults and the
 key names are the JAX package's, so one YAML file or environment configures
 either package; ``LocalEngineBackend.from_config`` refuses the knobs the
 port does not serve yet (``quantize`` int8/w8a8, ``checkpoint``,
-``spec_k > 0``, ``mesh_shape``).
+``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -103,8 +103,7 @@ class TPULLMConfig:
     # the AcceptanceEMA kill-switch (spec_min_accept below) auto-disables
     # drafting per request class when measured acceptance cannot pay for
     # the verify forwards, and brownout (resilience/slo.py ladder) turns
-    # speculation off wholesale under pressure.  Set 0 to opt out.  The
-    # port has no speculative decoding yet and refuses spec_k > 0.
+    # speculation off wholesale under pressure.  Set 0 to opt out.
     spec_k: int = 4
     # Acceptance floor for the per-request-class speculative kill-switch
     # (serving/spec.py AcceptanceEMA): when a class's accepted-tokens-per-

@@ -10,7 +10,8 @@ Layouts follow the JAX package so the tests compare like with like:
 Every function here is plain PyTorch: the semantics reference and the CPU
 path (``paged_decode_attention_quant`` and ``gather_dequant`` for int8/fp8
 pools).  The hand-written CUDA kernels live behind ops/paged_attention.py and
-are picked by ``select_prefill_impl`` / ``select_decode_impl``.
+are picked by ``select_prefill_impl`` / ``select_decode_impl`` /
+``select_verify_impl``.
 """
 
 from __future__ import annotations
@@ -184,18 +185,31 @@ def paged_verify_attention(
                             kv_len=start + lengths, scale=scale)
 
 
-def _kernel_geometry_ok(cfg, device: torch.device) -> bool:
-    """What the CUDA kernels take: bf16 activations over a bf16, int8 or
-    fp8 pool, head_dim 128, 1/2/4/8 query heads per kv group (csrc/*.cu
-    template instances).  On the CPU the wrappers run their plain
-    versions, which take any geometry."""
+def _decode_geometry_ok(cfg, device: torch.device) -> bool:
+    """What the split-KV CUDA kernels (fused decode, split paged attention)
+    take: bf16 activations over a bf16, int8 or fp8 pool, head_dim 64 or
+    128, 1/2/4/8 query heads per kv group (csrc/split_kv.cuh template
+    instances) -- the JAX package's ``_pallas_geometry_ok`` for every preset
+    the port has.  On the CPU the wrappers run their plain versions, which
+    take any geometry."""
+    from k8s_llm_monitor_tpu_torch.ops.paged_attention import (
+        SPLIT_KV_HEAD_DIMS,
+    )
+
     if cfg is None or cfg.has_attn_extras or cfg.head_dim_ % 2:
         return False
     if device.type != "cuda":
         return True
-    return (cfg.dtype == "bfloat16" and cfg.head_dim_ == 128
+    return (cfg.dtype == "bfloat16" and cfg.head_dim_ in SPLIT_KV_HEAD_DIMS
             and cfg.num_heads % cfg.num_kv_heads == 0
             and cfg.q_per_kv in (1, 2, 4, 8))
+
+
+def _prefill_geometry_ok(cfg, device: torch.device) -> bool:
+    """What the flash prefill kernel takes: the decode geometry at head_dim
+    128 only, as the JAX package's ``_flash_ok`` gates its TPU kernel."""
+    return _decode_geometry_ok(cfg, device) and (
+        device.type != "cuda" or cfg.head_dim_ == 128)
 
 
 def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
@@ -215,7 +229,7 @@ def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
     if mode not in ("auto", "flash"):
         raise ValueError(f"unknown prefill_path {mode!r}; expected "
                          "'auto', 'flash', or 'dense'")
-    ok = _kernel_geometry_ok(cfg, device)
+    ok = _prefill_geometry_ok(cfg, device)
     if mode == "flash" and not ok:
         raise ValueError(
             "prefill_path='flash' but the model can't take the flash kernel "
@@ -264,12 +278,12 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
             "decode_path='pallas' has no quantized-KV support; the split "
             "kernel is bypassed for the gather/dequant reference")
         return paged_decode_attention
-    ok = _kernel_geometry_ok(cfg, device)
+    ok = _decode_geometry_ok(cfg, device)
     if mode != "auto" and not ok:
         raise ValueError(
             f"decode_path={mode!r} but the model can't take the kernel "
-            "(attn extras, odd head_dim, or on CUDA: not bf16 / head_dim != "
-            "128 / unsupported GQA ratio); use decode_path='auto'")
+            "(attn extras, odd head_dim, or on CUDA: not bf16 / head_dim "
+            "not 64 or 128 / unsupported GQA ratio); use decode_path='auto'")
     if mode == "pallas":
         return pa.paged_decode_attention_pallas
     if mode == "auto" and (device.type != "cuda" or not ok):
@@ -277,3 +291,29 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
     if kv_quant:
         return pa.paged_decode_attention_fused_quant
     return pa.paged_decode_attention_fused
+
+
+def select_verify_impl(device: torch.device, cfg=None):
+    """Pick the verify (multi-query paged) attention path: None for
+    attn-extras models; ``paged_verify_attention`` (the gather) off the
+    card; on the card the split paged attention wrapper
+    (``paged_verify_attention_pallas``), at every table width, and
+    ``ValueError`` for a geometry it does not take.  The JAX package keeps
+    the gather below a 2,048-token table (its TPU measurement); on the H100
+    the kernel is the faster at 1,024 tokens as well (PERF.md, section 7),
+    so the port has no threshold.  Returns a callable (q, k_pages, v_pages,
+    table, start, lengths)."""
+    if cfg is not None and cfg.has_attn_extras:
+        return None
+    if device.type != "cuda":
+        return paged_verify_attention
+    if cfg is not None and not _decode_geometry_ok(cfg, device):
+        raise ValueError(
+            f"speculative verify: {getattr(cfg, 'name', 'model')} can't take "
+            "the split paged attention kernel (on CUDA: not bf16 / head_dim "
+            "not 64 or 128 / unsupported GQA ratio); set spec_k=0")
+    from k8s_llm_monitor_tpu_torch.ops.paged_attention import (
+        paged_verify_attention_pallas,
+    )
+
+    return paged_verify_attention_pallas

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # planes after the pages.
 _FLASH = [_P] * 7 + [_I] * 6 + [_P]      # q, kp, vp, table, start, lengths,
 #                                          out, B, S, H, KVH, bs, NB, stream
-_FUSED = [_P] * 11 + [_I] * 7 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
-#             table, positions, out, workspace, B, H, KVH, bs, NB, nsplit,
+_FUSED = [_P] * 11 + [_I] * 8 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
+#             table, positions, out, workspace, B, H, KVH, D, bs, NB, nsplit,
 #             chunk, scale, stream
 _SIGNATURES = {
     "flash_prefill_bf16": ("flash_prefill", _FLASH),
@@ -48,12 +48,12 @@ _SIGNATURES = {
     "fused_decode_bf16": ("fused_decode", _FUSED),
     "fused_decode_int8": ("fused_decode", [_P] * 2 + _FUSED),
     "fused_decode_fp8": ("fused_decode", [_P] * 2 + _FUSED),
-    # q, kp, vp, table, starts, qlens, out, workspace, B, QS, H, KVH, bs,
-    # NB, nsplit, chunk, scale, stream
-    "paged_attn_bf16": ("paged_attn", [_P] * 8 + [_I] * 8 + [_F, _P]),
-    # q, kp, vp, table, lengths, out, workspace, B, H, KVH, bs, NB, nsplit,
-    # chunk, scale, stream
-    "paged_attn_decode_bf16": ("paged_attn", [_P] * 7 + [_I] * 7 + [_F, _P]),
+    # q, kp, vp, table, starts, qlens, out, workspace, B, QS, H, KVH, D,
+    # bs, NB, nsplit, chunk, scale, stream
+    "paged_attn_bf16": ("paged_attn", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    # q, kp, vp, table, lengths, out, workspace, B, H, KVH, D, bs, NB,
+    # nsplit, chunk, scale, stream
+    "paged_attn_decode_bf16": ("paged_attn", [_P] * 7 + [_I] * 8 + [_F, _P]),
 }
 _QUANT_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 _fns: dict[str, object] = {}
@@ -100,6 +100,9 @@ def _raise_on(err: int, name: str) -> None:
 DECODE_CHUNK = {2: 256, 1: 128}
 DECODE_MAX_SPLITS = 64
 DECODE_TILE = 32
+# Head dims the split-KV templates are instantiated for (csrc/split_kv.cuh:
+# a block of D threads): llama-1b's 64 and Llama-3-8B's 128.
+SPLIT_KV_HEAD_DIMS = (64, 128)
 
 
 def decode_splits(max_blocks: int, block_size: int,
@@ -269,12 +272,12 @@ def _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
     # One test, and a message formatted only on failure: this runs once
     # per layer and decode step.
     if not (S == 1 and q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16
-            and D == 128 and F == KVH * D and H % KVH == 0
+            and D in SPLIT_KV_HEAD_DIMS and F == KVH * D and H % KVH == 0
             and H // KVH in (1, 2, 4, 8) and k_new.shape == (B, 1, KVH, D)
             and v_new.shape == k_new.shape):
         raise ValueError(
             f"fused decode takes one bf16 query token per lane, head_dim "
-            f"128 and 1, 2, 4 or 8 query heads per kv head: got q "
+            f"64 or 128 and 1, 2, 4 or 8 query heads per kv head: got q "
             f"{tuple(q.shape)} {q.dtype}, k_new {tuple(k_new.shape)} "
             f"{k_new.dtype}, v_new {tuple(v_new.shape)} {v_new.dtype}, "
             f"pages {tuple(k_pages.shape)}")
@@ -295,7 +298,7 @@ def _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
              sn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              *(t.data_ptr() for t in scales), table.data_ptr(),
              pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             B, H, KVH, bs, table.shape[1], nsplit, chunk, D ** -0.5,
+             B, H, KVH, D, bs, table.shape[1], nsplit, chunk, D ** -0.5,
              _stream(q.device))
     _raise_on(err, f"fused_decode_{suffix}")
     return out
@@ -432,13 +435,13 @@ def _paged_attn(q, k_pages, v_pages, block_table, *, lengths=None,
     KVH = F // D
     # One test, and a message formatted only on failure: this runs once
     # per layer and decode step.
-    if not (q.dtype == torch.bfloat16 and D == 128 and F == KVH * D
-            and H % KVH == 0 and H // KVH in (1, 2, 4, 8)
+    if not (q.dtype == torch.bfloat16 and D in SPLIT_KV_HEAD_DIMS
+            and F == KVH * D and H % KVH == 0 and H // KVH in (1, 2, 4, 8)
             and 1 <= QS <= MAX_QUERY_TOKENS):
         raise ValueError(
             f"paged attention takes 1..{MAX_QUERY_TOKENS} bf16 query tokens "
-            f"per lane, head_dim 128 and 1, 2, 4 or 8 query heads per kv "
-            f"head: got q {tuple(q.shape)} {q.dtype}, pages "
+            f"per lane, head_dim 64 or 128 and 1, 2, 4 or 8 query heads per "
+            f"kv head: got q {tuple(q.shape)} {q.dtype}, pages "
             f"{tuple(k_pages.shape)}")
     _check_pool(k_pages, v_pages, None, None, D, "paged attention")
     qc = q.contiguous()
@@ -456,7 +459,7 @@ def _paged_attn(q, k_pages, v_pages, block_table, *, lengths=None,
     err = _kernel(sym)(
         qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), *(t.data_ptr() for t in lanes), out.data_ptr(),
-        ws.data_ptr(), *dims, H, KVH, bs, table.shape[1], nsplit, chunk,
+        ws.data_ptr(), *dims, H, KVH, D, bs, table.shape[1], nsplit, chunk,
         D ** -0.5, _stream(q.device))
     _raise_on(err, sym)
     return out

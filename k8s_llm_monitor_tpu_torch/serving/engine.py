@@ -68,6 +68,20 @@ block.
   * Sampled decode steps take ``sample_tokens_bounded`` (one top-k over
     ``sample_topk_cap`` logits) when every sampling lane has ``0 < top_k
     <= sample_topk_cap``.
+  * **Speculative decoding** (``spec_k``, serving/spec.py) -- a decode
+    call may instead run ``spec_rounds_per_iter`` verify rounds: each
+    proposes ``spec_k`` drafts per lane by n-gram lookup over the lane's
+    token history (``_hist``, written at admission and extended on the
+    device), verifies the ``spec_k + 1`` positions in one forward
+    (llama.verify_step: flash prefill when it is on, else the split paged
+    attention kernel on a bf16 pool, else the gather) and accepts
+    a draft prefix plus the model's token (argmax, or the delta-draft
+    sampling rule).  A spec call drains the pipeline first (its emission is
+    data-dependent); constrained lanes, brownout level >= 1 and a request
+    class whose acceptance EMA sits under ``spec_min_accept`` (probed every
+    ``spec_probe_every`` dispatches) take the plain decode program.  The
+    spec program is a sibling of the decode program (``_SpecProgram``),
+    captured as a CUDA graph the same way.
   * The surface ``serving/service.py`` drives: ``token_sink`` (tokens as
     they reach the host, then the result), ``poll``, the queue gauges,
     class-ordered ``should_shed``, queue TTL and per-request deadlines, the
@@ -79,14 +93,17 @@ block.
     per-tenant cached blocks), the prefix cache's counters and the
     recovery counters.
 
-Not ported: speculative decoding (ROADMAP A4), the host KV tier and prefix
-export/install (A5) and meshes (A7); the resident pool may be int8/fp8
-(``EngineConfig.kv_dtype``).
+Not ported: the host KV tier and prefix export/install (ROADMAP A5) and
+meshes (A7); the resident pool may be int8/fp8 (``EngineConfig.kv_dtype``).
+As in the JAX engine, ``K8SLLM_KV_DTYPE``, ``K8SLLM_PREFILL_PATH`` and
+``K8SLLM_DECODE_PATH`` override ``kv_dtype``, ``prefill_path`` and
+``decode_path``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import Any, Callable, Optional
@@ -100,6 +117,7 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
     paged_decode_attention,
     select_decode_impl,
     select_prefill_impl,
+    select_verify_impl,
 )
 from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
@@ -124,6 +142,12 @@ from k8s_llm_monitor_tpu_torch.serving.kv_cache import (
     PrefixCache,
     page_slice_bytes,
     shareable_blocks,
+)
+from k8s_llm_monitor_tpu_torch.serving.spec import (
+    AcceptanceEMA,
+    accept_greedy,
+    accept_sampled,
+    propose_drafts,
 )
 
 
@@ -229,13 +253,15 @@ class EngineConfig:
     # card).  The CPU always runs it eagerly.
     decode_graphs: bool = True
     # ops/attention.py:select_decode_impl -- "auto" | "fused" | "pallas" |
-    # "gather".
+    # "gather"; K8SLLM_DECODE_PATH overrides it.
     decode_path: str = "auto"
-    # ops/attention.py:select_prefill_impl -- "auto" | "flash" | "dense".
+    # ops/attention.py:select_prefill_impl -- "auto" | "flash" | "dense";
+    # K8SLLM_PREFILL_PATH overrides it.
     prefill_path: str = "auto"
     # Resident KV representation: "auto" keeps the model's dtype ("fp16",
     # "bf16" and "none" mean the same); "int8" / "fp8" hold 1-byte codes
     # plus per-(token, head) float32 scales (models/llama.py:KVPages).
+    # K8SLLM_KV_DTYPE overrides it.
     kv_dtype: str = "auto"
     # When every sampling lane of a decode call has 0 < top_k <= this cap,
     # it samples from the top ``sample_topk_cap`` logits (one torch.topk)
@@ -277,6 +303,22 @@ class EngineConfig:
     # "tier" arms it only with a host KV tier (not ported: unarmed),
     # "device" counts free device blocks, "off" disables it.
     kv_admission: str = "tier"
+    # Prompt-lookup speculative decoding (serving/spec.py): drafts per
+    # verify pass; 0 disables.  Greedy lanes accept by argmax match (the
+    # ids of plain decode), sampled ones by the distribution-exact
+    # delta-draft rule.  A spec call drains the pipeline first.
+    spec_k: int = 0
+    # Verify rounds per spec call (the decode_steps_per_iter of spec).
+    spec_rounds_per_iter: int = 4
+    # Adaptive speculation: below this EMA of tokens emitted per
+    # lane-round (accepted drafts plus the model's token, so the floor is
+    # 1.0) a request class takes the plain decode program, re-probing with
+    # one spec call every spec_probe_every dispatches.
+    spec_min_accept: float = 1.2
+    spec_probe_every: int = 32
+    # History window of the n-gram match per lane (tokens; at most the
+    # per-sequence capacity).
+    spec_hist_cap: int = 4096
 
 
 # Sink signature: (request_id, new_token_ids, result_or_none).  ``result`` is
@@ -330,17 +372,18 @@ class _Slot:
 @dataclasses.dataclass
 class _Inflight:
     """One dispatched call, until it is reconciled."""
-    kind: str                 # "admit" | "chunk" | "decode"
+    kind: str                 # "admit" | "chunk" | "decode" | "spec"
     call_id: int
     # admit: [(slot_idx, req)], row j of the call is lane j; chunk:
-    # [(row, slot_idx, req)] for the final lanes; decode: [(slot_idx, slot,
-    # steps_i)] -- the slot object, since by reconcile time the index may
-    # hold another request.
+    # [(row, slot_idx, req)] for the final lanes; decode and spec:
+    # [(slot_idx, slot, steps_i)] -- the slot object, since by reconcile
+    # time the index may hold another request.
     lanes: list[tuple]
     stage: "_Stage"
     event: Any                # torch.cuda.Event after the copy; None on CPU
     t0: float                 # dispatch time (host clock)
-    K: int = 0                # decode steps of a decode call
+    # Token rows of a decode (steps) or spec (rounds * (spec_k + 1)) call.
+    K: int = 0
     # chunk: every slot the call advanced (inflight_chunks drains).
     touched: list = dataclasses.field(default_factory=list)
     span_attrs: dict = dataclasses.field(default_factory=dict)
@@ -504,6 +547,88 @@ class _DecodeProgram:
             eng._fsm_state.copy_(fstate)
 
 
+class _SpecProgram(_DecodeProgram):
+    """``rounds`` speculative verify rounds of ``k`` drafts with on-device
+    token and history feedback: the JAX engine's ``_spec_program`` (a
+    ``lax.scan``, ``serving/engine.py:2714``), keyed like it by (k, rounds,
+    sampled, filtered).
+
+    Each round writes the current token into its lane's history row,
+    proposes ``k`` drafts (spec.propose_drafts), verifies the ``k + 1``
+    positions in one forward (llama.verify_step on the engine's verify
+    path), accepts a draft prefix plus the model's token (argmax, or the
+    delta-draft rule when ``sampled``; ``filtered`` adds the top-k/top-p
+    filters), appends the emitted tokens to the history and advances ctx
+    by the count.  Rejected positions' K/V stays past ctx: masked, then
+    overwritten.  A lane is active while it started active, has not hit
+    EOS and has quota left.  ``out`` [rounds * (k + 1), max_slots] holds
+    each round's emission with -1 padding, chronological per lane;
+    ``stats`` [2] the rounds that ran a forward with an active lane and the
+    active lane-rounds.  Captured and replayed as ``_DecodeProgram`` is.
+    """
+
+    def __init__(self, eng: "InferenceEngine", k: int, rounds: int,
+                 sampled: bool, filtered: bool):
+        super().__init__(eng, rounds * (k + 1),
+                         "sampled" if sampled else "greedy", False, 0)
+        self.k = k
+        self.rounds = rounds
+        self.filtered = filtered
+        self.stats = torch.zeros(2, dtype=torch.int32, device=eng.device)
+
+    def _run(self) -> None:
+        eng = self.eng
+        k = self.k
+        ctx, quota, topk, temp, topp, table = eng._dec_views
+        hist = eng._hist                       # [B, H + 1]: column H sinks
+        H = hist.shape[1] - 1
+        hv = hist[:, :H]
+        active0 = ctx > 0
+        done = torch.zeros_like(active0)
+        tok = eng._tok_state
+        offs = torch.arange(k + 1, dtype=torch.int32, device=eng.device)
+        zero = torch.zeros_like(ctx)
+        sink = torch.full_like(ctx, H)
+        ran = torch.zeros((), dtype=torch.int32, device=eng.device)
+        lane_rounds = torch.zeros_like(ran)
+        for r in range(self.rounds):
+            act = active0 & ~done & (quota > 0)
+            # The current token enters the history at its own position.
+            wcol = torch.where(act & (ctx < H), ctx, sink)
+            hist.scatter_(1, wcol.long()[:, None], tok[:, None])
+            drafts = propose_drafts(hv, ctx, tok, k)
+            toks_in = torch.cat([tok[:, None], drafts], dim=1)
+            lengths = torch.where(act, torch.full_like(ctx, k + 1), zero)
+            logits, _ = llama.verify_step(eng.model, toks_in, ctx, lengths,
+                                          eng.pages, table,
+                                          attn_impl=eng._verify_attn)
+            if self.sampler == "sampled":
+                emit, out = accept_sampled(
+                    eng._gen, logits, drafts, quota, act, eng.eos_id, temp,
+                    top_k=topk if self.filtered else None,
+                    top_p=topp if self.filtered else None)
+            else:
+                greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+                emit, out = accept_greedy(greedy, drafts, quota, act,
+                                          eng.eos_id)
+            # The emitted tokens extend the history at ctx + 1 + i.
+            cols = ctx[:, None] + 1 + offs[None, :]
+            cols = torch.where((out >= 0) & (cols < H), cols, sink[:, None])
+            hist.scatter_(1, cols.long(), out)
+            last = torch.gather(out, 1, (emit - 1).clamp(min=0).long()[:, None])
+            tok = torch.where(act & (emit > 0), last[:, 0], tok)
+            # The -1 padding must not match an eos_id of -1.
+            done = done | (act & ((out == eng.eos_id) & (out >= 0)).any(dim=1))
+            step = torch.where(act, emit, zero)
+            ctx = ctx + step
+            quota = quota - step
+            self.out[r * (k + 1):(r + 1) * (k + 1)].copy_(out.t())
+            ran = ran + act.any().to(torch.int32)
+            lane_rounds = lane_rounds + act.sum().to(torch.int32)
+        self.stats.copy_(torch.stack([ran, lane_rounds]))
+        eng._tok_state.copy_(tok)
+
+
 class InferenceEngine:
     """Single-process engine over batched prefill and K-step decode.
 
@@ -531,16 +656,17 @@ class InferenceEngine:
         self.health = None
         self.brownout = None
         # Resolved before the pool is allocated: "" for a pool in the
-        # model's dtype, "int8" / "fp8" for the quantized tier.
-        if ec.kv_dtype in ("auto", "fp16", "bf16", "none"):
+        # model's dtype, "int8" / "fp8" for the quantized tier.  The
+        # environment wins over EngineConfig, as in the JAX engine.
+        kvd = os.environ.get("K8SLLM_KV_DTYPE", ec.kv_dtype) or "auto"
+        if kvd in ("auto", "fp16", "bf16", "none"):
             self.kv_quant = ""
-        elif ec.kv_dtype in ("int8", "fp8"):
-            self.kv_quant = ec.kv_dtype
+        elif kvd in ("int8", "fp8"):
+            self.kv_quant = kvd
         else:
-            raise ValueError(
-                f"unknown kv_dtype {ec.kv_dtype!r} (auto | int8 | fp8)")
-        self._prefill_attn = select_prefill_impl(self.device, cfg,
-                                                 ec.prefill_path)
+            raise ValueError(f"unknown kv_dtype {kvd!r} (auto | int8 | fp8)")
+        pmode = os.environ.get("K8SLLM_PREFILL_PATH", ec.prefill_path) or "auto"
+        self._prefill_attn = select_prefill_impl(self.device, cfg, pmode)
         self.prefill_path = "flash" if self._prefill_attn is not None else "dense"
         if self._prefill_attn is not None:
             # The flash kernel reads K/V from the pages, so long prompts
@@ -555,7 +681,9 @@ class InferenceEngine:
                     ec, prefill_buckets=tuple(ec.prefill_buckets) + extra)
                 self.ecfg = ec
         self._decode_attn = select_decode_impl(
-            self.device, cfg, ec.decode_path, kv_quant=self.kv_quant)
+            self.device, cfg,
+            os.environ.get("K8SLLM_DECODE_PATH", ec.decode_path),
+            kv_quant=self.kv_quant)
         impl = self._decode_attn
         if self.kv_quant:
             # Without the fused quant kernel, decode_step runs its gather/
@@ -568,6 +696,16 @@ class InferenceEngine:
             self.decode_path = "gather"
         else:
             self.decode_path = "pallas"
+        # The verify pass of speculative decoding, as the JAX engine picks
+        # it: flash prefill whenever it is on (a quantized pool's scale
+        # planes ride as kwargs), else the split paged attention kernel on
+        # a bf16 pool (select_verify_impl), else None (the gather).
+        if ec.spec_k > 0 and self._prefill_attn is not None:
+            self._verify_attn = self._prefill_attn
+        elif ec.spec_k > 0 and not self.kv_quant:
+            self._verify_attn = select_verify_impl(self.device, cfg)
+        else:
+            self._verify_attn = None
         self.pages = llama.init_kv_pages(cfg, ec.num_blocks, ec.block_size,
                                          self.device,
                                          model.embed.weight.dtype,
@@ -620,7 +758,24 @@ class InferenceEngine:
             ec.max_slots * (5 + ec.max_blocks_per_seq),
             ec.max_prefills_per_step * (top + 8 + ec.max_blocks_per_seq))
         self._stage_out = max(ec.decode_steps_per_iter * ec.max_slots,
-                              ec.max_prefills_per_step)
+                              ec.max_prefills_per_step,
+                              ec.spec_rounds_per_iter * (ec.spec_k + 1)
+                              * ec.max_slots + 2 if ec.spec_k > 0 else 0)
+        # Speculative decoding: each lane's token history for the n-gram
+        # proposer, [max_slots, H + 1] with a sink column H for the writes
+        # the JAX engine drops; rows are written whole at admission, then
+        # extended on the device as tokens are accepted.
+        self._hist: Optional[torch.Tensor] = None
+        if ec.spec_k > 0:
+            H = min(self.capacity_tokens, ec.spec_hist_cap)
+            self._hist = torch.full((ec.max_slots, H + 1), -1,
+                                    dtype=torch.int32, device=self.device)
+        self.spec_tokens = 0         # tokens emitted by spec calls
+        self.spec_verify_steps = 0   # verify forwards those tokens cost
+        self.spec_lane_rounds = 0    # active lanes summed over those forwards
+        # Per-request-class acceptance EMA (serving/spec.py:AcceptanceEMA).
+        self._spec_accept = AcceptanceEMA(floor=ec.spec_min_accept,
+                                          probe_every=ec.spec_probe_every)
         self._stages: list[_Stage] = []
         # (stage, event) of calls dropped by a reset: back to _stages once
         # the event has completed (their copies may still land).
@@ -1133,7 +1288,7 @@ class InferenceEngine:
         calls = list(extra_calls) + list(self._inflight)
         self._inflight.clear()
         for call in calls:
-            if call.kind == "decode":
+            if call.kind in ("decode", "spec"):
                 for _, s, _steps in call.lanes:
                     s.inflight_decode = 0
             elif call.kind == "chunk":
@@ -1244,7 +1399,7 @@ class InferenceEngine:
         change hands when they would without this.  A CPU call has no
         event and waits for its reconcile, as in the JAX engine."""
         for call in self._inflight:
-            if (call.kind != "decode" and not call.delivered
+            if (call.kind in ("admit", "chunk") and not call.delivered
                     and not call.stuck and call.event is not None
                     and call.event.query()):
                 call.delivered = True
@@ -1508,7 +1663,9 @@ class InferenceEngine:
                 slot.ctx_len = L
                 slot.prefill_pos = shared_toks
                 slot.prefilling = True
-                self._slots[free.pop(0)] = slot
+                slot_idx = free.pop(0)
+                self._slots[slot_idx] = slot
+                self._write_hist([(slot_idx, req)])
                 admitted_long += 1
                 if self.prefix_cache is not None:
                     publishing.append(req.prompt_ids)
@@ -1591,6 +1748,7 @@ class InferenceEngine:
             self._slots[slot_idx] = slot
             lanes.append((slot_idx, req))
         self.prefills += len(batch)
+        self._write_hist(lanes)
         self._queue_inflight("admit", out, len(lanes), P, stage, lanes, t0,
                              span_attrs={"bucket": bucket,
                                          "lanes": len(batch),
@@ -1726,6 +1884,49 @@ class InferenceEngine:
         if not self.ecfg.admit_inflight:
             self._reconcile_all()
 
+    # -- speculative decoding -------------------------------------------
+
+    def _write_hist(self, entries: list[tuple[int, GenerationRequest]]) -> None:
+        """Load the prompts of freshly occupied slots into their history
+        rows (the JAX engine's ``_write_hist``): one row each, the prompt's
+        head where it is longer than the window (matches past it stop
+        proposing, which lowers acceptance, never correctness), -1 after.
+        On the card the rows go through pinned memory with ``non_blocking``
+        copies, so no call in flight is waited for."""
+        if self._hist is None or not entries:
+            return
+        H = self._hist.shape[1] - 1
+        rows = np.full((len(entries), H + 1), -1, np.int32)
+        idx = np.empty(len(entries), np.int64)
+        for j, (slot_idx, req) in enumerate(entries):
+            L = min(len(req.prompt_ids), H)
+            rows[j, :L] = req.prompt_ids[:L]
+            idx[j] = slot_idx
+        r, i = torch.from_numpy(rows), torch.from_numpy(idx)
+        if self.device.type == "cuda":
+            r = r.pin_memory().to(self.device, non_blocking=True)
+            i = i.pin_memory().to(self.device, non_blocking=True)
+        self._hist.index_copy_(0, i, r)
+
+    @staticmethod
+    def _spec_class(lanes) -> str:
+        """Request class of adaptive speculation: greedy and sampled traffic
+        accept at very different rates, so each has its own EMA; a mixed
+        batch counts as sampled."""
+        return ("greedy"
+                if all(s.req.sampling.temperature <= 0.0 for _, s in lanes)
+                else "sampled")
+
+    @property
+    def _spec_ema(self) -> Optional[float]:
+        """The best class's acceptance EMA, or None before a measurement."""
+        snap = self._spec_accept.snapshot()
+        return max(snap.values()) if snap else None
+
+    def spec_accept_ema(self) -> dict:
+        """{request class: EMA of tokens emitted per lane-round}."""
+        return self._spec_accept.snapshot()
+
     # -- decode ---------------------------------------------------------
 
     def _decode_lanes(self) -> list[tuple[int, _Slot]]:
@@ -1757,9 +1958,38 @@ class InferenceEngine:
         lanes = self._decode_lanes()
         if not lanes:
             return False
-        kmax = min(ec.decode_steps_per_iter,
-                   max(s.remaining_pred for _, s in lanes))
-        K = 1 << (kmax.bit_length() - 1)
+        if any(c.kind == "spec" for c in self._inflight):
+            # A spec call's emission is data-dependent, so its lanes'
+            # ctx_pred is an upper bound while it is in flight: any next
+            # decode call waits for the reconciled ctx, or it would run at
+            # positions whose attention covers rejected drafts' K/V.
+            self._reconcile_all()
+            lanes = self._decode_lanes()
+            if not lanes:
+                return False
+        # Constrained lanes take no drafts (the verify pass samples from
+        # unmasked logits), brownout sheds the gamble first, and a class
+        # whose acceptance sits under the floor drafts only to probe.
+        spec = ec.spec_k > 0 and not any(
+            s.req.sampling.constrained for _, s in lanes)
+        if spec and self._brownout_level() >= 1:
+            spec = False
+        if spec:
+            spec = self._spec_accept.should_draft(self._spec_class(lanes))
+        if spec:
+            # Drain the pipeline: a spec call trades dispatch-ahead depth
+            # for multi-token verify rounds.
+            if self._inflight:
+                self._reconcile_all()
+                lanes = self._decode_lanes()
+                if not lanes:
+                    return False
+            # Per-lane quota: the most a call emits if every draft holds.
+            K = ec.spec_rounds_per_iter * (ec.spec_k + 1)
+        else:
+            kmax = min(ec.decode_steps_per_iter,
+                       max(s.remaining_pred for _, s in lanes))
+            K = 1 << (kmax.bit_length() - 1)
         for i, s in sorted(lanes, key=lambda t: t[1].req.submit_time):
             if self._slots[i] is not s or s.retired:
                 continue        # evicted or retired in the loop below
@@ -1816,22 +2046,37 @@ class InferenceEngine:
         # lanes then take the argmax of the masked logits.
         constrained = self._fsm_trans is not None and any(
             s.req.sampling.constrained for _, s in lanes)
+        spec = spec and not constrained
         cap = ec.sample_topk_cap
-        bounded = not greedy and cap > 0 and all(
+        bounded = not spec and not greedy and cap > 0 and all(
             0 < s.req.sampling.top_k <= cap
             for _, s in lanes if s.req.sampling.temperature > 0.0)
-        sampler = "greedy" if greedy else "bounded" if bounded else "full"
-        key = (K, sampler, constrained, cap if bounded else 0)
+        if spec:
+            # Filters matter only on lanes that sample: a greedy lane with
+            # a top_p (a common client default) keeps the plain variant.
+            filtered = not greedy and any(
+                s.req.sampling.temperature > 0.0
+                and (s.req.sampling.top_k > 0 or s.req.sampling.top_p < 1.0)
+                for _, s in lanes)
+            key = ("spec", ec.spec_k, ec.spec_rounds_per_iter, not greedy,
+                   filtered)
+        else:
+            sampler = "greedy" if greedy else "bounded" if bounded else "full"
+            key = (K, sampler, constrained, cap if bounded else 0)
         t0 = time.monotonic()
         try:
             self._faults.maybe_raise("decode_dispatch")
             prog = self._programs.get(key)
             if prog is None:
-                prog = self._programs[key] = _DecodeProgram(
-                    self, K, sampler, constrained, cap)
+                prog = self._programs[key] = (
+                    _SpecProgram(self, *key[1:]) if spec else
+                    _DecodeProgram(self, K, sampler, constrained, cap))
             self._dec_in.copy_(stage.inp[:n_in], non_blocking=True)
             toks = prog()
             stage.out[:K * B].view(K, B).copy_(toks, non_blocking=True)
+            if spec:
+                stage.out[K * B:K * B + 2].copy_(prog.stats,
+                                                 non_blocking=True)
         except Exception as exc:
             # Undo the in-flight accounting so the same lanes dispatch
             # again next step (ctx_pred rewinds with inflight_decode).
@@ -1846,13 +2091,15 @@ class InferenceEngine:
             event = torch.cuda.Event()
             event.record()
         self._inflight.append(_Inflight(
-            kind="decode", call_id=self._next_call_id, lanes=meta,
-            stage=stage, event=event, t0=t0, K=K,
+            kind="spec" if spec else "decode", call_id=self._next_call_id,
+            lanes=meta, stage=stage, event=event, t0=t0, K=K,
             span_attrs={"steps": K, "lanes": len(lanes),
                         "constrained": constrained},
             stuck=self._faults.should_fire("decode_stuck")))
         self._next_call_id += 1
-        self.decode_steps += K
+        if not spec:
+            # A spec call counts the verify forwards it ran at reconcile.
+            self.decode_steps += K
         if bounded:
             self.bounded_decode_steps += K
         return True
@@ -1911,7 +2158,7 @@ class InferenceEngine:
         call's tokens (emission, retirement; a retired lane's zombie steps
         are dropped)."""
         now = time.monotonic()
-        if call.kind != "decode":
+        if call.kind in ("admit", "chunk"):
             pf_ms = max(0.0, now - call.t0) * 1e3
             self.prefill_attn_ms = (
                 pf_ms if self.prefill_attn_ms == 0.0
@@ -1926,8 +2173,20 @@ class InferenceEngine:
                         and (self._is_finished(s) or s.cancel_requested)):
                     self._retire(slot_idx)
             return
-        arr = call.stage.out_np[:call.K * self.ecfg.max_slots].reshape(
-            call.K, -1)
+        n = call.K * self.ecfg.max_slots
+        arr = call.stage.out_np[:n].reshape(call.K, -1)
+        spec = call.kind == "spec"
+        if spec:
+            ran, lane_rounds = (int(x) for x in call.stage.out_np[n:n + 2])
+            self.spec_verify_steps += ran
+            self.spec_lane_rounds += lane_rounds
+            self.decode_steps += ran
+            if lane_rounds:
+                # The class of the slots this call ran (the slot objects:
+                # a reused lane index cannot misattribute).
+                self._spec_accept.update(
+                    self._spec_class((i, s) for i, s, _ in call.lanes),
+                    int(np.sum(arr >= 0)), lane_rounds)
         self.decode_s += now - max(call.t0, self._decode_mark)
         self._decode_mark = now
         for slot_idx, s, steps_i in call.lanes:
@@ -1936,8 +2195,14 @@ class InferenceEngine:
             new = [int(t) for t in arr[:, slot_idx] if t >= 0]
             s.inflight_decode -= steps_i
             self.decode_tokens += len(new)
-            self._span("engine.decode", call.t0, now, s.req, steps=steps_i,
-                       emitted=len(new))
+            if spec:
+                self.spec_tokens += len(new)
+                self._span("engine.spec_decode", call.t0, now, s.req,
+                           steps=steps_i, emitted=len(new),
+                           rounds=self.ecfg.spec_rounds_per_iter)
+            else:
+                self._span("engine.decode", call.t0, now, s.req,
+                           steps=steps_i, emitted=len(new))
             if not new:
                 continue
             s.ctx_len += len(new)

@@ -388,8 +388,7 @@ def test_remediation_without_a_cluster_boots():
 
 @pytest.mark.parametrize("knob,value", [
     ("quantize", "w8a8"), ("quantize", "int8"),
-    ("checkpoint", "/models/llama"), ("spec_k", 4),
-    ("mesh_shape", "1,1,8")])
+    ("checkpoint", "/models/llama"), ("mesh_shape", "1,1,8")])
 def test_from_config_refuses_unported_knobs(knob, value):
     tc = TPULLMConfig(model="tiny", quantize="", spec_k=0)
     setattr(tc, knob, value)
