@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 0,6    # the monitor's front door alone
     python3 chip_smoke.py --phases 0,7    # prefix reuse, preemption, recovery
     python3 chip_smoke.py --phases 0,8    # llama-1b and speculative decoding
+    python3 chip_smoke.py --phases 0,9    # Qwen2-7B, int8 / W8A8, a checkpoint
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -40,6 +41,12 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          (PAGED_CASES_D64), QS > 1 held as paged_attn_verify_d64; and flash
          prefill at the spec verify shape (VERIFY_SHAPE: 32 lanes, S=5 at
          the lanes' positions, some empty), held as flash_prefill_verify.
+         At 7 query heads per kv head (Qwen2-7B's 28/4, D=128, the _qpk7
+         records; 14/2 at D=64 under the _d64 ones): flash prefill over the
+         three pools at ragged lengths across the 16-position row slabs,
+         blocks of 12, a 2048 chunk and the verify shape; fused decode over
+         the three pools; split paged attention at QS 1, 2, 4, 5 and 8
+         (every row-tile count).
 Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
          from a seeded generator on the card): a bf16 pool (8 GiB), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
@@ -98,7 +105,10 @@ Phase 4  per-kernel timings at the main path's shapes (CUDA events): the
          position, and the verify threshold: QS=5 through the kernel
          against the gather path over tables of 1,024 and 4,096 tokens.
          Flash prefill at the verify shape (S=5 at each lane's position),
-         bf16 and int8.
+         bf16 and int8.  At Qwen2-7B's 28/4 heads (the _qpk7 records): flash
+         prefill at the admission shape (bf16, int8) and the verify shape,
+         fused decode (bf16, int8) and split paged attention at QS=1 and 5
+         at the head_dim 64 block's shapes.
 
 Phase 5  the request's way in: phase 2's Llama-3-8B model in an engine
          with a bf16 pool (the prefix cache off), ByteTokenizer and the
@@ -187,14 +197,41 @@ Phase 8  llama-1b and speculative decoding (runs after phase 3, before 4:
          model, spec off and spec_k 4 (spec_min_accept 0) on the bf16 and
          int8 pools: flash prefill launches inside the spec calls (B1, B5);
          on 4 layers verify_step against sequential decode on both pools.
-         Between the two, 8c: the monitor's default config (llama-1b,
-         spec_k 4, spec_min_accept 1.2, 32 slots, 512 x 16 blocks; bf16
-         weights) through build_server and phase 6's HTTP burst: every
-         response succeeds, the split paged attention kernel launches in
-         spec calls and fused decode in decode calls, no dispatch failure.
+         Between the two, 8c: the monitor's default config as
+         load_config(None) gives it (llama-1b, quantize w8a8, spec_k 4,
+         spec_min_accept 1.2, 32 slots, 512 x 16 blocks), telemetry and
+         remediation off, through build_server and phase 6's HTTP burst:
+         every response succeeds, the split paged attention kernel
+         launches in spec calls and fused decode in decode calls, no
+         dispatch failure.
          Each spec run prints its acceptance (tokens per lane-round),
          decode tokens/s against spec off, spec_accept_ema() and how many
          id sequences equal the spec-off run's.
+
+Phase 9  weights and Qwen2-7B (runs last: phase 6 has freed the earlier
+         model).  9a: Qwen2-7B at full width (28 layers, hidden 3584, 28/4
+         heads, vocab 152,064, qkv bias; random bf16 weights from a seed,
+         about 15.2 GB; a 4096 x 16 pool), phase 2's 16 prompts and 32 new
+         tokens on bf16 and int8 pools and decode_path="pallas" (flash
+         prefill, fused and split paged attention launched at 7 query
+         heads per kv head; two identical runs give identical ids); on 4
+         layers flash/fused and flash/pallas against dense/gather and the
+         int8 kernels against their plain versions, by phase 3's rule;
+         spec_k 4 (spec_min_accept 0) verifying through flash prefill, and
+         with prefill dense through split paged attention at QS=5.  9b:
+         llama-1b with int8 weights from init_params_quantized, run
+         weight-only and W8A8, beside the same weights dequantized to
+         bf16: decode graphs against the eager loop (ids equal), weight
+         bytes and warm decode tok/s of the three; torch._int_mm at every
+         (rows, in, out) shape the W8A8 engines called equal to a float64
+         product; on 4 layers the int8 and W8A8 logits against the bf16
+         model's, cosine at least 0.98 per position.  9c: llama-1b's shape
+         written as an index-sharded bf16 safetensors checkpoint (1 GiB
+         shards, an HF config.json; a writer of this script's own) to a
+         temporary directory and read back with load_hf_checkpoint: every
+         tensor bit for bit, the quantized load equal to quantize_params,
+         load seconds and GB/s, greedy ids equal the in-memory model's;
+         without transformers, from_config on the checkpoint must raise.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -338,18 +375,19 @@ def quant_decode_case(torch, rng, gen, positions, nbl, kv_quant,
     return q, kn, vn, cos, sin, kq, vq, ks, vs, table, pos
 
 
-def prefill_work(starts, lengths, S, kv_quant=""):
+def prefill_work(starts, lengths, S, kv_quant="", heads=(H, KVH)):
     """(bytes, flops) the flash prefill must move and do for these inputs:
     each input read once, each output written once, causal pairs only.
     Rows past ``lengths`` are padding no caller reads, so q and out count
     only the valid rows."""
+    nh, nkv = heads
     B = len(starts)
-    qo = 2 * sum(lengths) * H * D * 2                   # q in, out
-    kv = sum((s + n) * KVH * _page_bytes(kv_quant) * 2
+    qo = 2 * sum(lengths) * nh * D * 2                  # q in, out
+    kv = sum((s + n) * nkv * _page_bytes(kv_quant) * 2
              for s, n in zip(starts, lengths))
     table = 4 * B * (2 + max((s + n + BS - 1) // BS for s, n in zip(starts, lengths)))
     pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts, lengths))
-    return qo + kv + table, 4 * D * H * pairs
+    return qo + kv + table, 4 * D * nh * pairs
 
 
 def decode_work(positions, kv_quant="", heads=(H, KVH), d=D):
@@ -530,15 +568,15 @@ def graph_ms(torch, fn, reps=20, rounds=5):
                    rounds=rounds) / reps
 
 
-def truncated(model, n_layers):
+def truncated(model, n_layers, **cfg):
     """A view of ``model`` with its first ``n_layers`` layers (weights
-    shared, nothing copied)."""
+    shared, nothing copied), its config changed by ``cfg`` as well."""
     from torch import nn
 
     m = copy.copy(model)
     m._modules = dict(model._modules)
     m.layers = nn.ModuleList(list(model.layers)[:n_layers])
-    m.cfg = dataclasses.replace(model.cfg, num_layers=n_layers)
+    m.cfg = dataclasses.replace(model.cfg, num_layers=n_layers, **cfg)
     return m
 
 
@@ -612,6 +650,17 @@ HIT_SHAPE = ([0, 1536, 1024, 1536, 0, 1280, 1536, 1100],
 VERIFY_SHAPE = ([(37 * i * i + 11 * i) % 2043 for i in range(32)],
                 [0 if i % 5 == 3 else 5 for i in range(32)])
 
+# Qwen2-7B's heads (phase 9): 28 query heads over 4 kv heads, head_dim 128.
+HEADS_QWEN = (28, 4)
+
+
+def qpk_suffix(heads, d) -> str:
+    """Record-name suffix of a head geometry: 7 query heads per kv head at
+    head_dim 128 (Qwen2-7B) are records of their own; at head_dim 64 they
+    are held under the _d64 records."""
+    return "_qpk7" if d == D and heads[0] // heads[1] == 7 else ""
+
+
 # Flash prefill cases of phase 1: (query heads, kv heads, S, starts,
 # lengths, tokens per block).  The Llama-3-8B heads (qpk 4) and block 16
 # unless stated.
@@ -640,6 +689,14 @@ PREFILL_CASES = [
     # speculative verify (VERIFY_SHAPE): 32 lanes, spec_k + 1 = 5 query
     # tokens at the lanes' positions, some lanes empty
     (H, KVH, 5, *VERIFY_SHAPE, BS),
+    # qpk 7 (Qwen2-7B: 28 query heads over 4 kv heads; 16-position row
+    # slabs, the eighth dead): ragged lengths across the slabs' tile
+    # boundaries, an empty lane, blocks of 12, a 2048 chunk, the verify
+    # shape
+    (*HEADS_QWEN, 256, [0, 700, 5, 0, 33], [256, 200, 77, 0, 17], BS),
+    (*HEADS_QWEN, 128, [0, 37, 300], [128, 91, 19], 12),
+    (*HEADS_QWEN, 2048, [0], [2048], BS),
+    (*HEADS_QWEN, 5, *VERIFY_SHAPE, BS),
 ]
 
 
@@ -663,6 +720,8 @@ def decode_cases(rng, chunks):
         ((32, 32), edges + [1000, 2047, 2051], 128, BS),
         # blocks of 12 tokens: the kernel divides by multiply and shift
         ((H, KVH), edges + [11, 12, 1535, 1539], 128, 12),
+        # qpk 7 (Qwen2-7B): a warp's softmax heads past the group
+        (HEADS_QWEN, edges + [15, 16, 1000, 2047, 2051], 128, BS),
     ]
 
 
@@ -684,6 +743,7 @@ def decode_cases_d64(rng, chunks):
             1, 2048, size=32 - len(fixed))], 128, BS),
         ((16, 2), edges + [1000, 2047, 2051], 128, BS),
         (HEADS_1B, edges + [11, 12, 1535, 1539], 128, 12),
+        ((14, 2), edges + [1000, 2047, 2051], 128, BS),
     ]
 
 
@@ -729,6 +789,11 @@ PAGED_CASES = [
     ((16, 8), 8, [0, 250, 700], [8, 8, 4], BS),
     ((64, 8), 3, [0, 254, 700], [3, 3, 2], BS),
     ((64, 8), 5, [0, 253, 700], [5, 5, 4], BS),
+    # qpk 7 (Qwen2-7B) at every row-tile count: QS 2 (14 rows, one tile),
+    # 4 (28, two), 5 and 8 (35 and 56, four), and QS 1 on the CUDA cores
+    *((HEADS_QWEN, qs, [0, 256 - qs, 700, 2000, 0], [qs, qs, qs - 1, qs, 0],
+       BS) for qs in (1, 2, 4, 5, 8)),
+    (HEADS_QWEN, 5, [0, 37, 250, 300], [5, 5, 5, 3], 12),
 ]
 
 
@@ -749,6 +814,8 @@ PAGED_CASES_D64 = [
     ((16, 2), 3, [0, 254, 700], [3, 3, 2], BS),
     ((16, 2), 5, [0, 253, 700], [5, 5, 4], BS),
     (HEADS_1B, 5, [0, 37, 250, 255, 300, 0], [5, 5, 5, 5, 3, 0], 12),
+    *(((14, 2), qs, [0, 256 - qs, 700, 0], [qs, qs, qs - 1, 0], BS)
+      for qs in (1, 2, 4, 5, 8)),
 ]
 
 
@@ -763,7 +830,8 @@ def phase1(torch, np, st):
             # The verify shape (S = spec_k + 1) is held under its own name:
             # the spec path's kernel record.
             name = ((f"flash_prefill_{kvq}" if kvq else "flash_prefill")
-                    + ("_verify" if S <= pa.MAX_QUERY_TOKENS else ""))
+                    + ("_verify" if S <= pa.MAX_QUERY_TOKENS else "")
+                    + qpk_suffix((nh, nkv), D))
             if kvq:
                 case, scales = quant_prefill_case(
                     torch, rng, gen, len(starts), S, starts, lengths, kvq,
@@ -802,7 +870,7 @@ def phase1(torch, np, st):
         covered = (pos_t > 0) & (pos_t < nbl * bs)
         for kvq in ("",) + QUANTS:
             name = ((f"fused_decode_{kvq}" if kvq else "fused_decode")
-                    + ("_d64" if d == D64 else ""))
+                    + ("_d64" if d == D64 else qpk_suffix(heads, d)))
             if kvq:
                 case = quant_decode_case(torch, rng, gen, positions, nbl,
                                          kvq, heads, bs, d)
@@ -867,14 +935,15 @@ def phase1(torch, np, st):
     # split paged attention: decode (QS=1, through the decode wrapper, with
     # an empty lane) and PAGED_CASES (through the verify wrapper): rows of
     # live tokens at 2 ulps, rows past qlens and empty lanes exactly zero.
-    b3 = [(D, "paged_attn", decode_b3_cases(rng), PAGED_CASES),
-          (D64, "paged_attn_d64",
-           decode_b3_cases(rng, (HEADS_1B, (16, 2))), PAGED_CASES_D64)]
-    for d, name, dec_cases, ver_cases in b3 if wanted(
+    b3 = [(D, "", decode_b3_cases(rng, ((H, KVH), (64, 8), (32, 32),
+                                        HEADS_QWEN)), PAGED_CASES),
+          (D64, "_d64",
+           decode_b3_cases(rng, (HEADS_1B, (16, 2), (14, 2))),
+           PAGED_CASES_D64)]
+    for d, sfx, dec_cases, ver_cases in b3 if wanted(
             st, "paged_attn") else ():
-        # QS > 1 is held under its own name: the spec verify path's record.
-        vname = "paged_attn_verify" + ("_d64" if d == D64 else "")
         for heads, positions, bs in dec_cases:
+            name = "paged_attn" + (sfx or qpk_suffix(heads, d))
             nbl = 2048 // bs + 1
             q, _, _, _, _, kp, vp, table, pos = decode_case(
                 torch, rng, gen, positions, nbl, heads, bs, d)
@@ -898,7 +967,10 @@ def phase1(torch, np, st):
             got = pa.paged_verify_attention_pallas(*vcase)
             want = pa.flash_prefill_attention_plain(*vcase)
             torch.cuda.synchronize()
-            rname = vname if QS > 1 else name
+            # QS > 1 is held under its own name: the spec verify path's
+            # record.
+            rname = ("paged_attn" + ("_verify" if QS > 1 else "")
+                     + (sfx or qpk_suffix((nh, nkv), d)))
             for b, n in enumerate(qlens):
                 check(bool((got[b, n:] == 0).all()),
                       f"{rname} QS={QS}: rows past qlens of lane {b} not "
@@ -948,13 +1020,15 @@ def graph_line(torch, eng) -> str:
             f"{graph_pool_bytes(torch, eng)} B")
 
 
-def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
-    """One engine of phase 2 at one decode setting: two identical runs with
-    the launch counts set to 0 just before the first and read just after
-    it.  Returns the engine, the first run's ids, its launch counts and its
-    (engine steps, decode steps)."""
-    from k8s_llm_monitor_tpu_torch.models import llama
+def run_engine(torch, st, model, prompts, name, overrides, paths, kernels,
+               phase=2):
+    """One engine of phase 2 (or ``phase``) at one decode setting: two
+    identical runs with the launch counts set to 0 just before the first
+    and read just after it.  Returns the engine, the first run's ids, its
+    launch counts, its (engine steps, decode steps) and the second run's
+    decode tok/s."""
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.utils.quantize import param_bytes
     from k8s_llm_monitor_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine, SamplingParams)
     from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -999,16 +1073,17 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
     ttft = statistics.median(r.ttft_s for r in res)
     tok_s = eng.decode_tokens / eng.decode_s
     graphs = f"; {graph_line(torch, eng)}" if ecfg.decode_graphs else ""
-    print(f"phase 2: {name}: {len(res)} requests done in {wall:.2f} s over "
-          f"{steps} engine steps ({waits} waited on the device while "
+    print(f"phase {phase}: {name}: {len(res)} requests done in {wall:.2f} s "
+          f"over {steps} engine steps ({waits} waited on the device while "
           f"dispatching, share {waits / steps:.3f}; prefill rounds by "
           f"bucket {eng.prefill_bucket_rounds}, {pre_s * 1e3:.1f} ms of host "
           f"time dispatching them); launches "
           f"{launches}{graphs}")
-    print(f"phase 2: {name}: first (cold) run: ttft p50 {ttft * 1e3:.1f} ms, "
-          f"decode {tok_s:.1f} tok/s ({eng.decode_tokens} tokens in "
-          f"{eng.decode_s:.2f} s, {eng.decode_steps} decode steps), weights "
-          f"{llama.param_bytes(model)} B, pool {eng.pool_bytes} B "
+    print(f"phase {phase}: {name}: first (cold) run: ttft p50 "
+          f"{ttft * 1e3:.1f} ms, decode {tok_s:.1f} tok/s "
+          f"({eng.decode_tokens} tokens in {eng.decode_s:.2f} s, "
+          f"{eng.decode_steps} decode steps), weights "
+          f"{param_bytes(model)} B, pool {eng.pool_bytes} B "
           f"[{st['gpu']}]")
     tokens0, secs0 = eng.decode_tokens, eng.decode_s
     res2 = eng.generate(prompts, sp)
@@ -1016,10 +1091,10 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels):
           f"{name}: second identical run gave different ids")
     ttft2 = statistics.median(r.ttft_s for r in res2)
     tok_s2 = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
-    print(f"phase 2: {name}: second (warm) run identical: ttft p50 "
+    print(f"phase {phase}: {name}: second (warm) run identical: ttft p50 "
           f"{ttft2 * 1e3:.1f} ms, decode {tok_s2:.1f} tok/s, pool "
           f"{eng.pool_bytes} B [{st['gpu']}]")
-    return eng, [r.token_ids for r in res], launches, first_run
+    return eng, [r.token_ids for r in res], launches, first_run, tok_s2
 
 
 def prompt_lengths(rng):
@@ -1067,7 +1142,7 @@ def phase2(torch, np, st):
         ref = None
         for setting in RUNS[label]:
             name = f"{label} {setting}"
-            eng, ids, launches, steps = run_engine(
+            eng, ids, launches, steps, _ = run_engine(
                 torch, st, model, prompts, name,
                 dict(overrides, **SETTINGS[setting]), paths, kernels)
             if ref is None:
@@ -1104,7 +1179,8 @@ TRACED = {"bf16": FUSED_KERNELS, "int8": FUSED_KERNELS,
           "pallas": ("paged_attn_split_kernel", "paged_attn_merge_kernel")}
 
 
-def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels):
+def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels,
+                 phase=2):
     """Run the prompts once more; once every prompt is prefilled, trace the
     remaining engine steps (decode only) with torch.profiler and split the
     window's wall time into device time per kernel and device idle time.
@@ -1150,7 +1226,8 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels):
         check(kms[kernel] > 0, f"{name}: no device time for {kernel} in "
               "the traced decode window")
     attn = sum(kms.values())
-    print(f"phase 2: {name}: traced decode window: {steps} decode steps, "
+    print(f"phase {phase}: {name}: traced decode window: {steps} decode "
+          f"steps, "
           f"{eng.decode_tokens - tokens0} tokens, wall {wall_ms:.2f} ms "
           f"({wall_ms / steps:.3f} ms/step); device busy {busy:.2f} ms "
           f"({busy / steps:.3f} ms/step), idle share "
@@ -1160,8 +1237,8 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels):
           f"{n_kernels} device kernels ({n_kernels / steps:.1f} per step) "
           f"[{st['gpu']}]")
     for kname, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"phase 2: {name}: trace: {ms:9.3f} ms {ms / wall_ms:6.3f} of "
-              f"wall  {kname[:90]}")
+        print(f"phase {phase}: {name}: trace: {ms:9.3f} ms "
+              f"{ms / wall_ms:6.3f} of wall  {kname[:90]}")
 
 
 def argmax_agreement(got, want, tol):
@@ -1189,19 +1266,16 @@ def marked(fn, **markers):
     return impl
 
 
-def phase3(torch, np, st):
-    from k8s_llm_monitor_tpu_torch.diagnosis.grammar import (
-        parse_verdict, verdict_fsm)
+def paths_logits(torch, np, model, pairs, tag):
+    """On ``model`` (cut to a few layers): for each (label, kv_quant,
+    kernel (prefill, decode) impls, plain impls) of ``pairs``, the
+    first-token and 4 decode-step logits of 4 prompts (100..1024 tokens)
+    on the kernel path against the plain path, held to the logit tolerance
+    and the argmax agreement with the plain path's near-ties counted.
+    Returns the generator it drew the prompts from."""
     from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
-    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
-    from k8s_llm_monitor_tpu_torch.ops.attention import paged_decode_attention
-    from k8s_llm_monitor_tpu_torch.serving.engine import (
-        EngineConfig, InferenceEngine, SamplingParams)
-    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
 
     dev = torch.device("cuda")
-    model = truncated(st["model"], 4)
     cfg = model.cfg
     rng = np.random.default_rng(3)
     lens = [100, 517, 1024, 33]
@@ -1232,6 +1306,44 @@ def phase3(torch, np, st):
         torch.cuda.synchronize()
         return steps
 
+    for label, kv_quant, kernel, plain in pairs:
+        got, want = run(kv_quant, *kernel), run(kv_quant, *plain)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        tol = QUANT_LOGIT_ATOL if kv_quant else LOGIT_ATOL
+        agree, n_ties, n_rows = argmax_agreement(got, want, tol)
+        print(f"{tag}, {label}: logit max abs err "
+              f"prefill {errs[0]:.4g}, decode steps "
+              f"{[round(e, 4) for e in errs[1:]]} (tolerance {tol}); "
+              f"argmax agreement {agree:.3f} (at least {MIN_ARGMAX_AGREE}; "
+              f"{n_ties} of {n_rows} rows are plain-path near-ties within "
+              f"{tol}, counted as agreeing)")
+        # A row whose argmax moves: how far apart the plain path's two
+        # candidates were (a near-tie is within the logit tolerance).
+        for step, (a, b) in enumerate(zip(got, want)):
+            ia, ib = a.argmax(-1), b.argmax(-1)
+            for r in (ia != ib).nonzero().flatten().tolist():
+                gap = float(b[r, ib[r]] - b[r, ia[r]])
+                print(f"{tag}, {label}: step {step} row {r}: argmax "
+                      f"{int(ia[r])} vs {int(ib[r])}, plain-path logits "
+                      f"{gap:.4g} apart")
+        check(max(errs) <= tol, f"{label}: logits differ by {max(errs):.4g}")
+        check(agree >= MIN_ARGMAX_AGREE,
+              f"{label}: argmax agreement {agree:.3f}")
+    return rng
+
+
+def phase3(torch, np, st):
+    from k8s_llm_monitor_tpu_torch.diagnosis.grammar import (
+        parse_verdict, verdict_fsm)
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.ops.attention import paged_decode_attention
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    model = truncated(st["model"], 4)
     flash_plain = marked(pa.flash_prefill_attention_plain, flash_prefill=True)
     quant_plain = marked(pa.paged_decode_attention_fused_quant_plain,
                          fused_decode=True, quant_kv=True)
@@ -1245,29 +1357,8 @@ def phase3(torch, np, st):
     ] + [(f"{q} flash/fused kernels vs their plain versions", q,
           (pa.flash_prefill_attention, pa.paged_decode_attention_fused_quant),
           (flash_plain, quant_plain)) for q in QUANTS]
-    for label, kv_quant, kernel, plain in pairs:
-        got, want = run(kv_quant, *kernel), run(kv_quant, *plain)
-        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        tol = QUANT_LOGIT_ATOL if kv_quant else LOGIT_ATOL
-        agree, n_ties, n_rows = argmax_agreement(got, want, tol)
-        print(f"phase 3: 4-layer Llama-3-8B, {label}: logit max abs err "
-              f"prefill {errs[0]:.4g}, decode steps "
-              f"{[round(e, 4) for e in errs[1:]]} (tolerance {tol}); "
-              f"argmax agreement {agree:.3f} (at least {MIN_ARGMAX_AGREE}; "
-              f"{n_ties} of {n_rows} rows are plain-path near-ties within "
-              f"{tol}, counted as agreeing)")
-        # A row whose argmax moves: how far apart the plain path's two
-        # candidates were (a near-tie is within the logit tolerance).
-        for step, (a, b) in enumerate(zip(got, want)):
-            ia, ib = a.argmax(-1), b.argmax(-1)
-            for r in (ia != ib).nonzero().flatten().tolist():
-                gap = float(b[r, ib[r]] - b[r, ia[r]])
-                print(f"phase 3: {label}: step {step} row {r}: argmax "
-                      f"{int(ia[r])} vs {int(ib[r])}, plain-path logits "
-                      f"{gap:.4g} apart")
-        check(max(errs) <= tol, f"{label}: logits differ by {max(errs):.4g}")
-        check(agree >= MIN_ARGMAX_AGREE,
-              f"{label}: argmax agreement {agree:.3f}")
+    rng = paths_logits(torch, np, model, pairs, "phase 3: 4-layer Llama-3-8B")
+    dev = torch.device("cuda")
 
     # Small float32 model: the engine on the card against the CPU.  The
     # kernels take bf16, so auto selects the plain path for float32 here.
@@ -2387,7 +2478,7 @@ class SpecCalls:
 
 
 def spec_run(torch, st, model, prompts, name, overrides, max_tokens,
-             paths, want_launch):
+             paths, want_launch, phase=8):
     """One phase 8 engine: 32 slots, the 256-block table, greedy; the
     prompts run twice, launch counts set to 0 just before the first run
     and read just after it.  Every request must finish, no dispatch may
@@ -2431,7 +2522,8 @@ def spec_run(torch, st, model, prompts, name, overrides, max_tokens,
           f"{name}: {eng.dispatch_failures} dispatch failures")
     tok_s = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
     same = sum(a.token_ids == b.token_ids for a, b in zip(res, res2))
-    print(f"phase 8: {name}: {len(res)} requests in {wall:.2f} s, decode "
+    print(f"phase {phase}: {name}: {len(res)} requests in {wall:.2f} s, "
+          f"decode "
           f"{cold:.1f} tok/s cold, {tok_s:.1f} tok/s warm ({same} of "
           f"{len(res)} id sequences equal across the two runs; "
           f"{eng.decode_tokens} tokens, {eng.decode_steps} decode steps in "
@@ -2441,7 +2533,7 @@ def spec_run(torch, st, model, prompts, name, overrides, max_tokens,
 
 
 def spec_report(torch, eng, name, ids, ref_ids, tok_s, ref_tok_s, spec,
-                verify):
+                verify, phase=8):
     """Print a spec run's acceptance, speed against spec off, EMA and ids
     against the spec-off run's; require a spec program captured as a graph
     and replayed, and the ``verify`` wrapper launched once per layer in
@@ -2461,7 +2553,8 @@ def spec_report(torch, eng, name, ids, ref_ids, tok_s, ref_tok_s, spec,
           f"{name}: {in_spec} {verify} launches in {first.calls} spec calls "
           f"of the first run, expected {per_call} per call")
     same = sum(a == b for a, b in zip(ids, ref_ids))
-    print(f"phase 8: {name}: acceptance {acc:.3f} tokens per lane-round "
+    print(f"phase {phase}: {name}: acceptance {acc:.3f} tokens per "
+          f"lane-round "
           f"({eng.spec_tokens} tokens over {eng.spec_lane_rounds} "
           f"lane-rounds, {eng.spec_verify_steps} verify forwards, both "
           f"runs), warm decode "
@@ -2494,6 +2587,7 @@ def phase8(torch, np, st):
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.models.config import LLAMA_1B
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.utils.quantize import param_bytes
 
     st.setdefault("launches", {})
     # (a) llama-1b, the monitor's default model, at full width.
@@ -2504,7 +2598,7 @@ def phase8(torch, np, st):
     print(f"phase 8: {cfg.name} ({cfg.num_layers} layers, hidden "
           f"{cfg.hidden_size}, head_dim {cfg.head_dim_}, {cfg.num_heads}/"
           f"{cfg.num_kv_heads} heads) random bf16 weights in "
-          f"{time.monotonic() - t0:.1f} s, {llama.param_bytes(model)} B")
+          f"{time.monotonic() - t0:.1f} s, {param_bytes(model)} B")
     rng = np.random.default_rng(2)
     lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
     prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
@@ -2605,10 +2699,11 @@ def phase8(torch, np, st):
 
 
 def default_front_door(torch, np, st):
-    """8c: the monitor's default model served as load_config(None) gives
-    it (llama-1b from seed 0, spec_k 4, spec_min_accept 1.2, 32 slots, 512
-    blocks of 16: a 1,024-token table), bf16 weights (w8a8 waits for
-    ROADMAP A6), through build_server: the supervisor's step thread
+    """8c: the monitor's default config served as load_config(None) gives
+    it (llama-1b, W8A8: int8 weights from seed 0 and int8 activations,
+    spec_k 4, spec_min_accept 1.2, 32 slots, 512 blocks of 16: a
+    1,024-token table), with only telemetry and remediation off (ROADMAP
+    A13), through build_server: the supervisor's step thread
     captures the spec and decode graphs, and phase 6's HTTP burst puts
     spec calls beside admissions in flight and constrained lanes under the
     acceptance gate.  Every response must succeed, the split paged
@@ -2630,7 +2725,6 @@ def default_front_door(torch, np, st):
     cfg.server.host, cfg.server.port = "127.0.0.1", 0
     cfg.llm.provider = "tpu"
     cfg.llm.max_tokens = 64
-    cfg.llm.tpu.quantize = ""
     cfg.lifecycle.journal_dir = tmp
     cfg.telemetry.enabled = False
     cfg.remediation.enabled = False
@@ -2642,8 +2736,10 @@ def default_front_door(torch, np, st):
     sup = backend.supervisor
     try:
         eng = backend.engine
-        check((tc.model, eng.ecfg.spec_k, eng.ecfg.spec_min_accept)
-              == ("llama-1b", 4, 1.2), f"not the default config: {tc}")
+        check((tc.model, tc.quantize, eng.ecfg.spec_k,
+               eng.ecfg.spec_min_accept) == ("llama-1b", "w8a8", 4, 1.2)
+              and eng.model.quantized and eng.model.cfg.act_quant,
+              f"not the default config: {tc}")
         check((eng.prefill_path, eng.decode_path, eng.kv_quant,
                eng._verify_attn) == ("dense", "fused", "",
                                      pa.paged_verify_attention_pallas),
@@ -2666,7 +2762,8 @@ def default_front_door(torch, np, st):
               f"default config: {eng.dispatch_failures} dispatch failures, "
               f"{eng.watchdog_trips} watchdog trips, {sup.restarts} restarts")
         q_walls = sorted(out[f"query-{i}"][2] for i in range(16))
-        print(f"phase 8: the default config ({tc.model}, spec_k "
+        print(f"phase 8: the default config ({tc.model}, quantize "
+              f"{tc.quantize}, spec_k "
               f"{tc.spec_k}, spec_min_accept {tc.spec_min_accept}, "
               f"{tc.max_batch} slots, {tc.kv_blocks} blocks) through "
               f"build_server in {boot_s:.2f} s; burst of 24 over HTTP in "
@@ -2679,6 +2776,16 @@ def default_front_door(torch, np, st):
               f"launches: split paged attention QS=5 {verify} (in spec "
               f"calls), fused decode {decode}; {graph_line(torch, eng)} "
               f"[{gpu}]")
+        captures = eng.graph_captures
+        # The same burst again, its graphs captured: the warm walls.
+        out2, stream2, wall2 = front_door_burst(srv.port)
+        check_burst(out2, stream2)
+        warm = sorted(out2[f"query-{i}"][2] for i in range(16))
+        print(f"phase 8: the default config, the same burst again in "
+              f"{wall2:.2f} s: query wall p50 "
+              f"{np.percentile(warm, 50) * 1e3:.1f} ms, all 200/success; "
+              f"{eng.graph_captures - captures} more decode graphs "
+              f"captured [{gpu}]")
     finally:
         sup.shutdown(grace_s=0.0)
         srv.stop()
@@ -2686,6 +2793,394 @@ def default_front_door(torch, np, st):
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Engines of phase 9a (Qwen2-7B, 7 query heads per kv head): as ENGINES.
+QWEN_ENGINES = (
+    ("bf16", {}, ("flash", "fused"),
+     {"flash_prefill_qpk7": "flash_prefill_attention",
+      "fused_decode_qpk7": "paged_decode_attention_fused"}),
+    ("int8", {"kv_dtype": "int8"}, ("flash", "fused"),
+     {"flash_prefill_int8_qpk7": "flash_prefill_attention",
+      "fused_decode_int8_qpk7": "paged_decode_attention_fused_quant"}),
+    ("pallas", {"decode_path": "pallas"}, ("flash", "pallas"),
+     {"paged_attn_qpk7": "paged_decode_attention_pallas"}),
+)
+
+
+def free_model(torch, st):
+    """Drop the earlier phases' model from the card."""
+    import gc
+
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase9a(torch, np, st):
+    """Qwen2-7B at full width: every kernel at 7 query heads per kv head."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import QWEN2_7B
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.ops.attention import paged_decode_attention
+    from k8s_llm_monitor_tpu_torch.utils.quantize import param_bytes
+
+    cfg = QWEN2_7B
+    t0 = time.monotonic()
+    model = llama.LlamaModel(cfg, seed=3)
+    torch.cuda.synchronize()
+    print(f"phase 9: {cfg.name} ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"vocab {cfg.vocab_size}, qkv bias) random bf16 weights in "
+          f"{time.monotonic() - t0:.1f} s, {param_bytes(model)} B")
+    rng = np.random.default_rng(2)
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    st.setdefault("launches", {})
+    for label, overrides, paths, kernels in QWEN_ENGINES:
+        eng, ids, launches, _, tok_s = run_engine(
+            torch, st, model, prompts, f"{cfg.name} {label}", overrides,
+            paths, kernels, phase=9)
+        st["launches"].update(launches)
+        if label == "bf16":
+            ref_ids, ref_tok_s = ids, tok_s
+        del eng
+        torch.cuda.empty_cache()
+    flash_plain = marked(pa.flash_prefill_attention_plain, flash_prefill=True)
+    quant_plain = marked(pa.paged_decode_attention_fused_quant_plain,
+                         fused_decode=True, quant_kv=True)
+    paths_logits(torch, np, truncated(model, 4), [
+        ("flash/fused vs dense/gather", "",
+         (pa.flash_prefill_attention, pa.paged_decode_attention_fused),
+         (None, paged_decode_attention)),
+        ("flash/pallas vs dense/gather", "",
+         (pa.flash_prefill_attention, pa.paged_decode_attention_pallas),
+         (None, paged_decode_attention)),
+        ("int8 flash/fused kernels vs their plain versions", "int8",
+         (pa.flash_prefill_attention, pa.paged_decode_attention_fused_quant),
+         (flash_plain, quant_plain)),
+    ], f"phase 9: 4-layer {cfg.name}")
+    # Speculative decoding, every call drafting: verify through flash
+    # prefill (B1) and, with prefill dense, through split paged attention
+    # at QS=5 (B3), both at qpk 7.
+    for label, over, paths, verify, rec in (
+            ("spec_k 4", {}, ("flash", "fused"), "flash_prefill_attention",
+             "flash_prefill_verify_qpk7"),
+            ("spec_k 4, prefill dense", {"prefill_path": "dense"},
+             ("dense", "fused"), "paged_verify_attention_pallas",
+             "paged_attn_verify_qpk7")):
+        eng, ids, _, tok_s, spec = spec_run(
+            torch, st, model, prompts, f"{cfg.name} bf16 {label}",
+            dict(over, spec_k=4, spec_min_accept=0.0), 32, paths, (verify,),
+            phase=9)
+        check(eng._verify_attn is getattr(pa, verify),
+              f"{cfg.name} spec verify path {eng._verify_attn}")
+        st["launches"][rec] = spec_report(
+            torch, eng, f"{cfg.name} bf16 {label}", ids, ref_ids, tok_s,
+            ref_tok_s, spec, verify, phase=9)
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+
+
+def dequantized(torch, qmodel):
+    """The bf16 model whose weights are ``qmodel``'s int8 codes times their
+    scales."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+
+    m = llama.LlamaModel(dataclasses.replace(qmodel.cfg, act_quant=False),
+                         device=qmodel.device, seed=None)
+    pairs = [(qmodel.embed, m.embed)]
+    if qmodel.lm_head is not None:
+        pairs.append((qmodel.lm_head, m.lm_head))
+    with torch.no_grad():
+        m.final_norm.copy_(qmodel.final_norm)
+        for src, dst in zip(qmodel.layers, m.layers):
+            dst.input_norm.copy_(src.input_norm)
+            dst.post_norm.copy_(src.post_norm)
+            pairs += [(getattr(src, n), getattr(dst, n))
+                      for n in ("q", "k", "v", "o", "gate", "up", "down")]
+        for src, dst in pairs:
+            dst.weight.copy_(src.weight_q.float() * src.scale[:, None])
+            if getattr(src, "bias", None) is not None:
+                dst.bias.copy_(src.bias)
+    return m
+
+
+def phase9b(torch, np, st):
+    """int8 and W8A8 weights at llama-1b width."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA_1B
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+    from k8s_llm_monitor_tpu_torch.utils.quantize import (
+        init_params_quantized, param_bytes)
+
+    cfg, gpu = LLAMA_1B, st["gpu"]
+    t0 = time.monotonic()
+    qmodel = init_params_quantized(cfg, seed=4)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    w8a8 = truncated(qmodel, cfg.num_layers, act_quant=True)
+    bf16 = dequantized(torch, qmodel)
+    print(f"phase 9: {cfg.name} int8 weights from a seed in {init_s:.2f} s: "
+          f"int8 {param_bytes(qmodel)} B, the same weights dequantized to "
+          f"bf16 {param_bytes(bf16)} B [{gpu}]")
+    rng = np.random.default_rng(2)
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    kernels = {"fused_decode_d64": "paged_decode_attention_fused"}
+    # The int8 products the W8A8 engines ask for, by (rows, in, out).
+    shapes = set()
+    int8_matmul = llama._int8_matmul
+
+    def recorded(x_q, w_q):
+        shapes.add((x_q.numel() // x_q.shape[-1], x_q.shape[-1],
+                    w_q.shape[0]))
+        return int8_matmul(x_q, w_q)
+
+    tok_s, ids = {}, {}
+    llama._int8_matmul = recorded
+    try:
+        for label, model in (("bf16", bf16), ("int8", qmodel),
+                             ("W8A8", w8a8)):
+            for setting in ("graph", "eager"):
+                if label == "bf16" and setting == "eager":
+                    continue
+                eng, ids[label, setting], _, _, t = run_engine(
+                    torch, st, model, prompts, f"{cfg.name} {label} weights "
+                    f"{setting}", SETTINGS[setting], ("dense", "fused"),
+                    kernels, phase=9)
+                if setting == "graph":
+                    tok_s[label] = t
+                    check(eng.graph_captures > 0,
+                          f"{label}: no decode graph captured")
+                    # Where a decode step's device time goes with these
+                    # weights (the int8 products, the casts, attention).
+                    trace_decode(torch, eng, prompts,
+                                 SamplingParams(max_tokens=32),
+                                 ids[label, setting], st,
+                                 f"{cfg.name} {label} weights",
+                                 FUSED_KERNELS, phase=9)
+                del eng
+                torch.cuda.empty_cache()
+            if label != "bf16":
+                check(ids[label, "graph"] == ids[label, "eager"],
+                      f"{label} weights: the graphs' ids differ from the "
+                      "eager loop's")
+    finally:
+        llama._int8_matmul = int8_matmul
+    check(shapes, "the W8A8 engines made no int8 product")
+    # Each shape: the int32 product of random codes equals a float64
+    # product of the same codes (exact: |sums| < 2^53).
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for m, k, n in sorted(shapes):
+        x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got = llama._int8_matmul(x, w)
+        want = x.double() @ w.double().t()
+        check(got.dtype == torch.int32 and torch.equal(got.double(), want),
+              f"_int_mm at ({m}, {k}) x ({k}, {n}) is not exact")
+    print(f"phase 9: torch._int_mm exact against float64 at the "
+          f"{len(shapes)} (rows, in, out) shapes the W8A8 engines called: "
+          f"{sorted(shapes)}")
+    # 4 layers: the int8 and W8A8 logits against the dequantized bf16
+    # model's, cosine per position.
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(4, 128))
+                            .astype(np.int32)).cuda()
+    want = llama.forward_full(truncated(bf16, 4), toks)
+    for label, model in (("int8", qmodel), ("W8A8", w8a8)):
+        got = llama.forward_full(truncated(model, 4), toks)
+        cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
+        print(f"phase 9: 4-layer {cfg.name} {label} weights vs the "
+              f"dequantized bf16 model: logit cosine per position min "
+              f"{float(cos.min()):.5f} mean {float(cos.mean()):.5f} (at "
+              f"least 0.98); argmax agreement "
+              f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.3f}")
+        check(float(cos.min()) >= 0.98, f"{label}: logit cosine "
+                                        f"{float(cos.min()):.4f}")
+    print(f"phase 9: {cfg.name} weights bf16 / int8 / W8A8: "
+          f"{param_bytes(bf16)} / {param_bytes(qmodel)} / "
+          f"{param_bytes(w8a8)} B; warm decode {tok_s['bf16']:.1f} / "
+          f"{tok_s['int8']:.1f} / {tok_s['W8A8']:.1f} tok/s (32 slots, "
+          f"phase 2's 16 prompts, 32 new tokens, decode graphs) [{gpu}]")
+    del qmodel, w8a8, bf16
+    torch.cuda.empty_cache()
+
+
+# safetensors dtype names of the tensors phase 9c writes.
+ST_DTYPES = {"BF16": "bfloat16", "F32": "float32"}
+
+
+def write_safetensors(torch, path, tensors):
+    """A safetensors file of ``tensors`` (name -> tensor), in the format's
+    layout: an 8-byte little-endian header length, a JSON header of dtype,
+    shape and data offsets (padded to 8 bytes), then the raw bytes."""
+    import struct
+
+    names = {getattr(torch, v): k for k, v in ST_DTYPES.items()}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().reshape(-1)
+                    .view(torch.uint8).numpy())
+    return offset
+
+
+def hf_state(model):
+    """``model``'s weights under the HF Llama names."""
+    from k8s_llm_monitor_tpu_torch.utils.checkpoint import _LINEAR_MAP
+
+    state = {"model.embed_tokens.weight": model.embed.weight,
+             "model.norm.weight": model.final_norm,
+             "lm_head.weight": model.lm_head.weight}
+    for i, layer in enumerate(model.layers):
+        pre = f"model.layers.{i}."
+        state[pre + "input_layernorm.weight"] = layer.input_norm
+        state[pre + "post_attention_layernorm.weight"] = layer.post_norm
+        for ours, theirs in _LINEAR_MAP.items():
+            state[f"{pre}{theirs}.weight"] = getattr(layer, ours).weight
+    return state
+
+
+def phase9c(torch, np, st):
+    """A bf16 HF checkpoint of llama-1b's shape on disk, read back."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA_1B
+    from k8s_llm_monitor_tpu_torch.monitor.analysis import LocalEngineBackend
+    from k8s_llm_monitor_tpu_torch.monitor.config import TPULLMConfig
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.utils.checkpoint import load_hf_checkpoint
+    from k8s_llm_monitor_tpu_torch.utils.quantize import quantize_params
+
+    cfg, gpu = LLAMA_1B, st["gpu"]
+    model = llama.LlamaModel(cfg, seed=6)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        # Index-sharded, shards of at most 1 GiB, as save_pretrained lays
+        # them out.
+        t0 = time.monotonic()
+        shards, cur, size = [], {}, 0
+        for key, t in hf_state(model).items():
+            n = t.numel() * t.element_size()
+            if cur and size + n > 2 ** 30:
+                shards.append(cur)
+                cur, size = {}, 0
+            cur[key] = t
+            size += n
+        shards.append(cur)
+        weight_map, total = {}, 0
+        for i, shard in enumerate(shards):
+            fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+            total += write_safetensors(torch, tmp / fname, shard)
+            weight_map.update({k: fname for k in shard})
+        (tmp / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {"total_size": total}, "weight_map": weight_map}))
+        (tmp / "config.json").write_text(json.dumps({
+            "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim_, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_seq_len,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+        print(f"phase 9: wrote {cfg.name} as {len(shards)} bf16 safetensors "
+              f"shards, {total} B, in {time.monotonic() - t0:.1f} s")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lcfg, loaded = load_hf_checkpoint(tmp)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        check(dataclasses.replace(lcfg, name=cfg.name) == cfg,
+              f"config.json read back as {lcfg}")
+        want = model.state_dict()
+        got = loaded.state_dict()
+        check(got.keys() == want.keys()
+              and all(torch.equal(got[k], want[k]) for k in want),
+              "a tensor read back differs from the one written")
+        print(f"phase 9: load_hf_checkpoint (bf16): {len(got)} tensors "
+              f"bit for bit, {secs:.2f} s, {total / secs / 1e9:.2f} GB/s "
+              f"[{gpu}]")
+        del got, loaded
+        t0 = time.monotonic()
+        _, qloaded = load_hf_checkpoint(tmp, quantize=True)
+        torch.cuda.synchronize()
+        qsecs = time.monotonic() - t0
+        ref = quantize_params(model)
+        got, want = qloaded.state_dict(), ref.state_dict()
+        check(got.keys() == want.keys()
+              and all(torch.equal(got[k], want[k]) for k in want),
+              "the quantized load differs from quantize_params")
+        print(f"phase 9: load_hf_checkpoint (quantize=True): codes and "
+              f"scales equal quantize_params of the written model, "
+              f"{qsecs:.2f} s, {total / qsecs / 1e9:.2f} GB/s read [{gpu}]")
+        del got, want, qloaded, ref
+        torch.cuda.empty_cache()
+        # Greedy ids of the loaded weights equal the in-memory model's.
+        _, loaded = load_hf_checkpoint(tmp)
+        rng = np.random.default_rng(9)
+        prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+                   for n in (50, 120, 200, 400)]
+        ecfg = EngineConfig(max_slots=8, num_blocks=512, block_size=16,
+                            max_blocks_per_seq=64, prefix_cache_entries=0)
+        ids = [[r.token_ids for r in InferenceEngine(cfg, m, ecfg).generate(
+                    prompts, SamplingParams(max_tokens=16))]
+               for m in (model, loaded)]
+        check(ids[0] == ids[1], "the loaded weights' greedy ids differ")
+        print(f"phase 9: an engine on the loaded weights gives the "
+              f"in-memory model's greedy ids ({len(prompts)} prompts, 16 "
+              "tokens)")
+        del loaded
+        torch.cuda.empty_cache()
+        if importlib.util.find_spec("transformers") is None:
+            # from_config with a checkpoint loads its HF tokenizer, which
+            # needs transformers: it raises, and no ByteTokenizer serves in
+            # its place.
+            raised = None
+            try:
+                LocalEngineBackend.from_config(TPULLMConfig(
+                    checkpoint=str(tmp), quantize="", spec_k=0,
+                    kv_blocks=64, max_batch=2))
+            except ModuleNotFoundError as exc:
+                raised = exc
+            check(raised is not None and "transformers" in str(raised),
+                  f"from_config with a checkpoint and no transformers: "
+                  f"{raised!r}")
+            print(f"phase 9: from_config with a checkpoint and no "
+                  f"transformers raises: {raised!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase9(torch, np, st):
+    free_model(torch, st)
+    phase9a(torch, np, st)
+    phase9b(torch, np, st)
+    phase9c(torch, np, st)
 
 
 SOURCES = {
@@ -2723,7 +3218,7 @@ def phase4(torch, np, st):
             source=SOURCES["_".join(name.split("_")[:2])],
             replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:"
                      f"{replaces(name)}",
-            launches=st.get("launches", {}).get(name),
+            launches=None,         # main() reads it after every phase
             max_abs_err=st.get("max_abs_err", {}).get(name),
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
             library_ms=lib_ms))
@@ -2914,62 +3409,68 @@ def phase4(torch, np, st):
         torch.cuda.empty_cache()
 
     # head_dim 64 (llama-1b, phase 8's engine shape: 32 slots, the 16
-    # requests mid-decode, the 256-block table): fused decode over bf16,
-    # int8 and fp8 pools, split paged attention at QS=1 (decode_path
-    # "pallas") and at QS=5 (spec verify from each lane's position).
-    d = D64
-    for kvq in ("",) + QUANTS if wanted(st, "fused_decode") else ():
-        name = (f"fused_decode_{kvq}" if kvq else "fused_decode") + "_d64"
-        if kvq:
-            case = quant_decode_case(torch, rng, gen, mid, nbl, kvq,
-                                     HEADS_1B, BS, d)
-            kernel = pa.paged_decode_attention_fused_quant
-            plain = pa.paged_decode_attention_fused_quant_plain
-            kp, vp, table, pos_t = case[5], case[6], case[9], case[10]
-            scales = dict(k_scale=case[7], v_scale=case[8])
-        else:
-            case = decode_case(torch, rng, gen, mid, nbl, HEADS_1B, BS, d)
-            kernel = pa.paged_decode_attention_fused
-            plain = pa.paged_decode_attention_fused_plain
-            kp, vp, table, pos_t = case[5], case[6], case[7], case[8]
-            scales = {}
-        ms = time_ms(torch, lambda: kernel(*case), rounds=5)
-        alone_ms = graph_ms(torch, decode_alone(torch, pa, case))
-        plain_ms = time_ms(torch, lambda: plain(*case), reps=5)
-        ctx_max = max(mid) + 1
-        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
-        qs, k, v, m = sdpa_inputs(case[0], kp, vp, table, ctx_max,
-                                  keys <= pos_t[:, None, None], scales)
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=m), reps=5)
-        b_ms, by = bound(*decode_work(mid, kvq, HEADS_1B, d))
-        nsplit, chunk = pa.decode_splits(nbl, BS, kp.element_size())
-        print(f"phase 4: {name} engine B=32 active="
-              f"{sum(p > 0 for p in mid)} max pos {max(mid)} H={HEADS_1B[0]} "
-              f"KVH={HEADS_1B[1]} D={d} table {nbl}x{BS} ({nsplit} splits of "
-              f"{chunk}): kernel {ms:.4f} ms (alone: {alone_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({by}) [{st['gpu']}]")
-        record(name, "engine", ms, plain_ms, lib_ms, b_ms, by)
-        del case, k, v, qs
-        torch.cuda.empty_cache()
-    if wanted(st, "paged_attn"):
+    # requests mid-decode, the 256-block table) and Qwen2-7B's 28 / 4 heads
+    # (qpk 7, phase 9's engine shape): fused decode over bf16, int8 and fp8
+    # pools (qpk 7: bf16 and int8), split paged attention at QS=1
+    # (decode_path "pallas") and at QS=5 (spec verify from each lane's
+    # position).
+    geometries = ((HEADS_1B, D64, "_d64", ("",) + QUANTS),
+                  (HEADS_QWEN, D, "_qpk7", ("", "int8")))
+    for heads, d, sfx, kvqs in geometries:
+        for kvq in kvqs if wanted(st, "fused_decode") else ():
+            name = (f"fused_decode_{kvq}" if kvq else "fused_decode") + sfx
+            if kvq:
+                case = quant_decode_case(torch, rng, gen, mid, nbl, kvq,
+                                         heads, BS, d)
+                kernel = pa.paged_decode_attention_fused_quant
+                plain = pa.paged_decode_attention_fused_quant_plain
+                kp, vp, table, pos_t = case[5], case[6], case[9], case[10]
+                scales = dict(k_scale=case[7], v_scale=case[8])
+            else:
+                case = decode_case(torch, rng, gen, mid, nbl, heads, BS, d)
+                kernel = pa.paged_decode_attention_fused
+                plain = pa.paged_decode_attention_fused_plain
+                kp, vp, table, pos_t = case[5], case[6], case[7], case[8]
+                scales = {}
+            ms = time_ms(torch, lambda: kernel(*case), rounds=5)
+            alone_ms = graph_ms(torch, decode_alone(torch, pa, case))
+            plain_ms = time_ms(torch, lambda: plain(*case), reps=5)
+            ctx_max = max(mid) + 1
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_inputs(case[0], kp, vp, table, ctx_max,
+                                      keys <= pos_t[:, None, None], scales)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m), reps=5)
+            b_ms, by = bound(*decode_work(mid, kvq, heads, d))
+            nsplit, chunk = pa.decode_splits(nbl, BS, kp.element_size())
+            print(f"phase 4: {name} engine B=32 active="
+                  f"{sum(p > 0 for p in mid)} max pos {max(mid)} "
+                  f"H={heads[0]} KVH={heads[1]} D={d} table {nbl}x{BS} "
+                  f"({nsplit} splits of {chunk}): kernel {ms:.4f} ms (alone: "
+                  f"{alone_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
+                  f"[{st['gpu']}]")
+            record(name, "engine", ms, plain_ms, lib_ms, b_ms, by)
+            del case, k, v, qs
+            torch.cuda.empty_cache()
+        if not wanted(st, "paged_attn"):
+            continue
         dev_i = dict(dtype=torch.int32, device="cuda")
         q1, _, _, _, _, kp, vp, table, _ = decode_case(
-            torch, rng, gen, mid, nbl, HEADS_1B, BS, d)
-        q5 = torch.randn(32, 5, *HEADS_1B[:1], d, generator=gen,
+            torch, rng, gen, mid, nbl, heads, BS, d)
+        q5 = torch.randn(32, 5, heads[0], d, generator=gen,
                          device="cuda").to(torch.bfloat16)
         len_t = torch.tensor([p + 1 for p in mid], **dev_i)
         vst = [p if p > 0 else 0 for p in mid]
         vql = [5 if p > 0 else 0 for p in mid]
         vst_t, vql_t = torch.tensor(vst, **dev_i), torch.tensor(vql, **dev_i)
         cases = (
-            ("paged_attn_d64", "engine", q1, dict(lengths=len_t),
+            ("paged_attn" + sfx, "engine", q1, dict(lengths=len_t),
              lambda: pa.paged_decode_attention_pallas(q1, kp, vp, table,
                                                       len_t),
              ((len_t - 1).clamp(min=0), len_t.clamp(max=1)),
              ([p for p in mid], [1] * len(mid))),
-            ("paged_attn_verify_d64", "verify", q5,
+            ("paged_attn_verify" + sfx, "verify", q5,
              dict(starts=vst_t, qlens=vql_t),
              lambda: pa.paged_verify_attention_pallas(q5, kp, vp, table,
                                                       vst_t, vql_t),
@@ -2990,10 +3491,10 @@ def phase4(torch, np, st):
                                       keys <= pos, {})
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=m, scale=1.0), reps=5)
-            b_ms, by = bound(*paged_attn_work(sts, qls, HEADS_1B, d))
+            b_ms, by = bound(*paged_attn_work(sts, qls, heads, d))
             print(f"phase 4: {name} {label} B=32 QS={QS} active="
                   f"{sum(n > 0 for n in qls)} max length {ctx_max} "
-                  f"H={HEADS_1B[0]} KVH={HEADS_1B[1]} D={d} table "
+                  f"H={heads[0]} KVH={heads[1]} D={d} table "
                   f"{nbl}x{BS}: kernel {ms:.4f} ms (alone: {alone_ms:.4f} "
                   f"ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
@@ -3003,7 +3504,7 @@ def phase4(torch, np, st):
         # tokens; the port has none): the kernel against the gather path it
         # replaces, over tables of 1,024 and 4,096 tokens, the same 16
         # lanes capped to the table.
-        for width in (64, 256):
+        for width in (64, 256) if d == D64 else ():
             cap = width * BS - 5
             vs = [min(p, cap) if p > 0 else 0 for p in mid]
             vs_t = torch.tensor(vs, **dev_i)
@@ -3020,39 +3521,50 @@ def phase4(torch, np, st):
         torch.cuda.empty_cache()
 
     # Flash prefill at the verify shape (spec_k + 1 = 5 query tokens from
-    # each lane's position, the Llama-3-8B heads, phase 8's 16 requests
-    # mid-decode in 32 slots), bf16 and int8 pools: the spec verify of the
-    # Llama-3-8B engines (B1, B5).
+    # each lane's position, phase 8's 16 requests mid-decode in 32 slots):
+    # the spec verify of the Llama-3-8B engines (B1 on bf16, B5 on int8
+    # pools) and of Qwen2-7B's (bf16, qpk 7); and at Qwen2-7B's heads the
+    # admission round of the first shape above (bf16, int8).
     vstarts = [p if p > 0 else 0 for p in mid]
     vlens = [5 if p > 0 else 0 for p in mid]
-    for kvq in ("", "int8") if wanted(st, "flash_prefill") else ():
-        name = (f"flash_prefill_{kvq}" if kvq else "flash_prefill") + "_verify"
+    verify = ("verify", 5, vstarts, vlens)
+    admission = ("admission", *shapes[0][1:])
+    flash_cases = (((H, KVH), "", verify), ((H, KVH), "int8", verify),
+                   (HEADS_QWEN, "", verify), (HEADS_QWEN, "", admission),
+                   (HEADS_QWEN, "int8", admission))
+    for heads, kvq, (label, S, starts, lengths) in flash_cases if wanted(
+            st, "flash_prefill") else ():
+        name = ((f"flash_prefill_{kvq}" if kvq else "flash_prefill")
+                + ("_verify" if label == "verify" else "")
+                + qpk_suffix(heads, D))
+        B = len(starts)
         if kvq:
-            case, scales = quant_prefill_case(torch, rng, gen, 32, 5, vstarts,
-                                              vlens, kvq)
+            case, scales = quant_prefill_case(torch, rng, gen, B, S, starts,
+                                              lengths, kvq, heads)
         else:
-            case, scales = prefill_case(torch, rng, gen, 32, 5, vstarts,
-                                        vlens), {}
+            case, scales = prefill_case(torch, rng, gen, B, S, starts,
+                                        lengths, heads), {}
         ms = time_ms(torch, lambda: pa.flash_prefill_attention(
             *case, **scales), rounds=5)
         alone_ms = time_ms(torch, flash_alone(torch, pa, case, scales),
                            rounds=5)
         plain_ms = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
             *case, **scales), reps=5)
-        ctx_max = max(s + n for s, n in zip(vstarts, vlens))
-        pos = (torch.arange(5, device="cuda")[None, :, None]
+        ctx_max = max(s + n for s, n in zip(starts, lengths))
+        pos = (torch.arange(S, device="cuda")[None, :, None]
                + case[4][:, None, None])
         keys = torch.arange(ctx_max, device="cuda")[None, None, :]
         qs, k, v, m = sdpa_inputs(case[0] * D ** -0.5, case[1], case[2],
                                   case[3], ctx_max, keys <= pos, scales)
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, k, v, attn_mask=m, scale=1.0), reps=5)
-        b_ms, by = bound(*prefill_work(vstarts, vlens, 5, kvq))
-        print(f"phase 4: {name} verify B=32 S=5 active 16 max length "
-              f"{ctx_max}: kernel {ms:.4f} ms (alone, on pre-scaled q: "
-              f"{alone_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+        b_ms, by = bound(*prefill_work(starts, lengths, S, kvq, heads))
+        print(f"phase 4: {name} {label} B={B} S={S} H={heads[0]} "
+              f"KVH={heads[1]} active {sum(n > 0 for n in lengths)} max "
+              f"length {ctx_max}: kernel {ms:.4f} ms (alone, on pre-scaled "
+              f"q: {alone_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
               f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) [{st['gpu']}]")
-        record(name, "verify", ms, plain_ms, lib_ms, b_ms, by)
+        record(name, label, ms, plain_ms, lib_ms, b_ms, by)
         del case, k, v, qs
         torch.cuda.empty_cache()
 
@@ -3066,7 +3578,7 @@ def phase4(torch, np, st):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -3089,10 +3601,11 @@ def main(argv=None) -> int:
         return 2
 
     st: dict = {"only": args.only}
-    # Phase 8 before 4: phase 4's records read its launch counts.  Phases
-    # 8 and 7 before 6: they reuse phase 2's model, which phase 6 frees.
+    # Phases 8 and 7 before 6: they reuse phase 2's model, which phase 6
+    # frees; phase 9 last, on a card that holds no earlier model.
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
-               (4, phase4), (5, phase5), (7, phase7), (6, phase6)]
+               (4, phase4), (5, phase5), (7, phase7), (6, phase6),
+               (9, phase9)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue
@@ -3109,6 +3622,11 @@ def main(argv=None) -> int:
             return 1
         print(f"phase {n}: passed in {time.monotonic() - t0:.1f} s")
     if "records" in st:
+        # The main path's launch counts, read when every phase has run
+        # (phases 8 and 9 drive the engines that launch the records of
+        # head_dim 64 and of 7 query heads per kv head).
+        for rec in st["records"]:
+            rec["launches"] = st.get("launches", {}).get(rec["name"])
         print(json.dumps({"kernels": st["records"]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,15 @@ Cluster selection:
 - ``--cluster kube``   : not ported yet (ROADMAP A13)
 
 ``--device`` names where the model runs with ``llm.provider="tpu"``
-(default ``cuda``; ``cpu`` runs the plain PyTorch path).  ``--role
-router`` is not ported yet (ROADMAP A8).
+(default ``cuda``; ``cpu`` runs the plain PyTorch path).  The weights are
+random ones for the preset ``llm.tpu.model``, or a local HF safetensors
+checkpoint (``LLM_TPU_CHECKPOINT=<dir>``; its tokenizer needs
+``transformers``), bf16, int8 or W8A8 (``LLM_TPU_QUANTIZE``, ``w8a8`` by
+default).  ``--role router`` is not ported yet (ROADMAP A8).
 
 Usage:
     python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake --port 8081
-    LLM_TPU_QUANTIZE= TELEMETRY_ENABLED=false REMEDIATION_ENABLED=false \\
+    TELEMETRY_ENABLED=false REMEDIATION_ENABLED=false \\
         python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake
 """
 

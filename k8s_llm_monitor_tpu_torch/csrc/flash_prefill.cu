@@ -20,9 +20,13 @@
 // once per block, and keeps address arithmetic and widening off the
 // tensor-core warps:
 //   * one block per (kv group, lane, query tile) holds the tile's 128 rows
-//     for all qpk = H / KVH query heads of its group (TQ = 128 / qpk query
-//     positions x qpk heads), so every K/V row it loads serves all of
-//     them.  The TPU kernel's block-diagonal query trick is an MXU
+//     for all qpk = H / KVH query heads of its group, so every K/V row it
+//     loads serves all of them: the rows are SLABS slabs of TQ = 128 /
+//     SLABS query positions, slab j the positions of head j, where SLABS
+//     is qpk rounded up to a power of two.  At qpk 7 (Qwen2-7B, 28 / 4
+//     heads) the eighth slab (rows 112-127, the last consumer warp's) has
+//     no head: its q rows are zero-filled, never stored, and cost 1/8 of
+//     the tile's MMA.  The TPU kernel's block-diagonal query trick is an MXU
 //     workaround and is not carried over.  The grid starts every (group,
 //     lane) of the last query tile first -- the tiles that walk the most
 //     keys -- so the causal tail is short;
@@ -303,6 +307,14 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int half) {
   return (c >> 3) * half + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
+// Row slabs of a block: qpk rounded up to a power of two (a slab of TQ =
+// ROWS / SLABS query positions per head; TQ a multiple of 16, so each
+// consumer warp's 16 rows lie in one slab).
+template <int QPK>
+__host__ __device__ constexpr int slabs() {
+  return QPK <= 1 ? 1 : QPK <= 2 ? 2 : QPK <= 4 ? 4 : 8;
+}
+
 template <int QPK, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre-scaled
@@ -317,7 +329,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
                      int S, int KVH, int bs, int NB, unsigned bs_mul,
                      unsigned bs_shr) {
   constexpr bool kQuant = !std::is_same<T, __nv_bfloat16>::value;
-  constexpr int TQ = ROWS / QPK;   // query positions per tile
+  constexpr int TQ = ROWS / slabs<QPK>();   // query positions per tile
   // Blocks start in grid order (x fastest): every (group, lane) of the
   // last query tile, which walks the most keys, first.
   const int gq = blockIdx.x;       // kv group
@@ -329,12 +341,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
   const int start = starts[b];
   const int qlen = lens[b];
 
-  // Row r of the block: head gq * QPK + r / TQ, query position t*TQ + r%TQ.
+  // Row r of the block: head gq * QPK + r / TQ, query position t*TQ + r%TQ;
+  // a row is loaded and stored only if both exist (slab r / TQ < QPK).
   auto q_offset = [&](int r) -> long {
     const int s = t * TQ + r % TQ;
     return (((long)b * S + s) * H + gq * QPK + r / TQ) * D;
   };
-  auto row_in_range = [&](int r) { return t * TQ + r % TQ < S; };
+  auto row_in_range = [&](int r) {
+    return r / TQ < QPK && t * TQ + r % TQ < S;
+  };
 
   if (qlen <= 0 || t * TQ >= qlen) {       // dead lane or dead tile
     for (int c = tid; c < ROWS * (D / 8); c += THREADS) {
@@ -751,7 +766,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
     mul = static_cast<unsigned>(((1ull << (31 + l)) + bs - 1) / bs);
     shr = static_cast<unsigned>(l - 1);
   }
-  constexpr int TQ = ROWS / QPK;
+  constexpr int TQ = ROWS / slabs<QPK>();
   dim3 grid(KVH, B, (S + TQ - 1) / TQ);
   flash_prefill_kernel<QPK, T><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
@@ -773,6 +788,7 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
     case 1: return launch<1, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
     case 2: return launch<2, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
     case 4: return launch<4, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 7: return launch<7, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
     case 8: return launch<8, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

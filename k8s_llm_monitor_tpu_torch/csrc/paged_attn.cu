@@ -545,7 +545,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 }
 
 // Decode on the CUDA cores; QS > 1 on the tensor cores, in as few row
-// tiles of 16 as hold QS * qpk rows (1, 2 or 4).
+// tiles of 16 as hold QS * qpk rows (1, 2 or 4): four only where qpk > 4
+// (QS 5..8 at qpk 7 is 35..56 rows, at qpk 8 40..64).
 template <int D, int QPK>
 cudaError_t launch_rows(const void* q, const void* kp, const void* vp,
                         const void* table, const void* starts, const void* qlens,
@@ -561,7 +562,7 @@ cudaError_t launch_rows(const void* q, const void* kp, const void* vp,
     if (rows <= 32)
       return launch<D, QPK, 2>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   }
-  if constexpr (QPK == 8)
+  if constexpr (QPK > 4)
     return launch<D, QPK, 4>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   return cudaErrorInvalidValue;
 }

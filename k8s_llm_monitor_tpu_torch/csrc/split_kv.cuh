@@ -52,7 +52,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// QPK consecutive floats from shared memory, 16 bytes at a time.
+// QPK consecutive floats from shared memory, 16 bytes at a time (QPK 1, 2
+// and 7: one at a time, their rows are not 16-byte multiples).
 template <int QPK>
 __device__ __forceinline__ void load_heads(const float* p, float out[QPK]) {
   if constexpr (QPK % 4 == 0) {
@@ -98,14 +99,17 @@ int with_qpk(int qpk, F&& f) {
     case 1: return f(Int<D>{}, Int<1>{});
     case 2: return f(Int<D>{}, Int<2>{});
     case 4: return f(Int<D>{}, Int<4>{});
+    case 7: return f(Int<D>{}, Int<7>{});
     case 8: return f(Int<D>{}, Int<8>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The template instances of the split kernels: f(Int<D>{}, Int<QPK>{}) for
-// head dim D in {64, 128} and QPK in {1, 2, 4, 8} query heads per kv head,
-// cudaErrorInvalidValue for any other.  A head dim is added here and in
+// head dim D in {64, 128} and QPK in {1, 2, 4, 7, 8} query heads per kv
+// head (7: Qwen2-7B's 28 over 4), cudaErrorInvalidValue for any other.  At
+// QPK 7 a warp of the softmax and the merge may own a head past the group
+// (HPW = ceil(QPK / WARPS)): every per-head loop over jj tests j < QPK.  A head dim is added here and in
 // ops/paged_attention.py:SPLIT_KV_HEAD_DIMS.
 template <typename F>
 int with_geometry(int D, int qpk, F&& f) {

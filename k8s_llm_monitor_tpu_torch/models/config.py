@@ -1,8 +1,8 @@
 """Model configurations for the Llama/Qwen2-family decoder.
 
 A copy of the JAX package's ``models/config.py`` restricted to what this
-port runs: dense Llama-3 / Qwen2 decoders.  ``dtype`` stays a string
-(``"bfloat16"`` / ``"float32"``); ``torch_dtype`` maps it.  The Gemma-2
+port runs: dense Llama-3 / Mistral / Qwen2 decoders.  ``dtype`` stays a
+string (``"bfloat16"`` / ``"float32"``); ``torch_dtype`` maps it.  The Gemma-2
 knobs survive only as far as ``has_attn_extras`` needs them, so a config
 asking for them is refused (models/llama.py:LlamaModel) instead of
 silently served without them.
@@ -41,6 +41,12 @@ class ModelConfig:
     qkv_bias: bool = False          # True for Qwen2
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # W8A8: dynamically quantize activations (per-token symmetric int8) at
+    # every linear so the matmul runs s8 x s8 with int32 sums
+    # (models/llama.py:_linear, torch._int_mm).  Requires int8 weights
+    # (utils/quantize.py); a model built with it on bf16 weights raises.
+    # Attention, norms, residuals and the vocab projection stay in dtype.
+    act_quant: bool = False
     # Gemma RMSNorm convention (effective scale = 1 + w); ops/norms.py.
     rmsnorm_unit_offset: bool = False
     # Gemma-2 attention extras; not served by this port (has_attn_extras).
@@ -100,4 +106,34 @@ LLAMA_1B = ModelConfig(
     max_seq_len=8192,
 )
 
-PRESETS = {c.name: c for c in [TINY, TINY_QWEN, LLAMA3_8B, LLAMA_1B]}
+# Mistral-7B (v0.3+: no sliding window, full GQA): the Llama-3 skeleton
+# with a 32k vocab and theta 1e6; loads from HF safetensors through the
+# same key map (utils/checkpoint.py).
+MISTRAL_7B = ModelConfig(
+    name="mistral-7b",
+    vocab_size=32_768,
+    hidden_size=4096,
+    intermediate_size=14_336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    rope_theta=1_000_000.0,
+    max_seq_len=32_768,
+)
+
+# Qwen2-7B: 28 query heads over 4 kv heads (7 per kv head), QKV biases.
+QWEN2_7B = ModelConfig(
+    name="qwen2-7b",
+    vocab_size=152_064,
+    hidden_size=3584,
+    intermediate_size=18_944,
+    num_layers=28,
+    num_heads=28,
+    num_kv_heads=4,
+    rope_theta=1_000_000.0,
+    max_seq_len=32_768,
+    qkv_bias=True,
+)
+
+PRESETS = {c.name: c for c in [TINY, TINY_QWEN, LLAMA3_8B, MISTRAL_7B,
+                               QWEN2_7B, LLAMA_1B]}

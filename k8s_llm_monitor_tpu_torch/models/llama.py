@@ -6,7 +6,9 @@ are module-level functions named as in the JAX package
 ``decode_step``) so each
 has an obvious counterpart.  Weights follow ``nn.Linear``'s ``[out, in]``
 convention; convert.py is the one place the JAX ``[in, out]`` kernels are
-transposed.
+transposed.  An int8 model (``LlamaModel(quantized=True)``) holds
+``QuantLinear`` / ``QuantEmbedding`` codes and scales in the same layout;
+``_linear`` runs them weight-only or, under ``cfg.act_quant``, as W8A8.
 
 The paged KV cache is one ``[num_blocks, block_size, kv_heads * head_dim]``
 tensor per layer for K and for V (kv-head-major fused rows), block 0 the
@@ -164,59 +166,122 @@ def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ---------------------------------------------------------------------------
 
 
+class QuantLinear(nn.Module):
+    """Weight-only int8 linear in ``nn.Linear``'s layout: codes ``weight_q``
+    int8 [out, in] and float32 per-output-channel scales ``scale`` [out]
+    (utils/quantize.py), with an optional ``bias`` [out] in the model
+    dtype.  The counterpart of the JAX package's ``{"kernel_q", "scale"}``
+    leaves, transposed."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 device, dtype):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.zeros(
+            out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(
+            out_features, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
+                                              dtype=dtype))
+                     if bias else None)
+
+
+class QuantEmbedding(nn.Module):
+    """int8 embedding table: codes ``weight_q`` [vocab, H] and float32
+    per-row scales ``scale`` [vocab]."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, device):
+        super().__init__()
+        self.register_buffer("weight_q", torch.zeros(
+            num_embeddings, embedding_dim, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(
+            num_embeddings, dtype=torch.float32, device=device))
+
+
+def _linear_module(quantized: bool, in_f: int, out_f: int, bias: bool, kw):
+    if quantized:
+        return QuantLinear(in_f, out_f, bias, **kw)
+    return nn.Linear(in_f, out_f, bias=bias, **kw)
+
+
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype,
+                 quantized: bool = False):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim_
         nH, nKV, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
         kw = dict(device=device, dtype=dtype)
         self.input_norm = nn.Parameter(torch.ones(H, **kw))
         self.post_norm = nn.Parameter(torch.ones(H, **kw))
-        self.q = nn.Linear(H, nH * D, bias=cfg.qkv_bias, **kw)
-        self.k = nn.Linear(H, nKV * D, bias=cfg.qkv_bias, **kw)
-        self.v = nn.Linear(H, nKV * D, bias=cfg.qkv_bias, **kw)
-        self.o = nn.Linear(nH * D, H, bias=False, **kw)
-        self.gate = nn.Linear(H, inter, bias=False, **kw)
-        self.up = nn.Linear(H, inter, bias=False, **kw)
-        self.down = nn.Linear(inter, H, bias=False, **kw)
+
+        def lin(in_f, out_f, bias=False):
+            return _linear_module(quantized, in_f, out_f, bias, kw)
+
+        self.q = lin(H, nH * D, cfg.qkv_bias)
+        self.k = lin(H, nKV * D, cfg.qkv_bias)
+        self.v = lin(H, nKV * D, cfg.qkv_bias)
+        self.o = lin(nH * D, H)
+        self.gate = lin(H, inter)
+        self.up = lin(H, inter)
+        self.down = lin(inter, H)
 
 
 class LlamaModel(nn.Module):
     """Decoder weights on ``device`` (default ``cuda``; see
-    ``resolve_device``) in ``cfg.dtype``.
+    ``resolve_device``) in ``dtype`` (default ``cfg.dtype``), the dtype of
+    the activations.
 
     ``seed`` draws random weights from a ``torch.Generator`` on the device,
     with the JAX package's ``init_params`` distribution (normals scaled by
     ``in_features**-0.5``, embeddings by 0.02, unit norms, zero biases);
     ``seed=None`` leaves the weights for the caller to fill
-    (convert.py:params_from_jax).
+    (convert.py:params_from_jax, utils/checkpoint.py).
+
+    ``quantized=True`` builds the int8 twin: ``QuantLinear`` and
+    ``QuantEmbedding`` in place of ``nn.Linear`` and ``nn.Embedding``,
+    filled by utils/quantize.py (``quantize_params``,
+    ``init_params_quantized``) or a checkpoint, never from ``seed``.
+    ``cfg.act_quant`` (W8A8) needs it: where the JAX package warns and runs
+    the bf16 matmuls, this raises.
     """
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 dtype: Optional[torch.dtype] = None, seed: Optional[int] = 0):
+                 dtype: Optional[torch.dtype] = None, seed: Optional[int] = 0,
+                 quantized: bool = False):
         super().__init__()
         if cfg.has_attn_extras:
             raise ValueError(f"{cfg.name}: Gemma-2 attention extras (query "
                              "scale, logit softcap, sliding window) are not "
                              "ported")
+        if cfg.act_quant and not quantized:
+            raise ValueError(f"{cfg.name}: act_quant (W8A8) needs int8 "
+                             "weights (utils/quantize.py)")
+        if quantized and seed is not None:
+            raise ValueError("a quantized model is filled by "
+                             "utils/quantize.py or a checkpoint: pass "
+                             "seed=None")
         device = resolve_device(device)
         dtype = dtype or cfg.torch_dtype
         self.cfg = cfg
+        self.dtype = dtype
+        self.quantized = quantized
         kw = dict(device=device, dtype=dtype)
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.embed = (QuantEmbedding(cfg.vocab_size, cfg.hidden_size, device)
+                      if quantized else
+                      nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw))
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, device, dtype) for _ in range(cfg.num_layers))
+            LlamaLayer(cfg, device, dtype, quantized)
+            for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.hidden_size, **kw))
-        self.lm_head = (None if cfg.tie_embeddings else
-                        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                  **kw))
+        self.lm_head = (None if cfg.tie_embeddings else _linear_module(
+            quantized, cfg.hidden_size, cfg.vocab_size, False, kw))
         self.requires_grad_(False)
         if seed is not None:
             self.init_weights(seed)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.weight.device
+        return self.final_norm.device
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -236,21 +301,76 @@ class LlamaModel(nn.Module):
         return forward_full(self, tokens)
 
 
-def param_bytes(model: nn.Module) -> int:
-    return sum(p.numel() * p.element_size() for p in model.parameters())
-
-
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, lin.weight, lin.bias)
+# cuBLASLt's int8 GEMM behind torch._int_mm on CUDA takes more than 16 rows.
+_INT_MM_MIN_ROWS = 17
+
+
+def _quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token symmetric int8: (x_q int8, scale f32 [..., 1]).
+
+    Division by the scale, and of amax by 127 as a tensor on its device
+    (PyTorch on CUDA turns division by a Python number into a multiply by
+    the reciprocal, see ``_quantize_heads``); round half to even, clip at
+    127, as the JAX package's ``_quant_act``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
+    x_q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return x_q, scale
+
+
+def _int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """x_q [..., in] int8 times w_q [out, in] int8 transposed, summed in
+    int32 (exact): ``torch._int_mm``, the counterpart of the JAX package's
+    ``dot_general(..., preferred_element_type=int32)``.  Calls of 16 rows
+    or fewer (decode at small batch) are padded with zero rows to the 17
+    the CUDA kernel takes, and sliced back."""
+    lead, k = x_q.shape[:-1], x_q.shape[-1]
+    rows = x_q.reshape(-1, k)
+    m = rows.shape[0]
+    if m < _INT_MM_MIN_ROWS:
+        rows = F.pad(rows, (0, 0, 0, _INT_MM_MIN_ROWS - m))
+    y = torch._int_mm(rows, w_q.t())
+    return y[:m].reshape(*lead, w_q.shape[0])
+
+
+def _linear(lin: nn.Module, x: torch.Tensor,
+            act_quant: bool = False) -> torch.Tensor:
+    """x @ W^T (+ bias) for an ``nn.Linear`` or a ``QuantLinear``.
+
+    Weight-only int8: the per-output-channel scale commutes with the
+    contraction, so it multiplies the [.., out] result, in x's dtype.  W8A8
+    (``act_quant``, int8 weights only): per-token int8 activations, an
+    int32 product, then ``(y32 * x_scale) * w_scale`` in float32, cast to
+    x's dtype, the JAX package's order."""
+    if isinstance(lin, nn.Linear):
+        return F.linear(x, lin.weight, lin.bias)
+    if act_quant:
+        x_q, xs = _quant_act(x)
+        y32 = _int8_matmul(x_q, lin.weight_q)
+        y = ((y32.float() * xs) * lin.scale).to(x.dtype)
+    else:
+        y = F.linear(x, lin.weight_q.to(x.dtype)) * lin.scale.to(x.dtype)
+    if lin.bias is not None:
+        y = y + lin.bias
+    return y
 
 
 def _embed_lookup(model: LlamaModel, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed.weight[tokens.long()]
+    """Token embedding lookup; an int8 table's rows are dequantized in the
+    model dtype (codes, then times the row scale), as the JAX package
+    does."""
+    t = tokens.long()
+    emb = model.embed
+    if isinstance(emb, QuantEmbedding):
+        dt = model.dtype
+        return emb.weight_q[t].to(dt) * emb.scale[t][..., None].to(dt)
+    return emb.weight[t]
 
 
 def _qkv_proj(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor):
@@ -258,9 +378,10 @@ def _qkv_proj(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor):
     k/v [B, S, nKV, D].  The fused decode kernel ropes in-kernel."""
     B, S, _ = x.shape
     D = cfg.head_dim_
-    q = _linear(layer.q, x).reshape(B, S, cfg.num_heads, D)
-    k = _linear(layer.k, x).reshape(B, S, cfg.num_kv_heads, D)
-    v = _linear(layer.v, x).reshape(B, S, cfg.num_kv_heads, D)
+    aq = cfg.act_quant
+    q = _linear(layer.q, x, aq).reshape(B, S, cfg.num_heads, D)
+    k = _linear(layer.k, x, aq).reshape(B, S, cfg.num_kv_heads, D)
+    v = _linear(layer.v, x, aq).reshape(B, S, cfg.num_kv_heads, D)
     return q, k, v
 
 
@@ -270,10 +391,12 @@ def _qkv(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(layer: LlamaLayer, x: torch.Tensor) -> torch.Tensor:
+def _mlp(layer: LlamaLayer, cfg: ModelConfig,
+         x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
-    return _linear(layer.down, F.silu(_linear(layer.gate, x))
-                   * _linear(layer.up, x))
+    aq = cfg.act_quant
+    return _linear(layer.down, F.silu(_linear(layer.gate, x, aq))
+                   * _linear(layer.up, x, aq), aq)
 
 
 def _residual_tail(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor,
@@ -282,15 +405,24 @@ def _residual_tail(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor,
     definition shared by layer_block, _prefill_impl and decode_step."""
     x = x + o
     h = rms_norm(x, layer.post_norm, cfg.rms_norm_eps, cfg.rmsnorm_unit_offset)
-    return x + _mlp(layer, h)
+    return x + _mlp(layer, cfg, h)
 
 
 def _unembed(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the vocab projection, float32 logits.  The projection
+    stays weight-only under ``act_quant``, tied or not: int8 noise on the
+    pre-logits hidden state flips near-tied argmax (the JAX package's
+    rule)."""
     cfg = model.cfg
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                  cfg.rmsnorm_unit_offset)
-    w = model.embed.weight if cfg.tie_embeddings else model.lm_head.weight
-    return F.linear(x, w).float()
+    if not cfg.tie_embeddings:
+        return _linear(model.lm_head, x).float()
+    emb = model.embed
+    if isinstance(emb, QuantEmbedding):
+        return (F.linear(x, emb.weight_q.to(x.dtype))
+                * emb.scale.to(x.dtype)).float()
+    return F.linear(x, emb.weight).float()
 
 
 def is_fused_decode_impl(attn_impl) -> bool:
@@ -323,7 +455,7 @@ def layer_block(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor, cos,
     h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, cfg.rmsnorm_unit_offset)
     q, k, v = _qkv(layer, cfg, h, cos, sin)
     attn = causal_attention(q, k, v, q_positions=positions)
-    o = _linear(layer.o, attn.reshape(B, S, -1))
+    o = _linear(layer.o, attn.reshape(B, S, -1), cfg.act_quant)
     return _residual_tail(layer, cfg, x, o)
 
 
@@ -461,7 +593,7 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                 kk, vv = k, v
             attn = causal_attention(q, kk, vv, q_positions=positions,
                                     kv_len=kv_len)
-        o = _linear(layer.o, attn.reshape(B, S, -1))
+        o = _linear(layer.o, attn.reshape(B, S, -1), cfg.act_quant)
         x = _residual_tail(layer, cfg, x, o)
         if on_layer is not None:
             on_layer()
@@ -595,6 +727,6 @@ def decode_step(model: LlamaModel, tokens, context_lens, pages: KVPages,
             pk = _scatter_pages(pages.k[li], k, block_tables, positions, active)
             pv = _scatter_pages(pages.v[li], v, block_tables, positions, active)
             attn = attn_impl(q, pk, pv, block_tables, new_lens)
-        o = _linear(layer.o, attn.reshape(B, 1, -1))
+        o = _linear(layer.o, attn.reshape(B, 1, -1), cfg.act_quant)
         x = _residual_tail(layer, cfg, x, o)
     return _unembed(model, x)[:, 0, :], pages

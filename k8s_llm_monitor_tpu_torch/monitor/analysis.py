@@ -25,6 +25,7 @@ template backend when that fails.
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import logging
@@ -73,7 +74,12 @@ from k8s_llm_monitor_tpu_torch.serving.engine import (
 )
 from k8s_llm_monitor_tpu_torch.serving.service import EngineService
 from k8s_llm_monitor_tpu_torch.serving.supervisor import EngineSupervisor
-from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+from k8s_llm_monitor_tpu_torch.utils.checkpoint import load_hf_checkpoint
+from k8s_llm_monitor_tpu_torch.utils.quantize import init_params_quantized
+from k8s_llm_monitor_tpu_torch.utils.tokenizer import (
+    ByteTokenizer,
+    load_tokenizer,
+)
 
 __all__ = ["AnalysisEngine", "EvidenceCollector", "LLMBackend",
            "LocalEngineBackend", "OpenAICompatBackend", "OverloadedError",
@@ -358,30 +364,31 @@ class LocalEngineBackend(LLMBackend):
     @classmethod
     def from_config(cls, tpu_cfg, lifecycle=None, tenancy=None, *,
                     device=None) -> "LocalEngineBackend":
-        """Build from ``LLMConfig.tpu``: random-init dev weights for the
-        named preset, drawn on ``device`` (``cuda`` unless the caller asks
-        for the CPU) from seed 0, behind a supervised engine factory.
+        """Build from ``LLMConfig.tpu`` on ``device`` (``cuda`` unless the
+        caller asks for the CPU), behind a supervised engine factory:
+
+          * ``checkpoint``: a HF safetensors directory
+            (utils/checkpoint.py:load_hf_checkpoint) and its HF tokenizer
+            (utils/tokenizer.py:load_tokenizer, which needs
+            ``transformers``);
+          * else random-init dev weights for the named preset from seed 0
+            and the ``ByteTokenizer``.
+
+        ``quantize`` ``"int8"`` gives weight-only int8 weights (streamed
+        through host-side quantization from a checkpoint, or
+        ``init_params_quantized``), ``"w8a8"`` the same weights with int8
+        activations (``ModelConfig.act_quant``); anything else is bf16.
         ``tenancy`` (TenancyConfig) arms the per-tenant admission governor.
 
-        The knobs the port does not serve yet raise ``NotImplementedError``
-        naming their ROADMAP item: ``quantize`` int8/w8a8 and
-        ``checkpoint`` (A6) and ``mesh_shape`` (A7).  ``spec_k`` and
-        ``spec_min_accept`` reach the engine as in the JAX backend.
-        ``tenancy.max_kv_share`` caps each tenant's share of the engine's
-        prefix cache (``EngineConfig.kv_max_tenant_share``).  On the
-        GPU the CUDA kernels are built here, before the supervisor's step
-        loop starts, so no compile runs inside a heartbeat window.
+        ``mesh_shape`` raises ``NotImplementedError`` naming ROADMAP A7.
+        ``spec_k`` and ``spec_min_accept`` reach the engine as in the JAX
+        backend.  ``tenancy.max_kv_share`` caps each tenant's share of the
+        engine's prefix cache (``EngineConfig.kv_max_tenant_share``).  On
+        the GPU the CUDA kernels are built here, before the supervisor's
+        step loop starts, so no compile runs inside a heartbeat window.
         """
         qmode = getattr(tpu_cfg, "quantize", "")
-        if qmode in ("int8", "w8a8"):
-            raise NotImplementedError(
-                f"llm.tpu.quantize={qmode!r}: int8 / W8A8 weights are not "
-                "ported (ROADMAP A6); set llm.tpu.quantize to '' "
-                "(LLM_TPU_QUANTIZE=) for bf16 weights")
-        if tpu_cfg.checkpoint:
-            raise NotImplementedError(
-                "llm.tpu.checkpoint: checkpoint loading is not ported "
-                "(ROADMAP A6); leave it empty for random-init dev weights")
+        quantize = qmode in ("int8", "w8a8")
         if tpu_cfg.mesh_shape:
             raise NotImplementedError(
                 f"llm.tpu.mesh_shape={tpu_cfg.mesh_shape!r}: multi-GPU "
@@ -389,9 +396,22 @@ class LocalEngineBackend(LLMBackend):
         device = llama.resolve_device(device)
         if device.type == "cuda":
             _build.build_all()
-        cfg = PRESETS[tpu_cfg.model]
-        model = llama.LlamaModel(cfg, device=device, seed=0)
-        tokenizer = ByteTokenizer()
+        if tpu_cfg.checkpoint:
+            # int8 streams each tensor through host-side quantization: the
+            # device never holds the bf16 weights.
+            cfg, model = load_hf_checkpoint(tpu_cfg.checkpoint,
+                                            quantize=quantize, device=device)
+            tokenizer = load_tokenizer(tpu_cfg.checkpoint)
+        else:
+            cfg = PRESETS[tpu_cfg.model]
+            model = (init_params_quantized(cfg, seed=0, device=device)
+                     if quantize else
+                     llama.LlamaModel(cfg, device=device, seed=0))
+            tokenizer = load_tokenizer(None)
+        if qmode == "w8a8":
+            # int8 activations on the int8 weights; the forward passes read
+            # model.cfg.
+            cfg = model.cfg = dataclasses.replace(cfg, act_quant=True)
         # Factory, not a single engine: the supervisor rebuilds through this
         # closure after a step-loop death, reusing the weights (which no
         # engine mutates) while the KV pool, allocator and slot table start
@@ -429,7 +449,7 @@ class LocalEngineBackend(LLMBackend):
                 enforce=tenancy.enforce,
                 max_tenants=tenancy.max_tenants)
 
-        return cls(tokenizer=tokenizer, dev_weights=True,
+        return cls(tokenizer=tokenizer, dev_weights=not tpu_cfg.checkpoint,
                    engine_factory=engine_factory, lifecycle=lifecycle,
                    governor=governor)
 

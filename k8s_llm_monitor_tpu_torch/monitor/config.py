@@ -12,9 +12,8 @@ the GPU, instead of a remote OpenAI call) and an ``llm.tpu`` sub-block
 selecting the model preset; the reference's remote-provider fields are kept
 for the OpenAI-compatible fallback path.  The tree, its defaults and the
 key names are the JAX package's, so one YAML file or environment configures
-either package; ``LocalEngineBackend.from_config`` refuses the knobs the
-port does not serve yet (``quantize`` int8/w8a8, ``checkpoint``,
-``mesh_shape``).
+either package; ``LocalEngineBackend.from_config`` refuses the knob the
+port does not serve yet (``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -82,9 +81,8 @@ class TPULLMConfig:
     model: str = "llama-1b"  # preset name in models/config.py PRESETS
     checkpoint: str = ""  # HF checkpoint dir ('' => random-init dev weights)
     # "int8" = weight-only quantization; "w8a8" = int8 weights + dynamic
-    # per-token activation int8; '' = bf16.  W8A8 is the JAX package's
-    # serving default; the port serves only '' so far and refuses the
-    # others by name (set LLM_TPU_QUANTIZE= to run it).
+    # per-token activation int8; '' = bf16.  W8A8 is the serving default
+    # of both packages.
     quantize: str = "w8a8"
     mesh_shape: str = ""  # e.g. "1,1,8" for data,seq,model; '' => single chip
     max_batch: int = 32

@@ -188,11 +188,12 @@ def paged_verify_attention(
 def _decode_geometry_ok(cfg, device: torch.device) -> bool:
     """What the split-KV CUDA kernels (fused decode, split paged attention)
     take: bf16 activations over a bf16, int8 or fp8 pool, head_dim 64 or
-    128, 1/2/4/8 query heads per kv group (csrc/split_kv.cuh template
+    128, 1/2/4/7/8 query heads per kv group (csrc/split_kv.cuh template
     instances) -- the JAX package's ``_pallas_geometry_ok`` for every preset
     the port has.  On the CPU the wrappers run their plain versions, which
     take any geometry."""
     from k8s_llm_monitor_tpu_torch.ops.paged_attention import (
+        QUERY_HEADS_PER_KV,
         SPLIT_KV_HEAD_DIMS,
     )
 
@@ -202,7 +203,7 @@ def _decode_geometry_ok(cfg, device: torch.device) -> bool:
         return True
     return (cfg.dtype == "bfloat16" and cfg.head_dim_ in SPLIT_KV_HEAD_DIMS
             and cfg.num_heads % cfg.num_kv_heads == 0
-            and cfg.q_per_kv in (1, 2, 4, 8))
+            and cfg.q_per_kv in QUERY_HEADS_PER_KV)
 
 
 def _prefill_geometry_ok(cfg, device: torch.device) -> bool:

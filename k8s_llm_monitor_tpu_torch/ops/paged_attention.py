@@ -103,6 +103,10 @@ DECODE_TILE = 32
 # Head dims the split-KV templates are instantiated for (csrc/split_kv.cuh:
 # a block of D threads): llama-1b's 64 and Llama-3-8B's 128.
 SPLIT_KV_HEAD_DIMS = (64, 128)
+# Query heads per kv head every kernel is instantiated for
+# (csrc/split_kv.cuh:with_qpk, csrc/flash_prefill.cu:dispatch); 7 is
+# Qwen2-7B's 28 over 4.
+QUERY_HEADS_PER_KV = (1, 2, 4, 7, 8)
 
 
 def decode_splits(max_blocks: int, block_size: int,
@@ -210,7 +214,7 @@ def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths,
     KVH = F // D
     _check(q.dtype == torch.bfloat16, "flash prefill takes bf16 queries")
     _check(D == 128 and F == KVH * D and H % KVH == 0
-           and H // KVH in (1, 2, 4, 8),
+           and H // KVH in QUERY_HEADS_PER_KV,
            f"flash prefill geometry unsupported (H={H}, F={F}, D={D})")
     suffix = _check_pool(k_pages, v_pages, k_scale, v_scale, D,
                          "flash prefill")
@@ -273,11 +277,11 @@ def _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
     # per layer and decode step.
     if not (S == 1 and q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16
             and D in SPLIT_KV_HEAD_DIMS and F == KVH * D and H % KVH == 0
-            and H // KVH in (1, 2, 4, 8) and k_new.shape == (B, 1, KVH, D)
-            and v_new.shape == k_new.shape):
+            and H // KVH in QUERY_HEADS_PER_KV
+            and k_new.shape == (B, 1, KVH, D) and v_new.shape == k_new.shape):
         raise ValueError(
             f"fused decode takes one bf16 query token per lane, head_dim "
-            f"64 or 128 and 1, 2, 4 or 8 query heads per kv head: got q "
+            f"64 or 128 and 1, 2, 4, 7 or 8 query heads per kv head: got q "
             f"{tuple(q.shape)} {q.dtype}, k_new {tuple(k_new.shape)} "
             f"{k_new.dtype}, v_new {tuple(v_new.shape)} {v_new.dtype}, "
             f"pages {tuple(k_pages.shape)}")
@@ -436,12 +440,13 @@ def _paged_attn(q, k_pages, v_pages, block_table, *, lengths=None,
     # One test, and a message formatted only on failure: this runs once
     # per layer and decode step.
     if not (q.dtype == torch.bfloat16 and D in SPLIT_KV_HEAD_DIMS
-            and F == KVH * D and H % KVH == 0 and H // KVH in (1, 2, 4, 8)
+            and F == KVH * D and H % KVH == 0
+            and H // KVH in QUERY_HEADS_PER_KV
             and 1 <= QS <= MAX_QUERY_TOKENS):
         raise ValueError(
             f"paged attention takes 1..{MAX_QUERY_TOKENS} bf16 query tokens "
-            f"per lane, head_dim 64 or 128 and 1, 2, 4 or 8 query heads per "
-            f"kv head: got q {tuple(q.shape)} {q.dtype}, pages "
+            f"per lane, head_dim 64 or 128 and 1, 2, 4, 7 or 8 query heads "
+            f"per kv head: got q {tuple(q.shape)} {q.dtype}, pages "
             f"{tuple(k_pages.shape)}")
     _check_pool(k_pages, v_pages, None, None, D, "paged attention")
     qc = q.contiguous()

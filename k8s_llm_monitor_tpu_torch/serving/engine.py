@@ -708,7 +708,7 @@ class InferenceEngine:
             self._verify_attn = None
         self.pages = llama.init_kv_pages(cfg, ec.num_blocks, ec.block_size,
                                          self.device,
-                                         model.embed.weight.dtype,
+                                         model.dtype,
                                          kv_quant=self.kv_quant)
         self.allocator = BlockAllocator(ec.num_blocks, ec.block_size)
         self.prefix_cache: Optional[PrefixCache] = (

@@ -26,7 +26,8 @@ COPIES = ("diagnosis/grammar.py", "devtools/lockcheck.py",
           "monitor/metrics_types.py", "monitor/rtt.py", "monitor/sources.py",
           "monitor/manager.py", "monitor/network.py", "monitor/config.py",
           "diagnosis/session.py", "monitor/watcher.py",
-          "diagnosis/pipeline.py", "serving/kv_cache.py")
+          "diagnosis/pipeline.py", "serving/kv_cache.py",
+          "utils/tokenizer.py")
 
 
 def _tree(path: Path, rename: bool) -> ast.Module:

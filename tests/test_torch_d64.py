@@ -10,13 +10,15 @@
   * Path selection per preset: the port's ``select_decode_impl``,
     ``select_prefill_impl`` and ``select_verify_impl`` with
     ``torch.device("cuda")`` name the path the JAX package picks with
-    ``platform="tpu"``, for tiny, llama-1b and llama3-8b (the selectors
-    launch nothing, so no card is needed).  qwen2-7b's 7 query heads per kv
-    head is the one known difference (ROADMAP B7); a forced
+    ``platform="tpu"`` (the selectors
+    launch nothing, so no card is needed), for tiny, llama-1b, llama3-8b,
+    mistral-7b and qwen2-7b (7 query heads per kv head); a forced
     ``decode_path="pallas"`` or speculative verify on a geometry the kernel
     cannot take (tiny) raises in the port where the JAX package gives way
     to the gather; and the port verifies on the kernel at every table
     width, where the JAX package keeps the gather under 2,048 tokens.
+  * ``act_quant`` (W8A8) on unquantized weights raises in the port, where
+    the JAX package warns and runs the bf16 matmuls.
   * ``K8SLLM_KV_DTYPE``, ``K8SLLM_PREFILL_PATH`` and ``K8SLLM_DECODE_PATH``
     override the EngineConfig in both engines alike.
 """
@@ -191,17 +193,14 @@ def _outcome(select, *args, **kw) -> str:
 
 
 def _port_cfg(name):
-    """The port's preset, or qwen2-7b built from the JAX preset's fields
-    (the port has no such preset before ROADMAP A6)."""
-    if name in tconfig.PRESETS:
-        return tconfig.PRESETS[name]
-    j = jconfig.PRESETS[name]
-    return tconfig.ModelConfig(**{
-        f.name: getattr(j, f.name)
-        for f in dataclasses.fields(tconfig.ModelConfig)})
+    """The port's preset, held to the JAX preset's fields."""
+    t, j = tconfig.PRESETS[name], jconfig.PRESETS[name]
+    assert all(getattr(t, f.name) == getattr(j, f.name)
+               for f in dataclasses.fields(tconfig.ModelConfig)), name
+    return t
 
 
-PRESETS = ("tiny", "llama-1b", "llama3-8b")
+PRESETS = ("tiny", "llama-1b", "llama3-8b", "mistral-7b")
 
 
 @pytest.mark.parametrize("preset", PRESETS + ("qwen2-7b",))
@@ -239,19 +238,30 @@ def test_path_selection_matches_jax_per_preset(preset):
         assert got["prefill", "auto"] == "none"
         assert got["verify",] == "paged_verify_attention_pallas"
     if preset == "qwen2-7b":
-        # B7: 7 query heads per kv head has no split-KV instance yet.
-        diff = {k for k in want if got[k] != want[k]}
-        assert diff and all(k[0] in ("decode", "prefill", "verify")
-                            for k in diff)
-        assert got["decode", "", "auto"] == "paged_decode_attention"
-        assert want["decode", "", "auto"] == "paged_decode_attention_fused"
-    else:
-        if preset == "tiny":
-            # fp32: the port's kernels take bf16 only, and the port refuses
-            # where the JAX package gathers.
-            want["decode", "", "pallas"] = "raises"
-            want["verify",] = "raises"
-        assert got == want
+        # 7 query heads per kv head, head_dim 128: every kernel (B7).
+        assert got["decode", "", "auto"] == "paged_decode_attention_fused"
+        assert got["prefill", "auto"] == "flash_prefill_attention"
+        assert got["verify",] == "paged_verify_attention_pallas"
+    if preset == "tiny":
+        # fp32: the port's kernels take bf16 only, and the port refuses
+        # where the JAX package gathers.
+        want["decode", "", "pallas"] = "raises"
+        want["verify",] = "raises"
+    assert got == want
+
+
+def test_act_quant_on_unquantized_weights_raises():
+    """A listed difference (ROADMAP section C): the JAX package warns and
+    runs the bf16 matmuls; the port refuses to build such a model."""
+    jcfg = dataclasses.replace(jconfig.TINY, dtype="float32", act_quant=True)
+    params = jllama.init_params(jax.random.PRNGKey(0), jcfg)
+    with pytest.warns(UserWarning, match="act_quant"):
+        jllama.forward_full(params, jcfg, jnp.zeros((1, 4), jnp.int32))
+    tcfg = dataclasses.replace(tconfig.TINY, dtype="float32", act_quant=True)
+    with pytest.raises(ValueError, match="act_quant"):
+        tllama.LlamaModel(tcfg, device="cpu", seed=0)
+    with pytest.raises(ValueError, match="act_quant"):
+        params_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -390,11 +390,31 @@ def test_remediation_without_a_cluster_boots():
     ("quantize", "w8a8"), ("quantize", "int8"),
     ("checkpoint", "/models/llama"), ("mesh_shape", "1,1,8")])
 def test_from_config_refuses_unported_knobs(knob, value):
-    tc = TPULLMConfig(model="tiny", quantize="", spec_k=0)
+    """``mesh_shape`` is refused by name (ROADMAP A7).  The weight knobs are
+    served since A6: ``quantize`` int8 / w8a8 give an int8 model (W8A8 with
+    int8 activations), and a checkpoint directory that does not exist
+    raises, with no random weights in its place."""
+    tc = TPULLMConfig(model="tiny", quantize="", spec_k=0, kv_blocks=64,
+                      max_batch=2)
     setattr(tc, knob, value)
-    with pytest.raises(NotImplementedError, match=knob):
-        analysis.LocalEngineBackend.from_config(tc, tenancy=TenancyConfig(),
-                                                device="cpu")
+    if knob == "mesh_shape":
+        with pytest.raises(NotImplementedError, match=knob):
+            analysis.LocalEngineBackend.from_config(
+                tc, tenancy=TenancyConfig(), device="cpu")
+    elif knob == "checkpoint":
+        with pytest.raises(FileNotFoundError, match="config.json"):
+            analysis.LocalEngineBackend.from_config(
+                tc, tenancy=TenancyConfig(), device="cpu")
+    else:
+        backend = analysis.LocalEngineBackend.from_config(
+            tc, tenancy=TenancyConfig(), device="cpu")
+        try:
+            model = backend.engine.model
+            assert model.quantized and backend.name.endswith("-RANDOM-WEIGHTS")
+            assert model.cfg.act_quant == (value == "w8a8")
+            assert backend.engine.cfg is model.cfg
+        finally:
+            backend.supervisor.shutdown(grace_s=1.0)
 
 
 def test_from_config_passes_the_tenant_kv_share(tmp_path):
