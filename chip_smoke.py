@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 0,7    # prefix reuse, preemption, recovery
     python3 chip_smoke.py --phases 0,8    # llama-1b and speculative decoding
     python3 chip_smoke.py --phases 0,9    # Qwen2-7B, int8 / W8A8, a checkpoint
+    python3 chip_smoke.py --phases 0,10   # the unscaled fp8 pool, KV tiers
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -212,9 +213,10 @@ Phase 9  weights and Qwen2-7B (runs last: phase 6 has freed the earlier
          model).  9a: Qwen2-7B at full width (28 layers, hidden 3584, 28/4
          heads, vocab 152,064, qkv bias; random bf16 weights from a seed,
          about 15.2 GB; a 4096 x 16 pool), phase 2's 16 prompts and 32 new
-         tokens on bf16 and int8 pools and decode_path="pallas" (flash
-         prefill, fused and split paged attention launched at 7 query
-         heads per kv head; two identical runs give identical ids); on 4
+         tokens on bf16 and int8 pools and decode_path="pallas", and on
+         the unscaled fp8 pool with either decode path (flash prefill,
+         fused and split paged attention launched at 7 query heads per kv
+         head; two identical runs give identical ids); on 4
          layers flash/fused and flash/pallas against dense/gather and the
          int8 kernels against their plain versions, by phase 3's rule;
          spec_k 4 (spec_min_accept 0) verifying through flash prefill, and
@@ -232,6 +234,29 @@ Phase 9  weights and Qwen2-7B (runs last: phase 6 has freed the earlier
          tensor bit for bit, the quantized load equal to quantize_params,
          load seconds and GB/s, greedy ids equal the in-memory model's;
          without transformers, from_config on the checkpoint must raise.
+
+Phase 10 the unscaled fp8 KV pool (ModelConfig.kv_dtype = "float8_e4m3fn",
+         B8) and the KV tiers (A5), after phase 7, on phase 2's model.
+         10a: each e4m3 instance against its plain version on its first
+         call: cast_e4m3 on the card equals the CPU's (edges, NaN,
+         subnormals); flash prefill at phase 4's admission, chunk, hit and
+         verify shapes at qpk 4 and 7; fused decode at D 128 (qpk 4, 7)
+         and 64 (llama-1b) with rows holding +-448..512 appended bit for
+         bit; split paged attention at QS=1 and 5, rows past qlens and
+         empty lanes zero.  10b: the e4m3 records timed by phase 4's
+         method at its shapes (the _qpk7 ones as phase 4's, launched by
+         phase 9a's fp8-pool Qwen2-7B engines).  10c: Llama-3-8B, then llama-1b, with an
+         fp8 pool through auto, pallas and spec_k 4 engines (launches
+         counted, the pool half of bf16's, TTFT and tok/s beside phase
+         2's), and 4-layer logits against the bf16 pool (cosine >= 0.98).
+         10d: the host tier on bf16, int8 and fp8 pools of 512 x 16
+         blocks cycling 6 distinct 1,536-token prefixes (each run fresh,
+         then as a device hit), then again: spills and restores, each
+         second-pass prompt restored to its whole prefix with the device
+         hit's ids, no graph recaptured, fetch and write GB/s, TTFT of a
+         restored hit against a fresh prefill and a device hit.  10e: export/install between two engines on one
+         model's weights, every outcome, the receiver's ids equal the
+         owner's; then over HTTP through the server's /api/v1/kv routes.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -338,12 +363,16 @@ def decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS,
 
 
 QUANTS = ("int8", "fp8")
+# The unscaled fp8 pool (ModelConfig.kv_dtype = "float8_e4m3fn", B8): its
+# kernel instances' symbol suffix and record tag.
+E4M3 = "e4m3"
 
 
 def _page_bytes(kv_quant, d=D):
     """Bytes one cached position of one kv head costs in the K or V plane:
-    ``d`` page elements, plus a float32 scale on a quantized pool."""
-    return d + 4 if kv_quant else 2 * d
+    ``d`` page elements (2 bytes on a bf16 pool, 1 on an unscaled e4m3
+    one), plus a float32 scale on a quantized pool."""
+    return {"": 2 * d, E4M3: d}.get(kv_quant, d + 4)
 
 
 def quantize_pages(torch, pages, kv_quant, d=D):
@@ -404,13 +433,13 @@ def decode_work(positions, kv_quant="", heads=(H, KVH), d=D):
     return cached + io + table, flops
 
 
-def paged_attn_work(starts, qlens, heads=(H, KVH), d=D):
+def paged_attn_work(starts, qlens, heads=(H, KVH), d=D, page_bytes=2):
     """(bytes, flops) of the split paged attention: the keys the live
-    tokens see (bf16 K and V), q and out of the live tokens, table,
-    starts and qlens."""
+    tokens see (K and V of ``page_bytes``-byte elements), q and out of the
+    live tokens, table, starts and qlens."""
     nh, nkv = heads
     keys = [s + n for s, n in zip(starts, qlens)]
-    kv = sum(keys) * nkv * d * 2 * 2
+    kv = sum(keys) * nkv * d * page_bytes * 2
     qo = 2 * sum(qlens) * nh * d * 2
     table = 4 * sum((k + BS - 1) // BS for k in keys) + 8 * len(starts)
     flops = sum(4 * nh * d * (s + i + 1)
@@ -439,8 +468,8 @@ def flash_alone(torch, pa, case, scales):
     q, kp, vp, table, st, ln = case
     qs = (q * D ** -0.5).contiguous()
     out = torch.empty_like(qs)
-    suffix = {torch.bfloat16: "bf16", torch.int8: "int8",
-              torch.float8_e4m3fn: "fp8"}[kp.dtype]
+    suffix = pa._check_pool(kp, vp, scales.get("k_scale"),
+                            scales.get("v_scale"), D, "flash prefill")
     sc = ([] if not scales else
           [scales["k_scale"].data_ptr(), scales["v_scale"].data_ptr()])
     fn = pa._kernel(f"flash_prefill_{suffix}")
@@ -470,8 +499,8 @@ def decode_alone(torch, pa, case):
     ws = torch.empty(pa.decode_workspace_floats(B, nkv, nh // nkv, nsplit, d),
                      dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    suffix = {torch.bfloat16: "bf16", torch.int8: "int8",
-              torch.float8_e4m3fn: "fp8"}[kp.dtype]
+    suffix = pa._check_pool(kp, vp, *(scales or (None, None)), d,
+                            "fused decode")
     fn = pa._kernel(f"fused_decode_{suffix}")
     args = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cs.data_ptr(),
             sn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
@@ -495,14 +524,16 @@ def paged_alone(torch, pa, q, kp, vp, table, lengths=None, starts=None,
     B, QS, nh, d = q.shape
     nkv = kp.shape[-1] // d
     out = torch.empty_like(q)
-    nsplit, chunk = pa.decode_splits(table.shape[1], kp.shape[1], 2)
+    nsplit, chunk = pa.decode_splits(table.shape[1], kp.shape[1],
+                                     kp.element_size())
     ws = torch.empty(pa.decode_workspace_floats(B, nkv, QS * (nh // nkv),
                                                 nsplit, d),
                      dtype=torch.float32, device=q.device)
+    suffix = pa._check_pool(kp, vp, None, None, d, "paged attention")
     if lengths is not None:
-        sym, lanes, dims = "paged_attn_decode_bf16", (lengths,), (B,)
+        sym, lanes, dims = f"paged_attn_decode_{suffix}", (lengths,), (B,)
     else:
-        sym, lanes, dims = "paged_attn_bf16", (starts, qlens), (B, QS)
+        sym, lanes, dims = f"paged_attn_{suffix}", (starts, qlens), (B, QS)
     fn = pa._kernel(sym)
     args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
             *(t.data_ptr() for t in lanes), out.data_ptr(), ws.data_ptr(),
@@ -1094,6 +1125,8 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels,
     print(f"phase {phase}: {name}: second (warm) run identical: ttft p50 "
           f"{ttft2 * 1e3:.1f} ms, decode {tok_s2:.1f} tok/s, pool "
           f"{eng.pool_bytes} B [{st['gpu']}]")
+    st.setdefault("runs", {})[name] = dict(
+        ttft=ttft, ttft_warm=ttft2, tok_s=tok_s2, pool=eng.pool_bytes)
     return eng, [r.token_ids for r in res], launches, first_run, tok_s2
 
 
@@ -2805,6 +2838,12 @@ QWEN_ENGINES = (
       "fused_decode_int8_qpk7": "paged_decode_attention_fused_quant"}),
     ("pallas", {"decode_path": "pallas"}, ("flash", "pallas"),
      {"paged_attn_qpk7": "paged_decode_attention_pallas"}),
+    # The unscaled fp8 pool (ModelConfig.kv_dtype, B8): its qpk-7 instances.
+    ("fp8 pool", {}, ("flash", "fused"),
+     {"flash_prefill_e4m3_qpk7": "flash_prefill_attention",
+      "fused_decode_e4m3_qpk7": "paged_decode_attention_fused"}),
+    ("fp8 pool pallas", {"decode_path": "pallas"}, ("flash", "pallas"),
+     {"paged_attn_e4m3_qpk7": "paged_decode_attention_pallas"}),
 )
 
 
@@ -2840,8 +2879,9 @@ def phase9a(torch, np, st):
     st.setdefault("launches", {})
     for label, overrides, paths, kernels in QWEN_ENGINES:
         eng, ids, launches, _, tok_s = run_engine(
-            torch, st, model, prompts, f"{cfg.name} {label}", overrides,
-            paths, kernels, phase=9)
+            torch, st, fp8_model(model) if label.startswith("fp8") else model,
+            prompts, f"{cfg.name} {label}", overrides, paths, kernels,
+            phase=9)
         st["launches"].update(launches)
         if label == "bf16":
             ref_ids, ref_tok_s = ids, tok_s
@@ -3190,57 +3230,69 @@ SOURCES = {
 }
 
 
+def kernel_record(st, name, shape, ms, plain_ms, lib_ms, b_ms, by):
+    """One entry of the ``kernels`` line (its launches are read in main()
+    once every phase has run)."""
+    st.setdefault("records", []).append(dict(
+        name=name, shape=shape, route="cuda",
+        source=SOURCES["_".join(name.split("_")[:2])],
+        replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:"
+                 f"{replaces(name)}",
+        launches=None,
+        max_abs_err=st.get("max_abs_err", {}).get(name),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+        library_ms=lib_ms))
+
+
 def replaces(name: str) -> int:
     """The line of k8s_llm_monitor_tpu/ops/pallas_attention.py whose
     function reaches the pl.pallas_call that the record's kernel replaces
-    (records are named <kernel>[_int8|_fp8][_verify][_d64])."""
+    (records are named <kernel>[_int8|_fp8|_e4m3][_verify][_d64|_qpk7];
+    e4m3, the unscaled fp8 pool, runs B2, not B4)."""
     if name.startswith("fused_decode"):
         return 822 if ("_int8" in name or "_fp8" in name) else 471
     return {"flash_prefill": 1150, "paged_attn": 190}[
         "_".join(name.split("_")[:2])]
 
 
+def sdpa_args(torch, q, kp, vp, table, ctx_max, mask, scales):
+    """q, K, V and mask for one SDPA call: K/V gathered (and dequantized,
+    or an fp8 pool widened, to bf16) beforehand, heads repeated,
+    batch-head major."""
+    from k8s_llm_monitor_tpu_torch.ops.attention import (
+        gather_dequant, gather_pages, widen_pages)
+
+    B, _, nh, d = q.shape
+    nkv = kp.shape[-1] // d
+    nb = (ctx_max + BS - 1) // BS
+    if scales:
+        k = gather_dequant(kp, scales["k_scale"], table[:, :nb], d)
+        v = gather_dequant(vp, scales["v_scale"], table[:, :nb], d)
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        k = widen_pages(gather_pages(kp, table[:, :nb])).reshape(B, -1, nkv, d)
+        v = widen_pages(gather_pages(vp, table[:, :nb])).reshape(B, -1, nkv, d)
+    k, v = k[:, :ctx_max], v[:, :ctx_max]
+    rep = nh // nkv
+    k = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
+
+
 def phase4(torch, np, st):
     import torch.nn.functional as F
 
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
-    from k8s_llm_monitor_tpu_torch.ops.attention import (
-        gather_dequant, gather_pages, paged_verify_attention)
+    from k8s_llm_monitor_tpu_torch.ops.attention import paged_verify_attention
 
     rng = np.random.default_rng(4)
     gen = torch.Generator(device="cuda").manual_seed(4)
     lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
-    records = []
+    def record(*args):
+        kernel_record(st, *args)
 
-    def record(name, shape, ms, plain_ms, lib_ms, b_ms, by):
-        records.append(dict(
-            name=name, shape=shape, route="cuda",
-            source=SOURCES["_".join(name.split("_")[:2])],
-            replaces="k8s_llm_monitor_tpu/ops/pallas_attention.py:"
-                     f"{replaces(name)}",
-            launches=None,         # main() reads it after every phase
-            max_abs_err=st.get("max_abs_err", {}).get(name),
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-            library_ms=lib_ms))
-
-    def sdpa_inputs(q, kp, vp, table, ctx_max, mask, scales):
-        """q, K, V and mask for one SDPA call: K/V gathered (and
-        dequantized to bf16) beforehand, heads repeated, batch-head major."""
-        B, _, nh, d = q.shape
-        nkv = kp.shape[-1] // d
-        nb = (ctx_max + BS - 1) // BS
-        if scales:
-            k = gather_dequant(kp, scales["k_scale"], table[:, :nb], d)
-            v = gather_dequant(vp, scales["v_scale"], table[:, :nb], d)
-            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-        else:
-            k = gather_pages(kp, table[:, :nb]).reshape(B, -1, nkv, d)
-            v = gather_pages(vp, table[:, :nb]).reshape(B, -1, nkv, d)
-        k, v = k[:, :ctx_max], v[:, :ctx_max]
-        rep = nh // nkv
-        k = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
-        v = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
-        return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
+    def sdpa_inputs(*args):
+        return sdpa_args(torch, *args)
 
     # flash prefill: an admission round of 8 prompts (the 8 shortest of
     # phase 2's, bucket 1024), a 2048 chunk, and a prefix-hit admission
@@ -3573,12 +3625,763 @@ def phase4(torch, np, st):
                if k in dict((e[0], e[3]) for e in ENGINES)[label]}
         print(f"phase 4: {label} engine: launches per engine step {per} over "
               f"{steps} steps ({dsteps} decode steps x 32 layers)")
-    st["records"] = records
+
+
+# ---------------------------------------------------------------- phase 10
+# The unscaled fp8 pool (ModelConfig.kv_dtype = "float8_e4m3fn", ROADMAP
+# B8) and the KV tiers (A5).
+
+FP8_KV = "float8_e4m3fn"
+# e4m3fn's rounding edge (448 is its largest value, 464 the midpoint to the
+# NaN code), infinities, NaNs, subnormals and their halves.
+E4M3_EDGE = [0.0, -0.0, 1.0, 448.0, 449.0, 460.0, 464.0, 464.00003, 465.0,
+             470.0, 480.0, 500.0, -460.0, -464.0, -470.0, -500.0, 1e30,
+             float("inf"), float("-inf"), float("nan"), 2.0 ** -9,
+             2.0 ** -10, 2.0 ** -10 * 1.0001, 3 * 2.0 ** -11,
+             -1.5 * 2.0 ** -10, 2.0 ** -6, 1e-30]
+# bf16 values past and at e4m3's edge, written into appended rows.
+E4M3_ROW_EDGE = [448.0, 456.0, 464.0, 472.0, 480.0, 496.0, 512.0, -464.0,
+                 -472.0, -480.0, -512.0, 2.0 ** -10]
+
+
+def e4m3(torch, *pages):
+    """bf16 pages as an unscaled fp8 pool, with jnp's rounding."""
+    from k8s_llm_monitor_tpu_torch.models.llama import cast_e4m3
+
+    return [cast_e4m3(p) for p in pages]
+
+
+def e4m3_prefill_case(torch, rng, gen, B, S, starts, lengths, heads=(H, KVH),
+                      bs=BS, d=D):
+    q, kp, vp, table, st, ln = prefill_case(torch, rng, gen, B, S, starts,
+                                            lengths, heads, bs, d)
+    return (q, *e4m3(torch, kp, vp), table, st, ln)
+
+
+def e4m3_decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS,
+                     d=D):
+    q, kn, vn, cos, sin, kp, vp, table, pos = decode_case(
+        torch, rng, gen, positions, nbl, heads, bs, d)
+    return (q, kn, vn, cos, sin, *e4m3(torch, kp, vp), table, pos)
+
+
+# 10a/10b's flash prefill shapes: phase 4's admission round, the 2048
+# chunk, phase 7a's prefix-hit round and the spec verify shape.
+def e4m3_prefill_shapes(lens):
+    return [("admission", 1024, [0] * 8, [min(n, 1024) for n in lens[:8]]),
+            ("chunk", 2048, [0], [2048]),
+            ("hit", 256, *HIT_SHAPE),
+            ("verify", 5, *VERIFY_SHAPE)]
+
+
+def e4m3_positions(rng, chunk=128):
+    """Fused decode positions: both sides of the e4m3 pool's key chunk
+    boundaries, an inactive lane, one cached row, block edges, the table's
+    last row and a lane past it (128 x 16 table), random contexts."""
+    fixed = sorted({0, 1} | {p for c in (chunk, 2 * chunk)
+                             for p in (c - 1, c, c + 1)}) + [
+        15, 16, 17, 1000, 2047, 2051]
+    return fixed + [int(x) for x in rng.integers(1, 2048,
+                                                 size=32 - len(fixed))]
+
+
+def phase10a(torch, np, st):
+    """Each B8 instance against its plain version on its first call."""
+    from k8s_llm_monitor_tpu_torch.models.llama import cast_e4m3
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    errs = st.setdefault("max_abs_err", {})
+    ulps = {}
+    # The cast on the card gives the CPU's codes (which the CPU tests hold
+    # to jnp.astype bit for bit), from float32 and from bf16.
+    x = torch.cat([torch.tensor(E4M3_EDGE),
+                   torch.from_numpy(rng.standard_normal(100_000)
+                                    .astype(np.float32) * 3),
+                   torch.from_numpy((rng.uniform(-1, 1, 50_000) * 2.0 ** (
+                       rng.integers(-14, 10, 50_000))).astype(np.float32))])
+    for src in (x, x.to(torch.bfloat16)):
+        dev = cast_e4m3(src.cuda()).view(torch.uint8).cpu()
+        check(torch.equal(dev, cast_e4m3(src).view(torch.uint8)),
+              f"cast_e4m3 on the card differs from the CPU's ({src.dtype})")
+    print(f"phase 10a: cast_e4m3 on the card equals the CPU's on "
+          f"{x.numel()} float32 and bf16 values (edges, NaN, subnormals)")
+
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
+    # B1: flash prefill over e4m3 pages at qpk 4 (Llama-3-8B) and 7
+    # (Qwen2-7B); empty lanes zero.
+    for heads in ((H, KVH), HEADS_QWEN):
+        for label, S, starts, lengths in e4m3_prefill_shapes(lens):
+            name = (f"flash_prefill_{E4M3}" + ("_verify" if label == "verify"
+                                               else "")
+                    + qpk_suffix(heads, D))
+            case = e4m3_prefill_case(torch, rng, gen, len(starts), S, starts,
+                                     lengths, heads)
+            got = pa.flash_prefill_attention(*case)
+            want = pa.flash_prefill_attention_plain(*case)
+            torch.cuda.synchronize()
+            for b, n in enumerate(lengths):
+                if n == 0:
+                    check(bool((got[b] == 0).all()),
+                          f"{name} {label}: empty lane {b} not zeroed")
+                    continue
+                check_rows(torch, name, got[b, :n], want[b, :n],
+                           slice(None), errs, ulps)
+            print(f"phase 10a: {name} {label} H={heads[0]} KVH={heads[1]} "
+                  f"S={S}: ok, max abs err {errs[name]:.4g}, max err "
+                  f"{ulps[name]:.3g} ulps of the row")
+            del case, got, want
+    torch.cuda.empty_cache()
+
+    # B2: fused decode, outputs, and the appended rows' bytes bit for bit
+    # (the plain version casts the f32 roped row with cast_e4m3, the kernel
+    # with __NV_NOSAT); then rows holding e4m3's edge values.
+    for d, heads in ((D, (H, KVH)), (D, HEADS_QWEN), (D64, HEADS_1B)):
+        name = f"fused_decode_{E4M3}" + ("_d64" if d == D64
+                                         else qpk_suffix(heads, d))
+        positions = e4m3_positions(rng)
+        nbl = 128
+        case = e4m3_decode_case(torch, rng, gen, positions, nbl, heads, BS, d)
+        edge = torch.tensor(E4M3_ROW_EDGE, device="cuda").to(torch.bfloat16)
+        edge_lanes = (2, 5, 9)
+        for b in edge_lanes:         # raw k and v rows past +-464
+            case[1][b, 0, :, :len(E4M3_ROW_EDGE)] = edge
+            case[2][b, 0, :, :len(E4M3_ROW_EDGE)] = edge.flip(0)
+        # Lane 5 ropes at angle 0 (cos 1, sin 0): its k row reaches the
+        # page unrotated, the edge values included.
+        case[3][5], case[4][5] = 1.0, 0.0
+        pos_t = case[-1]
+        covered = (pos_t > 0) & (pos_t < nbl * BS)
+        ck = [t.clone() for t in case]
+        cp = [t.clone() for t in case]
+        got = pa.paged_decode_attention_fused(*ck)
+        want = pa.paged_decode_attention_fused_plain(*cp)
+        torch.cuda.synchronize()
+        check(got[1].data_ptr() == ck[5].data_ptr(),
+              f"{name}: pool not updated in place")
+        check_rows(torch, name, got[0], want[0], covered | (pos_t == 0),
+                   errs, ulps)
+        diff = [int((got[i].view(torch.uint8) != want[i].view(torch.uint8))
+                    .sum()) for i in (1, 2)]
+        check(diff == [0, 0], f"{name}: appended bytes differ (k, v): {diff}")
+        nans = int(torch.isnan(got[2].float()).sum())
+        check(nans > 0, f"{name}: no NaN code appended from the edge rows")
+        print(f"phase 10a: {name} H={heads[0]} KVH={heads[1]} D={d} B=32 "
+              f"positions {positions[:10]}...: ok, max abs err "
+              f"{errs[name]:.4g}, max err {ulps[name]:.3g} ulps of the row; "
+              f"pages bit for bit ({nans} NaN codes in v from the "
+              f"+-464..512 rows)")
+        del case, ck, cp, got, want
+    torch.cuda.empty_cache()
+
+    # B3: split paged attention at QS=1 (decode wrapper, an empty lane)
+    # and QS=5 (verify wrapper, rows past qlens and an empty lane), both
+    # sides of the 128-key chunks of a 1-byte pool.
+    for d, heads in ((D, (H, KVH)), (D, HEADS_QWEN), (D64, HEADS_1B)):
+        sfx = "_d64" if d == D64 else qpk_suffix(heads, d)
+        name = f"paged_attn_{E4M3}" + sfx
+        positions = [0, 5, 1, 15, 16, 127, 128, 129, 255, 256, 257, 2047] + [
+            int(x) for x in rng.integers(1, 2048, size=20)]
+        nbl = 2048 // BS + 1
+        q, _, _, _, _, kp, vp, table, pos = e4m3_decode_case(
+            torch, rng, gen, positions, nbl, heads, BS, d)
+        lens = pos + 1
+        lens[1] = 0
+        got = pa.paged_decode_attention_pallas(q, kp, vp, table, lens)
+        want = pa.flash_prefill_attention_plain(
+            q, kp, vp, table, (lens - 1).clamp(min=0), lens.clamp(max=1))
+        torch.cuda.synchronize()
+        check(bool((got[1] == 0).all()), f"{name}: the empty lane is not "
+                                         "zeroed")
+        check_rows(torch, name, got, want, lens > 0, errs, ulps)
+        vname = f"paged_attn_{E4M3}_verify" + sfx
+        starts = [0, 123, 124, 125, 250, 251, 252, 700, 1000, 2040, 0, 3]
+        qlens = [5, 5, 5, 5, 5, 5, 5, 4, 3, 5, 0, 2]
+        vcase = e4m3_prefill_case(torch, rng, gen, len(starts), 5, starts,
+                                  qlens, heads, BS, d)
+        got = pa.paged_verify_attention_pallas(*vcase)
+        want = pa.flash_prefill_attention_plain(*vcase)
+        torch.cuda.synchronize()
+        for b, n in enumerate(qlens):
+            check(bool((got[b, n:] == 0).all()),
+                  f"{vname}: rows past qlens of lane {b} not zeroed")
+            if n:
+                check_rows(torch, vname, got[b, :n], want[b, :n],
+                           slice(None), errs, ulps)
+        print(f"phase 10a: {name} QS=1 and {vname} QS=5 H={heads[0]} "
+              f"KVH={heads[1]} D={d}: ok, max abs err {errs[name]:.4g} / "
+              f"{errs[vname]:.4g}, max err {ulps[name]:.3g} / "
+              f"{ulps[vname]:.3g} ulps of the row")
+        del q, kp, vp, table, vcase, got, want
+    torch.cuda.empty_cache()
+    print(f"phase 10a: tolerance atol {TOL['atol']} rtol {TOL['rtol']} and "
+          f"{ULP_TOL} bf16 ulps of each (row, head)'s largest value; rows "
+          "past qlens and empty lanes zero; appended bytes bit for bit")
+
+
+def phase10b(torch, np, st):
+    """Each B8 instance timed by phase 4's method at phase 4's shapes."""
+    import torch.nn.functional as F
+
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
+    gpu = st["gpu"]
+    # Llama-3-8B's heads at every shape; Qwen2-7B's 28/4 (qpk 7) at the
+    # admission and verify shapes, as phase 4 times the bf16 qpk-7 rows.
+    shapes = [((H, KVH), "", shape) for shape in e4m3_prefill_shapes(lens)]
+    shapes += [(HEADS_QWEN, "_qpk7", shape) for shape in
+               e4m3_prefill_shapes(lens) if shape[0] in ("admission",
+                                                         "verify")]
+    for heads, sfx, (label, S, starts, lengths) in shapes:
+        name = (f"flash_prefill_{E4M3}"
+                + ("_verify" if label == "verify" else "") + sfx)
+        case = e4m3_prefill_case(torch, rng, gen, len(starts), S, starts,
+                                 lengths, heads)
+        ms = time_ms(torch, lambda: pa.flash_prefill_attention(*case),
+                     rounds=5)
+        alone = time_ms(torch, flash_alone(torch, pa, case, {}), rounds=5)
+        plain = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+            *case), reps=5)
+        ctx_max = max(s + n for s, n in zip(starts, lengths))
+        pos = (torch.arange(S, device="cuda")[None, :, None]
+               + case[4][:, None, None])
+        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+        qs, k, v, m = sdpa_args(torch, case[0] * D ** -0.5, case[1], case[2],
+                                case[3], ctx_max, keys <= pos, {})
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=m, scale=1.0), reps=5)
+        b_ms, by = bound(*prefill_work(starts, lengths, S, E4M3, heads))
+        print(f"phase 10b: {name} {label} B={len(starts)} S={S} "
+              f"H={heads[0]} KVH={heads[1]}: kernel "
+              f"{ms:.4f} ms (alone, on pre-scaled q: {alone:.4f} ms), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({by}) [{gpu}]")
+        kernel_record(st, name, label, ms, plain, lib, b_ms, by)
+        del case, qs, k, v, m
+        torch.cuda.empty_cache()
+
+    nbl = ENGINE_TABLE
+    mid = [n + 16 for n in lens] + [0] * (32 - len(lens))
+    full = [int(x) for x in rng.integers(1, 2048, size=32)]
+    for d, heads, sfx, shapes in ((D, (H, KVH), "", (("engine", mid),
+                                                      ("full", full))),
+                                  (D64, HEADS_1B, "_d64",
+                                   (("engine", mid),)),
+                                  (D, HEADS_QWEN, "_qpk7",
+                                   (("engine", mid),))):
+        for label, positions in shapes:
+            name = f"fused_decode_{E4M3}" + sfx
+            case = e4m3_decode_case(torch, rng, gen, positions, nbl, heads,
+                                    BS, d)
+            ms = time_ms(torch, lambda: pa.paged_decode_attention_fused(
+                *case), rounds=5)
+            alone = graph_ms(torch, decode_alone(torch, pa, case))
+            plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
+                *case), reps=5)
+            ctx_max = max(positions) + 1
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_args(torch, case[0], case[5], case[6],
+                                    case[7], ctx_max,
+                                    keys <= case[8][:, None, None], {})
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m), reps=5)
+            b_ms, by = bound(*decode_work(positions, E4M3, heads, d))
+            nsplit, chunk = pa.decode_splits(nbl, BS, 1)
+            print(f"phase 10b: {name} {label} B=32 active "
+                  f"{sum(p > 0 for p in positions)} max pos {max(positions)} "
+                  f"H={heads[0]} KVH={heads[1]} D={d} table {nbl}x{BS} "
+                  f"({nsplit} splits of {chunk}): kernel {ms:.4f} ms (alone: "
+                  f"{alone:.4f} ms), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({by}) [{gpu}]")
+            kernel_record(st, name, label, ms, plain, lib, b_ms, by)
+            del case, qs, k, v, m
+        # Split paged attention: the pallas engine's shape (QS=1) and the
+        # verify shape (QS=8 at Llama-3-8B's heads, as phase 4's; QS=5 from
+        # each lane's position at head_dim 64 and at qpk 7, as phase 4's
+        # rows there).
+        q1, _, _, _, _, kp, vp, table, _ = e4m3_decode_case(
+            torch, rng, gen, mid, nbl, heads, BS, d)
+        wide = d == D and not sfx
+        QS = 8 if wide else 5
+        qv = torch.randn(32, QS, heads[0], d, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        dev_i = dict(dtype=torch.int32, device="cuda")
+        len_t = torch.tensor([p + 1 for p in mid], **dev_i)
+        vst = ([max(p - 7, 0) for p in mid] if wide
+               else [p if p > 0 else 0 for p in mid])
+        vql = [QS if p > 0 else 0 for p in mid]
+        vst_t, vql_t = torch.tensor(vst, **dev_i), torch.tensor(vql, **dev_i)
+        cases = (
+            (f"paged_attn_{E4M3}" + sfx, "engine", q1, dict(lengths=len_t),
+             lambda: pa.paged_decode_attention_pallas(q1, kp, vp, table,
+                                                      len_t),
+             ((len_t - 1).clamp(min=0), len_t.clamp(max=1)),
+             (list(mid), [1] * len(mid))),
+            (f"paged_attn_{E4M3}_verify" + sfx, "verify", qv,
+             dict(starts=vst_t, qlens=vql_t),
+             lambda: pa.paged_verify_attention_pallas(qv, kp, vp, table,
+                                                      vst_t, vql_t),
+             (vst_t, vql_t), (vst, vql)),
+        )
+        for name, label, q, lanes, wrapper, (st_t, ql_t), (sts, qls) in cases:
+            S = q.shape[1]
+            ms = time_ms(torch, wrapper, rounds=5)
+            alone = graph_ms(torch, paged_alone(torch, pa, q, kp, vp, table,
+                                                **lanes))
+            plain = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+                q, kp, vp, table, st_t, ql_t), reps=5)
+            ctx_max = max(s + n for s, n in zip(sts, qls))
+            pos = (torch.arange(S, device="cuda")[None, :, None]
+                   + st_t[:, None, None])
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_args(torch, q * d ** -0.5, kp, vp, table,
+                                    ctx_max, keys <= pos, {})
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m, scale=1.0), reps=5)
+            b_ms, by = bound(*paged_attn_work(sts, qls, heads, d, 1))
+            print(f"phase 10b: {name} {label} B=32 QS={S} active "
+                  f"{sum(n > 0 for n in qls)} max length {ctx_max} "
+                  f"H={heads[0]} KVH={heads[1]} D={d} table {nbl}x{BS}: "
+                  f"kernel {ms:.4f} ms (alone: {alone:.4f} ms), plain "
+                  f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({by}) [{gpu}]")
+            kernel_record(st, name, label, ms, plain, lib, b_ms, by)
+            del qs, k, v, m
+        del q1, qv, kp, vp, table
+        torch.cuda.empty_cache()
+
+
+def fp8_model(model):
+    """``model`` (weights shared) with an unscaled fp8 KV pool."""
+    return truncated(model, model.cfg.num_layers, kv_dtype=FP8_KV)
+
+
+def pool_logits(torch, np, model, prefill_impl, decode_impl, verify_impl):
+    """First-token logits of 4 prompts, the next decode step's and a
+    5-token verify pass's, on ``model``'s pool through the given impls."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    cfg = model.cfg
+    rng = np.random.default_rng(10)
+    lens = [100, 517, 1024, 33]
+    B, S = len(lens), 1024
+    toks = np.zeros((B, S), np.int32)
+    for b, n in enumerate(lens):
+        toks[b, :n] = rng.integers(3, cfg.vocab_size, size=n)
+    nbl = S // BS + 4
+    tables = torch.arange(1, B * nbl + 1, dtype=torch.int32,
+                          device=dev).reshape(B, nbl)
+    len_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pages = llama.init_kv_pages(cfg, B * nbl + 1, BS, dev)
+    first, _ = llama.prefill(model, torch.from_numpy(toks).to(dev), len_t,
+                             pages, tables, attn_impl=prefill_impl)
+    fed = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, 5))
+                           .astype(np.int32)).to(dev)
+    verify, _ = llama.verify_step(model, fed, len_t, torch.full_like(len_t, 5),
+                                  clone_pages(pages), tables,
+                                  attn_impl=verify_impl)
+    step, _ = llama.decode_step(model, fed[:, 0], len_t, pages, tables,
+                                attn_impl=decode_impl)
+    torch.cuda.synchronize()
+    return [first, step, *(verify[:, i] for i in range(5))], pages
+
+
+def cosines(torch, got, want):
+    """Smallest cosine of a logit row against its counterpart."""
+    return min(float(torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=-1).min()) for a, b in zip(got, want))
+
+
+def phase10c(torch, np, st):
+    """Llama-3-8B and llama-1b with kv_dtype float8_e4m3fn on the main
+    path: auto, pallas and spec_k 4 engines, launches counted; the pool is
+    half of bf16's; 4-layer logits against the bf16 pool."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B, LLAMA_1B
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.serving.kv_cache import page_slice_bytes
+
+    launches = st.setdefault("launches", {})
+    gpu = st["gpu"]
+    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+    st["model"] = model
+    lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
+    for base in (model, "llama-1b"):
+        if base == "llama-1b":
+            base = llama.LlamaModel(LLAMA_1B, seed=1)
+        cfg = base.cfg
+        m8 = fp8_model(base)
+        big = cfg.head_dim_ == D
+        rng = np.random.default_rng(2)
+        prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+                   for n in lens]
+        sfx = "" if big else "_d64"
+        pre = "flash" if big else "dense"
+        for label, over, paths, kernels in (
+                ("auto", {}, (pre, "fused"),
+                 dict({f"fused_decode_{E4M3}{sfx}":
+                       "paged_decode_attention_fused"},
+                      **({f"flash_prefill_{E4M3}": "flash_prefill_attention"}
+                         if big else {}))),
+                ("pallas", {"decode_path": "pallas"}, (pre, "pallas"),
+                 {f"paged_attn_{E4M3}{sfx}":
+                  "paged_decode_attention_pallas"})):
+            name = f"{cfg.name} fp8 pool {label}"
+            eng, ids, got, _, tok_s = run_engine(torch, st, m8, prompts, name,
+                                                 over, paths, kernels,
+                                                 phase=10)
+            if label == "auto":
+                off_ids, off_tok_s = ids, tok_s
+            check(not eng.kv_quant and not eng.pages.quantized
+                  and eng.pages.k[0].dtype == torch.float8_e4m3fn,
+                  f"{name}: pool {eng.pages.k[0].dtype} kv_quant "
+                  f"{eng.kv_quant!r}")
+            bf16_pool = cfg.num_layers * eng.ecfg.num_blocks * page_slice_bytes(
+                cfg.num_kv_heads, cfg.head_dim_, BS, 2)
+            check(2 * eng.pool_bytes == bf16_pool,
+                  f"{name}: pool {eng.pool_bytes} B, bf16's {bf16_pool} B")
+            launches.update(got)
+            run = st["runs"][name]
+            ref = st["runs"].get("bf16 graph" if big else "", {})
+            print(f"phase 10c: {name}: pool {eng.pool_bytes} B = half of "
+                  f"bf16's {bf16_pool} B; ttft p50 cold / warm "
+                  f"{run['ttft'] * 1e3:.1f} / {run['ttft_warm'] * 1e3:.1f} "
+                  f"ms, warm decode {run['tok_s']:.1f} tok/s"
+                  + (f" (phase 2's bf16 pool: {ref['ttft'] * 1e3:.1f} / "
+                     f"{ref['ttft_warm'] * 1e3:.1f} ms, {ref['tok_s']:.1f} "
+                     "tok/s)" if ref else "") + f" [{gpu}]")
+            del eng
+            torch.cuda.empty_cache()
+        # spec_k 4, every decode call drafting: the 8B verifies through
+        # flash prefill (B1), llama-1b (prefill dense) through B3 at QS=5.
+        verify = ("flash_prefill_attention" if big
+                  else "paged_verify_attention_pallas")
+        eng, ids, _, spec_tok_s, spec = spec_run(
+            torch, st, m8, prompts, f"{cfg.name} fp8 pool spec_k 4",
+            dict(spec_k=4, spec_min_accept=0.0), 32, (pre, "fused"),
+            (verify,), phase=10)
+        rec = (f"flash_prefill_{E4M3}_verify" if big
+               else f"paged_attn_{E4M3}_verify_d64")
+        launches[rec] = spec_report(torch, eng, f"{cfg.name} fp8 pool", ids,
+                                    off_ids, spec_tok_s, off_tok_s, spec,
+                                    verify, phase=10)
+        del eng
+        torch.cuda.empty_cache()
+        # 4 layers: the kernel paths over the fp8 pool against the bf16
+        # pool's (JAX's bound: cosine > 0.98, tests/test_quantize.py:290).
+        m4 = truncated(base, 4)
+        ver = (pa.flash_prefill_attention if big
+               else pa.paged_verify_attention_pallas)
+        pre_impl = pa.flash_prefill_attention if big else None
+        want, _ = pool_logits(torch, np, m4, pre_impl,
+                              pa.paged_decode_attention_fused, ver)
+        for dname, dec in (("fused", pa.paged_decode_attention_fused),
+                           ("pallas", pa.paged_decode_attention_pallas)):
+            got, pages = pool_logits(torch, np, fp8_model(m4), pre_impl, dec,
+                                     ver)
+            check(pages.k[0].dtype == torch.float8_e4m3fn, "not an fp8 pool")
+            cos = cosines(torch, got, want)
+            agree, ties, n = argmax_agreement(got, want, QUANT_LOGIT_ATOL)
+            print(f"phase 10c: 4-layer {cfg.name}, fp8 pool ({pre} prefill, "
+                  f"{dname} decode, verify on {ver.__name__}) against the "
+                  f"bf16 pool: smallest logit-row cosine {cos:.5f} (at least "
+                  f"0.98) over first-token, decode and 5 verify rows; argmax "
+                  f"agreement {agree:.3f} ({ties} of {n} rows near-ties "
+                  f"within {QUANT_LOGIT_ATOL}) [{gpu}]")
+            check(cos >= 0.98, f"{cfg.name} fp8 pool: cosine {cos:.5f}")
+        # Not on the main path: the 8B verifies through flash prefill, and
+        # no spec engine runs Qwen2-7B on the fp8 pool.
+        for rec in (f"paged_attn_{E4M3}_verify",
+                    f"flash_prefill_{E4M3}_verify_qpk7",
+                    f"paged_attn_{E4M3}_verify_qpk7"):
+            launches.setdefault(rec, 0)
+        if not big:
+            del base, m8, m4
+            torch.cuda.empty_cache()
+
+
+def tier_prompts(rng, vocab, n):
+    """``n`` prompts, each a distinct 1,536-token prefix and a 40-token
+    tail."""
+    return [[int(t) for t in rng.integers(3, vocab, size=PREFIX_LEN + 40)]
+            for _ in range(n)]
+
+
+class Timed:
+    """Wraps an engine method; sums its seconds (synchronized) and the
+    bytes of the rows it moved."""
+
+    def __init__(self, torch, eng, attr, nbytes):
+        self.torch, self.secs, self.bytes, self.calls = torch, 0.0, 0, 0
+        fn = getattr(eng, attr)
+
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.secs += time.monotonic() - t0
+            self.bytes += nbytes(args, out)
+            self.calls += 1
+            return out
+        setattr(eng, attr, call)
+
+
+def phase10d(torch, np, st):
+    """The host tier at Llama-3-8B width on the bf16, int8 and fp8 pools:
+    a pressured pool (phase 7b's 512 x 16) cycling 6 distinct 1,536-token
+    prefixes, twice.  On the first pass each prompt runs twice: fresh, then
+    as a device prefix-cache hit, whose ids are the reference of the second
+    pass (a restored hit runs the same tail chunk over the same page bytes;
+    a fresh prefill computes the whole prompt in one call, whose rounding
+    differs).  The tier's 24 GiB hold the spills of two evicted prompts
+    (one evicted prompt spills every prefix length's span, 9.3 GB on
+    bf16), so each second-pass prompt finds its whole prefix."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+
+    gpu = st["gpu"]
+    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+    st["model"] = model
+    prompts = tier_prompts(np.random.default_rng(12), model.cfg.vocab_size, 6)
+    full = (len(prompts[0]) - 1) // BS * BS      # the shareable prefix
+    sp = SamplingParams(max_tokens=8)
+    for label, m, over in (("bf16", model, {}),
+                           ("int8", model, {"kv_dtype": "int8"}),
+                           ("fp8 (unscaled)", fp8_model(model), {})):
+        eng = InferenceEngine(m.cfg, m, EngineConfig(
+            max_slots=16, num_blocks=512, block_size=BS,
+            max_blocks_per_seq=128, max_prefills_per_step=8,
+            decode_steps_per_iter=8, host_spill_bytes=24 << 30, **over))
+        fetch = Timed(torch, eng, "_fetch_rows",
+                      lambda a, out: sum(x.nbytes for leaf in out.layers
+                                         for x in leaf))
+        write = Timed(torch, eng, "_write_rows",
+                      lambda a, out: sum(x.nbytes for leaf in a[1]
+                                         for x in leaf))
+        restored = []
+        try_restore = eng._try_restore
+
+        def probe(prompt_ids, shared, shared_toks, **kw):
+            out = try_restore(prompt_ids, shared, shared_toks, **kw)
+            restored.append((out[1] - shared_toks, out[1]))
+            return out
+        eng._try_restore = probe
+
+        def run(p, what):
+            r = eng.generate([p], sp)[0]
+            check(r.finish_reason == "length", f"{label} {what}: "
+                  f"{r.finish_reason}")
+            return r
+        fresh, hit, back = [], [], []
+        for i, p in enumerate(prompts):
+            fresh.append(run(p, f"pass 0 prompt {i}"))
+            hits0 = eng.prefix_cache.hits
+            hit.append(run(p, f"pass 0 prompt {i} again"))
+            check(eng.prefix_cache.hits == hits0 + 1,
+                  f"{label}: prompt {i} run again missed the device cache")
+        graphs = eng.graph_captures
+        n0 = len(restored)
+        for i, p in enumerate(prompts):
+            back.append(run(p, f"pass 1 prompt {i}"))
+        gained = restored[n0:]
+        stats = eng.kv_tier_stats()
+        check(stats["spills"] > 0 and stats["restores"] > 0,
+              f"{label}: spills {stats['spills']} restores "
+              f"{stats['restores']}")
+        check(all(g > 0 and tot == full for g, tot in gained),
+              f"{label}: second-pass restores {gained}, wanted the whole "
+              f"{full}-token prefix each")
+        check(eng.graph_captures == graphs,
+              f"{label}: {eng.graph_captures - graphs} graphs recaptured "
+              "across the restores")
+        check(eng.dispatch_failures == 0, f"{label}: dispatch failures")
+        same = sum(a.token_ids == b.token_ids for a, b in zip(back, hit))
+        same_fresh = sum(a.token_ids == b.token_ids
+                         for a, b in zip(back, fresh))
+
+        def p50(rs):
+            return np.percentile([r.ttft_s for r in rs], 50) * 1e3
+        print(f"phase 10d: {label} pool: {len(prompts)} prompts of "
+              f"{PREFIX_LEN}+40 tokens, fresh and again, then again on 512 "
+              f"x {BS} blocks: spills {stats['spills']}, restores "
+              f"{stats['restores']} (tokens restored beyond the device hit "
+              f"per second-pass prompt {[g for g, _ in gained]}, each to "
+              f"the whole {full}), host {stats['host_bytes']} B in "
+              f"{stats['host_entries']} entries, {stats['host_lost']} "
+              f"dropped at the cap; restored ids equal the device hit's in "
+              f"{same} of {len(prompts)} (the fresh prefill's in "
+              f"{same_fresh}); graphs captured {eng.graph_captures} (none "
+              f"across restores); fetch "
+              f"{fetch.bytes / max(fetch.secs, 1e-9) / 1e9:.2f} GB/s "
+              f"({fetch.bytes} B in {fetch.calls} spills, {fetch.secs:.3f} "
+              f"s), write {write.bytes / max(write.secs, 1e-9) / 1e9:.2f} "
+              f"GB/s ({write.bytes} B in {write.calls} restores, "
+              f"{write.secs:.3f} s, synchronized); ttft p50 fresh prefill "
+              f"{p50(fresh):.1f} ms, device hit {p50(hit):.1f} ms, restored "
+              f"hit {p50(back):.1f} ms (each restore first evicts, and "
+              f"spills, the next prompt's entries) [{gpu}]")
+        check(same == len(prompts),
+              f"{label}: restored ids differ from the device hit's in "
+              f"{len(prompts) - same} of {len(prompts)}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def phase10e(torch, np, st):
+    """Prefix export/install between two Llama-3-8B engines sharing one
+    model's weights: every outcome, the receiver's ids equal the owner's;
+    then the same over HTTP through the server's /api/v1/kv routes."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.monitor.analysis import (
+        AnalysisEngine, LocalEngineBackend)
+    from k8s_llm_monitor_tpu_torch.monitor.config import Config
+    from k8s_llm_monitor_tpu_torch.monitor.server import MonitorServer
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.serving.kv_tier import (
+        BlobError, pack_prefix_blob, unpack_prefix_blob)
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    gpu = st["gpu"]
+    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+    st["model"] = model
+    prompt = tier_prompts(np.random.default_rng(13), model.cfg.vocab_size,
+                          1)[0]
+    sp = SamplingParams(max_tokens=16)
+    ecfg = dict(max_slots=8, num_blocks=1024, block_size=BS,
+                max_blocks_per_seq=128, max_prefills_per_step=8,
+                decode_steps_per_iter=8)
+    for label, m, over in (("bf16", model, {}),
+                           ("int8", model, {"kv_dtype": "int8"}),
+                           ("fp8 (unscaled)", fp8_model(model), {})):
+        owner, recv = (InferenceEngine(m.cfg, m, EngineConfig(**ecfg, **over))
+                       for _ in range(2))
+        small = InferenceEngine(m.cfg, m, EngineConfig(
+            **dict(ecfg, num_blocks=64), **over))
+        owner.generate([prompt], sp)
+        # The owner's ids for a hit on its cached prefix: the computation
+        # the receiver runs once the prefix is installed.
+        want = owner.generate([prompt], sp)[0].token_ids
+        check(recv.export_prefix(prompt) is None, f"{label}: cold export")
+        t0 = time.monotonic()
+        blob = owner.export_prefix(prompt)
+        t_export = time.monotonic() - t0
+        check(blob is not None and blob[:4] == b"KVX1", f"{label}: no blob")
+        t0 = time.monotonic()
+        outcomes = [recv.install_prefix(blob, expected_tenant="acme"),
+                    recv.install_prefix(blob)]
+        torch.cuda.synchronize()
+        t_install = time.monotonic() - t0
+        outcomes.append(recv.install_prefix(blob))
+        meta, raw = unpack_prefix_blob(blob)
+        meta.pop("version")
+        outcomes.append(recv.install_prefix(pack_prefix_blob(
+            dict(meta, block_size=8), [np.frombuffer(b, np.uint8)
+                                       for b in raw])))
+        outcomes.append(small.install_prefix(blob))
+        try:
+            recv.install_prefix(blob[:-7])
+            outcomes.append("installed a torn blob")
+        except BlobError:
+            outcomes.append("BlobError")
+        check(outcomes == ["tenant_mismatch", "installed", "cached",
+                           "incompatible", "nospace", "BlobError"],
+              f"{label}: outcomes {outcomes}")
+        hits0 = recv.prefix_cache.hits
+        got = recv.generate([prompt], sp)[0].token_ids
+        check(recv.prefix_cache.hits == hits0 + 1, f"{label}: no hit")
+        check(got == want, f"{label}: receiver ids differ from the owner's")
+        print(f"phase 10e: {label} pool: a {meta['n_blocks']}-block prefix "
+              f"({len(blob)} B blob, export {t_export * 1e3:.1f} ms, "
+              f"install {t_install * 1e3:.1f} ms with the tenant refusal): "
+              f"outcomes {outcomes}; the receiver's 16 ids equal the "
+              f"owner's [{gpu}]")
+        del owner, recv, small
+        torch.cuda.empty_cache()
+
+    # Over HTTP: two servers, each over its own engine and the shared
+    # weights, the owner's blob fetched and installed into the receiver.
+    servers, backends = [], []
+    engines = [InferenceEngine(model.cfg, model, EngineConfig(**ecfg),
+                               tokenizer=ByteTokenizer()) for _ in range(2)]
+    try:
+        for eng in engines:
+            cfg = Config()
+            backend = LocalEngineBackend(engine=eng, tokenizer=ByteTokenizer())
+            srv = MonitorServer(config=cfg, client=None, manager=None,
+                                analysis=AnalysisEngine(backend,
+                                                        llm_cfg=cfg.llm),
+                                port=0)
+            srv.start()
+            servers.append(srv)
+            backends.append(backend)
+        ref = backends[0].service.submit(list(prompt), sp).result(timeout=300)
+        ref = backends[0].service.submit(list(prompt), sp).result(timeout=300)
+        owner, recv = (s.port for s in servers)
+        miss = http_call(recv, "POST", "/api/v1/kv/prefix",
+                         {"token_ids": prompt})
+        status, blob, _ = http_call(owner, "POST", "/api/v1/kv/prefix",
+                                    {"token_ids": prompt})
+        check(status == 200 and isinstance(blob, bytes),
+              f"/api/v1/kv/prefix: {status}")
+
+        def install(data, headers=None):
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", recv, timeout=120)
+            try:
+                conn.request("POST", "/api/v1/kv/install", body=data,
+                             headers=headers or {})
+                resp = conn.getresponse()
+                raw = resp.read()
+            finally:
+                conn.close()
+            return resp.status, (json.loads(raw).get("outcome")
+                                 if resp.status == 200 else None)
+
+        got = [install(blob, {"X-Tenant-Id": "acme"}), install(blob),
+               install(blob), install(blob[:-7])]
+        check(miss[0] == 404 and got == [(200, "tenant_mismatch"),
+                                         (200, "installed"), (200, "cached"),
+                                         (400, None)],
+              f"/api/v1/kv routes: miss {miss[0]}, installs {got}")
+        ids = backends[1].service.submit(list(prompt), sp).result(timeout=300)
+        check(ids.token_ids == ref.token_ids,
+              "the receiving server's ids differ from the owner's")
+        print(f"phase 10e: over HTTP: /api/v1/kv/prefix 404 on the cold "
+              f"server, a {len(blob)} B blob from the owner; "
+              f"/api/v1/kv/install {got}; the receiver's ids equal the "
+              f"owner's [{gpu}]")
+    finally:
+        for srv in servers:
+            srv.stop()
+        for backend in backends:
+            backend.service.stop()
+        del engines
+        torch.cuda.empty_cache()
+
+
+def phase10(torch, np, st):
+    for sub in (phase10a, phase10b, phase10c, phase10d, phase10e):
+        t0 = time.monotonic()
+        sub(torch, np, st)
+        torch.cuda.synchronize()
+        print(f"phase 10: {sub.__name__[-3:]} passed in "
+              f"{time.monotonic() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -3601,11 +4404,11 @@ def main(argv=None) -> int:
         return 2
 
     st: dict = {"only": args.only}
-    # Phases 8 and 7 before 6: they reuse phase 2's model, which phase 6
-    # frees; phase 9 last, on a card that holds no earlier model.
+    # Phases 8, 7 and 10 before 6: they reuse phase 2's model, which phase
+    # 6 frees; phase 9 last, on a card that holds no earlier model.
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
-               (4, phase4), (5, phase5), (7, phase7), (6, phase6),
-               (9, phase9)]
+               (4, phase4), (5, phase5), (7, phase7), (10, phase10),
+               (6, phase6), (9, phase9)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

@@ -1,9 +1,11 @@
-// Flash paged prefill attention for Hopper (sm_90a), over a bf16 pool or
-// an int8 / fp8 (e4m3) pool with per-(token, head) float32 scales.
+// Flash paged prefill attention for Hopper (sm_90a), over a bf16 pool, an
+// unscaled e4m3 pool (ModelConfig.kv_dtype = "float8_e4m3fn") or an int8 /
+// fp8 (e4m3) pool with per-(token, head) float32 scales.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:
-//           flash_prefill_attention (_flash_prefill_kernel), the bf16 pool
-//           and the quant branch (k_scale / v_scale, quant=True).
+//           flash_prefill_attention (_flash_prefill_kernel), the bf16 or
+//           fp8 pool (pages cast to f32 in the kernel, :1099) and the quant
+//           branch (k_scale / v_scale, quant=True).
 //
 // Computes causal attention for q [B, S, H, D]: query i of lane b sits at
 // absolute position start[b] + i and sees keys at positions <= start[b] + i.
@@ -68,6 +70,8 @@
 // product, while the row sum l is taken from the unscaled P
 // (pallas_attention.py:1117-1119) -- otherwise the softmax denominator is
 // wrong.  Rows past the context are zero-filled codes and scales: finite.
+// The unscaled e4m3 pool (SCALED = false) takes the same staging and
+// widening, and neither the scale copies nor the two multiplies.
 //
 // Dead lanes (lengths == 0) and tiles wholly past lengths write zeros and
 // read nothing; rows past lengths inside a live tile attend to the
@@ -315,7 +319,7 @@ __host__ __device__ constexpr int slabs() {
   return QPK <= 1 ? 1 : QPK <= 2 ? 2 : QPK <= 4 ? 4 : 8;
 }
 
-template <int QPK, typename T>
+template <int QPK, typename T, bool SCALED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre-scaled
                      const T* __restrict__ kp,              // [nb, bs, KVH*D]
@@ -328,7 +332,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
                      __nv_bfloat16* __restrict__ out,       // [B, S, H, D]
                      int S, int KVH, int bs, int NB, unsigned bs_mul,
                      unsigned bs_shr) {
-  constexpr bool kQuant = !std::is_same<T, __nv_bfloat16>::value;
+  // 1-byte pages go through the staging ring; only a quantized pool has
+  // scale planes (an e4m3 pool may have them or not, int8 always does).
+  constexpr bool kWide = !std::is_same<T, __nv_bfloat16>::value;
+  static_assert((!SCALED || kWide) &&
+                    (SCALED || !std::is_same<T, int8_t>::value),
+                "scales go with 1-byte pages; int8 needs them");
   constexpr int TQ = ROWS / slabs<QPK>();   // query positions per tile
   // Blocks start in grid order (x fastest): every (group, lane) of the
   // last query tile, which walks the most keys, first.
@@ -369,7 +378,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
   const uint32_t sbase = (raw + 1023) & ~1023u;
   unsigned char* gbase =
       reinterpret_cast<unsigned char*>(smem_raw) + (sbase - raw);
-  const uint32_t full0 = sbase + (kQuant ? BARS : RING_SC);
+  const uint32_t full0 = sbase + (kWide ? BARS : RING_SC);
   const uint32_t empty0 = full0 + NS * 8;
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
@@ -399,7 +408,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
                                static_cast<unsigned>(F)) +
              gq * D;
     };
-    if constexpr (!kQuant) {
+    if constexpr (!kWide) {
       // Each thread: KB keys (p / 16 + 16j) x one 16-byte chunk (p % 16)
       // of K and of V, straight into the swizzled ring stage.  The page
       // rows of tile i + 1 are looked up while tile i is issued.
@@ -457,7 +466,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
           cp_async16(sg + key * D + ch * 16, kp + src, n);
           cp_async16(sg + KT * D + key * D + ch * 16, vp + src, n);
         }
-        if (p < KT) {
+        if (SCALED && p < KT) {
           // The scale of a row sits at its page offset / D.
           const long off = so < 0 ? 0 : so / D;
           const int n = so < 0 ? 0 : 4;
@@ -509,7 +518,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
             *reinterpret_cast<uint4*>(d + swz(key, 2 * ch + 1, HALF_T)) = w[1];
           }
         }
-        if (p < KT) {
+        if (SCALED && p < KT) {
           const float* sc = reinterpret_cast<const float*>(gbase + STG_SC) +
                             (i % NSTG) * 2 * KT;
           float* rs = reinterpret_cast<float*>(gbase + RING_SC) + s * 2 * KT;
@@ -602,7 +611,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
       const float* ksc = ring_sc + (i % NS) * 2 * KT;
       // Accumulator layout: sc[4j + e] is row r0 (e < 2) or r1, key
       // 8j + 2 tig + (e & 1).
-      if constexpr (kQuant) {
+      if constexpr (SCALED) {
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
@@ -668,7 +677,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
 #pragma unroll
       for (int c = 0; c < KT / 16; ++c) {
         float w0 = 1.f, w1 = 1.f, w8 = 1.f, w9 = 1.f;
-        if constexpr (kQuant) {
+        if constexpr (SCALED) {
           const float* vsr =
               ring_sc + (i % NS) * 2 * KT + KT + c * 16 + 2 * tig;
           w0 = vsr[0]; w1 = vsr[1]; w8 = vsr[8]; w9 = vsr[9];
@@ -736,7 +745,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
   }
 }
 
-template <int QPK, typename T>
+template <int QPK, typename T, bool SCALED>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* ks, const void* vs, const void* table,
                    const void* starts, const void* lens, void* out, int B,
@@ -745,14 +754,14 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<QPK, T>,
+        flash_prefill_kernel<QPK, T, SCALED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     // setmaxnreg only moves registers between the warpgroups: were the
     // launch count below 65536 / THREADS, the consumers would wait forever
     // for registers the producers never had.  Refuse instead of hanging.
     cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, flash_prefill_kernel<QPK, T>);
+    e = cudaFuncGetAttributes(&attr, flash_prefill_kernel<QPK, T, SCALED>);
     if (e != cudaSuccess) return e;
     if (attr.numRegs * THREADS != 65536) return cudaErrorInvalidConfiguration;
     configured = true;
@@ -768,7 +777,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   }
   constexpr int TQ = ROWS / slabs<QPK>();
   dim3 grid(KVH, B, (S + TQ - 1) / TQ);
-  flash_prefill_kernel<QPK, T><<<grid, THREADS, smem, stream>>>(
+  flash_prefill_kernel<QPK, T, SCALED><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
@@ -777,7 +786,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SCALED>
 int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
              const void* vs, const void* table, const void* starts,
              const void* lens, void* out, int B, int S, int H, int KVH,
@@ -785,11 +794,11 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* ks,
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H / KVH) {
-    case 1: return launch<1, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 2: return launch<2, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 4: return launch<4, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 7: return launch<7, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
-    case 8: return launch<8, T>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 1: return launch<1, T, SCALED>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 2: return launch<2, T, SCALED>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 4: return launch<4, T, SCALED>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 7: return launch<7, T, SCALED>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
+    case 8: return launch<8, T, SCALED>(q, kp, vp, ks, vs, table, starts, lens, out, B, S, KVH, bs, NB, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -801,9 +810,20 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k_pages,
                                   const void* starts, const void* lens,
                                   void* out, int B, int S, int H, int KVH,
                                   int bs, int NB, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, table,
-                                 starts, lens, out, B, S, H, KVH, bs, NB,
-                                 stream);
+  return dispatch<__nv_bfloat16, false>(q, k_pages, v_pages, nullptr,
+                                        nullptr, table, starts, lens, out, B,
+                                        S, H, KVH, bs, NB, stream);
+}
+
+// The unscaled e4m3 pool: the bf16 symbol's arguments.
+extern "C" int flash_prefill_e4m3(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* table,
+                                  const void* starts, const void* lens,
+                                  void* out, int B, int S, int H, int KVH,
+                                  int bs, int NB, void* stream) {
+  return dispatch<__nv_fp8_e4m3, false>(q, k_pages, v_pages, nullptr,
+                                        nullptr, table, starts, lens, out, B,
+                                        S, H, KVH, bs, NB, stream);
 }
 
 extern "C" int flash_prefill_int8(const void* q, const void* k_pages,
@@ -812,8 +832,9 @@ extern "C" int flash_prefill_int8(const void* q, const void* k_pages,
                                   const void* starts, const void* lens,
                                   void* out, int B, int S, int H, int KVH,
                                   int bs, int NB, void* stream) {
-  return dispatch<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table,
-                          starts, lens, out, B, S, H, KVH, bs, NB, stream);
+  return dispatch<int8_t, true>(q, k_pages, v_pages, k_scale, v_scale, table,
+                                starts, lens, out, B, S, H, KVH, bs, NB,
+                                stream);
 }
 
 extern "C" int flash_prefill_fp8(const void* q, const void* k_pages,
@@ -822,7 +843,7 @@ extern "C" int flash_prefill_fp8(const void* q, const void* k_pages,
                                  const void* starts, const void* lens,
                                  void* out, int B, int S, int H, int KVH,
                                  int bs, int NB, void* stream) {
-  return dispatch<__nv_fp8_e4m3>(q, k_pages, v_pages, k_scale, v_scale, table,
-                                 starts, lens, out, B, S, H, KVH, bs, NB,
-                                 stream);
+  return dispatch<__nv_fp8_e4m3, true>(q, k_pages, v_pages, k_scale, v_scale,
+                                       table, starts, lens, out, B, S, H, KVH,
+                                       bs, NB, stream);
 }

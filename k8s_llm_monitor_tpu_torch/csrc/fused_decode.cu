@@ -1,12 +1,14 @@
 // Fused decode attention for Hopper (sm_90a): RoPE + KV append + paged
 // attention for one new token per lane, as split-KV flash-decoding.  One
-// template over the page type serves the bf16 pool and the int8 / fp8
-// (e4m3) pools with per-(token, head) float32 scale planes.
+// template over the page element type and whether the pool has scale
+// planes serves the bf16 pool, the unscaled e4m3 pool
+// (ModelConfig.kv_dtype = "float8_e4m3fn") and the int8 / fp8 (e4m3) pools
+// with per-(token, head) float32 scale planes.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:
-//   paged_decode_attention_fused (_fused_decode_kernel), bf16 pages, and
-//   paged_decode_attention_fused_quant (_fused_decode_quant_kernel), int8 /
-//   fp8 pages with quantize-on-append.
+//   paged_decode_attention_fused (_fused_decode_kernel), bf16 or unscaled
+//   e4m3 pages, and paged_decode_attention_fused_quant
+//   (_fused_decode_quant_kernel), int8 / fp8 pages with quantize-on-append.
 //
 // What bounds it on this card: the bytes of the KV read.  Each lane reads
 // pos * KVH * D page elements of K and of V once (plus two 4-byte scales
@@ -62,6 +64,11 @@
 //     whose output is v_new (only the current token is visible);
 //   * the table index is clamped, min(t / bs, NB - 1); keys past
 //     NSPLIT * chunk (only a lane past the table has them) are not read.
+// Unscaled e4m3 pool: loads widen e4m3 -> f32 with no scale; the appended
+// row converts the f32 roped k and the raw v to e4m3 with jnp's semantics
+// (round to nearest even, NaN with the sign past +-464: __NV_NOSAT, where
+// __NV_SATFINITE would clamp to 448, pallas_attention.py:390-391), and the
+// current token folds in unrounded, from the f32 row (:445-454).
 // Quantized pools: the group's D-slice of the roped k (and of the raw v)
 // is quantized per head, scale = max(amax / qmax, 1e-8), codes = x / scale
 // rounded half to even and clipped at 127 (int8) or converted saturating
@@ -88,14 +95,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
-// Page element types: widening 16 bytes of a row, one element, and (for
-// the 1-byte types) quantize-on-append.
+// Page element types: widening 16 bytes of a row, one element, the store of
+// an appended f32 value into a pool without scales, and (for the 1-byte
+// types) quantize-on-append into a pool with scales.  Whether the pool has
+// scale planes is the kernel's SCALED parameter, not the element type's:
+// e4m3 pages come with scales (B4) or without (B8); int8 only with them.
 template <typename T>
 struct Page;
 
 template <>
 struct Page<__nv_bfloat16> {
-  static constexpr bool kQuant = false;
   static __device__ __forceinline__ void widen(const uint4& raw, float out[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -108,11 +117,13 @@ struct Page<__nv_bfloat16> {
   static __device__ __forceinline__ float one(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16_rn(x);
+  }
 };
 
 template <>
 struct Page<int8_t> {
-  static constexpr bool kQuant = true;
   static constexpr float kQmax = 127.f;
   static __device__ __forceinline__ void widen(const uint4& raw, float out[16]) {
     const char4* c = reinterpret_cast<const char4*>(&raw);
@@ -135,7 +146,6 @@ struct Page<int8_t> {
 
 template <>
 struct Page<__nv_fp8_e4m3> {
-  static constexpr bool kQuant = true;
   static constexpr float kQmax = 448.f;
   static __device__ __forceinline__ void widen(const uint4& raw, float out[16]) {
     const __nv_fp8x2_e4m3* h = reinterpret_cast<const __nv_fp8x2_e4m3*>(&raw);
@@ -157,6 +167,12 @@ struct Page<__nv_fp8_e4m3> {
     c.__x = __nv_cvt_float_to_fp8(xq, __NV_SATFINITE, __NV_E4M3);
     return c;
   }
+  // The unscaled pool: jnp's astype, NaN past +-464 (no saturation).
+  static __device__ __forceinline__ __nv_fp8_e4m3 store(float x) {
+    __nv_fp8_e4m3 c;
+    c.__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+    return c;
+  }
 };
 
 // x[d] * cos + rotate_half(x)[d] * sin, the partner of dim d at d +- D/2.
@@ -172,7 +188,7 @@ __device__ __forceinline__ float rope(const float* x, int d, float c, float sn) 
 }
 
 // Shared-memory layout of the split kernel (bytes, 16-aligned pieces).
-template <int D, int QPK, typename T>
+template <int D, int QPK, typename T, bool SCALED>
 struct Smem {
   static constexpr int WARPS = D / PART;
   static constexpr int kRow = D * sizeof(T);        // page row slice
@@ -180,8 +196,7 @@ struct Smem {
   static constexpr int kK = 0;
   static constexpr int kV = TILE * kKRow;
   static constexpr int kScales = kV + TILE * kRow;  // k_scale[TILE], v_scale[TILE]
-  static constexpr int kStage =
-      kScales + (Page<T>::kQuant ? 2 * TILE * 4 : 0);
+  static constexpr int kStage = kScales + (SCALED ? 2 * TILE * 4 : 0);
   static constexpr int kQ = STAGES * kStage;                // f32 [QPK][D]
   static constexpr int kS = kQ + QPK * D * 4;               // f32 [WARPS][QPK][TILE]
   static constexpr int kP = kS + WARPS * QPK * TILE * 4;    // f32 [TILE][QPK]
@@ -192,7 +207,7 @@ struct Smem {
   static_assert(WARPS * TILE == D, "the partial scores reuse the q staging");
 };
 
-template <int D, int QPK, typename T>
+template <int D, int QPK, typename T, bool SCALED>
 __global__ void __launch_bounds__(D)
 fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
                           const __nv_bfloat16* __restrict__ k_new,  // [B, KVH, D]
@@ -209,8 +224,10 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
                           float* __restrict__ ws_ml,   // [B, KVH, NSPLIT, QPK, 2]
                           int KVH, int bs, int NB, int nsplit, int chunk,
                           unsigned bs_mul, unsigned bs_shr, float scale) {
-  using L = Smem<D, QPK, T>;
+  using L = Smem<D, QPK, T, SCALED>;
   using P = Page<T>;
+  static_assert(SCALED || !std::is_same<T, int8_t>::value,
+                "int8 pages need scale planes");
   constexpr int THREADS = D, WARPS = L::WARPS;
   constexpr int HPW = (QPK + WARPS - 1) / WARPS;   // heads per warp (softmax)
   constexpr int E = 16 / sizeof(T);                // elements per 16 bytes
@@ -272,12 +289,12 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
   if (s == 0) {
     const float kf = rope<D>(kraw, d, c, sn);
     // Append the roped k and the raw v row at `pos` (quantized per head on
-    // a 1-byte pool), and keep what the current token folds in.
+    // a pool with scales), and keep what the current token folds in.
     const int raw_blk = pos / bs;
     const int blk = (pos > 0 && raw_blk < NB) ? table[(long)b * NB + raw_blk] : 0;
     const long slot = (long)blk * bs + pos % bs;
     const long at = slot * F + (long)g * D + d;
-    if constexpr (P::kQuant) {
+    if constexpr (SCALED) {
       const float ka = warp_max(fabsf(kf));
       const float va = warp_max(fabsf(vx));
       if (lane == 0) {
@@ -304,8 +321,8 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
       kcur[d] = kq * ks_cur;
       vcur[d] = vq * vs_cur;
     } else {
-      k_pages[at] = __float2bfloat16_rn(kf);
-      v_pages[at] = v_new[((long)b * KVH + g) * D + d];
+      k_pages[at] = P::store(kf);
+      v_pages[at] = P::store(vx);
       kcur[d] = kf;
       vcur[d] = vx;
     }
@@ -342,7 +359,7 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
       cp_async16(base + L::kK + r * L::kKRow + ch * 16, ok ? kp + bo : kp, ok ? 16 : 0);
       cp_async16(base + L::kV + r * L::kRow + ch * 16, ok ? vp + bo : vp, ok ? 16 : 0);
     }
-    if constexpr (P::kQuant) {
+    if constexpr (SCALED) {
       if (d < 2 * TILE) {
         const int r = d % TILE;
         const int t = t0 + r;
@@ -409,7 +426,7 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
           float x = sp[(0 * QPK + j) * TILE + lane];
 #pragma unroll
           for (int w = 1; w < WARPS; ++w) x += sp[(w * QPK + j) * TILE + lane];
-          if constexpr (P::kQuant) x *= scl[lane];
+          if constexpr (SCALED) x *= scl[lane];
           x = ok ? x : kNegInf;
           const float m_new = fmaxf(m[jj], warp_max(x));   // key 0 is live
           const float alpha = __expf(m[jj] - m_new);
@@ -417,7 +434,7 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,      // [B, H, D]
           l[jj] = alpha * l[jj] + warp_sum(p);
           m[jj] = m_new;
           float pv = p;
-          if constexpr (P::kQuant) pv *= scl[TILE + lane];
+          if constexpr (SCALED) pv *= scl[TILE + lane];
           pt[lane * QPK + j] = pv;
           if (lane == 0) alpha_s[j] = alpha;
         }
@@ -506,21 +523,21 @@ fused_decode_merge_kernel(const float* __restrict__ ws_acc,
                     out + ((long)b * KVH + g) * QPK * D + threadIdx.x);
 }
 
-template <int D, int QPK, typename T>
+template <int D, int QPK, typename T, bool SCALED>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* cos_t, const void* sin_t, void* k_pages,
                    void* v_pages, void* k_scale, void* v_scale,
                    const void* table, const void* positions, void* out,
                    void* ws, int B, int KVH, int bs, int NB, int nsplit,
                    int chunk, float scale, cudaStream_t stream) {
-  using L = Smem<D, QPK, T>;
+  using L = Smem<D, QPK, T, SCALED>;
   if (!splits_ok(bs, NB, nsplit, chunk)) return cudaErrorInvalidValue;
   const int table_n = (chunk - 1) / bs + 2;
   const size_t smem = L::kTable + 4 * (size_t)table_n;
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_decode_split_kernel<D, QPK, T>,
+        fused_decode_split_kernel<D, QPK, T, SCALED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = smem;
@@ -528,7 +545,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   const BlockDiv div = block_div(bs);
   float* acc = static_cast<float*>(ws);
   float* ml = acc + (size_t)B * KVH * nsplit * QPK * D;
-  fused_decode_split_kernel<D, QPK, T><<<dim3(KVH, B, nsplit), D, smem, stream>>>(
+  fused_decode_split_kernel<D, QPK, T, SCALED><<<dim3(KVH, B, nsplit), D, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new),
@@ -545,7 +562,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SCALED>
 int dispatch(const void* q, const void* k_new, const void* v_new,
              const void* cos_t, const void* sin_t, void* k_pages,
              void* v_pages, void* k_scale, void* v_scale, const void* table,
@@ -556,7 +573,7 @@ int dispatch(const void* q, const void* k_new, const void* v_new,
   if (KVH < 1 || H % KVH != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_geometry(D, H / KVH, [&](auto d, auto qpk) {
-    return launch<decltype(d)::value, decltype(qpk)::value, T>(
+    return launch<decltype(d)::value, decltype(qpk)::value, T, SCALED>(
         q, k_new, v_new, cos_t, sin_t, k_pages, v_pages, k_scale, v_scale,
         table, positions, out, ws, B, KVH, bs, NB, nsplit, chunk, scale, st);
   });
@@ -575,10 +592,27 @@ extern "C" int fused_decode_bf16(const void* q, const void* k_new,
                                  void* workspace, int B, int H, int KVH,
                                  int D, int bs, int NB, int nsplit,
                                  int chunk, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k_new, v_new, cos_t, sin_t, k_pages,
-                                 v_pages, nullptr, nullptr, table, positions,
-                                 out, workspace, B, H, KVH, D, bs, NB, nsplit,
-                                 chunk, scale, stream);
+  return dispatch<__nv_bfloat16, false>(q, k_new, v_new, cos_t, sin_t,
+                                        k_pages, v_pages, nullptr, nullptr,
+                                        table, positions, out, workspace, B,
+                                        H, KVH, D, bs, NB, nsplit, chunk,
+                                        scale, stream);
+}
+
+// The unscaled e4m3 pool: the bf16 symbol's arguments.
+extern "C" int fused_decode_e4m3(const void* q, const void* k_new,
+                                 const void* v_new, const void* cos_t,
+                                 const void* sin_t, void* k_pages,
+                                 void* v_pages, const void* table,
+                                 const void* positions, void* out,
+                                 void* workspace, int B, int H, int KVH,
+                                 int D, int bs, int NB, int nsplit,
+                                 int chunk, float scale, void* stream) {
+  return dispatch<__nv_fp8_e4m3, false>(q, k_new, v_new, cos_t, sin_t,
+                                        k_pages, v_pages, nullptr, nullptr,
+                                        table, positions, out, workspace, B,
+                                        H, KVH, D, bs, NB, nsplit, chunk,
+                                        scale, stream);
 }
 
 extern "C" int fused_decode_int8(const void* q, const void* k_new,
@@ -589,9 +623,10 @@ extern "C" int fused_decode_int8(const void* q, const void* k_new,
                                  void* out, void* workspace, int B, int H,
                                  int KVH, int D, int bs, int NB, int nsplit,
                                  int chunk, float scale, void* stream) {
-  return dispatch<int8_t>(q, k_new, v_new, cos_t, sin_t, k_pages, v_pages,
-                          k_scale, v_scale, table, positions, out, workspace,
-                          B, H, KVH, D, bs, NB, nsplit, chunk, scale, stream);
+  return dispatch<int8_t, true>(q, k_new, v_new, cos_t, sin_t, k_pages,
+                                v_pages, k_scale, v_scale, table, positions,
+                                out, workspace, B, H, KVH, D, bs, NB, nsplit,
+                                chunk, scale, stream);
 }
 
 extern "C" int fused_decode_fp8(const void* q, const void* k_new,
@@ -602,8 +637,9 @@ extern "C" int fused_decode_fp8(const void* q, const void* k_new,
                                 void* out, void* workspace, int B, int H,
                                 int KVH, int D, int bs, int NB, int nsplit,
                                 int chunk, float scale, void* stream) {
-  return dispatch<__nv_fp8_e4m3>(q, k_new, v_new, cos_t, sin_t, k_pages,
-                                 v_pages, k_scale, v_scale, table, positions,
-                                 out, workspace, B, H, KVH, D, bs, NB, nsplit,
-                                 chunk, scale, stream);
+  return dispatch<__nv_fp8_e4m3, true>(q, k_new, v_new, cos_t, sin_t,
+                                       k_pages, v_pages, k_scale, v_scale,
+                                       table, positions, out, workspace, B, H,
+                                       KVH, D, bs, NB, nsplit, chunk, scale,
+                                       stream);
 }

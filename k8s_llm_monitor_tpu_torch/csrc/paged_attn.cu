@@ -1,5 +1,6 @@
 // Paged attention for Hopper (sm_90a): QS = 1..8 query tokens per lane over
-// a bf16 paged pool that already holds them -- no append, no RoPE -- as
+// a bf16 or unscaled e4m3 paged pool (ModelConfig.kv_dtype =
+// "float8_e4m3fn") that already holds them -- no append, no RoPE -- as
 // split-KV flash-decoding, one template for decode and verify.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:_run_paged_attn
@@ -62,8 +63,18 @@
 // twice the keys per thread (TPR halves) and each warp scores two key
 // n-tiles; the PV n-tiles per warp stay 4 (32 dims).
 //
+// An e4m3 pool (the TPU kernel casts any page dtype to f32,
+// pallas_attention.py:150-151): the tile loads read 8 bytes of codes a
+// thread with plain loads and write them widened to bf16 -- exact, every
+// e4m3 value is a bf16 -- into the same shared rows the bf16 pool's
+// cp.async fills, so QS = 1 on the CUDA cores and QS > 1 on mma.sync run
+// unchanged on them.  No scale: the pool has none.
+//
 // Trap: the kernels scale q by D**-0.5 and round it to bf16 before use, as
 // the plain version and pallas_attention.py:208 scale in bf16.
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include "split_kv.cuh"
 
@@ -99,6 +110,23 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Eight e4m3 codes (8 bytes, little-endian) as eight bf16 (16 bytes),
+// exactly: e4m3 widens through f16 to f32, and bf16 holds every e4m3 value.
+__device__ __forceinline__ uint4 e4m3x8_to_bf16(uint2 raw) {
+  uint4 out;
+  uint32_t* o = &out.x;
+  const uint32_t w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w[i / 2] >> (16 * (i % 2))), __NV_E4M3);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    o[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return out;
+}
+
 // Lane b's query tokens: the first at `start`, `qlen` of them live.
 struct Span {
   int start, qlen;
@@ -132,11 +160,11 @@ struct Smem {
   static constexpr int kTable = kAlpha + kRows * 4;          // int [table_n]
 };
 
-template <int D, int QPK, int MT>
+template <int D, int QPK, int MT, typename T>
 __global__ void __launch_bounds__(D)
 paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
-                        const __nv_bfloat16* __restrict__ k_pages,  // [nb, bs, KVH*D]
-                        const __nv_bfloat16* __restrict__ v_pages,
+                        const T* __restrict__ k_pages,         // [nb, bs, KVH*D]
+                        const T* __restrict__ v_pages,
                         const int* __restrict__ table,         // [B, NB]
                         const int* __restrict__ starts,        // [B] (or null)
                         const int* __restrict__ qlens,         // [B] (or null)
@@ -154,7 +182,7 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
   constexpr int NKT = TILE / (8 * WARPS);   // key n-tiles a warp scores
   static_assert(THREADS % ROWS == 0 && KPT % 4 == 0,
                 "the softmax moves a row's keys as float4");
-  constexpr int CPR = D * 2 / 16;       // 16-byte chunks per page row
+  constexpr int CPR = D * 2 / 16;       // 16-byte chunks per bf16 row
   static_assert(TILE * CPR % THREADS == 0, "a tile is whole 16-byte loads");
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -213,13 +241,14 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
   }
   __syncthreads();            // the tile loads read the table entries
 
-  // Copy tile i (keys k0 + 32 i ...) into ring stage st; rows past k1 are
-  // zero-filled (src-size 0), so no stale value meets a zero weight.
+  // Copy tile i (keys k0 + 32 i ...) into ring stage st as bf16 rows, 8
+  // elements per chunk; rows past k1 are zero-filled (src-size 0 on bf16
+  // pages), so no stale value meets a zero weight.  e4m3 pages are read
+  // and widened here (the ring's __syncthreads publish the stores as they
+  // do the copies).
   auto load_tile = [&](int i, int st) {
     unsigned char* base = smem + st * L::kStage;
     const int t0 = k0 + i * TILE;
-    const unsigned char* kp = reinterpret_cast<const unsigned char*>(k_pages);
-    const unsigned char* vp = reinterpret_cast<const unsigned char*>(v_pages);
 #pragma unroll
     for (int it = 0; it < TILE * CPR / THREADS; ++it) {
       const int idx = d + it * THREADS;
@@ -228,9 +257,21 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
       const bool ok = t < k1;
       const int q_ = div_bs(t);
       const int blk = ok ? tbl[min(q_, NB - 1) - fb] : 0;
-      const long bo = (((long)blk * bs + (t - q_ * bs)) * F + (long)g * D) * 2 + ch * 16;
-      cp_async16(base + r * KROW + ch * 16, ok ? kp + bo : kp, ok ? 16 : 0);
-      cp_async16(base + (TILE + r) * KROW + ch * 16, ok ? vp + bo : vp, ok ? 16 : 0);
+      const long e = ((long)blk * bs + (t - q_ * bs)) * F + (long)g * D + ch * 8;
+      unsigned char* kd = base + r * KROW + ch * 16;
+      unsigned char* vd = base + (TILE + r) * KROW + ch * 16;
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        cp_async16(kd, ok ? k_pages + e : k_pages, ok ? 16 : 0);
+        cp_async16(vd, ok ? v_pages + e : v_pages, ok ? 16 : 0);
+      } else {
+        uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
+        if (ok) {
+          kw = e4m3x8_to_bf16(*reinterpret_cast<const uint2*>(k_pages + e));
+          vw = e4m3x8_to_bf16(*reinterpret_cast<const uint2*>(v_pages + e));
+        }
+        *reinterpret_cast<uint4*>(kd) = kw;
+        *reinterpret_cast<uint4*>(vd) = vw;
+      }
     }
   };
 
@@ -508,7 +549,7 @@ paged_attn_merge_kernel(const float* __restrict__ ws_acc,
                     R, min(nsplit, (sp.start + i) / chunk + 1), o_row);
 }
 
-template <int D, int QPK, int MT>
+template <int D, int QPK, int MT, typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* table, const void* starts, const void* qlens,
                    const void* lengths, void* out, void* ws, int B, int QS,
@@ -521,7 +562,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_split_kernel<D, QPK, MT>,
+        paged_attn_split_kernel<D, QPK, MT, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = smem;
@@ -532,9 +573,9 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   const int* ln = static_cast<const int*>(lengths);
   float* acc = static_cast<float*>(ws);
   float* ml = acc + (size_t)B * KVH * nsplit * QS * QPK * D;
-  paged_attn_split_kernel<D, QPK, MT><<<dim3(KVH, B, nsplit), D, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table), st,
+  paged_attn_split_kernel<D, QPK, MT, T><<<dim3(KVH, B, nsplit), D, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), static_cast<const int*>(table), st,
       ql, ln, acc, ml, QS, KVH, bs, NB, nsplit, chunk, div.mul, div.shr, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -547,7 +588,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 // Decode on the CUDA cores; QS > 1 on the tensor cores, in as few row
 // tiles of 16 as hold QS * qpk rows (1, 2 or 4): four only where qpk > 4
 // (QS 5..8 at qpk 7 is 35..56 rows, at qpk 8 40..64).
-template <int D, int QPK>
+template <int D, int QPK, typename T>
 cudaError_t launch_rows(const void* q, const void* kp, const void* vp,
                         const void* table, const void* starts, const void* qlens,
                         const void* lengths, void* out, void* ws, int B, int QS,
@@ -555,18 +596,19 @@ cudaError_t launch_rows(const void* q, const void* kp, const void* vp,
                         float scale, cudaStream_t st) {
   const int rows = QS * QPK;
   if (QS == 1)
-    return launch<D, QPK, 0>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+    return launch<D, QPK, 0, T>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   if (rows <= 16)
-    return launch<D, QPK, 1>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+    return launch<D, QPK, 1, T>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   if constexpr (QPK >= 4) {
     if (rows <= 32)
-      return launch<D, QPK, 2>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+      return launch<D, QPK, 2, T>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   }
   if constexpr (QPK > 4)
-    return launch<D, QPK, 4>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
+    return launch<D, QPK, 4, T>(q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs, NB, nsplit, chunk, scale, st);
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
 int dispatch(const void* q, const void* kp, const void* vp, const void* table,
              const void* starts, const void* qlens, const void* lengths,
              void* out, void* ws, int B, int QS, int H, int KVH, int D,
@@ -577,7 +619,7 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_geometry(D, H / KVH, [&](auto d, auto qpk) {
-    return launch_rows<decltype(d)::value, decltype(qpk)::value>(
+    return launch_rows<decltype(d)::value, decltype(qpk)::value, T>(
         q, kp, vp, table, starts, qlens, lengths, out, ws, B, QS, KVH, bs,
         NB, nsplit, chunk, scale, st);
   });
@@ -596,9 +638,22 @@ extern "C" int paged_attn_bf16(const void* q, const void* k_pages,
                                int H, int KVH, int D, int bs, int NB,
                                int nsplit, int chunk, float scale,
                                void* stream) {
-  return dispatch(q, k_pages, v_pages, table, starts, qlens, nullptr, out,
-                  workspace, B, QS, H, KVH, D, bs, NB, nsplit, chunk, scale,
-                  stream);
+  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, table, starts, qlens,
+                                 nullptr, out, workspace, B, QS, H, KVH, D, bs,
+                                 NB, nsplit, chunk, scale, stream);
+}
+
+// The unscaled e4m3 pool: the bf16 symbol's arguments.
+extern "C" int paged_attn_e4m3(const void* q, const void* k_pages,
+                               const void* v_pages, const void* table,
+                               const void* starts, const void* qlens,
+                               void* out, void* workspace, int B, int QS,
+                               int H, int KVH, int D, int bs, int NB,
+                               int nsplit, int chunk, float scale,
+                               void* stream) {
+  return dispatch<__nv_fp8_e4m3>(q, k_pages, v_pages, table, starts, qlens,
+                                 nullptr, out, workspace, B, QS, H, KVH, D, bs,
+                                 NB, nsplit, chunk, scale, stream);
 }
 
 // Decode, one token per lane: starts and qlens from `lengths` in-kernel.
@@ -608,7 +663,18 @@ extern "C" int paged_attn_decode_bf16(const void* q, const void* k_pages,
                                       void* workspace, int B, int H, int KVH,
                                       int D, int bs, int NB, int nsplit,
                                       int chunk, float scale, void* stream) {
-  return dispatch(q, k_pages, v_pages, table, nullptr, nullptr, lengths, out,
-                  workspace, B, 1, H, KVH, D, bs, NB, nsplit, chunk, scale,
-                  stream);
+  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, table, nullptr, nullptr,
+                                 lengths, out, workspace, B, 1, H, KVH, D, bs,
+                                 NB, nsplit, chunk, scale, stream);
+}
+
+extern "C" int paged_attn_decode_e4m3(const void* q, const void* k_pages,
+                                      const void* v_pages, const void* table,
+                                      const void* lengths, void* out,
+                                      void* workspace, int B, int H, int KVH,
+                                      int D, int bs, int NB, int nsplit,
+                                      int chunk, float scale, void* stream) {
+  return dispatch<__nv_fp8_e4m3>(q, k_pages, v_pages, table, nullptr, nullptr,
+                                 lengths, out, workspace, B, 1, H, KVH, D, bs,
+                                 NB, nsplit, chunk, scale, stream);
 }

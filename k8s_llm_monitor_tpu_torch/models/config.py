@@ -5,7 +5,9 @@ port runs: dense Llama-3 / Mistral / Qwen2 decoders.  ``dtype`` stays a
 string (``"bfloat16"`` / ``"float32"``); ``torch_dtype`` maps it.  The Gemma-2
 knobs survive only as far as ``has_attn_extras`` needs them, so a config
 asking for them is refused (models/llama.py:LlamaModel) instead of
-silently served without them.
+silently served without them.  ``kv_dtype`` takes ``""``, the model's own
+dtype or ``"float8_e4m3fn"`` (the unscaled fp8 pool, ROADMAP B8); any
+other page dtype is ROADMAP B9 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ class ModelConfig:
     qkv_bias: bool = False          # True for Qwen2
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # KV cache dtype ('' = same as dtype).  "float8_e4m3fn" halves the KV
+    # pool and the decode-attention DMA traffic; Q stays bf16 and the
+    # kernel/softmax run f32, so logits track the bf16-KV model closely
+    # (tested).  Opt-in: accuracy headroom is workload-dependent.
+    kv_dtype: str = ""
     # W8A8: dynamically quantize activations (per-token symmetric int8) at
     # every linear so the matmul runs s8 x s8 with int32 sums
     # (models/llama.py:_linear, torch._int_mm).  Requires int8 weights
@@ -53,6 +60,13 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     query_pre_attn_scalar: Optional[float] = None
     sliding_window: int = 0
+
+    def __post_init__(self):
+        if self.kv_dtype not in ("", self.dtype, "float8_e4m3fn"):
+            raise NotImplementedError(
+                f"{self.name}: kv_dtype {self.kv_dtype!r} is not ported "
+                "(ROADMAP B9); the port takes '', the model dtype "
+                f"{self.dtype!r} or 'float8_e4m3fn'")
 
     @property
     def has_attn_extras(self) -> bool:
@@ -74,6 +88,11 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def torch_kv_dtype(self) -> torch.dtype:
+        """The unquantized pool's page dtype: ``kv_dtype`` or the model's."""
+        return getattr(torch, self.kv_dtype or self.dtype)
 
 
 TINY = ModelConfig(name="tiny")

@@ -34,6 +34,7 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
     gather_dequant,
     gather_pages,
     paged_decode_attention_quant,
+    widen_pages,
 )
 from k8s_llm_monitor_tpu_torch.ops.norms import rms_norm
 from k8s_llm_monitor_tpu_torch.ops.rope import apply_rope, rope_angles
@@ -82,6 +83,25 @@ class KVPages:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
                    for t in self.k + self.v + self.k_scale + self.v_scale)
+
+
+# e4m3fn's largest finite value is 448; the next code up is NaN, so values
+# past the midpoint 464 round to NaN.
+_E4M3_ROUND_MAX = 464.0
+
+
+def cast_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float8_e4m3fn with ``jnp.astype``'s semantics: round to
+    nearest even from ``x``'s own dtype, and NaN (with ``x``'s sign) past
+    +-464, for infinities and for NaN.  ``.to(torch.float8_e4m3fn)``
+    saturates to +-448 there instead.  The codes are made through a uint8
+    view, with no host round trip, so the cast can run inside a captured
+    CUDA graph."""
+    xf = x.float()
+    ok = xf.abs() <= _E4M3_ROUND_MAX          # False for NaN
+    codes = torch.where(ok, xf, 0.0).to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = (torch.signbit(xf).to(torch.uint8) << 7) | 0x7F
+    return torch.where(ok, codes, nan).view(torch.float8_e4m3fn)
 
 
 def kv_quant_spec(kv_quant: str) -> tuple[torch.dtype, float]:
@@ -143,8 +163,10 @@ def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
                   device, dtype: Optional[torch.dtype] = None,
                   kv_quant: str = "") -> KVPages:
     """Allocate the paged KV pool.  ``kv_quant`` ("int8"/"fp8") selects the
-    quantized tier: pages in the storage dtype plus float32 scale planes;
-    "" keeps pages in ``dtype`` (default: the model's)."""
+    quantized tier: pages in the storage dtype plus float32 scale planes,
+    whatever ``cfg.kv_dtype`` says.  "" keeps pages in ``cfg.kv_dtype``
+    when it is set (float8_e4m3fn: the unscaled fp8 pool), else in
+    ``dtype`` (default: the model's)."""
     shape = (num_blocks, block_size, cfg.num_kv_heads * cfg.head_dim_)
 
     def planes(shp, dt):
@@ -157,7 +179,7 @@ def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
         return KVPages(k=planes(shape, qdtype), v=planes(shape, qdtype),
                        k_scale=planes(sshape, torch.float32),
                        v_scale=planes(sshape, torch.float32))
-    dtype = dtype or cfg.torch_dtype
+    dtype = cfg.torch_kv_dtype if cfg.kv_dtype else (dtype or cfg.torch_dtype)
     return KVPages(k=planes(shape, dtype), v=planes(shape, dtype))
 
 
@@ -488,7 +510,9 @@ def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
 
     Invalid lanes, and positions past the table, are redirected to the null
     block 0 rather than clipped into the lane's last real block (a clip
-    would overwrite live cache).
+    would overwrite live cache).  fp8 pages take ``cast_e4m3`` of ``vals``
+    as they come (the model dtype on the XLA-scatter paths, as the JAX
+    package rounds them), written through a byte view.
 
     pages [num_blocks, bs, KVH*D]; vals [B, S, KVH, D]; block_table
     [B, max_blocks]; positions/valid [B, S].  Returns ``pages``.
@@ -502,8 +526,12 @@ def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
     block_ids = torch.where(valid & (raw_blk < nb), block_ids,
                             torch.zeros_like(block_ids))
     offs = positions % bs
-    pages[block_ids.reshape(-1).long(), offs.reshape(-1).long()] = (
-        vals.reshape(B * S, -1).to(pages.dtype))
+    idx = (block_ids.reshape(-1).long(), offs.reshape(-1).long())
+    rows = vals.reshape(B * S, -1)
+    if pages.dtype == torch.float8_e4m3fn:
+        pages.view(torch.uint8)[idx] = cast_e4m3(rows).view(torch.uint8)
+    else:
+        pages[idx] = rows.to(pages.dtype)
     return pages
 
 
@@ -585,9 +613,9 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                 kk = gather_dequant(pk, psk, block_tables, D).to(k.dtype)
                 vv = gather_dequant(pv, psv, block_tables, D).to(v.dtype)
             elif attend_to_pages:
-                kk = gather_pages(pk, block_tables).reshape(
+                kk = widen_pages(gather_pages(pk, block_tables)).reshape(
                     B, -1, cfg.num_kv_heads, cfg.head_dim_)
-                vv = gather_pages(pv, block_tables).reshape(
+                vv = widen_pages(gather_pages(pv, block_tables)).reshape(
                     B, -1, cfg.num_kv_heads, cfg.head_dim_)
             else:
                 kk, vv = k, v

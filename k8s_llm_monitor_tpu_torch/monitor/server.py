@@ -7,11 +7,13 @@ listings, ``/api/v1/analyze/pod-communication``, ``/api/v1/analyze``,
 ``/api/v1/query`` (with ``stream`` and ``session_id``),
 ``/api/v1/diagnoses``, ``/api/v1/trace[/<id>]``, the
 ``/api/v1/metrics/{cluster,nodes,nodes/<n>,pods,snapshot,network}``
-family and the static web directory.
+family, the KV prefix migration pair ``/api/v1/kv/prefix`` (a cached
+prefix as a KVX1 blob) and ``/api/v1/kv/install`` (serving/kv_tier.py),
+and the static web directory.
 
-Not registered yet (ROADMAP A13, A5): ``/metrics``, ``/debug/profile``,
-``/api/v1/signals``, ``/api/v1/timeseries``, ``/api/v1/remediations*``, the
-UAV routes and ``/api/v1/kv/*``.  ``build_server`` refuses a config that
+Not registered yet (ROADMAP A13): ``/metrics``, ``/debug/profile``,
+``/api/v1/signals``, ``/api/v1/timeseries``, ``/api/v1/remediations*`` and
+the UAV routes.  ``build_server`` refuses a config that
 turns on what it does not serve (telemetry, remediation with a cluster
 backend, an embedding model, the router role) instead of booting without
 it.
@@ -56,6 +58,7 @@ from k8s_llm_monitor_tpu_torch.observability.tracing import (
 from k8s_llm_monitor_tpu_torch.resilience.errors import OverloadedError
 from k8s_llm_monitor_tpu_torch.resilience.slo import normalize_slo_class
 from k8s_llm_monitor_tpu_torch.resilience.tenancy import normalize_tenant
+from k8s_llm_monitor_tpu_torch.serving.kv_tier import BlobError
 
 logger = logging.getLogger("monitor.server")
 
@@ -280,6 +283,8 @@ _ROUTES: dict[tuple[str, str], str] = {
     ("GET", "/api/v1/metrics/pods"): "h_metrics_pods",
     ("GET", "/api/v1/metrics/snapshot"): "h_metrics_snapshot",
     ("GET", "/api/v1/metrics/network"): "h_metrics_network",
+    ("POST", "/api/v1/kv/prefix"): "h_kv_prefix",
+    ("POST", "/api/v1/kv/install"): "h_kv_install",
 }
 _ROUTE_PATHS = {p for _, p in _ROUTES}
 
@@ -739,6 +744,85 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
             # server-side failure monitoring clients should retry on
             self._send_json(resp, status=400 if resp.error_kind == "validation" else 500)
 
+        # -- KV prefix migration (serving/kv_tier.py blob framing) --------------
+
+        def _engine_call(self, fn):
+            """Run ``fn(engine)`` on the step thread via the supervisor's
+            (preferred) or service's ``call`` seam; None when this role
+            runs no local engine."""
+            sup = srv.engine_supervisor()
+            if sup is not None:
+                return sup.call(fn)
+            svc = srv.engine_service()
+            if svc is None:
+                raise LookupError("no local engine")
+            return svc.call(fn)
+
+        def h_kv_prefix(self) -> None:
+            """Page-fetch endpoint: body ``{"token_ids": [...]}`` ->
+            framed KV blob (octet-stream) for the longest cached prefix,
+            or 404 on a cache miss.  The fleet router's migration path
+            calls this on the prefix-affinity owner."""
+            try:
+                body = self._read_json() or {}
+            except ValueError:
+                return self._send_error_text("Invalid JSON body", 400)
+            ids = body.get("token_ids")
+            if (not isinstance(ids, list) or not ids
+                    or not all(isinstance(t, int) for t in ids)):
+                return self._send_error_text(
+                    "token_ids must be a non-empty list of ints", 400)
+            try:
+                tenant = self._parse_tenant(body)
+            except ValueError as exc:
+                return self._send_error_text(str(exc), 400)
+            try:
+                blob = self._engine_call(
+                    lambda e: e.export_prefix([int(t) for t in ids],
+                                              tenant=tenant))
+            except LookupError:
+                return self._send_error_text(
+                    "Engine not available - running in development mode",
+                    503)
+            if blob is None:
+                return self._send_error_text("no cached prefix", 404)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(blob)))
+            self.end_headers()
+            self.wfile.write(blob)
+
+        def h_kv_install(self) -> None:
+            """Install a fetched prefix blob (raw octet-stream body) into
+            the local KV pool; responds with the engine's outcome string
+            (``installed``/``cached``/``incompatible``/``nospace``/
+            ``tenant_mismatch``).  The body is the raw blob, so tenant
+            identity rides only on the ``X-Tenant-Id`` header: when set,
+            a blob packed under a different tenant's namespace is refused
+            as ``tenant_mismatch``; absent, the blob's own header rules.
+            Framing/CRC damage is the sender's fault: 400."""
+            raw_tenant = self.headers.get("X-Tenant-Id") or ""
+            try:
+                expected = (normalize_tenant(raw_tenant)
+                            if raw_tenant else None)
+            except ValueError as exc:
+                return self._send_error_text(str(exc), 400)
+            length = int(self.headers.get("Content-Length", 0) or 0)
+            blob = self.rfile.read(length) if length else b""
+            if not blob:
+                return self._send_error_text("empty blob", 400)
+            try:
+                outcome = self._engine_call(
+                    lambda e: e.install_prefix(blob,
+                                               expected_tenant=expected))
+            except LookupError:
+                return self._send_error_text(
+                    "Engine not available - running in development mode",
+                    503)
+            except BlobError as exc:
+                return self._send_error_text(f"bad blob: {exc}", 400)
+            self._send_json({"status": "success", "outcome": outcome,
+                             "timestamp": _now()})
 
         # -- metrics handlers (CORS like ref :328) ------------------------------
 

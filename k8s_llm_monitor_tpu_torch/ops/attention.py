@@ -9,7 +9,8 @@ Layouts follow the JAX package so the tests compare like with like:
 
 Every function here is plain PyTorch: the semantics reference and the CPU
 path (``paged_decode_attention_quant`` and ``gather_dequant`` for int8/fp8
-pools).  The hand-written CUDA kernels live behind ops/paged_attention.py and
+pools; an unscaled float8_e4m3fn pool is widened to bf16 as it is
+gathered).  The hand-written CUDA kernels live behind ops/paged_attention.py and
 are picked by ``select_prefill_impl`` / ``select_decode_impl`` /
 ``select_verify_impl``.
 """
@@ -110,6 +111,13 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return g.reshape(B, max_blocks * bs, g.shape[3])
 
 
+def widen_pages(x: torch.Tensor) -> torch.Tensor:
+    """Gathered rows of an unscaled fp8 pool as bf16, exactly (bf16 holds
+    every e4m3 value), as the JAX package's readers widen them before
+    attention; other page dtypes as they are."""
+    return x.to(torch.bfloat16) if x.dtype == torch.float8_e4m3fn else x
+
+
 def paged_decode_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -123,8 +131,10 @@ def paged_decode_attention(
     ``decode_attention``.  The gather path of ``decode_step``."""
     B = q.shape[0]
     D = q.shape[-1]
-    k = gather_pages(k_pages, block_table).reshape(B, -1, k_pages.shape[2] // D, D)
-    v = gather_pages(v_pages, block_table).reshape(B, -1, v_pages.shape[2] // D, D)
+    k = widen_pages(gather_pages(k_pages, block_table)).reshape(
+        B, -1, k_pages.shape[2] // D, D)
+    v = widen_pages(gather_pages(v_pages, block_table)).reshape(
+        B, -1, v_pages.shape[2] // D, D)
     return decode_attention(q, k, v, lengths, scale=scale)
 
 
@@ -177,8 +187,8 @@ def paged_verify_attention(
     garbage).  ``scale`` as in ``causal_attention``."""
     B, S, H, D = q.shape
     KVH = k_pages.shape[2] // D
-    kk = gather_pages(k_pages, block_table).reshape(B, -1, KVH, D)
-    vv = gather_pages(v_pages, block_table).reshape(B, -1, KVH, D)
+    kk = widen_pages(gather_pages(k_pages, block_table)).reshape(B, -1, KVH, D)
+    vv = widen_pages(gather_pages(v_pages, block_table)).reshape(B, -1, KVH, D)
     positions = start[:, None] + torch.arange(S, dtype=torch.int32,
                                               device=q.device)[None, :]
     return causal_attention(q, kk, vv, q_positions=positions,
@@ -187,7 +197,9 @@ def paged_verify_attention(
 
 def _decode_geometry_ok(cfg, device: torch.device) -> bool:
     """What the split-KV CUDA kernels (fused decode, split paged attention)
-    take: bf16 activations over a bf16, int8 or fp8 pool, head_dim 64 or
+    take: bf16 activations over a bf16 or unscaled float8_e4m3fn pool (the
+    pool does not enter, as in the JAX package) or an int8/fp8 pool with
+    scales (the fused path), head_dim 64 or
     128, 1/2/4/7/8 query heads per kv group (csrc/split_kv.cuh template
     instances) -- the JAX package's ``_pallas_geometry_ok`` for every preset
     the port has.  On the CPU the wrappers run their plain versions, which

@@ -1,5 +1,6 @@
 """Paged-attention kernel wrappers: flash paged prefill, fused decode and
-split paged attention, over bf16 or int8/fp8 pools.
+split paged attention, over a bf16 pool, an unscaled float8_e4m3fn pool
+(``ModelConfig.kv_dtype``) or an int8/fp8 pool with scale planes.
 
 The counterpart of the JAX package's ``ops/pallas_attention.py``.  Each
 wrapper launches a hand-written CUDA kernel (``csrc/flash_prefill.cu``,
@@ -26,6 +27,7 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
     NEG_INF,
     causal_attention,
     gather_dequant,
+    gather_pages,
     paged_decode_attention,
     paged_verify_attention,
 )
@@ -35,7 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # symbol -> (library, argtypes); the int8/fp8 symbols add the two scale
-# planes after the pages.
+# planes after the pages, the e4m3 ones (an unscaled fp8 pool) take none.
 _FLASH = [_P] * 7 + [_I] * 6 + [_P]      # q, kp, vp, table, start, lengths,
 #                                          out, B, S, H, KVH, bs, NB, stream
 _FUSED = [_P] * 11 + [_I] * 8 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
@@ -43,19 +45,26 @@ _FUSED = [_P] * 11 + [_I] * 8 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
 #             chunk, scale, stream
 _SIGNATURES = {
     "flash_prefill_bf16": ("flash_prefill", _FLASH),
+    "flash_prefill_e4m3": ("flash_prefill", _FLASH),
     "flash_prefill_int8": ("flash_prefill", [_P] * 2 + _FLASH),
     "flash_prefill_fp8": ("flash_prefill", [_P] * 2 + _FLASH),
     "fused_decode_bf16": ("fused_decode", _FUSED),
+    "fused_decode_e4m3": ("fused_decode", _FUSED),
     "fused_decode_int8": ("fused_decode", [_P] * 2 + _FUSED),
     "fused_decode_fp8": ("fused_decode", [_P] * 2 + _FUSED),
+}
+for _sfx in ("bf16", "e4m3"):
     # q, kp, vp, table, starts, qlens, out, workspace, B, QS, H, KVH, D,
     # bs, NB, nsplit, chunk, scale, stream
-    "paged_attn_bf16": ("paged_attn", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    _SIGNATURES[f"paged_attn_{_sfx}"] = ("paged_attn",
+                                         [_P] * 8 + [_I] * 9 + [_F, _P])
     # q, kp, vp, table, lengths, out, workspace, B, H, KVH, D, bs, NB,
     # nsplit, chunk, scale, stream
-    "paged_attn_decode_bf16": ("paged_attn", [_P] * 7 + [_I] * 8 + [_F, _P]),
-}
+    _SIGNATURES[f"paged_attn_decode_{_sfx}"] = ("paged_attn",
+                                                [_P] * 7 + [_I] * 8 + [_F, _P])
 _QUANT_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+# An unscaled pool: bf16, or float8_e4m3fn pages with no scale planes.
+_PLAIN_SUFFIX = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3"}
 _fns: dict[str, object] = {}
 
 
@@ -145,7 +154,9 @@ def flash_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
     the kernel (and the TPU kernel, pallas_attention.py:1200) applies it;
     scaling the f32 logits instead drifts in bf16.  With scale planes the
     gathered pages are dequantized in float32, which is what the kernel's
-    (q . codes) * k_scale and (p * v_scale) . codes compute.
+    (q . codes) * k_scale and (p * v_scale) . codes compute; unscaled
+    pages (bf16 or fp8) are widened to float32 by the attention oracle, as
+    the TPU kernel casts them (pallas_attention.py:1099).
     """
     D = q.shape[-1]
     qs = q * (D ** -0.5)
@@ -162,18 +173,21 @@ def flash_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
 
 
 def _check_pool(k_pages, v_pages, k_scale, v_scale, D, what):
-    """The pool a kernel takes: contiguous bf16 pages, or contiguous
-    int8/fp8 pages with float32 scale planes [num_blocks, bs, KVH].
-    Returns the symbol suffix ("bf16", "int8", "fp8")."""
+    """The pool a kernel takes: contiguous bf16 or float8_e4m3fn pages with
+    no scales, or contiguous int8/fp8 pages with float32 scale planes
+    [num_blocks, bs, KVH].  Returns the symbol suffix ("bf16", "e4m3",
+    "int8", "fp8")."""
     nb, bs, F = k_pages.shape
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()
             and v_pages.shape == k_pages.shape
             and v_pages.dtype == k_pages.dtype):
         raise ValueError(f"{what}: pages must be contiguous and alike")
     if k_scale is None:
-        if not (k_pages.dtype == torch.bfloat16 and v_scale is None):
-            raise ValueError(f"{what}: an unquantized pool must be bf16")
-        return "bf16"
+        suffix = _PLAIN_SUFFIX.get(k_pages.dtype)
+        if suffix is None or v_scale is not None:
+            raise ValueError(f"{what}: an unscaled pool must be bf16 or "
+                             f"float8_e4m3fn, got {k_pages.dtype}")
+        return suffix
     suffix = _QUANT_SUFFIX.get(k_pages.dtype)
     if suffix is None:
         raise ValueError(f"{what}: a quantized pool must be int8 or "
@@ -252,8 +266,13 @@ def paged_decode_attention_fused_plain(q, k_new, v_new, cos, sin, k_pages,
     place and returns them, like the kernel.
 
     The query is scaled by D**-0.5 in its own dtype before RoPE, where the
-    kernel (and pallas_attention.py:521) scales it.
+    kernel (and pallas_attention.py:521) scales it.  An fp8 pool takes
+    ``_fused_plain_f32``: its appended row rounds from the f32 roped k, as
+    the kernels' does.
     """
+    if k_pages.dtype == torch.float8_e4m3fn:
+        return _fused_plain_f32(q, k_new, v_new, cos, sin, k_pages, v_pages,
+                                None, None, block_table, positions)[:3]
     D = q.shape[-1]
     pos = positions[:, None]
     active = (positions > 0)[:, None]
@@ -313,7 +332,9 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
     """One decode token per lane: RoPE on q and the new k, append the roped
     k and raw v row at ``positions`` (in place; inactive lanes,
     ``positions == 0``, and positions past the table write the null block
-    0), attend over the cached positions and the current token.
+    0), attend over the cached positions and the current token.  The pages
+    are bf16 or unscaled float8_e4m3fn (the row cast from f32 with
+    ``cast_e4m3``'s semantics).
 
     q [B, 1, H, D] and k_new, v_new [B, 1, KVH, D] raw projections; cos,
     sin [B, 1, D] f32 angles at ``positions`` (ops/rope.py); pages
@@ -324,8 +345,9 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
         return paged_decode_attention_fused_plain(
             q, k_new, v_new, cos, sin, k_pages, v_pages, block_table,
             positions)
-    _check_pool(k_pages, v_pages, None, None, q.shape[-1], "fused decode")
-    out = _fused_decode("bf16", q, k_new, v_new, cos, sin, k_pages, v_pages,
+    suffix = _check_pool(k_pages, v_pages, None, None, q.shape[-1],
+                         "fused decode")
+    out = _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
                         block_table, positions)
     paged_decode_attention_fused.launches += 1
     return out, k_pages, v_pages
@@ -340,18 +362,23 @@ paged_decode_attention_fused.fused_decode = True
 # ---------------------------------------------------------------------------
 
 
-def paged_decode_attention_fused_quant_plain(q, k_new, v_new, cos, sin,
-                                             k_pages, v_pages, k_scale,
-                                             v_scale, block_table, positions):
-    """Plain version of the fused quant kernel (not the gather path): RoPE
-    in float32 on the bf16-pre-scaled q and on the new k; per-head
-    quantization of the new k/v row, written with its scales in place at
-    ``positions`` (null-block redirect as ``_scatter_pages``); attention
-    over the dequantized cached rows ``< positions`` plus the current
-    token, folded as ``codes * scale`` where int8 codes are rounded and fp8
-    ones are not (pallas_attention.py:657-660 -- the pages get the fp8
-    cast, the softmax the unrounded quotient).  Returns (attn [B, 1, H, D],
-    k_pages, v_pages, k_scale, v_scale), the pool updated in place.
+def _fused_plain_f32(q, k_new, v_new, cos, sin, k_pages, v_pages, k_scale,
+                     v_scale, block_table, positions):
+    """The fused kernels' function on a 1-byte pool, in float32 as the
+    Pallas kernels compute it: RoPE in float32 on the bf16-pre-scaled q and
+    on the new k; the new k/v row written in place at ``positions``
+    (null-block redirect as ``_scatter_pages``); attention over the cached
+    rows ``< positions`` widened to float32, plus the current token as one
+    more key, unrounded.
+
+    Without scale planes (an unscaled float8_e4m3fn pool) the row is cast
+    from float32 (``cast_e4m3``, pallas_attention.py:390-391) and the
+    current token folds in as the f32 row itself (:445-454).  With them,
+    per-head quantization of the row, written with its scales, and the
+    current token folded as ``codes * scale`` where int8 codes are rounded
+    and fp8 ones are not (:657-660 -- the pages get the fp8 cast, the
+    softmax the unrounded quotient).  Returns (attn [B, 1, H, D], k_pages,
+    v_pages, k_scale, v_scale), the pool updated in place.
     """
     B, _, H, D = q.shape
     KVH = k_new.shape[2]
@@ -360,26 +387,47 @@ def paged_decode_attention_fused_quant_plain(q, k_new, v_new, cos, sin,
     qf = apply_rope((q * (D ** -0.5)).float(), cos, sin)     # [B, 1, H, D]
     kf = apply_rope(k_new.float(), cos, sin)                 # [B, 1, KVH, D]
     qmax, is_int8 = _qmax_for(k_pages.dtype), k_pages.dtype == torch.int8
-    cur = []
+    cur, cached = [], []
     for x, pages, spages in ((kf, k_pages, k_scale),
                              (v_new.float(), v_pages, v_scale)):
+        if spages is None:
+            _scatter_pages(pages, x, block_table, pos, active)
+            cur.append(x)
+            cached.append(gather_pages(pages, block_table).float()
+                          .reshape(B, -1, KVH, D))
+            continue
         xq, sc = _quantize_heads(x, qmax, is_int8)
         _scatter_pages(pages, xq, block_table, pos, active)
         _scatter_pages(spages, sc, block_table, pos, active)
         cur.append(xq * sc[..., None])                       # [B, 1, KVH, D]
+        cached.append(gather_dequant(pages, spages, block_table, D))
     # Cached rows < positions, then the current token as one more key.
-    kk = torch.cat([gather_dequant(k_pages, k_scale, block_table, D), cur[0]],
-                   dim=1).repeat_interleave(H // KVH, dim=2)
-    vv = torch.cat([gather_dequant(v_pages, v_scale, block_table, D), cur[1]],
-                   dim=1).repeat_interleave(H // KVH, dim=2)
+    kk = torch.cat([cached[0], cur[0]], dim=1).repeat_interleave(H // KVH,
+                                                                 dim=2)
+    vv = torch.cat([cached[1], cur[1]], dim=1).repeat_interleave(H // KVH,
+                                                                 dim=2)
     T = kk.shape[1] - 1
     keys = torch.arange(T + 1, device=q.device)[None, :]
     valid = (keys < positions[:, None]) | (keys == T)        # [B, T + 1]
     logits = torch.einsum("bshd,bthd->bhst", qf, kk)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    # Rows the kernels never read (the row just appended, rows past it)
+    # stay out of the sum even where an fp8 page holds NaN.
+    vv = torch.where(valid[:, :, None, None], vv, 0.0)
     attn = torch.einsum("bhst,bthd->bshd", probs, vv).to(q.dtype)
     return attn, k_pages, v_pages, k_scale, v_scale
+
+
+def paged_decode_attention_fused_quant_plain(q, k_new, v_new, cos, sin,
+                                             k_pages, v_pages, k_scale,
+                                             v_scale, block_table, positions):
+    """Plain version of the fused quant kernel (not the gather path):
+    ``_fused_plain_f32`` with the scale planes.  Returns (attn [B, 1, H,
+    D], k_pages, v_pages, k_scale, v_scale), the pool updated in place.
+    """
+    return _fused_plain_f32(q, k_new, v_new, cos, sin, k_pages, v_pages,
+                            k_scale, v_scale, block_table, positions)
 
 
 def paged_decode_attention_fused_quant(q, k_new, v_new, cos, sin, k_pages,
@@ -448,19 +496,20 @@ def _paged_attn(q, k_pages, v_pages, block_table, *, lengths=None,
             f"per lane, head_dim 64 or 128 and 1, 2, 4, 7 or 8 query heads "
             f"per kv head: got q {tuple(q.shape)} {q.dtype}, pages "
             f"{tuple(k_pages.shape)}")
-    _check_pool(k_pages, v_pages, None, None, D, "paged attention")
+    suffix = _check_pool(k_pages, v_pages, None, None, D, "paged attention")
     qc = q.contiguous()
     table = _int32(block_table)
     out = torch.empty_like(qc)
-    nsplit, chunk = decode_splits(table.shape[1], bs, 2)
+    nsplit, chunk = decode_splits(table.shape[1], bs, k_pages.element_size())
     ws = torch.empty(decode_workspace_floats(B, KVH, QS * (H // KVH), nsplit,
                                              D),
                      dtype=torch.float32, device=q.device)
     if lengths is not None:
-        sym, lanes, dims = "paged_attn_decode_bf16", (_int32(lengths),), (B,)
+        sym, lanes, dims = (f"paged_attn_decode_{suffix}", (_int32(lengths),),
+                            (B,))
     else:
-        sym, lanes, dims = ("paged_attn_bf16", (_int32(starts), _int32(qlens)),
-                            (B, QS))
+        sym, lanes, dims = (f"paged_attn_{suffix}",
+                            (_int32(starts), _int32(qlens)), (B, QS))
     err = _kernel(sym)(
         qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), *(t.data_ptr() for t in lanes), out.data_ptr(),

@@ -87,22 +87,31 @@ block.
     class-ordered ``should_shed``, queue TTL and per-request deadlines, the
     ``health`` and ``brownout`` slots, SLO-class scheduling, and the
     request and phase spans (observability/tracing.py).
+  * **KV tiers** (serving/kv_tier.py) -- rung 1, the resident pool: the
+    model's dtype, ``ModelConfig.kv_dtype`` (``float8_e4m3fn``: unscaled
+    fp8 pages on the same kernels) or the int8/fp8 tier with scale planes
+    (``EngineConfig.kv_dtype``).  Rung 2 (``host_spill_bytes`` or a
+    ``host_kv_tier`` the supervisor's factory keeps across rebuilds): a
+    pressured prefix-cache eviction spills its page rows to host RAM, and
+    an admission whose prompt hits a spilled prefix writes them back in
+    place instead of prefilling it.  Rung 3: ``export_prefix`` /
+    ``install_prefix`` move a cached prefix between engines as a KVX1 blob
+    that either package's engine installs.
   * What the supervisor and the server read: ``release_pool`` (the
     factory frees a dead engine's pages before building the next),
-    ``ttft_ema_by_class``, ``kv_tier_stats`` (the device tier and its
-    per-tenant cached blocks), the prefix cache's counters and the
+    ``ttft_ema_by_class``, ``kv_tier_stats`` (the device and host tiers
+    and the per-tenant cached blocks), the prefix cache's counters and the
     recovery counters.
 
-Not ported: the host KV tier and prefix export/install (ROADMAP A5) and
-meshes (A7); the resident pool may be int8/fp8 (``EngineConfig.kv_dtype``).
-As in the JAX engine, ``K8SLLM_KV_DTYPE``, ``K8SLLM_PREFILL_PATH`` and
-``K8SLLM_DECODE_PATH`` override ``kv_dtype``, ``prefill_path`` and
-``decode_path``.
+Not ported: meshes (ROADMAP A7).  As in the JAX engine, ``K8SLLM_KV_DTYPE``,
+``K8SLLM_PREFILL_PATH`` and ``K8SLLM_DECODE_PATH`` override ``kv_dtype``,
+``prefill_path`` and ``decode_path``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from collections import deque
@@ -143,12 +152,21 @@ from k8s_llm_monitor_tpu_torch.serving.kv_cache import (
     page_slice_bytes,
     shareable_blocks,
 )
+from k8s_llm_monitor_tpu_torch.serving.kv_tier import (
+    BlobError,
+    HostKVTier,
+    SpilledPrefix,
+    pack_prefix_blob,
+    unpack_prefix_blob,
+)
 from k8s_llm_monitor_tpu_torch.serving.spec import (
     AcceptanceEMA,
     accept_greedy,
     accept_sampled,
     propose_drafts,
 )
+
+logger = logging.getLogger("k8s_llm_monitor_tpu_torch.serving.engine")
 
 
 @dataclasses.dataclass
@@ -207,6 +225,18 @@ class GenerationResult:
     error: str = ""            # set when finish_reason == "error"
 
 
+def _page_dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a page dtype ("bfloat16", "float8_e4m3fn", "int8",
+    "float32"): the JAX engine's ``kv_tier_stats`` and blob META name."""
+    return str(dtype).removeprefix("torch.")
+
+
+# Host arrays of the pool's leaves, for the spill tier and the blobs: numpy
+# has no bf16 or fp8, so those rows are held as their bytes (uint16, uint8).
+_HOST_DTYPE = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8,
+               torch.int8: np.int8, torch.float32: np.float32}
+
+
 def prefill_bucket_for(n: int, buckets) -> int:
     """Smallest bucket in ascending ``buckets`` covering ``n`` tokens; ``n``
     past the top bucket raises (longer prompts are chunked)."""
@@ -261,8 +291,14 @@ class EngineConfig:
     # Resident KV representation: "auto" keeps the model's dtype ("fp16",
     # "bf16" and "none" mean the same); "int8" / "fp8" hold 1-byte codes
     # plus per-(token, head) float32 scales (models/llama.py:KVPages).
-    # K8SLLM_KV_DTYPE overrides it.
+    # K8SLLM_KV_DTYPE overrides it.  (ModelConfig.kv_dtype picks the page
+    # dtype of the "auto" pool: float8_e4m3fn for unscaled fp8 pages.)
     kv_dtype: str = "auto"
+    # Host-RAM spill tier capacity in bytes (rung 2): pressured prefix-cache
+    # evictions demote page rows to a HostKVTier of this size instead of
+    # dropping them, and the next hit rehydrates without re-prefill.
+    # 0 disables (pressured evictions drop, as before).
+    host_spill_bytes: int = 0
     # When every sampling lane of a decode call has 0 < top_k <= this cap,
     # it samples from the top ``sample_topk_cap`` logits (one torch.topk)
     # instead of sorting the whole vocabulary each step; exact in that
@@ -300,8 +336,9 @@ class EngineConfig:
     # ladder sits at DEGRADED or worse; 0 disables the clamp.
     brownout_batch_max_tokens: int = 64
     # What counts as KV headroom in should_shed()'s capacity clause:
-    # "tier" arms it only with a host KV tier (not ported: unarmed),
-    # "device" counts free device blocks, "off" disables it.
+    # "tier" arms it only with a host KV tier and counts the cached blocks
+    # a spill could reclaim, "device" counts free device blocks, "off"
+    # disables it.
     kv_admission: str = "tier"
     # Prompt-lookup speculative decoding (serving/spec.py): drafts per
     # verify pass; 0 disables.  Greedy lanes accept by argmax match (the
@@ -639,7 +676,8 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, model: llama.LlamaModel,
                  engine_cfg: EngineConfig | None = None, tokenizer=None,
-                 eos_id: Optional[int] = None, seed: int = 0, device=None):
+                 eos_id: Optional[int] = None, seed: int = 0, device=None,
+                 host_kv_tier: Optional[HostKVTier] = None):
         self.device = llama.resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model weights are on {model.device}, the "
@@ -718,6 +756,13 @@ class InferenceEngine:
         # Cold-burst dedup: requests whose admission waited for a lane to
         # publish their prefix.
         self.prefix_deferrals = 0
+        # Host-RAM spill tier (rung 2).  A caller-provided tier (the
+        # supervisor's engine_factory closes over one) survives engine
+        # rebuilds, so spilled prefixes outlive a crash-recovery cycle.
+        if host_kv_tier is None and ec.host_spill_bytes > 0:
+            host_kv_tier = HostKVTier(ec.host_spill_bytes,
+                                      max_tenant_share=ec.kv_max_tenant_share)
+        self.host_kv_tier = host_kv_tier
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._tok_state = torch.zeros(ec.max_slots, dtype=torch.int32,
                                       device=self.device)
@@ -838,6 +883,14 @@ class InferenceEngine:
         self.hist_queue_wait = ClassHistogram(_lat)
         self._tracer = get_tracer()
         self._flight = get_flight_recorder()
+        # Cache maintenance with no owning request (the KV spill) records
+        # its spans under a synthetic root of its own, as in the JAX engine.
+        self._maint_ctx = self._tracer.new_trace()
+        if self._maint_ctx is not None and self._maint_ctx.sampled:
+            t_now = time.monotonic()
+            self._tracer.record(
+                "engine.maintenance", t_now, t_now, self._maint_ctx,
+                span_id=self._maint_ctx.span_id, parent_id="")
 
     # ------------------------------------------------------------------
     # public API
@@ -855,12 +908,12 @@ class InferenceEngine:
 
     def kv_tier_stats(self) -> dict:
         """KV tier byte accounting for /api/v1/stats, in the JAX engine's
-        keys: the device tier, and with a prefix cache its distinct cached
-        blocks per tenant.  The host tier is ROADMAP A5, so its counters
-        are 0."""
+        keys: the device tier (``page_dtype`` numpy's name of the page
+        dtype), the host tier's bytes, entries and spill/restore counters,
+        and with a prefix cache its distinct cached blocks per tenant."""
         out = {
             "kv_quant": self.kv_quant,
-            "page_dtype": str(self.pages.k[0].dtype).removeprefix("torch."),
+            "page_dtype": _page_dtype_name(self.pages.k[0].dtype),
             "device_bytes": self.pool_bytes,
             "host_bytes": 0,
             "host_entries": 0,
@@ -868,6 +921,12 @@ class InferenceEngine:
             "restores": 0,
             "host_lost": 0,
         }
+        if self.host_kv_tier is not None:
+            st = self.host_kv_tier.stats()
+            out.update(host_bytes=st["bytes"], host_entries=st["entries"],
+                       spills=st["spills"], restores=st["restores"],
+                       host_lost=st["lost"],
+                       host_tenant_bytes=st["tenant_bytes"])
         if self.prefix_cache is not None:
             out["tenant_blocks"] = self.prefix_cache.blocks_by_tenant()
         return out
@@ -1029,18 +1088,29 @@ class InferenceEngine:
 
     def admission_headroom_tokens(self) -> int:
         """KV capacity (tokens) admission may count on: the free device
-        blocks.  The JAX engine's "tier" policy adds prefix-cache blocks a
-        host spill could reclaim; without a host tier (ROADMAP A5) that
-        bonus is 0."""
-        return self.allocator.free_blocks * self.ecfg.block_size
+        blocks, and under ``kv_admission="tier"`` with a host tier the
+        prefix-cache blocks a lossless spill could reclaim, bounded by the
+        tier's free bytes (the JAX engine's policy)."""
+        ec = self.ecfg
+        free_blocks = self.allocator.free_blocks
+        if (ec.kv_admission == "tier" and self.prefix_cache is not None
+                and self.host_kv_tier is not None):
+            evictable = self.prefix_cache.evictable_blocks()
+            if evictable > 0:
+                blk_bytes = self.pool_bytes // ec.num_blocks
+                st = self.host_kv_tier.stats()
+                host_free = max(st["max_bytes"] - st["bytes"], 0)
+                free_blocks += min(evictable, host_free // max(blk_bytes, 1))
+        return free_blocks * ec.block_size
 
     def should_shed(self, slo_class: str = DEFAULT_CLASS,
                     need_tokens: int = 0) -> str:
         """Non-empty reason when new work of ``slo_class`` should be shed:
         queue-token backlog or admission-wait EMA above the configured
-        thresholds, or (``kv_admission="device"``) a KV footprint
-        ``need_tokens`` beyond the free blocks.  EngineService.submit turns
-        it into a retriable ``OverloadedError``.
+        thresholds, or a KV footprint ``need_tokens`` beyond
+        ``admission_headroom_tokens`` (``kv_admission`` "device", or "tier"
+        with a host tier).  EngineService.submit turns it into a retriable
+        ``OverloadedError``.
 
         Class-ordered: a request is charged only for backlog of its own
         class and above, and none is shed while strictly lower-class work
@@ -1061,9 +1131,13 @@ class InferenceEngine:
         if 0 < ec.shed_slot_wait_s <= self.slot_wait_ema_s:
             return (f"admission wait EMA {self.slot_wait_ema_s:.2f}s >= "
                     f"{ec.shed_slot_wait_s:.2f}s")
-        # "tier" arms the capacity clause only with a host tier, which the
-        # port does not have yet: as in the JAX engine without one.
-        if need_tokens > 0 and ec.kv_admission == "device":
+        # "tier" arms the capacity clause only with a host tier: without
+        # one the headroom says nothing the queue and the OutOfBlocks
+        # pushback do not already handle.
+        capacity_armed = (ec.kv_admission == "device"
+                          or (ec.kv_admission == "tier"
+                              and self.host_kv_tier is not None))
+        if need_tokens > 0 and capacity_armed:
             headroom = self.admission_headroom_tokens()
             if need_tokens > headroom:
                 return (f"kv capacity: request needs {need_tokens} tokens, "
@@ -1491,11 +1565,256 @@ class InferenceEngine:
                 return False
         return True
 
+    # -- host KV tier (spill / restore, serving/kv_tier.py) --------------
+
     def _evict_prefix_lru(self) -> bool:
-        """Drop the prefix cache's next victim (the JAX engine first
-        spills it to the host tier, ROADMAP A5)."""
+        """Pressured prefix-cache eviction, demoting to the host tier.
+
+        With a :class:`HostKVTier` attached, the LRU victim's page rows are
+        fetched to the host and stored under its chain digest before the
+        device-side eviction: the next prompt that would have hit it
+        rehydrates (``_try_restore``) instead of prefilling again.  The
+        spill is best-effort, as in the JAX engine: a failure degrades to
+        the drop."""
         pc = self.prefix_cache
-        return pc is not None and pc.evict_lru()
+        if pc is None:
+            return False
+        tier = self.host_kv_tier
+        if tier is not None:
+            peek = pc.peek_lru()
+            if peek is not None:
+                digest, blocks = peek
+                victim_tenant = pc.peek_lru_tenant() or DEFAULT_TENANT
+                t_spill = time.monotonic()
+                try:
+                    tier.put(digest, self._fetch_rows(blocks),
+                             tenant=victim_tenant)
+                except Exception as exc:  # noqa: BLE001 -- spill must never block eviction
+                    logger.warning("KV spill failed (%s); dropping entry",
+                                   exc)
+                else:
+                    if (self._maint_ctx is not None
+                            and self._maint_ctx.sampled):
+                        self._tracer.record(
+                            "engine.kv_spill", t_spill, time.monotonic(),
+                            self._maint_ctx, attrs={"blocks": len(blocks)})
+                    self._flight.note("kv_spill", blocks=len(blocks))
+        return pc.evict_lru()
+
+    def _leaves(self) -> list[tuple[torch.Tensor, ...]]:
+        """Per layer, the pool tensors a block's rows live in: (k, v) or,
+        on a quantized pool, (k, v, k_scale, v_scale) -- the JAX engine's
+        leaf order, which the blobs keep."""
+        p = self.pages
+        if p.quantized:
+            return list(zip(p.k, p.v, p.k_scale, p.v_scale))
+        return list(zip(p.k, p.v))
+
+    def _fetch_rows(self, blocks: list[int]) -> SpilledPrefix:
+        """The page rows of ``blocks`` on the host: one gather of every
+        leaf's rows as bytes on the device, then one copy to the host,
+        which waits for the engine's stream (the price of demotion, as in
+        the JAX engine).  bf16 and fp8 rows are held as their bytes."""
+        k = len(blocks)
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        leaves = self._leaves()
+        parts = [a[idx].reshape(-1).view(torch.uint8)
+                 for leaf in leaves for a in leaf]
+        host = torch.cat(parts).cpu().numpy()
+        layers: list[tuple[np.ndarray, ...]] = []
+        off = 0
+        for leaf in leaves:
+            arrs = []
+            for a in leaf:
+                n = k * a[0].numel() * a.element_size()
+                arrs.append(host[off:off + n].view(_HOST_DTYPE[a.dtype])
+                            .reshape(k, *a.shape[1:]))
+                off += n
+            layers.append(tuple(arrs))
+        return SpilledPrefix(n_blocks=k, layers=layers)
+
+    def _write_rows(self, blocks: list[int], layers: list[tuple]) -> None:
+        """Write host rows back into the pool at ``blocks``, in place
+        through byte views (torch has no ``index_copy_`` for fp8 on the
+        CPU): the pool keeps its addresses, so the decode and spec CUDA
+        graphs stay valid.  On the card the rows go through pinned memory
+        with ``non_blocking`` copies, queued on the engine's stream before
+        the prefill or chunk call that reads them; block 0, the null
+        block, is never among ``blocks``."""
+        k = len(blocks)
+        host = np.concatenate([np.ascontiguousarray(a).reshape(-1)
+                               .view(np.uint8)
+                               for leaf in layers for a in leaf])
+        h_rows = torch.from_numpy(host)
+        h_idx = torch.tensor(blocks, dtype=torch.long)
+        if self.device.type == "cuda":
+            h_rows = h_rows.pin_memory()
+            h_idx = h_idx.pin_memory()
+        rows = h_rows.to(self.device, non_blocking=True)
+        idx = h_idx.to(self.device, non_blocking=True)
+        off = 0
+        for leaf in self._leaves():
+            for a in leaf:
+                dst = a.view(torch.uint8)
+                n = k * dst[0].numel()
+                dst[idx] = rows[off:off + n].view(k, *dst.shape[1:])
+                off += n
+
+    def _try_restore(self, prompt_ids: list[int], shared: list[int],
+                     shared_toks: int, *,
+                     tenant: str = DEFAULT_TENANT) -> tuple[list[int], int]:
+        """Host-tier lookup behind a device prefix-cache miss (or a
+        shorter-than-spilled hit): rehydrate the longest spilled prefix of
+        ``prompt_ids`` into freshly allocated blocks, re-register it, and
+        return the caller-owned span exactly as ``PrefixCache.lookup``
+        would have.  Any failure returns the inputs unchanged: a lost
+        spill is just a miss."""
+        tier = self.host_kv_tier
+        pc = self.prefix_cache
+        if tier is None or pc is None or len(tier) == 0:
+            return shared, shared_toks
+        bs = self.ecfg.block_size
+        n = shareable_blocks(len(prompt_ids), bs)
+        have = shared_toks // bs
+        if n <= have:
+            return shared, shared_toks
+        digests = pc.digest_chain(prompt_ids, n, tenant=tenant)
+        for k in range(n, have, -1):
+            dg = digests[k - 1]
+            entry = tier.peek(dg)
+            if entry is None or entry.n_blocks != k:
+                continue
+            if not self._ensure_free(k * bs):
+                return shared, shared_toks
+            try:
+                blocks = self.allocator.alloc(k * bs)
+            except OutOfBlocks:
+                return shared, shared_toks
+            entry = tier.take(dg)
+            if entry is None:
+                self.allocator.free(blocks)
+                return shared, shared_toks
+            try:
+                self._write_rows(blocks, entry.layers)
+            except Exception as exc:  # noqa: BLE001 -- a failed restore degrades to a miss
+                logger.warning("KV restore failed (%s); falling back to "
+                               "re-prefill", exc)
+                self.allocator.free(blocks)
+                return shared, shared_toks
+            # Re-publish for every prefix length (the extra token only
+            # satisfies the shareable-span rule: digests cover whole
+            # blocks).
+            pc.register(prompt_ids[:k * bs + 1], blocks, tenant=tenant)
+            if shared:
+                self.allocator.free(shared)
+            return blocks, k * bs
+        return shared, shared_toks
+
+    # -- cross-replica prefix migration (kv_tier rung 3) -----------------
+
+    def _kv_geometry(self) -> dict:
+        """The geometry contract a migration blob must match exactly: a
+        mismatched receiver refuses the install, never writes pages."""
+        cfg, ec = self.cfg, self.ecfg
+        return {
+            "model": cfg.name,
+            "layers": cfg.num_layers,
+            "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim_,
+            "block_size": ec.block_size,
+            "kv_quant": self.kv_quant,
+            "page_dtype": _page_dtype_name(self.pages.k[0].dtype),
+        }
+
+    def export_prefix(self, prompt_ids: list[int], *,
+                      tenant: str = DEFAULT_TENANT) -> Optional[bytes]:
+        """Frame the longest cached prefix of ``prompt_ids`` (within
+        ``tenant``'s namespace) as a KVX1 blob: META, then each layer's
+        leaves as raw bytes in the JAX engine's order, so either package's
+        engine installs it.  None on a miss.  The lookup's references pin
+        the blocks for the fetch, then go: export never changes what the
+        cache holds."""
+        pc = self.prefix_cache
+        if pc is None:
+            return None
+        shared, shared_toks = pc.lookup(prompt_ids, tenant=tenant)
+        if not shared:
+            return None
+        try:
+            entry = self._fetch_rows(shared)
+            meta = dict(
+                self._kv_geometry(),
+                n_blocks=len(shared),
+                tokens=[int(t) for t in prompt_ids[:shared_toks]],
+                tenant=tenant)
+            return pack_prefix_blob(
+                meta, [a for leaf in entry.layers for a in leaf])
+        finally:
+            self.allocator.free(shared)
+
+    def install_prefix(self, blob: bytes, *,
+                       expected_tenant: str | None = None) -> str:
+        """Install a migrated prefix blob into the pool and the prefix cache
+        (under the blob's own tenant).  Returns ``"installed"``,
+        ``"cached"`` (already resident), ``"incompatible"`` (the geometry
+        contract differs), ``"tenant_mismatch"`` (the caller expected
+        another namespace; the pages are refused unseen) or ``"nospace"``.
+        Framing or CRC damage raises :class:`BlobError`: a torn transfer
+        is a miss, never a partial install."""
+        meta, raw = unpack_prefix_blob(blob)
+        geo = self._kv_geometry()
+        if any(meta.get(key) != geo[key] for key in geo):
+            return "incompatible"
+        try:
+            blob_tenant = normalize_tenant(
+                meta.get("tenant"), default=DEFAULT_TENANT)
+        except ValueError:
+            return "incompatible"
+        if expected_tenant is not None and blob_tenant != expected_tenant:
+            return "tenant_mismatch"
+        pc = self.prefix_cache
+        cfg, ec = self.cfg, self.ecfg
+        bs = ec.block_size
+        tokens = [int(t) for t in meta.get("tokens", ())]
+        k = int(meta.get("n_blocks", 0))
+        leaves = self._leaves()
+        if (pc is None or k <= 0 or len(tokens) != k * bs
+                or len(raw) != cfg.num_layers * len(leaves[0])):
+            return "incompatible"
+        # The +1 probe/register token never enters a digest (whole blocks
+        # only); it just satisfies the shareable-span rule.
+        probe = tokens + [0]
+        shared, st = pc.lookup(probe, tenant=blob_tenant)
+        if shared:
+            self.allocator.free(shared)
+            if st >= k * bs:
+                return "cached"
+        layers: list[tuple] = []
+        it = iter(raw)
+        try:
+            for leaf in leaves:
+                layers.append(tuple(
+                    np.frombuffer(next(it), _HOST_DTYPE[a.dtype])
+                    .reshape(k, *a.shape[1:]) for a in leaf))
+        except ValueError as e:
+            raise BlobError(f"ARRAY record does not match geometry: {e}") from e
+        if not self._ensure_free(k * bs):
+            return "nospace"
+        try:
+            blocks = self.allocator.alloc(k * bs)
+        except OutOfBlocks:
+            return "nospace"
+        try:
+            self._write_rows(blocks, layers)
+        except Exception:
+            self.allocator.free(blocks)
+            raise
+        pc.register(probe, blocks, tenant=blob_tenant)
+        # The cache entries hold their own references now: the pages are
+        # the cache's alone (LRU-evictable, spillable), as a prefilled
+        # span's are.
+        self.allocator.free(blocks)
+        return "installed"
 
     def _pending_prefix_gain(self, cand: list[int],
                              publishers: list[list[int]]) -> int:
@@ -1612,6 +1931,22 @@ class InferenceEngine:
             if self.prefix_cache is not None:
                 shared, shared_toks = self.prefix_cache.lookup(
                     req.prompt_ids, tenant=req.tenant)
+                if self.host_kv_tier is not None:
+                    # A spilled entry longer than the device hit rehydrates
+                    # here; its write is queued on the stream before the
+                    # prefill call that reads the pages.
+                    t_res = time.monotonic()
+                    pre_toks = shared_toks
+                    shared, shared_toks = self._try_restore(
+                        req.prompt_ids, shared, shared_toks,
+                        tenant=req.tenant)
+                    if shared_toks > pre_toks:
+                        self._span("engine.kv_restore", t_res,
+                                   time.monotonic(), req,
+                                   tokens=shared_toks - pre_toks)
+                        self._flight.note(
+                            "kv_restore", request_id=req.request_id,
+                            tokens=shared_toks - pre_toks)
                 suffix = L - shared_toks
 
                 def worth(gain: int) -> bool:

@@ -27,7 +27,7 @@ COPIES = ("diagnosis/grammar.py", "devtools/lockcheck.py",
           "monitor/manager.py", "monitor/network.py", "monitor/config.py",
           "diagnosis/session.py", "monitor/watcher.py",
           "diagnosis/pipeline.py", "serving/kv_cache.py",
-          "utils/tokenizer.py")
+          "utils/tokenizer.py", "serving/kv_tier.py")
 
 
 def _tree(path: Path, rename: bool) -> ast.Module:
@@ -74,7 +74,7 @@ PIECES = (
         "h_cluster_status", "h_pods", "h_pod_comm", "_stream_query",
         "h_analyze", "_need_manager", "h_metrics_cluster", "h_metrics_nodes",
         "h_metrics_node", "h_metrics_pods", "h_metrics_snapshot",
-        "h_metrics_network")),
+        "h_metrics_network", "_engine_call", "h_kv_prefix", "h_kv_install")),
 )
 
 

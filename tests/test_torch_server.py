@@ -256,9 +256,7 @@ def test_unported_routes_are_not_registered(servers):
                          ("GET", "/api/v1/remediations"),
                          ("GET", "/api/v1/metrics/uav"),
                          ("POST", "/api/v1/uav/report"),
-                         ("GET", "/api/v1/crd/uav"),
-                         ("POST", "/api/v1/kv/prefix"),
-                         ("POST", "/api/v1/kv/install")):
+                         ("GET", "/api/v1/crd/uav")):
         status, *_ = _call(psrv.port, method, path,
                            {} if method == "POST" else None)
         assert status == 404, (method, path)
