@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases 0,8    # llama-1b and speculative decoding
     python3 chip_smoke.py --phases 0,9    # Qwen2-7B, int8 / W8A8, a checkpoint
     python3 chip_smoke.py --phases 0,10   # the unscaled fp8 pool, KV tiers
+    python3 chip_smoke.py --phases 0,11   # e5m2 / f16 pools, default server
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -133,8 +134,8 @@ Phase 6  the monitor's front door: the earlier phases' model is freed, then
          the port's build_server boots in process on port 0 over the demo
          FakeCluster with llm.provider "tpu" at llama3-8b (bf16 weights and
          pool, kv_blocks 4096, max_batch 32, spec_k 0, max_tokens 64, a
-         journal in a temporary directory, telemetry and remediation off):
-         cmd/server's chain down to EngineSupervisor -> EngineService ->
+         journal in a temporary directory; telemetry and remediation on, as
+         by default): cmd/server's chain down to EngineSupervisor -> EngineService ->
          InferenceEngine.step.  One cold request of 8 greedy tokens (a
          prefill and three decode calls, each one's graph captured) must
          not trip the heartbeat watchdog; /health and /readyz must be
@@ -200,8 +201,8 @@ Phase 8  llama-1b and speculative decoding (runs after phase 3, before 4:
          on 4 layers verify_step against sequential decode on both pools.
          Between the two, 8c: the monitor's default config as
          load_config(None) gives it (llama-1b, quantize w8a8, spec_k 4,
-         spec_min_accept 1.2, 32 slots, 512 x 16 blocks), telemetry and
-         remediation off, through build_server and phase 6's HTTP burst:
+         spec_min_accept 1.2, 32 slots, 512 x 16 blocks; telemetry and
+         remediation on), through build_server and phase 6's HTTP burst:
          every response succeeds, the split paged attention kernel
          launches in spec calls and fused decode in decode calls, no
          dispatch failure.
@@ -257,6 +258,34 @@ Phase 10 the unscaled fp8 KV pool (ModelConfig.kv_dtype = "float8_e4m3fn",
          restored hit against a fresh prefill and a device hit.  10e: export/install between two engines on one
          model's weights, every outcome, the receiver's ids equal the
          owner's; then over HTTP through the server's /api/v1/kv routes.
+
+Phase 11 B9, the kernels over unscaled float8_e5m2 and float16 pages, and
+         A13, the server pieces the default config turns on (after phase
+         10, on phase 2's model).  11a: every e5m2 and f16 instance against
+         its plain version on its first call, as 10a (B1 at the admission,
+         chunk, hit and verify shapes at qpk 4 and 7; B2 at D 128 qpk 4
+         and 7 and D 64, the appended bytes bit for bit, rows at
+         +-57344..65536, +-inf and NaN (e5m2) and +-65024..66048 and
+         subnormals (f16) included, and k * cos landing on f32 values
+         across each format's overflow edge; B3 at QS 1, 5 and 8), the
+         page casts on the card against the CPU's.  11b: their times by
+         phase 4's method at the shapes of Llama-3-8B and llama-1b.  11c:
+         Llama-3-8B and llama-1b on each pool through auto, pallas and
+         spec_k 4 engines (B1, B2 and B3 launched), the pool half of
+         bf16's (e5m2) or equal (f16), 4-layer logits against the bf16
+         pool (cosine >= 0.98 e5m2, >= 0.999 f16).  11d: the monitor's
+         default config, load_config(None) with only server.port 0 and the
+         fake cluster (llama-1b, W8A8, spec_k 4, telemetry and remediation
+         on), through build_server: phase 6's HTTP burst, /metrics
+         lint-clean with the TTFT histogram counting every request served,
+         the decode host gap and decode-step histogram moving, the signal
+         scraper's local target fresh after two intervals, a Warning burst
+         to a diagnosis and an observe-only plan, /debug/profile with
+         server.debug (a torch.profiler trace written and parsed;
+         decode_phases fills decode_attn_ms / decode_sample_ms on the
+         decode graphs), a UAV report round trip; then cmd.server on cuda
+         with no TELEMETRY_ENABLED / REMEDIATION_ENABLED: /metrics, a
+         query, exit 0 on SIGTERM.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -370,9 +399,10 @@ E4M3 = "e4m3"
 
 def _page_bytes(kv_quant, d=D):
     """Bytes one cached position of one kv head costs in the K or V plane:
-    ``d`` page elements (2 bytes on a bf16 pool, 1 on an unscaled e4m3
-    one), plus a float32 scale on a quantized pool."""
-    return {"": 2 * d, E4M3: d}.get(kv_quant, d + 4)
+    ``d`` page elements (2 bytes on a bf16 or unscaled fp16 pool, 1 on an
+    unscaled e4m3 or e5m2 one), plus a float32 scale on a quantized
+    pool."""
+    return {"": 2 * d, E4M3: d, "e5m2": d, "f16": 2 * d}.get(kv_quant, d + 4)
 
 
 def quantize_pages(torch, pages, kv_quant, d=D):
@@ -1078,7 +1108,7 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels,
           f"expected {'/'.join(paths)}")
     sp = SamplingParams(max_tokens=32)
     pa.reset_launch_counts()
-    steps0, waits0 = eng.steps, eng.admission_waits
+    steps0, waits0 = eng.step_calls, eng.admission_waits
     t0 = time.monotonic()
     res = eng.generate(prompts, sp)
     torch.cuda.synchronize()
@@ -1086,7 +1116,7 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels,
     waits = eng.admission_waits - waits0
     pre_s = eng.prefill_dispatch_s
     launches = {rec: getattr(pa, fn).launches for rec, fn in kernels.items()}
-    steps = eng.steps - steps0
+    steps = eng.step_calls - steps0
     for r in res:
         check(r.finish_reason in ("eos", "length"),
               f"{name} {r.request_id}: finish {r.finish_reason} {r.error}")
@@ -1100,7 +1130,7 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels,
           f"{eng.watchdog_trips} watchdog trips")
     check(eng.pool_bytes == eng.pages.nbytes(),
           f"{name}: pool bytes {eng.pool_bytes} != {eng.pages.nbytes()}")
-    first_run = (steps, eng.decode_steps)
+    first_run = (steps, eng.steps)
     ttft = statistics.median(r.ttft_s for r in res)
     tok_s = eng.decode_tokens / eng.decode_s
     graphs = f"; {graph_line(torch, eng)}" if ecfg.decode_graphs else ""
@@ -1113,7 +1143,7 @@ def run_engine(torch, st, model, prompts, name, overrides, paths, kernels,
     print(f"phase {phase}: {name}: first (cold) run: ttft p50 "
           f"{ttft * 1e3:.1f} ms, decode {tok_s:.1f} tok/s "
           f"({eng.decode_tokens} tokens in {eng.decode_s:.2f} s, "
-          f"{eng.decode_steps} decode steps), weights "
+          f"{eng.steps} decode steps), weights "
           f"{param_bytes(model)} B, pool {eng.pool_bytes} B "
           f"[{st['gpu']}]")
     tokens0, secs0 = eng.decode_tokens, eng.decode_s
@@ -1232,7 +1262,7 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels,
                               for s in eng._slots):
         eng.step()
     torch.cuda.synchronize()
-    steps0, tokens0 = eng.decode_steps, eng.decode_tokens
+    steps0, tokens0 = eng.steps, eng.decode_tokens
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         while eng.has_work:
@@ -1247,7 +1277,7 @@ def trace_decode(torch, eng, prompts, sp, want_ids, st, name, kernels,
         if e.device_type == DeviceType.CUDA:
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             per_n[e.name] = per_n.get(e.name, 0) + 1
-    steps = eng.decode_steps - steps0
+    steps = eng.steps - steps0
     busy = sum(per.values())
     n_kernels = sum(per_n.values())
     check(steps > 0, f"{name}: no decode step in the traced window")
@@ -1548,7 +1578,7 @@ def phase5(torch, np, st):
 
     backend = LocalEngineBackend(engine=eng, tokenizer=tok)
     try:
-        steps0 = (eng.decode_steps, eng.bounded_decode_steps)
+        steps0 = (eng.steps, eng.bounded_decode_steps)
         tokens0, secs0 = eng.decode_tokens, eng.decode_s
         pa.reset_launch_counts()
         results, outs, errors, wall = burst(backend, questions, frees,
@@ -1573,14 +1603,14 @@ def phase5(torch, np, st):
         tok_s = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
         lens = [len(outs[f"verdict-{i}"]) for i in range(16)]
         print(f"phase 5: burst of 25 through LocalEngineBackend -> "
-              f"EngineService: {wall:.2f} s wall, {eng.decode_steps - steps0[0]}"
+              f"EngineService: {wall:.2f} s wall, {eng.steps - steps0[0]}"
               f" decode steps ({bounded} bounded-sampled); ttft p50 "
               f"{np.percentile(ttfts, 50) * 1e3:.1f} ms, p99 "
               f"{np.percentile(ttfts, 99) * 1e3:.1f} ms; decode {tok_s:.1f} "
               f"tok/s; constrained_decode_overhead_ms "
               f"{backend.constrained_decode_overhead_ms:.3f}; launches "
               f"{launches}; steps that waited on the device while "
-              f"dispatching {eng.admission_waits} of {eng.steps}; "
+              f"dispatching {eng.admission_waits} of {eng.step_calls}; "
               f"{eng.prefill_dispatch_s * 1e3:.1f} ms of host time "
               f"dispatching prefill rounds [{gpu}]")
         print(f"phase 5: 16 verdicts parse ({min(lens)}..{max(lens)} chars); "
@@ -1618,13 +1648,13 @@ def phase5(torch, np, st):
     per_step = {64: [], 0: [], "cold": []}
     for cap in (64, 0, 64, 0, 0, 64):
         eng.ecfg.sample_topk_cap = cap
-        s0, d0, b0 = eng.decode_s, eng.decode_steps, eng.bounded_decode_steps
+        s0, d0, b0 = eng.decode_s, eng.steps, eng.bounded_decode_steps
         res = eng.generate(prompts, sp)
         check(all(r.finish_reason in ("eos", "length") for r in res),
               f"sampled run at cap {cap}: {[r.error for r in res]}")
         check((eng.bounded_decode_steps > b0) == (cap > 0), "sampler choice")
         per_step[cap if len(per_step["cold"]) == 2 else "cold"].append(
-            (eng.decode_s - s0) / (eng.decode_steps - d0))
+            (eng.decode_s - s0) / (eng.steps - d0))
     eng.ecfg.sample_topk_cap = 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     logits = torch.randn(32, cfg.vocab_size, generator=gen, device="cuda",
@@ -1811,16 +1841,16 @@ def greedy_eight(backend, eng, prompts, arm_after_steps=None):
         except Exception as exc:
             errors.append(f"generate {i}: {type(exc).__name__}: {exc}")
 
-    d0 = eng.decode_steps
+    d0 = eng.steps
     threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
     for t in threads:
         t.start()
     if arm_after_steps is not None:
         deadline = time.monotonic() + 300
-        while (eng.decode_steps < d0 + arm_after_steps
+        while (eng.steps < d0 + arm_after_steps
                and time.monotonic() < deadline):
             time.sleep(0.001)
-        check(eng.decode_steps >= d0 + arm_after_steps,
+        check(eng.steps >= d0 + arm_after_steps,
               "the greedy calls never reached the crash point")
         sup = backend.supervisor
         restarts = sup.restarts
@@ -1886,8 +1916,6 @@ def phase6(torch, np, st):
     tc.model, tc.quantize, tc.spec_k = "llama3-8b", "", 0
     tc.kv_blocks, tc.max_batch = 4096, 32
     cfg.lifecycle.journal_dir = journal_dir
-    cfg.telemetry.enabled = False
-    cfg.remediation.enabled = False
     cfg.diagnosis.enabled = True
     fake = seed_demo_cluster(FakeCluster())
     mem0 = torch.cuda.memory_allocated()
@@ -1974,7 +2002,7 @@ def phase6(torch, np, st):
               f"{pc.hits}, misses {pc.misses}, entries {len(pc)}; "
               f"deferrals {eng.prefix_deferrals}; prefill rows "
               f"{eng.prefill_tokens}; steps that waited on the device "
-              f"while dispatching {eng.admission_waits} of {eng.steps} "
+              f"while dispatching {eng.admission_waits} of {eng.step_calls} "
               f"[{gpu}]")
 
         # The standing diagnosis loop: a crash-loop burst of Warning events
@@ -2012,6 +2040,15 @@ def phase6(torch, np, st):
               f"{payload['pipeline']['queries']}) [{gpu}]")
         watcher.stop()
         watcher = None
+        # The pipeline's plan stage (remediation, observe-only, on by
+        # default) runs after each verdict on the pipeline's worker: it is
+        # done once the worker has stopped, before the rebuild below.
+        srv.diagnosis.stop(timeout=300)
+        recs = srv.remediation.records()
+        print(f"phase 6: remediation (observe-only): {len(recs)} plan(s) "
+              f"{[(r['plan']['verb'], r['status'], r['planner']) for r in recs]}"
+              f"; signal scraper {srv.signals.counters()['scrapes_total']} "
+              f"scrapes [{gpu}]")
 
         # A rebuild: eight greedy calls without, then with one step-loop
         # crash partway through.
@@ -2079,8 +2116,7 @@ def phase6(torch, np, st):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, LLM_TPU_MODEL="tiny", LLM_TPU_QUANTIZE="",
-               LLM_TPU_SPEC_K="0", TELEMETRY_ENABLED="false",
-               REMEDIATION_ENABLED="false", LLM_MAX_TOKENS="16",
+               LLM_TPU_SPEC_K="0", LLM_MAX_TOKENS="16",
                LIFECYCLE_JOURNAL_DIR=os.path.join(tmp, "cmd-journal"),
                K8SLLM_FLIGHT_DIR=os.path.join(tmp, "flight"))
     log_path = os.path.join(tmp, "cmd_server.log")
@@ -2353,7 +2389,7 @@ def phase7(torch, np, st):
           f"(about {need} tokens) on a pool of {eng.allocator.num_blocks} x "
           f"16: all complete in {wall:.2f} s, preemptions by class "
           f"{eng.preemptions_by_class}, requeues {eng.requeues}, prefill "
-          f"rows {eng.prefill_tokens}, decode steps {eng.decode_steps}, "
+          f"rows {eng.prefill_tokens}, decode steps {eng.steps}, "
           f"ttft p50 {np.percentile(ttfts, 50) * 1e3:.1f} ms; "
           f"{graph_line(torch, eng)} [{gpu}]")
     check_baseline(eng, baseline, "7b")
@@ -2559,7 +2595,7 @@ def spec_run(torch, st, model, prompts, name, overrides, max_tokens,
           f"decode "
           f"{cold:.1f} tok/s cold, {tok_s:.1f} tok/s warm ({same} of "
           f"{len(res)} id sequences equal across the two runs; "
-          f"{eng.decode_tokens} tokens, {eng.decode_steps} decode steps in "
+          f"{eng.decode_tokens} tokens, {eng.steps} decode steps in "
           f"both), launches { {k: v for k, v in launches.items() if v} } "
           f"(first run); {graph_line(torch, eng)} [{st['gpu']}]")
     return eng, [r.token_ids for r in res], launches, tok_s, (first, second)
@@ -2735,8 +2771,8 @@ def default_front_door(torch, np, st):
     """8c: the monitor's default config served as load_config(None) gives
     it (llama-1b, W8A8: int8 weights from seed 0 and int8 activations,
     spec_k 4, spec_min_accept 1.2, 32 slots, 512 blocks of 16: a
-    1,024-token table), with only telemetry and remediation off (ROADMAP
-    A13), through build_server: the supervisor's step thread
+    1,024-token table; telemetry and remediation on), through
+    build_server: the supervisor's step thread
     captures the spec and decode graphs, and phase 6's HTTP burst puts
     spec calls beside admissions in flight and constrained lanes under the
     acceptance gate.  Every response must succeed, the split paged
@@ -2759,8 +2795,6 @@ def default_front_door(torch, np, st):
     cfg.llm.provider = "tpu"
     cfg.llm.max_tokens = 64
     cfg.lifecycle.journal_dir = tmp
-    cfg.telemetry.enabled = False
-    cfg.remediation.enabled = False
     tc = cfg.llm.tpu
     t0 = time.monotonic()
     srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
@@ -3257,8 +3291,8 @@ def replaces(name: str) -> int:
 
 def sdpa_args(torch, q, kp, vp, table, ctx_max, mask, scales):
     """q, K, V and mask for one SDPA call: K/V gathered (and dequantized,
-    or an fp8 pool widened, to bf16) beforehand, heads repeated,
-    batch-head major."""
+    or an fp8 pool widened, to bf16; fp16 pages as they are, q cast to
+    fp16) beforehand, heads repeated, batch-head major."""
     from k8s_llm_monitor_tpu_torch.ops.attention import (
         gather_dequant, gather_pages, widen_pages)
 
@@ -3269,6 +3303,10 @@ def sdpa_args(torch, q, kp, vp, table, ctx_max, mask, scales):
         k = gather_dequant(kp, scales["k_scale"], table[:, :nb], d)
         v = gather_dequant(vp, scales["v_scale"], table[:, :nb], d)
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    elif kp.dtype == torch.float16:       # SDPA in fp16 on fp16 pages
+        q = q.to(torch.float16)
+        k = gather_pages(kp, table[:, :nb]).reshape(B, -1, nkv, d)
+        v = gather_pages(vp, table[:, :nb]).reshape(B, -1, nkv, d)
     else:
         k = widen_pages(gather_pages(kp, table[:, :nb])).reshape(B, -1, nkv, d)
         v = widen_pages(gather_pages(vp, table[:, :nb])).reshape(B, -1, nkv, d)
@@ -3632,50 +3670,98 @@ def phase4(torch, np, st):
 # B8) and the KV tiers (A5).
 
 FP8_KV = "float8_e4m3fn"
+# Unscaled pools of another page dtype than the model's, by their kernel
+# instances' symbol suffix (the record tag): B8's e4m3 (phase 10), B9's
+# e5m2 and fp16 (phase 11).
+UNSCALED_KV = {E4M3: FP8_KV, "e5m2": "float8_e5m2", "f16": "float16"}
+INF, NAN = float("inf"), float("nan")
 # e4m3fn's rounding edge (448 is its largest value, 464 the midpoint to the
 # NaN code), infinities, NaNs, subnormals and their halves.
 E4M3_EDGE = [0.0, -0.0, 1.0, 448.0, 449.0, 460.0, 464.0, 464.00003, 465.0,
              470.0, 480.0, 500.0, -460.0, -464.0, -470.0, -500.0, 1e30,
-             float("inf"), float("-inf"), float("nan"), 2.0 ** -9,
+             INF, -INF, NAN, 2.0 ** -9,
              2.0 ** -10, 2.0 ** -10 * 1.0001, 3 * 2.0 ** -11,
              -1.5 * 2.0 ** -10, 2.0 ** -6, 1e-30]
-# bf16 values past and at e4m3's edge, written into appended rows.
-E4M3_ROW_EDGE = [448.0, 456.0, 464.0, 472.0, 480.0, 496.0, 512.0, -464.0,
-                 -472.0, -480.0, -512.0, 2.0 ** -10]
+# e5m2's (57344 its largest finite value, 61440 the midpoint to infinity;
+# subnormals from 2^-16) and fp16's (65504, 65520; subnormals from 2^-24).
+E5M2_EDGE = [0.0, -0.0, 1.0, 57344.0, 57345.0, 59000.0, 61439.0,
+             61439.996, 61440.0, 61441.0, 65536.0, -57344.0, -61439.0,
+             -61440.0, -70000.0, 1e30, INF, -INF, NAN, -NAN, 2.0 ** -16,
+             2.0 ** -17, 2.0 ** -17 * 1.0001, 3 * 2.0 ** -18,
+             -1.5 * 2.0 ** -16, 2.0 ** -14, 1e-30]
+F16_EDGE = [0.0, -0.0, 1.0, 65504.0, 65505.0, 65519.0, 65519.996, 65520.0,
+            65521.0, 70000.0, -65504.0, -65520.0, 1e30, INF, -INF, 2.0 ** -14,
+            2.0 ** -15, 2.0 ** -24, 2.0 ** -25, 2.0 ** -25 * 1.0001,
+            3 * 2.0 ** -26, -1.5 * 2.0 ** -24, 1e-30]
+# bf16 values past and at each format's edge, written into appended rows
+# (finite in the f32 row the current token folds in).
+ROW_EDGE = {
+    E4M3: [448.0, 456.0, 464.0, 472.0, 480.0, 496.0, 512.0, -464.0, -472.0,
+           -480.0, -512.0, 2.0 ** -10],
+    "e5m2": [57344.0, 59392.0, 60416.0, 61440.0, 61952.0, 65536.0, -57344.0,
+             -60416.0, -61440.0, -65536.0, 2.0 ** -16, 2.0 ** -18],
+    "f16": [65024.0, 65280.0, 65536.0, 66048.0, -65280.0, -65536.0,
+            2.0 ** -14, 2.0 ** -20, 2.0 ** -24, 2.0 ** -25, 3 * 2.0 ** -26,
+            -2.0 ** -24],
+}
+# f32 roped k values across the edge, made on one lane as k * cos with sin
+# 0 (k a bf16 value of the row edge): what the f32 -> page conversion of
+# the appended k meets between bf16's steps.
+ROPE_EDGE = {"e5m2": (57344.0, [57344.0, 59000.0, 61439.0, 61439.996,
+                                61440.0, 61441.0, 62000.0, 65000.0]),
+             "f16": (65280.0, [65504.0, 65505.0, 65519.0, 65519.996,
+                               65520.0, 65521.0, 65535.0, 65280.0])}
+# Rows of infinities and NaN, on a lane of their own (its output is not
+# finite; its appended bytes are still held), for the formats that keep
+# them: in v and k on e5m2 pages; in v only on fp16 pages (RoPE at sin 0
+# makes inf * 0 a NaN in k, whose bits the fp16 conversions need not
+# agree on, and jnp's fp16 NaN is not what the card is held to).
+NONFINITE_ROW = {"e5m2": [INF, -INF, NAN, -NAN], "f16": [INF, -INF]}
 
 
-def e4m3(torch, *pages):
-    """bf16 pages as an unscaled fp8 pool, with jnp's rounding."""
-    from k8s_llm_monitor_tpu_torch.models.llama import cast_e4m3
+def unscaled_cast(torch, kv):
+    """The page write of an unscaled pool: ``cast_e4m3`` / ``cast_e5m2``
+    (jnp's conversions), or ``.to(torch.float16)``."""
+    from k8s_llm_monitor_tpu_torch.models.llama import cast_e4m3, cast_e5m2
 
-    return [cast_e4m3(p) for p in pages]
+    return {E4M3: cast_e4m3, "e5m2": cast_e5m2,
+            "f16": lambda x: x.to(torch.float16)}[kv]
 
 
-def e4m3_prefill_case(torch, rng, gen, B, S, starts, lengths, heads=(H, KVH),
-                      bs=BS, d=D):
+def pool_prefill_case(torch, rng, gen, B, S, starts, lengths, heads=(H, KVH),
+                      bs=BS, d=D, kv=E4M3):
+    """prefill_case over an unscaled pool of page type ``kv``."""
     q, kp, vp, table, st, ln = prefill_case(torch, rng, gen, B, S, starts,
                                             lengths, heads, bs, d)
-    return (q, *e4m3(torch, kp, vp), table, st, ln)
+    cast = unscaled_cast(torch, kv)
+    return (q, cast(kp), cast(vp), table, st, ln)
 
 
-def e4m3_decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS,
-                     d=D):
+def pool_decode_case(torch, rng, gen, positions, nbl, heads=(H, KVH), bs=BS,
+                     d=D, kv=E4M3):
     q, kn, vn, cos, sin, kp, vp, table, pos = decode_case(
         torch, rng, gen, positions, nbl, heads, bs, d)
-    return (q, kn, vn, cos, sin, *e4m3(torch, kp, vp), table, pos)
+    cast = unscaled_cast(torch, kv)
+    return (q, kn, vn, cos, sin, cast(kp), cast(vp), table, pos)
+
+
+def kv_bytes(kv):
+    """Bytes of one page element of an unscaled pool."""
+    return 2 if kv == "f16" else 1
 
 
 # 10a/10b's flash prefill shapes: phase 4's admission round, the 2048
-# chunk, phase 7a's prefix-hit round and the spec verify shape.
-def e4m3_prefill_shapes(lens):
+# chunk, phase 7a's prefix-hit round (a continuation) and the spec verify
+# shape.
+def unscaled_prefill_shapes(lens):
     return [("admission", 1024, [0] * 8, [min(n, 1024) for n in lens[:8]]),
             ("chunk", 2048, [0], [2048]),
             ("hit", 256, *HIT_SHAPE),
             ("verify", 5, *VERIFY_SHAPE)]
 
 
-def e4m3_positions(rng, chunk=128):
-    """Fused decode positions: both sides of the e4m3 pool's key chunk
+def unscaled_positions(rng, chunk=128):
+    """Fused decode positions: both sides of the pool's key chunk
     boundaries, an inactive lane, one cached row, block edges, the table's
     last row and a lane past it (128 x 16 table), random contexts."""
     fixed = sorted({0, 1} | {p for c in (chunk, 2 * chunk)
@@ -3685,39 +3771,49 @@ def e4m3_positions(rng, chunk=128):
                                                  size=32 - len(fixed))]
 
 
-def phase10a(torch, np, st):
-    """Each B8 instance against its plain version on its first call."""
-    from k8s_llm_monitor_tpu_torch.models.llama import cast_e4m3
+def unscaled_checks(torch, np, st, kv, tag):
+    """Each instance over an unscaled ``kv`` pool against its plain
+    version on its first call (phase 10a for e4m3, 11a for e5m2 and f16):
+    the page cast on the card against the CPU's; B1 at qpk 4 and 7; B2 at
+    D 128 (qpk 4, 7) and 64 with the appended bytes bit for bit, rows at
+    the format's edges included; B3 at QS 1, 5 and 8, rows past qlens and
+    empty lanes zero."""
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(10)
     gen = torch.Generator(device="cuda").manual_seed(10)
     errs = st.setdefault("max_abs_err", {})
     ulps = {}
+    cast = unscaled_cast(torch, kv)
     # The cast on the card gives the CPU's codes (which the CPU tests hold
     # to jnp.astype bit for bit), from float32 and from bf16.
-    x = torch.cat([torch.tensor(E4M3_EDGE),
+    edge = {E4M3: E4M3_EDGE, "e5m2": E5M2_EDGE, "f16": F16_EDGE}[kv]
+    top = {E4M3: 10, "e5m2": 17, "f16": 17}[kv]
+    x = torch.cat([torch.tensor(edge),
                    torch.from_numpy(rng.standard_normal(100_000)
                                     .astype(np.float32) * 3),
                    torch.from_numpy((rng.uniform(-1, 1, 50_000) * 2.0 ** (
-                       rng.integers(-14, 10, 50_000))).astype(np.float32))])
+                       rng.integers(-26, top, 50_000))).astype(np.float32))])
+    bits = torch.uint8 if kv_bytes(kv) == 1 else torch.int16
     for src in (x, x.to(torch.bfloat16)):
-        dev = cast_e4m3(src.cuda()).view(torch.uint8).cpu()
-        check(torch.equal(dev, cast_e4m3(src).view(torch.uint8)),
-              f"cast_e4m3 on the card differs from the CPU's ({src.dtype})")
-    print(f"phase 10a: cast_e4m3 on the card equals the CPU's on "
-          f"{x.numel()} float32 and bf16 values (edges, NaN, subnormals)")
+        dev = cast(src.cuda()).view(bits).cpu()
+        check(torch.equal(dev, cast(src).view(bits)),
+              f"the {kv} page cast on the card differs from the CPU's "
+              f"({src.dtype})")
+    print(f"phase {tag}: the {kv} page cast on the card equals the CPU's on "
+          f"{x.numel()} float32 and bf16 values (edges, non-finite, "
+          "subnormals)")
 
     lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
-    # B1: flash prefill over e4m3 pages at qpk 4 (Llama-3-8B) and 7
-    # (Qwen2-7B); empty lanes zero.
+    # B1: flash prefill at qpk 4 (Llama-3-8B) and 7 (Qwen2-7B); empty
+    # lanes zero.
     for heads in ((H, KVH), HEADS_QWEN):
-        for label, S, starts, lengths in e4m3_prefill_shapes(lens):
-            name = (f"flash_prefill_{E4M3}" + ("_verify" if label == "verify"
-                                               else "")
+        for label, S, starts, lengths in unscaled_prefill_shapes(lens):
+            name = (f"flash_prefill_{kv}" + ("_verify" if label == "verify"
+                                             else "")
                     + qpk_suffix(heads, D))
-            case = e4m3_prefill_case(torch, rng, gen, len(starts), S, starts,
-                                     lengths, heads)
+            case = pool_prefill_case(torch, rng, gen, len(starts), S, starts,
+                                     lengths, heads, kv=kv)
             got = pa.flash_prefill_attention(*case)
             want = pa.flash_prefill_attention_plain(*case)
             torch.cuda.synchronize()
@@ -3728,29 +3824,49 @@ def phase10a(torch, np, st):
                     continue
                 check_rows(torch, name, got[b, :n], want[b, :n],
                            slice(None), errs, ulps)
-            print(f"phase 10a: {name} {label} H={heads[0]} KVH={heads[1]} "
+            print(f"phase {tag}: {name} {label} H={heads[0]} KVH={heads[1]} "
                   f"S={S}: ok, max abs err {errs[name]:.4g}, max err "
                   f"{ulps[name]:.3g} ulps of the row")
             del case, got, want
     torch.cuda.empty_cache()
 
     # B2: fused decode, outputs, and the appended rows' bytes bit for bit
-    # (the plain version casts the f32 roped row with cast_e4m3, the kernel
-    # with __NV_NOSAT); then rows holding e4m3's edge values.
+    # (the plain version casts the f32 roped row with the pool's cast, the
+    # kernel with its conversion); rows holding the format's edge values on
+    # lanes 2, 5 and 9 (lane 5 ropes at angle 0: cos 1, sin 0, so its k
+    # row reaches the page unrotated); on lane 12 k * cos lands on f32
+    # values across the edge; infinities and NaN on lane 20, whose output
+    # is not held.
+    chunk = pa.DECODE_CHUNK[kv_bytes(kv)]
+    row_edge = ROW_EDGE[kv]
+    nonfinite = NONFINITE_ROW.get(kv, [])
     for d, heads in ((D, (H, KVH)), (D, HEADS_QWEN), (D64, HEADS_1B)):
-        name = f"fused_decode_{E4M3}" + ("_d64" if d == D64
-                                         else qpk_suffix(heads, d))
-        positions = e4m3_positions(rng)
+        name = f"fused_decode_{kv}" + ("_d64" if d == D64
+                                       else qpk_suffix(heads, d))
+        positions = unscaled_positions(rng, chunk)
         nbl = 128
-        case = e4m3_decode_case(torch, rng, gen, positions, nbl, heads, BS, d)
-        edge = torch.tensor(E4M3_ROW_EDGE, device="cuda").to(torch.bfloat16)
-        edge_lanes = (2, 5, 9)
-        for b in edge_lanes:         # raw k and v rows past +-464
-            case[1][b, 0, :, :len(E4M3_ROW_EDGE)] = edge
-            case[2][b, 0, :, :len(E4M3_ROW_EDGE)] = edge.flip(0)
-        # Lane 5 ropes at angle 0 (cos 1, sin 0): its k row reaches the
-        # page unrotated, the edge values included.
+        case = pool_decode_case(torch, rng, gen, positions, nbl, heads, BS, d,
+                                kv)
+        edge = torch.tensor(row_edge, device="cuda").to(torch.bfloat16)
+        for b in (2, 5, 9):          # raw k and v rows at the edge
+            case[1][b, 0, :, :len(row_edge)] = edge
+            case[2][b, 0, :, :len(row_edge)] = edge.flip(0)
         case[3][5], case[4][5] = 1.0, 0.0
+        if kv in ROPE_EDGE:
+            k0, targets = ROPE_EDGE[kv]
+            case[1][12, 0, :, :len(targets)] = k0
+            case[3][12] = 1.0
+            case[3][12, :, :len(targets)] = (torch.tensor(targets) / k0).to(
+                case[3].device)
+            case[4][12] = 0.0
+        lanes = list(range(len(positions)))
+        if nonfinite:
+            bad = torch.tensor(nonfinite, device="cuda").to(torch.bfloat16)
+            if kv == "e5m2":
+                case[1][20, 0, :, :len(nonfinite)] = bad
+            case[2][20, 0, :, :len(nonfinite)] = bad.flip(0)
+            case[3][20], case[4][20] = 1.0, 0.0
+            lanes.remove(20)
         pos_t = case[-1]
         covered = (pos_t > 0) & (pos_t < nbl * BS)
         ck = [t.clone() for t in case]
@@ -3760,32 +3876,42 @@ def phase10a(torch, np, st):
         torch.cuda.synchronize()
         check(got[1].data_ptr() == ck[5].data_ptr(),
               f"{name}: pool not updated in place")
-        check_rows(torch, name, got[0], want[0], covered | (pos_t == 0),
-                   errs, ulps)
-        diff = [int((got[i].view(torch.uint8) != want[i].view(torch.uint8))
-                    .sum()) for i in (1, 2)]
+        keep = torch.tensor(lanes, device="cuda")
+        check_rows(torch, name, got[0][keep], want[0][keep],
+                   (covered | (pos_t == 0))[keep], errs, ulps)
+        diff = [int((got[i].view(bits) != want[i].view(bits)).sum())
+                for i in (1, 2)]
         check(diff == [0, 0], f"{name}: appended bytes differ (k, v): {diff}")
-        nans = int(torch.isnan(got[2].float()).sum())
-        check(nans > 0, f"{name}: no NaN code appended from the edge rows")
-        print(f"phase 10a: {name} H={heads[0]} KVH={heads[1]} D={d} B=32 "
+        pages = torch.cat([got[1].float().flatten(), got[2].float().flatten()])
+        n_nan = int(torch.isnan(pages).sum())
+        n_inf = int(torch.isinf(pages).sum())
+        if kv == E4M3:
+            check(n_nan > 0, f"{name}: no NaN code appended from the edge "
+                             "rows")
+        else:
+            check(n_inf > 0, f"{name}: no infinity appended from the edge "
+                             "rows")
+            check(kv != "e5m2" or n_nan > 0,
+                  f"{name}: no NaN code appended from the NaN rows")
+        print(f"phase {tag}: {name} H={heads[0]} KVH={heads[1]} D={d} B=32 "
               f"positions {positions[:10]}...: ok, max abs err "
               f"{errs[name]:.4g}, max err {ulps[name]:.3g} ulps of the row; "
-              f"pages bit for bit ({nans} NaN codes in v from the "
-              f"+-464..512 rows)")
-        del case, ck, cp, got, want
+              f"pages bit for bit ({n_nan} NaN and {n_inf} infinite values "
+              f"appended from the edge rows)")
+        del case, ck, cp, got, want, pages
     torch.cuda.empty_cache()
 
     # B3: split paged attention at QS=1 (decode wrapper, an empty lane)
-    # and QS=5 (verify wrapper, rows past qlens and an empty lane), both
-    # sides of the 128-key chunks of a 1-byte pool.
+    # and QS=5 and 8 (verify wrapper, rows past qlens and an empty lane),
+    # both sides of the pool's key chunk boundaries.
     for d, heads in ((D, (H, KVH)), (D, HEADS_QWEN), (D64, HEADS_1B)):
         sfx = "_d64" if d == D64 else qpk_suffix(heads, d)
-        name = f"paged_attn_{E4M3}" + sfx
+        name = f"paged_attn_{kv}" + sfx
         positions = [0, 5, 1, 15, 16, 127, 128, 129, 255, 256, 257, 2047] + [
             int(x) for x in rng.integers(1, 2048, size=20)]
         nbl = 2048 // BS + 1
-        q, _, _, _, _, kp, vp, table, pos = e4m3_decode_case(
-            torch, rng, gen, positions, nbl, heads, BS, d)
+        q, _, _, _, _, kp, vp, table, pos = pool_decode_case(
+            torch, rng, gen, positions, nbl, heads, BS, d, kv)
         lens = pos + 1
         lens[1] = 0
         got = pa.paged_decode_attention_pallas(q, kp, vp, table, lens)
@@ -3795,33 +3921,43 @@ def phase10a(torch, np, st):
         check(bool((got[1] == 0).all()), f"{name}: the empty lane is not "
                                          "zeroed")
         check_rows(torch, name, got, want, lens > 0, errs, ulps)
-        vname = f"paged_attn_{E4M3}_verify" + sfx
-        starts = [0, 123, 124, 125, 250, 251, 252, 700, 1000, 2040, 0, 3]
-        qlens = [5, 5, 5, 5, 5, 5, 5, 4, 3, 5, 0, 2]
-        vcase = e4m3_prefill_case(torch, rng, gen, len(starts), 5, starts,
-                                  qlens, heads, BS, d)
-        got = pa.paged_verify_attention_pallas(*vcase)
-        want = pa.flash_prefill_attention_plain(*vcase)
-        torch.cuda.synchronize()
-        for b, n in enumerate(qlens):
-            check(bool((got[b, n:] == 0).all()),
-                  f"{vname}: rows past qlens of lane {b} not zeroed")
-            if n:
-                check_rows(torch, vname, got[b, :n], want[b, :n],
-                           slice(None), errs, ulps)
-        print(f"phase 10a: {name} QS=1 and {vname} QS=5 H={heads[0]} "
+        vname = f"paged_attn_{kv}_verify" + sfx
+        for QS in (5, 8):
+            starts = [0, 123, 124, 125, 250, 251, 252, 700, 1000, 2040, 0, 3]
+            qlens = [QS, QS, QS, QS, QS, QS, QS, QS - 1, 3, QS, 0, 2]
+            vcase = pool_prefill_case(torch, rng, gen, len(starts), QS,
+                                      starts, qlens, heads, BS, d, kv)
+            vgot = pa.paged_verify_attention_pallas(*vcase)
+            vwant = pa.flash_prefill_attention_plain(*vcase)
+            torch.cuda.synchronize()
+            for b, n in enumerate(qlens):
+                check(bool((vgot[b, n:] == 0).all()),
+                      f"{vname} QS={QS}: rows past qlens of lane {b} not "
+                      "zeroed")
+                if n:
+                    check_rows(torch, vname, vgot[b, :n], vwant[b, :n],
+                               slice(None), errs, ulps)
+            del vcase, vgot, vwant
+        print(f"phase {tag}: {name} QS=1 and {vname} QS=5, 8 H={heads[0]} "
               f"KVH={heads[1]} D={d}: ok, max abs err {errs[name]:.4g} / "
               f"{errs[vname]:.4g}, max err {ulps[name]:.3g} / "
               f"{ulps[vname]:.3g} ulps of the row")
-        del q, kp, vp, table, vcase, got, want
+        del q, kp, vp, table, got, want
     torch.cuda.empty_cache()
-    print(f"phase 10a: tolerance atol {TOL['atol']} rtol {TOL['rtol']} and "
+    print(f"phase {tag}: tolerance atol {TOL['atol']} rtol {TOL['rtol']} and "
           f"{ULP_TOL} bf16 ulps of each (row, head)'s largest value; rows "
           "past qlens and empty lanes zero; appended bytes bit for bit")
 
 
-def phase10b(torch, np, st):
-    """Each B8 instance timed by phase 4's method at phase 4's shapes."""
+def phase10a(torch, np, st):
+    """Each B8 instance against its plain version on its first call."""
+    unscaled_checks(torch, np, st, E4M3, "10a")
+
+
+def unscaled_timings(torch, np, st, kv, tag, qpk7=True):
+    """Each instance over an unscaled ``kv`` pool timed by phase 4's method
+    at phase 4's shapes (phase 10b for e4m3, 11b for e5m2 and f16; the
+    qpk-7 shapes where a Qwen2-7B engine runs the pool: phase 9a's e4m3)."""
     import torch.nn.functional as F
 
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
@@ -3830,17 +3966,18 @@ def phase10b(torch, np, st):
     gen = torch.Generator(device="cuda").manual_seed(11)
     lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
     gpu = st["gpu"]
+    nbytes = kv_bytes(kv)
     # Llama-3-8B's heads at every shape; Qwen2-7B's 28/4 (qpk 7) at the
     # admission and verify shapes, as phase 4 times the bf16 qpk-7 rows.
-    shapes = [((H, KVH), "", shape) for shape in e4m3_prefill_shapes(lens)]
+    shapes = [((H, KVH), "", shape) for shape in unscaled_prefill_shapes(lens)]
     shapes += [(HEADS_QWEN, "_qpk7", shape) for shape in
-               e4m3_prefill_shapes(lens) if shape[0] in ("admission",
-                                                         "verify")]
+               unscaled_prefill_shapes(lens) if qpk7 and shape[0] in (
+                   "admission", "verify")]
     for heads, sfx, (label, S, starts, lengths) in shapes:
-        name = (f"flash_prefill_{E4M3}"
+        name = (f"flash_prefill_{kv}"
                 + ("_verify" if label == "verify" else "") + sfx)
-        case = e4m3_prefill_case(torch, rng, gen, len(starts), S, starts,
-                                 lengths, heads)
+        case = pool_prefill_case(torch, rng, gen, len(starts), S, starts,
+                                 lengths, heads, kv=kv)
         ms = time_ms(torch, lambda: pa.flash_prefill_attention(*case),
                      rounds=5)
         alone = time_ms(torch, flash_alone(torch, pa, case, {}), rounds=5)
@@ -3854,8 +3991,8 @@ def phase10b(torch, np, st):
                                 case[3], ctx_max, keys <= pos, {})
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, k, v, attn_mask=m, scale=1.0), reps=5)
-        b_ms, by = bound(*prefill_work(starts, lengths, S, E4M3, heads))
-        print(f"phase 10b: {name} {label} B={len(starts)} S={S} "
+        b_ms, by = bound(*prefill_work(starts, lengths, S, kv, heads))
+        print(f"phase {tag}: {name} {label} B={len(starts)} S={S} "
               f"H={heads[0]} KVH={heads[1]}: kernel "
               f"{ms:.4f} ms (alone, on pre-scaled q: {alone:.4f} ms), plain "
               f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
@@ -3872,11 +4009,13 @@ def phase10b(torch, np, st):
                                   (D64, HEADS_1B, "_d64",
                                    (("engine", mid),)),
                                   (D, HEADS_QWEN, "_qpk7",
-                                   (("engine", mid),))):
+                                   (("engine", mid),) if qpk7 else ())):
+        if not shapes:
+            continue
         for label, positions in shapes:
-            name = f"fused_decode_{E4M3}" + sfx
-            case = e4m3_decode_case(torch, rng, gen, positions, nbl, heads,
-                                    BS, d)
+            name = f"fused_decode_{kv}" + sfx
+            case = pool_decode_case(torch, rng, gen, positions, nbl, heads,
+                                    BS, d, kv)
             ms = time_ms(torch, lambda: pa.paged_decode_attention_fused(
                 *case), rounds=5)
             alone = graph_ms(torch, decode_alone(torch, pa, case))
@@ -3889,9 +4028,9 @@ def phase10b(torch, np, st):
                                     keys <= case[8][:, None, None], {})
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=m), reps=5)
-            b_ms, by = bound(*decode_work(positions, E4M3, heads, d))
-            nsplit, chunk = pa.decode_splits(nbl, BS, 1)
-            print(f"phase 10b: {name} {label} B=32 active "
+            b_ms, by = bound(*decode_work(positions, kv, heads, d))
+            nsplit, chunk = pa.decode_splits(nbl, BS, nbytes)
+            print(f"phase {tag}: {name} {label} B=32 active "
                   f"{sum(p > 0 for p in positions)} max pos {max(positions)} "
                   f"H={heads[0]} KVH={heads[1]} D={d} table {nbl}x{BS} "
                   f"({nsplit} splits of {chunk}): kernel {ms:.4f} ms (alone: "
@@ -3903,8 +4042,8 @@ def phase10b(torch, np, st):
         # verify shape (QS=8 at Llama-3-8B's heads, as phase 4's; QS=5 from
         # each lane's position at head_dim 64 and at qpk 7, as phase 4's
         # rows there).
-        q1, _, _, _, _, kp, vp, table, _ = e4m3_decode_case(
-            torch, rng, gen, mid, nbl, heads, BS, d)
+        q1, _, _, _, _, kp, vp, table, _ = pool_decode_case(
+            torch, rng, gen, mid, nbl, heads, BS, d, kv)
         wide = d == D and not sfx
         QS = 8 if wide else 5
         qv = torch.randn(32, QS, heads[0], d, generator=gen,
@@ -3916,12 +4055,12 @@ def phase10b(torch, np, st):
         vql = [QS if p > 0 else 0 for p in mid]
         vst_t, vql_t = torch.tensor(vst, **dev_i), torch.tensor(vql, **dev_i)
         cases = (
-            (f"paged_attn_{E4M3}" + sfx, "engine", q1, dict(lengths=len_t),
+            (f"paged_attn_{kv}" + sfx, "engine", q1, dict(lengths=len_t),
              lambda: pa.paged_decode_attention_pallas(q1, kp, vp, table,
                                                       len_t),
              ((len_t - 1).clamp(min=0), len_t.clamp(max=1)),
              (list(mid), [1] * len(mid))),
-            (f"paged_attn_{E4M3}_verify" + sfx, "verify", qv,
+            (f"paged_attn_{kv}_verify" + sfx, "verify", qv,
              dict(starts=vst_t, qlens=vql_t),
              lambda: pa.paged_verify_attention_pallas(qv, kp, vp, table,
                                                       vst_t, vql_t),
@@ -3942,8 +4081,8 @@ def phase10b(torch, np, st):
                                     ctx_max, keys <= pos, {})
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=m, scale=1.0), reps=5)
-            b_ms, by = bound(*paged_attn_work(sts, qls, heads, d, 1))
-            print(f"phase 10b: {name} {label} B=32 QS={S} active "
+            b_ms, by = bound(*paged_attn_work(sts, qls, heads, d, nbytes))
+            print(f"phase {tag}: {name} {label} B=32 QS={S} active "
                   f"{sum(n > 0 for n in qls)} max length {ctx_max} "
                   f"H={heads[0]} KVH={heads[1]} D={d} table {nbl}x{BS}: "
                   f"kernel {ms:.4f} ms (alone: {alone:.4f} ms), plain "
@@ -3955,9 +4094,19 @@ def phase10b(torch, np, st):
         torch.cuda.empty_cache()
 
 
+def phase10b(torch, np, st):
+    """Each B8 instance timed by phase 4's method at phase 4's shapes."""
+    unscaled_timings(torch, np, st, E4M3, "10b")
+
+
 def fp8_model(model):
     """``model`` (weights shared) with an unscaled fp8 KV pool."""
-    return truncated(model, model.cfg.num_layers, kv_dtype=FP8_KV)
+    return pool_model(model, E4M3)
+
+
+def pool_model(model, kv):
+    """``model`` (weights shared) with an unscaled ``kv`` KV pool."""
+    return truncated(model, model.cfg.num_layers, kv_dtype=UNSCALED_KV[kv])
 
 
 def pool_logits(torch, np, model, prefill_impl, decode_impl, verify_impl):
@@ -3997,25 +4146,42 @@ def cosines(torch, got, want):
         a.float(), b.float(), dim=-1).min()) for a, b in zip(got, want))
 
 
-def phase10c(torch, np, st):
-    """Llama-3-8B and llama-1b with kv_dtype float8_e4m3fn on the main
-    path: auto, pallas and spec_k 4 engines, launches counted; the pool is
-    half of bf16's; 4-layer logits against the bf16 pool."""
+def unscaled_engines(torch, np, st, kv, tag, bases, cos_min):
+    """The ``bases`` (Llama-3-8B's model, "llama-1b") with an unscaled
+    ``kv`` pool on the main path: auto, pallas and spec_k 4 engines,
+    launches counted; the pool's bytes against bf16's; 4-layer logits
+    against the bf16 pool (the smallest logit-row cosine at least
+    ``cos_min``).  Phase 10c for e4m3, 11c for e5m2 and f16."""
+    import gc
+
     from k8s_llm_monitor_tpu_torch.models import llama
     from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B, LLAMA_1B
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.serving.kv_cache import page_slice_bytes
 
+    def release():
+        # An engine's programs and CUDA graphs reference it back: only the
+        # cycle collector frees its pool and graph memory.
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    release()
     launches = st.setdefault("launches", {})
     gpu = st["gpu"]
-    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
-    st["model"] = model
+    page_dtype = getattr(torch, UNSCALED_KV[kv])
+    # The pool's bytes against a bf16 pool's: half on fp8 pages, equal on
+    # fp16 ones.
+    per_bf16 = kv_bytes(kv) / 2
+    pool_name = f"{kv} pool"
     lens = st.get("prompt_lens") or prompt_lengths(np.random.default_rng(2))
-    for base in (model, "llama-1b"):
+    for base in bases:
         if base == "llama-1b":
             base = llama.LlamaModel(LLAMA_1B, seed=1)
+        elif base is None:
+            base = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+            st["model"] = base
         cfg = base.cfg
-        m8 = fp8_model(base)
+        mk = pool_model(base, kv)
         big = cfg.head_dim_ == D
         rng = np.random.default_rng(2)
         prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
@@ -4024,56 +4190,59 @@ def phase10c(torch, np, st):
         pre = "flash" if big else "dense"
         for label, over, paths, kernels in (
                 ("auto", {}, (pre, "fused"),
-                 dict({f"fused_decode_{E4M3}{sfx}":
+                 dict({f"fused_decode_{kv}{sfx}":
                        "paged_decode_attention_fused"},
-                      **({f"flash_prefill_{E4M3}": "flash_prefill_attention"}
+                      **({f"flash_prefill_{kv}": "flash_prefill_attention"}
                          if big else {}))),
                 ("pallas", {"decode_path": "pallas"}, (pre, "pallas"),
-                 {f"paged_attn_{E4M3}{sfx}":
+                 {f"paged_attn_{kv}{sfx}":
                   "paged_decode_attention_pallas"})):
-            name = f"{cfg.name} fp8 pool {label}"
-            eng, ids, got, _, tok_s = run_engine(torch, st, m8, prompts, name,
+            name = f"{cfg.name} {pool_name} {label}"
+            eng, ids, got, _, tok_s = run_engine(torch, st, mk, prompts, name,
                                                  over, paths, kernels,
-                                                 phase=10)
+                                                 phase=int(tag[:2]))
             if label == "auto":
                 off_ids, off_tok_s = ids, tok_s
             check(not eng.kv_quant and not eng.pages.quantized
-                  and eng.pages.k[0].dtype == torch.float8_e4m3fn,
+                  and eng.pages.k[0].dtype == page_dtype,
                   f"{name}: pool {eng.pages.k[0].dtype} kv_quant "
                   f"{eng.kv_quant!r}")
             bf16_pool = cfg.num_layers * eng.ecfg.num_blocks * page_slice_bytes(
                 cfg.num_kv_heads, cfg.head_dim_, BS, 2)
-            check(2 * eng.pool_bytes == bf16_pool,
+            per_tok = eng.pool_bytes // (cfg.num_layers * eng.ecfg.num_blocks
+                                         * BS)
+            check(eng.pool_bytes == bf16_pool * per_bf16,
                   f"{name}: pool {eng.pool_bytes} B, bf16's {bf16_pool} B")
             launches.update(got)
             run = st["runs"][name]
             ref = st["runs"].get("bf16 graph" if big else "", {})
-            print(f"phase 10c: {name}: pool {eng.pool_bytes} B = half of "
-                  f"bf16's {bf16_pool} B; ttft p50 cold / warm "
+            print(f"phase {tag}: {name}: pool {eng.pool_bytes} B = "
+                  f"{per_bf16:g} x bf16's {bf16_pool} B ({per_tok} B per "
+                  f"token and layer); ttft p50 cold / warm "
                   f"{run['ttft'] * 1e3:.1f} / {run['ttft_warm'] * 1e3:.1f} "
                   f"ms, warm decode {run['tok_s']:.1f} tok/s"
                   + (f" (phase 2's bf16 pool: {ref['ttft'] * 1e3:.1f} / "
                      f"{ref['ttft_warm'] * 1e3:.1f} ms, {ref['tok_s']:.1f} "
                      "tok/s)" if ref else "") + f" [{gpu}]")
             del eng
-            torch.cuda.empty_cache()
+            release()
         # spec_k 4, every decode call drafting: the 8B verifies through
         # flash prefill (B1), llama-1b (prefill dense) through B3 at QS=5.
         verify = ("flash_prefill_attention" if big
                   else "paged_verify_attention_pallas")
         eng, ids, _, spec_tok_s, spec = spec_run(
-            torch, st, m8, prompts, f"{cfg.name} fp8 pool spec_k 4",
+            torch, st, mk, prompts, f"{cfg.name} {pool_name} spec_k 4",
             dict(spec_k=4, spec_min_accept=0.0), 32, (pre, "fused"),
-            (verify,), phase=10)
-        rec = (f"flash_prefill_{E4M3}_verify" if big
-               else f"paged_attn_{E4M3}_verify_d64")
-        launches[rec] = spec_report(torch, eng, f"{cfg.name} fp8 pool", ids,
-                                    off_ids, spec_tok_s, off_tok_s, spec,
-                                    verify, phase=10)
+            (verify,), phase=int(tag[:2]))
+        rec = (f"flash_prefill_{kv}_verify" if big
+               else f"paged_attn_{kv}_verify_d64")
+        launches[rec] = spec_report(torch, eng, f"{cfg.name} {pool_name}",
+                                    ids, off_ids, spec_tok_s, off_tok_s, spec,
+                                    verify, phase=int(tag[:2]))
         del eng
-        torch.cuda.empty_cache()
-        # 4 layers: the kernel paths over the fp8 pool against the bf16
-        # pool's (JAX's bound: cosine > 0.98, tests/test_quantize.py:290).
+        release()
+        # 4 layers: the kernel paths over the pool against the bf16 pool's
+        # (JAX's bound for fp8: cosine > 0.98, tests/test_quantize.py:290).
         m4 = truncated(base, 4)
         ver = (pa.flash_prefill_attention if big
                else pa.paged_verify_attention_pallas)
@@ -4082,27 +4251,34 @@ def phase10c(torch, np, st):
                               pa.paged_decode_attention_fused, ver)
         for dname, dec in (("fused", pa.paged_decode_attention_fused),
                            ("pallas", pa.paged_decode_attention_pallas)):
-            got, pages = pool_logits(torch, np, fp8_model(m4), pre_impl, dec,
-                                     ver)
-            check(pages.k[0].dtype == torch.float8_e4m3fn, "not an fp8 pool")
+            got, pages = pool_logits(torch, np, pool_model(m4, kv), pre_impl,
+                                     dec, ver)
+            check(pages.k[0].dtype == page_dtype, f"not a {kv} pool")
             cos = cosines(torch, got, want)
             agree, ties, n = argmax_agreement(got, want, QUANT_LOGIT_ATOL)
-            print(f"phase 10c: 4-layer {cfg.name}, fp8 pool ({pre} prefill, "
-                  f"{dname} decode, verify on {ver.__name__}) against the "
-                  f"bf16 pool: smallest logit-row cosine {cos:.5f} (at least "
-                  f"0.98) over first-token, decode and 5 verify rows; argmax "
-                  f"agreement {agree:.3f} ({ties} of {n} rows near-ties "
-                  f"within {QUANT_LOGIT_ATOL}) [{gpu}]")
-            check(cos >= 0.98, f"{cfg.name} fp8 pool: cosine {cos:.5f}")
+            print(f"phase {tag}: 4-layer {cfg.name}, {pool_name} ({pre} "
+                  f"prefill, {dname} decode, verify on {ver.__name__}) "
+                  f"against the bf16 pool: smallest logit-row cosine "
+                  f"{cos:.5f} (at least {cos_min}) over first-token, decode "
+                  f"and 5 verify rows; argmax agreement {agree:.3f} ({ties} "
+                  f"of {n} rows near-ties within {QUANT_LOGIT_ATOL}) [{gpu}]")
+            check(cos >= cos_min, f"{cfg.name} {pool_name}: cosine {cos:.5f}")
         # Not on the main path: the 8B verifies through flash prefill, and
-        # no spec engine runs Qwen2-7B on the fp8 pool.
-        for rec in (f"paged_attn_{E4M3}_verify",
-                    f"flash_prefill_{E4M3}_verify_qpk7",
-                    f"paged_attn_{E4M3}_verify_qpk7"):
-            launches.setdefault(rec, 0)
+        # no spec engine runs Qwen2-7B on the pool.
+        for r in (f"paged_attn_{kv}_verify",
+                  f"flash_prefill_{kv}_verify_qpk7",
+                  f"paged_attn_{kv}_verify_qpk7"):
+            launches.setdefault(r, 0)
         if not big:
-            del base, m8, m4
-            torch.cuda.empty_cache()
+            del base, mk, m4
+            release()
+
+
+def phase10c(torch, np, st):
+    """Llama-3-8B and llama-1b with kv_dtype float8_e4m3fn on the main
+    path: auto, pallas and spec_k 4 engines, launches counted; the pool is
+    half of bf16's; 4-layer logits against the bf16 pool."""
+    unscaled_engines(torch, np, st, E4M3, "10c", (None, "llama-1b"), 0.98)
 
 
 def tier_prompts(rng, vocab, n):
@@ -4379,9 +4555,334 @@ def phase10(torch, np, st):
               f"{time.monotonic() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 11
+# B9: the kernels over unscaled float8_e5m2 and float16 pages; A13: the
+# server pieces the monitor's default config turns on.
+
+B9_KV = ("e5m2", "f16")
+# 11c's bound on the 4-layer logit-row cosine against the bf16 pool: JAX's
+# 0.98 for fp8 pages (tests/test_quantize.py:290); fp16 pages round 8x
+# finer than the bf16 pool they are held to (PERF.md's prediction).
+B9_COS_MIN = {"e5m2": 0.98, "f16": 0.999}
+
+
+def phase11a(torch, np, st):
+    """Each e5m2 and f16 instance against its plain version on its first
+    call."""
+    for kv in B9_KV:
+        unscaled_checks(torch, np, st, kv, "11a")
+
+
+def phase11b(torch, np, st):
+    """The e5m2 and f16 instances timed by phase 4's method at the shapes of
+    Llama-3-8B and llama-1b."""
+    for kv in B9_KV:
+        unscaled_timings(torch, np, st, kv, "11b", qpk7=False)
+
+
+def phase11c(torch, np, st):
+    """Llama-3-8B and llama-1b on the e5m2 and f16 pools: auto, pallas and
+    spec_k 4 engines (B1, B2 and B3 launched), pool bytes, 4-layer logits
+    against the bf16 pool."""
+    for kv in B9_KV:
+        unscaled_engines(torch, np, st, kv, "11c", (None, "llama-1b"),
+                         B9_COS_MIN[kv])
+
+
+def burst_ttft(text):
+    """The TTFT histogram's count and the decode-step histogram's count
+    (every class) in a /metrics body, and the decode host gap gauge."""
+    ttft = steps = 0
+    gap = None
+    for line in text.splitlines():
+        name, _, value = line.rpartition(" ")
+        if name == "k8s_llm_monitor_engine_ttft_seconds_count":
+            ttft = int(value)
+        elif name.startswith("k8s_llm_monitor_decode_step_seconds_count"):
+            steps += int(value)
+        elif name == "k8s_llm_monitor_engine_decode_host_gap_ms":
+            gap = float(value)
+    return ttft, steps, gap
+
+
+def phase11d(torch, np, st):
+    """The monitor's default config, load_config(None) untouched but for
+    server.port 0 and the fake cluster (llama-1b, W8A8, spec_k 4,
+    telemetry and remediation on), through build_server: the HTTP burst,
+    /metrics lint-clean with the TTFT histogram counting every request
+    that got a first token, the signal scraper's local target fresh, a
+    Warning burst to a diagnosis and an observe-only plan, /debug/profile
+    (a torch.profiler trace; decode_phases on the decode graphs), a UAV
+    report round trip; then cmd.server on cuda with no switch in its
+    environment."""
+    import gc
+    import os
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from k8s_llm_monitor_tpu_torch.monitor.cluster import (
+        FakeCluster, seed_demo_cluster)
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.exporter import lint_exposition
+    from k8s_llm_monitor_tpu_torch.monitor.models import EventInfo
+    from k8s_llm_monitor_tpu_torch.monitor.server import build_server
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    gpu = st["gpu"]
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    tc = cfg.llm.tpu
+    check(cfg.telemetry.enabled and cfg.remediation.enabled
+          and cfg.llm.provider == "tpu"
+          and (tc.model, tc.quantize, tc.spec_k) == ("llama-1b", "w8a8", 4),
+          f"not the monitor's default config: {cfg.llm}, telemetry "
+          f"{cfg.telemetry.enabled}, remediation {cfg.remediation.enabled}")
+    fake = seed_demo_cluster(FakeCluster())
+    t0 = time.monotonic()
+    srv = build_server(cfg, backend=fake)
+    boot_s = time.monotonic() - t0
+    backend = srv.analysis.backend
+    sup = backend.supervisor
+    trace_root = None
+    try:
+        check(srv.signals is not None and srv.remediation is not None
+              and srv.diagnosis.remediation is srv.remediation,
+              "the signal scraper or the remediation engine is not wired")
+        eng = backend.engine
+        srv.start()
+        port = srv.port
+        # Every request that got a token during the burst: its first one.
+        served = set()
+        sink = eng.token_sink
+
+        def counting_sink(rid, toks, result):
+            if toks:
+                served.add(rid)
+            return sink(rid, toks, result)
+
+        eng.token_sink = counting_sink
+        before = burst_ttft(http_call(port, "GET", "/metrics")[1].decode())
+        pa.reset_launch_counts()
+        with SpecCalls() as spec:
+            out, stream, wall = front_door_burst(port)
+            torch.cuda.synchronize()
+        check_burst(out, stream)
+        decode = pa.paged_decode_attention_fused.launches
+        verify = spec.launches["paged_verify_attention_pallas"]
+        check(spec.calls > 0 and verify > 0 and decode > 0,
+              f"default config: {spec.calls} spec calls, {verify} verify "
+              f"and {decode} fused decode launches")
+        status, body, _ = http_call(port, "GET", "/metrics")
+        text = body.decode()
+        lint = lint_exposition(text)
+        check(status == 200 and not lint, f"/metrics: {status}, lint {lint}")
+        after = burst_ttft(text)
+        ttft_n = after[0] - before[0]
+        check(ttft_n == len(served) > 0,
+              f"TTFT histogram counted {ttft_n} first tokens, the engine "
+              f"served {len(served)} requests")
+        check(after[1] > before[1] and after[2] is not None and after[2] > 0,
+              f"decode-step histogram {before[1]} -> {after[1]}, decode "
+              f"host gap {after[2]}")
+        q_walls = sorted(out[f"query-{i}"][2] for i in range(16))
+        print(f"phase 11d: the default config (telemetry and remediation "
+              f"on) through build_server in {boot_s:.2f} s; burst of 24 "
+              f"over HTTP in {wall:.2f} s, query wall p50 "
+              f"{np.percentile(q_walls, 50) * 1e3:.1f} ms, all 200; "
+              f"/metrics {len(text.splitlines())} lines, lint clean, TTFT "
+              f"histogram +{ttft_n} = {len(served)} requests served, "
+              f"decode-step histogram +{after[1] - before[1]}, decode host "
+              f"gap EMA {after[2]} ms; launches: fused decode {decode}, "
+              f"split paged attention QS=5 {verify} in {spec.calls} spec "
+              f"calls [{gpu}]")
+
+        # The telemetry plane: two scrape intervals, the local target fresh.
+        time.sleep(2 * cfg.telemetry.scrape_interval_s + 0.5)
+        status, sig, _ = http_call(port, "GET", "/api/v1/signals")
+        local = sig.get("targets", {}).get("local") if status == 200 else None
+        check(local is not None and local["stale"] is False
+              and sig["scraper"]["scrapes"] >= 2,
+              f"/api/v1/signals: {status} {str(sig)[:300]}")
+        status, ts, _ = http_call(port, "GET",
+                                  "/api/v1/timeseries?name=busy_slots")
+        check(status == 200 and ts["n_series"] >= 1,
+              f"/api/v1/timeseries: {status} {str(ts)[:200]}")
+        print(f"phase 11d: /api/v1/signals: local target fresh after "
+              f"{sig['scraper']['scrapes']} scrapes ({sig['scraper']['series']}"
+              f" series), scale_hint {local.get('scale_hint')}, anomalies "
+              f"{len(sig['recent_anomalies'])} [{gpu}]")
+
+        # A Warning burst: a diagnosis, then the plan stage (observe-only).
+        # The pipeline plans for a warning or critical verdict; an info
+        # verdict from the random weights gets its plan stage driven by
+        # hand with that verdict at warning.
+        for i in range(cfg.diagnosis.burst_threshold + 1):
+            srv.diagnosis.handler.on_event(EventInfo(
+                type="Warning", reason="BackOff",
+                message=f"Back-off restarting failed container in "
+                        f"web-frontend (try {i})", source="chip_smoke"))
+        deadline = time.monotonic() + 300
+        diag = {}
+        while time.monotonic() < deadline:
+            status, diag, _ = http_call(port, "GET", "/api/v1/diagnoses")
+            if diag.get("count", 0) >= 1:
+                break
+            time.sleep(0.25)
+        check(diag.get("count", 0) >= 1, f"no diagnosis: {str(diag)[:300]}")
+        srv.diagnosis.stop(timeout=300)    # its plan stage has run
+        verdict = diag["diagnoses"][0]["verdict"]
+        by_hand = verdict["severity"] not in ("warning", "critical")
+        if by_hand:
+            srv.remediation.on_verdict(dict(verdict, severity="warning"),
+                                       trigger=diag["diagnoses"][0]["trigger"])
+        status, rem, _ = http_call(port, "GET", "/api/v1/remediations")
+        recs = rem.get("remediations", []) if status == 200 else []
+        check(recs and all(r["status"] == "proposed" for r in recs)
+              and not rem["counters"]["execute"],
+              f"/api/v1/remediations: {status} {str(rem)[:400]}")
+        print(f"phase 11d: Warning burst -> diagnosis ({verdict['severity']}"
+              f") -> {len(recs)} observe-only plan(s): "
+              f"{[(r['plan']['verb'], r['plan']['name'], r['planner']) for r in recs]}"
+              + (" (plan stage driven by hand at warning)" if by_hand else "")
+              + f" [{gpu}]")
+
+        # /debug/profile behind server.debug: a torch.profiler trace (the
+        # first session in the process spends seconds starting the
+        # profiler), then decode_phases on the idle engine's decode graphs.
+        srv.config.server.debug = True
+        trace_root = os.path.join(tempfile.gettempdir(),
+                                  "k8s-llm-monitor-trace")
+        shutil.rmtree(os.path.join(trace_root, "chip_smoke_11d"),
+                      ignore_errors=True)
+        fused0 = pa.paged_decode_attention_fused.launches
+        status, pbody, prof_s = http_call(port, "POST", "/debug/profile", {
+            "seconds": 1.0, "dir": "chip_smoke_11d", "decode_phases": True})
+        phases = pbody.get("decode_phases") or {}
+        check(status == 200 and pbody.get("trace_dir") == os.path.join(
+            trace_root, "chip_smoke_11d") and phases
+              and phases["decode_attn_ms"] == eng.decode_attn_ms
+              and eng.decode_attn_ms > 0 and eng.decode_sample_ms >= 0,
+              f"/debug/profile: {status} {str(pbody)[:400]}")
+        traces = [os.path.join(pbody["trace_dir"], f)
+                  for f in os.listdir(pbody["trace_dir"])]
+        check(len(traces) == 1, f"trace files: {traces}")
+        with open(traces[0]) as fh:
+            events = json.load(fh).get("traceEvents")
+        check(isinstance(events, list), "the trace holds no traceEvents")
+        fused = pa.paged_decode_attention_fused.launches - fused0
+        check(fused > 0, "decode_phases launched no fused decode kernel")
+        text = http_call(port, "GET", "/metrics")[1].decode()
+        gauge = [line for line in text.splitlines() if line.startswith(
+            "k8s_llm_monitor_engine_decode_attn_ms ")]
+        check(gauge == [f"k8s_llm_monitor_engine_decode_attn_ms "
+                        f"{round(eng.decode_attn_ms, 4)}"],
+              f"decode_attn_ms gauge {gauge}")
+        print(f"phase 11d: /debug/profile in {prof_s:.2f} s: a 1 s "
+              f"torch.profiler trace of the idle server "
+              f"({os.path.getsize(traces[0])} B, {len(events)} events), "
+              f"then decode_phases "
+              f"{ {k: round(v, 4) for k, v in phases.items()} } ms, "
+              f"{fused} fused decode launches (the decode graphs) [{gpu}]")
+
+        # A UAV report and its metrics.
+        node = "k3d-demo-agent-0"
+        status, rep, _ = http_call(port, "POST", "/api/v1/uav/report", {
+            "node_name": node, "uav_id": "uav-chip", "status": "active",
+            "heartbeat_interval_seconds": 5,
+            "state": {"battery": {"voltage": 12.4,
+                                  "remaining_percent": 80.0}}})
+        s2, one, _ = http_call(port, "GET", f"/api/v1/metrics/uav/{node}")
+        s3, crd, _ = http_call(port, "GET", "/api/v1/crd/uav?namespace=all")
+        check(status == 200 and rep["crd_status"] == "updated"
+              and s2 == 200 and one["data"]["uav_id"] == "uav-chip"
+              and s3 == 200 and crd["count"] >= 1,
+              f"UAV round trip: {status} {rep}, {s2} {one}, {s3}")
+        print(f"phase 11d: UAV report -> CRD {rep['crd_status']}, metrics "
+              f"for {node} read back, {crd['count']} UAVMetric CRD(s) "
+              f"[{gpu}]")
+    finally:
+        sup.shutdown(grace_s=0.0)
+        srv.stop()
+        del backend, sup, srv, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if trace_root is not None:
+            shutil.rmtree(os.path.join(trace_root, "chip_smoke_11d"),
+                          ignore_errors=True)
+
+    # cmd.server on cuda, the default config, no switch in its environment.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_11d_")
+    env = dict(os.environ, K8SLLM_FLIGHT_DIR=os.path.join(tmp, "flight"))
+    env.pop("TELEMETRY_ENABLED", None)
+    env.pop("REMEDIATION_ENABLED", None)
+    log_path = os.path.join(tmp, "cmd_server.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_llm_monitor_tpu_torch.cmd.server",
+             "--cluster", "fake", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        ready = False
+        while time.monotonic() - t0 < 300 and proc.poll() is None:
+            try:
+                status, body, _ = http_call(port, "GET", "/readyz",
+                                            timeout=5.0)
+                ready = status == 200 and body["ready"]
+            except OSError:
+                pass
+            if ready:
+                break
+            time.sleep(0.25)
+        check(ready, f"cmd.server never became ready (rc {proc.poll()})")
+        ready_s = time.monotonic() - t0
+        status, body, q_s = http_call(port, "POST", "/api/v1/query",
+                                      {"question": "why crashloop?"})
+        check(status == 200 and body.get("status") == "success",
+              f"cmd.server query: {status} {str(body)[:300]}")
+        m_status, mbody, _ = http_call(port, "GET", "/metrics")
+        lint = lint_exposition(mbody.decode()) if m_status == 200 else None
+        check(m_status == 200 and lint == [],
+              f"cmd.server /metrics: {m_status}, lint {lint}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"cmd.server exited {rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        with open(log_path) as fh:
+            log_text = fh.read()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("signal scraper stopped" in log_text,
+          "cmd.server did not stop its signal scraper")
+    print(f"phase 11d: cmd.server (cuda, load_config defaults, no "
+          f"TELEMETRY_ENABLED / REMEDIATION_ENABLED): ready in {ready_s:.1f}"
+          f" s, a query in {q_s * 1e3:.1f} ms, /metrics lint clean, exit 0 "
+          f"on SIGTERM [{gpu}]")
+
+
+def phase11(torch, np, st):
+    for sub in (phase11a, phase11b, phase11c, phase11d):
+        t0 = time.monotonic()
+        sub(torch, np, st)
+        torch.cuda.synchronize()
+        print(f"phase 11: {sub.__name__[-3:]} passed in "
+              f"{time.monotonic() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -4404,11 +4905,11 @@ def main(argv=None) -> int:
         return 2
 
     st: dict = {"only": args.only}
-    # Phases 8, 7 and 10 before 6: they reuse phase 2's model, which phase
-    # 6 frees; phase 9 last, on a card that holds no earlier model.
+    # Phases 8, 7, 10 and 11 before 6: they reuse phase 2's model, which
+    # phase 6 frees; phase 9 last, on a card that holds no earlier model.
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
                (4, phase4), (5, phase5), (7, phase7), (10, phase10),
-               (6, phase6), (9, phase9)]
+               (11, phase11), (6, phase6), (9, phase9)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

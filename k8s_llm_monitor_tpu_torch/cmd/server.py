@@ -7,7 +7,9 @@ registration and serve, and a graceful drain on SIGTERM/SIGINT.
 Cluster selection:
 - ``--cluster fake``   : in-memory demo cluster (runs anywhere)
 - ``--cluster none``   : no cluster at all (pure degraded mode)
-- ``--cluster kube``   : not ported yet (ROADMAP A13)
+- ``--cluster kube``   : real API server via kubeconfig/in-cluster
+                         (stdlib REST client, monitor/kube_rest.py); an
+                         unreachable one warns and boots in dev mode
 
 ``--device`` names where the model runs with ``llm.provider="tpu"``
 (default ``cuda``; ``cpu`` runs the plain PyTorch path).  The weights are
@@ -16,10 +18,12 @@ checkpoint (``LLM_TPU_CHECKPOINT=<dir>``; its tokenizer needs
 ``transformers``), bf16, int8 or W8A8 (``LLM_TPU_QUANTIZE``, ``w8a8`` by
 default).  ``--role router`` is not ported yet (ROADMAP A8).
 
+The monitor's default config (``load_config(None)``: telemetry and
+remediation on) boots as it is.
+
 Usage:
     python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake --port 8081
-    TELEMETRY_ENABLED=false REMEDIATION_ENABLED=false \\
-        python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake
+    python -m k8s_llm_monitor_tpu_torch.cmd.server --config config.yaml
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ def _graceful_shutdown(srv, grace_s: float, log: logging.Logger) -> None:
     rec.note("sigterm", grace_s=grace_s)
     rec.dump("sigterm", extra={"grace_s": grace_s})
     srv.draining = True
+    if srv.signals is not None:
+        srv.signals.stop()
+        log.info("signal scraper stopped")
     watcher = getattr(srv, "diagnosis_watcher", None)
     if watcher is not None:
         watcher.stop()
@@ -84,6 +91,8 @@ def main(argv: list[str] | None = None) -> int:
         default="fake",
         help="cluster backend (default: fake demo cluster)",
     )
+    parser.add_argument("--kubeconfig", default="",
+                        help="kubeconfig path for --cluster kube")
     parser.add_argument(
         "--llm",
         default="",
@@ -106,10 +115,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.role == "router":
         raise NotImplementedError(
             "--role router: the fleet router is not ported (ROADMAP A8)")
-    if args.cluster == "kube":
-        raise NotImplementedError(
-            "--cluster kube: the Kubernetes REST backend "
-            "(monitor/kube_rest.py) is not ported (ROADMAP A13)")
 
     from k8s_llm_monitor_tpu_torch.monitor.config import load_config
     from k8s_llm_monitor_tpu_torch.monitor.server import build_server
@@ -136,6 +141,19 @@ def main(argv: list[str] | None = None) -> int:
 
         backend = seed_demo_cluster(FakeCluster())
         log.info("using in-memory demo cluster")
+    elif args.cluster == "kube":
+        try:
+            from k8s_llm_monitor_tpu_torch.monitor.kube_rest import (
+                KubeRestBackend,
+            )
+
+            backend = KubeRestBackend.from_kubeconfig(
+                args.kubeconfig or config.k8s.kubeconfig or None
+            )
+            backend.server_version()  # fail fast if unreachable
+        except Exception as exc:  # noqa: BLE001 — dev-mode degradation
+            log.warning("cluster unreachable (%s) - development mode", exc)
+            backend = None
 
     srv = build_server(config, backend=backend, device=args.device)
     if srv.manager is not None:
@@ -187,6 +205,8 @@ def main(argv: list[str] | None = None) -> int:
         srv.serve_forever()
     finally:
         if not shutdown_started.is_set():
+            if srv.signals is not None:
+                srv.signals.stop()
             if srv.diagnosis_watcher is not None:
                 srv.diagnosis_watcher.stop()
             if srv.diagnosis is not None:

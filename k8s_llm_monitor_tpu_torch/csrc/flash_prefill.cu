@@ -1,6 +1,7 @@
 // Flash paged prefill attention for Hopper (sm_90a), over a bf16 pool, an
-// unscaled e4m3 pool (ModelConfig.kv_dtype = "float8_e4m3fn") or an int8 /
-// fp8 (e4m3) pool with per-(token, head) float32 scales.
+// unscaled e4m3, e5m2 or fp16 pool (ModelConfig.kv_dtype =
+// "float8_e4m3fn", "float8_e5m2", "float16") or an int8 / fp8 (e4m3) pool
+// with per-(token, head) float32 scales.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:
 //           flash_prefill_attention (_flash_prefill_kernel), the bf16 or
@@ -70,8 +71,25 @@
 // product, while the row sum l is taken from the unscaled P
 // (pallas_attention.py:1117-1119) -- otherwise the softmax denominator is
 // wrong.  Rows past the context are zero-filled codes and scales: finite.
-// The unscaled e4m3 pool (SCALED = false) takes the same staging and
-// widening, and neither the scale copies nor the two multiplies.
+// The unscaled e4m3 and e5m2 pools (SCALED = false) take the same staging
+// and widening (e5m2 through f16 too), and neither the scale copies nor
+// the two multiplies.
+//
+// The fp16 pool (B9): bf16 cannot hold fp16 page values (7 mantissa bits
+// to 10), so its tiles take the bf16 pool's path -- 16-byte cp.async
+// straight into the swizzled ring, no staging -- and the tensor cores run
+// f16: wgmma .f16.f16 with f32 accumulators, each consumer converting its
+// Q fragments bf16 -> f16 once after loading them, and P packed to f16
+// where the bf16 pool packs it to bf16.  Of the three designs (tf32
+// wgmma; a bf16 hi/lo split of each page value, two products; f16
+// operands) this is the third: it moves the bf16 pool's bytes, keeps its
+// ring, its shared-memory layout and its registers (the launch count stays
+// 65536 / 512 = 128 that setmaxnreg needs), where tf32 would halve the
+// keys a K step takes and double the Q fragments, and hi/lo would double
+// the ring and the MMAs.  What it rounds: the scaled bf16 q converts to
+// f16 exactly from 2^-17 up to 65504 (components below 2^-17 lose bits,
+// each by less than 2^-25; no model's scaled q nears 65504), and P rounds
+// to f16, finer than the bf16 pool's P for P >= 2^-14.
 //
 // Dead lanes (lengths == 0) and tiles wholly past lengths write zeros and
 // read nothing; rows past lengths inside a live tile attend to the
@@ -122,8 +140,8 @@ constexpr int BARS = STG_SC + NSTG * 2 * KT * 4; // full[NS], empty[NS]
 
 template <typename T>
 constexpr size_t smem_bytes() {
-  // + 1024 to align the base.
-  return std::is_same<T, __nv_bfloat16>::value
+  // + 1024 to align the base; 1-byte pages add the staging ring.
+  return sizeof(T) == 2
              ? (size_t)RING_SC + 2 * NS * 8 + 1024
              : (size_t)BARS + 2 * NS * 8 + 1024;
 }
@@ -219,54 +237,81 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // S (64 x 64) += A (64 x 16, registers) * B (16 x 64, smem, K-major).
+#define WGMMA_QK(AB)                                                          \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB " "                   \
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"              \
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "   \
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_qk(float d[32], const uint32_t a[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (F16) {
+    WGMMA_QK("f16.f16");
+  } else {
+    WGMMA_QK("bf16.bf16");
+  }
 }
 
 // O (64 x 128) += P (64 x 16, registers) * V (16 x 128, smem, MN-major).
+#define WGMMA_PV(AB)                                                          \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB " "                  \
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"              \
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"     \
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"     \
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "   \
+      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),          \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),     \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),     \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),     \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),     \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_pv(float d[64], const uint32_t a[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
-      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
-      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (F16) {
+    WGMMA_PV("f16.f16");
+  } else {
+    WGMMA_PV("bf16.bf16");
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats as the products' A operand: bf16x2, or f16x2 on an fp16 pool.
+template <bool F16>
+__device__ __forceinline__ uint32_t pack_ab(float lo, float hi) {
+  if constexpr (F16) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_f32(lo, hi);
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -305,6 +350,17 @@ __device__ __forceinline__ void widen4(__nv_fp8_e4m3, uint32_t w,
   }
 }
 
+__device__ __forceinline__ void widen4(__nv_fp8_e5m2, uint32_t w,
+                                       uint32_t out[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> (16 * i)), __NV_E5M2);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+    out[i] = pack_exact(f.x, f.y);
+  }
+}
+
 // Byte offset of 16-byte chunk c (0..15) of row r in a swizzled tile whose
 // 64-column halves are `half` bytes apart.
 __device__ __forceinline__ uint32_t swz(int r, int c, int half) {
@@ -333,8 +389,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
                      int S, int KVH, int bs, int NB, unsigned bs_mul,
                      unsigned bs_shr) {
   // 1-byte pages go through the staging ring; only a quantized pool has
-  // scale planes (an e4m3 pool may have them or not, int8 always does).
-  constexpr bool kWide = !std::is_same<T, __nv_bfloat16>::value;
+  // scale planes (an e4m3 pool may have them or not, int8 always does);
+  // fp16 pages run the products in f16.
+  constexpr bool kWide = sizeof(T) == 1;
+  constexpr bool F16 = std::is_same<T, __half>::value;
   static_assert((!SCALED || kWide) &&
                     (SCALED || !std::is_same<T, int8_t>::value),
                 "scales go with 1-byte pages; int8 needs them");
@@ -568,6 +626,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
         qf[k][2 * h] = *reinterpret_cast<const uint32_t*>(q0);
         qf[k][2 * h + 1] = *reinterpret_cast<const uint32_t*>(q1);
       }
+      if constexpr (F16) {   // bf16 q as f16 operands
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t w = qf[k][e];
+          qf[k][e] = pack_ab<true>(__uint_as_float(w << 16),
+                                   __uint_as_float(w & 0xFFFF0000u));
+        }
+      }
     }
 
     float o[64];
@@ -588,7 +654,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < D / 16; ++k)
-        wgmma_qk(sc, qf[k], desc(kb + (k / 4) * HALF_T + (k % 4) * 32, 16,
+        wgmma_qk<F16>(sc, qf[k], desc(kb + (k / 4) * HALF_T + (k % 4) * 32, 16,
                                  1024));
       wgmma_commit();
     };
@@ -601,7 +667,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < KT / 16; ++c)
-        wgmma_pv(o, pa[c], desc(vb + c * 16 * 128, HALF_T, 1024));
+        wgmma_pv<F16>(o, pa[c], desc(vb + c * 16 * 128, HALF_T, 1024));
       wgmma_commit();
     };
     // Online softmax of tile i on sc (landed): K scales, the mask where
@@ -682,10 +748,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B, S, H, D], pre
               ring_sc + (i % NS) * 2 * KT + KT + c * 16 + 2 * tig;
           w0 = vsr[0]; w1 = vsr[1]; w8 = vsr[8]; w9 = vsr[9];
         }
-        pa[c][0] = pack_f32(sc[8 * c] * w0, sc[8 * c + 1] * w1);
-        pa[c][1] = pack_f32(sc[8 * c + 2] * w0, sc[8 * c + 3] * w1);
-        pa[c][2] = pack_f32(sc[8 * c + 4] * w8, sc[8 * c + 5] * w9);
-        pa[c][3] = pack_f32(sc[8 * c + 6] * w8, sc[8 * c + 7] * w9);
+        pa[c][0] = pack_ab<F16>(sc[8 * c] * w0, sc[8 * c + 1] * w1);
+        pa[c][1] = pack_ab<F16>(sc[8 * c + 2] * w0, sc[8 * c + 3] * w1);
+        pa[c][2] = pack_ab<F16>(sc[8 * c + 4] * w8, sc[8 * c + 5] * w9);
+        pa[c][3] = pack_ab<F16>(sc[8 * c + 6] * w8, sc[8 * c + 7] * w9);
       }
     };
     auto rescale = [&](float a0, float a1) {
@@ -815,7 +881,7 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k_pages,
                                         S, H, KVH, bs, NB, stream);
 }
 
-// The unscaled e4m3 pool: the bf16 symbol's arguments.
+// The unscaled e4m3, e5m2 and fp16 pools: the bf16 symbol's arguments.
 extern "C" int flash_prefill_e4m3(const void* q, const void* k_pages,
                                   const void* v_pages, const void* table,
                                   const void* starts, const void* lens,
@@ -824,6 +890,26 @@ extern "C" int flash_prefill_e4m3(const void* q, const void* k_pages,
   return dispatch<__nv_fp8_e4m3, false>(q, k_pages, v_pages, nullptr,
                                         nullptr, table, starts, lens, out, B,
                                         S, H, KVH, bs, NB, stream);
+}
+
+extern "C" int flash_prefill_e5m2(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* table,
+                                  const void* starts, const void* lens,
+                                  void* out, int B, int S, int H, int KVH,
+                                  int bs, int NB, void* stream) {
+  return dispatch<__nv_fp8_e5m2, false>(q, k_pages, v_pages, nullptr,
+                                        nullptr, table, starts, lens, out, B,
+                                        S, H, KVH, bs, NB, stream);
+}
+
+extern "C" int flash_prefill_f16(const void* q, const void* k_pages,
+                                 const void* v_pages, const void* table,
+                                 const void* starts, const void* lens,
+                                 void* out, int B, int S, int H, int KVH,
+                                 int bs, int NB, void* stream) {
+  return dispatch<__half, false>(q, k_pages, v_pages, nullptr, nullptr, table,
+                                 starts, lens, out, B, S, H, KVH, bs, NB,
+                                 stream);
 }
 
 extern "C" int flash_prefill_int8(const void* q, const void* k_pages,

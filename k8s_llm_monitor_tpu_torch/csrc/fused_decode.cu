@@ -1,13 +1,13 @@
 // Fused decode attention for Hopper (sm_90a): RoPE + KV append + paged
 // attention for one new token per lane, as split-KV flash-decoding.  One
 // template over the page element type and whether the pool has scale
-// planes serves the bf16 pool, the unscaled e4m3 pool
-// (ModelConfig.kv_dtype = "float8_e4m3fn") and the int8 / fp8 (e4m3) pools
-// with per-(token, head) float32 scale planes.
+// planes serves the bf16 pool, the unscaled e4m3, e5m2 and fp16 pools
+// (ModelConfig.kv_dtype = "float8_e4m3fn", "float8_e5m2", "float16") and
+// the int8 / fp8 (e4m3) pools with per-(token, head) float32 scale planes.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:
 //   paged_decode_attention_fused (_fused_decode_kernel), bf16 or unscaled
-//   e4m3 pages, and paged_decode_attention_fused_quant
+//   e4m3 / e5m2 / fp16 pages, and paged_decode_attention_fused_quant
 //   (_fused_decode_quant_kernel), int8 / fp8 pages with quantize-on-append.
 //
 // What bounds it on this card: the bytes of the KV read.  Each lane reads
@@ -69,6 +69,12 @@
 // (round to nearest even, NaN with the sign past +-464: __NV_NOSAT, where
 // __NV_SATFINITE would clamp to 448, pallas_attention.py:390-391), and the
 // current token folds in unrounded, from the f32 row (:445-454).
+// Unscaled e5m2 and fp16 pools: the same, with their own conversions.
+// e5m2 rounds to nearest even with infinity from 61440 on (__NV_NOSAT);
+// a NaN is written as 0x7E with its sign, jnp's code from f32
+// (models/llama.py:cast_e5m2), whatever NaN payload the header's software
+// path would keep.  fp16 is __float2half_rn: jnp's rounding, infinity from
+// 65520 on.
 // Quantized pools: the group's D-slice of the roped k (and of the raw v)
 // is quantized per head, scale = max(amax / qmax, 1e-8), codes = x / scale
 // rounded half to even and clipped at 127 (int8) or converted saturating
@@ -80,6 +86,7 @@
 // rounded but the fp8 ones are NOT (:657-660): the pages get the fp8 value,
 // the softmax the unrounded quotient x / scale.
 
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
 #include "split_kv.cuh"
@@ -99,7 +106,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* gmem,
 // an appended f32 value into a pool without scales, and (for the 1-byte
 // types) quantize-on-append into a pool with scales.  Whether the pool has
 // scale planes is the kernel's SCALED parameter, not the element type's:
-// e4m3 pages come with scales (B4) or without (B8); int8 only with them.
+// e4m3 pages come with scales (B4) or without (B8); int8 only with them;
+// e5m2 and fp16 only without (B9).
 template <typename T>
 struct Page;
 
@@ -171,6 +179,51 @@ struct Page<__nv_fp8_e4m3> {
   static __device__ __forceinline__ __nv_fp8_e4m3 store(float x) {
     __nv_fp8_e4m3 c;
     c.__x = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+    return c;
+  }
+};
+
+template <>
+struct Page<__half> {
+  static __device__ __forceinline__ void widen(const uint4& raw, float out[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ float one(const __half* p) {
+    return __half2float(*p);
+  }
+  static __device__ __forceinline__ __half store(float x) {
+    return __float2half_rn(x);
+  }
+};
+
+template <>
+struct Page<__nv_fp8_e5m2> {
+  static __device__ __forceinline__ void widen(const uint4& raw, float out[16]) {
+    const __nv_fp8x2_e5m2* h = reinterpret_cast<const __nv_fp8x2_e5m2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 f = static_cast<float2>(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ float one(const __nv_fp8_e5m2* p) {
+    return static_cast<float>(*p);
+  }
+  // jnp's astype from f32: infinity past 61440 (no saturation), and a NaN
+  // as 0x7E with its sign.
+  static __device__ __forceinline__ __nv_fp8_e5m2 store(float x) {
+    const unsigned u = __float_as_uint(x);
+    __nv_fp8_e5m2 c;
+    c.__x = (u & 0x7FFFFFFFu) > 0x7F800000u
+                ? static_cast<__nv_fp8_storage_t>(((u >> 24) & 0x80u) | 0x7Eu)
+                : __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E5M2);
     return c;
   }
 };
@@ -599,7 +652,7 @@ extern "C" int fused_decode_bf16(const void* q, const void* k_new,
                                         scale, stream);
 }
 
-// The unscaled e4m3 pool: the bf16 symbol's arguments.
+// The unscaled e4m3, e5m2 and fp16 pools: the bf16 symbol's arguments.
 extern "C" int fused_decode_e4m3(const void* q, const void* k_new,
                                  const void* v_new, const void* cos_t,
                                  const void* sin_t, void* k_pages,
@@ -613,6 +666,35 @@ extern "C" int fused_decode_e4m3(const void* q, const void* k_new,
                                         table, positions, out, workspace, B,
                                         H, KVH, D, bs, NB, nsplit, chunk,
                                         scale, stream);
+}
+
+extern "C" int fused_decode_e5m2(const void* q, const void* k_new,
+                                 const void* v_new, const void* cos_t,
+                                 const void* sin_t, void* k_pages,
+                                 void* v_pages, const void* table,
+                                 const void* positions, void* out,
+                                 void* workspace, int B, int H, int KVH,
+                                 int D, int bs, int NB, int nsplit,
+                                 int chunk, float scale, void* stream) {
+  return dispatch<__nv_fp8_e5m2, false>(q, k_new, v_new, cos_t, sin_t,
+                                        k_pages, v_pages, nullptr, nullptr,
+                                        table, positions, out, workspace, B,
+                                        H, KVH, D, bs, NB, nsplit, chunk,
+                                        scale, stream);
+}
+
+extern "C" int fused_decode_f16(const void* q, const void* k_new,
+                                const void* v_new, const void* cos_t,
+                                const void* sin_t, void* k_pages,
+                                void* v_pages, const void* table,
+                                const void* positions, void* out,
+                                void* workspace, int B, int H, int KVH,
+                                int D, int bs, int NB, int nsplit,
+                                int chunk, float scale, void* stream) {
+  return dispatch<__half, false>(q, k_new, v_new, cos_t, sin_t, k_pages,
+                                 v_pages, nullptr, nullptr, table, positions,
+                                 out, workspace, B, H, KVH, D, bs, NB, nsplit,
+                                 chunk, scale, stream);
 }
 
 extern "C" int fused_decode_int8(const void* q, const void* k_new,

@@ -1,7 +1,8 @@
 // Paged attention for Hopper (sm_90a): QS = 1..8 query tokens per lane over
-// a bf16 or unscaled e4m3 paged pool (ModelConfig.kv_dtype =
-// "float8_e4m3fn") that already holds them -- no append, no RoPE -- as
-// split-KV flash-decoding, one template for decode and verify.
+// a bf16 or unscaled e4m3, e5m2 or fp16 paged pool (ModelConfig.kv_dtype =
+// "float8_e4m3fn", "float8_e5m2", "float16") that already holds them -- no
+// append, no RoPE -- as split-KV flash-decoding, one template for decode
+// and verify.
 //
 // Replaces: k8s_llm_monitor_tpu/ops/pallas_attention.py:_run_paged_attn
 //           (_paged_attn_kernel), behind paged_decode_attention_pallas
@@ -68,7 +69,22 @@
 // thread with plain loads and write them widened to bf16 -- exact, every
 // e4m3 value is a bf16 -- into the same shared rows the bf16 pool's
 // cp.async fills, so QS = 1 on the CUDA cores and QS > 1 on mma.sync run
-// unchanged on them.  No scale: the pool has none.
+// unchanged on them.  No scale: the pool has none.  An e5m2 pool takes the
+// same loads: e5m2 is the top byte of an fp16, and bf16 holds every value.
+//
+// An fp16 pool (B9): bf16 rows cannot hold fp16 values (7 mantissa bits to
+// 10), so its tiles are staged as they lie, by the bf16 pool's cp.async,
+// and every reader of the shared rows reads fp16 (the Row<T> trait):
+// QS = 1 widens them to f32 on the CUDA cores, exactly; QS > 1 runs
+// mma.sync m16n8k16 with f16 operands, f32 accumulators.  Of the three
+// designs for the tensor cores (tf32 m16n8k8; a bf16 hi/lo split of each
+// page value, two products; f16 operands) this is the third: it reads the
+// bf16 pool's bytes, issues the bf16 pool's MMAs and needs no new fragment
+// layout.  What it rounds: q (scaled and rounded to bf16 as for every
+// pool) converts to f16 exactly from 2^-17 up to 65504, so only components
+// below 2^-17 lose bits, each by less than 2^-25 (finite q past 65504
+// would overflow: no model's scaled q comes near); P is rounded to f16
+// where the bf16 pool rounds it to bf16, a finer rounding for P >= 2^-14.
 //
 // Trap: the kernels scale q by D**-0.5 and round it to bf16 before use, as
 // the plain version and pallas_attention.py:208 scale in bf16.
@@ -110,16 +126,71 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Eight e4m3 codes (8 bytes, little-endian) as eight bf16 (16 bytes),
-// exactly: e4m3 widens through f16 to f32, and bf16 holds every e4m3 value.
-__device__ __forceinline__ uint4 e4m3x8_to_bf16(uint2 raw) {
+// c += a b: a 16x16 f16 (row), b 16x8 f16 (col), c 16x8 f32.
+__device__ __forceinline__ void mma16816_f16(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16-bit element type of the shared K / V / q / P rows and its
+// operations: bf16 for the bf16 and fp8 pools, fp16 for the fp16 pool.
+template <bool F16>
+struct Row {
+  static __device__ __forceinline__ float2 widen2(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xFFFF0000u));
+  }
+  static __device__ __forceinline__ float widen1(uint16_t h) {
+    return __uint_as_float(static_cast<uint32_t>(h) << 16);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma16816(c, a, b0, b1);
+  }
+};
+
+template <>
+struct Row<true> {
+  static __device__ __forceinline__ float2 widen2(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+  static __device__ __forceinline__ float widen1(uint16_t h) {
+    return __half2float(__ushort_as_half(h));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+    mma16816_f16(c, a, b0, b1);
+  }
+};
+
+// fp8 interpretation of a 1-byte page type.
+template <typename T>
+constexpr __nv_fp8_interpretation_t kFp8 =
+    std::is_same<T, __nv_fp8_e5m2>::value ? __NV_E5M2 : __NV_E4M3;
+
+// Eight e4m3 or e5m2 codes (8 bytes, little-endian) as eight bf16 (16
+// bytes), exactly: the codes widen through f16 to f32, and bf16 holds every
+// e4m3 and e5m2 value.
+template <typename T>
+__device__ __forceinline__ uint4 fp8x8_to_bf16(uint2 raw) {
   uint4 out;
   uint32_t* o = &out.x;
   const uint32_t w[2] = {raw.x, raw.y};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(w[i / 2] >> (16 * (i % 2))), __NV_E4M3);
+        static_cast<__nv_fp8x2_storage_t>(w[i / 2] >> (16 * (i % 2))), kFp8<T>);
     const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
     const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
     o[i] = *reinterpret_cast<const uint32_t*>(&b);
@@ -174,6 +245,7 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
                         int QS, int KVH, int bs, int NB, int nsplit, int chunk,
                         unsigned bs_mul, unsigned bs_shr, float scale) {
   using L = Smem<D, QPK, MT>;
+  using RT = Row<std::is_same<T, __half>::value>;
   constexpr int THREADS = D, WARPS = L::WARPS, KROW = L::KROW;
   constexpr bool MMA = L::kMma;
   constexpr int ROWS = L::kRows;
@@ -182,7 +254,7 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
   constexpr int NKT = TILE / (8 * WARPS);   // key n-tiles a warp scores
   static_assert(THREADS % ROWS == 0 && KPT % 4 == 0,
                 "the softmax moves a row's keys as float4");
-  constexpr int CPR = D * 2 / 16;       // 16-byte chunks per bf16 row
+  constexpr int CPR = D * 2 / 16;       // 16-byte chunks per 16-bit row
   static_assert(TILE * CPR % THREADS == 0, "a tile is whole 16-byte loads");
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -208,7 +280,7 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
   auto div_bs = [&](int t) { return div_block(t, bs_mul, bs_shr); };
 
   // Stage q, scaled and rounded to bf16 (zeros for dead and padding rows),
-  // and the split's table entries.
+  // as a row of the pool's 16-bit type, and the split's table entries.
   if constexpr (MMA) {
     for (int idx = d; idx < ROWS * (D / 8); idx += THREADS) {
       const int r = idx / (D / 8), c = idx % (D / 8);
@@ -217,11 +289,13 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
       if (r < R && i < sp.qlen) {
         v = *reinterpret_cast<const uint4*>(
             q + (((long)b * QS + i) * H + g * QPK + r % QPK) * D + c * 8);
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+        uint32_t* h = &v.x;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+          const float2 f = Row<false>::widen2(h[e]);
+          const float2 rq = Row<false>::widen2(
+              Row<false>::pack(f.x * scale, f.y * scale));
+          h[e] = RT::pack(rq.x, rq.y);
         }
       }
       *reinterpret_cast<uint4*>(smem + L::kQ + r * KROW + c * 16) = v;
@@ -241,11 +315,11 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
   }
   __syncthreads();            // the tile loads read the table entries
 
-  // Copy tile i (keys k0 + 32 i ...) into ring stage st as bf16 rows, 8
+  // Copy tile i (keys k0 + 32 i ...) into ring stage st as 16-bit rows, 8
   // elements per chunk; rows past k1 are zero-filled (src-size 0 on bf16
-  // pages), so no stale value meets a zero weight.  e4m3 pages are read
-  // and widened here (the ring's __syncthreads publish the stores as they
-  // do the copies).
+  // and fp16 pages), so no stale value meets a zero weight.  fp8 pages are
+  // read and widened to bf16 here (the ring's __syncthreads publish the
+  // stores as they do the copies).
   auto load_tile = [&](int i, int st) {
     unsigned char* base = smem + st * L::kStage;
     const int t0 = k0 + i * TILE;
@@ -260,14 +334,14 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
       const long e = ((long)blk * bs + (t - q_ * bs)) * F + (long)g * D + ch * 8;
       unsigned char* kd = base + r * KROW + ch * 16;
       unsigned char* vd = base + (TILE + r) * KROW + ch * 16;
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if constexpr (sizeof(T) == 2) {
         cp_async16(kd, ok ? k_pages + e : k_pages, ok ? 16 : 0);
         cp_async16(vd, ok ? v_pages + e : v_pages, ok ? 16 : 0);
       } else {
         uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
         if (ok) {
-          kw = e4m3x8_to_bf16(*reinterpret_cast<const uint2*>(k_pages + e));
-          vw = e4m3x8_to_bf16(*reinterpret_cast<const uint2*>(v_pages + e));
+          kw = fp8x8_to_bf16<T>(*reinterpret_cast<const uint2*>(k_pages + e));
+          vw = fp8x8_to_bf16<T>(*reinterpret_cast<const uint2*>(v_pages + e));
         }
         *reinterpret_cast<uint4*>(kd) = kw;
         *reinterpret_cast<uint4*>(vd) = vw;
@@ -342,7 +416,7 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
           for (int ks = 0; ks < D / 16; ++ks) {
             uint32_t a[4];
             ldsm4(a, smem + L::kQ + (16 * mt + lane % 16) * KROW + (16 * ks + 8 * (lane / 16)) * 2);
-            mma16816(c4, a, kb[ks][0], kb[ks][1]);
+            RT::mma(c4, a, kb[ks][0], kb[ks][1]);
           }
           float* row0 = sc_s + (16 * mt + gq) * SROW + key0 + 2 * tig;
           *reinterpret_cast<float2*>(row0) = make_float2(c4[0], c4[1]);
@@ -359,11 +433,11 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
 #pragma unroll
       for (int ch = 0; ch < PART * 2 / 16; ++ch) {
         const uint4 raw = *reinterpret_cast<const uint4*>(krow + ch * 16);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const uint32_t* h = &raw.x;
         float kv[8];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
+          const float2 f = RT::widen2(h[e]);
           kv[2 * e] = f.x;
           kv[2 * e + 1] = f.y;
         }
@@ -424,10 +498,10 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
       l = alpha * l + sum;   // from the unrounded P
       m = m_new;
       if constexpr (MMA) {
-        __nv_bfloat162* pr = reinterpret_cast<__nv_bfloat162*>(
+        uint32_t* pr = reinterpret_cast<uint32_t*>(
             smem + L::kP + (sr * SROW + seg * KPT) * 2);
 #pragma unroll
-        for (int e = 0; e < KPT; e += 2) pr[e / 2] = __floats2bfloat162_rn(p[e], p[e + 1]);
+        for (int e = 0; e < KPT; e += 2) pr[e / 2] = RT::pack(p[e], p[e + 1]);
         if (seg == 0) alpha_s[sr] = alpha;
       } else if (row_live) {
         float* pt = reinterpret_cast<float*>(smem + L::kP);
@@ -471,7 +545,7 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
           uint32_t a[4];
           ldsm4(a, smem + L::kP + ((16 * mt + lane % 16) * SROW + 16 * kk + 8 * (lane / 16)) * 2);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma16816(o[mt][nt], a, vb[nt][0], vb[nt][1]);
+          for (int nt = 0; nt < 4; ++nt) RT::mma(o[mt][nt], a, vb[nt][0], vb[nt][1]);
         }
       }
     } else {
@@ -479,12 +553,12 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, QS, H, D]
       const float* pt = reinterpret_cast<const float*>(smem + L::kP);
 #pragma unroll
       for (int j = 0; j < QPK; ++j) acc[j] *= alpha_s[j];
-      const __nv_bfloat16* vcol = reinterpret_cast<const __nv_bfloat16*>(vbase) + d;
+      const uint16_t* vcol = reinterpret_cast<const uint16_t*>(vbase) + d;
 #pragma unroll 2
       for (int k = 0; k < TILE; k += 4) {
         float v[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(vcol[(k + e) * (KROW / 2)]);
+        for (int e = 0; e < 4; ++e) v[e] = RT::widen1(vcol[(k + e) * (KROW / 2)]);
 #pragma unroll
         for (int j = 0; j < QPK; ++j) {
           const float4 pk = *reinterpret_cast<const float4*>(pt + j * TILE + k);
@@ -643,7 +717,7 @@ extern "C" int paged_attn_bf16(const void* q, const void* k_pages,
                                  NB, nsplit, chunk, scale, stream);
 }
 
-// The unscaled e4m3 pool: the bf16 symbol's arguments.
+// The unscaled e4m3, e5m2 and fp16 pools: the bf16 symbol's arguments.
 extern "C" int paged_attn_e4m3(const void* q, const void* k_pages,
                                const void* v_pages, const void* table,
                                const void* starts, const void* qlens,
@@ -654,6 +728,30 @@ extern "C" int paged_attn_e4m3(const void* q, const void* k_pages,
   return dispatch<__nv_fp8_e4m3>(q, k_pages, v_pages, table, starts, qlens,
                                  nullptr, out, workspace, B, QS, H, KVH, D, bs,
                                  NB, nsplit, chunk, scale, stream);
+}
+
+extern "C" int paged_attn_e5m2(const void* q, const void* k_pages,
+                               const void* v_pages, const void* table,
+                               const void* starts, const void* qlens,
+                               void* out, void* workspace, int B, int QS,
+                               int H, int KVH, int D, int bs, int NB,
+                               int nsplit, int chunk, float scale,
+                               void* stream) {
+  return dispatch<__nv_fp8_e5m2>(q, k_pages, v_pages, table, starts, qlens,
+                                 nullptr, out, workspace, B, QS, H, KVH, D, bs,
+                                 NB, nsplit, chunk, scale, stream);
+}
+
+extern "C" int paged_attn_f16(const void* q, const void* k_pages,
+                              const void* v_pages, const void* table,
+                              const void* starts, const void* qlens,
+                              void* out, void* workspace, int B, int QS,
+                              int H, int KVH, int D, int bs, int NB,
+                              int nsplit, int chunk, float scale,
+                              void* stream) {
+  return dispatch<__half>(q, k_pages, v_pages, table, starts, qlens, nullptr,
+                          out, workspace, B, QS, H, KVH, D, bs, NB, nsplit,
+                          chunk, scale, stream);
 }
 
 // Decode, one token per lane: starts and qlens from `lengths` in-kernel.
@@ -677,4 +775,26 @@ extern "C" int paged_attn_decode_e4m3(const void* q, const void* k_pages,
   return dispatch<__nv_fp8_e4m3>(q, k_pages, v_pages, table, nullptr, nullptr,
                                  lengths, out, workspace, B, 1, H, KVH, D, bs,
                                  NB, nsplit, chunk, scale, stream);
+}
+
+extern "C" int paged_attn_decode_e5m2(const void* q, const void* k_pages,
+                                      const void* v_pages, const void* table,
+                                      const void* lengths, void* out,
+                                      void* workspace, int B, int H, int KVH,
+                                      int D, int bs, int NB, int nsplit,
+                                      int chunk, float scale, void* stream) {
+  return dispatch<__nv_fp8_e5m2>(q, k_pages, v_pages, table, nullptr, nullptr,
+                                 lengths, out, workspace, B, 1, H, KVH, D, bs,
+                                 NB, nsplit, chunk, scale, stream);
+}
+
+extern "C" int paged_attn_decode_f16(const void* q, const void* k_pages,
+                                     const void* v_pages, const void* table,
+                                     const void* lengths, void* out,
+                                     void* workspace, int B, int H, int KVH,
+                                     int D, int bs, int NB, int nsplit,
+                                     int chunk, float scale, void* stream) {
+  return dispatch<__half>(q, k_pages, v_pages, table, nullptr, nullptr,
+                          lengths, out, workspace, B, 1, H, KVH, D, bs, NB,
+                          nsplit, chunk, scale, stream);
 }

@@ -6,8 +6,10 @@ string (``"bfloat16"`` / ``"float32"``); ``torch_dtype`` maps it.  The Gemma-2
 knobs survive only as far as ``has_attn_extras`` needs them, so a config
 asking for them is refused (models/llama.py:LlamaModel) instead of
 silently served without them.  ``kv_dtype`` takes ``""``, the model's own
-dtype or ``"float8_e4m3fn"`` (the unscaled fp8 pool, ROADMAP B8); any
-other page dtype is ROADMAP B9 and raises ``NotImplementedError``.
+dtype, ``"float8_e4m3fn"`` (the unscaled fp8 pool, ROADMAP B8),
+``"float8_e5m2"`` or ``"float16"`` (ROADMAP B9); the rest of B9 --
+``float32`` pages, ``bfloat16`` pages under a float32 model -- raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+# Page dtypes of an unscaled pool other than the model's own: the kernels
+# have an instance for each (csrc/*.cu, symbol suffixes e4m3 / e5m2 / f16).
+UNSCALED_KV_DTYPES = ("float8_e4m3fn", "float8_e5m2", "float16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,8 +50,9 @@ class ModelConfig:
     qkv_bias: bool = False          # True for Qwen2
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
-    # KV cache dtype ('' = same as dtype).  "float8_e4m3fn" halves the KV
-    # pool and the decode-attention DMA traffic; Q stays bf16 and the
+    # KV cache dtype ('' = same as dtype).  "float8_e4m3fn" (or
+    # "float8_e5m2") halves the KV pool and the decode-attention DMA
+    # traffic; "float16" pages keep bf16's bytes; Q stays bf16 and the
     # kernel/softmax run f32, so logits track the bf16-KV model closely
     # (tested).  Opt-in: accuracy headroom is workload-dependent.
     kv_dtype: str = ""
@@ -62,11 +70,12 @@ class ModelConfig:
     sliding_window: int = 0
 
     def __post_init__(self):
-        if self.kv_dtype not in ("", self.dtype, "float8_e4m3fn"):
+        if self.kv_dtype not in ("", self.dtype) + UNSCALED_KV_DTYPES:
             raise NotImplementedError(
                 f"{self.name}: kv_dtype {self.kv_dtype!r} is not ported "
-                "(ROADMAP B9); the port takes '', the model dtype "
-                f"{self.dtype!r} or 'float8_e4m3fn'")
+                "(ROADMAP B9: float32 pages, and bfloat16 pages under a "
+                "float32 model); the port takes '', the model dtype "
+                f"{self.dtype!r} or one of {UNSCALED_KV_DTYPES}")
 
     @property
     def has_attn_extras(self) -> bool:

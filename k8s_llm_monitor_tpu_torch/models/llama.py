@@ -104,6 +104,24 @@ def cast_e4m3(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, codes, nan).view(torch.float8_e4m3fn)
 
 
+def cast_e5m2(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float8_e5m2 with ``jnp.astype``'s semantics from float32:
+    round to nearest even, 0x7B (57344) up to 61439, infinity from 61440
+    on (``.to(torch.float8_e5m2)`` agrees there), and NaN as 0x7E with
+    ``x``'s sign, where torch writes 0x7F.  (XLA's CPU conversion from
+    bfloat16 writes 0x7F for every NaN; this cast, like the kernels,
+    converts through float32.)  Made through a uint8 view, as
+    ``cast_e4m3``."""
+    xf = x.float()
+    codes = xf.to(torch.float8_e5m2).view(torch.uint8)
+    nan = (torch.signbit(xf).to(torch.uint8) << 7) | 0x7E
+    return torch.where(torch.isnan(xf), nan, codes).view(torch.float8_e5m2)
+
+
+# The page writes that need jnp's conversion rather than torch's.
+_JNP_CASTS = {torch.float8_e4m3fn: cast_e4m3, torch.float8_e5m2: cast_e5m2}
+
+
 def kv_quant_spec(kv_quant: str) -> tuple[torch.dtype, float]:
     """(storage dtype, qmax) of a KV quantization mode: ``int8`` codes
     round and clip at 127, ``fp8`` (float8_e4m3fn) saturates at 448."""
@@ -165,7 +183,8 @@ def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Allocate the paged KV pool.  ``kv_quant`` ("int8"/"fp8") selects the
     quantized tier: pages in the storage dtype plus float32 scale planes,
     whatever ``cfg.kv_dtype`` says.  "" keeps pages in ``cfg.kv_dtype``
-    when it is set (float8_e4m3fn: the unscaled fp8 pool), else in
+    when it is set (float8_e4m3fn / float8_e5m2 / float16: an unscaled
+    pool other than the model dtype), else in
     ``dtype`` (default: the model's)."""
     shape = (num_blocks, block_size, cfg.num_kv_heads * cfg.head_dim_)
 
@@ -510,9 +529,10 @@ def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
 
     Invalid lanes, and positions past the table, are redirected to the null
     block 0 rather than clipped into the lane's last real block (a clip
-    would overwrite live cache).  fp8 pages take ``cast_e4m3`` of ``vals``
-    as they come (the model dtype on the XLA-scatter paths, as the JAX
-    package rounds them), written through a byte view.
+    would overwrite live cache).  fp8 pages take ``cast_e4m3`` (or
+    ``cast_e5m2``) of ``vals`` as they come (the model dtype on the
+    XLA-scatter paths, as the JAX package rounds them), written through a
+    byte view.
 
     pages [num_blocks, bs, KVH*D]; vals [B, S, KVH, D]; block_table
     [B, max_blocks]; positions/valid [B, S].  Returns ``pages``.
@@ -528,8 +548,9 @@ def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
     offs = positions % bs
     idx = (block_ids.reshape(-1).long(), offs.reshape(-1).long())
     rows = vals.reshape(B * S, -1)
-    if pages.dtype == torch.float8_e4m3fn:
-        pages.view(torch.uint8)[idx] = cast_e4m3(rows).view(torch.uint8)
+    cast = _JNP_CASTS.get(pages.dtype)
+    if cast is not None:
+        pages.view(torch.uint8)[idx] = cast(rows).view(torch.uint8)
     else:
         pages[idx] = rows.to(pages.dtype)
     return pages

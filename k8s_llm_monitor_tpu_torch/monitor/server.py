@@ -9,14 +9,15 @@ listings, ``/api/v1/analyze/pod-communication``, ``/api/v1/analyze``,
 ``/api/v1/metrics/{cluster,nodes,nodes/<n>,pods,snapshot,network}``
 family, the KV prefix migration pair ``/api/v1/kv/prefix`` (a cached
 prefix as a KVX1 blob) and ``/api/v1/kv/install`` (serving/kv_tier.py),
-and the static web directory.
-
-Not registered yet (ROADMAP A13): ``/metrics``, ``/debug/profile``,
-``/api/v1/signals``, ``/api/v1/timeseries``, ``/api/v1/remediations*`` and
-the UAV routes.  ``build_server`` refuses a config that
-turns on what it does not serve (telemetry, remediation with a cluster
-backend, an embedding model, the router role) instead of booting without
-it.
+``/metrics`` (monitor/exporter.py), ``/debug/profile`` (a
+``torch.profiler`` trace, debug-gated), the telemetry plane's
+``/api/v1/signals`` and ``/api/v1/timeseries``
+(observability/signals.py), ``/api/v1/remediations[/<id>/approve|reject]``
+(remediation/executor.py), the UAV routes (``/api/v1/metrics/uav[/<n>]``,
+``/api/v1/uav/{report,command}``, ``/api/v1/crd/uav``) and the static web
+directory.  ``build_server`` refuses a config that turns on what it does
+not serve (an embedding model, ROADMAP A10; the router role, A8) instead
+of booting without it.
 
 Stdlib ``ThreadingHTTPServer``: request concurrency is thread-per-
 connection, with the engine doing its own continuous batching underneath.
@@ -28,6 +29,8 @@ import json
 import logging
 import math
 import mimetypes
+import os
+import tempfile
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
@@ -46,15 +49,20 @@ from k8s_llm_monitor_tpu_torch.monitor.config import Config
 from k8s_llm_monitor_tpu_torch.monitor.manager import Manager
 from k8s_llm_monitor_tpu_torch.monitor.models import (
     AnalysisRequest,
+    UAVReport,
+    parse_rfc3339,
     rfc3339,
     to_jsonable,
     utcnow,
 )
 from k8s_llm_monitor_tpu_torch.monitor.network import NetworkAnalyzer
+from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
+from k8s_llm_monitor_tpu_torch.observability.signals import SignalScraper
 from k8s_llm_monitor_tpu_torch.observability.tracing import (
     get_tracer,
     parse_traceparent,
 )
+from k8s_llm_monitor_tpu_torch.remediation.executor import RemediationEngine
 from k8s_llm_monitor_tpu_torch.resilience.errors import OverloadedError
 from k8s_llm_monitor_tpu_torch.resilience.slo import normalize_slo_class
 from k8s_llm_monitor_tpu_torch.resilience.tenancy import normalize_tenant
@@ -96,6 +104,7 @@ class MonitorServer:
         host: str | None = None,
         port: int | None = None,
         diagnosis=None,
+        signals=None,
     ) -> None:
         self.config = config or Config()
         self.client = client
@@ -104,12 +113,21 @@ class MonitorServer:
         # diagnosis.pipeline.DiagnosisPipeline: the standing watcher -> LLM
         # loop behind GET /api/v1/diagnoses; None in dev mode.
         self.diagnosis = diagnosis
+        # observability.signals.SignalScraper: the telemetry plane behind
+        # GET /api/v1/signals + /api/v1/timeseries; starts and stops with
+        # the HTTP thread.  None in dev mode or telemetry.enabled=false.
+        self.signals = signals
         self.web_dir = Path(web_dir) if web_dir else DEFAULT_WEB_DIR
         self.host = host if host is not None else self.config.server.host
         self.port = port if port is not None else self.config.server.port
         # Flipped by graceful shutdown so /api/v1/stats announces draining
         # one probe before the process leaves.
         self.draining = False
+        # remediation.executor.RemediationEngine: the diagnosis pipeline's
+        # plan stage, wired by build_server behind RemediationConfig.  None
+        # in dev mode (no cluster backend) or remediation.enabled=false.
+        # Read by /api/v1/remediations, /api/v1/stats and the exporter.
+        self.remediation = None
         # resilience.tenancy.TenantGovernor: per-tenant admission quotas,
         # wired by build_server from the backend; None in dev mode or with
         # tenancy.enabled=false.  Read by /api/v1/stats.
@@ -177,7 +195,20 @@ class MonitorServer:
                 snap["ready"] = False
                 if not snap["reason"]:
                     snap["reason"] = f"lifecycle state {lc['state']}"
+        breaker = getattr(getattr(self.client, "backend", None),
+                          "breaker", None)
+        if breaker is not None:
+            snap["kube_breaker"] = {
+                "state": breaker.state,
+                "trips": breaker.trips,
+                "rejections": breaker.rejections,
+            }
         return snap
+
+    def fleet_router(self):
+        """The FleetRouter of a router-role process: None here (the router
+        role is ROADMAP A8); the signal scraper and the exporter ask."""
+        return getattr(self.analysis, "router", None)
 
     def stats_snapshot(self) -> dict[str, Any]:
         """Load-signal snapshot: the body of ``GET /api/v1/stats``.  The
@@ -224,6 +255,8 @@ class MonitorServer:
             # charged (delivered) tokens, in-flight reservations, and the
             # remaining token quota (-1 = unlimited).
             snap["tenants"] = self.governor.snapshot()
+        if self.remediation is not None:
+            snap["remediation"] = self.remediation.snapshot()
         return snap
 
     # -- lifecycle -------------------------------------------------------------
@@ -238,11 +271,15 @@ class MonitorServer:
         self._thread.start()
         if self.diagnosis is not None:
             self.diagnosis.start()
+        if self.signals is not None:
+            self.signals.start()
         logger.info("monitor server listening on %s:%d", self.host, self.port)
 
     def stop(self) -> None:
         if self.diagnosis is not None:
             self.diagnosis.stop()
+        if self.signals is not None:
+            self.signals.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -254,6 +291,8 @@ class MonitorServer:
     def serve_forever(self) -> None:
         if self.diagnosis is not None:
             self.diagnosis.start()
+        if self.signals is not None:
+            self.signals.start()
         handler = _make_handler(self)
         self._httpd = _HTTPServer((self.host, self.port), handler)
         self.port = self._httpd.server_address[1]
@@ -270,6 +309,8 @@ class MonitorServer:
 _ROUTES: dict[tuple[str, str], str] = {
     ("GET", "/health"): "h_health",
     ("GET", "/readyz"): "h_readyz",
+    ("GET", "/metrics"): "h_prometheus",
+    ("POST", "/debug/profile"): "h_profile",
     ("GET", "/api/v1/stats"): "h_stats",
     ("GET", "/api/v1/cluster/status"): "h_cluster_status",
     ("GET", "/api/v1/pods"): "h_pods",
@@ -277,12 +318,19 @@ _ROUTES: dict[tuple[str, str], str] = {
     ("POST", "/api/v1/analyze"): "h_analyze",
     ("POST", "/api/v1/query"): "h_query",
     ("GET", "/api/v1/diagnoses"): "h_diagnoses",
+    ("GET", "/api/v1/remediations"): "h_remediations",
+    ("GET", "/api/v1/signals"): "h_signals",
+    ("GET", "/api/v1/timeseries"): "h_timeseries",
     ("GET", "/api/v1/trace"): "h_trace_recent",
     ("GET", "/api/v1/metrics/cluster"): "h_metrics_cluster",
     ("GET", "/api/v1/metrics/nodes"): "h_metrics_nodes",
     ("GET", "/api/v1/metrics/pods"): "h_metrics_pods",
     ("GET", "/api/v1/metrics/snapshot"): "h_metrics_snapshot",
     ("GET", "/api/v1/metrics/network"): "h_metrics_network",
+    ("GET", "/api/v1/metrics/uav"): "h_metrics_uav",
+    ("POST", "/api/v1/uav/report"): "h_uav_report",
+    ("POST", "/api/v1/uav/command"): "h_uav_command",
+    ("GET", "/api/v1/crd/uav"): "h_uav_crd",
     ("POST", "/api/v1/kv/prefix"): "h_kv_prefix",
     ("POST", "/api/v1/kv/install"): "h_kv_install",
 }
@@ -426,10 +474,19 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
                 if method != "GET":
                     return self._send_error_text("Method not allowed", 405)
                 return self.h_metrics_node(path[len("/api/v1/metrics/nodes/") :])
+            if path.startswith("/api/v1/metrics/uav/"):
+                if method != "GET":
+                    return self._send_error_text("Method not allowed", 405)
+                return self.h_metrics_uav_node(path[len("/api/v1/metrics/uav/") :])
             if path.startswith("/api/v1/trace/"):
                 if method != "GET":
                     return self._send_error_text("Method not allowed", 405)
                 return self.h_trace(path[len("/api/v1/trace/") :])
+            if path.startswith("/api/v1/remediations/"):
+                if method != "POST":
+                    return self._send_error_text("Method not allowed", 405)
+                return self.h_remediation_action(
+                    path[len("/api/v1/remediations/") :])
             if path in _ROUTE_PATHS:
                 # registered path, wrong method (ref per-handler checks)
                 return self._send_error_text("Method not allowed", 405)
@@ -471,6 +528,78 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
                 },
                 status=200 if snap["ready"] else 503,
             )
+
+        def h_prometheus(self) -> None:
+            # Self-observability the reference never had (SURVEY §5.5):
+            # engine/manager/device gauges in Prometheus text format.
+            # OpenMetrics is Accept-negotiated: that mode adds exemplars
+            # (trace ids on latency histogram buckets) and the EOF marker;
+            # the default stays plain 0.0.4 text, exemplar-free.
+            from k8s_llm_monitor_tpu_torch.monitor.exporter import render_prometheus
+
+            accept = self.headers.get("Accept") or ""
+            openmetrics = "application/openmetrics-text" in accept
+            body = render_prometheus(srv, openmetrics=openmetrics).encode()
+            self.send_response(200)
+            self.send_header(
+                "Content-Type",
+                "application/openmetrics-text; version=1.0.0; charset=utf-8"
+                if openmetrics else
+                "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def h_profile(self) -> None:
+            """Capture a torch.profiler trace (debug mode only): body
+            {"seconds": N, "dir": name?} -> {"trace_dir": ...}, the trace
+            a Chrome-trace JSON file in that directory.  With
+            "decode_phases" the engine's profile_decode_phases() runs after
+            the window (an idle engine; a refusal is reported)."""
+            if not srv.config.server.debug:
+                return self._send_error_text(
+                    "profiling requires server.debug=true", 403)
+            try:
+                body = self._read_json() or {}
+            except ValueError:
+                return self._send_error_text("Invalid JSON body", 400)
+            seconds = min(float(body.get("seconds", 2.0)), 60.0)
+            # "dir" is a subdirectory NAME under the trace root, never an
+            # arbitrary filesystem path (debug-gated but unauthenticated).
+            root = os.path.join(tempfile.gettempdir(),
+                                "k8s-llm-monitor-trace")
+            sub = str(body.get("dir") or "")
+            if sub and (sub != os.path.basename(sub) or sub.startswith(".")):
+                return self._send_error_text(
+                    "dir must be a plain subdirectory name", 400)
+            trace_dir = os.path.join(root, sub) if sub else root
+            import time as _time
+
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            os.makedirs(trace_dir, exist_ok=True)
+            with profile(activities=activities) as prof:
+                _time.sleep(seconds)
+            prof.export_chrome_trace(os.path.join(
+                trace_dir, f"trace-{os.getpid()}-{_time.time_ns()}.json"))
+            payload: dict[str, Any] = {
+                "trace_dir": trace_dir, "seconds": seconds}
+            if body.get("decode_phases"):
+                # Refresh the per-phase decode cost split (the
+                # engine_decode_* gauges) behind the same debug gate.
+                # Requires an idle engine; refusal is reported, not fatal.
+                try:
+                    payload["decode_phases"] = self._engine_call(
+                        lambda e: e.profile_decode_phases())
+                except LookupError:
+                    payload["decode_phases_error"] = "no local engine"
+                except Exception as exc:  # noqa: BLE001 — busy engine
+                    payload["decode_phases_error"] = str(exc)
+            self._send_json(payload)
 
         def h_stats(self) -> None:
             """Load signal: engine queue/slot/prefix-cache counters (what
@@ -671,6 +800,114 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
             return self._send_error_text(
                 "Diagnosis pipeline not available - running in development "
                 "mode", 503)
+
+
+        def h_remediations(self) -> None:
+            """Stored action plans from the remediation engine, newest
+            first, plus the outcome counters the exporter renders."""
+            rem = srv.remediation
+            if rem is None:
+                return self._send_error_text(
+                    "Remediation engine not available - running without a "
+                    "cluster backend or remediation.enabled=false", 503)
+            query = parse_qs(urlparse(self.path).query)
+            try:
+                limit = int((query.get("limit", ["0"])[0]) or 0)
+            except ValueError:
+                return self._send_error_text("limit must be an integer", 400)
+            self._send_json({
+                "status": "success",
+                "remediations": rem.records(limit),
+                "counters": rem.snapshot(),
+                "timestamp": _now(),
+            })
+
+        def h_remediation_action(self, rest: str) -> None:
+            """Per-plan approval path: ``<id>/approve`` executes the plan
+            (the operator saying "do it" — this clears the destructive-verb
+            gate for that one plan, even in observe-only mode);
+            ``<id>/reject`` parks it."""
+            rem = srv.remediation
+            if rem is None:
+                return self._send_error_text(
+                    "Remediation engine not available", 503)
+            rec_id, _, action = rest.partition("/")
+            if action not in ("approve", "reject") or not rec_id:
+                return self._send_error_text(
+                    "use /api/v1/remediations/<id>/approve or .../reject",
+                    404)
+            rec = (rem.approve(rec_id) if action == "approve"
+                   else rem.reject(rec_id))
+            if rec is None:
+                return self._send_error_text(
+                    f"remediation {rec_id} not found", 404)
+            self._send_json({
+                "status": "success",
+                "action": action,
+                "remediation": rec,
+                "timestamp": _now(),
+            })
+
+        def h_signals(self) -> None:
+            """Derived autoscaler/anomaly signals from the telemetry
+            plane: fleet-merged per-replica blocks on routers, the local
+            engine block on replicas.  ``?window=N`` overrides the
+            trailing window (seconds)."""
+            scraper = srv.signals
+            if scraper is None:
+                return self._send_error_text(
+                    "Signal scraper not available - running in "
+                    "development mode", 503)
+            query = parse_qs(urlparse(self.path).query)
+            window = None
+            raw = (query.get("window", [""])[0] or "").strip()
+            if raw:
+                try:
+                    window = float(raw)
+                except ValueError:
+                    return self._send_error_text(
+                        "window must be a number of seconds", 400)
+                if window <= 0:
+                    return self._send_error_text(
+                        "window must be positive", 400)
+            payload = scraper.signals(window_s=window)
+            payload["status"] = "success"
+            payload["timestamp"] = _now()
+            self._send_json(payload)
+
+        def h_timeseries(self) -> None:
+            """Raw points of one series family for dashboards:
+            ``?name=<series>&window=N`` plus any further query params as
+            label equality filters (e.g. ``&replica=replica-0``)."""
+            scraper = srv.signals
+            if scraper is None:
+                return self._send_error_text(
+                    "Signal scraper not available - running in "
+                    "development mode", 503)
+            query = parse_qs(urlparse(self.path).query)
+            name = (query.get("name", [""])[0] or "").strip()
+            if not name:
+                return self._send_error_text("name is required", 400)
+            window = scraper.cfg.window_s
+            raw = (query.get("window", [""])[0] or "").strip()
+            if raw:
+                try:
+                    window = float(raw)
+                except ValueError:
+                    return self._send_error_text(
+                        "window must be a number of seconds", 400)
+            labels = {k: v[0] for k, v in query.items()
+                      if k not in ("name", "window") and v}
+            series = scraper.store.export(
+                name, window_s=window, label_filter=labels or None)
+            self._send_json({
+                "status": "success",
+                "name": name,
+                "window_s": window,
+                "series": series,
+                "n_series": len(series),
+                "timestamp": _now(),
+            })
 
         def _stream_query(self, question: str,
                           slo_class: str = "interactive",
@@ -908,24 +1145,162 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
             )
 
 
+
+        def h_metrics_uav(self) -> None:
+            if not self._need_manager():
+                return
+            uavs = srv.manager.get_uav_metrics()
+            self._send_json(
+                {
+                    "status": "success",
+                    "data": uavs,
+                    "count": len(uavs),
+                    "timestamp": _now(),
+                },
+                cors=True,
+            )
+
+        def h_metrics_uav_node(self, node_name: str) -> None:
+            if not self._need_manager():
+                return
+            if not node_name:
+                return self._send_error_text("Node name is required", 400)
+            entry = srv.manager.get_single_uav_metrics(node_name)
+            if entry is None:
+                return self._send_error_text(
+                    f"UAV not found on node: {node_name}", 404
+                )
+            self._send_json(
+                {"status": "success", "data": entry, "timestamp": _now()}, cors=True
+            )
+
+        def h_uav_command(self) -> None:
+            """Push a flight command to a node's UAV agent — the server-side
+            surface the reference's SendCommandToUAV lacked (its payload
+            marshaling was an unfinished TODO, ref uav_metrics.go:254-266,
+            and no HTTP route ever called it)."""
+            if srv.manager is None:
+                return self._send_json(
+                    {"status": "warning",
+                     "message": "Metrics manager not available - running "
+                                "in development mode"},
+                    503,
+                )
+            try:
+                body = self._read_json() or {}
+            except ValueError:
+                return self._send_error_text("Invalid JSON body", 400)
+            node = body.get("node", "")
+            command = body.get("command", "")
+            if not node or not command:
+                return self._send_error_text("node and command are required", 400)
+            if command not in ("arm", "disarm", "takeoff", "land", "rtl", "mode"):
+                return self._send_error_text(
+                    f"unknown command {command!r}", 400)
+            if srv.manager.uav_source is None:
+                return self._send_error_text(
+                    "UAV metrics source is disabled", 503)
+            try:
+                result = srv.manager.send_uav_command(
+                    node, command, body.get("params") or {})
+            except ValueError as exc:
+                return self._send_error_text(str(exc), 404)
+            except Exception as exc:  # noqa: BLE001 — agent unreachable
+                return self._send_error_text(f"command failed: {exc}", 502)
+            self._send_json({"status": "success", "node": node,
+                             "command": command, "agent_response": result})
+
+        def h_uav_report(self) -> None:
+            try:
+                body = self._read_json() or {}
+            except ValueError:
+                return self._send_error_text("Invalid JSON body", 400)
+            node_name = body.get("node_name", "")
+            if not node_name:
+                return self._send_error_text("node_name is required", 400)
+            try:
+                heartbeat = int(body.get("heartbeat_interval_seconds", 0) or 0)
+            except (TypeError, ValueError):
+                return self._send_error_text(
+                    "heartbeat_interval_seconds must be a number", 400
+                )
+            report = UAVReport(
+                node_name=node_name,
+                node_ip=body.get("node_ip", ""),
+                uav_id=body.get("uav_id") or f"uav-{node_name}",
+                source=body.get("source") or "agent",
+                status=body.get("status") or "active",
+                timestamp=parse_rfc3339(body.get("timestamp")) or utcnow(),
+                heartbeat_interval_seconds=heartbeat,
+                state=body.get("state"),
+                metadata=body.get("metadata") or {},
+            )
+            if srv.manager is not None:
+                srv.manager.update_uav_report(report)
+            else:
+                logger.warning(
+                    "metrics manager unavailable, skipping cache update for %s",
+                    node_name,
+                )
+            crd_status, crd_error = "unavailable", ""
+            if srv.client is not None:
+                try:
+                    srv.client.upsert_uav_metric("", report)
+                    crd_status = "updated"
+                except (ClusterError, ValueError) as exc:
+                    logger.warning("UAVMetric upsert failed for %s: %s", node_name, exc)
+                    crd_status, crd_error = "error", str(exc)
+            payload: dict[str, Any] = {
+                "status": "success",
+                "crd_status": crd_status,
+                "timestamp": _now(),
+                "node_name": report.node_name,
+                "uav_id": report.uav_id,
+                "uav_status": report.status,
+            }
+            if report.heartbeat_interval_seconds > 0:
+                payload["heartbeat_interval_seconds"] = (
+                    report.heartbeat_interval_seconds
+                )
+            if crd_error:
+                payload["message"] = crd_error
+            self._send_json(payload, cors=True)
+
+        def h_uav_crd(self) -> None:
+            if srv.client is None:
+                return self._send_json(
+                    {"status": "error", "message": "K8s client not available"},
+                    status=503,
+                    cors=True,
+                )
+            query = parse_qs(urlparse(self.path).query)
+            namespace = (query.get("namespace", [""])[0] or "").strip()
+            if namespace.lower() == "all":
+                namespace = ""
+            try:
+                data = srv.client.list_uav_metrics_crd(namespace)
+            except ClusterError as exc:
+                logger.warning("failed to list UAV CRD data: %s", exc)
+                return self._send_json(
+                    {"status": "error", "message": str(exc)}, status=500, cors=True
+                )
+            self._send_json(
+                {
+                    "status": "success",
+                    "count": len(data),
+                    "data": data,
+                    "timestamp": _now(),
+                },
+                cors=True,
+            )
+
     return Handler
 
 
-def _refuse_unported(config: Config, backend) -> None:
+def _refuse_unported(config: Config) -> None:
     """Raise ``NotImplementedError`` for a config that turns on a server
     piece this port does not have yet, naming its ROADMAP item, before any
     model is built."""
-    if config.telemetry.enabled:
-        raise NotImplementedError(
-            "telemetry.enabled: the signal scraper (observability/signals.py, "
-            "timeseries.py) is not ported (ROADMAP A13); set "
-            "TELEMETRY_ENABLED=false")
-    if (config.remediation.enabled and backend is not None
-            and config.diagnosis.enabled):
-        raise NotImplementedError(
-            "remediation.enabled with a cluster backend: the remediation "
-            "engine (remediation/*) is not ported (ROADMAP A13); set "
-            "REMEDIATION_ENABLED=false")
     if config.analysis.embedding_model:
         raise NotImplementedError(
             f"analysis.embedding_model={config.analysis.embedding_model!r}: "
@@ -940,6 +1315,7 @@ def build_server(
     config: Config,
     backend=None,
     web_dir: str | Path | None = None,
+    uav_fetcher=None,
     *,
     device=None,
 ) -> MonitorServer:
@@ -948,7 +1324,7 @@ def build_server(
     cluster), like the reference's nil-client path.  With
     ``llm.provider="tpu"`` the model is built on ``device``: ``cuda``
     unless the caller asks for the CPU."""
-    _refuse_unported(config, backend)
+    _refuse_unported(config)
     client = None
     manager = None
     if backend is not None:
@@ -965,7 +1341,7 @@ def build_server(
             )
             client = None
     if client is not None and config.metrics.enabled:
-        manager = Manager(client, config.metrics)
+        manager = Manager(client, config.metrics, uav_fetcher=uav_fetcher)
     llm_backend = build_backend(config.llm, lifecycle=config.lifecycle,
                                 tenancy=config.tenancy, device=device)
     analysis = AnalysisEngine(
@@ -989,6 +1365,12 @@ def build_server(
         brownout = getattr(llm_backend, "brownout_level", None)
         diagnosis = DiagnosisPipeline(analysis, config.diagnosis,
                                       brownout=brownout)
+    signals = None
+    if config.telemetry.enabled:
+        # Anomaly flags feed the diagnosis pipeline's event ring as
+        # synthetic self_monitor Warnings: the monitor diagnoses its own
+        # serving stack.
+        signals = SignalScraper(cfg=config.telemetry, pipeline=diagnosis)
     srv = MonitorServer(
         config=config,
         client=client,
@@ -996,8 +1378,29 @@ def build_server(
         analysis=analysis,
         web_dir=web_dir,
         diagnosis=diagnosis,
+        signals=signals,
     )
     # Single-replica tenancy: the backend's governor (None for remote/
     # template backends or tenancy.enabled=false) feeds /api/v1/stats.
     srv.governor = getattr(llm_backend, "governor", None)
+    # Closed-loop remediation: the pipeline's plan stage.  Needs both a
+    # cluster backend (targets are enumerated from live state) and the
+    # diagnosis pipeline (verdicts are the input); observe-only unless
+    # config.remediation.execute or a per-plan approval says otherwise.
+    if (config.remediation.enabled and backend is not None
+            and diagnosis is not None):
+        remediation = RemediationEngine(
+            backend, analysis, config.remediation,
+            namespaces=tuple(config.k8s.watch_namespaces),
+            pipeline=diagnosis,
+        )
+        diagnosis.remediation = remediation
+        srv.remediation = remediation
+    if signals is not None:
+        signals.attach(srv)
+        # Crash-edge dumps (the flight recorder) carry the trailing signal
+        # window: the load trajectory into the failure.
+        get_flight_recorder().signal_source = (
+            lambda: signals.store.window_snapshot(
+                config.telemetry.flight_window_s))
     return srv

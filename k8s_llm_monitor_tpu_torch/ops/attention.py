@@ -9,8 +9,8 @@ Layouts follow the JAX package so the tests compare like with like:
 
 Every function here is plain PyTorch: the semantics reference and the CPU
 path (``paged_decode_attention_quant`` and ``gather_dequant`` for int8/fp8
-pools; an unscaled float8_e4m3fn pool is widened to bf16 as it is
-gathered).  The hand-written CUDA kernels live behind ops/paged_attention.py and
+pools; an unscaled float8_e4m3fn / float8_e5m2 / float16 pool is widened
+as it is gathered, ``widen_pages``).  The hand-written CUDA kernels live behind ops/paged_attention.py and
 are picked by ``select_prefill_impl`` / ``select_decode_impl`` /
 ``select_verify_impl``.
 """
@@ -111,11 +111,20 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return g.reshape(B, max_blocks * bs, g.shape[3])
 
 
+# Unscaled page dtypes the readers widen, and what to: each fp8 format
+# into bf16, which holds every e4m3 and e5m2 value; float16 into float32,
+# since bf16 has 7 mantissa bits to fp16's 10.
+_WIDEN = {torch.float8_e4m3fn: torch.bfloat16,
+          torch.float8_e5m2: torch.bfloat16,
+          torch.float16: torch.float32}
+
+
 def widen_pages(x: torch.Tensor) -> torch.Tensor:
-    """Gathered rows of an unscaled fp8 pool as bf16, exactly (bf16 holds
-    every e4m3 value), as the JAX package's readers widen them before
-    attention; other page dtypes as they are."""
-    return x.to(torch.bfloat16) if x.dtype == torch.float8_e4m3fn else x
+    """Gathered rows of an unscaled fp8 or fp16 pool, widened exactly, as
+    the JAX package's readers widen them before attention (they compute in
+    float32); other page dtypes as they are."""
+    to = _WIDEN.get(x.dtype)
+    return x if to is None else x.to(to)
 
 
 def paged_decode_attention(
@@ -197,10 +206,10 @@ def paged_verify_attention(
 
 def _decode_geometry_ok(cfg, device: torch.device) -> bool:
     """What the split-KV CUDA kernels (fused decode, split paged attention)
-    take: bf16 activations over a bf16 or unscaled float8_e4m3fn pool (the
-    pool does not enter, as in the JAX package) or an int8/fp8 pool with
-    scales (the fused path), head_dim 64 or
-    128, 1/2/4/7/8 query heads per kv group (csrc/split_kv.cuh template
+    take: bf16 activations over a bf16 pool, an unscaled float8_e4m3fn /
+    float8_e5m2 / float16 pool (the pool does not enter, as in the JAX
+    package) or an int8/fp8 pool with scales (the fused path), head_dim 64
+    or 128, 1/2/4/7/8 query heads per kv group (csrc/split_kv.cuh template
     instances) -- the JAX package's ``_pallas_geometry_ok`` for every preset
     the port has.  On the CPU the wrappers run their plain versions, which
     take any geometry."""

@@ -1,6 +1,7 @@
 """Paged-attention kernel wrappers: flash paged prefill, fused decode and
-split paged attention, over a bf16 pool, an unscaled float8_e4m3fn pool
-(``ModelConfig.kv_dtype``) or an int8/fp8 pool with scale planes.
+split paged attention, over a bf16 pool, an unscaled float8_e4m3fn,
+float8_e5m2 or float16 pool (``ModelConfig.kv_dtype``) or an int8/fp8 pool
+with scale planes.
 
 The counterpart of the JAX package's ``ops/pallas_attention.py``.  Each
 wrapper launches a hand-written CUDA kernel (``csrc/flash_prefill.cu``,
@@ -37,23 +38,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # symbol -> (library, argtypes); the int8/fp8 symbols add the two scale
-# planes after the pages, the e4m3 ones (an unscaled fp8 pool) take none.
+# planes after the pages, the unscaled pools' (e4m3, e5m2, f16) take none.
 _FLASH = [_P] * 7 + [_I] * 6 + [_P]      # q, kp, vp, table, start, lengths,
 #                                          out, B, S, H, KVH, bs, NB, stream
 _FUSED = [_P] * 11 + [_I] * 8 + [_F, _P]  # q, k_new, v_new, cos, sin, kp, vp,
 #             table, positions, out, workspace, B, H, KVH, D, bs, NB, nsplit,
 #             chunk, scale, stream
-_SIGNATURES = {
-    "flash_prefill_bf16": ("flash_prefill", _FLASH),
-    "flash_prefill_e4m3": ("flash_prefill", _FLASH),
-    "flash_prefill_int8": ("flash_prefill", [_P] * 2 + _FLASH),
-    "flash_prefill_fp8": ("flash_prefill", [_P] * 2 + _FLASH),
-    "fused_decode_bf16": ("fused_decode", _FUSED),
-    "fused_decode_e4m3": ("fused_decode", _FUSED),
-    "fused_decode_int8": ("fused_decode", [_P] * 2 + _FUSED),
-    "fused_decode_fp8": ("fused_decode", [_P] * 2 + _FUSED),
-}
-for _sfx in ("bf16", "e4m3"):
+# An unscaled pool: bf16, or e4m3 / e5m2 / f16 pages with no scale planes.
+_PLAIN_SUFFIX = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
+                 torch.float8_e5m2: "e5m2", torch.float16: "f16"}
+_QUANT_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+_SIGNATURES = {}
+for _sfx in _QUANT_SUFFIX.values():
+    _SIGNATURES[f"flash_prefill_{_sfx}"] = ("flash_prefill", [_P] * 2 + _FLASH)
+    _SIGNATURES[f"fused_decode_{_sfx}"] = ("fused_decode", [_P] * 2 + _FUSED)
+for _sfx in _PLAIN_SUFFIX.values():
+    _SIGNATURES[f"flash_prefill_{_sfx}"] = ("flash_prefill", _FLASH)
+    _SIGNATURES[f"fused_decode_{_sfx}"] = ("fused_decode", _FUSED)
     # q, kp, vp, table, starts, qlens, out, workspace, B, QS, H, KVH, D,
     # bs, NB, nsplit, chunk, scale, stream
     _SIGNATURES[f"paged_attn_{_sfx}"] = ("paged_attn",
@@ -62,9 +63,6 @@ for _sfx in ("bf16", "e4m3"):
     # nsplit, chunk, scale, stream
     _SIGNATURES[f"paged_attn_decode_{_sfx}"] = ("paged_attn",
                                                 [_P] * 7 + [_I] * 8 + [_F, _P])
-_QUANT_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
-# An unscaled pool: bf16, or float8_e4m3fn pages with no scale planes.
-_PLAIN_SUFFIX = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3"}
 _fns: dict[str, object] = {}
 
 
@@ -173,10 +171,10 @@ def flash_prefill_attention_plain(q, k_pages, v_pages, block_table, start,
 
 
 def _check_pool(k_pages, v_pages, k_scale, v_scale, D, what):
-    """The pool a kernel takes: contiguous bf16 or float8_e4m3fn pages with
-    no scales, or contiguous int8/fp8 pages with float32 scale planes
-    [num_blocks, bs, KVH].  Returns the symbol suffix ("bf16", "e4m3",
-    "int8", "fp8")."""
+    """The pool a kernel takes: contiguous bf16, float8_e4m3fn, float8_e5m2
+    or float16 pages with no scales, or contiguous int8/fp8 pages with
+    float32 scale planes [num_blocks, bs, KVH].  Returns the symbol suffix
+    ("bf16", "e4m3", "e5m2", "f16", "int8", "fp8")."""
     nb, bs, F = k_pages.shape
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()
             and v_pages.shape == k_pages.shape
@@ -185,8 +183,8 @@ def _check_pool(k_pages, v_pages, k_scale, v_scale, D, what):
     if k_scale is None:
         suffix = _PLAIN_SUFFIX.get(k_pages.dtype)
         if suffix is None or v_scale is not None:
-            raise ValueError(f"{what}: an unscaled pool must be bf16 or "
-                             f"float8_e4m3fn, got {k_pages.dtype}")
+            raise ValueError(f"{what}: an unscaled pool must be one of "
+                             f"{tuple(_PLAIN_SUFFIX)}, got {k_pages.dtype}")
         return suffix
     suffix = _QUANT_SUFFIX.get(k_pages.dtype)
     if suffix is None:
@@ -266,11 +264,11 @@ def paged_decode_attention_fused_plain(q, k_new, v_new, cos, sin, k_pages,
     place and returns them, like the kernel.
 
     The query is scaled by D**-0.5 in its own dtype before RoPE, where the
-    kernel (and pallas_attention.py:521) scales it.  An fp8 pool takes
-    ``_fused_plain_f32``: its appended row rounds from the f32 roped k, as
-    the kernels' does.
+    kernel (and pallas_attention.py:521) scales it.  A pool of another
+    page dtype than bf16 (fp8, fp16) takes ``_fused_plain_f32``: its
+    appended row rounds from the f32 roped k, as the kernels' does.
     """
-    if k_pages.dtype == torch.float8_e4m3fn:
+    if k_pages.dtype != torch.bfloat16:
         return _fused_plain_f32(q, k_new, v_new, cos, sin, k_pages, v_pages,
                                 None, None, block_table, positions)[:3]
     D = q.shape[-1]
@@ -333,8 +331,9 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
     k and raw v row at ``positions`` (in place; inactive lanes,
     ``positions == 0``, and positions past the table write the null block
     0), attend over the cached positions and the current token.  The pages
-    are bf16 or unscaled float8_e4m3fn (the row cast from f32 with
-    ``cast_e4m3``'s semantics).
+    are bf16 or unscaled float8_e4m3fn / float8_e5m2 / float16 (the row
+    cast from f32 with ``cast_e4m3``'s, ``cast_e5m2``'s or ``.to``'s
+    semantics).
 
     q [B, 1, H, D] and k_new, v_new [B, 1, KVH, D] raw projections; cos,
     sin [B, 1, D] f32 angles at ``positions`` (ops/rope.py); pages
@@ -364,16 +363,17 @@ paged_decode_attention_fused.fused_decode = True
 
 def _fused_plain_f32(q, k_new, v_new, cos, sin, k_pages, v_pages, k_scale,
                      v_scale, block_table, positions):
-    """The fused kernels' function on a 1-byte pool, in float32 as the
-    Pallas kernels compute it: RoPE in float32 on the bf16-pre-scaled q and
-    on the new k; the new k/v row written in place at ``positions``
-    (null-block redirect as ``_scatter_pages``); attention over the cached
-    rows ``< positions`` widened to float32, plus the current token as one
-    more key, unrounded.
+    """The fused kernels' function on a pool other than bf16, in float32
+    as the Pallas kernels compute it: RoPE in float32 on the
+    bf16-pre-scaled q and on the new k; the new k/v row written in place
+    at ``positions`` (null-block redirect as ``_scatter_pages``); attention
+    over the cached rows ``< positions`` widened to float32, plus the
+    current token as one more key, unrounded.
 
-    Without scale planes (an unscaled float8_e4m3fn pool) the row is cast
-    from float32 (``cast_e4m3``, pallas_attention.py:390-391) and the
-    current token folds in as the f32 row itself (:445-454).  With them,
+    Without scale planes (an unscaled fp8 or fp16 pool) the row is cast
+    from float32 (``cast_e4m3``, ``cast_e5m2`` or ``.to(torch.float16)``,
+    pallas_attention.py:390-391) and the current token folds in as the f32
+    row itself (:445-454).  With them,
     per-head quantization of the row, written with its scales, and the
     current token folded as ``codes * scale`` where int8 codes are rounded
     and fp8 ones are not (:657-660 -- the pages get the fp8 cast, the

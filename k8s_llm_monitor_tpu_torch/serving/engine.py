@@ -88,9 +88,9 @@ block.
     ``health`` and ``brownout`` slots, SLO-class scheduling, and the
     request and phase spans (observability/tracing.py).
   * **KV tiers** (serving/kv_tier.py) -- rung 1, the resident pool: the
-    model's dtype, ``ModelConfig.kv_dtype`` (``float8_e4m3fn``: unscaled
-    fp8 pages on the same kernels) or the int8/fp8 tier with scale planes
-    (``EngineConfig.kv_dtype``).  Rung 2 (``host_spill_bytes`` or a
+    model's dtype, ``ModelConfig.kv_dtype`` (``float8_e4m3fn``,
+    ``float8_e5m2``, ``float16``: unscaled pages on the same kernels) or
+    the int8/fp8 tier with scale planes (``EngineConfig.kv_dtype``).  Rung 2 (``host_spill_bytes`` or a
     ``host_kv_tier`` the supervisor's factory keeps across rebuilds): a
     pressured prefix-cache eviction spills its page rows to host RAM, and
     an admission whose prompt hits a spilled prefix writes them back in
@@ -226,14 +226,17 @@ class GenerationResult:
 
 
 def _page_dtype_name(dtype: torch.dtype) -> str:
-    """numpy's name of a page dtype ("bfloat16", "float8_e4m3fn", "int8",
-    "float32"): the JAX engine's ``kv_tier_stats`` and blob META name."""
+    """numpy's name of a page dtype ("bfloat16", "float8_e4m3fn",
+    "float8_e5m2", "float16", "int8", "float32"): the JAX engine's
+    ``kv_tier_stats`` and blob META name."""
     return str(dtype).removeprefix("torch.")
 
 
 # Host arrays of the pool's leaves, for the spill tier and the blobs: numpy
-# has no bf16 or fp8, so those rows are held as their bytes (uint16, uint8).
+# has no bf16 or fp8, so those rows are held as their bytes (uint16, uint8),
+# and fp16 rows alike (uint16).
 _HOST_DTYPE = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8,
+               torch.float8_e5m2: np.uint8, torch.float16: np.uint16,
                torch.int8: np.int8, torch.float32: np.float32}
 
 
@@ -292,7 +295,7 @@ class EngineConfig:
     # "bf16" and "none" mean the same); "int8" / "fp8" hold 1-byte codes
     # plus per-(token, head) float32 scales (models/llama.py:KVPages).
     # K8SLLM_KV_DTYPE overrides it.  (ModelConfig.kv_dtype picks the page
-    # dtype of the "auto" pool: float8_e4m3fn for unscaled fp8 pages.)
+    # dtype of the "auto" pool: float8_e4m3fn, float8_e5m2 or float16.)
     kv_dtype: str = "auto"
     # Host-RAM spill tier capacity in bytes (rung 2): pressured prefix-cache
     # evictions demote page rows to a HostKVTier of this size instead of
@@ -833,8 +836,8 @@ class InferenceEngine:
         self._pending: deque[GenerationRequest] = deque()
         self._slots: list[Optional[_Slot]] = [None] * ec.max_slots
         self._results: dict[str, GenerationResult] = {}
-        self.steps = 0            # step() calls
-        self.decode_steps = 0     # decode steps dispatched (JAX ``steps``)
+        self.step_calls = 0       # step() calls
+        self.steps = 0            # decode steps dispatched, as JAX counts
         self.decode_tokens = 0    # tokens emitted by decode calls
         self.prefills = 0         # prompts whose first token was dispatched
         # Host wall time with a decode call in flight (dispatch to
@@ -869,18 +872,41 @@ class InferenceEngine:
         self.requeues = 0
         self.preemptions = 0
         self.preemptions_by_class: dict[str, int] = {}
-        # Per-class TTFT EMA (seconds), keyed on first observation; the
-        # server's /api/v1/stats reads it.
-        self.ttft_ema_by_class: dict[str, float] = {}
         # EMA of submit -> admission wait: a shed signal when slots churn
         # slower than requests arrive.
         self.slot_wait_ema_s = 0.0
+        # Per-class admission-wait and TTFT EMAs (seconds), keyed on first
+        # observation so the exporter can mark a class that never carried
+        # traffic NaN; /api/v1/stats reads the TTFT one.
+        self.slot_wait_ema_by_class: dict[str, float] = {}
+        self.ttft_ema_by_class: dict[str, float] = {}
+        # TTFT histogram (Prometheus semantics: cumulative le buckets +
+        # sum/count), observed once per request with its first token.
+        self.ttft_buckets: tuple[float, ...] = (
+            0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+        self.ttft_counts = [0] * (len(self.ttft_buckets) + 1)  # +Inf last
+        self.ttft_sum = 0.0
+        self.ttft_count = 0
+        # Decode phase attribution (monitor/exporter.py gauges):
+        # decode_host_gap_ms, an EMA of host time blocked per decode/spec
+        # reconcile (~0 when dispatch-ahead hides the device);
+        # decode_attn_ms / decode_sample_ms, per-step attention / sampling
+        # cost, set by profile_decode_phases() only.  No mesh: the
+        # collective share stays 0.0 and tp_overlap False (ROADMAP A7).
+        self.decode_host_gap_ms = 0.0
+        self.decode_attn_ms = 0.0
+        self.decode_sample_ms = 0.0
+        self.decode_collective_share = 0.0
+        self.tp_overlap = False
         # Request-lifecycle histograms per SLO class, with exemplar trace
         # ids, observed on the step thread only.
         _lat = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
         self.hist_ttft = ClassHistogram(_lat)
         self.hist_e2e = ClassHistogram(_lat)
         self.hist_queue_wait = ClassHistogram(_lat)
+        # Per decode-step seconds (call wall time / steps in call).
+        self.hist_decode_step = ClassHistogram(
+            (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0))
         self._tracer = get_tracer()
         self._flight = get_flight_recorder()
         # Cache maintenance with no owning request (the KV spill) records
@@ -1221,6 +1247,9 @@ class InferenceEngine:
         wait = now - req.submit_time
         self.slot_wait_ema_s = (wait if self.slot_wait_ema_s == 0.0
                                 else 0.9 * self.slot_wait_ema_s + 0.1 * wait)
+        prev = self.slot_wait_ema_by_class.get(req.slo_class)
+        self.slot_wait_ema_by_class[req.slo_class] = (
+            wait if prev is None else 0.9 * prev + 0.1 * wait)
         self.hist_queue_wait.observe(wait, req.slo_class, self._trace_id(req))
         self._span("engine.queue_wait", req.submit_time, now, req)
 
@@ -1427,7 +1456,7 @@ class InferenceEngine:
         calls down to ``max_inflight`` in flight, or one call when nothing
         was dispatched."""
         ec = self.ecfg
-        self.steps += 1
+        self.step_calls += 1
         self._step_waited = False
         self._dispatching = True
         self._enforce_deadlines()
@@ -2262,6 +2291,89 @@ class InferenceEngine:
         """{request class: EMA of tokens emitted per lane-round}."""
         return self._spec_accept.snapshot()
 
+    def profile_decode_phases(self, reps: int = 3) -> dict[str, float]:
+        """Attribute the decode step: attention vs sampling cost (JAX
+        ``profile_decode_phases``).
+
+        Runs the decode programs -- on the card their CUDA graphs, captured
+        here if no request has used them yet, replayed otherwise -- on a
+        synthetic full-batch state (all ``max_slots`` lanes live on one
+        table row of blocks 1..width) and differences their times:
+
+          * long-context minus short-context greedy -> ``decode_attn_ms``
+            (only paged attention scales with the context), and
+          * sampled minus greedy at short context -> ``decode_sample_ms``.
+
+        The state goes into the programs' fixed input buffers with
+        ``copy_``; the steps append garbage rows into ``self.pages``, so
+        this runs only on an IDLE engine (it raises otherwise), never on a
+        /metrics scrape.  Times are CUDA events on the card, the host clock
+        elsewhere.  Returns all four figures and the collective share (0.0:
+        no mesh)."""
+        if self._inflight or any(s is not None for s in self._slots):
+            raise RuntimeError(
+                "profile_decode_phases() requires an idle engine "
+                "(it clobbers KV pages)")
+        ec = self.ecfg
+        K, B = ec.decode_steps_per_iter, ec.max_slots
+        width = ec.max_blocks_per_seq
+        nblk = min(width, ec.num_blocks - 1)
+        ctx_hi = max(nblk * ec.block_size - K - 1, 1)
+        cap = ec.sample_topk_cap
+        cuda = self.device.type == "cuda"
+
+        def run(key: tuple, ctx_val: int, sampled: bool) -> float:
+            inp = torch.zeros(B * (5 + width), dtype=torch.int32)
+            ctx, remaining, topk, temp, topp, table = _decode_inputs(
+                inp, B, torch.float32)
+            ctx[:] = ctx_val
+            remaining[:] = 10 ** 6
+            table[:, :nblk] = torch.arange(1, 1 + nblk, dtype=torch.int32)
+            temp[:] = 0.7 if sampled else 0.0
+            topk[:] = max(min(cap, 8), 1) if sampled else 0
+            topp[:] = 0.9 if sampled else 1.0
+            self._dec_in.copy_(inp.to(self.device))
+            self._tok_state.zero_()
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._programs[key] = _DecodeProgram(self, *key)
+            prog()                        # warm: builds or captures once
+            if cuda:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(reps):
+                    prog()
+                t1.record()
+                t1.synchronize()
+                ms = t0.elapsed_time(t1)
+            else:
+                h0 = time.monotonic()
+                for _ in range(reps):
+                    prog()
+                ms = (time.monotonic() - h0) * 1e3
+            return ms / (reps * K)
+
+        sampler = "bounded" if cap > 0 else "full"
+        t_lo = run((K, "greedy", False, 0), 1, sampled=False)
+        t_hi = run((K, "greedy", False, 0), ctx_hi, sampled=False)
+        t_samp = run((K, sampler, False, cap), 1, sampled=True)
+        self._tok_state.zero_()
+        self.decode_attn_ms = max(t_hi - t_lo, 0.0)
+        self.decode_sample_ms = max(t_samp - t_lo, 0.0)
+        return {
+            "decode_step_ms_short_ctx": t_lo,
+            "decode_step_ms_long_ctx": t_hi,
+            "decode_attn_ms": self.decode_attn_ms,
+            "decode_sample_ms": self.decode_sample_ms,
+            "decode_collective_share": self.decode_collective_share,
+        }
+
+    def mesh_axes(self) -> dict[str, int]:
+        """{axis: size} of the serving mesh: {} (no mesh, ROADMAP A7), the
+        exporter's ``mesh_axes`` topology gauge."""
+        return {}
+
     # -- decode ---------------------------------------------------------
 
     def _decode_lanes(self) -> list[tuple[int, _Slot]]:
@@ -2434,7 +2546,7 @@ class InferenceEngine:
         self._next_call_id += 1
         if not spec:
             # A spec call counts the verify forwards it ran at reconcile.
-            self.decode_steps += K
+            self.steps += K
         if bounded:
             self.bounded_decode_steps += K
         return True
@@ -2464,12 +2576,20 @@ class InferenceEngine:
         if self._faults.should_fire("slow_host_callback"):
             time.sleep(self._faults.delay_s("slow_host_callback"))
         try:
+            gap_t0 = time.monotonic()
             if call.event is not None:
                 if self._dispatching and not call.event.query():
                     self._step_waited = True
                 call.event.synchronize()
             if call.stuck:
                 raise FaultError("decode_stuck")
+            if call.kind in ("decode", "spec"):
+                # Host time blocked on this device call: ~0 whenever
+                # dispatch-ahead hid the device latency.
+                gap_ms = (time.monotonic() - gap_t0) * 1e3
+                self.decode_host_gap_ms = (
+                    gap_ms if self.decode_host_gap_ms == 0.0
+                    else 0.9 * self.decode_host_gap_ms + 0.1 * gap_ms)
             self._apply_call(call)
         except Exception as exc:
             self._record_dispatch_failure(exc)
@@ -2515,7 +2635,7 @@ class InferenceEngine:
             ran, lane_rounds = (int(x) for x in call.stage.out_np[n:n + 2])
             self.spec_verify_steps += ran
             self.spec_lane_rounds += lane_rounds
-            self.decode_steps += ran
+            self.steps += ran
             if lane_rounds:
                 # The class of the slots this call ran (the slot objects:
                 # a reused lane index cannot misattribute).
@@ -2530,6 +2650,10 @@ class InferenceEngine:
             new = [int(t) for t in arr[:, slot_idx] if t >= 0]
             s.inflight_decode -= steps_i
             self.decode_tokens += len(new)
+            if steps_i > 0:
+                self.hist_decode_step.observe(
+                    max(0.0, now - call.t0) / steps_i, s.req.slo_class,
+                    self._trace_id(s.req))
             if spec:
                 self.spec_tokens += len(new)
                 self._span("engine.spec_decode", call.t0, now, s.req,
@@ -2570,17 +2694,28 @@ class InferenceEngine:
             s.generated.append(tok)
             if req.first_token_time == 0.0:
                 req.first_token_time = now
-                ttft = now - req.submit_time
-                self.hist_ttft.observe(ttft, req.slo_class,
-                                       self._trace_id(req))
-                prev = self.ttft_ema_by_class.get(req.slo_class)
-                self.ttft_ema_by_class[req.slo_class] = (
-                    ttft if prev is None else 0.9 * prev + 0.1 * ttft)
+                self._observe_ttft(now - req.submit_time, req.slo_class,
+                                   trace_id=self._trace_id(req))
             s.first_token_time = req.first_token_time
             self._span(span, call.t0, now, req,
                        constrained=req.sampling.constrained,
                        **call.span_attrs)
             self._emit(req, [tok])
+
+    def _observe_ttft(self, ttft_s: float, slo_class: str = DEFAULT_CLASS,
+                      trace_id: str = "") -> None:
+        self.hist_ttft.observe(ttft_s, slo_class, trace_id)
+        for i, le in enumerate(self.ttft_buckets):
+            if ttft_s <= le:
+                self.ttft_counts[i] += 1
+                break
+        else:
+            self.ttft_counts[-1] += 1
+        self.ttft_sum += ttft_s
+        self.ttft_count += 1
+        prev = self.ttft_ema_by_class.get(slo_class)
+        self.ttft_ema_by_class[slo_class] = (
+            ttft_s if prev is None else 0.9 * prev + 0.1 * ttft_s)
 
     def _is_finished(self, s: _Slot) -> bool:
         return bool(s.generated) and (

@@ -27,7 +27,11 @@ COPIES = ("diagnosis/grammar.py", "devtools/lockcheck.py",
           "monitor/manager.py", "monitor/network.py", "monitor/config.py",
           "diagnosis/session.py", "monitor/watcher.py",
           "diagnosis/pipeline.py", "serving/kv_cache.py",
-          "utils/tokenizer.py", "serving/kv_tier.py")
+          "utils/tokenizer.py", "serving/kv_tier.py",
+          "observability/signals.py", "observability/timeseries.py",
+          "remediation/__init__.py", "remediation/plans.py",
+          "remediation/executor.py", "monitor/kube_rest.py",
+          "monitor/uav.py")
 
 
 def _tree(path: Path, rename: bool) -> ast.Module:
@@ -67,6 +71,7 @@ PIECES = (
     ("monitor/server.py", "MonitorServer.engine_service"),
     ("monitor/server.py", "MonitorServer.engine_supervisor"),
     ("monitor/server.py", "MonitorServer.request_shutdown"),
+    ("monitor/server.py", "MonitorServer.fleet_router"),
     *(("monitor/server.py", f"_make_handler.Handler.{name}") for name in (
         "log_message", "_send_json", "_send_overloaded", "_send_error_text",
         "_parse_tenant", "_read_json", "do_GET", "do_POST", "_route",
@@ -74,7 +79,19 @@ PIECES = (
         "h_cluster_status", "h_pods", "h_pod_comm", "_stream_query",
         "h_analyze", "_need_manager", "h_metrics_cluster", "h_metrics_nodes",
         "h_metrics_node", "h_metrics_pods", "h_metrics_snapshot",
-        "h_metrics_network", "_engine_call", "h_kv_prefix", "h_kv_install")),
+        "h_metrics_network", "_engine_call", "h_kv_prefix", "h_kv_install",
+        "_dispatch", "h_prometheus", "h_remediations",
+        "h_remediation_action", "h_signals", "h_timeseries", "h_metrics_uav",
+        "h_metrics_uav_node", "h_uav_command", "h_uav_report", "h_uav_crd")),
+    # The exporter: every function but _device_metrics, which reads
+    # torch.cuda where the JAX exporter reads jax.local_devices().
+    *(("monitor/exporter.py", name) for name in (
+        "_Writer", "lint_exposition", "_engine_metrics",
+        "_latency_histograms", "_resilience_metrics", "_lifecycle_metrics",
+        "_kube_breaker_metrics", "_manager_metrics", "_fleet_metrics",
+        "_autoscaler_metrics", "_remediation_metrics", "_diagnosis_metrics",
+        "_telemetry_metrics", "_tenant_metrics", "_tracing_metrics",
+        "render_prometheus")),
 )
 
 

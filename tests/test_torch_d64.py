@@ -219,27 +219,29 @@ def test_path_selection_matches_jax_per_preset(preset):
                                          cfg=jcfg, mode=mode)
         got["prefill", mode] = _outcome(tattn.select_prefill_impl, CUDA,
                                         tcfg, mode)
-    # The unscaled fp8 pool (ModelConfig.kv_dtype, B8): no selector of
-    # either package looks at the page dtype, so each picks what it picks
-    # for the model-dtype pool (kv_quant stays "").
-    jcfg8 = dataclasses.replace(jcfg, kv_dtype="float8_e4m3fn")
-    tcfg8 = dataclasses.replace(tcfg, kv_dtype="float8_e4m3fn")
-    for mode in ("auto", "fused", "pallas", "gather"):
-        want["decode", "fp8 pool", mode] = _outcome(
-            jattn.select_decode_impl, "tpu", cfg=jcfg8, mode=mode)
-        got["decode", "fp8 pool", mode] = _outcome(
-            tattn.select_decode_impl, CUDA, tcfg8, mode)
-    for mode in ("auto", "flash", "dense"):
-        want["prefill", "fp8 pool", mode] = _outcome(
-            jattn.select_prefill_impl, "tpu", cfg=jcfg8, mode=mode)
-        got["prefill", "fp8 pool", mode] = _outcome(
-            tattn.select_prefill_impl, CUDA, tcfg8, mode)
-    want["verify", "fp8 pool"] = _outcome(
-        jattn.select_verify_impl, "tpu", cfg=jcfg8, max_table_tokens=4096)
-    got["verify", "fp8 pool"] = _outcome(tattn.select_verify_impl, CUDA,
-                                         tcfg8)
-    for mode in ("auto", "fused", "pallas", "gather"):
-        assert got["decode", "fp8 pool", mode] == got["decode", "", mode]
+    # The unscaled pools (ModelConfig.kv_dtype: e4m3, B8; e5m2 and fp16,
+    # B9): no selector of either package looks at the page dtype, so each
+    # picks what it picks for the model-dtype pool (kv_quant stays "").
+    for pool, kv_dtype in (("fp8 pool", "float8_e4m3fn"),
+                           ("e5m2 pool", "float8_e5m2"),
+                           ("f16 pool", "float16")):
+        jcfg8 = dataclasses.replace(jcfg, kv_dtype=kv_dtype)
+        tcfg8 = dataclasses.replace(tcfg, kv_dtype=kv_dtype)
+        for mode in ("auto", "fused", "pallas", "gather"):
+            want["decode", pool, mode] = _outcome(
+                jattn.select_decode_impl, "tpu", cfg=jcfg8, mode=mode)
+            got["decode", pool, mode] = _outcome(
+                tattn.select_decode_impl, CUDA, tcfg8, mode)
+        for mode in ("auto", "flash", "dense"):
+            want["prefill", pool, mode] = _outcome(
+                jattn.select_prefill_impl, "tpu", cfg=jcfg8, mode=mode)
+            got["prefill", pool, mode] = _outcome(
+                tattn.select_prefill_impl, CUDA, tcfg8, mode)
+        want["verify", pool] = _outcome(
+            jattn.select_verify_impl, "tpu", cfg=jcfg8, max_table_tokens=4096)
+        got["verify", pool] = _outcome(tattn.select_verify_impl, CUDA, tcfg8)
+        for mode in ("auto", "fused", "pallas", "gather"):
+            assert got["decode", pool, mode] == got["decode", "", mode]
     # A listed divergence: the JAX package keeps the gather under a
     # 2,048-token table (a TPU measurement); the port takes the kernel at
     # every width (it is the faster on the H100 at 1,024 tokens, PERF.md
@@ -268,8 +270,9 @@ def test_path_selection_matches_jax_per_preset(preset):
         # where the JAX package gathers.
         want["decode", "", "pallas"] = "raises"
         want["verify",] = "raises"
-        want["decode", "fp8 pool", "pallas"] = "raises"
-        want["verify", "fp8 pool"] = "raises"
+        for pool in ("fp8 pool", "e5m2 pool", "f16 pool"):
+            want["decode", pool, "pallas"] = "raises"
+            want["verify", pool] = "raises"
     assert got == want
 
 

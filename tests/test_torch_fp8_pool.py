@@ -243,10 +243,13 @@ def test_split_plain_on_fp8_pages_matches_pallas(QS):
 # -------------------------------------------------------- config, pool
 
 
-@pytest.mark.parametrize("kv_dtype", ["float8_e5m2", "float16"])
-def test_other_page_dtypes_name_b9(kv_dtype):
+# B9's remainder: float32 pages, and bf16 pages under a float32 model
+# (float8_e5m2 and float16 pages are ported, tests/test_torch_kv_dtypes.py).
+@pytest.mark.parametrize("kv_dtype,dtype", [("float32", "bfloat16"),
+                                            ("bfloat16", "float32")])
+def test_other_page_dtypes_name_b9(kv_dtype, dtype):
     with pytest.raises(NotImplementedError, match="B9"):
-        ModelConfig(kv_dtype=kv_dtype)
+        ModelConfig(kv_dtype=kv_dtype, dtype=dtype)
 
 
 def test_pool_dtype_and_the_scaled_tier_wins():
@@ -295,7 +298,7 @@ def test_fp8_pool_engine_matches_jax_engine(weights):
     assert eng.kv_quant == "" and eng.pages.k[0].dtype == torch.float8_e4m3fn
     assert (eng.prefill_path, eng.decode_path) == ("dense", "gather")
     assert [r.token_ids for r in got] == [r.token_ids for r in want]
-    assert eng.decode_steps == want_eng.steps
+    assert eng.steps == want_eng.steps
     # One byte per element: a quarter of the float32 toy's pool.
     assert eng.pool_bytes == eng.pages.nbytes() == want_eng.kv_tier_stats()[
         "device_bytes"]

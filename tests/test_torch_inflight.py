@@ -250,7 +250,7 @@ def _decode_schedule(mod, eng, reqs, n_steps):
     out = []
     for _ in range(n_steps):
         eng.step()
-        out.append(eng.steps if mod is jengine else eng.decode_steps)
+        out.append(eng.steps)
     assert not eng.has_work
     return out
 

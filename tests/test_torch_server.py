@@ -8,10 +8,12 @@ tiny float32 engine on each side, from one set of weights and at
 temperature 0, ``/api/v1/query`` and a root-cause ``/api/v1/analyze`` give
 the same answer text and verdict (after the two evidence prompts are shown
 equal).  ``build_server`` and ``LocalEngineBackend.from_config`` refuse
-every knob the port does not serve, ``from_config(device="cpu")`` builds a
-supervised backend, the ``tpu`` provider does not fall back to the template
-backend, and ``python -m k8s_llm_monitor_tpu_torch.cmd.server`` boots,
-answers ``/readyz`` and exits 0 on SIGTERM.  Servers bind port 0.
+every knob the port does not serve and serve telemetry and remediation,
+``from_config(device="cpu")`` builds a supervised backend, the ``tpu``
+provider does not fall back to the template backend, and ``python -m
+k8s_llm_monitor_tpu_torch.cmd.server`` boots on the default config (and
+with ``--cluster kube`` and no cluster, in dev mode), answers ``/readyz``
+and exits 0 on SIGTERM.  Servers bind port 0.
 """
 
 import json
@@ -249,6 +251,15 @@ def test_a_burst_of_connections_is_served(servers):
 
 
 def test_unported_routes_are_not_registered(servers):
+    """No route is left unported: the port's route table is the JAX
+    server's (ROADMAP A13 brought /metrics, /debug/profile, the signals,
+    timeseries, remediation and UAV routes), and each answers with its
+    handler, not the 404 of an unregistered path
+    (tests/test_torch_telemetry.py holds their bodies to JAX's)."""
+    from k8s_llm_monitor_tpu.monitor import server as jserver
+    from k8s_llm_monitor_tpu_torch.monitor import server as pserver
+
+    assert pserver._ROUTES == jserver._ROUTES
     _, psrv = servers
     for method, path in (("GET", "/metrics"), ("POST", "/debug/profile"),
                          ("GET", "/api/v1/signals"),
@@ -259,7 +270,7 @@ def test_unported_routes_are_not_registered(servers):
                          ("GET", "/api/v1/crd/uav")):
         status, *_ = _call(psrv.port, method, path,
                            {} if method == "POST" else None)
-        assert status == 404, (method, path)
+        assert status != 404, (method, path)
 
 
 CFG_KW = dict(name="t", vocab_size=300, hidden_size=32, intermediate_size=64,
@@ -359,20 +370,43 @@ def test_tiny_engine_answers_like_jax(prefix_cache):
         pb.service.stop()
 
 
-@pytest.mark.parametrize("knob", ["telemetry", "remediation",
-                                  "embedding_model", "router"])
+@pytest.mark.parametrize("knob", ["embedding_model", "router"])
 def test_build_server_refuses_unported_knobs(knob):
     cfg = _config(Config)
-    if knob == "telemetry":
-        cfg.telemetry.enabled = True
-    elif knob == "remediation":
-        cfg.remediation.enabled = True
-    elif knob == "embedding_model":
+    if knob == "embedding_model":
         cfg.analysis.embedding_model = "tiny-encoder"
     else:
         cfg.fleet.role = "router"
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+
+
+@pytest.mark.parametrize("knob", ["telemetry", "remediation"])
+def test_build_server_serves_default_on_knobs(knob):
+    """The two knobs the default config turns on (ROADMAP A13): the signal
+    scraper and the remediation engine are wired as in the JAX server,
+    and the routes they back answer."""
+    cfg = _config(Config)
+    setattr(getattr(cfg, knob), "enabled", True)
+    srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+    srv.start()
+    try:
+        if knob == "telemetry":
+            assert srv.signals is not None and srv.remediation is None
+            srv.signals.stop()
+            srv.signals.scrape_once()
+            status, _, _, body = _call(srv.port, "GET", "/api/v1/signals")
+            assert status == 200 and body["scraper"]["scrapes"] == 1
+        else:
+            assert srv.remediation is not None and srv.signals is None
+            assert srv.diagnosis.remediation is srv.remediation
+            status, _, _, body = _call(srv.port, "GET",
+                                       "/api/v1/remediations")
+            assert status == 200 and body["remediations"] == []
+            assert _call(srv.port, "GET", "/api/v1/stats")[3][
+                "remediation"]["enabled"]
+    finally:
+        srv.stop()
 
 
 def test_remediation_without_a_cluster_boots():
@@ -472,24 +506,27 @@ def test_tpu_provider_does_not_fall_back_without_a_card(monkeypatch):
         build_server(cfg)
 
 
-@pytest.mark.parametrize("argv,item", [(["--role", "router"], "A8"),
-                                       (["--cluster", "kube"], "A13")])
+@pytest.mark.parametrize("argv,item", [(["--role", "router"], "A8")])
 def test_cmd_server_refuses_unported_modes(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         cmd_server.main(argv)
 
 
-def test_cmd_server_boots_and_exits_zero_on_sigterm(tmp_path):
+def _serve_and_stop(tmp_path, argv, env_extra=None):
+    """Run ``cmd.server`` with ``argv`` in a subprocess: wait for /readyz,
+    ask a query, SIGTERM; returns (readyz body, query body, exit code,
+    output)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, TELEMETRY_ENABLED="false",
-               REMEDIATION_ENABLED="false", K8SLLM_FLIGHT_DIR=str(tmp_path),
-               PYTHONPATH=str(ROOT))
+    env = dict(os.environ, K8SLLM_FLIGHT_DIR=str(tmp_path),
+               PYTHONPATH=str(ROOT), **(env_extra or {}))
+    env.pop("TELEMETRY_ENABLED", None)
+    env.pop("REMEDIATION_ENABLED", None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "k8s_llm_monitor_tpu_torch.cmd.server",
-         "--device", "cpu", "--llm", "template", "--cluster", "fake",
-         "--host", "127.0.0.1", "--port", str(port)],
+         "--device", "cpu", "--llm", "template", "--host", "127.0.0.1",
+         "--port", str(port), *argv],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         deadline = time.monotonic() + 60
@@ -500,14 +537,34 @@ def test_cmd_server_boots_and_exits_zero_on_sigterm(tmp_path):
                 break
             except OSError:
                 time.sleep(0.1)
-        assert ready is not None and ready[0] == 200 and ready[3]["ready"]
-        status, _, _, body = _call(port, "POST", "/api/v1/query",
-                                   {"question": "why crashloop?"})
-        assert status == 200 and body["result"]["model"] == "template"
+        assert ready is not None and ready[0] == 200, ready
+        query = _call(port, "POST", "/api/v1/query",
+                      {"question": "why crashloop?"})
         proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=30) == 0
+        rc = proc.wait(timeout=30)
     finally:
         if proc.poll() is None:
             proc.kill()
         out = proc.communicate()[0].decode()
-    assert "graceful shutdown" in out
+    return ready[3], query, rc, out
+
+
+def test_cmd_server_kube_without_a_cluster_boots_in_dev_mode(tmp_path):
+    """``--cluster kube`` with no reachable cluster warns and boots in dev
+    mode, as the JAX command does (no kubeconfig at the given path, no
+    service account: no connection is attempted)."""
+    ready, query, rc, out = _serve_and_stop(
+        tmp_path, ["--cluster", "kube",
+                   "--kubeconfig", str(tmp_path / "no-such-kubeconfig")])
+    assert ready["ready"] and rc == 0
+    assert "development mode" in out and "no kubeconfig at" in out
+    assert query[0] == 200 and query[3]["result"]["model"] == "template"
+
+
+def test_cmd_server_boots_and_exits_zero_on_sigterm(tmp_path):
+    """The default config (telemetry and remediation on, no switch in the
+    environment) over the demo cluster."""
+    ready, query, rc, out = _serve_and_stop(tmp_path, ["--cluster", "fake"])
+    assert ready["ready"] and rc == 0
+    assert query[0] == 200 and query[3]["result"]["model"] == "template"
+    assert "graceful shutdown" in out and "signal scraper stopped" in out

@@ -334,7 +334,7 @@ def test_spec_engine_matches_jax(weights, monkeypatch, name, over, seed,
             == [r.finish_reason for r in jres])
     assert _counters(teng) == _counters(jeng)
     assert teng.spec_verify_steps > 0
-    assert teng.decode_steps == jeng.steps
+    assert teng.steps == jeng.steps
     if name == "repetitive":
         assert teng.spec_tokens > teng.spec_verify_steps   # multi-token rounds
     if name == "eos":
@@ -342,7 +342,7 @@ def test_spec_engine_matches_jax(weights, monkeypatch, name, over, seed,
     if name == "pressure":
         assert teng.preemptions > 0
     if name == "adapt_off":
-        assert teng.spec_verify_steps < teng.decode_steps / 2
+        assert teng.spec_verify_steps < teng.steps / 2
         assert set(teng.spec_accept_ema()) == {"greedy"}
         assert teng._spec_ema < 1.2
 
