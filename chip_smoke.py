@@ -4880,9 +4880,614 @@ def phase11(torch, np, st):
               f"{time.monotonic() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 12
+# A7: tensor parallelism over the model axis.  One process per rank
+# (parallel/mesh.py): NCCL with a card per rank, else two ranks sharing the
+# one card over gloo (host-staged collectives; labelled so in every line).
+
+# Per-rank head geometries of the TP paths, (query heads, kv heads): what
+# each kernel sees on one rank.
+TP_HEADS = (
+    ("h16kv4", (16, 4)),    # Llama-3-8B at TP 2 (12b's path)
+    ("h4kv1", (4, 1)),      # Llama-3-8B at TP 8: one kv head per rank
+    ("h14kv2", (14, 2)),    # Qwen2-7B at TP 2: 7 query heads per kv head
+    ("h32kv4", (32, 4)),    # Qwen2-72B / Llama-3-70B at TP 2
+    ("h16kv2", (16, 2)),    # Qwen2-72B / Llama-3-70B at TP 4
+)
+# 12c's default config at TP 2 (llama-1b, head_dim 64): B3's D = 64
+# instance at 16 / 4 heads per rank.
+TP_HEADS_D64 = ("d64_h16kv4", (16, 4))
+# 12b's bars (stated before the first run, PERF.md section 6): the bf16
+# all-reduce sums the ranks' rounded partials, so TP-2 is held to TP-1 by
+# the smallest logit-row cosine, and to a share of equal id sequences.
+TP_COS_MIN = 0.999
+TP_IDS_MIN_SHARE = 0.25
+TP_ECFG = dict(max_slots=32, num_blocks=4096, block_size=BS,
+               max_blocks_per_seq=ENGINE_TABLE, max_prefills_per_step=8,
+               decode_steps_per_iter=8, prefix_cache_entries=0)
+
+
+def mesh_label(mesh) -> str:
+    """The backend and the cards a mesh runs on (gloo: host-staged)."""
+    import torch
+
+    cards = sorted({d.index for d in mesh.devices})
+    return (f"TP {mesh.tp} over {mesh.backend}"
+            + (" (host-staged)" if mesh.backend == "gloo" else "")
+            + f" on {len(cards)} card(s) of {torch.cuda.device_count()}")
+
+
+def tp_shard_checks(torch, np, st):
+    """12a: flash prefill (B1) and split paged attention (B3) at each
+    per-rank head geometry against their plain versions on the first call,
+    then timed by phase 4's method (kernel, alone, plain, SDPA, bound)."""
+    import torch.nn.functional as F
+
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs = st.setdefault("max_abs_err", {})
+    ulps = {}
+    gpu = st["gpu"]
+    lens = prompt_lengths(np.random.default_rng(2))
+    shapes = [(f"flash_prefill_{label}", heads, D) for label, heads in TP_HEADS]
+    shapes += [(f"paged_attn_{label}", heads, D) for label, heads in TP_HEADS]
+    shapes.append((f"paged_attn_{TP_HEADS_D64[0]}", TP_HEADS_D64[1], D64))
+    for name, heads, d in shapes:
+        if name.startswith("flash_prefill"):
+            # Checks: the admission round and the prefix-hit round (a
+            # continuation), empty lanes zero.  Timed at the admission.
+            for label, S, starts, lengths in (
+                    ("admission", 1024, [0] * 8,
+                     [min(n, 1024) for n in lens[:7]] + [0]),
+                    ("hit", 256, *HIT_SHAPE)):
+                case = prefill_case(torch, rng, gen, len(starts), S, starts,
+                                    lengths, heads)
+                got = pa.flash_prefill_attention(*case)
+                want = pa.flash_prefill_attention_plain(*case)
+                torch.cuda.synchronize()
+                for b, n in enumerate(lengths):
+                    if n == 0:
+                        check(bool((got[b] == 0).all()),
+                              f"{name} {label}: empty lane {b} not zeroed")
+                        continue
+                    check_rows(torch, name, got[b, :n], want[b, :n],
+                               slice(None), errs, ulps)
+                del case, got, want
+            label, S, starts, lengths = ("admission", 1024, [0] * 8,
+                                         [min(n, 1024) for n in lens[:8]])
+            case = prefill_case(torch, rng, gen, len(starts), S, starts,
+                                lengths, heads)
+            ms = time_ms(torch, lambda: pa.flash_prefill_attention(*case),
+                         rounds=5)
+            alone = time_ms(torch, flash_alone(torch, pa, case, {}), rounds=5)
+            plain = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+                *case), reps=5)
+            ctx_max = max(s + n for s, n in zip(starts, lengths))
+            pos = (torch.arange(S, device="cuda")[None, :, None]
+                   + case[4][:, None, None])
+            keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+            qs, k, v, m = sdpa_args(torch, case[0] * D ** -0.5, case[1],
+                                    case[2], case[3], ctx_max, keys <= pos, {})
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=m, scale=1.0), reps=5)
+            b_ms, by = bound(*prefill_work(starts, lengths, S, "", heads))
+            # flash_prefill.cu's grid: (KVH, B, S / TQ), a tile of TQ = 128 /
+            # (query heads per kv head, rounded up to a power of two) rows.
+            qpk = heads[0] // heads[1]
+            tq = 128 // (1 << (qpk - 1).bit_length())
+            grid = (heads[1], len(starts), (S + tq - 1) // tq)
+            print(f"phase 12a: {name} H={heads[0]} KVH={heads[1]} D={d}: "
+                  f"admission and hit rounds ok, max abs err {errs[name]:.4g},"
+                  f" max err {ulps[name]:.3g} ulps of the row; {label} B=8 "
+                  f"S={S} (grid {grid}, {tq} positions a tile): kernel "
+                  f"{ms:.4f} ms (alone, on pre-scaled q: {alone:.4f} ms), "
+                  f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({by}) [{gpu}]")
+            kernel_record(st, name, label, ms, plain, lib, b_ms, by)
+            del case, qs, k, v, m
+            torch.cuda.empty_cache()
+            continue
+        # B3 (decode, QS = 1): both sides of the key chunks, an empty lane,
+        # rows of 2048 keys; then the engine shape (32 lanes, the 256-block
+        # table), timed.
+        positions = [0, 5, 1, 15, 16, 127, 128, 129, 255, 256, 257, 2047] + [
+            int(x) for x in rng.integers(1, 2048, size=20)]
+        q, _, _, _, _, kp, vp, table, pos = decode_case(
+            torch, rng, gen, positions, 2048 // BS + 1, heads, BS, d)
+        ln = pos + 1
+        ln[1] = 0
+        got = pa.paged_decode_attention_pallas(q, kp, vp, table, ln)
+        want = pa.flash_prefill_attention_plain(
+            q, kp, vp, table, (ln - 1).clamp(min=0), ln.clamp(max=1))
+        torch.cuda.synchronize()
+        check(bool((got[1] == 0).all()), f"{name}: the empty lane is not "
+                                         "zeroed")
+        check_rows(torch, name, got, want, ln > 0, errs, ulps)
+        del q, kp, vp, table, got, want
+        mid = [n + 16 for n in lens] + [0] * (32 - len(lens))
+        q, _, _, _, _, kp, vp, table, _ = decode_case(
+            torch, rng, gen, mid, ENGINE_TABLE, heads, BS, d)
+        len_t = torch.tensor([p + 1 for p in mid], dtype=torch.int32,
+                             device="cuda")
+        ms = time_ms(torch, lambda: pa.paged_decode_attention_pallas(
+            q, kp, vp, table, len_t), rounds=5)
+        alone = graph_ms(torch, paged_alone(torch, pa, q, kp, vp, table,
+                                            lengths=len_t))
+        plain = time_ms(torch, lambda: pa.flash_prefill_attention_plain(
+            q, kp, vp, table, (len_t - 1).clamp(min=0), len_t.clamp(max=1)),
+            reps=5)
+        ctx_max = max(mid) + 1
+        pos = (len_t - 1).clamp(min=0)[:, None, None]
+        keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+        qs, k, v, m = sdpa_args(torch, q * d ** -0.5, kp, vp, table, ctx_max,
+                                keys <= pos, {})
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=m, scale=1.0), reps=5)
+        b_ms, by = bound(*paged_attn_work(list(mid), [1] * len(mid), heads,
+                                          d))
+        nsplit, chunk = pa.decode_splits(ENGINE_TABLE, BS, 2)
+        ws = pa.decode_workspace_floats(32, heads[1], heads[0] // heads[1],
+                                        nsplit, d)
+        print(f"phase 12a: {name} QS=1 H={heads[0]} KVH={heads[1]} D={d}: "
+              f"ok, max abs err {errs[name]:.4g}, max err {ulps[name]:.3g} "
+              f"ulps of the row; engine B=32 table {ENGINE_TABLE}x{BS} "
+              f"({nsplit} splits of {chunk} keys, workspace {ws} floats): "
+              f"kernel {ms:.4f} ms (alone: {alone:.4f} ms), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({by}) [{gpu}]")
+        kernel_record(st, name, "engine", ms, plain, lib, b_ms, by)
+        del q, kp, vp, table, qs, k, v, m
+        torch.cuda.empty_cache()
+    print(f"phase 12a: tolerance atol {TOL['atol']} rtol {TOL['rtol']} and "
+          f"{ULP_TOL} bf16 ulps of each (row, head)'s largest value; empty "
+          "lanes zero")
+
+
+def rank_launches(mesh, names):
+    """Each rank's launch counts of the wrappers ``names`` (rank 0 first)."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    mine = {fn.__name__: fn.launches for fn in pa.KERNEL_WRAPPERS}
+    return [{n: c[n] for n in names} for c in [mine] + mesh.request(
+        "launches")]
+
+
+def reset_rank_launches(mesh):
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launch_counts()
+    mesh.send("reset_launches")
+
+
+def tp_engine_run(torch, st, mesh, model, prompts, name, overrides, kernels):
+    """One engine over ``mesh`` (None: one card): two identical greedy runs
+    of ``prompts``, launch counts set to 0 on every rank just before the
+    first and read just after it.  Returns (ids, per-rank launches of the
+    wrappers in ``kernels`` ({record: wrapper}), ttft p50 and decode tok/s
+    of the warm run, the engine)."""
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+
+    eng = InferenceEngine(model.cfg, model, EngineConfig(**TP_ECFG,
+                                                         **overrides))
+    sp = SamplingParams(max_tokens=32)
+    if mesh is not None:
+        reset_rank_launches(mesh)
+    else:
+        from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+        pa.reset_launch_counts()
+    t0 = time.monotonic()
+    res = eng.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    names = sorted(set(kernels.values()))
+    if mesh is not None:
+        mesh.sync()
+        per_rank = rank_launches(mesh, names)
+    else:
+        from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+        per_rank = [{n: getattr(pa, n).launches for n in names}]
+    for r in res:
+        check(r.finish_reason in ("eos", "length") and all(
+            0 <= t < model.cfg.vocab_size for t in r.token_ids),
+            f"{name} {r.request_id}: {r.finish_reason} {r.error}")
+    for rank, counts in enumerate(per_rank):
+        check(all(n > 0 for n in counts.values()),
+              f"{name}: rank {rank} launched {counts}")
+    check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+          f"{name}: {eng.dispatch_failures} dispatch failures")
+    ids = [r.token_ids for r in res]
+    tokens0, secs0 = eng.decode_tokens, eng.decode_s
+    res2 = eng.generate(prompts, sp)
+    check([r.token_ids for r in res2] == ids,
+          f"{name}: the second identical run gave other ids")
+    ttft = statistics.median(r.ttft_s for r in res2)
+    tok_s = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
+    print(f"phase 12: {name}: paths {eng.prefill_path}/{eng.decode_path}, "
+          f"tp_overlap {eng.tp_overlap}, decode graphs {eng.decode_graphs}; "
+          f"cold run {wall:.2f} s; launches per rank {per_rank}; warm run: "
+          f"ttft p50 {ttft * 1e3:.1f} ms, decode {tok_s:.1f} tok/s, pool "
+          f"{eng.pool_bytes} B per rank [{st['gpu']}]")
+    return ids, per_rank, ttft, tok_s, eng
+
+
+def tp_logits(torch, np, model, vocab):
+    """forward_full logits of 4 prompts of 256 tokens (the last 32 rows)."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+
+    rng = np.random.default_rng(12)
+    toks = torch.from_numpy(rng.integers(3, vocab, size=(4, 256)).astype(
+        np.int32)).cuda()
+    out = llama.forward_full(model, toks)[:, -32:]
+    torch.cuda.synchronize()
+    return out
+
+
+def phase12b(torch, np, st):
+    """Llama-3-8B at full width and depth at TP 2 against TP 1 on the same
+    prompts: logit cosine, a share of equal greedy id sequences, B1 and B3
+    launched on every rank, tp_overlap on against off (equal ids), and the
+    all-reduce's rate on the mesh."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+        MeshConfig, bench_all_reduce, create_mesh)
+
+    gpu = st["gpu"]
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    t0 = time.monotonic()
+    mesh = create_mesh(MeshConfig(model=2), backend=backend)
+    st["mesh"] = mesh
+    print(f"phase 12b: {mesh_label(mesh)}: mesh up in "
+          f"{time.monotonic() - t0:.2f} s (rank 1 spawned)")
+    numel = 32 << 20
+    ms = bench_all_reduce(mesh, numel, 20)
+    bus = 2.0 * (mesh.tp - 1) / mesh.tp * numel * 2 / (ms * 1e-3) / 1e9
+    print(f"phase 12b: all-reduce of {numel * 2 >> 20} MiB bf16 over "
+          f"{mesh_label(mesh)}: {ms:.3f} ms, bus bandwidth {bus:.2f} GB/s "
+          f"[{gpu}]")
+    st["tp_allreduce"] = (mesh.backend, ms, bus)
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(3, LLAMA3_8B.vocab_size, size=n)]
+               for n in rng.integers(64, 513, size=16)]
+    ref = llama.LlamaModel(LLAMA3_8B, seed=0)
+    want = tp_logits(torch, np, ref, LLAMA3_8B.vocab_size)
+    ref_ids, _, ref_ttft, ref_tok_s, eng = tp_engine_run(
+        torch, st, None, ref, prompts, "Llama-3-8B TP 1 (pallas decode)",
+        {"decode_path": "pallas"},
+        {"flash_prefill": "flash_prefill_attention",
+         "paged_attn": "paged_decode_attention_pallas"})
+    del eng, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    model = llama.LlamaModel(LLAMA3_8B, seed=0, mesh=mesh)
+    mesh.sync()
+    print(f"phase 12b: Llama-3-8B (32 layers, full width) sharded over "
+          f"{mesh_label(mesh)} in {time.monotonic() - t0:.2f} s")
+    got = tp_logits(torch, np, model, LLAMA3_8B.vocab_size)
+    cos = cosines(torch, [got.reshape(-1, got.shape[-1])],
+                  [want.reshape(-1, want.shape[-1])])
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"phase 12b: forward_full logits TP 2 vs TP 1, 4 x 256 tokens (the "
+          f"last 32 rows each): smallest row cosine {cos:.6f} (at least "
+          f"{TP_COS_MIN}), argmax agreement {agree:.3f} [{gpu}]")
+    check(cos >= TP_COS_MIN, f"TP 2 logits cosine {cos:.6f}")
+    runs = {}
+    kernels = {"flash_prefill_h16kv4": "flash_prefill_attention",
+               "paged_attn_h16kv4": "paged_decode_attention_pallas"}
+    for overlap in ("on", "off"):
+        ids, per_rank, ttft, tok_s, eng = tp_engine_run(
+            torch, st, mesh, model, prompts,
+            f"Llama-3-8B {mesh_label(mesh)}, tp_overlap {overlap}",
+            {"tp_overlap": overlap}, kernels)
+        check(eng.tp_overlap == (overlap == "on")
+              and (eng.prefill_path, eng.decode_path) == ("flash", "pallas"),
+              f"TP engine: {eng.prefill_path}/{eng.decode_path} overlap "
+              f"{eng.tp_overlap}")
+        runs[overlap] = ids, per_rank, ttft, tok_s
+        del eng
+        gc.collect()
+    check(runs["on"][0] == runs["off"][0],
+          "tp_overlap on and off gave other ids")
+    same = sum(a == b for a, b in zip(runs["on"][0], ref_ids))
+    first = sum(a[:1] == b[:1] for a, b in zip(runs["on"][0], ref_ids))
+    print(f"phase 12b: greedy ids TP 2 vs TP 1: {same} of {len(prompts)} "
+          f"sequences of 32 tokens equal (at least {TP_IDS_MIN_SHARE:.0%}), "
+          f"{first} first tokens equal; tp_overlap on = off; TP 2 ttft p50 "
+          f"{runs['on'][2] * 1e3:.1f} / {runs['off'][2] * 1e3:.1f} ms (on / "
+          f"off), TP 1 {ref_ttft * 1e3:.1f} ms; decode "
+          f"{runs['on'][3]:.1f} / {runs['off'][3]:.1f} tok/s, TP 1 "
+          f"{ref_tok_s:.1f} tok/s [{gpu}]")
+    check(same >= TP_IDS_MIN_SHARE * len(prompts),
+          f"only {same} of {len(prompts)} id sequences equal TP 1's")
+    launches = st.setdefault("launches", {})
+    for rec, fn in kernels.items():
+        launches[rec] = runs["on"][1][0][fn]
+    st["tp_runs"] = dict(ref=(ref_ttft, ref_tok_s), on=runs["on"][2:],
+                         off=runs["off"][2:], same=same)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_burst(port, n):
+    """``n`` queries at once over HTTP (12c's burst: on one card the mesh's
+    collectives go through host memory, about 0.2 s a decode step, so it
+    is smaller than phase 6's).  Returns ({name: (status, body, wall)},
+    wall)."""
+    import threading
+
+    out, errors = {}, []
+    go = threading.Event()
+
+    def run(i):
+        go.wait()
+        try:
+            out[f"query-{i}"] = http_call(port, "POST", "/api/v1/query", {
+                "question": QUERIES[i % len(QUERIES)] + f" (case {i})"})
+        except Exception as exc:            # reported below
+            errors.append(f"query-{i}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    go.set()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"mesh burst: {errors}")
+    for name, (status, body, _) in out.items():
+        check(status == 200 and body.get("status") == "success",
+              f"{name}: HTTP {status} {str(body)[:200]}")
+    return out, time.monotonic() - t0
+
+
+def phase12c(torch, np, st):
+    """12c: the monitor's default config with llm.tpu.mesh_shape "1,1,2"
+    (and the port, the fake cluster, 32 tokens a query) through
+    build_server: 4 queries at once all 200, /metrics' mesh gauge at model 2,
+    /api/v1/stats' mesh block; 12e: a step-loop kill under TP rebuilds
+    the engine on the workers, which serves again; then cmd.server with
+    the mesh shape in its environment (ready, the gauge, exit 0).  Its
+    own mesh (one process group per process)."""
+    import gc
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    from k8s_llm_monitor_tpu_torch.monitor.cluster import (
+        FakeCluster, seed_demo_cluster)
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.server import build_server
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
+
+    gpu = st["gpu"]
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    cfg.llm.tpu.mesh_shape = "1,1,2"
+    # The one other change: on one card the mesh's collectives go through
+    # host memory (about 0.2 s a decode step, run A), and a query of
+    # random weights runs to llm.max_tokens (2,000 by default: minutes).
+    cfg.llm.max_tokens = 32
+    t0 = time.monotonic()
+    srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()),
+                       mesh_backend=backend)
+    boot_s = time.monotonic() - t0
+    backend_ = srv.analysis.backend
+    sup = backend_.supervisor
+    mesh = backend_.mesh
+    try:
+        eng = backend_.engine
+        check(eng.mesh_axes() == {"data": 1, "seq": 1, "model": 2}
+              and eng.decode_path == "pallas",
+              f"12c engine: {eng.mesh_axes()} {eng.decode_path}")
+        srv.start()
+        port = srv.port
+        reset_rank_launches(mesh)
+        out, wall = mesh_burst(port, 4)
+        torch.cuda.synchronize()
+        per_rank = rank_launches(mesh, ["paged_decode_attention_pallas"])
+        check(all(c["paged_decode_attention_pallas"] > 0 for c in per_rank),
+              f"12c: B3 launches per rank {per_rank}")
+        st.setdefault("launches", {})[f"paged_attn_{TP_HEADS_D64[0]}"] = (
+            per_rank[0]["paged_decode_attention_pallas"])
+        status, body, _ = http_call(port, "GET", "/metrics")
+        text = body.decode()
+        gauge = [line for line in text.splitlines()
+                 if line.startswith("k8s_llm_monitor_mesh_axes{")]
+        check(status == 200 and 'k8s_llm_monitor_mesh_axes{axis="model"} 2'
+              in gauge, f"/metrics mesh gauge: {gauge}")
+        status, stats, _ = http_call(port, "GET", "/api/v1/stats")
+        q_walls = sorted(v[2] for v in out.values())
+        print(f"phase 12c: the default config with mesh_shape 1,1,2 "
+              f"({mesh_label(mesh)}) through build_server in {boot_s:.2f} s;"
+              f" 4 queries at once over HTTP in {wall:.2f} s, query wall p50 "
+              f"{np.percentile(q_walls, 50) * 1e3:.1f} ms, all 200; "
+              f"{gauge}; stats mesh {stats['engine']['mesh']}; B3 (D=64) "
+              f"launches per rank {per_rank} [{gpu}]")
+        # 12e: the step loop dies; the supervisor rebuilds the engine (and
+        # with it the workers' copy) and serves again.
+        get_injector().arm("step_loop_crash", rate=1.0, times=1)
+        t0 = time.monotonic()
+        while sup.restarts < 1 and time.monotonic() - t0 < 120:
+            time.sleep(0.05)
+        while sup.state != "serving" and time.monotonic() - t0 < 120:
+            time.sleep(0.05)
+        check(sup.restarts == 1 and sup.state == "serving",
+              f"12e: restarts {sup.restarts}, state {sup.state}")
+        rebuilt = sup.service.engine
+        check(rebuilt is not eng and rebuilt.mesh is mesh
+              and rebuilt._mesh_token == mesh.engine_token,
+              "12e: the rebuilt engine is not the workers' engine")
+        rebuilt_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        text = backend_.generate("why crashloop?", max_tokens=8)
+        gen_s = time.monotonic() - t0
+        check(isinstance(text, str), "12e: no text after the rebuild")
+        print(f"phase 12e: step_loop_crash under TP: rebuilt in "
+              f"{rebuilt_s:.2f} s (restarts {sup.restarts}), the workers "
+              f"hold the new engine, an 8-token generate after it in "
+              f"{gen_s * 1e3:.1f} ms [{gpu}]")
+    finally:
+        get_injector().disarm("step_loop_crash")
+        sup.shutdown(grace_s=0.0)
+        srv.stop()
+        mesh.close()
+        del backend_, sup, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # cmd.server with the mesh shape in its environment.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_12c_")
+    env = dict(os.environ, K8SLLM_FLIGHT_DIR=os.path.join(tmp, "flight"),
+               LLM_TPU_MESH_SHAPE="1,1,2")
+    log_path = os.path.join(tmp, "cmd_server.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_llm_monitor_tpu_torch.cmd.server",
+             "--cluster", "fake", "--host", "127.0.0.1", "--port", str(port),
+             "--mesh-backend", backend],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        ready = False
+        while time.monotonic() - t0 < 300 and proc.poll() is None:
+            try:
+                status, body, _ = http_call(port, "GET", "/readyz",
+                                            timeout=5.0)
+                ready = status == 200 and body["ready"]
+            except OSError:
+                pass
+            if ready:
+                break
+            time.sleep(0.25)
+        check(ready, f"cmd.server (mesh) never became ready "
+                     f"(rc {proc.poll()})")
+        ready_s = time.monotonic() - t0
+        text = http_call(port, "GET", "/metrics")[1].decode()
+        check('k8s_llm_monitor_mesh_axes{axis="model"} 2' in text,
+              "cmd.server (mesh): no model-2 mesh gauge")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"cmd.server (mesh) exited {rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        with open(log_path) as fh:
+            log_text = fh.read()
+    print(f"phase 12c: cmd.server (cuda, LLM_TPU_MESH_SHAPE=1,1,2, "
+          f"--mesh-backend {backend}): ready in {ready_s:.1f} s, "
+          f"/metrics mesh gauge model 2, exit 0 on SIGTERM "
+          f"({len(log_text.splitlines())} log lines) [{gpu}]")
+
+
+def phase12d(torch, np, st):
+    """Qwen2-72B at full width: TP 4 at full depth over NCCL where four
+    cards exist, else 12b's two ranks at a reduced depth (printed), held
+    there to TP 1 at the same depth; B1 and B3 launched on every rank."""
+    import dataclasses
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import QWEN2_72B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+        MeshConfig, create_mesh)
+
+    gpu = st["gpu"]
+    four = torch.cuda.device_count() >= 4
+    if four:
+        st.pop("mesh").close()
+        mesh = st["mesh"] = create_mesh(MeshConfig(model=4))
+        cfg = QWEN2_72B
+    else:
+        mesh = st["mesh"]
+        cfg = dataclasses.replace(QWEN2_72B, num_layers=8)
+    label = f"h{cfg.num_heads // mesh.tp}kv{cfg.num_kv_heads // mesh.tp}"
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in (40, 200, 513, 1000)]
+    want = None
+    if not four:
+        ref = llama.LlamaModel(cfg, seed=0)
+        want = tp_logits(torch, np, ref, cfg.vocab_size)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    model = llama.LlamaModel(cfg, seed=0, mesh=mesh)
+    mesh.sync()
+    print(f"phase 12d: {cfg.name} at full width, {cfg.num_layers} of 80 "
+          f"layers, over {mesh_label(mesh)}: sharded from seed 0 in "
+          f"{time.monotonic() - t0:.2f} s, {label} heads per rank")
+    got = tp_logits(torch, np, model, cfg.vocab_size)
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite logits")
+    if want is not None:
+        cos = cosines(torch, [got.reshape(-1, got.shape[-1])],
+                      [want.reshape(-1, want.shape[-1])])
+        print(f"phase 12d: forward_full logits TP {mesh.tp} vs TP 1 at "
+              f"{cfg.num_layers} layers: smallest row cosine {cos:.6f} "
+              f"(at least {TP_COS_MIN}) [{gpu}]")
+        check(cos >= TP_COS_MIN, f"{cfg.name}: TP cosine {cos:.6f}")
+    kernels = {f"flash_prefill_{label}": "flash_prefill_attention",
+               f"paged_attn_{label}": "paged_decode_attention_pallas"}
+    ids, per_rank, ttft, tok_s, eng = tp_engine_run(
+        torch, st, mesh, model, prompts[:4],
+        f"{cfg.name} ({cfg.num_layers} layers) {mesh_label(mesh)}", {},
+        kernels)
+    launches = st.setdefault("launches", {})
+    for rec, fn in kernels.items():
+        launches[rec] = per_rank[0][fn]
+    st["tp_72b"] = (cfg.num_layers, mesh.tp, mesh.backend, ttft, tok_s)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase12(torch, np, st):
+    """A7: the per-rank kernel shapes (12a), the server on a mesh and a
+    rebuild under it (12c, 12e), Llama-3-8B at TP 2 (12b), Qwen2-72B (12d).
+    Every record of a TP shape that no path of this run launched reads 0."""
+    import gc
+
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        for sub in (tp_shard_checks, phase12c, phase12b, phase12d):
+            t0 = time.monotonic()
+            sub(torch, np, st)
+            torch.cuda.synchronize()
+            print(f"phase 12: {sub.__name__} passed in "
+                  f"{time.monotonic() - t0:.1f} s")
+    finally:
+        mesh = st.pop("mesh", None)
+        if mesh is not None:
+            mesh.close()
+    launches = st.setdefault("launches", {})
+    for label, _ in TP_HEADS:
+        for kernel in ("flash_prefill", "paged_attn"):
+            launches.setdefault(f"{kernel}_{label}", 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
@@ -4906,10 +5511,11 @@ def main(argv=None) -> int:
 
     st: dict = {"only": args.only}
     # Phases 8, 7, 10 and 11 before 6: they reuse phase 2's model, which
-    # phase 6 frees; phase 9 last, on a card that holds no earlier model.
+    # phase 6 frees; phase 9 on a card that holds no earlier model, then
+    # phase 12's meshes.
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
                (4, phase4), (5, phase5), (7, phase7), (10, phase10),
-               (11, phase11), (6, phase6), (9, phase9)]
+               (11, phase11), (6, phase6), (9, phase9), (12, phase12)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

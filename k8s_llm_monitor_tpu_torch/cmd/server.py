@@ -110,6 +110,14 @@ def main(argv: list[str] | None = None) -> int:
         help="device of the in-tree engine (default cuda; cpu runs the "
              "plain PyTorch path)",
     )
+    parser.add_argument(
+        "--mesh-backend",
+        choices=("nccl", "gloo"),
+        default="nccl",
+        help="collectives of an llm.tpu.mesh_shape mesh: nccl (a card per "
+             "rank) or gloo (host-staged; ranks may share a card; the "
+             "CPU's)",
+    )
     args = parser.parse_args(argv)
 
     if args.role == "router":
@@ -155,7 +163,8 @@ def main(argv: list[str] | None = None) -> int:
             log.warning("cluster unreachable (%s) - development mode", exc)
             backend = None
 
-    srv = build_server(config, backend=backend, device=args.device)
+    srv = build_server(config, backend=backend, device=args.device,
+                       mesh_backend=args.mesh_backend)
     if srv.manager is not None:
         srv.manager.start()
         log.info(

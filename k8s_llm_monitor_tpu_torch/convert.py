@@ -7,6 +7,11 @@
 given as numpy arrays, and fills a ``LlamaModel``.  It is the one place
 where the JAX ``[in, out]`` kernels become ``nn.Linear``'s ``[out, in]``
 weights.
+
+Under a mesh (``mesh=``, parallel/mesh.py) each rank keeps its slice of
+every full tensor (parallel/sharding.py), the shard the JAX package's
+``NamedSharding`` puts on the device of the same index; rank 0 sends the
+tree to the workers, which build theirs.
 """
 
 from __future__ import annotations
@@ -42,15 +47,48 @@ def _linear(lin, src: dict[str, Any], dev, dt) -> None:
         lin.bias.copy_(_t(src["bias"], dev, dt))
 
 
+def _full(tree: dict[str, Any], name: str, dev, dt) -> torch.Tensor:
+    """The TP-1 tensor of the port's parameter or buffer ``name`` from the
+    JAX tree (kernels transposed to ``[out, in]``)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        src = tree["layers"][int(parts[1])]
+        parts = parts[2:]
+    else:
+        src = tree
+    leaf = parts[-1]
+    node = src[parts[0]]
+    if leaf in ("input_norm", "post_norm", "final_norm"):
+        return _t(node, dev, dt)
+    if leaf in ("weight_q", "scale"):
+        key = leaf if parts[0] == "embed" else {
+            "weight_q": "kernel_q", "scale": "scale"}[leaf]
+        x = _exact(node[key])
+        return x.T if key == "kernel_q" else x
+    if leaf == "bias":
+        return _t(node["bias"], dev, dt)
+    if parts[0] == "embed":
+        return _t(node["weight"], dev, dt)
+    return _t(node["kernel"], dev, dt).T
+
+
 @torch.no_grad()
 def params_from_jax(tree: dict[str, Any], cfg: ModelConfig, device=None,
-                    dtype: Optional[torch.dtype] = None) -> LlamaModel:
+                    dtype: Optional[torch.dtype] = None,
+                    mesh=None) -> LlamaModel:
     """A ``LlamaModel`` on ``device`` holding the weights of ``tree`` (an
-    int8 model when the tree is quantized)."""
+    int8 model when the tree is quantized); under ``mesh`` the rank's
+    shard of them."""
     quantized = "weight_q" in tree["embed"]
     model = LlamaModel(cfg, device=device, dtype=dtype, seed=None,
-                       quantized=quantized)
+                       quantized=quantized, mesh=mesh)
     dev, dt = model.device, model.dtype
+    if model.mesh is not None:
+        model.fill_from_full(lambda name, _: _full(tree, name, dev, dt))
+        if mesh.is_leader:
+            model.mesh_token = mesh.build_on_workers("jax", tree, cfg,
+                                                     dtype=dtype)
+        return model
     if quantized:
         model.embed.weight_q.copy_(_exact(tree["embed"]["weight_q"]))
         model.embed.scale.copy_(_exact(tree["embed"]["scale"]))

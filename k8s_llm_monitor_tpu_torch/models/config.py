@@ -163,5 +163,32 @@ QWEN2_7B = ModelConfig(
     qkv_bias=True,
 )
 
-PRESETS = {c.name: c for c in [TINY, TINY_QWEN, LLAMA3_8B, MISTRAL_7B,
-                               QWEN2_7B, LLAMA_1B]}
+# The 70B-class presets (A7): neither fits one 80 GB card in bf16, so they
+# are served on a mesh (parallel/mesh.py).
+LLAMA3_70B = ModelConfig(
+    name="llama3-70b",
+    vocab_size=128_256,
+    hidden_size=8192,
+    intermediate_size=28_672,
+    num_layers=80,
+    num_heads=64,
+    num_kv_heads=8,
+    rope_theta=500_000.0,
+    max_seq_len=8192,
+)
+
+QWEN2_72B = ModelConfig(
+    name="qwen2-72b",
+    vocab_size=152_064,
+    hidden_size=8192,
+    intermediate_size=29_568,
+    num_layers=80,
+    num_heads=64,
+    num_kv_heads=8,
+    rope_theta=1_000_000.0,
+    max_seq_len=32_768,
+    qkv_bias=True,
+)
+
+PRESETS = {c.name: c for c in [TINY, TINY_QWEN, LLAMA3_8B, LLAMA3_70B,
+                               MISTRAL_7B, QWEN2_7B, QWEN2_72B, LLAMA_1B]}

@@ -10,6 +10,19 @@ transposed.  An int8 model (``LlamaModel(quantized=True)``) holds
 ``QuantLinear`` / ``QuantEmbedding`` codes and scales in the same layout;
 ``_linear`` runs them weight-only or, under ``cfg.act_quant``, as W8A8.
 
+Tensor parallelism (``LlamaModel(..., mesh=)``, parallel/mesh.py): each
+rank holds its shard of the weights (parallel/sharding.py: column-parallel
+q/k/v/gate/up/lm_head, row-parallel o/down, a vocab-parallel embedding) and
+runs the same forward on its local heads.  The forward passes run the
+collectives the JAX package leaves to GSPMD: an all-reduce after o and
+down (``row_parallel_partial``: under W8A8 a max of the activation amax
+over the ranks and a sum of the int32 partials before the float scales, so
+the product is TP-1's exactly), a masked embedding lookup summed over the
+ranks, and an all-gather of the vocab-parallel logits, which end
+replicated.  When the degree does not divide the kv heads the pages
+replicate: k/v are all-gathered after their (column-parallel) projection
+and each local query head reads its kv head of the full pool.
+
 The paged KV cache is one ``[num_blocks, block_size, kv_heads * head_dim]``
 tensor per layer for K and for V (kv-head-major fused rows), block 0 the
 null block that masked lanes write to.  Where the JAX package donates the
@@ -38,6 +51,12 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
 )
 from k8s_llm_monitor_tpu_torch.ops.norms import rms_norm
 from k8s_llm_monitor_tpu_torch.ops.rope import apply_rope, rope_angles
+from k8s_llm_monitor_tpu_torch.parallel.sharding import (
+    check_tp,
+    local_kv_heads,
+    param_partition_specs,
+    shard_tensor,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -179,14 +198,17 @@ def dequantize_kv(x_q: torch.Tensor, scale: torch.Tensor,
 
 def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
                   device, dtype: Optional[torch.dtype] = None,
-                  kv_quant: str = "") -> KVPages:
+                  kv_quant: str = "", tp: int = 1) -> KVPages:
     """Allocate the paged KV pool.  ``kv_quant`` ("int8"/"fp8") selects the
     quantized tier: pages in the storage dtype plus float32 scale planes,
     whatever ``cfg.kv_dtype`` says.  "" keeps pages in ``cfg.kv_dtype``
     when it is set (float8_e4m3fn / float8_e5m2 / float16: an unscaled
     pool other than the model dtype), else in
-    ``dtype`` (default: the model's)."""
-    shape = (num_blocks, block_size, cfg.num_kv_heads * cfg.head_dim_)
+    ``dtype`` (default: the model's).  At TP degree ``tp`` a rank's pool
+    holds its kv-head slice of every page (all heads when the degree does
+    not divide them: parallel/sharding.py)."""
+    kvh = local_kv_heads(cfg.num_kv_heads, tp)
+    shape = (num_blocks, block_size, kvh * cfg.head_dim_)
 
     def planes(shp, dt):
         return [torch.zeros(shp, dtype=dt, device=device)
@@ -194,7 +216,7 @@ def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
 
     if kv_quant:
         qdtype, _ = kv_quant_spec(kv_quant)
-        sshape = (num_blocks, block_size, cfg.num_kv_heads)
+        sshape = (num_blocks, block_size, kvh)
         return KVPages(k=planes(shape, qdtype), v=planes(shape, qdtype),
                        k_scale=planes(sshape, torch.float32),
                        v_scale=planes(sshape, torch.float32))
@@ -246,11 +268,14 @@ def _linear_module(quantized: bool, in_f: int, out_f: int, bias: bool, kw):
 
 
 class LlamaLayer(nn.Module):
+    """One decoder layer's weights; at TP degree ``tp`` the rank's shard
+    (out_features of q/k/v/gate/up and in_features of o/down split)."""
+
     def __init__(self, cfg: ModelConfig, device, dtype,
-                 quantized: bool = False):
+                 quantized: bool = False, tp: int = 1):
         super().__init__()
         H, D = cfg.hidden_size, cfg.head_dim_
-        nH, nKV, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+        nH, inter = cfg.num_heads // tp, cfg.intermediate_size // tp
         kw = dict(device=device, dtype=dtype)
         self.input_norm = nn.Parameter(torch.ones(H, **kw))
         self.post_norm = nn.Parameter(torch.ones(H, **kw))
@@ -259,8 +284,9 @@ class LlamaLayer(nn.Module):
             return _linear_module(quantized, in_f, out_f, bias, kw)
 
         self.q = lin(H, nH * D, cfg.qkv_bias)
-        self.k = lin(H, nKV * D, cfg.qkv_bias)
-        self.v = lin(H, nKV * D, cfg.qkv_bias)
+        kv_out = cfg.num_kv_heads * D // tp
+        self.k = lin(H, kv_out, cfg.qkv_bias)
+        self.v = lin(H, kv_out, cfg.qkv_bias)
         self.o = lin(nH * D, H)
         self.gate = lin(H, inter)
         self.up = lin(H, inter)
@@ -284,12 +310,21 @@ class LlamaModel(nn.Module):
     ``init_params_quantized``) or a checkpoint, never from ``seed``.
     ``cfg.act_quant`` (W8A8) needs it: where the JAX package warns and runs
     the bf16 matmuls, this raises.
+
+    ``mesh`` (parallel/mesh.py) builds the rank's shard on the mesh's
+    device.  The seeded draws are TP-1's: each full tensor is drawn and the
+    rank keeps its slice, so a TP-N model holds the TP-1 model's weights.
+    On rank 0 a seeded build is sent to the workers, which build theirs.
     """
 
     def __init__(self, cfg: ModelConfig, device=None,
                  dtype: Optional[torch.dtype] = None, seed: Optional[int] = 0,
-                 quantized: bool = False):
+                 quantized: bool = False, mesh=None):
         super().__init__()
+        tp = mesh.tp if mesh is not None else 1
+        why = check_tp(cfg, tp)
+        if why:
+            raise ValueError(f"{cfg.name}: {why}")
         if cfg.has_attn_extras:
             raise ValueError(f"{cfg.name}: Gemma-2 attention extras (query "
                              "scale, logit softcap, sliding window) are not "
@@ -301,32 +336,111 @@ class LlamaModel(nn.Module):
             raise ValueError("a quantized model is filled by "
                              "utils/quantize.py or a checkpoint: pass "
                              "seed=None")
-        device = resolve_device(device)
+        if mesh is not None and device is None:
+            device = mesh.device
+        # "meta": the TP-1 shapes of full_meta(), nothing allocated.
+        device = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
+        if mesh is not None and device != mesh.device:
+            raise ValueError(f"the mesh's rank {mesh.rank} runs on "
+                             f"{mesh.device}, not {device}")
         dtype = dtype or cfg.torch_dtype
         self.cfg = cfg
         self.dtype = dtype
         self.quantized = quantized
+        self.mesh = mesh if tp > 1 else None
+        self.tp = tp
+        self.rank = mesh.rank if self.mesh is not None else 0
+        # Local heads; with the pages replicated, the kv head each local
+        # query head reads.
+        self.n_heads = cfg.num_heads // tp
+        self.n_kv_heads = local_kv_heads(cfg.num_kv_heads, tp)
+        self.kv_gather = tp > 1 and self.n_kv_heads == cfg.num_kv_heads
+        self.kv_index = None
+        if self.kv_gather:
+            self.kv_index = ((self.rank * self.n_heads + torch.arange(
+                self.n_heads)) // cfg.q_per_kv).to(device)
         kw = dict(device=device, dtype=dtype)
-        self.embed = (QuantEmbedding(cfg.vocab_size, cfg.hidden_size, device)
+        V = cfg.vocab_size // tp
+        self.embed = (QuantEmbedding(V, cfg.hidden_size, device)
                       if quantized else
-                      nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw))
+                      nn.Embedding(V, cfg.hidden_size, **kw))
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, device, dtype, quantized)
+            LlamaLayer(cfg, device, dtype, quantized, tp)
             for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.hidden_size, **kw))
         self.lm_head = (None if cfg.tie_embeddings else _linear_module(
-            quantized, cfg.hidden_size, cfg.vocab_size, False, kw))
+            quantized, cfg.hidden_size, V, False, kw))
         self.requires_grad_(False)
+        # The workers' copy of this model (rank 0 of a mesh).
+        self.mesh_token = 0
         if seed is not None:
             self.init_weights(seed)
+            if self.mesh is not None and mesh.is_leader:
+                self.mesh_token = mesh.build_on_workers(
+                    "llama", cfg, dtype=dtype, seed=seed)
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def check_current(self) -> None:
+        """Raise unless the mesh's workers hold this model (rank 0)."""
+        if (self.mesh is not None and self.mesh.is_leader
+                and self.mesh_token != self.mesh.model_token):
+            raise RuntimeError(
+                f"{self.cfg.name}: the mesh's workers hold another model "
+                "(one model lives on a mesh at a time)")
+
+    def full_meta(self) -> "LlamaModel":
+        """The TP-1 model's shapes, on the meta device."""
+        return LlamaModel(self.cfg, device="meta", dtype=self.dtype,
+                          seed=None, quantized=self.quantized)
+
+    @torch.no_grad()
+    def fill_from_full(self, make_full) -> None:
+        """Fill every parameter and buffer with the rank's slice of the TP-1
+        tensor ``make_full(name, meta_tensor)`` returns (None leaves it),
+        one full tensor at a time and in ``named_parameters`` order, then
+        ``named_buffers`` order."""
+        meta = self.full_meta()
+        specs = param_partition_specs(meta)
+        local = dict(self.named_parameters()) | dict(self.named_buffers())
+        for name, t in (list(meta.named_parameters())
+                        + list(meta.named_buffers())):
+            full = make_full(name, t)
+            if full is not None:
+                local[name].copy_(shard_tensor(full, specs[name], self.rank,
+                                               self.tp))
+
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.tp > 1:
+            # TP-1's draws in TP-1's order (embed, then every linear in
+            # module order), each full tensor sliced.
+            meta = self.full_meta()
+            fan_in = {n + ".weight": m.in_features
+                      for n, m in meta.named_modules()
+                      if isinstance(m, nn.Linear)}
+
+            def draw(name, t):
+                if name == "embed.weight":
+                    std = 0.02
+                elif name in fan_in:
+                    std = fan_in[name] ** -0.5
+                elif name.endswith("bias"):
+                    return torch.zeros(t.shape, dtype=t.dtype,
+                                       device=self.device)
+                else:
+                    return torch.ones(t.shape, dtype=t.dtype,
+                                      device=self.device)
+                return torch.empty(t.shape, dtype=t.dtype,
+                                   device=self.device).normal_(
+                    0.0, std, generator=gen)
+
+            self.fill_from_full(draw)
+            return
         self.embed.weight.normal_(0.0, 0.02, generator=gen)
         linears = [m for m in self.modules() if isinstance(m, nn.Linear)]
         for lin in linears:
@@ -402,68 +516,152 @@ def _linear(lin: nn.Module, x: torch.Tensor,
     return y
 
 
+def row_parallel_partial(lin: nn.Module, x: torch.Tensor, act_quant: bool,
+                         mesh):
+    """The rank's half of a row-parallel ``_linear`` (the JAX package's
+    ``row_parallel_partial``): returns ``(partial, finish)``, the rank's
+    un-reduced [..., out] contribution and the map from the reduced (or
+    reduce-scattered: the rank's chunk of the out dim) sum back to x's
+    dtype.
+
+    W8A8: the per-token amax is the max over the ranks' slices of the
+    contraction dim (max is exact in any order), and the int32 partials
+    are summed before the float scales apply, in ``_linear``'s order, so
+    the result is TP-1's bit for bit.  Weight-only int8: the per-out-channel
+    scale commutes with the sum and applies after it.  Row projections
+    carry no bias in the supported families: one would be added once per
+    rank."""
+    if lin.bias is not None:
+        raise ValueError("a row-parallel projection with a bias")
+    if isinstance(lin, nn.Linear):
+        return F.linear(x, lin.weight), lambda y: y
+
+    def chunk(vec, n):
+        return vec if vec.shape[0] == n else vec.narrow(0, mesh.rank * n, n)
+
+    if act_quant:
+        xf = x.float()
+        amax = mesh.all_reduce(xf.abs().amax(dim=-1, keepdim=True), "max")
+        scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
+        x_q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        part = _int8_matmul(x_q, lin.weight_q)
+
+        def finish(y):
+            ws = chunk(lin.scale, y.shape[-1])
+            return ((y.float() * scale) * ws).to(x.dtype)
+        return part, finish
+    part = F.linear(x, lin.weight_q.to(x.dtype))
+    return part, lambda y: y * chunk(lin.scale, y.shape[-1]).to(y.dtype)
+
+
+def _row(model: LlamaModel, lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection (o, down): ``_linear`` on one rank, the
+    partial summed over the ranks under a mesh (the reference schedule)."""
+    aq = model.cfg.act_quant
+    if model.mesh is None:
+        return _linear(lin, x, aq)
+    part, finish = row_parallel_partial(lin, x, aq, model.mesh)
+    return finish(model.mesh.all_reduce(part))
+
+
 def _embed_lookup(model: LlamaModel, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup; an int8 table's rows are dequantized in the
     model dtype (codes, then times the row scale), as the JAX package
-    does."""
+    does.  Vocab-parallel under a mesh: each rank looks up the tokens of
+    its vocab slice, zeros the rest, and the rows are summed over the
+    ranks (exact: one rank contributes each row)."""
     t = tokens.long()
+    mesh = model.mesh
+    if mesh is not None:
+        V = model.embed.weight_q.shape[0] if model.quantized else \
+            model.embed.weight.shape[0]
+        t = t - model.rank * V
+        mine = (t >= 0) & (t < V)
+        t = torch.where(mine, t, torch.zeros_like(t))
     emb = model.embed
     if isinstance(emb, QuantEmbedding):
         dt = model.dtype
-        return emb.weight_q[t].to(dt) * emb.scale[t][..., None].to(dt)
-    return emb.weight[t]
+        rows = emb.weight_q[t].to(dt) * emb.scale[t][..., None].to(dt)
+    else:
+        rows = emb.weight[t]
+    if mesh is None:
+        return rows
+    return mesh.all_reduce(torch.where(mine[..., None], rows,
+                                       torch.zeros_like(rows)))
 
 
-def _qkv_proj(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor):
+def _qkv_proj(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor):
     """Projections only (no rope).  x [B, S, H] -> q [B, S, nH, D],
-    k/v [B, S, nKV, D].  The fused decode kernel ropes in-kernel."""
+    k/v [B, S, nKV, D] over the rank's heads (k/v all-gathered to every
+    head when the pages replicate).  The fused decode kernel ropes
+    in-kernel."""
+    cfg = model.cfg
     B, S, _ = x.shape
     D = cfg.head_dim_
     aq = cfg.act_quant
-    q = _linear(layer.q, x, aq).reshape(B, S, cfg.num_heads, D)
-    k = _linear(layer.k, x, aq).reshape(B, S, cfg.num_kv_heads, D)
-    v = _linear(layer.v, x, aq).reshape(B, S, cfg.num_kv_heads, D)
-    return q, k, v
+    q = _linear(layer.q, x, aq).reshape(B, S, model.n_heads, D)
+    k = _linear(layer.k, x, aq)
+    v = _linear(layer.v, x, aq)
+    if model.kv_gather:
+        k, v = model.mesh.all_gather(k), model.mesh.all_gather(v)
+    return (q, k.reshape(B, S, model.n_kv_heads, D),
+            v.reshape(B, S, model.n_kv_heads, D))
 
 
-def _qkv(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor, cos, sin):
+def _qkv(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor, cos, sin):
     """Project + rope (ops/rope.py, f32)."""
-    q, k, v = _qkv_proj(layer, cfg, x)
+    q, k, v = _qkv_proj(model, layer, x)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(layer: LlamaLayer, cfg: ModelConfig,
+def _mlp(model: LlamaModel, layer: LlamaLayer,
          x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU."""
-    aq = cfg.act_quant
-    return _linear(layer.down, F.silu(_linear(layer.gate, x, aq))
-                   * _linear(layer.up, x, aq), aq)
+    """SwiGLU (gate/up column-parallel, down row-parallel)."""
+    aq = model.cfg.act_quant
+    return _row(model, layer.down, F.silu(_linear(layer.gate, x, aq))
+                * _linear(layer.up, x, aq))
 
 
-def _residual_tail(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor,
+def _residual_tail(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor,
                    o: torch.Tensor) -> torch.Tensor:
     """Attention residual, pre-MLP norm, MLP, MLP residual: the one
     definition shared by layer_block, _prefill_impl and decode_step."""
+    cfg = model.cfg
     x = x + o
     h = rms_norm(x, layer.post_norm, cfg.rms_norm_eps, cfg.rmsnorm_unit_offset)
-    return x + _mlp(layer, cfg, h)
+    return x + _mlp(model, layer, h)
 
 
 def _unembed(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the vocab projection, float32 logits.  The projection
     stays weight-only under ``act_quant``, tied or not: int8 noise on the
     pre-logits hidden state flips near-tied argmax (the JAX package's
-    rule)."""
+    rule).  Under a mesh each rank projects onto its vocab slice and the
+    logits are all-gathered (replicated on every rank)."""
     cfg = model.cfg
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                  cfg.rmsnorm_unit_offset)
-    if not cfg.tie_embeddings:
-        return _linear(model.lm_head, x).float()
     emb = model.embed
-    if isinstance(emb, QuantEmbedding):
-        return (F.linear(x, emb.weight_q.to(x.dtype))
-                * emb.scale.to(x.dtype)).float()
-    return F.linear(x, emb.weight).float()
+    if not cfg.tie_embeddings:
+        logits = _linear(model.lm_head, x).float()
+    elif isinstance(emb, QuantEmbedding):
+        logits = (F.linear(x, emb.weight_q.to(x.dtype))
+                  * emb.scale.to(x.dtype)).float()
+    else:
+        logits = F.linear(x, emb.weight).float()
+    if model.mesh is None:
+        return logits
+    return model.mesh.all_gather(logits, dim=-1)
+
+
+def _replicated_attention(model: LlamaModel, q, kk, vv, q_positions,
+                          kv_len) -> torch.Tensor:
+    """Attention of the rank's query heads over every kv head's K/V
+    [B, T, KVH, D] (pages replicated): each local head reads its own kv
+    head, then dense causal attention with one query head per kv head."""
+    idx = model.kv_index
+    return causal_attention(q, kk.index_select(2, idx), vv.index_select(2, idx),
+                            q_positions=q_positions, kv_len=kv_len)
 
 
 def is_fused_decode_impl(attn_impl) -> bool:
@@ -489,23 +687,33 @@ def is_flash_prefill_impl(attn_impl) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def layer_block(layer: LlamaLayer, cfg: ModelConfig, x: torch.Tensor, cos,
+def layer_block(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor, cos,
                 sin, positions: torch.Tensor) -> torch.Tensor:
     """One transformer layer with dense causal attention."""
+    cfg = model.cfg
     B, S = x.shape[:2]
     h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, cfg.rmsnorm_unit_offset)
-    q, k, v = _qkv(layer, cfg, h, cos, sin)
-    attn = causal_attention(q, k, v, q_positions=positions)
-    o = _linear(layer.o, attn.reshape(B, S, -1), cfg.act_quant)
-    return _residual_tail(layer, cfg, x, o)
+    q, k, v = _qkv(model, layer, h, cos, sin)
+    if model.kv_gather:
+        attn = _replicated_attention(model, q, k, v, positions, None)
+    else:
+        attn = causal_attention(q, k, v, q_positions=positions)
+    o = _row(model, layer.o, attn.reshape(B, S, -1))
+    return _residual_tail(model, layer, x, o)
 
 
 @torch.no_grad()
 def forward_full(model: LlamaModel, tokens: torch.Tensor, *,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dense causal forward.  tokens [B, S] -> logits [B, S, V] float32."""
+    """Dense causal forward.  tokens [B, S] -> logits [B, S, V] float32.
+    On rank 0 of a mesh the workers run it too (sent first)."""
     cfg = model.cfg
     B, S = tokens.shape
+    if model.mesh is not None and model.mesh.is_leader:
+        model.check_current()
+        model.mesh.send("forward", tokens.cpu().numpy(),
+                        None if positions is None
+                        else positions.cpu().numpy())
     x = _embed_lookup(model, tokens)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -513,7 +721,7 @@ def forward_full(model: LlamaModel, tokens: torch.Tensor, *,
     cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta,
                            scaling=cfg.rope_scaling)
     for layer in model.layers:
-        x = layer_block(layer, cfg, x, cos, sin, positions)
+        x = layer_block(model, layer, x, cos, sin, positions)
     return _unembed(model, x)
 
 
@@ -575,6 +783,25 @@ def _scatter_pages_quant(pages: torch.Tensor, spages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _gathered_kv(model: LlamaModel, k, v, pk, pv, psk, psv, block_tables,
+                 attend_to_pages: bool):
+    """The K/V a gather-path attention reads, [B, T, KVH, D]: the gathered
+    pages (dequantized with the scale planes ``psk``/``psv`` of a quantized
+    pool, widened on an unscaled fp8/fp16 one), or the in-flight ``k``/``v``
+    of a fresh dense prefill."""
+    if not attend_to_pages:
+        return k, v
+    D = model.cfg.head_dim_
+    if psk is not None:
+        return (gather_dequant(pk, psk, block_tables, D).to(k.dtype),
+                gather_dequant(pv, psv, block_tables, D).to(v.dtype))
+    B = block_tables.shape[0]
+    return (widen_pages(gather_pages(pk, block_tables)).reshape(
+                B, -1, model.n_kv_heads, D),
+            widen_pages(gather_pages(pv, block_tables)).reshape(
+                B, -1, model.n_kv_heads, D))
+
+
 def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                   kv_len, pages: KVPages, block_tables, attend_to_pages: bool,
                   paged_attn_fn=None, on_layer=None,
@@ -609,7 +836,7 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
     uo = cfg.rmsnorm_unit_offset
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, uo)
-        q, k, v = _qkv(layer, cfg, h, cos, sin)
+        q, k, v = _qkv(model, layer, h, cos, sin)
         if quant:
             pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
                                            block_tables, positions, valid)
@@ -622,28 +849,26 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
             scales = dict(k_scale=psk, v_scale=psv) if quant else {}
             attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
                                  lengths, **scales)
-        elif attend_to_pages and paged_attn_fn is not None and not quant:
+        elif (attend_to_pages and paged_attn_fn is not None and not quant
+              and not model.kv_gather):
             # Queries are contiguous at positions[:, 0] + i (verify_step
             # and prefill_chunk guarantee it); a quantized pool takes the
             # gather/dequant branch below, as in the JAX package.
             attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
                                  lengths)
         else:
-            if attend_to_pages and quant:
-                D = cfg.head_dim_
-                kk = gather_dequant(pk, psk, block_tables, D).to(k.dtype)
-                vv = gather_dequant(pv, psv, block_tables, D).to(v.dtype)
-            elif attend_to_pages:
-                kk = widen_pages(gather_pages(pk, block_tables)).reshape(
-                    B, -1, cfg.num_kv_heads, cfg.head_dim_)
-                vv = widen_pages(gather_pages(pv, block_tables)).reshape(
-                    B, -1, cfg.num_kv_heads, cfg.head_dim_)
+            kk, vv = _gathered_kv(model, k, v, pk, pv,
+                                  psk if quant else None,
+                                  psv if quant else None, block_tables,
+                                  attend_to_pages)
+            if model.kv_gather:
+                attn = _replicated_attention(model, q, kk, vv, positions,
+                                             kv_len)
             else:
-                kk, vv = k, v
-            attn = causal_attention(q, kk, vv, q_positions=positions,
-                                    kv_len=kv_len)
-        o = _linear(layer.o, attn.reshape(B, S, -1), cfg.act_quant)
-        x = _residual_tail(layer, cfg, x, o)
+                attn = causal_attention(q, kk, vv, q_positions=positions,
+                                        kv_len=kv_len)
+        o = _row(model, layer.o, attn.reshape(B, S, -1))
+        x = _residual_tail(model, layer, x, o)
         if on_layer is not None:
             on_layer()
     if return_all_logits:
@@ -755,27 +980,45 @@ def decode_step(model: LlamaModel, tokens, context_lens, pages: KVPages,
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, uo)
         if fused_q:
-            q, k, v = _qkv_proj(layer, cfg, h)
+            q, k, v = _qkv_proj(model, layer, h)
             attn = attn_impl(q, k, v, cos, sin, pages.k[li], pages.v[li],
                              pages.k_scale[li], pages.v_scale[li],
                              block_tables, context_lens)[0]
         elif fused:
-            q, k, v = _qkv_proj(layer, cfg, h)
+            q, k, v = _qkv_proj(model, layer, h)
             attn, _, _ = attn_impl(q, k, v, cos, sin, pages.k[li],
                                    pages.v[li], block_tables, context_lens)
-        elif quant:
-            q, k, v = _qkv(layer, cfg, h, cos, sin)
-            pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
-                                           block_tables, positions, active)
-            pv, psv = _scatter_pages_quant(pages.v[li], pages.v_scale[li], v,
-                                           block_tables, positions, active)
-            attn = paged_decode_attention_quant(q, pk, pv, psk, psv,
-                                                block_tables, new_lens)
         else:
-            q, k, v = _qkv(layer, cfg, h, cos, sin)
-            pk = _scatter_pages(pages.k[li], k, block_tables, positions, active)
-            pv = _scatter_pages(pages.v[li], v, block_tables, positions, active)
-            attn = attn_impl(q, pk, pv, block_tables, new_lens)
-        o = _linear(layer.o, attn.reshape(B, 1, -1), cfg.act_quant)
-        x = _residual_tail(layer, cfg, x, o)
+            attn = decode_attention_split(model, layer, li, h, cos, sin,
+                                          positions, active, new_lens, pages,
+                                          block_tables, attn_impl)
+        o = _row(model, layer.o, attn.reshape(B, 1, -1))
+        x = _residual_tail(model, layer, x, o)
     return _unembed(model, x)[:, 0, :], pages
+
+
+def decode_attention_split(model: LlamaModel, layer: LlamaLayer, li: int, h,
+                           cos, sin, positions, active, new_lens,
+                           pages: KVPages, block_tables, attn_impl):
+    """One layer's decode attention on the split path: q/k/v and RoPE in
+    PyTorch, the new token's K/V scattered into the pages, then the paged
+    attention ``attn_impl`` (the split kernel wrapper or the gather); a
+    quantized pool, or replicated pages under a mesh, take the gather
+    (and dequant).  Shared with parallel/overlap.py."""
+    q, k, v = _qkv(model, layer, h, cos, sin)
+    if pages.quantized:
+        pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
+                                       block_tables, positions, active)
+        pv, psv = _scatter_pages_quant(pages.v[li], pages.v_scale[li], v,
+                                       block_tables, positions, active)
+        if not model.kv_gather:
+            return paged_decode_attention_quant(q, pk, pv, psk, psv,
+                                                block_tables, new_lens)
+    else:
+        pk = _scatter_pages(pages.k[li], k, block_tables, positions, active)
+        pv = _scatter_pages(pages.v[li], v, block_tables, positions, active)
+        psk = psv = None
+        if not model.kv_gather:
+            return attn_impl(q, pk, pv, block_tables, new_lens)
+    kk, vv = _gathered_kv(model, k, v, pk, pv, psk, psv, block_tables, True)
+    return _replicated_attention(model, q, kk, vv, positions, new_lens)

@@ -25,6 +25,7 @@ template backend when that fails.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import http.client
 import json
@@ -63,6 +64,10 @@ from k8s_llm_monitor_tpu_torch.monitor.models import (
 )
 from k8s_llm_monitor_tpu_torch.monitor.network import NetworkAnalyzer
 from k8s_llm_monitor_tpu_torch.ops import _build
+from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+    create_mesh,
+    parse_mesh_shape,
+)
 from k8s_llm_monitor_tpu_torch.resilience.errors import OverloadedError
 from k8s_llm_monitor_tpu_torch.resilience.journal import RequestJournal
 from k8s_llm_monitor_tpu_torch.resilience.retry import Backoff
@@ -363,7 +368,8 @@ class LocalEngineBackend(LLMBackend):
 
     @classmethod
     def from_config(cls, tpu_cfg, lifecycle=None, tenancy=None, *,
-                    device=None) -> "LocalEngineBackend":
+                    device=None,
+                    mesh_backend: str = "nccl") -> "LocalEngineBackend":
         """Build from ``LLMConfig.tpu`` on ``device`` (``cuda`` unless the
         caller asks for the CPU), behind a supervised engine factory:
 
@@ -380,7 +386,14 @@ class LocalEngineBackend(LLMBackend):
         activations (``ModelConfig.act_quant``); anything else is bf16.
         ``tenancy`` (TenancyConfig) arms the per-tenant admission governor.
 
-        ``mesh_shape`` raises ``NotImplementedError`` naming ROADMAP A7.
+        ``mesh_shape`` ("data,seq,model") serves on a mesh
+        (parallel/mesh.py): ranks 1..N-1 start here, one per card, over
+        NCCL; ``mesh_backend="gloo"`` asks for gloo (ranks may share a
+        card, collectives through host memory; the CPU's only backend).
+        Only the model axis is served, from random weights (a checkpoint
+        under a mesh, and ``data``/``seq`` > 1, raise naming ROADMAP A7b).
+        The workers stop when the process exits (``backend.mesh.close()``
+        stops them sooner).
         ``spec_k`` and ``spec_min_accept`` reach the engine as in the JAX
         backend.  ``tenancy.max_kv_share`` caps each tenant's share of the
         engine's prefix cache (``EngineConfig.kv_max_tenant_share``).  On
@@ -389,13 +402,19 @@ class LocalEngineBackend(LLMBackend):
         """
         qmode = getattr(tpu_cfg, "quantize", "")
         quantize = qmode in ("int8", "w8a8")
-        if tpu_cfg.mesh_shape:
-            raise NotImplementedError(
-                f"llm.tpu.mesh_shape={tpu_cfg.mesh_shape!r}: multi-GPU "
-                "serving is not ported (ROADMAP A7)")
         device = llama.resolve_device(device)
         if device.type == "cuda":
             _build.build_all()
+        mesh = None
+        if tpu_cfg.mesh_shape:
+            if tpu_cfg.checkpoint:
+                raise NotImplementedError(
+                    "a checkpoint under llm.tpu.mesh_shape (each rank "
+                    "loading its shard) is ROADMAP A7b")
+            mesh = create_mesh(parse_mesh_shape(tpu_cfg.mesh_shape),
+                               device=device, backend=mesh_backend)
+            atexit.register(mesh.close)
+            device = mesh.device
         if tpu_cfg.checkpoint:
             # int8 streams each tensor through host-side quantization: the
             # device never holds the bf16 weights.
@@ -404,9 +423,13 @@ class LocalEngineBackend(LLMBackend):
             tokenizer = load_tokenizer(tpu_cfg.checkpoint)
         else:
             cfg = PRESETS[tpu_cfg.model]
-            model = (init_params_quantized(cfg, seed=0, device=device)
+            if qmode == "w8a8":
+                # The workers build from this cfg: W8A8 goes in first.
+                cfg = dataclasses.replace(cfg, act_quant=True)
+            model = (init_params_quantized(cfg, seed=0, device=device,
+                                           mesh=mesh)
                      if quantize else
-                     llama.LlamaModel(cfg, device=device, seed=0))
+                     llama.LlamaModel(cfg, device=device, seed=0, mesh=mesh))
             tokenizer = load_tokenizer(None)
         if qmode == "w8a8":
             # int8 activations on the int8 weights; the forward passes read
@@ -449,9 +472,11 @@ class LocalEngineBackend(LLMBackend):
                 enforce=tenancy.enforce,
                 max_tenants=tenancy.max_tenants)
 
-        return cls(tokenizer=tokenizer, dev_weights=not tpu_cfg.checkpoint,
-                   engine_factory=engine_factory, lifecycle=lifecycle,
-                   governor=governor)
+        backend = cls(tokenizer=tokenizer, dev_weights=not tpu_cfg.checkpoint,
+                      engine_factory=engine_factory, lifecycle=lifecycle,
+                      governor=governor)
+        backend.mesh = mesh
+        return backend
 
     def _result(self, handle, what: str):
         res = handle.result(timeout=self.GENERATION_TIMEOUT_S)
@@ -677,14 +702,16 @@ class OpenAICompatBackend(LLMBackend):
 
 def build_backend(cfg: LLMConfig,
                   lifecycle: LifecycleConfig | None = None,
-                  tenancy=None, *, device=None) -> LLMBackend:
+                  tenancy=None, *, device=None,
+                  mesh_backend: str = "nccl") -> LLMBackend:
     """The backend ``cfg.provider`` names.  ``"tpu"`` is the in-tree engine
     (the port's, on ``device``: ``cuda`` unless the caller asks for the
     CPU); it does not fall back to the template backend when it cannot be
     built, so a missing card or an unported knob fails the boot."""
     if cfg.provider == "tpu":
         return LocalEngineBackend.from_config(cfg.tpu, lifecycle=lifecycle,
-                                              tenancy=tenancy, device=device)
+                                              tenancy=tenancy, device=device,
+                                              mesh_backend=mesh_backend)
     if cfg.provider == "openai":
         try:
             return OpenAICompatBackend(cfg)

@@ -12,8 +12,8 @@ the GPU, instead of a remote OpenAI call) and an ``llm.tpu`` sub-block
 selecting the model preset; the reference's remote-provider fields are kept
 for the OpenAI-compatible fallback path.  The tree, its defaults and the
 key names are the JAX package's, so one YAML file or environment configures
-either package; ``LocalEngineBackend.from_config`` refuses the knob the
-port does not serve yet (``mesh_shape``).
+either package; ``LocalEngineBackend.from_config`` serves ``mesh_shape``'s
+model axis on one process per rank (parallel/mesh.py).
 """
 
 from __future__ import annotations

@@ -250,6 +250,15 @@ class MonitorServer:
                 "role": self.config.fleet.role,
                 "draining": bool(self.draining),
             }
+            if engine.mesh is not None:
+                # Port-only: how the mesh serves (gloo runs the decode
+                # programs eagerly, stated here).
+                snap["engine"]["mesh"] = dict(
+                    engine.mesh_axes(), backend=engine.mesh.backend,
+                    decode_graphs=engine.decode_graphs,
+                    tp_overlap=engine.tp_overlap,
+                    decode_path=engine.decode_path,
+                    prefill_path=engine.prefill_path)
         if self.governor is not None:
             # Per-tenant accounting: admissions, quota refusals, sheds,
             # charged (delivered) tokens, in-flight reservations, and the
@@ -1318,12 +1327,14 @@ def build_server(
     uav_fetcher=None,
     *,
     device=None,
+    mesh_backend: str = "nccl",
 ) -> MonitorServer:
     """Wire the full server from config: cluster backend -> client ->
     manager -> analysis engine -> HTTP.  ``backend=None`` boots dev mode (no
     cluster), like the reference's nil-client path.  With
     ``llm.provider="tpu"`` the model is built on ``device``: ``cuda``
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU; an ``llm.tpu.mesh_shape`` mesh runs
+    its collectives on ``mesh_backend`` (parallel/mesh.py)."""
     _refuse_unported(config)
     client = None
     manager = None
@@ -1343,7 +1354,8 @@ def build_server(
     if client is not None and config.metrics.enabled:
         manager = Manager(client, config.metrics, uav_fetcher=uav_fetcher)
     llm_backend = build_backend(config.llm, lifecycle=config.lifecycle,
-                                tenancy=config.tenancy, device=device)
+                                tenancy=config.tenancy, device=device,
+                                mesh_backend=mesh_backend)
     analysis = AnalysisEngine(
         llm_backend,
         client=client,

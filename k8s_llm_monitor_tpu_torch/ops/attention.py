@@ -13,6 +13,17 @@ pools; an unscaled float8_e4m3fn / float8_e5m2 / float16 pool is widened
 as it is gathered, ``widen_pages``).  The hand-written CUDA kernels live behind ops/paged_attention.py and
 are picked by ``select_prefill_impl`` / ``select_decode_impl`` /
 ``select_verify_impl``.
+
+Under a mesh (``tp`` > 1, parallel/mesh.py) the selectors pick what the
+JAX package's pick under a GSPMD mesh: never the fused decode kernels
+(B2/B4), the split paged attention kernel (B3) per shard on the decode
+path and flash prefill (B1/B5) per shard on the prefill path when the
+degree divides the kv heads and the per-shard geometry passes
+(``_pallas_geometry_ok``), the gather otherwise; verify on the gather
+unless flash prefill serves it (the engine's rule).  The per-shard wrappers
+(``make_tp_paged_attention``, ``make_tp_flash_prefill``) call the kernel on
+the rank's local heads and its kv-head slice of the pages: block ids are
+global, so no collective is needed.
 """
 
 from __future__ import annotations
@@ -227,6 +238,69 @@ def _decode_geometry_ok(cfg, device: torch.device) -> bool:
             and cfg.q_per_kv in QUERY_HEADS_PER_KV)
 
 
+def _pallas_geometry_ok(cfg, tp: int) -> bool:
+    """The JAX package's per-shard gate of its TPU kernels (Mosaic lane
+    alignment): the rank's fused page row is a multiple of 128 lanes and
+    head_dim at most 128.  The port's kernels do not need it, but under a
+    mesh the port picks the JAX package's paths."""
+    fused_local = cfg.num_kv_heads * cfg.head_dim_ // tp
+    return fused_local % 128 == 0 and cfg.head_dim_ <= 128
+
+
+def make_tp_paged_attention(cfg, tp: int):
+    """Split paged attention (B3) on one rank of a mesh: the kernel wrapper
+    on the rank's ``num_heads / tp`` query heads over its kv-head slice of
+    the pages (KVH from the pool's width, so the heads-per-group ratio does
+    not change under the split), no collective.  The per-rank form of the
+    JAX package's ``make_tp_paged_attention`` (a ``shard_map`` there)."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    H, F = cfg.num_heads // tp, cfg.num_kv_heads * cfg.head_dim_ // tp
+
+    def tp_paged_attention(q, k_pages, v_pages, block_table, lengths):
+        if q.shape[2] != H or k_pages.shape[2] != F:
+            raise ValueError(
+                f"TP={tp} shard expects {H} query heads over {F} page lanes, "
+                f"got {q.shape[2]} over {k_pages.shape[2]}")
+        return pa.paged_decode_attention_pallas(q, k_pages, v_pages,
+                                                block_table, lengths)
+
+    return tp_paged_attention
+
+
+def make_tp_flash_prefill(cfg, tp: int):
+    """Flash paged prefill (B1, B5 with the scale planes) on one rank of a
+    mesh: the kernel wrapper on the rank's query heads over its kv-head
+    slice of the pages, no collective (the JAX package's
+    ``make_tp_flash_prefill``)."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    H, F = cfg.num_heads // tp, cfg.num_kv_heads * cfg.head_dim_ // tp
+
+    def tp_flash_prefill(q, k_pages, v_pages, block_table, start, lengths,
+                         **scales):
+        if q.shape[2] != H or k_pages.shape[2] != F:
+            raise ValueError(
+                f"TP={tp} shard expects {H} query heads over {F} page lanes, "
+                f"got {q.shape[2]} over {k_pages.shape[2]}")
+        return pa.flash_prefill_attention(q, k_pages, v_pages, block_table,
+                                          start, lengths, **scales)
+
+    tp_flash_prefill.flash_prefill = True
+    return tp_flash_prefill
+
+
+def _tp_kernel_ok(cfg, device: torch.device, tp: int, prefill: bool) -> bool:
+    """Under a mesh: the degree divides the kv heads and, on the card, the
+    JAX package's per-shard gate and the port's kernel gate both pass."""
+    if cfg.num_kv_heads % tp or cfg.has_attn_extras:
+        return False
+    if device.type != "cuda":
+        return True
+    ok = _pallas_geometry_ok(cfg, tp) and _decode_geometry_ok(cfg, device)
+    return ok and (not prefill or cfg.head_dim_ == 128)
+
+
 def _prefill_geometry_ok(cfg, device: torch.device) -> bool:
     """What the flash prefill kernel takes: the decode geometry at head_dim
     128 only, as the JAX package's ``_flash_ok`` gates its TPU kernel."""
@@ -234,7 +308,8 @@ def _prefill_geometry_ok(cfg, device: torch.device) -> bool:
         device.type != "cuda" or cfg.head_dim_ == 128)
 
 
-def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
+def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto",
+                        tp: int = 1):
     """Pick the prefill-family attention path (fresh prefill and chunks).
 
     ``mode`` (EngineConfig.prefill_path):
@@ -245,12 +320,26 @@ def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
       * ``"dense"`` -- None: models/llama.py's dense branches.
     The pool's dtype does not enter: for an int8/fp8 pool models/llama.py
     hands the wrapper the scale planes and it dequantizes in the kernel.
+    Under a mesh (``tp`` > 1) the kernel runs per shard
+    (``make_tp_flash_prefill``) where the degree divides the kv heads and
+    the per-shard gate passes; the CPU stays dense on "auto".
     """
     if mode == "dense":
         return None
     if mode not in ("auto", "flash"):
         raise ValueError(f"unknown prefill_path {mode!r}; expected "
                          "'auto', 'flash', or 'dense'")
+    if tp > 1:
+        ok = cfg is not None and _tp_kernel_ok(cfg, device, tp, prefill=True)
+        if mode == "flash" and not ok:
+            raise ValueError(
+                "prefill_path='flash' but the model/mesh can't take the "
+                "flash kernel per shard (attn extras, a TP degree that "
+                "doesn't divide the KV heads, or on CUDA the per-shard "
+                "geometry); use prefill_path='auto'")
+        if mode == "auto" and (device.type != "cuda" or not ok):
+            return None
+        return make_tp_flash_prefill(cfg, tp)
     ok = _prefill_geometry_ok(cfg, device)
     if mode == "flash" and not ok:
         raise ValueError(
@@ -267,7 +356,7 @@ def select_prefill_impl(device: torch.device, cfg=None, mode: str = "auto"):
 
 
 def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
-                       kv_quant: str = ""):
+                       kv_quant: str = "", tp: int = 1):
     """Pick the decode-step attention path.
 
     ``mode`` (EngineConfig.decode_path):
@@ -287,6 +376,12 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
     its gather/dequant branch.
     Fused impls carry ``fused_decode = True`` and take the extended calling
     convention (raw q/k/v + angles in, attention + pages out).
+
+    Under a mesh (``tp`` > 1) the JAX package's rule: "fused" raises, a
+    quantized pool decodes on the gather/dequant, and "auto" / "pallas"
+    take the split kernel per shard (``make_tp_paged_attention``) where the
+    degree divides the kv heads and, on the card, the per-shard gate passes
+    -- the gather where not.
     """
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 
@@ -300,6 +395,17 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
             "decode_path='pallas' has no quantized-KV support; the split "
             "kernel is bypassed for the gather/dequant reference")
         return paged_decode_attention
+    if tp > 1:
+        if mode == "fused":
+            raise ValueError(
+                "decode_path='fused' but the fused kernel does not run under "
+                "a mesh (the JAX package's rule); use decode_path='auto'")
+        if kv_quant:
+            return paged_decode_attention
+        if cfg is None or not _tp_kernel_ok(cfg, device, tp, prefill=False):
+            logger.warning("TP=%d: paged attention takes the gather", tp)
+            return paged_decode_attention
+        return make_tp_paged_attention(cfg, tp)
     ok = _decode_geometry_ok(cfg, device)
     if mode != "auto" and not ok:
         raise ValueError(
@@ -315,7 +421,7 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
     return pa.paged_decode_attention_fused
 
 
-def select_verify_impl(device: torch.device, cfg=None):
+def select_verify_impl(device: torch.device, cfg=None, tp: int = 1):
     """Pick the verify (multi-query paged) attention path: None for
     attn-extras models; ``paged_verify_attention`` (the gather) off the
     card; on the card the split paged attention wrapper
@@ -324,10 +430,11 @@ def select_verify_impl(device: torch.device, cfg=None):
     the gather below a 2,048-token table (its TPU measurement); on the H100
     the kernel is the faster at 1,024 tokens as well (PERF.md, section 7),
     so the port has no threshold.  Returns a callable (q, k_pages, v_pages,
-    table, start, lengths)."""
+    table, start, lengths).  Under a mesh the gather, as in the JAX
+    package."""
     if cfg is not None and cfg.has_attn_extras:
         return None
-    if device.type != "cuda":
+    if device.type != "cuda" or tp > 1:
         return paged_verify_attention
     if cfg is not None and not _decode_geometry_ok(cfg, device):
         raise ValueError(

@@ -103,9 +103,22 @@ block.
     and the per-tenant cached blocks), the prefix cache's counters and the
     recovery counters.
 
-Not ported: meshes (ROADMAP A7).  As in the JAX engine, ``K8SLLM_KV_DTYPE``,
-``K8SLLM_PREFILL_PATH`` and ``K8SLLM_DECODE_PATH`` override ``kv_dtype``,
-``prefill_path`` and ``decode_path``.
+  * **Tensor parallelism** (``mesh``, parallel/mesh.py; the model built on
+    the same mesh): this engine is rank 0 and schedules; every device call
+    (``_device``: admission and chunk rounds, decode and spec programs,
+    the grammar table, history rows, the pool's release) is sent to the
+    workers' copies of the engine before it runs here, so every rank runs
+    the same program on its kv-head slice of the pages (allocated at the
+    local width; block ids stay global).  Under a mesh the fused decode
+    kernels are off (the split path with B3 per shard), and
+    ``tp_overlap`` swaps the decode step's all-reduces for the
+    reduce-scatter / all-gather schedule (parallel/overlap.py).  Under
+    gloo the decode programs run eagerly (``decode_graphs`` False).  The
+    host tier and KVX1 export/install raise under a mesh (ROADMAP A7b).
+
+As in the JAX engine, ``K8SLLM_KV_DTYPE``, ``K8SLLM_PREFILL_PATH``,
+``K8SLLM_DECODE_PATH`` and ``K8SLLM_TP_OVERLAP`` override ``kv_dtype``,
+``prefill_path``, ``decode_path`` and ``tp_overlap``.
 """
 
 from __future__ import annotations
@@ -132,6 +145,14 @@ from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
 from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
 from k8s_llm_monitor_tpu_torch.ops.paged_attention import KERNEL_WRAPPERS
+from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+    allreduce_bandwidth_gbs,
+    hbm_bandwidth_gbs,
+)
+from k8s_llm_monitor_tpu_torch.parallel.overlap import (
+    overlap_decode_step,
+    overlap_supported,
+)
 from k8s_llm_monitor_tpu_torch.ops.sampling import (
     fsm_advance,
     fsm_mask_logits,
@@ -167,6 +188,10 @@ from k8s_llm_monitor_tpu_torch.serving.spec import (
 )
 
 logger = logging.getLogger("k8s_llm_monitor_tpu_torch.serving.engine")
+
+# The environment overrides a mesh's workers take from rank 0.
+_ENV_OVERRIDES = ("K8SLLM_KV_DTYPE", "K8SLLM_PREFILL_PATH",
+                  "K8SLLM_DECODE_PATH", "K8SLLM_TP_OVERLAP")
 
 
 @dataclasses.dataclass
@@ -359,6 +384,13 @@ class EngineConfig:
     # History window of the n-gram match per lane (tokens; at most the
     # per-sequence capacity).
     spec_hist_cap: int = 4096
+    # Decode-step collective schedule under a mesh (parallel/overlap.py):
+    # "auto" takes the reduce-scatter / all-gather schedule where
+    # overlap_supported() clears (cfg, mesh) and the mesh runs NCCL, and
+    # keeps the all-reduce one (logged) elsewhere; "on" raises where it
+    # cannot serve; "off" keeps the all-reduce schedule.
+    # K8SLLM_TP_OVERLAP overrides it.
+    tp_overlap: str = "auto"
 
 
 # Sink signature: (request_id, new_token_ids, result_or_none).  ``result`` is
@@ -514,7 +546,7 @@ class _DecodeProgram:
 
     def __call__(self) -> torch.Tensor:
         eng = self.eng
-        if eng.device.type != "cuda" or not eng.ecfg.decode_graphs:
+        if not eng.decode_graphs:
             self._run()
         elif self.graph is None:
             self._capture()
@@ -559,9 +591,9 @@ class _DecodeProgram:
         for i in range(self.K):
             act = active0 & ~done & (i < remaining)
             ctx_eff = torch.where(act, ctx, torch.zeros_like(ctx))
-            logits, _ = llama.decode_step(eng.model, tokens, ctx_eff,
-                                          eng.pages, table,
-                                          attn_impl=eng._decode_attn)
+            logits, _ = eng._decode_step(eng.model, tokens, ctx_eff,
+                                         eng.pages, table,
+                                         attn_impl=eng._decode_attn)
             if self.constrained:
                 logits = fsm_mask_logits(logits, fstate, eng._fsm_trans,
                                          eng._fsm_pad)
@@ -670,21 +702,35 @@ class _SpecProgram(_DecodeProgram):
 
 
 class InferenceEngine:
-    """Single-process engine over batched prefill and K-step decode.
+    """Engine over batched prefill and K-step decode.
 
     ``device`` defaults to ``cuda`` (llama.resolve_device); the model's
-    weights must live there.  Not thread-safe: one thread owns the engine
-    (serving/service.py is the concurrent front end).
+    weights must live there.  ``mesh`` (default: the model's) serves a
+    model built on a mesh, this engine as rank 0.  Not thread-safe: one
+    thread owns the engine (serving/service.py is the concurrent front
+    end).
     """
 
     def __init__(self, cfg: ModelConfig, model: llama.LlamaModel,
                  engine_cfg: EngineConfig | None = None, tokenizer=None,
                  eos_id: Optional[int] = None, seed: int = 0, device=None,
-                 host_kv_tier: Optional[HostKVTier] = None):
-        self.device = llama.resolve_device(device)
+                 host_kv_tier: Optional[HostKVTier] = None, mesh=None):
+        if mesh is None:
+            mesh = model.mesh
+        elif model.mesh is not (mesh if mesh.tp > 1 else None):
+            raise ValueError("the model was not built on this mesh")
+        self.mesh = mesh
+        self.tp = mesh.tp if mesh is not None else 1
+        # Rank 0 of a mesh sends every device call to the workers.
+        self._leader = self.tp > 1 and mesh.is_leader
+        self.device = (mesh.device if mesh is not None and device is None
+                       else llama.resolve_device(device))
         if model.device != self.device:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
+        if self._leader:
+            model.check_current()
+        engine_cfg_in = engine_cfg
         self.cfg = cfg
         self.model = model
         self.ecfg = ec = engine_cfg or EngineConfig()
@@ -707,7 +753,8 @@ class InferenceEngine:
         else:
             raise ValueError(f"unknown kv_dtype {kvd!r} (auto | int8 | fp8)")
         pmode = os.environ.get("K8SLLM_PREFILL_PATH", ec.prefill_path) or "auto"
-        self._prefill_attn = select_prefill_impl(self.device, cfg, pmode)
+        self._prefill_attn = select_prefill_impl(self.device, cfg, pmode,
+                                                 tp=self.tp)
         self.prefill_path = "flash" if self._prefill_attn is not None else "dense"
         if self._prefill_attn is not None:
             # The flash kernel reads K/V from the pages, so long prompts
@@ -724,7 +771,7 @@ class InferenceEngine:
         self._decode_attn = select_decode_impl(
             self.device, cfg,
             os.environ.get("K8SLLM_DECODE_PATH", ec.decode_path),
-            kv_quant=self.kv_quant)
+            kv_quant=self.kv_quant, tp=self.tp)
         impl = self._decode_attn
         if self.kv_quant:
             # Without the fused quant kernel, decode_step runs its gather/
@@ -744,13 +791,47 @@ class InferenceEngine:
         if ec.spec_k > 0 and self._prefill_attn is not None:
             self._verify_attn = self._prefill_attn
         elif ec.spec_k > 0 and not self.kv_quant:
-            self._verify_attn = select_verify_impl(self.device, cfg)
+            self._verify_attn = select_verify_impl(self.device, cfg,
+                                                   tp=self.tp)
         else:
             self._verify_attn = None
+        # The decode-step collective schedule (read where the JAX engine
+        # reads it; the environment wins).
+        overlap_mode = os.environ.get("K8SLLM_TP_OVERLAP",
+                                      ec.tp_overlap) or "auto"
+        if overlap_mode not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown tp_overlap {overlap_mode!r} (auto | on | off)")
+        self.tp_overlap = False
+        if overlap_mode != "off":
+            why_not = overlap_supported(cfg, mesh, model=model)
+            if (not why_not and overlap_mode == "auto"
+                    and mesh.backend == "gloo"):
+                # Host-staged collectives hide nothing, and the schedule's
+                # reduce-scatter and all-gather are two host round trips
+                # where the all-reduce is one (chip_smoke.py phase 12b:
+                # 31.5 against 80.3 tok/s, PERF.md section 6).
+                why_not = "gloo: the collectives are host-staged"
+            if not why_not:
+                self.tp_overlap = True
+            elif overlap_mode == "on":
+                raise ValueError(
+                    f"tp_overlap=on but the overlap schedule cannot serve "
+                    f"this (cfg, mesh): {why_not}")
+            elif self.tp > 1:
+                logger.warning("tp_overlap=auto: staying on the all-reduce "
+                               "schedule (%s)", why_not)
+        self._decode_step = (overlap_decode_step if self.tp_overlap
+                             else llama.decode_step)
+        if self.tp > 1 and (host_kv_tier is not None
+                            or ec.host_spill_bytes > 0):
+            raise NotImplementedError(
+                "the host KV tier under a mesh (each rank's page slice) is "
+                "ROADMAP A7b")
         self.pages = llama.init_kv_pages(cfg, ec.num_blocks, ec.block_size,
                                          self.device,
                                          model.dtype,
-                                         kv_quant=self.kv_quant)
+                                         kv_quant=self.kv_quant, tp=self.tp)
         self.allocator = BlockAllocator(ec.num_blocks, ec.block_size)
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self.allocator, ec.prefix_cache_entries,
@@ -793,7 +874,12 @@ class InferenceEngine:
         self._programs: dict[tuple, _DecodeProgram] = {}
         # CUDA graphs of the decode programs: one capture stream and one
         # memory pool for all of them (replays never overlap: one stream).
+        # A gloo mesh runs its collectives through the host, which a graph
+        # cannot hold: its programs run eagerly.
         cuda = self.device.type == "cuda"
+        self.decode_graphs = (ec.decode_graphs and cuda
+                              and not (self.tp > 1
+                                       and mesh.backend == "gloo"))
         self._graph_stream = torch.cuda.Stream(self.device) if cuda else None
         self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self.graph_captures = 0
@@ -891,13 +977,15 @@ class InferenceEngine:
         # decode_host_gap_ms, an EMA of host time blocked per decode/spec
         # reconcile (~0 when dispatch-ahead hides the device);
         # decode_attn_ms / decode_sample_ms, per-step attention / sampling
-        # cost, set by profile_decode_phases() only.  No mesh: the
-        # collective share stays 0.0 and tp_overlap False (ROADMAP A7).
+        # cost, set by profile_decode_phases() only, as is
+        # decode_collective_share (the all-reduce bytes' share of the step
+        # under a mesh, 0.0 off one) and decode_collective_hidden_share
+        # (estimate_hidden_share).
         self.decode_host_gap_ms = 0.0
         self.decode_attn_ms = 0.0
         self.decode_sample_ms = 0.0
         self.decode_collective_share = 0.0
-        self.tp_overlap = False
+        self.decode_collective_hidden_share = 0.0
         # Request-lifecycle histograms per SLO class, with exemplar trace
         # ids, observed on the step thread only.
         _lat = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
@@ -917,6 +1005,132 @@ class InferenceEngine:
             self._tracer.record(
                 "engine.maintenance", t_now, t_now, self._maint_ctx,
                 span_id=self._maint_ctx.span_id, parent_id="")
+        # The workers build their copy of this engine last, from what this
+        # one was given (and the overrides it read).
+        self._mesh_token = 0
+        if self._leader:
+            mesh.send("engine", dict(cfg=cfg, engine_cfg=engine_cfg_in,
+                                     eos_id=self.eos_id, seed=seed),
+                      {k: os.environ.get(k) for k in _ENV_OVERRIDES})
+            mesh.engine_token += 1
+            self._mesh_token = mesh.engine_token
+
+    # ------------------------------------------------------------------
+    # device calls (replayed on a mesh's workers)
+    # ------------------------------------------------------------------
+
+    def _device(self, op: str, *args):
+        """Run device call ``_op_<op>``; on rank 0 of a mesh, send it to the
+        workers first (host tensors go as numpy arrays)."""
+        if self._leader:
+            if self._mesh_token != self.mesh.engine_token:
+                raise RuntimeError("the mesh's workers hold another engine "
+                                   "(one engine lives on a mesh at a time)")
+            self.mesh.send("op", op, tuple(
+                a.numpy() if isinstance(a, torch.Tensor) else a
+                for a in args))
+        return getattr(self, "_op_" + op)(*args)
+
+    def _op_prefill(self, inp: torch.Tensor, P: int, S: int, W: int,
+                    chunked: bool, greedy: bool, constrained: bool, n: int):
+        """Copy a round's packed inputs in, run the prefill (``prefill_chunk``
+        with per-lane starts over the paged prefix when ``chunked``), sample
+        each row's first token (the logits masked by the lanes' FSM states
+        when ``constrained``), and place the first tokens of the ``n``
+        placed rows into the device token buffer (and, with a grammar
+        installed, those lanes' FSM states: the state after the first token
+        for a constrained lane, 0 for a free one, which clears what a
+        constrained occupant of a reused slot left).  Returns (first tokens
+        [P], next FSM states or None, rows, idx) on the device."""
+        buf = torch.empty(inp.numel(), dtype=torch.int32, device=self.device)
+        buf.copy_(inp, non_blocking=True)
+        (tokens, start, lengths, rows, idx, topk, temp, topp, fstate,
+         table) = _prefill_inputs(buf, P, S, W, torch.float32)
+        on_layer = self._deliver_first_tokens if self._leader or \
+            self.tp == 1 else None
+        if chunked:
+            logits, _ = llama.prefill_chunk(
+                self.model, tokens, start, lengths, self.pages, table,
+                attn_impl=self._prefill_attn, on_layer=on_layer)
+        else:
+            logits, _ = llama.prefill(self.model, tokens, lengths,
+                                      self.pages, table,
+                                      attn_impl=self._prefill_attn,
+                                      on_layer=on_layer)
+        if constrained:
+            logits = fsm_mask_logits(logits, fstate, self._fsm_trans,
+                                     self._fsm_pad)
+        if greedy:
+            first = greedy_tokens(logits)
+        else:
+            first = sample_tokens(self._gen, logits, temperature=temp,
+                                  top_k=topk, top_p=topp).to(torch.int32)
+        fnext = fsm_advance(fstate, self._fsm_trans, first) if constrained \
+            else None
+        if n:
+            ix, rw = idx[:n].long(), rows[:n].long()
+            self._tok_state.index_copy_(0, ix, first.index_select(0, rw))
+            if self._fsm_trans is not None:
+                self._fsm_state.index_copy_(
+                    0, ix, fnext.index_select(0, rw) if fnext is not None
+                    else torch.zeros(n, dtype=torch.int32,
+                                     device=self.device))
+        return first, fnext, rows, idx
+
+    def _program(self, key: tuple) -> "_DecodeProgram":
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = (
+                _SpecProgram(self, *key[1:]) if key[0] == "spec"
+                else _DecodeProgram(self, *key))
+        return prog
+
+    def _op_decode(self, inp: torch.Tensor, key: tuple) -> "_DecodeProgram":
+        """Copy a decode call's packed inputs in and run its program (built
+        at its first call); returns the program (its ``out`` and, for a
+        spec program, ``stats``)."""
+        prog = self._program(key)
+        self._dec_in.copy_(inp, non_blocking=True)
+        prog()
+        return prog
+
+    def _op_zero_tok(self) -> None:
+        self._tok_state.zero_()
+
+    def _op_hist(self, rows: np.ndarray, idx: np.ndarray) -> None:
+        """History rows of freshly occupied slots (``_write_hist``).  On the
+        card the rows go through pinned memory with ``non_blocking``
+        copies, so no call in flight is waited for."""
+        r, i = torch.from_numpy(rows), torch.from_numpy(idx)
+        if self.device.type == "cuda":
+            r = r.pin_memory().to(self.device, non_blocking=True)
+            i = i.pin_memory().to(self.device, non_blocking=True)
+        self._hist.index_copy_(0, i, r)
+
+    def _op_grammar(self, trans: np.ndarray) -> None:
+        """Copy a grammar's transition table into the device buffer
+        (``set_grammar``)."""
+        states, vg = trans.shape
+        old = self._fsm_trans
+        if old is None or old.shape[1] != vg or old.shape[0] < states:
+            rows = states if old is None or old.shape[1] != vg else max(
+                states, old.shape[0])
+            self._fsm_trans = torch.empty((rows, vg), dtype=torch.int32,
+                                          device=self.device)
+            extra = self.cfg.vocab_size - vg
+            self._fsm_pad = None if extra == 0 else torch.zeros(
+                (max(self.ecfg.max_slots, self.ecfg.max_prefills_per_step),
+                 extra), dtype=torch.bool, device=self.device)
+            self._programs = {k: p for k, p in self._programs.items()
+                              if not p.constrained}
+        table = np.full(self._fsm_trans.shape, -1, np.int32)
+        table[:states] = trans
+        self._fsm_trans.copy_(torch.from_numpy(table))
+
+    def _op_release(self) -> None:
+        self.pages = None
+        self._programs.clear()
+        self._graph_pool = None
 
     # ------------------------------------------------------------------
     # public API
@@ -924,12 +1138,16 @@ class InferenceEngine:
 
     @property
     def pool_bytes(self) -> int:
-        """Device bytes of the paged KV pool, pages and scales, over every
-        layer (serving/kv_cache.py:page_slice_bytes per block)."""
+        """Device bytes of this rank's paged KV pool, pages and scales, over
+        every layer (serving/kv_cache.py:page_slice_bytes per block: the
+        rank's kv-head slice under a mesh)."""
+        return self._pool_bytes(self.tp)
+
+    def _pool_bytes(self, tp: int) -> int:
         cfg, ec = self.cfg, self.ecfg
         return cfg.num_layers * ec.num_blocks * page_slice_bytes(
             cfg.num_kv_heads, cfg.head_dim_, ec.block_size,
-            self.pages.k[0].element_size(),
+            self.pages.k[0].element_size(), tp=tp,
             scale_bytes=4 if self.kv_quant else 0)
 
     def kv_tier_stats(self) -> dict:
@@ -940,7 +1158,9 @@ class InferenceEngine:
         out = {
             "kv_quant": self.kv_quant,
             "page_dtype": _page_dtype_name(self.pages.k[0].dtype),
-            "device_bytes": self.pool_bytes,
+            # The whole pool, the JAX engine's view (a rank holds
+            # pool_bytes of it).
+            "device_bytes": self._pool_bytes(1),
             "host_bytes": 0,
             "host_entries": 0,
             "spills": 0,
@@ -963,10 +1183,12 @@ class InferenceEngine:
         memory to the engine that replaces this one (the supervisor's
         factory calls it on the engine it rebuilds, which serves nothing
         afterwards).  A thread still inside a step keeps the tensors it
-        holds alive until it lets go of them."""
-        self.pages = None
-        self._programs.clear()
-        self._graph_pool = None
+        holds alive until it lets go of them.  A mesh's workers release
+        theirs when this engine is the one they hold."""
+        if self._leader and self._mesh_token != self.mesh.engine_token:
+            self._op_release()
+            return
+        self._device("release")
 
     @property
     def capacity_tokens(self) -> int:
@@ -1007,23 +1229,7 @@ class InferenceEngine:
         if fsm.eos_id != self.eos_id:
             raise ValueError(
                 f"grammar eos_id {fsm.eos_id} != engine eos_id {self.eos_id}")
-        trans = np.ascontiguousarray(fsm.trans, np.int32)
-        states, vg = trans.shape
-        old = self._fsm_trans
-        if old is None or old.shape[1] != vg or old.shape[0] < states:
-            rows = states if old is None or old.shape[1] != vg else max(
-                states, old.shape[0])
-            self._fsm_trans = torch.empty((rows, vg), dtype=torch.int32,
-                                          device=self.device)
-            extra = self.cfg.vocab_size - vg
-            self._fsm_pad = None if extra == 0 else torch.zeros(
-                (max(self.ecfg.max_slots, self.ecfg.max_prefills_per_step),
-                 extra), dtype=torch.bool, device=self.device)
-            self._programs = {k: p for k, p in self._programs.items()
-                              if not p.constrained}
-        table = np.full(self._fsm_trans.shape, -1, np.int32)
-        table[:states] = trans
-        self._fsm_trans.copy_(torch.from_numpy(table))
+        self._device("grammar", np.ascontiguousarray(fsm.trans, np.int32))
         self._grammar = fsm
 
     def _fsm_entry(self, req: GenerationRequest) -> int:
@@ -1755,6 +1961,12 @@ class InferenceEngine:
             "page_dtype": _page_dtype_name(self.pages.k[0].dtype),
         }
 
+    def _no_mesh_blobs(self) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(
+                "KVX1 export/install under a mesh (each rank's page slice) "
+                "is ROADMAP A7b")
+
     def export_prefix(self, prompt_ids: list[int], *,
                       tenant: str = DEFAULT_TENANT) -> Optional[bytes]:
         """Frame the longest cached prefix of ``prompt_ids`` (within
@@ -1763,6 +1975,7 @@ class InferenceEngine:
         engine installs it.  None on a miss.  The lookup's references pin
         the blocks for the fetch, then go: export never changes what the
         cache holds."""
+        self._no_mesh_blobs()
         pc = self.prefix_cache
         if pc is None:
             return None
@@ -1790,6 +2003,7 @@ class InferenceEngine:
         another namespace; the pages are refused unseen) or ``"nospace"``.
         Framing or CRC damage raises :class:`BlobError`: a torn transfer
         is a miss, never a partial install."""
+        self._no_mesh_blobs()
         meta, raw = unpack_prefix_blob(blob)
         geo = self._kv_geometry()
         if any(meta.get(key) != geo[key] for key in geo):
@@ -1870,40 +2084,16 @@ class InferenceEngine:
     # -- admission and chunk rounds -------------------------------------
 
     def _prefill_call(self, stage: _Stage, P: int, S: int, W: int,
-                      chunked: bool, greedy: bool, constrained: bool):
-        """Copy a round's packed inputs in from its stage, run the prefill
-        (``prefill_chunk`` with per-lane starts over the paged prefix when
-        ``chunked``) and sample each row's first token, the logits masked by
-        the lanes' FSM states when ``constrained``.  Returns (first tokens
-        [P], next FSM states or None, rows, idx) on the device."""
+                      chunked: bool, greedy: bool, constrained: bool, n: int):
+        """Run a round from its stage's packed inputs (``_op_prefill``,
+        replayed on a mesh's workers), placing the first tokens of its
+        ``n`` placed rows.  Returns (first tokens [P], next FSM states or
+        None, rows, idx) on the device."""
         t0 = time.monotonic()
-        n = P * (S + 8 + W)
-        buf = torch.empty(n, dtype=torch.int32, device=self.device)
-        buf.copy_(stage.inp[:n], non_blocking=True)
-        (tokens, start, lengths, rows, idx, topk, temp, topp, fstate,
-         table) = _prefill_inputs(buf, P, S, W, torch.float32)
-        if chunked:
-            logits, _ = llama.prefill_chunk(
-                self.model, tokens, start, lengths, self.pages, table,
-                attn_impl=self._prefill_attn,
-                on_layer=self._deliver_first_tokens)
-        else:
-            logits, _ = llama.prefill(self.model, tokens, lengths,
-                                      self.pages, table,
-                                      attn_impl=self._prefill_attn,
-                                      on_layer=self._deliver_first_tokens)
-        if constrained:
-            logits = fsm_mask_logits(logits, fstate, self._fsm_trans,
-                                     self._fsm_pad)
-        if greedy:
-            first = greedy_tokens(logits)
-        else:
-            first = sample_tokens(self._gen, logits, temperature=temp,
-                                  top_k=topk, top_p=topp).to(torch.int32)
-        fnext = fsm_advance(fstate, self._fsm_trans, first) if constrained \
-            else None
+        out = self._device("prefill", stage.inp[:P * (S + 8 + W)], P, S, W,
+                           chunked, greedy, constrained, n)
         self.prefill_dispatch_s += time.monotonic() - t0
-        return first, fnext, rows, idx
+        return out
 
     def _admit_round(self) -> bool:
         """Admit pending prompts into free slots through one batched
@@ -2077,7 +2267,7 @@ class InferenceEngine:
         try:
             self._faults.maybe_raise("prefill_dispatch")
             out = self._prefill_call(stage, P, bucket, W, any_shared, greedy,
-                                     constrained)
+                                     constrained, len(batch))
         except Exception as exc:
             # No slot is occupied and nothing is registered: free the
             # round's pages and requeue its candidates, at most
@@ -2193,7 +2383,7 @@ class InferenceEngine:
         try:
             self._faults.maybe_raise("prefill_dispatch")
             out = self._prefill_call(stage, P, bucket, W, True, greedy,
-                                     constrained)
+                                     constrained, len(lanes))
         except Exception as exc:
             # Rewind the round, so the next step dispatches the same chunks.
             self._drop_stage(stage)
@@ -2220,22 +2410,10 @@ class InferenceEngine:
 
     def _queue_inflight(self, kind: str, out, n: int, P: int, stage: _Stage,
                         lanes, t0: float, touched=(), span_attrs=None) -> None:
-        """Tail of an admission or chunk dispatch: place the first tokens of
-        the call's ``n`` placed rows into the device token buffer (and,
-        with a grammar installed, those lanes' FSM states: the state after
-        the first token for a constrained lane, 0 for a free one, which
-        clears what a constrained occupant of a reused slot left), start
-        the copy of the tokens into the stage, and queue the call."""
-        first, fnext, rows, idx = out
-        if n:
-            ix, rw = idx[:n].long(), rows[:n].long()
-            self._tok_state.index_copy_(0, ix, first.index_select(0, rw))
-            if self._fsm_trans is not None:
-                self._fsm_state.index_copy_(
-                    0, ix, fnext.index_select(0, rw) if fnext is not None
-                    else torch.zeros(n, dtype=torch.int32,
-                                     device=self.device))
-        stage.out[:P].copy_(first, non_blocking=True)
+        """Tail of an admission or chunk dispatch (its first tokens already
+        placed by ``_op_prefill``): start the copy of the tokens into the
+        stage, and queue the call."""
+        stage.out[:P].copy_(out[0], non_blocking=True)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -2266,11 +2444,7 @@ class InferenceEngine:
             L = min(len(req.prompt_ids), H)
             rows[j, :L] = req.prompt_ids[:L]
             idx[j] = slot_idx
-        r, i = torch.from_numpy(rows), torch.from_numpy(idx)
-        if self.device.type == "cuda":
-            r = r.pin_memory().to(self.device, non_blocking=True)
-            i = i.pin_memory().to(self.device, non_blocking=True)
-        self._hist.index_copy_(0, i, r)
+        self._device("hist", rows, idx)
 
     @staticmethod
     def _spec_class(lanes) -> str:
@@ -2305,11 +2479,12 @@ class InferenceEngine:
           * sampled minus greedy at short context -> ``decode_sample_ms``.
 
         The state goes into the programs' fixed input buffers with
-        ``copy_``; the steps append garbage rows into ``self.pages``, so
+        ``copy_``, before each run; the steps append garbage rows into ``self.pages``, so
         this runs only on an IDLE engine (it raises otherwise), never on a
         /metrics scrape.  Times are CUDA events on the card, the host clock
-        elsewhere.  Returns all four figures and the collective share (0.0:
-        no mesh)."""
+        elsewhere.  Returns all four figures and the collective share (the
+        all-reduce bytes' wire time over the short-context step, 0.0 off a
+        mesh or where no all-reduce rate was measured)."""
         if self._inflight or any(s is not None for s in self._slots):
             raise RuntimeError(
                 "profile_decode_phases() requires an idle engine "
@@ -2332,25 +2507,21 @@ class InferenceEngine:
             temp[:] = 0.7 if sampled else 0.0
             topk[:] = max(min(cap, 8), 1) if sampled else 0
             topp[:] = 0.9 if sampled else 1.0
-            self._dec_in.copy_(inp.to(self.device))
-            self._tok_state.zero_()
-            prog = self._programs.get(key)
-            if prog is None:
-                prog = self._programs[key] = _DecodeProgram(self, *key)
-            prog()                        # warm: builds or captures once
+            self._device("zero_tok")
+            self._device("decode", inp, key)  # warm: builds or captures once
             if cuda:
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
                 for _ in range(reps):
-                    prog()
+                    self._device("decode", inp, key)
                 t1.record()
                 t1.synchronize()
                 ms = t0.elapsed_time(t1)
             else:
                 h0 = time.monotonic()
                 for _ in range(reps):
-                    prog()
+                    self._device("decode", inp, key)
                 ms = (time.monotonic() - h0) * 1e3
             return ms / (reps * K)
 
@@ -2358,9 +2529,10 @@ class InferenceEngine:
         t_lo = run((K, "greedy", False, 0), 1, sampled=False)
         t_hi = run((K, "greedy", False, 0), ctx_hi, sampled=False)
         t_samp = run((K, sampler, False, cap), 1, sampled=True)
-        self._tok_state.zero_()
+        self._device("zero_tok")
         self.decode_attn_ms = max(t_hi - t_lo, 0.0)
         self.decode_sample_ms = max(t_samp - t_lo, 0.0)
+        self.decode_collective_share = self._estimate_collective_share(t_lo)
         return {
             "decode_step_ms_short_ctx": t_lo,
             "decode_step_ms_long_ctx": t_hi,
@@ -2370,9 +2542,64 @@ class InferenceEngine:
         }
 
     def mesh_axes(self) -> dict[str, int]:
-        """{axis: size} of the serving mesh: {} (no mesh, ROADMAP A7), the
-        exporter's ``mesh_axes`` topology gauge."""
-        return {}
+        """{axis: size} of the serving mesh ({} off a mesh): the exporter's
+        ``mesh_axes`` topology gauge."""
+        return dict(self.mesh.shape) if self.mesh is not None else {}
+
+    def _estimate_collective_share(self, step_ms: float) -> float:
+        """The share of a decode step that the TP collectives' wire time
+        takes (a byte model, as in the JAX engine): ``_ring_ms`` over the
+        measured step time, clamped to 1."""
+        ring = self._ring_ms()
+        if ring <= 0.0 or step_ms <= 0.0:
+            return 0.0
+        return min(1.0, ring / step_ms)
+
+    def _ring_ms(self) -> float:
+        """Wire time of one decode step's collectives (ms): o and down each
+        reduce a [max_slots, hidden] activation per layer, a ring moving
+        ``2 (tp - 1) / tp`` of it per rank, at the all-reduce bus bandwidth
+        measured on this card kind (parallel/mesh.py; 0.0 where none was,
+        and off a mesh)."""
+        if self.tp <= 1:
+            return 0.0
+        gbs = allreduce_bandwidth_gbs(self.mesh.device_kind())
+        if gbs <= 0.0:
+            return 0.0
+        cfg, tp = self.cfg, self.tp
+        payload = self.ecfg.max_slots * cfg.hidden_size * self.model.dtype.itemsize
+        per_rank = 2 * cfg.num_layers * 2.0 * (tp - 1) / tp * payload
+        return per_rank / (gbs * 1e9) * 1e3
+
+    def estimate_hidden_share(self, step_ms_on: float | None = None,
+                              step_ms_off: float | None = None) -> float:
+        """``decode_collective_hidden_share``: the share of the collectives'
+        wire time the reduce-scatter / all-gather schedule hides.  With
+        measured step times of both schedules (the same engine shape), the
+        saving over the wire time, clamped to [0, 1]; without, the JAX
+        engine's window model: a half hides behind the next column
+        projections' weight reads at the card's memory rate.  0.0 off a
+        mesh, with the schedule off, or where no rate was measured."""
+        ring = self._ring_ms()
+        share = 0.0
+        if ring > 0.0 and self.tp_overlap:
+            if step_ms_on is not None and step_ms_off is not None:
+                share = max(0.0, min(1.0, (step_ms_off - step_ms_on) / ring))
+            else:
+                cfg, tp = self.cfg, self.tp
+                D = cfg.head_dim_
+                wbytes = (1 if self.model.quantized
+                          else self.model.dtype.itemsize)
+                col = (cfg.hidden_size * cfg.num_heads * D
+                       + 2 * cfg.hidden_size * cfg.num_kv_heads * D
+                       + 2 * cfg.hidden_size * cfg.intermediate_size)
+                hbm = hbm_bandwidth_gbs(self.mesh.device_kind())
+                stream_ms = (col * wbytes / tp / (hbm * 1e9) * 1e3
+                             if hbm > 0 else 0.0)
+                wire_ms = ring / (2 * cfg.num_layers)
+                share = min(1.0, stream_ms / wire_ms)
+        self.decode_collective_hidden_share = share
+        return share
 
     # -- decode ---------------------------------------------------------
 
@@ -2513,14 +2740,8 @@ class InferenceEngine:
         t0 = time.monotonic()
         try:
             self._faults.maybe_raise("decode_dispatch")
-            prog = self._programs.get(key)
-            if prog is None:
-                prog = self._programs[key] = (
-                    _SpecProgram(self, *key[1:]) if spec else
-                    _DecodeProgram(self, K, sampler, constrained, cap))
-            self._dec_in.copy_(stage.inp[:n_in], non_blocking=True)
-            toks = prog()
-            stage.out[:K * B].view(K, B).copy_(toks, non_blocking=True)
+            prog = self._device("decode", stage.inp[:n_in], key)
+            stage.out[:K * B].view(K, B).copy_(prog.out, non_blocking=True)
             if spec:
                 stage.out[K * B:K * B + 2].copy_(prog.stats,
                                                  non_blocking=True)

@@ -58,7 +58,13 @@ def quantize_params(model: LlamaModel) -> LlamaModel:
     """The int8 twin of ``model`` on its device: every linear and the
     embedding quantized on the host (``quantize_array``, so the codes and
     scales equal the JAX package's bit for bit); norms and biases copied
-    in the model dtype."""
+    in the model dtype.  One rank's model only: a mesh's shards quantize
+    from the full tensors (``convert.params_from_jax`` of a quantized
+    tree, ``init_params_quantized``)."""
+    if model.mesh is not None:
+        raise NotImplementedError(
+            "quantize_params of a mesh's shard (ROADMAP A7b): a row-parallel "
+            "weight's scale spans every rank's slice")
     q = LlamaModel(model.cfg, device=model.device, dtype=model.dtype,
                    seed=None, quantized=True)
     fill_quantized(q.embed.weight_q, q.embed.scale,
@@ -79,16 +85,45 @@ def quantize_params(model: LlamaModel) -> LlamaModel:
 
 @torch.no_grad()
 def init_params_quantized(cfg: ModelConfig, seed: int = 0,
-                          device=None) -> LlamaModel:
+                          device=None, mesh=None) -> LlamaModel:
     """Random int8 weights drawn directly on ``device`` (default ``cuda``)
     from a seeded ``torch.Generator``, so an 8B-class model never exists in
     bf16 there.  Codes uniform in [-127, 127]; scales as the JAX package
     sets them, the magnitude ``LlamaModel``'s bf16 init would give (kernel
     std ``in**-0.5``, embed std 0.02, amax about 3 std): ``3 * in**-0.5 /
     127`` per linear and ``3 * 0.02 / 127`` for the embedding.  Unit norms,
-    zero biases.  The draws differ from the JAX package's ``PRNGKey``."""
-    model = LlamaModel(cfg, device=device, seed=None, quantized=True)
+    zero biases.  The draws differ from the JAX package's ``PRNGKey``.
+    Under ``mesh`` the rank keeps its slice of each full draw (TP-1's
+    draws), and rank 0 sends the build to the workers."""
+    model = LlamaModel(cfg, device=device, seed=None, quantized=True,
+                       mesh=mesh)
     gen = torch.Generator(device=model.device).manual_seed(seed)
+    if model.mesh is not None:
+        meta = model.full_meta()
+        fan_in = {n + ".scale": m.in_features for n, m in meta.named_modules()
+                  if isinstance(m, QuantLinear)}
+
+        def draw(name, t):
+            if name.endswith("weight_q"):
+                return torch.empty(t.shape, dtype=t.dtype,
+                                   device=model.device).random_(
+                    -127, 128, generator=gen)
+            if name == "embed.scale":
+                val = 3.0 * 0.02 / 127.0
+            elif name in fan_in:
+                val = 3.0 * (fan_in[name] ** -0.5) / 127.0
+            else:
+                return None          # norms stay 1, biases 0
+            return torch.full(t.shape, val, dtype=t.dtype,
+                              device=model.device)
+
+        # named_buffers order draws the codes in TP-1's order: the
+        # embedding, then each linear in module order.
+        model.fill_from_full(draw)
+        if mesh.is_leader:
+            model.mesh_token = mesh.build_on_workers("quantized", cfg,
+                                                     seed=seed)
+        return model
     model.embed.weight_q.random_(-127, 128, generator=gen)
     model.embed.scale.fill_(3.0 * 0.02 / 127.0)
     for lin in model.modules():

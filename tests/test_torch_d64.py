@@ -34,6 +34,7 @@ import torch
 from k8s_llm_monitor_tpu.models import config as jconfig
 from k8s_llm_monitor_tpu.models import llama as jllama
 from k8s_llm_monitor_tpu.ops import attention as jattn
+from k8s_llm_monitor_tpu.parallel import mesh as jmesh
 from k8s_llm_monitor_tpu.ops.pallas_attention import (
     paged_decode_attention_fused as j_fused,
 )
@@ -187,9 +188,14 @@ def _name(impl) -> str:
 
 def _outcome(select, *args, **kw) -> str:
     try:
-        return _name(select(*args, **kw))
+        impl = select(*args, **kw)
     except ValueError:
         return "raises"
+    # The per-shard wrappers: JAX's shard_map functions are both "attn".
+    if getattr(impl, "flash_prefill", False) and _name(impl) != (
+            "flash_prefill_attention"):
+        return "tp_flash_prefill"
+    return "tp_paged_attention" if _name(impl) == "attn" else _name(impl)
 
 
 def _port_cfg(name):
@@ -203,7 +209,8 @@ def _port_cfg(name):
 PRESETS = ("tiny", "llama-1b", "llama3-8b", "mistral-7b")
 
 
-@pytest.mark.parametrize("preset", PRESETS + ("qwen2-7b",))
+@pytest.mark.parametrize("preset", PRESETS + ("qwen2-7b", "llama3-70b",
+                                              "qwen2-72b"))
 def test_path_selection_matches_jax_per_preset(preset):
     jcfg, tcfg = jconfig.PRESETS[preset], _port_cfg(preset)
     got, want = {}, {}
@@ -273,6 +280,31 @@ def test_path_selection_matches_jax_per_preset(preset):
         for pool in ("fp8 pool", "e5m2 pool", "f16 pool"):
             want["decode", pool, "pallas"] = "raises"
             want["verify", pool] = "raises"
+    # Under a model-2 mesh (A7): JAX on a TPU mesh, the port at tp 2 on the
+    # card.  Never the fused kernels; B3 and B1/B5 per shard where the
+    # degree divides the kv heads and the per-shard gate passes.
+    mesh = jmesh.create_mesh(jmesh.MeshConfig(model=2),
+                             devices=jax.devices()[:2])
+    for kv in ("", "int8"):
+        for mode in ("auto", "fused", "pallas", "gather"):
+            want["mesh decode", kv, mode] = _outcome(
+                jattn.select_decode_impl, "tpu", cfg=jcfg, mesh=mesh,
+                mode=mode, kv_quant=kv)
+            got["mesh decode", kv, mode] = _outcome(
+                tattn.select_decode_impl, CUDA, tcfg, mode, kv_quant=kv,
+                tp=2)
+        assert got["mesh decode", kv, "fused"] == "raises"
+    for mode in ("auto", "flash", "dense"):
+        want["mesh prefill", mode] = _outcome(
+            jattn.select_prefill_impl, "tpu", cfg=jcfg, mesh=mesh, mode=mode)
+        got["mesh prefill", mode] = _outcome(
+            tattn.select_prefill_impl, CUDA, tcfg, mode, tp=2)
+    want["mesh verify"] = _outcome(jattn.select_verify_impl, "tpu", cfg=jcfg,
+                                   mesh=mesh, max_table_tokens=4096)
+    got["mesh verify"] = _outcome(tattn.select_verify_impl, CUDA, tcfg, tp=2)
+    if preset in ("llama3-8b", "qwen2-7b", "qwen2-72b"):
+        assert got["mesh decode", "", "auto"] == "tp_paged_attention"
+        assert got["mesh prefill", "auto"] == "tp_flash_prefill"
     assert got == want
 
 

@@ -422,15 +422,22 @@ def test_remediation_without_a_cluster_boots():
     ("quantize", "w8a8"), ("quantize", "int8"),
     ("checkpoint", "/models/llama"), ("mesh_shape", "1,1,8")])
 def test_from_config_refuses_unported_knobs(knob, value):
-    """``mesh_shape`` is refused by name (ROADMAP A7).  The weight knobs are
-    served since A6: ``quantize`` int8 / w8a8 give an int8 model (W8A8 with
-    int8 activations), and a checkpoint directory that does not exist
+    """``mesh_shape`` is served since A7 (tests/test_torch_tp.py): on the
+    CPU only over gloo, which the caller must ask for (``mesh_backend``),
+    so the default NCCL refuses the CPU; the
+    data and seq axes are refused by name (ROADMAP A7b).  The weight knobs
+    are served since A6: ``quantize`` int8 / w8a8 give an int8 model (W8A8
+    with int8 activations), and a checkpoint directory that does not exist
     raises, with no random weights in its place."""
     tc = TPULLMConfig(model="tiny", quantize="", spec_k=0, kv_blocks=64,
                       max_batch=2)
     setattr(tc, knob, value)
     if knob == "mesh_shape":
-        with pytest.raises(NotImplementedError, match=knob):
+        with pytest.raises(ValueError, match="gloo"):
+            analysis.LocalEngineBackend.from_config(
+                tc, tenancy=TenancyConfig(), device="cpu")
+        tc.mesh_shape = "2,1,4"
+        with pytest.raises(NotImplementedError, match="A7b"):
             analysis.LocalEngineBackend.from_config(
                 tc, tenancy=TenancyConfig(), device="cpu")
     elif knob == "checkpoint":
