@@ -246,7 +246,10 @@ class Mesh:
         return self.model_token
 
     def close(self) -> None:
-        """Stop the workers and leave the process group."""
+        """Stop the workers and leave the process group: every rank leaves
+        it at once (a worker leaves when it reads "close", after the calls
+        sent before it), then the workers are joined.  Joining them before
+        rank 0 leaves held a four-card run (NCCL) until its time limit."""
         if self.closed:
             return
         self.closed = True
@@ -255,16 +258,18 @@ class Mesh:
                 conn.send(("close",))
             except OSError:
                 pass
+        if self.tp > 1:
+            import torch.distributed as dist
+
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if dist.is_initialized():
+                dist.destroy_process_group()
         for p in self._procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
                 p.join()
-        if self.tp > 1:
-            import torch.distributed as dist
-
-            if dist.is_initialized():
-                dist.destroy_process_group()
 
 
 def bench_all_reduce(mesh: Mesh, numel: int, reps: int) -> float:
