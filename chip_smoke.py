@@ -5252,12 +5252,17 @@ def mesh_burst(port, n):
 
 def phase12c(torch, np, st):
     """12c: the monitor's default config with llm.tpu.mesh_shape "1,1,2"
-    (and the port, the fake cluster, 32 tokens a query) through
-    build_server: 4 queries at once all 200, /metrics' mesh gauge at model 2,
-    /api/v1/stats' mesh block; 12e: a step-loop kill under TP rebuilds
-    the engine on the workers, which serves again; then cmd.server with
-    the mesh shape in its environment (ready, the gauge, exit 0).  Its
-    own mesh (one process group per process)."""
+    (and the port and the fake cluster) through build_server: over NCCL
+    phase 6's burst of 24 at the config's own llm.max_tokens, the verdicts
+    of the grammar's schema; over gloo (host-staged) 4 queries of 32
+    tokens; all 200, /metrics' mesh gauge at model 2, /api/v1/stats' mesh
+    block.  12e: a step-loop kill under TP rebuilds the engine on the
+    same workers, which serve again.  12f: a decode call that fails on
+    rank 0 after its send, then rank 1 killed: each breaks the mesh, the
+    supervisor builds a new one, and a greedy generate gives the text it
+    gave before either.  Then cmd.server with the mesh shape in its
+    environment (ready, the gauge, exit 0).  Its own mesh (one process
+    group per process)."""
     import gc
     import os
     import signal
@@ -5276,10 +5281,12 @@ def phase12c(torch, np, st):
     cfg = load_config(None)
     cfg.server.host, cfg.server.port = "127.0.0.1", 0
     cfg.llm.tpu.mesh_shape = "1,1,2"
-    # The one other change: on one card the mesh's collectives go through
-    # host memory (about 0.2 s a decode step, run A), and a query of
-    # random weights runs to llm.max_tokens (2,000 by default: minutes).
-    cfg.llm.max_tokens = 32
+    if backend == "gloo":
+        # On one card the mesh's collectives go through host memory
+        # (about 0.2 s a decode step), and a query of random weights runs
+        # to llm.max_tokens: a burst of 24 took 1,377.5 s (PERF.md, PR 15
+        # run A).  A size-reduced smoke: 4 queries of 32 tokens.
+        cfg.llm.max_tokens = 32
     t0 = time.monotonic()
     srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()),
                        mesh_backend=backend)
@@ -5295,7 +5302,14 @@ def phase12c(torch, np, st):
         srv.start()
         port = srv.port
         reset_rank_launches(mesh)
-        out, wall = mesh_burst(port, 4)
+        if backend == "gloo":
+            out, wall = mesh_burst(port, 4)
+            what = "4 queries of 32 tokens (gloo: size-reduced)"
+        else:
+            out, stream, wall = front_door_burst(port)
+            check_burst(out, stream)
+            what = (f"phase 6's burst of 24 at llm.max_tokens "
+                    f"{cfg.llm.max_tokens}, verdicts of the schema")
         torch.cuda.synchronize()
         per_rank = rank_launches(mesh, ["paged_decode_attention_pallas"])
         check(all(c["paged_decode_attention_pallas"] > 0 for c in per_rank),
@@ -5309,10 +5323,11 @@ def phase12c(torch, np, st):
         check(status == 200 and 'k8s_llm_monitor_mesh_axes{axis="model"} 2'
               in gauge, f"/metrics mesh gauge: {gauge}")
         status, stats, _ = http_call(port, "GET", "/api/v1/stats")
-        q_walls = sorted(v[2] for v in out.values())
+        q_walls = sorted(v[2] for k, v in out.items()
+                         if k.startswith("query-"))
         print(f"phase 12c: the default config with mesh_shape 1,1,2 "
               f"({mesh_label(mesh)}) through build_server in {boot_s:.2f} s;"
-              f" 4 queries at once over HTTP in {wall:.2f} s, query wall p50 "
+              f" {what}: at once over HTTP in {wall:.2f} s, query wall p50 "
               f"{np.percentile(q_walls, 50) * 1e3:.1f} ms, all 200; "
               f"{gauge}; stats mesh {stats['engine']['mesh']}; B3 (D=64) "
               f"launches per rank {per_rank} [{gpu}]")
@@ -5332,18 +5347,52 @@ def phase12c(torch, np, st):
               "12e: the rebuilt engine is not the workers' engine")
         rebuilt_s = time.monotonic() - t0
         t0 = time.monotonic()
-        text = backend_.generate("why crashloop?", max_tokens=8)
+        # The first request on a fresh engine: 12f's rebuilt meshes must
+        # give its text (greedy; the spec acceptance EMA starts anew on
+        # each engine, so the same first request takes the same path).
+        want = backend_.generate("why crashloop?", max_tokens=8,
+                                 temperature=0.0)
         gen_s = time.monotonic() - t0
-        check(isinstance(text, str), "12e: no text after the rebuild")
+        check(isinstance(want, str), "12e: no text after the rebuild")
         print(f"phase 12e: step_loop_crash under TP: rebuilt in "
               f"{rebuilt_s:.2f} s (restarts {sup.restarts}), the workers "
-              f"hold the new engine, an 8-token generate after it in "
-              f"{gen_s * 1e3:.1f} ms [{gpu}]")
+              f"hold the new engine, an 8-token greedy generate after it "
+              f"in {gen_s * 1e3:.1f} ms [{gpu}]")
+        # 12f: breaks of the mesh, each rebuilt by the supervisor on a new
+        # mesh: an admission failing on rank 0 after its send (the worker
+        # waits in a collective rank 0 never joins), and rank 1 killed.
+        # Each request runs whole on the new mesh's fresh engine.
+        for n, (how, brk) in enumerate((
+                ("prefill_dispatch after the send",
+                 lambda: get_injector().arm("prefill_dispatch", rate=1.0,
+                                            times=1)),
+                ("rank 1 killed", lambda: backend_.mesh._procs[0].kill())),
+                start=2):
+            old = backend_.mesh
+            t0 = time.monotonic()
+            brk()
+            text = backend_.generate("why crashloop?", max_tokens=8,
+                                     temperature=0.0)
+            took = time.monotonic() - t0
+            new = backend_.mesh
+            check(sup.restarts == n and old.broken is not None
+                  and new is not old and new.healthy()
+                  and not any(p.is_alive() for p in old._procs),
+                  f"12f ({how}): restarts {sup.restarts}, broken "
+                  f"{old.broken}")
+            check(text == want, f"12f ({how}): {text!r}, {want!r} on "
+                                "the first fresh engine")
+            print(f"phase 12f: {how} ({mesh_label(new)}): the mesh broke "
+                  f"({old.broken[:90]}), a new mesh and the model on it "
+                  f"rebuilt and the 8-token greedy generate served in "
+                  f"{took:.2f} s, 12e's text [{gpu}]")
     finally:
         get_injector().disarm("step_loop_crash")
+        get_injector().disarm("prefill_dispatch")
+        live = backend_.mesh
         sup.shutdown(grace_s=0.0)
         srv.stop()
-        mesh.close()
+        live.close()
         del backend_, sup, srv
         gc.collect()
         torch.cuda.empty_cache()
@@ -5459,17 +5508,31 @@ def phase12d(torch, np, st):
     torch.cuda.empty_cache()
 
 
+def close_mesh(torch, np, st):
+    """Close 12b/12d's mesh before 12c builds its own (one process group
+    per process), timed: every rank answers, then leaves on its own."""
+    t0 = time.monotonic()
+    mesh = st.pop("mesh")
+    mesh.close()
+    check(not any(p.is_alive() for p in mesh._procs),
+          "a worker outlived the mesh's close")
+    print(f"phase 12: {mesh_label(mesh)} closed in "
+          f"{time.monotonic() - t0:.2f} s")
+
+
 def phase12(torch, np, st):
-    """A7: the per-rank kernel shapes (12a), the server on a mesh and a
-    rebuild under it (12c, 12e), Llama-3-8B at TP 2 (12b), Qwen2-72B (12d).
-    Every record of a TP shape that no path of this run launched reads 0."""
+    """A7: the per-rank kernel shapes (12a), Llama-3-8B at TP 2 (12b),
+    Qwen2-72B (12d), the server on a mesh and rebuilds under it (12c, 12e,
+    12f).  Every record of a TP shape that no path of this run launched
+    reads 0."""
     import gc
 
     st.pop("model", None)
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        for sub in (tp_shard_checks, phase12c, phase12b, phase12d):
+        for sub in (tp_shard_checks, phase12b, phase12d, close_mesh,
+                    phase12c):
             t0 = time.monotonic()
             sub(torch, np, st)
             torch.cuda.synchronize()

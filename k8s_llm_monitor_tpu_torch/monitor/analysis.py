@@ -305,6 +305,11 @@ class LocalEngineBackend(LLMBackend):
     def engine(self):
         return self.service.engine
 
+    @property
+    def mesh(self):
+        """The serving mesh of the engine in service (None off a mesh)."""
+        return self.engine.mesh
+
     def _submit(self, prompt_ids, sampling, slo_class: str = "standard",
                 tenant: str = ""):
         if self.supervisor is not None:
@@ -392,8 +397,10 @@ class LocalEngineBackend(LLMBackend):
         card, collectives through host memory; the CPU's only backend).
         Only the model axis is served, from random weights (a checkpoint
         under a mesh, and ``data``/``seq`` > 1, raise naming ROADMAP A7b).
-        The workers stop when the process exits (``backend.mesh.close()``
-        stops them sooner).
+        A rebuild on a broken mesh, or one whose workers do not answer,
+        builds a new mesh and the model on it again.  The workers stop
+        when the process exits (``backend.mesh.close()`` stops them
+        sooner).
         ``spec_k`` and ``spec_min_accept`` reach the engine as in the JAX
         backend.  ``tenancy.max_kv_share`` caps each tenant's share of the
         engine's prefix cache (``EngineConfig.kv_max_tenant_share``).  On
@@ -411,9 +418,8 @@ class LocalEngineBackend(LLMBackend):
                 raise NotImplementedError(
                     "a checkpoint under llm.tpu.mesh_shape (each rank "
                     "loading its shard) is ROADMAP A7b")
-            mesh = create_mesh(parse_mesh_shape(tpu_cfg.mesh_shape),
-                               device=device, backend=mesh_backend)
-            atexit.register(mesh.close)
+            mesh_cfg = parse_mesh_shape(tpu_cfg.mesh_shape)
+            mesh = create_mesh(mesh_cfg, device=device, backend=mesh_backend)
             device = mesh.device
         if tpu_cfg.checkpoint:
             # int8 streams each tensor through host-side quantization: the
@@ -426,10 +432,15 @@ class LocalEngineBackend(LLMBackend):
             if qmode == "w8a8":
                 # The workers build from this cfg: W8A8 goes in first.
                 cfg = dataclasses.replace(cfg, act_quant=True)
-            model = (init_params_quantized(cfg, seed=0, device=device,
-                                           mesh=mesh)
-                     if quantize else
-                     llama.LlamaModel(cfg, device=device, seed=0, mesh=mesh))
+
+            def make_model(on_mesh):
+                return (init_params_quantized(cfg, seed=0, device=device,
+                                              mesh=on_mesh)
+                        if quantize else
+                        llama.LlamaModel(cfg, device=device, seed=0,
+                                         mesh=on_mesh))
+
+            model = make_model(mesh)
             tokenizer = load_tokenizer(None)
         if qmode == "w8a8":
             # int8 activations on the int8 weights; the forward passes read
@@ -441,15 +452,28 @@ class LocalEngineBackend(LLMBackend):
         # from baseline.  The engine it replaces gives up its pool first:
         # the supervisor still holds the dead engine while the new one is
         # built, and two pools at once would not fit a card sized for one.
+        # On a mesh the weights are reused while the mesh is healthy; a
+        # broken one (a worker gone, a call that failed after its send) is
+        # dropped, and the model is built from seed 0 on a new one.
         built: list = []
+        live = {"mesh": mesh, "model": model}
+        if mesh is not None:
+            atexit.register(lambda: live["mesh"].close())
         max_kv_share = (float(tenancy.max_kv_share)
                         if tenancy is not None else 1.0)
 
         def engine_factory() -> InferenceEngine:
             if built:
                 built.pop().release_pool()
+            if mesh is not None and not live["mesh"].healthy():
+                logger.warning("rebuilding the mesh: %s",
+                               live["mesh"].broken)
+                live["mesh"].abort()
+                live["mesh"] = create_mesh(mesh_cfg, device=device,
+                                           backend=mesh_backend)
+                live["model"] = make_model(live["mesh"])
             engine = InferenceEngine(
-                cfg, model, EngineConfig(
+                cfg, live["model"], EngineConfig(
                     max_slots=tpu_cfg.max_batch,
                     num_blocks=tpu_cfg.kv_blocks,
                     spec_k=tpu_cfg.spec_k,
@@ -475,7 +499,6 @@ class LocalEngineBackend(LLMBackend):
         backend = cls(tokenizer=tokenizer, dev_weights=not tpu_cfg.checkpoint,
                       engine_factory=engine_factory, lifecycle=lifecycle,
                       governor=governor)
-        backend.mesh = mesh
         return backend
 
     def _result(self, handle, what: str):

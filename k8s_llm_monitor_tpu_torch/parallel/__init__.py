@@ -5,6 +5,7 @@ specs (sharding.py) and the reduce-scatter / all-gather decode schedule
 
 from k8s_llm_monitor_tpu_torch.parallel.mesh import (
     Mesh,
+    MeshBroken,
     MeshConfig,
     create_mesh,
     parse_mesh_shape,
@@ -17,6 +18,7 @@ from k8s_llm_monitor_tpu_torch.parallel.sharding import (
 
 __all__ = [
     "Mesh",
+    "MeshBroken",
     "MeshConfig",
     "create_mesh",
     "parse_mesh_shape",

@@ -33,6 +33,16 @@ One model and one engine live on a mesh's workers at a time: building a
 model on the mesh retires the previous one (and its engine), building an
 engine retires the previous engine.  A retired model or engine of rank 0
 raises when it is used.
+
+A mesh whose ranks may no longer run the same calls is **broken**, for
+good: a worker that exits or reports an error, a send that fails, or a
+call of rank 0 that raises after the workers were sent it (they run it,
+rank 0 did not, and every later collective would pair two calls' inputs).
+Every later call raises ``MeshBroken``; the owner kills the workers and
+drops the process group (``abort``) and builds a new mesh.  Over NCCL a
+collective with a dead rank never ends, so rank 0 watches its workers and
+aborts the process group when one exits, which ends the kernels waiting on
+it; the engine reads nothing a call returned after that.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import datetime
 import io
 import os
 import socket
+import threading
 import time
 import traceback
 from typing import Any, Optional
@@ -50,34 +61,11 @@ import torch
 
 AXES = ("data", "seq", "model")
 
-# The card's memory rate and its measured NCCL all-reduce bus bandwidth, the
-# byte-model inputs of the engine's collective-share estimates
-# (serving/engine.py).  Memory: the H100 SXM's 3.35 TB/s (the figure
-# chip_smoke.py's bounds use).  All-reduce: the bus bandwidth
-# chip_smoke.py phase 12 measured over NVLink on an NVIDIA H100 80GB HBM3
-# (PERF.md section 6); a card kind with no measurement gives 0.0, and the
-# estimates read 0.0 rather than a number the card never showed.
-HBM_GBS = {"h100": 3350.0}
-ALLREDUCE_BUS_GBS: dict[str, float] = {}
 
-
-def _lookup(table: dict, device_kind: str) -> float:
-    kind = device_kind.lower()
-    for key, gbs in table.items():
-        if key in kind:
-            return gbs
-    return 0.0
-
-
-def hbm_bandwidth_gbs(device_kind: str) -> float:
-    """The card's memory rate (GB/s), 0.0 for a card kind not listed."""
-    return _lookup(HBM_GBS, device_kind)
-
-
-def allreduce_bandwidth_gbs(device_kind: str) -> float:
-    """The measured all-reduce bus bandwidth (GB/s) between cards of
-    ``device_kind``; 0.0 where none was measured."""
-    return _lookup(ALLREDUCE_BUS_GBS, device_kind)
+class MeshBroken(RuntimeError):
+    """The mesh's ranks may no longer run the same calls: every call on it
+    raises this until it is rebuilt (``Mesh.abort``, then ``create_mesh``).
+    """
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +111,16 @@ class Mesh:
         # The model and engine the workers hold (rank 0 counts them).
         self.model_token = 0
         self.engine_token = 0
+        # Why the ranks may no longer run the same calls (None: they do).
+        self.broken: Optional[str] = None
+        # Held by rank 0 while it talks to the workers and while it sends a
+        # call and runs its share; the watcher takes it to abort the
+        # process group between calls.
+        self._calls = threading.RLock()
+        self._aborted = False
+        if self._procs:
+            threading.Thread(target=self._watch, daemon=True,
+                             name="mesh-watch").start()
 
     @property
     def shape(self) -> dict[str, int]:
@@ -203,31 +201,97 @@ class Mesh:
 
     # -- the workers (rank 0) ----------------------------------------------
 
-    def _check(self) -> None:
-        """Raise what a worker reported (it exits after reporting)."""
-        for r, conn in enumerate(self._conns, start=1):
-            if conn.poll():
-                msg = conn.recv()
-                raise RuntimeError(f"mesh rank {r} failed: {msg[1]}")
+    def mark_broken(self, reason: str) -> None:
+        """Record that the ranks may no longer run the same calls (the
+        first reason stays)."""
+        if self.broken is None:
+            self.broken = reason
+
+    def check(self) -> None:
+        """Raise ``MeshBroken`` if the mesh is broken or a worker has
+        reported an error or exited (a worker only speaks unasked to say
+        so)."""
+        if self.broken is None and self._conns:
+            with self._calls:
+                for r, conn in enumerate(self._conns, start=1):
+                    if conn.poll():
+                        try:
+                            msg = conn.recv()[1]
+                        except (EOFError, OSError):
+                            msg = "exited"
+                        self.mark_broken(f"mesh rank {r} failed: {msg}")
+                        break
+        if self.broken is not None:
+            raise MeshBroken(self.broken)
 
     def send(self, *msg) -> None:
         """Send one message to every worker."""
         if self.closed:
             raise RuntimeError("the mesh is closed")
-        self._check()
-        for conn in self._conns:
-            conn.send(msg)
+        with self._calls:
+            self.check()
+            for conn in self._conns:
+                try:
+                    conn.send(msg)
+                except OSError as exc:
+                    self.mark_broken(f"send of {msg[0]!r} failed: {exc!r}")
+                    raise MeshBroken(self.broken) from exc
 
-    def request(self, *msg) -> list:
-        """Send one message to every worker and return each one's reply."""
-        self.send(*msg)
-        out = []
-        for r, conn in enumerate(self._conns, start=1):
-            kind, payload = conn.recv()
-            if kind == "error":
-                raise RuntimeError(f"mesh rank {r} failed: {payload}")
-            out.append(payload)
-        return out
+    def request(self, *msg, timeout: Optional[float] = None) -> list:
+        """Send one message to every worker and return each one's reply; a
+        worker that fails, exits or (with ``timeout``) does not answer in
+        time breaks the mesh."""
+        with self._calls:
+            self.send(*msg)
+            out = []
+            for r, conn in enumerate(self._conns, start=1):
+                if timeout is not None and not conn.poll(timeout):
+                    self.mark_broken(f"mesh rank {r} did not answer "
+                                     f"{msg[0]!r} in {timeout:.0f} s")
+                    raise MeshBroken(self.broken)
+                try:
+                    kind, payload = conn.recv()
+                except (EOFError, OSError):
+                    kind, payload = "error", "exited"
+                if kind == "error":
+                    self.mark_broken(f"mesh rank {r} failed: {payload}")
+                    raise MeshBroken(self.broken)
+                out.append(payload)
+            return out
+
+    def replay(self, msg: tuple, run):
+        """Send device call ``msg`` to every worker, then return ``run()``,
+        rank 0's share of it.  Whatever raises after the send breaks the
+        mesh: the workers run the call and rank 0 did not."""
+        with self._calls:
+            self.send(*msg)
+            try:
+                return run()
+            except BaseException as exc:
+                self.mark_broken(f"rank 0's {msg[1]!r} call failed after "
+                                 f"the workers were sent it: {exc!r}")
+                if not isinstance(exc, Exception):
+                    raise
+                raise MeshBroken(self.broken) from exc
+
+    def healthy(self, timeout: float = 60.0) -> bool:
+        """True when every worker answers a ping within ``timeout`` (after
+        the calls sent before it) and the mesh is not broken; a worker
+        that does not answer breaks it."""
+        if self.broken is not None or self.closed:
+            return False
+        if not self._conns:
+            return True
+        if not self._calls.acquire(timeout=timeout):
+            self.mark_broken(f"a call held the mesh for {timeout:.0f} s")
+            return False
+        try:
+            self.request("ping", timeout=timeout)
+        except MeshBroken:
+            return False
+        finally:
+            self._calls.release()
+        return True
 
     def worker_states(self) -> list[dict]:
         """Each worker's parameters and buffers (CPU tensors), rank 1 on."""
@@ -245,26 +309,66 @@ class Mesh:
         self.engine_token += 1
         return self.model_token
 
-    def close(self) -> None:
-        """Stop the workers and leave the process group: every rank leaves
-        it at once (a worker leaves when it reads "close", after the calls
-        sent before it), then the workers are joined.  Joining them before
-        rank 0 leaves held a four-card run (NCCL) until its time limit."""
+    def _watch(self) -> None:
+        """Rank 0's watcher: when a worker exits before ``close``, break
+        the mesh; over NCCL also abort the process group, which ends the
+        collectives waiting on the dead rank (gloo's raise by themselves).
+        It waits for the call in progress to be sent and launched, at most
+        5 s: a call that holds the mesh longer waits on the dead rank."""
+        from multiprocessing.connection import wait
+
+        ended = wait([p.sentinel for p in self._procs])
         if self.closed:
+            return
+        r = 1 + [p.sentinel for p in self._procs].index(ended[0])
+        self._procs[r - 1].join(timeout=1.0)
+        self.mark_broken(f"mesh rank {r} exited (code "
+                         f"{self._procs[r - 1].exitcode})")
+        if self.backend == "nccl":
+            held = self._calls.acquire(timeout=5.0)
+            self._abort_group()
+            if held:
+                self._calls.release()
+
+    def _abort_group(self) -> None:
+        """Leave the process group without a word to the other ranks (each
+        does the same, so no rank waits on another)."""
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _abort_process_group
+
+        if not self._aborted and self.tp > 1 and dist.is_initialized():
+            self._aborted = True
+            _abort_process_group()
+
+    def abort(self) -> None:
+        """Drop a broken mesh: kill the workers and leave the process
+        group."""
+        self.mark_broken("aborted")
+        self.closed = True
+        for p in self._procs:
+            p.kill()
+            p.join()
+        self._abort_group()
+
+    def close(self) -> None:
+        """Stop the workers and leave the process group.  Every worker
+        first answers a ping (so no rank is inside a collective), then
+        every rank leaves on its own; a mesh that cannot get there is
+        aborted."""
+        if self.closed:
+            return
+        if not self.healthy():
+            self.abort()
             return
         self.closed = True
         for conn in self._conns:
             try:
                 conn.send(("close",))
             except OSError:
-                pass
-        if self.tp > 1:
-            import torch.distributed as dist
-
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            if dist.is_initialized():
-                dist.destroy_process_group()
+                pass    # exited since the ping: joined below
+        if self.tp > 1 and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._abort_group()
         for p in self._procs:
             p.join(timeout=30)
             if p.is_alive():
@@ -453,9 +557,7 @@ def _worker_main(cfg: MeshConfig, rank: int, devices: list, backend: str,
         except OSError:
             pass
         os._exit(1)
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
+    mesh._abort_group()
 
 
 def _serve(mesh: Mesh, conn) -> None:
@@ -470,6 +572,8 @@ def _serve(mesh: Mesh, conn) -> None:
         msg = conn.recv()
         kind = msg[0]
         if kind == "close":
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
             return
         if kind == "build":
             _, name, args, kwargs = msg

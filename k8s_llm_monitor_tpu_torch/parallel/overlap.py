@@ -19,13 +19,16 @@ where the next norm needs the whole row::
       x_scat += finish(reduce_scatter(down partial of SwiGLU(h)))
     final: all_gather(x_scat) -> replicated residual for the unembed
 
-Each half is a collective of its own, so the card may run the next
-projection's weight reads while the other half is on the wire; the bytes
-are the all-reduce's.  The result is the reference step's: an all-gather
-is a concatenation, the residual adds are elementwise, and the reductions
-go through ``row_parallel_partial`` (W8A8's int32 partials summed before
-the scales).  ``EngineConfig.tp_overlap`` ("auto" | "on" | "off", and
-``K8SLLM_TP_OVERLAP``) selects it.
+The bytes are the all-reduce's.  In the JAX package XLA may schedule the
+next projection's weight reads under each half; here every collective is
+a blocking ``torch.distributed`` call on the compute stream, and each next
+op needs its output, so nothing overlaps: the schedule issues two
+collectives where the reference issues one.  The result is the reference
+step's: an all-gather is a concatenation, the residual adds are
+elementwise, and the reductions go through ``row_parallel_partial``
+(W8A8's int32 partials summed before the scales).
+``EngineConfig.tp_overlap`` "on" (or ``K8SLLM_TP_OVERLAP=on``) selects it;
+"auto" keeps the reference schedule.
 """
 
 from __future__ import annotations

@@ -111,10 +111,14 @@ block.
     the same program on its kv-head slice of the pages (allocated at the
     local width; block ids stay global).  Under a mesh the fused decode
     kernels are off (the split path with B3 per shard), and
-    ``tp_overlap`` swaps the decode step's all-reduces for the
+    ``tp_overlap`` "on" swaps the decode step's all-reduces for the
     reduce-scatter / all-gather schedule (parallel/overlap.py).  Under
     gloo the decode programs run eagerly (``decode_graphs`` False).  The
     host tier and KVX1 export/install raise under a mesh (ROADMAP A7b).
+    A call that raises on this rank after the workers were sent it, or a
+    worker that fails or exits, breaks the mesh: the step raises
+    ``MeshBroken`` (no retry), and the supervisor's factory builds a new
+    mesh (monitor/analysis.py).
 
 As in the JAX engine, ``K8SLLM_KV_DTYPE``, ``K8SLLM_PREFILL_PATH``,
 ``K8SLLM_DECODE_PATH`` and ``K8SLLM_TP_OVERLAP`` override ``kv_dtype``,
@@ -145,10 +149,7 @@ from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
 from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
 from k8s_llm_monitor_tpu_torch.ops.paged_attention import KERNEL_WRAPPERS
-from k8s_llm_monitor_tpu_torch.parallel.mesh import (
-    allreduce_bandwidth_gbs,
-    hbm_bandwidth_gbs,
-)
+from k8s_llm_monitor_tpu_torch.parallel.mesh import MeshBroken
 from k8s_llm_monitor_tpu_torch.parallel.overlap import (
     overlap_decode_step,
     overlap_supported,
@@ -385,10 +386,12 @@ class EngineConfig:
     # per-sequence capacity).
     spec_hist_cap: int = 4096
     # Decode-step collective schedule under a mesh (parallel/overlap.py):
-    # "auto" takes the reduce-scatter / all-gather schedule where
-    # overlap_supported() clears (cfg, mesh) and the mesh runs NCCL, and
-    # keeps the all-reduce one (logged) elsewhere; "on" raises where it
-    # cannot serve; "off" keeps the all-reduce schedule.
+    # "auto" and "off" keep the all-reduce schedule; "on" takes the
+    # reduce-scatter / all-gather schedule, and raises where
+    # overlap_supported() refuses (cfg, mesh).  "auto" differs from the
+    # JAX engine's, which takes the schedule where it is supported: here
+    # the collectives block the stream, so the schedule hides nothing and
+    # issues two collectives where the all-reduce is one.
     # K8SLLM_TP_OVERLAP overrides it.
     tp_overlap: str = "auto"
 
@@ -802,25 +805,13 @@ class InferenceEngine:
         if overlap_mode not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown tp_overlap {overlap_mode!r} (auto | on | off)")
-        self.tp_overlap = False
-        if overlap_mode != "off":
+        self.tp_overlap = overlap_mode == "on"
+        if self.tp_overlap:
             why_not = overlap_supported(cfg, mesh, model=model)
-            if (not why_not and overlap_mode == "auto"
-                    and mesh.backend == "gloo"):
-                # Host-staged collectives hide nothing, and the schedule's
-                # reduce-scatter and all-gather are two host round trips
-                # where the all-reduce is one (chip_smoke.py phase 12b:
-                # 31.5 against 80.3 tok/s, PERF.md section 6).
-                why_not = "gloo: the collectives are host-staged"
-            if not why_not:
-                self.tp_overlap = True
-            elif overlap_mode == "on":
+            if why_not:
                 raise ValueError(
                     f"tp_overlap=on but the overlap schedule cannot serve "
                     f"this (cfg, mesh): {why_not}")
-            elif self.tp > 1:
-                logger.warning("tp_overlap=auto: staying on the all-reduce "
-                               "schedule (%s)", why_not)
         self._decode_step = (overlap_decode_step if self.tp_overlap
                              else llama.decode_step)
         if self.tp > 1 and (host_kv_tier is not None
@@ -832,6 +823,9 @@ class InferenceEngine:
                                          self.device,
                                          model.dtype,
                                          kv_quant=self.kv_quant, tp=self.tp)
+        # Read by the byte accounting, which a scrape may run on an engine
+        # whose pool the supervisor's factory has released.
+        self._page_dtype = self.pages.k[0].dtype
         self.allocator = BlockAllocator(ec.num_blocks, ec.block_size)
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self.allocator, ec.prefix_cache_entries,
@@ -977,15 +971,17 @@ class InferenceEngine:
         # decode_host_gap_ms, an EMA of host time blocked per decode/spec
         # reconcile (~0 when dispatch-ahead hides the device);
         # decode_attn_ms / decode_sample_ms, per-step attention / sampling
-        # cost, set by profile_decode_phases() only, as is
-        # decode_collective_share (the all-reduce bytes' share of the step
-        # under a mesh, 0.0 off one) and decode_collective_hidden_share
-        # (estimate_hidden_share).
+        # cost, set by profile_decode_phases() only.
+        # decode_collective_share and decode_collective_hidden_share (the
+        # collectives' share of a decode step, and the share of it the
+        # overlap schedule hides): 0.0 off a mesh; NaN on one, where
+        # neither is measured (no all-reduce rate of the card is known).
         self.decode_host_gap_ms = 0.0
         self.decode_attn_ms = 0.0
         self.decode_sample_ms = 0.0
-        self.decode_collective_share = 0.0
-        self.decode_collective_hidden_share = 0.0
+        self.decode_collective_share = (
+            float("nan") if self.tp > 1 else 0.0)
+        self.decode_collective_hidden_share = self.decode_collective_share
         # Request-lifecycle histograms per SLO class, with exemplar trace
         # ids, observed on the step thread only.
         _lat = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
@@ -1019,17 +1015,32 @@ class InferenceEngine:
     # device calls (replayed on a mesh's workers)
     # ------------------------------------------------------------------
 
-    def _device(self, op: str, *args):
+    def _device(self, op: str, *args, fault: str = ""):
         """Run device call ``_op_<op>``; on rank 0 of a mesh, send it to the
-        workers first (host tensors go as numpy arrays)."""
+        workers first (host tensors go as numpy arrays).  ``fault`` names
+        the dispatch's fault point, which fires just before the call: on
+        rank 0 of a mesh that is after the send, so the call it fails is
+        one the workers run, and the mesh breaks (``Mesh.replay``)."""
+        def run():
+            if fault:
+                self._faults.maybe_raise(fault)
+            return getattr(self, "_op_" + op)(*args)
+
+        if not self._leader:
+            return run()
+        if self._mesh_token != self.mesh.engine_token:
+            raise RuntimeError("the mesh's workers hold another engine "
+                               "(one engine lives on a mesh at a time)")
+        return self.mesh.replay(("op", op, tuple(
+            a.numpy() if isinstance(a, torch.Tensor) else a
+            for a in args)), run)
+
+    def _mesh_check(self) -> None:
+        """On rank 0 of a mesh, raise ``MeshBroken`` before reading what a
+        call returned if the mesh broke (over NCCL an aborted collective
+        ends with garbage in place of its result)."""
         if self._leader:
-            if self._mesh_token != self.mesh.engine_token:
-                raise RuntimeError("the mesh's workers hold another engine "
-                                   "(one engine lives on a mesh at a time)")
-            self.mesh.send("op", op, tuple(
-                a.numpy() if isinstance(a, torch.Tensor) else a
-                for a in args))
-        return getattr(self, "_op_" + op)(*args)
+            self.mesh.check()
 
     def _op_prefill(self, inp: torch.Tensor, P: int, S: int, W: int,
                     chunked: bool, greedy: bool, constrained: bool, n: int):
@@ -1147,7 +1158,7 @@ class InferenceEngine:
         cfg, ec = self.cfg, self.ecfg
         return cfg.num_layers * ec.num_blocks * page_slice_bytes(
             cfg.num_kv_heads, cfg.head_dim_, ec.block_size,
-            self.pages.k[0].element_size(), tp=tp,
+            self._page_dtype.itemsize, tp=tp,
             scale_bytes=4 if self.kv_quant else 0)
 
     def kv_tier_stats(self) -> dict:
@@ -1157,7 +1168,7 @@ class InferenceEngine:
         and with a prefix cache its distinct cached blocks per tenant."""
         out = {
             "kv_quant": self.kv_quant,
-            "page_dtype": _page_dtype_name(self.pages.k[0].dtype),
+            "page_dtype": _page_dtype_name(self._page_dtype),
             # The whole pool, the JAX engine's view (a rank holds
             # pool_bytes of it).
             "device_bytes": self._pool_bytes(1),
@@ -1185,7 +1196,8 @@ class InferenceEngine:
         afterwards).  A thread still inside a step keeps the tensors it
         holds alive until it lets go of them.  A mesh's workers release
         theirs when this engine is the one they hold."""
-        if self._leader and self._mesh_token != self.mesh.engine_token:
+        if self._leader and (self._mesh_token != self.mesh.engine_token
+                             or self.mesh.broken is not None):
             self._op_release()
             return
         self._device("release")
@@ -1707,6 +1719,7 @@ class InferenceEngine:
         call's reconcile still retires the lanes that are done, so slots
         change hands when they would without this.  A CPU call has no
         event and waits for its reconcile, as in the JAX engine."""
+        self._mesh_check()
         for call in self._inflight:
             if (call.kind in ("admit", "chunk") and not call.delivered
                     and not call.stuck and call.event is not None
@@ -1958,7 +1971,7 @@ class InferenceEngine:
             "head_dim": cfg.head_dim_,
             "block_size": ec.block_size,
             "kv_quant": self.kv_quant,
-            "page_dtype": _page_dtype_name(self.pages.k[0].dtype),
+            "page_dtype": _page_dtype_name(self._page_dtype),
         }
 
     def _no_mesh_blobs(self) -> None:
@@ -2091,7 +2104,8 @@ class InferenceEngine:
         None, rows, idx) on the device."""
         t0 = time.monotonic()
         out = self._device("prefill", stage.inp[:P * (S + 8 + W)], P, S, W,
-                           chunked, greedy, constrained, n)
+                           chunked, greedy, constrained, n,
+                           fault="prefill_dispatch")
         self.prefill_dispatch_s += time.monotonic() - t0
         return out
 
@@ -2265,9 +2279,10 @@ class InferenceEngine:
         constrained = any(r.sampling.constrained for _, r, _, _ in batch)
         t0 = time.monotonic()
         try:
-            self._faults.maybe_raise("prefill_dispatch")
             out = self._prefill_call(stage, P, bucket, W, any_shared, greedy,
                                      constrained, len(batch))
+        except MeshBroken:
+            raise
         except Exception as exc:
             # No slot is occupied and nothing is registered: free the
             # round's pages and requeue its candidates, at most
@@ -2381,9 +2396,10 @@ class InferenceEngine:
             muts.append((s, n, became_final))
         t0 = time.monotonic()
         try:
-            self._faults.maybe_raise("prefill_dispatch")
             out = self._prefill_call(stage, P, bucket, W, True, greedy,
                                      constrained, len(lanes))
+        except MeshBroken:
+            raise
         except Exception as exc:
             # Rewind the round, so the next step dispatches the same chunks.
             self._drop_stage(stage)
@@ -2482,9 +2498,8 @@ class InferenceEngine:
         ``copy_``, before each run; the steps append garbage rows into ``self.pages``, so
         this runs only on an IDLE engine (it raises otherwise), never on a
         /metrics scrape.  Times are CUDA events on the card, the host clock
-        elsewhere.  Returns all four figures and the collective share (the
-        all-reduce bytes' wire time over the short-context step, 0.0 off a
-        mesh or where no all-reduce rate was measured)."""
+        elsewhere.  Returns all four figures and the collective share (0.0
+        off a mesh, NaN on one: not measured)."""
         if self._inflight or any(s is not None for s in self._slots):
             raise RuntimeError(
                 "profile_decode_phases() requires an idle engine "
@@ -2532,7 +2547,6 @@ class InferenceEngine:
         self._device("zero_tok")
         self.decode_attn_ms = max(t_hi - t_lo, 0.0)
         self.decode_sample_ms = max(t_samp - t_lo, 0.0)
-        self.decode_collective_share = self._estimate_collective_share(t_lo)
         return {
             "decode_step_ms_short_ctx": t_lo,
             "decode_step_ms_long_ctx": t_hi,
@@ -2545,61 +2559,6 @@ class InferenceEngine:
         """{axis: size} of the serving mesh ({} off a mesh): the exporter's
         ``mesh_axes`` topology gauge."""
         return dict(self.mesh.shape) if self.mesh is not None else {}
-
-    def _estimate_collective_share(self, step_ms: float) -> float:
-        """The share of a decode step that the TP collectives' wire time
-        takes (a byte model, as in the JAX engine): ``_ring_ms`` over the
-        measured step time, clamped to 1."""
-        ring = self._ring_ms()
-        if ring <= 0.0 or step_ms <= 0.0:
-            return 0.0
-        return min(1.0, ring / step_ms)
-
-    def _ring_ms(self) -> float:
-        """Wire time of one decode step's collectives (ms): o and down each
-        reduce a [max_slots, hidden] activation per layer, a ring moving
-        ``2 (tp - 1) / tp`` of it per rank, at the all-reduce bus bandwidth
-        measured on this card kind (parallel/mesh.py; 0.0 where none was,
-        and off a mesh)."""
-        if self.tp <= 1:
-            return 0.0
-        gbs = allreduce_bandwidth_gbs(self.mesh.device_kind())
-        if gbs <= 0.0:
-            return 0.0
-        cfg, tp = self.cfg, self.tp
-        payload = self.ecfg.max_slots * cfg.hidden_size * self.model.dtype.itemsize
-        per_rank = 2 * cfg.num_layers * 2.0 * (tp - 1) / tp * payload
-        return per_rank / (gbs * 1e9) * 1e3
-
-    def estimate_hidden_share(self, step_ms_on: float | None = None,
-                              step_ms_off: float | None = None) -> float:
-        """``decode_collective_hidden_share``: the share of the collectives'
-        wire time the reduce-scatter / all-gather schedule hides.  With
-        measured step times of both schedules (the same engine shape), the
-        saving over the wire time, clamped to [0, 1]; without, the JAX
-        engine's window model: a half hides behind the next column
-        projections' weight reads at the card's memory rate.  0.0 off a
-        mesh, with the schedule off, or where no rate was measured."""
-        ring = self._ring_ms()
-        share = 0.0
-        if ring > 0.0 and self.tp_overlap:
-            if step_ms_on is not None and step_ms_off is not None:
-                share = max(0.0, min(1.0, (step_ms_off - step_ms_on) / ring))
-            else:
-                cfg, tp = self.cfg, self.tp
-                D = cfg.head_dim_
-                wbytes = (1 if self.model.quantized
-                          else self.model.dtype.itemsize)
-                col = (cfg.hidden_size * cfg.num_heads * D
-                       + 2 * cfg.hidden_size * cfg.num_kv_heads * D
-                       + 2 * cfg.hidden_size * cfg.intermediate_size)
-                hbm = hbm_bandwidth_gbs(self.mesh.device_kind())
-                stream_ms = (col * wbytes / tp / (hbm * 1e9) * 1e3
-                             if hbm > 0 else 0.0)
-                wire_ms = ring / (2 * cfg.num_layers)
-                share = min(1.0, stream_ms / wire_ms)
-        self.decode_collective_hidden_share = share
-        return share
 
     # -- decode ---------------------------------------------------------
 
@@ -2739,12 +2698,14 @@ class InferenceEngine:
             key = (K, sampler, constrained, cap if bounded else 0)
         t0 = time.monotonic()
         try:
-            self._faults.maybe_raise("decode_dispatch")
-            prog = self._device("decode", stage.inp[:n_in], key)
+            prog = self._device("decode", stage.inp[:n_in], key,
+                                fault="decode_dispatch")
             stage.out[:K * B].view(K, B).copy_(prog.out, non_blocking=True)
             if spec:
                 stage.out[K * B:K * B + 2].copy_(prog.stats,
                                                  non_blocking=True)
+        except MeshBroken:
+            raise
         except Exception as exc:
             # Undo the in-flight accounting so the same lanes dispatch
             # again next step (ctx_pred rewinds with inflight_decode).
@@ -2804,6 +2765,7 @@ class InferenceEngine:
                 call.event.synchronize()
             if call.stuck:
                 raise FaultError("decode_stuck")
+            self._mesh_check()
             if call.kind in ("decode", "spec"):
                 # Host time blocked on this device call: ~0 whenever
                 # dispatch-ahead hid the device latency.
@@ -2812,6 +2774,8 @@ class InferenceEngine:
                     gap_ms if self.decode_host_gap_ms == 0.0
                     else 0.9 * self.decode_host_gap_ms + 0.1 * gap_ms)
             self._apply_call(call)
+        except MeshBroken:
+            raise
         except Exception as exc:
             self._record_dispatch_failure(exc)
             self._reset_pipeline(

@@ -255,7 +255,13 @@ def test_server_serves_mesh_shape():
     """``load_config(None)`` with ``llm.tpu.mesh_shape "1,1,2"`` (tiny, on
     the CPU over gloo) through build_server: queries answer 200, /metrics
     reads the mesh's model axis, /api/v1/stats states the mesh, and a
-    step-loop kill rebuilds the engine on the workers and serves again."""
+    step-loop kill rebuilds the engine on the workers and serves again.
+    Then a decode call that fails on rank 0 after the workers were sent
+    it, and a worker killed while requests are in flight, each break the
+    mesh for good (the step loop dies; nothing retries on it): the
+    supervisor's factory kills the workers, builds a new mesh and the
+    model on it, and every request completes with the greedy ids of an
+    undisturbed run."""
     from k8s_llm_monitor_tpu_torch.monitor.cluster import (
         FakeCluster,
         seed_demo_cluster,
@@ -271,23 +277,40 @@ def test_server_serves_mesh_shape():
     c.llm.tpu.mesh_shape = "1,1,2"
     c.llm.max_tokens = 8
     c.telemetry.enabled = False
+    c.lifecycle.restart_backoff_s = 0.05    # three rebuilds follow
     srv = build_server(c, backend=seed_demo_cluster(FakeCluster()),
                        device="cpu", mesh_backend="gloo")
     srv.start()
     sup = srv.engine_supervisor()
-    mesh = sup.service.engine.mesh
-    try:
-        def query():
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{srv.port}/api/v1/query",
-                data=json.dumps({"question": "why crashloop?"}).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=120) as r:
-                return r.status, json.loads(r.read())
+    backend = srv.analysis.backend
+    mesh = backend.mesh
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(3, 250, size=n)]
+               for n in (5, 20, 40)]
+    sp = tengine.SamplingParams(max_tokens=10, temperature=0.0)
 
+    def query():
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/api/v1/query",
+            data=json.dumps({"question": "why crashloop?"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+
+    def submit():
+        return [sup.submit(p, sp) for p in prompts]
+
+    def ids(handles):
+        out = [h.result(timeout=120) for h in handles]
+        assert all(r.finish_reason != "error" for r in out), out
+        return [list(r.token_ids) for r in out]
+
+    try:
         assert query()[0] == 200
         metrics = _get(srv.port, "/metrics")
         assert 'k8s_llm_monitor_mesh_axes{axis="model"} 2' in metrics
+        # No all-reduce rate of the card is measured: the shares read NaN.
+        assert "k8s_llm_monitor_engine_decode_collective_share NaN" in metrics
         stats = json.loads(_get(srv.port, "/api/v1/stats"))
         assert stats["engine"]["mesh"] == {
             "data": 1, "seq": 1, "model": 2, "backend": "gloo",
@@ -301,13 +324,32 @@ def test_server_serves_mesh_shape():
         while sup.state != "serving" and time.monotonic() - t0 < deadline:
             time.sleep(0.05)
         assert sup.restarts == 1 and sup.state == "serving"
-        assert sup.service.engine.mesh is mesh
+        assert backend.mesh is mesh
         assert query()[0] == 200
+
+        want = ids(submit())
+        get_injector().arm("decode_dispatch", rate=1.0, times=1)
+        assert ids(submit()) == want
+        assert sup.restarts == 2 and backend.mesh is not mesh
+        assert "'decode' call failed after the workers were sent it" in (
+            mesh.broken)
+        assert not any(p.is_alive() for p in mesh._procs)
+        with pytest.raises(tmesh.MeshBroken):
+            mesh.check()
+        second = backend.mesh
+        handles = submit()
+        second._procs[0].kill()
+        assert ids(handles) == want
+        assert sup.restarts == 3 and backend.mesh not in (mesh, second)
+        assert "mesh rank 1" in second.broken
+        assert backend.mesh.healthy()
     finally:
         get_injector().disarm("step_loop_crash")
+        get_injector().disarm("decode_dispatch")
+        live = backend.mesh
         sup.shutdown(grace_s=5.0)
         srv.stop()
-        mesh.close()
+        live.close()
 
 
 # ---------------------------------------------------------------------------
@@ -466,27 +508,3 @@ def test_engine_replay_guards_and_refusals(mesh):
             **ECFG, host_spill_bytes=1 << 20))
     assert [len(r.token_ids) for r in second.generate(
         [[1, 2, 3]], tengine.SamplingParams(max_tokens=3))] == [3]
-
-
-def test_collective_share_byte_model_matches_jax(mesh, monkeypatch):
-    """``_ring_ms`` and ``estimate_hidden_share``'s window model give the
-    JAX engine's figures on the same mesh shape, given the JAX tables'
-    rates for its CPU devices (the port keeps no rate it did not measure:
-    its tables list none for the CPU)."""
-    jcfg, tcfg = _cfgs("tiny")
-    assert tmesh.allreduce_bandwidth_gbs("cpu") == 0.0
-    monkeypatch.setitem(tmesh.ALLREDUCE_BUS_GBS, "cpu",
-                        jmesh.ici_bandwidth_gbs("cpu"))
-    monkeypatch.setitem(tmesh.HBM_GBS, "cpu", jmesh.hbm_bandwidth_gbs("cpu"))
-    params = jllama.init_params(jax.random.PRNGKey(0), jcfg)
-    jeng = jengine.InferenceEngine(jcfg, params, jengine.EngineConfig(**ECFG),
-                                   eos_id=-1, mesh=_jmesh())
-    eng = tengine.InferenceEngine(
-        tcfg, params_from_jax(_tree(params), tcfg, mesh=mesh),
-        tengine.EngineConfig(**ECFG, tp_overlap="on"), eos_id=-1)
-    assert jeng.tp_overlap and eng.tp_overlap
-    assert eng._ring_ms() == pytest.approx(jeng._ring_ici_ms(), rel=1e-12)
-    assert eng.estimate_hidden_share() == pytest.approx(
-        jeng.estimate_hidden_share(), rel=1e-12)
-    assert eng.decode_collective_hidden_share > 0
-    assert eng._estimate_collective_share(2 * eng._ring_ms()) == 0.5
