@@ -14,6 +14,9 @@
     python3 chip_smoke.py --phases 0,9    # Qwen2-7B, int8 / W8A8, a checkpoint
     python3 chip_smoke.py --phases 0,10   # the unscaled fp8 pool, KV tiers
     python3 chip_smoke.py --phases 0,11   # e5m2 / f16 pools, default server
+    python3 chip_smoke.py --phases 0,12   # tensor parallelism (A7)
+    python3 chip_smoke.py --phases 0,12f  # only 12f: rebuilds of a broken mesh
+    python3 chip_smoke.py --phases 0,13   # a checkpoint on a mesh (A7b)
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -287,6 +290,30 @@ Phase 11 B9, the kernels over unscaled float8_e5m2 and float16 pages, and
          with no TELEMETRY_ENABLED / REMEDIATION_ENABLED: /metrics, a
          query, exit 0 on SIGTERM.
 
+Phase 12 tensor parallelism over the model axis (A7): 12a B1 and B3 at each
+         per-rank head geometry against their plain versions, timed; 12b
+         Llama-3-8B at TP 2 against TP 1; 12d Qwen2-72B (TP 4 at 80 layers
+         with four cards, else TP 2 at 8) and the mesh's close, timed;
+         12c the default config on a mesh through build_server, 12e a
+         step-loop kill under TP, 12f two breaks of the mesh, each rebuilt
+         on a new one.  NCCL with a card per rank, else gloo on one card.
+         A sub-phase by name (--phases 0,12f) runs only that part.
+Phase 13 a checkpoint on a mesh (A7b): 13a Llama-3-8B at full width (4 of
+         32 layers on one card, 32 with a card per rank) written as bf16
+         safetensors and loaded at TP 1 and TP 2, every rank's shard
+         equal to TP 1's slice bit for bit in bf16, quantize_params, int8
+         and W8A8; 13b logits and greedy ids against TP 1 (12b's bars), B1
+         and B3 launched on every rank, TTFT and tok/s, the decode
+         collective share from the all-reduce rate measured on the mesh;
+         13c the host tier (spill, restore, the device hit's ids) and a
+         KVX1 blob exported on TP 2, installed on TP 1 and on TP 2; 13d,
+         with four cards, Qwen2-72B loaded as int8 at TP 4 at as many
+         layers as the disk holds, and the TP-4 mesh's close, timed; 13e
+         the preflight's verdicts for Llama-3-8B, Qwen2-72B and
+         Llama-3-70B, bf16 and int8, TP 1-8 at 80 GiB.
+         CHIP_SMOKE_CKPT_DIR names where the checkpoints are written
+         (default: the temporary directory).
+
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
 prints its reason and exits non-zero.
@@ -298,6 +325,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -5250,7 +5278,7 @@ def mesh_burst(port, n):
     return out, time.monotonic() - t0
 
 
-def phase12c(torch, np, st):
+def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
     """12c: the monitor's default config with llm.tpu.mesh_shape "1,1,2"
     (and the port and the fake cluster) through build_server: over NCCL
     phase 6's burst of 24 at the config's own llm.max_tokens, the verdicts
@@ -5301,91 +5329,100 @@ def phase12c(torch, np, st):
               f"12c engine: {eng.mesh_axes()} {eng.decode_path}")
         srv.start()
         port = srv.port
-        reset_rank_launches(mesh)
-        if backend == "gloo":
-            out, wall = mesh_burst(port, 4)
-            what = "4 queries of 32 tokens (gloo: size-reduced)"
-        else:
-            out, stream, wall = front_door_burst(port)
-            check_burst(out, stream)
-            what = (f"phase 6's burst of 24 at llm.max_tokens "
-                    f"{cfg.llm.max_tokens}, verdicts of the schema")
-        torch.cuda.synchronize()
-        per_rank = rank_launches(mesh, ["paged_decode_attention_pallas"])
-        check(all(c["paged_decode_attention_pallas"] > 0 for c in per_rank),
-              f"12c: B3 launches per rank {per_rank}")
-        st.setdefault("launches", {})[f"paged_attn_{TP_HEADS_D64[0]}"] = (
-            per_rank[0]["paged_decode_attention_pallas"])
-        status, body, _ = http_call(port, "GET", "/metrics")
-        text = body.decode()
-        gauge = [line for line in text.splitlines()
-                 if line.startswith("k8s_llm_monitor_mesh_axes{")]
-        check(status == 200 and 'k8s_llm_monitor_mesh_axes{axis="model"} 2'
-              in gauge, f"/metrics mesh gauge: {gauge}")
-        status, stats, _ = http_call(port, "GET", "/api/v1/stats")
-        q_walls = sorted(v[2] for k, v in out.items()
-                         if k.startswith("query-"))
-        print(f"phase 12c: the default config with mesh_shape 1,1,2 "
-              f"({mesh_label(mesh)}) through build_server in {boot_s:.2f} s;"
-              f" {what}: at once over HTTP in {wall:.2f} s, query wall p50 "
-              f"{np.percentile(q_walls, 50) * 1e3:.1f} ms, all 200; "
-              f"{gauge}; stats mesh {stats['engine']['mesh']}; B3 (D=64) "
-              f"launches per rank {per_rank} [{gpu}]")
-        # 12e: the step loop dies; the supervisor rebuilds the engine (and
-        # with it the workers' copy) and serves again.
-        get_injector().arm("step_loop_crash", rate=1.0, times=1)
-        t0 = time.monotonic()
-        while sup.restarts < 1 and time.monotonic() - t0 < 120:
-            time.sleep(0.05)
-        while sup.state != "serving" and time.monotonic() - t0 < 120:
-            time.sleep(0.05)
-        check(sup.restarts == 1 and sup.state == "serving",
-              f"12e: restarts {sup.restarts}, state {sup.state}")
-        rebuilt = sup.service.engine
-        check(rebuilt is not eng and rebuilt.mesh is mesh
-              and rebuilt._mesh_token == mesh.engine_token,
-              "12e: the rebuilt engine is not the workers' engine")
-        rebuilt_s = time.monotonic() - t0
-        t0 = time.monotonic()
-        # The first request on a fresh engine: 12f's rebuilt meshes must
-        # give its text (greedy; the spec acceptance EMA starts anew on
-        # each engine, so the same first request takes the same path).
-        want = backend_.generate("why crashloop?", max_tokens=8,
-                                 temperature=0.0)
-        gen_s = time.monotonic() - t0
-        check(isinstance(want, str), "12e: no text after the rebuild")
-        print(f"phase 12e: step_loop_crash under TP: rebuilt in "
-              f"{rebuilt_s:.2f} s (restarts {sup.restarts}), the workers "
-              f"hold the new engine, an 8-token greedy generate after it "
-              f"in {gen_s * 1e3:.1f} ms [{gpu}]")
-        # 12f: breaks of the mesh, each rebuilt by the supervisor on a new
-        # mesh: an admission failing on rank 0 after its send (the worker
-        # waits in a collective rank 0 never joins), and rank 1 killed.
-        # Each request runs whole on the new mesh's fresh engine.
-        for n, (how, brk) in enumerate((
-                ("prefill_dispatch after the send",
-                 lambda: get_injector().arm("prefill_dispatch", rate=1.0,
-                                            times=1)),
-                ("rank 1 killed", lambda: backend_.mesh._procs[0].kill())),
-                start=2):
-            old = backend_.mesh
-            t0 = time.monotonic()
-            brk()
-            text = backend_.generate("why crashloop?", max_tokens=8,
+        if "12e" not in subs:
+            # 12f's text without 12e: the first request on a fresh
+            # engine.
+            want = backend_.generate("why crashloop?", max_tokens=8,
                                      temperature=0.0)
-            took = time.monotonic() - t0
-            new = backend_.mesh
-            check(sup.restarts == n and old.broken is not None
-                  and new is not old and new.healthy()
-                  and not any(p.is_alive() for p in old._procs),
-                  f"12f ({how}): restarts {sup.restarts}, broken "
-                  f"{old.broken}")
-            check(text == want, f"12f ({how}): {text!r}, {want!r} on "
-                                "the first fresh engine")
-            print(f"phase 12f: {how} ({mesh_label(new)}): the mesh broke "
-                  f"({old.broken[:90]}), a new mesh and the model on it "
-                  f"rebuilt and the 8-token greedy generate served in "
-                  f"{took:.2f} s, 12e's text [{gpu}]")
+        if "12c" in subs:
+            reset_rank_launches(mesh)
+            if backend == "gloo":
+                out, wall = mesh_burst(port, 4)
+                what = "4 queries of 32 tokens (gloo: size-reduced)"
+            else:
+                out, stream, wall = front_door_burst(port)
+                check_burst(out, stream)
+                what = (f"phase 6's burst of 24 at llm.max_tokens "
+                        f"{cfg.llm.max_tokens}, verdicts of the schema")
+            torch.cuda.synchronize()
+            per_rank = rank_launches(mesh, ["paged_decode_attention_pallas"])
+            check(all(c["paged_decode_attention_pallas"] > 0 for c in per_rank),
+                  f"12c: B3 launches per rank {per_rank}")
+            st.setdefault("launches", {})[f"paged_attn_{TP_HEADS_D64[0]}"] = (
+                per_rank[0]["paged_decode_attention_pallas"])
+            status, body, _ = http_call(port, "GET", "/metrics")
+            text = body.decode()
+            gauge = [line for line in text.splitlines()
+                     if line.startswith("k8s_llm_monitor_mesh_axes{")]
+            check(status == 200 and 'k8s_llm_monitor_mesh_axes{axis="model"} 2'
+                  in gauge, f"/metrics mesh gauge: {gauge}")
+            status, stats, _ = http_call(port, "GET", "/api/v1/stats")
+            q_walls = sorted(v[2] for k, v in out.items()
+                             if k.startswith("query-"))
+            print(f"phase 12c: the default config with mesh_shape 1,1,2 "
+                  f"({mesh_label(mesh)}) through build_server in {boot_s:.2f} s;"
+                  f" {what}: at once over HTTP in {wall:.2f} s, query wall p50 "
+                  f"{np.percentile(q_walls, 50) * 1e3:.1f} ms, all 200; "
+                  f"{gauge}; stats mesh {stats['engine']['mesh']}; B3 (D=64) "
+                  f"launches per rank {per_rank} [{gpu}]")
+        if "12e" in subs:
+            # 12e: the step loop dies; the supervisor rebuilds the engine (and
+            # with it the workers' copy) and serves again.
+            get_injector().arm("step_loop_crash", rate=1.0, times=1)
+            t0 = time.monotonic()
+            while sup.restarts < 1 and time.monotonic() - t0 < 120:
+                time.sleep(0.05)
+            while sup.state != "serving" and time.monotonic() - t0 < 120:
+                time.sleep(0.05)
+            check(sup.restarts == 1 and sup.state == "serving",
+                  f"12e: restarts {sup.restarts}, state {sup.state}")
+            rebuilt = sup.service.engine
+            check(rebuilt is not eng and rebuilt.mesh is mesh
+                  and rebuilt._mesh_token == mesh.engine_token,
+                  "12e: the rebuilt engine is not the workers' engine")
+            rebuilt_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            # The first request on a fresh engine: 12f's rebuilt meshes must
+            # give its text (greedy; the spec acceptance EMA starts anew on
+            # each engine, so the same first request takes the same path).
+            want = backend_.generate("why crashloop?", max_tokens=8,
+                                     temperature=0.0)
+            gen_s = time.monotonic() - t0
+            check(isinstance(want, str), "12e: no text after the rebuild")
+            print(f"phase 12e: step_loop_crash under TP: rebuilt in "
+                  f"{rebuilt_s:.2f} s (restarts {sup.restarts}), the workers "
+                  f"hold the new engine, an 8-token greedy generate after it "
+                  f"in {gen_s * 1e3:.1f} ms [{gpu}]")
+        if "12f" in subs:
+            # 12f: breaks of the mesh, each rebuilt by the supervisor on a new
+            # mesh: an admission failing on rank 0 after its send (the worker
+            # waits in a collective rank 0 never joins), and rank 1 killed.
+            # Each request runs whole on the new mesh's fresh engine.
+            for n, (how, brk) in enumerate((
+                    ("prefill_dispatch after the send",
+                     lambda: get_injector().arm("prefill_dispatch", rate=1.0,
+                                                times=1)),
+                    ("rank 1 killed", lambda: backend_.mesh._procs[0].kill())),
+                    start=sup.restarts + 1):
+                old = backend_.mesh
+                t0 = time.monotonic()
+                brk()
+                text = backend_.generate("why crashloop?", max_tokens=8,
+                                         temperature=0.0)
+                took = time.monotonic() - t0
+                new = backend_.mesh
+                check(sup.restarts == n and old.broken is not None
+                      and new is not old and new.healthy()
+                      and not any(p.is_alive() for p in old._procs),
+                      f"12f ({how}): restarts {sup.restarts}, broken "
+                      f"{old.broken}")
+                check(text == want, f"12f ({how}): {text!r}, {want!r} on "
+                                    "the first fresh engine")
+                print(f"phase 12f: {how} ({mesh_label(new)}): the mesh broke "
+                      f"({old.broken[:90]}), a new mesh and the model on it "
+                      f"rebuilt and the 8-token greedy generate served in "
+                      f"{took:.2f} s, the fresh engine's text {text!r} "
+                      f"[{gpu}]")
     finally:
         get_injector().disarm("step_loop_crash")
         get_injector().disarm("prefill_dispatch")
@@ -5397,53 +5434,54 @@ def phase12c(torch, np, st):
         gc.collect()
         torch.cuda.empty_cache()
 
-    # cmd.server with the mesh shape in its environment.
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_12c_")
-    env = dict(os.environ, K8SLLM_FLIGHT_DIR=os.path.join(tmp, "flight"),
-               LLM_TPU_MESH_SHAPE="1,1,2")
-    log_path = os.path.join(tmp, "cmd_server.log")
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.monotonic()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "k8s_llm_monitor_tpu_torch.cmd.server",
-             "--cluster", "fake", "--host", "127.0.0.1", "--port", str(port),
-             "--mesh-backend", backend],
-            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-    try:
-        ready = False
-        while time.monotonic() - t0 < 300 and proc.poll() is None:
-            try:
-                status, body, _ = http_call(port, "GET", "/readyz",
-                                            timeout=5.0)
-                ready = status == 200 and body["ready"]
-            except OSError:
-                pass
-            if ready:
-                break
-            time.sleep(0.25)
-        check(ready, f"cmd.server (mesh) never became ready "
-                     f"(rc {proc.poll()})")
-        ready_s = time.monotonic() - t0
-        text = http_call(port, "GET", "/metrics")[1].decode()
-        check('k8s_llm_monitor_mesh_axes{axis="model"} 2' in text,
-              "cmd.server (mesh): no model-2 mesh gauge")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
-        check(rc == 0, f"cmd.server (mesh) exited {rc} on SIGTERM")
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
-        with open(log_path) as fh:
-            log_text = fh.read()
-    print(f"phase 12c: cmd.server (cuda, LLM_TPU_MESH_SHAPE=1,1,2, "
-          f"--mesh-backend {backend}): ready in {ready_s:.1f} s, "
-          f"/metrics mesh gauge model 2, exit 0 on SIGTERM "
-          f"({len(log_text.splitlines())} log lines) [{gpu}]")
+    if "12c" in subs:
+        # cmd.server with the mesh shape in its environment.
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_12c_")
+        env = dict(os.environ, K8SLLM_FLIGHT_DIR=os.path.join(tmp, "flight"),
+                   LLM_TPU_MESH_SHAPE="1,1,2")
+        log_path = os.path.join(tmp, "cmd_server.log")
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.monotonic()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "k8s_llm_monitor_tpu_torch.cmd.server",
+                 "--cluster", "fake", "--host", "127.0.0.1", "--port", str(port),
+                 "--mesh-backend", backend],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            ready = False
+            while time.monotonic() - t0 < 300 and proc.poll() is None:
+                try:
+                    status, body, _ = http_call(port, "GET", "/readyz",
+                                                timeout=5.0)
+                    ready = status == 200 and body["ready"]
+                except OSError:
+                    pass
+                if ready:
+                    break
+                time.sleep(0.25)
+            check(ready, f"cmd.server (mesh) never became ready "
+                         f"(rc {proc.poll()})")
+            ready_s = time.monotonic() - t0
+            text = http_call(port, "GET", "/metrics")[1].decode()
+            check('k8s_llm_monitor_mesh_axes{axis="model"} 2' in text,
+                  "cmd.server (mesh): no model-2 mesh gauge")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            check(rc == 0, f"cmd.server (mesh) exited {rc} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            with open(log_path) as fh:
+                log_text = fh.read()
+        print(f"phase 12c: cmd.server (cuda, LLM_TPU_MESH_SHAPE=1,1,2, "
+              f"--mesh-backend {backend}): ready in {ready_s:.1f} s, "
+              f"/metrics mesh gauge model 2, exit 0 on SIGTERM "
+              f"({len(log_text.splitlines())} log lines) [{gpu}]")
 
 
 def phase12d(torch, np, st):
@@ -5461,10 +5499,13 @@ def phase12d(torch, np, st):
     gpu = st["gpu"]
     four = torch.cuda.device_count() >= 4
     if four:
-        st.pop("mesh").close()
+        if "mesh" in st:
+            st.pop("mesh").close()
         mesh = st["mesh"] = create_mesh(MeshConfig(model=4))
         cfg = QWEN2_72B
     else:
+        if "mesh" not in st:
+            st["mesh"] = create_mesh(MeshConfig(model=2), backend="gloo")
         mesh = st["mesh"]
         cfg = dataclasses.replace(QWEN2_72B, num_layers=8)
     label = f"h{cfg.num_heads // mesh.tp}kv{cfg.num_kv_heads // mesh.tp}"
@@ -5522,21 +5563,30 @@ def close_mesh(torch, np, st):
 
 def phase12(torch, np, st):
     """A7: the per-rank kernel shapes (12a), Llama-3-8B at TP 2 (12b),
-    Qwen2-72B (12d), the server on a mesh and rebuilds under it (12c, 12e,
-    12f).  Every record of a TP shape that no path of this run launched
-    reads 0."""
+    Qwen2-72B (12d) and the mesh's close, the server on a mesh and
+    rebuilds under it (12c, 12e, 12f).  ``--phases 0,12f`` (or 12e, ...)
+    runs only those parts.  Every record of a TP shape that no path of
+    this run launched reads 0."""
     import gc
 
+    subs = st["subs"].get(12) or {"12a", "12b", "12c", "12d", "12e", "12f"}
     st.pop("model", None)
     gc.collect()
     torch.cuda.empty_cache()
+    steps = [sub for name, sub in (("12a", tp_shard_checks),
+                                   ("12b", phase12b), ("12d", phase12d))
+             if name in subs]
+    if subs & {"12b", "12d"}:
+        steps.append(close_mesh)
+    if subs & {"12c", "12e", "12f"}:
+        steps.append(lambda torch, np, st: phase12c(torch, np, st, subs))
     try:
-        for sub in (tp_shard_checks, phase12b, phase12d, close_mesh,
-                    phase12c):
+        for sub in steps:
             t0 = time.monotonic()
             sub(torch, np, st)
             torch.cuda.synchronize()
-            print(f"phase 12: {sub.__name__} passed in "
+            name = "phase12c" if sub.__name__ == "<lambda>" else sub.__name__
+            print(f"phase 12: {name} passed in "
                   f"{time.monotonic() - t0:.1f} s")
     finally:
         mesh = st.pop("mesh", None)
@@ -5548,15 +5598,490 @@ def phase12(torch, np, st):
             launches.setdefault(f"{kernel}_{label}", 0)
 
 
+# ---------------------------------------------------------------- phase 13
+# A7b: a checkpoint served on a tensor-parallel mesh.  Each rank loads its
+# shard of an HF checkpoint from the same directory (int8 and W8A8 of the
+# shard included); the host tier and KVX1 blobs move whole rows; the decode
+# collective shares come from the mesh's measured all-reduce rate; the fit
+# preflight's verdicts.
+
+# The checkpoint's depth on one card: the whole run stays inside its
+# 1,200 s (PERF.md, phase 13's prediction); full depth with a card per rank.
+CKPT_LAYERS_ONE_CARD = 4
+# Qwen2-72B's depth at TP 4: as many of its 80 layers as the disk holds
+# (1.76 GB a layer in bf16), at most all of them.
+QWEN72_MAX_LAYERS = 80
+# 13's preflight grid (at 80 GiB a card).
+PREFLIGHT_GRID = [(m, q, tp) for m in ("llama3-8b", "qwen2-72b", "llama3-70b")
+                  for q in ("none", "int8") for tp in (1, 2, 4, 8)]
+
+
+def hf_shapes(cfg):
+    """{HF key: (shape, kind)} of ``cfg``'s checkpoint, kind one of
+    "embed", "linear", "norm", "bias"."""
+    H, D, I, V = (cfg.hidden_size, cfg.head_dim_, cfg.intermediate_size,
+                  cfg.vocab_size)
+    q, kv = cfg.num_heads * D, cfg.num_kv_heads * D
+    out = {"model.embed_tokens.weight": ((V, H), "embed"),
+           "model.norm.weight": ((H,), "norm"),
+           "lm_head.weight": ((V, H), "linear")}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        out[pre + "input_layernorm.weight"] = ((H,), "norm")
+        out[pre + "post_attention_layernorm.weight"] = ((H,), "norm")
+        for name, shape in (("self_attn.q_proj", (q, H)),
+                            ("self_attn.k_proj", (kv, H)),
+                            ("self_attn.v_proj", (kv, H)),
+                            ("self_attn.o_proj", (H, q)),
+                            ("mlp.gate_proj", (I, H)), ("mlp.up_proj", (I, H)),
+                            ("mlp.down_proj", (H, I))):
+            out[f"{pre}{name}.weight"] = (shape, "linear")
+            if cfg.qkv_bias and name.startswith("self_attn.") and \
+                    not name.endswith("o_proj"):
+                out[f"{pre}{name}.bias"] = ((shape[0],), "bias")
+    return out
+
+
+def write_hf_checkpoint(torch, path, cfg, seed):
+    """``cfg`` at full width as bf16 safetensors drawn from a seeded
+    generator on the card (normals of std ``in**-0.5``, embeddings 0.02,
+    unit norms, biases 0.02), index-sharded in files of at most 1 GiB,
+    with its config.json; returns the bytes written."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    weight_map, cur, size, total, files = {}, {}, 0, 0, []
+
+    def flush():
+        nonlocal cur, size, total
+        fname = f"model-{len(files) + 1:05d}.safetensors"
+        total += write_safetensors(torch, path / fname, cur)
+        weight_map.update({k: fname for k in cur})
+        files.append(fname)
+        cur, size = {}, 0
+
+    for key, (shape, kind) in hf_shapes(cfg).items():
+        if kind == "norm":
+            t = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+        else:
+            std = 0.02 if kind in ("embed", "bias") else shape[1] ** -0.5
+            t = torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * std
+        n = t.numel() * 2
+        if cur and size + n > 2 ** 30:
+            flush()
+        cur[key] = t
+        size += n
+    flush()
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "qwen2" if cfg.qkv_bias else "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim_, "rope_theta": cfg.rope_theta,
+        "rope_scaling": cfg.rope_scaling, "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_seq_len,
+        "use_sliding_window": False, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16"}))
+    return total
+
+
+def rank_tensors(model, mesh):
+    """Each rank's parameters and buffers (rank 0's on the card, the
+    workers' on the host), rank 0 first."""
+    mine = dict(model.named_parameters()) | dict(model.named_buffers())
+    return [mine] + (mesh.worker_states() if mesh.tp > 1 else [])
+
+
+def check_shards(torch, full_model, model, mesh, what):
+    """Every rank's tensors equal TP 1's sliced by the partition specs,
+    bit for bit (int8 codes and scales included)."""
+    from k8s_llm_monitor_tpu_torch.parallel.sharding import (
+        param_partition_specs, shard_tensor)
+
+    full = dict(full_model.named_parameters()) | dict(
+        full_model.named_buffers())
+    specs = param_partition_specs(full_model)
+    n = 0
+    for rank, state in enumerate(rank_tensors(model, mesh)):
+        check(state.keys() == full.keys(), f"{what}: rank {rank} holds "
+                                           "other tensors than TP 1")
+        for name, t in state.items():
+            want = shard_tensor(full[name], specs[name], rank, mesh.tp)
+            check(t.dtype == want.dtype and torch.equal(
+                t.to(want.device), want),
+                f"{what}: rank {rank}'s {name} is not TP 1's slice")
+            n += 1
+    return n
+
+
+def timed_load(torch, path, **kw):
+    """``load_hf_checkpoint(path, **kw)`` synchronized: (model, seconds);
+    on a mesh rank 0 waits for every worker's load (``sync``)."""
+    from k8s_llm_monitor_tpu_torch.utils.checkpoint import load_hf_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, model = load_hf_checkpoint(path, **kw)
+    if kw.get("mesh") is not None:
+        kw["mesh"].sync()
+    torch.cuda.synchronize()
+    return model, time.monotonic() - t0
+
+
+def ckpt_tier_and_blobs(torch, np, st, mesh, model, one):
+    """13c: the host tier and KVX1 under the mesh on ``model`` (TP N)
+    with ``one`` (TP 1) as the blobs' other end: a spill and a restore
+    whose restored hit gives the device hit's ids; a blob exported on TP N
+    installs on TP 1 and on a fresh TP-N engine, each exporting the same
+    bytes; the ids of the installed prefix."""
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        DEFAULT_TENANT, EngineConfig, InferenceEngine, SamplingParams)
+
+    gpu, label = st["gpu"], mesh_label(mesh)
+    cfg = model.cfg
+    rng = np.random.default_rng(13)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in (1040, 1300, 1560)]
+    sp = SamplingParams(max_tokens=8)
+    ecfg = dict(max_slots=8, num_blocks=512, block_size=BS,
+                max_blocks_per_seq=128, decode_steps_per_iter=8)
+    eng = InferenceEngine(cfg, model, EngineConfig(
+        **ecfg, host_spill_bytes=16 << 30))
+    fetch = Timed(torch, eng, "_fetch_rows",
+                  lambda a, out: sum(x.nbytes for leaf in out.layers
+                                     for x in leaf))
+    write = Timed(torch, eng, "_write_rows",
+                  lambda a, out: sum(x.nbytes for leaf in a[1]
+                                     for x in leaf))
+    fresh = [r.token_ids for r in eng.generate(prompts, sp)]
+    hit = [r.token_ids for r in eng.generate(prompts, sp)]
+    check(eng.prefix_cache.hits >= len(prompts),
+          f"13c: {eng.prefix_cache.hits} device hits")
+    blob = eng.export_prefix(prompts[0], tenant=DEFAULT_TENANT)
+    while eng._evict_prefix_lru():
+        pass
+    spilled = eng.kv_tier_stats()
+    back = [r.token_ids for r in eng.generate(prompts, sp)]
+    stats = eng.kv_tier_stats()
+    check(stats["spills"] > 0 and stats["restores"] >= len(prompts),
+          f"13c: spills {stats['spills']} restores {stats['restores']}")
+    check(back == hit, f"13c: restored ids equal the device hit's in "
+                       f"{sum(a == b for a, b in zip(back, hit))} of "
+                       f"{len(hit)}")
+    check(eng.dispatch_failures == 0, "13c: dispatch failures")
+    print(f"phase 13c: host tier under {label}: {len(prompts)} prompts of "
+          f"1040-1560 tokens, fresh, device hit, all spilled ("
+          f"{spilled['host_bytes']} B of whole rows in "
+          f"{spilled['host_entries']} entries), restored: restores "
+          f"{stats['restores']}, restored ids equal the device hit's in "
+          f"{len(hit)} of {len(hit)} (the fresh prefill's in "
+          f"{sum(a == b for a, b in zip(back, fresh))}); fetch "
+          f"{fetch.bytes / max(fetch.secs, 1e-9) / 1e9:.2f} GB/s "
+          f"({fetch.bytes} B, {fetch.calls} spills, {fetch.secs:.3f} s), "
+          f"write {write.bytes / max(write.secs, 1e-9) / 1e9:.2f} GB/s "
+          f"({write.bytes} B, {write.calls} restores, {write.secs:.3f} s, "
+          f"synchronized) [{gpu}]")
+    st.setdefault("ckpt", {})["tier"] = (
+        fetch.bytes / max(fetch.secs, 1e-9) / 1e9,
+        write.bytes / max(write.secs, 1e-9) / 1e9, label)
+    check(blob is not None, "13c: nothing to export")
+    del eng
+    ids = {}
+    for name, m in (("TP 1", one), (f"TP {mesh.tp}", model)):
+        recv = InferenceEngine(m.cfg, m, EngineConfig(**ecfg))
+        check(recv.install_prefix(
+            blob, expected_tenant=DEFAULT_TENANT) == "installed",
+              f"13c: the blob did not install on {name}")
+        check(recv.export_prefix(prompts[0],
+                                   tenant=DEFAULT_TENANT) == blob,
+              f"13c: {name}'s export of the installed blob differs")
+        ids[name] = recv.generate([prompts[0]], sp)[0].token_ids
+        del recv
+    check(ids[f"TP {mesh.tp}"] == hit[0],
+          "13c: the blob installed on a fresh TP-N engine gave other ids")
+    same = sum(a == b for a, b in zip(ids["TP 1"], hit[0]))
+    print(f"phase 13c: KVX1 blob of {len(blob)} B exported on {label}: "
+          f"installed on TP 1 and on a fresh TP {mesh.tp} engine, each "
+          f"exporting it back byte for byte; the fresh TP {mesh.tp} "
+          f"engine's ids equal the exporter's hit, TP 1's agree in {same} "
+          f"of {len(hit[0])} tokens (bf16 sums of another split) [{gpu}]")
+
+
+def ckpt_preflight(torch, st):
+    """13e: the fit preflight's verdicts for the 70B class and 8B on
+    80 GiB cards, bf16 and int8, TP 1-8."""
+    import contextlib
+    import io
+
+    from k8s_llm_monitor_tpu_torch.cmd.preflight import check as preflight
+
+    t0 = time.monotonic()
+    rows = []
+    for model, quant, tp in PREFLIGHT_GRID:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc, fails, warns = preflight([
+                "--model", model, "--quantize", quant, "--mesh",
+                f"1,1,{tp}", "--per-chip-hbm-gib", "80"])
+        fit = next(line for line in out.getvalue().splitlines()
+                   if "per-chip: weights" in line)
+        rows.append(f"{model} {quant} TP {tp}: {'FAIL' if rc else 'PASS'} "
+                    f"({fit.split(': ', 1)[1].split(' - ')[0]}; "
+                    f"{len(fails)} FAIL, {len(warns)} WARN)")
+    check(len(rows) == len(PREFLIGHT_GRID), "13e: preflight rows")
+    for row in rows:
+        print(f"phase 13e: preflight {row}")
+    print(f"phase 13e: {len(rows)} preflights in "
+          f"{time.monotonic() - t0:.2f} s (shapes only, on the meta device)")
+
+
+def phase13(torch, np, st):
+    """A7b: a checkpoint on a tensor-parallel mesh.  13a writes Llama-3-8B
+    at full width (depth CKPT_LAYERS_ONE_CARD on one card, 32 with a card
+    per rank) as bf16 safetensors and loads it at TP 1 and TP 2: every
+    rank's shard equals TP 1's slice bit for bit in bf16, int8 and W8A8.
+    13b: logits and greedy ids at TP 2 against TP 1 (12b's bars), B1 and
+    B3 launched on every rank, TTFT and tok/s, the decode collective
+    share from the measured all-reduce rate.  13c: the host tier and KVX1
+    under the mesh.  13d (four cards): Qwen2-72B from a checkpoint loaded
+    as int8 at TP 4 at as many layers as the disk holds, and the TP-4
+    mesh's close.  13e: the preflight's verdicts."""
+    import dataclasses as dc
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B, QWEN2_72B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+        MeshConfig, create_mesh)
+    from k8s_llm_monitor_tpu_torch.utils.quantize import quantize_params
+
+    subs = st["subs"].get(13) or {"13a", "13b", "13c", "13d", "13e"}
+    gpu = st["gpu"]
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    root = Path(os.environ.get("CHIP_SMOKE_CKPT_DIR")
+                or tempfile.gettempdir())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_13_", dir=root))
+    mesh = None
+    try:
+        if subs & {"13a", "13b", "13c"}:
+            layers = LLAMA3_8B.num_layers if cards >= 2 else \
+                CKPT_LAYERS_ONE_CARD
+            cfg = dc.replace(LLAMA3_8B, num_layers=layers)
+            path = tmp / "llama3-8b"
+            path.mkdir()
+            t0 = time.monotonic()
+            total = write_hf_checkpoint(torch, path, cfg, seed=13)
+            print(f"phase 13a: wrote Llama-3-8B at full width, {layers} of "
+                  f"32 layers, as bf16 safetensors: {total} B on disk in "
+                  f"{time.monotonic() - t0:.1f} s (free disk after: "
+                  f"{shutil.disk_usage(tmp).free} B)")
+            one, secs = timed_load(torch, path)
+            print(f"phase 13a: TP 1 load (bf16): {secs:.2f} s, "
+                  f"{total / secs / 1e9:.2f} GB/s [{gpu}]")
+            t0 = time.monotonic()
+            mesh = create_mesh(MeshConfig(model=2), backend=backend)
+            print(f"phase 13a: {mesh_label(mesh)}: mesh up in "
+                  f"{time.monotonic() - t0:.2f} s")
+            two, secs = timed_load(torch, path, mesh=mesh)
+            print(f"phase 13a: TP 2 load (bf16, each rank its shard): "
+                  f"{secs:.2f} s, {total / 2 / secs / 1e9:.2f} GB/s a rank "
+                  f"[{gpu}]")
+            st["ckpt"] = {"layers": layers, "bytes": total,
+                          "load_tp2_gbs": total / 2 / secs / 1e9}
+            if "13a" in subs:
+                t0 = time.monotonic()
+                n = check_shards(torch, one, two, mesh, "bf16")
+                print(f"phase 13a: bf16 shards checked in "
+                      f"{time.monotonic() - t0:.1f} s", flush=True)
+                t0 = time.monotonic()
+                q2 = quantize_params(two)
+                mesh.sync()
+                print(f"phase 13a: quantize_params of the TP-2 shards in "
+                      f"{time.monotonic() - t0:.1f} s", flush=True)
+                t0 = time.monotonic()
+                q1 = quantize_params(one)
+                print(f"phase 13a: quantize_params at TP 1 in "
+                      f"{time.monotonic() - t0:.1f} s", flush=True)
+                n += check_shards(torch, q1, q2, mesh,
+                                  "quantize_params of the bf16 shards")
+                del q2
+                gc.collect()
+                for mode in ("int8", "w8a8"):
+                    qm, qsecs = timed_load(torch, path, mesh=mesh,
+                                           quantize=True,
+                                           act_quant=mode == "w8a8")
+                    check(qm.cfg.act_quant == (mode == "w8a8"),
+                          f"{mode}: act_quant {qm.cfg.act_quant}")
+                    n += check_shards(torch, q1, qm, mesh, f"{mode} load")
+                    print(f"phase 13a: TP 2 load ({mode}: each rank "
+                          f"quantizes its shard, row scales by a MAX "
+                          f"all-reduce): {qsecs:.2f} s, "
+                          f"{total / 2 / qsecs / 1e9:.2f} GB/s read a rank "
+                          f"[{gpu}]", flush=True)
+                    del qm
+                    gc.collect()
+                del q1
+                gc.collect()
+                torch.cuda.empty_cache()
+                # The quantized builds retired the bf16 shards: load again.
+                two, _ = timed_load(torch, path, mesh=mesh)
+                print(f"phase 13a: every rank's shard equals TP 1's slice "
+                      f"bit for bit: bf16, quantize_params, int8 and W8A8 "
+                      f"loads ({n} tensors)")
+            if "13b" in subs:
+                want = tp_logits(torch, np, one, cfg.vocab_size)
+                got = tp_logits(torch, np, two, cfg.vocab_size)
+                cos = cosines(torch, [got.reshape(-1, got.shape[-1])],
+                              [want.reshape(-1, want.shape[-1])])
+                print(f"phase 13b: forward_full logits TP 2 vs TP 1 from "
+                      f"the checkpoint: smallest row cosine {cos:.6f} (at "
+                      f"least {TP_COS_MIN}) [{gpu}]")
+                check(cos >= TP_COS_MIN, f"13b: TP 2 cosine {cos:.6f}")
+                del want, got
+                rng = np.random.default_rng(12)
+                prompts = [[int(t) for t in rng.integers(
+                    3, cfg.vocab_size, size=n)]
+                    for n in rng.integers(64, 513, size=16)]
+                ref_ids, _, ref_ttft, ref_tok, eng = tp_engine_run(
+                    torch, st, None, one, prompts,
+                    f"checkpoint Llama-3-8B ({layers} layers) TP 1",
+                    {"decode_path": "pallas"},
+                    {"flash_prefill": "flash_prefill_attention",
+                     "paged_attn": "paged_decode_attention_pallas"})
+                del eng
+                kernels = {"flash_prefill_h16kv4": "flash_prefill_attention",
+                           "paged_attn_h16kv4":
+                               "paged_decode_attention_pallas"}
+                ids, per_rank, ttft, tok_s, eng = tp_engine_run(
+                    torch, st, mesh, two, prompts,
+                    f"checkpoint Llama-3-8B ({layers} layers) "
+                    f"{mesh_label(mesh)}", {}, kernels)
+                check((eng.prefill_path, eng.decode_path)
+                      == ("flash", "pallas"),
+                      f"13b: paths {eng.prefill_path}/{eng.decode_path}")
+                same = sum(a == b for a, b in zip(ids, ref_ids))
+                check(same >= TP_IDS_MIN_SHARE * len(prompts),
+                      f"13b: only {same} of {len(prompts)} id sequences "
+                      "equal TP 1's")
+                phases = eng.profile_decode_phases(reps=2)
+                share = phases["decode_collective_share"]
+                check(share == share and 0.0 <= share <= 1.0,
+                      f"13b: decode_collective_share {share}")
+                print(f"phase 13b: greedy ids TP 2 vs TP 1: {same} of "
+                      f"{len(prompts)} sequences equal (at least "
+                      f"{TP_IDS_MIN_SHARE:.0%}); ttft p50 "
+                      f"{ttft * 1e3:.1f} ms vs {ref_ttft * 1e3:.1f} ms, "
+                      f"decode {tok_s:.1f} vs {ref_tok:.1f} tok/s; B1 and "
+                      f"B3 launched per rank {per_rank}; all-reduce bus "
+                      f"rate at the decode payload "
+                      f"({eng._collective_payload()} B) "
+                      f"{eng.collective_bus_gbs:.3f} GB/s, wire "
+                      f"{eng._ring_wire_ms():.4f} ms a step, short-context "
+                      f"step {phases['decode_step_ms_short_ctx']:.3f} ms: "
+                      f"decode_collective_share {share:.4f}, hidden "
+                      f"{eng.decode_collective_hidden_share:.4f} [{gpu}]")
+                st["ckpt"].update(ttft=(ttft, ref_ttft), tok_s=(tok_s,
+                                                                ref_tok),
+                                  share=share, same=same)
+                del eng
+                gc.collect()
+            if "13c" in subs:
+                ckpt_tier_and_blobs(torch, np, st, mesh, two, one)
+            del one, two
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.monotonic()
+            mesh.close()
+            print(f"phase 13: {mesh_label(mesh)} closed in "
+                  f"{time.monotonic() - t0:.2f} s")
+            mesh = None
+            shutil.rmtree(path)
+        if "13d" in subs and cards >= 4:
+            per_layer = sum(int(np.prod(shape)) * 2 for key, (shape, _) in
+                            hf_shapes(dc.replace(QWEN2_72B, num_layers=1))
+                            .items() if ".layers." in key)
+            fixed = 2 * QWEN2_72B.vocab_size * QWEN2_72B.hidden_size * 2
+            room = shutil.disk_usage(tmp).free - (8 << 30) - fixed
+            layers = max(1, min(QWEN72_MAX_LAYERS, room // per_layer))
+            cfg = dc.replace(QWEN2_72B, num_layers=int(layers))
+            path = tmp / "qwen2-72b"
+            path.mkdir()
+            t0 = time.monotonic()
+            total = write_hf_checkpoint(torch, path, cfg, seed=72)
+            print(f"phase 13d: wrote Qwen2-72B at full width, {layers} of "
+                  f"80 layers (what the disk holds), as bf16 safetensors: "
+                  f"{total} B in {time.monotonic() - t0:.1f} s")
+            t0 = time.monotonic()
+            mesh = create_mesh(MeshConfig(model=4))
+            print(f"phase 13d: {mesh_label(mesh)}: mesh up in "
+                  f"{time.monotonic() - t0:.2f} s")
+            model, secs = timed_load(torch, path, mesh=mesh,
+                                     quantize=True)
+            print(f"phase 13d: TP 4 int8 load of Qwen2-72B ({layers} "
+                  f"layers): {secs:.2f} s, {total / 4 / secs / 1e9:.2f} "
+                  f"GB/s read a rank [{gpu}]")
+            logits = tp_logits(torch, np, model, cfg.vocab_size)
+            check(bool(torch.isfinite(logits).all()),
+                  "13d: non-finite logits")
+            del logits
+            rng = np.random.default_rng(13)
+            prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size,
+                                                     size=n)]
+                       for n in (40, 200, 513, 1000)]
+            kernels = {"flash_prefill_h16kv2": "flash_prefill_attention",
+                       "paged_attn_h16kv2": "paged_decode_attention_pallas"}
+            _, per_rank, ttft, tok_s, eng = tp_engine_run(
+                torch, st, mesh, model, prompts,
+                f"checkpoint Qwen2-72B int8 ({layers} layers) "
+                f"{mesh_label(mesh)}", {}, kernels)
+            st.setdefault("ckpt", {})["qwen72"] = (layers, ttft, tok_s)
+            del eng, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.monotonic()
+            mesh.close()
+            closed = time.monotonic() - t0
+            check(not any(p.is_alive() for p in mesh._procs),
+                  "13d: a worker outlived the close")
+            print(f"phase 13d: {mesh_label(mesh)} closed in {closed:.2f} s "
+                  f"(C1: under 5 s) [{gpu}]")
+            mesh = None
+        if "13e" in subs:
+            ckpt_preflight(torch, st)
+    finally:
+        if mesh is not None:
+            mesh.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
-                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+                    help="comma-separated phases to run (default: all); "
+                         "a sub-phase by name (12f, 13c) runs only that "
+                         "part of its phase")
     ap.add_argument("--only", choices=("flash_prefill", "fused_decode",
                                        "paged_attn"),
                     help="limit phases 1 and 4 to this kernel")
     args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",")}
+    phases, subs, whole = set(), {}, set()
+    for p in args.phases.split(","):
+        n = int(p.rstrip("abcdefgh"))
+        phases.add(n)
+        if p == str(n):
+            whole.add(n)
+        else:
+            subs.setdefault(n, set()).add(p)
+    subs = {n: v for n, v in subs.items() if n not in whole}
 
     import numpy as np
     import torch
@@ -5572,13 +6097,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    st: dict = {"only": args.only}
+    st: dict = {"only": args.only, "subs": subs}
     # Phases 8, 7, 10 and 11 before 6: they reuse phase 2's model, which
     # phase 6 frees; phase 9 on a card that holds no earlier model, then
     # phase 12's meshes.
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
                (4, phase4), (5, phase5), (7, phase7), (10, phase10),
-               (11, phase11), (6, phase6), (9, phase9), (12, phase12)]
+               (11, phase11), (6, phase6), (9, phase9), (12, phase12),
+               (13, phase13)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

@@ -26,8 +26,10 @@ template backend when that fails.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import http.client
+import io
 import json
 import logging
 import re
@@ -218,6 +220,34 @@ class TemplateBackend(LLMBackend):
             "each fix", 0.6)
 
 
+def _boot_preflight(tpu_cfg, quantize: str, ecfg: EngineConfig) -> None:
+    """The fit preflight (cmd/preflight.py) of ``llm.tpu`` before any
+    weight is built, warn-only (as the JAX backend's): its WARNs are
+    logged at info, a FAIL as a warning.  The workload is what the engine
+    holds of one sequence, ``max_blocks_per_seq * block_size`` tokens
+    (longer requests are cut at submit), so a FAIL means it cannot serve
+    even one engine-shaped request."""
+    from k8s_llm_monitor_tpu_torch.cmd.preflight import check
+
+    argv = ["--kv-blocks", str(tpu_cfg.kv_blocks), "--quantize", quantize,
+            "--block-size", str(ecfg.block_size),
+            "--prompt-len", str(ecfg.max_blocks_per_seq * ecfg.block_size),
+            "--max-tokens", "0"]
+    argv += (["--checkpoint", tpu_cfg.checkpoint] if tpu_cfg.checkpoint
+             else ["--model", tpu_cfg.model])
+    if tpu_cfg.mesh_shape:
+        argv += ["--mesh", tpu_cfg.mesh_shape]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, fails, warns = check(argv)
+    if warns:
+        logger.info("config preflight warnings: %s", "; ".join(warns))
+    if rc != 0:
+        logger.warning(
+            "config preflight FAILED (boot continues): %s - run `python -m "
+            "k8s_llm_monitor_tpu_torch.cmd.preflight` for the full report",
+            "; ".join(fails))
+
+
 class LocalEngineBackend(LLMBackend):
     """In-process inference through the port's continuous-batching engine.
 
@@ -395,12 +425,17 @@ class LocalEngineBackend(LLMBackend):
         (parallel/mesh.py): ranks 1..N-1 start here, one per card, over
         NCCL; ``mesh_backend="gloo"`` asks for gloo (ranks may share a
         card, collectives through host memory; the CPU's only backend).
-        Only the model axis is served, from random weights (a checkpoint
-        under a mesh, and ``data``/``seq`` > 1, raise naming ROADMAP A7b).
-        A rebuild on a broken mesh, or one whose workers do not answer,
-        builds a new mesh and the model on it again.  The workers stop
-        when the process exits (``backend.mesh.close()`` stops them
-        sooner).
+        Only the model axis is served (``data``/``seq`` > 1 raise naming
+        ROADMAP A7b).  Each rank loads its shard of a checkpoint (int8 and
+        W8A8 of the shard included) from the same directory.  A rebuild on
+        a broken mesh, or one whose workers do not answer, builds a new
+        mesh and the model on it again: the checkpoint's shards loaded
+        anew, or the preset from seed 0.  The workers stop when the
+        process exits (``backend.mesh.close()`` stops them sooner).
+
+        First the fit preflight (cmd/preflight.py, shapes only) runs on
+        the config at the engine's own geometry: a FAIL is logged as a
+        warning and boot goes on, as in the JAX backend.
         ``spec_k`` and ``spec_min_accept`` reach the engine as in the JAX
         backend.  ``tenancy.max_kv_share`` caps each tenant's share of the
         engine's prefix cache (``EngineConfig.kv_max_tenant_share``).  On
@@ -409,43 +444,52 @@ class LocalEngineBackend(LLMBackend):
         """
         qmode = getattr(tpu_cfg, "quantize", "")
         quantize = qmode in ("int8", "w8a8")
+        max_kv_share = (float(tenancy.max_kv_share)
+                        if tenancy is not None else 1.0)
+
+        def engine_config() -> EngineConfig:
+            return EngineConfig(max_slots=tpu_cfg.max_batch,
+                                num_blocks=tpu_cfg.kv_blocks,
+                                spec_k=tpu_cfg.spec_k,
+                                spec_min_accept=tpu_cfg.spec_min_accept,
+                                kv_max_tenant_share=max_kv_share)
+
+        _boot_preflight(tpu_cfg, qmode if quantize else "none",
+                        engine_config())
         device = llama.resolve_device(device)
         if device.type == "cuda":
             _build.build_all()
         mesh = None
         if tpu_cfg.mesh_shape:
-            if tpu_cfg.checkpoint:
-                raise NotImplementedError(
-                    "a checkpoint under llm.tpu.mesh_shape (each rank "
-                    "loading its shard) is ROADMAP A7b")
             mesh_cfg = parse_mesh_shape(tpu_cfg.mesh_shape)
             mesh = create_mesh(mesh_cfg, device=device, backend=mesh_backend)
             device = mesh.device
         if tpu_cfg.checkpoint:
             # int8 streams each tensor through host-side quantization: the
-            # device never holds the bf16 weights.
-            cfg, model = load_hf_checkpoint(tpu_cfg.checkpoint,
-                                            quantize=quantize, device=device)
-            tokenizer = load_tokenizer(tpu_cfg.checkpoint)
+            # device never holds the bf16 weights.  On a mesh every rank
+            # reads its own shard.
+            def make_model(on_mesh):
+                return load_hf_checkpoint(
+                    tpu_cfg.checkpoint, quantize=quantize, device=device,
+                    mesh=on_mesh, act_quant=qmode == "w8a8")[1]
+
         else:
-            cfg = PRESETS[tpu_cfg.model]
+            preset = PRESETS[tpu_cfg.model]
             if qmode == "w8a8":
                 # The workers build from this cfg: W8A8 goes in first.
-                cfg = dataclasses.replace(cfg, act_quant=True)
+                preset = dataclasses.replace(preset, act_quant=True)
 
             def make_model(on_mesh):
-                return (init_params_quantized(cfg, seed=0, device=device,
+                return (init_params_quantized(preset, seed=0, device=device,
                                               mesh=on_mesh)
                         if quantize else
-                        llama.LlamaModel(cfg, device=device, seed=0,
+                        llama.LlamaModel(preset, device=device, seed=0,
                                          mesh=on_mesh))
 
-            model = make_model(mesh)
-            tokenizer = load_tokenizer(None)
-        if qmode == "w8a8":
-            # int8 activations on the int8 weights; the forward passes read
-            # model.cfg.
-            cfg = model.cfg = dataclasses.replace(cfg, act_quant=True)
+        model = make_model(mesh)
+        tokenizer = load_tokenizer(tpu_cfg.checkpoint or None)
+        # The forward passes read model.cfg (W8A8 included).
+        cfg = model.cfg
         # Factory, not a single engine: the supervisor rebuilds through this
         # closure after a step-loop death, reusing the weights (which no
         # engine mutates) while the KV pool, allocator and slot table start
@@ -454,13 +498,12 @@ class LocalEngineBackend(LLMBackend):
         # built, and two pools at once would not fit a card sized for one.
         # On a mesh the weights are reused while the mesh is healthy; a
         # broken one (a worker gone, a call that failed after its send) is
-        # dropped, and the model is built from seed 0 on a new one.
+        # dropped, and the model is built again on a new one (the
+        # checkpoint's shards, or the preset from seed 0).
         built: list = []
         live = {"mesh": mesh, "model": model}
         if mesh is not None:
             atexit.register(lambda: live["mesh"].close())
-        max_kv_share = (float(tenancy.max_kv_share)
-                        if tenancy is not None else 1.0)
 
         def engine_factory() -> InferenceEngine:
             if built:
@@ -472,14 +515,8 @@ class LocalEngineBackend(LLMBackend):
                 live["mesh"] = create_mesh(mesh_cfg, device=device,
                                            backend=mesh_backend)
                 live["model"] = make_model(live["mesh"])
-            engine = InferenceEngine(
-                cfg, live["model"], EngineConfig(
-                    max_slots=tpu_cfg.max_batch,
-                    num_blocks=tpu_cfg.kv_blocks,
-                    spec_k=tpu_cfg.spec_k,
-                    spec_min_accept=tpu_cfg.spec_min_accept,
-                    kv_max_tenant_share=max_kv_share),
-                tokenizer=tokenizer, device=device)
+            engine = InferenceEngine(cfg, live["model"], engine_config(),
+                                     tokenizer=tokenizer, device=device)
             # Inside the factory: a rebuilt engine without the grammar
             # would refuse every constrained submit.
             cls._install_verdict_grammar(engine, tokenizer)

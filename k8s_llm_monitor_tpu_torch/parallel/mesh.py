@@ -42,11 +42,15 @@ Every later call raises ``MeshBroken``; the owner kills the workers and
 drops the process group (``abort``) and builds a new mesh.  Over NCCL a
 collective with a dead rank never ends, so rank 0 watches its workers and
 aborts the process group when one exits, which ends the kernels waiting on
-it; the engine reads nothing a call returned after that.
+it; the engine reads nothing a call returned after that.  The abort waits
+for the call of rank 0 that is launching (``Mesh.launching``) to return,
+unless that launch is itself held up behind the dead rank; the call
+raises ``MeshBroken`` once its launch returns.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import io
@@ -60,6 +64,9 @@ from typing import Any, Optional
 import torch
 
 AXES = ("data", "seq", "model")
+
+# The bytes of one message of a worker's state (``Mesh.worker_states``).
+_CHUNK = 8 << 20
 
 
 class MeshBroken(RuntimeError):
@@ -96,6 +103,10 @@ class Mesh:
     A mesh with ``model`` 1 has no process group and no workers: its
     collectives return their input."""
 
+    # How long the watcher waits for a launching call before it aborts
+    # the process group under it (``_worker_exited``).
+    LAUNCH_WAIT_S = 5.0
+
     def __init__(self, cfg: MeshConfig, rank: int, devices: list,
                  backend: str, conns=(), procs=()):
         self.config = cfg
@@ -114,10 +125,16 @@ class Mesh:
         # Why the ranks may no longer run the same calls (None: they do).
         self.broken: Optional[str] = None
         # Held by rank 0 while it talks to the workers and while it sends a
-        # call and runs its share; the watcher takes it to abort the
-        # process group between calls.
+        # call and runs its share.
         self._calls = threading.RLock()
+        # Rank 0's calls that are launching device work on the process
+        # group (``launching``); the watcher aborts the group only when
+        # none is.
+        self._launch_cv = threading.Condition()
+        self._launching = 0
         self._aborted = False
+        # The all-reduce's bus rate (GB/s) by payload bytes (``bus_gbs``).
+        self._bus_gbs: dict[int, float] = {}
         if self._procs:
             threading.Thread(target=self._watch, daemon=True,
                              name="mesh-watch").start()
@@ -199,6 +216,32 @@ class Mesh:
 
         return self._staged(run, x)
 
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank (``x`` gives the shape and dtype
+        on the others)."""
+        if self.tp == 1:
+            return x
+        import torch.distributed as dist
+
+        def run(t):
+            t = t.contiguous()
+            dist.broadcast(t, src=0)
+            return t
+
+        return self._staged(run, x)
+
+    def bus_gbs(self, nbytes: int, reps: int = 10) -> float:
+        """The all-reduce's bus rate over this mesh at a payload of
+        ``nbytes`` (GB/s: ``2 (tp - 1) / tp`` of the payload per rank over
+        the time of one all-reduce), measured with ``bench_all_reduce`` at
+        its first call for that size and kept.  Rank 0, between calls."""
+        if nbytes not in self._bus_gbs:
+            numel = max(nbytes // 2, 1)
+            ms = bench_all_reduce(self, numel, reps)
+            self._bus_gbs[nbytes] = (2.0 * (self.tp - 1) / self.tp * numel
+                                     * 2 / (ms * 1e-3) / 1e9)
+        return self._bus_gbs[nbytes]
+
     # -- the workers (rank 0) ----------------------------------------------
 
     def mark_broken(self, reason: str) -> None:
@@ -259,20 +302,56 @@ class Mesh:
                 out.append(payload)
             return out
 
+    @contextlib.contextmanager
+    def launching(self):
+        """Rank 0 launches device work on the process group inside this
+        block: the watcher does not abort the group until the block ends.
+        It raises ``MeshBroken`` on entry to a broken mesh, and on exit if
+        the mesh broke meanwhile (what the launch enqueued may meet an
+        aborted communicator: nothing it returns may be read)."""
+        with self._launch_cv:
+            if self.broken is not None:
+                raise MeshBroken(self.broken)
+            self._launching += 1
+        try:
+            yield
+        finally:
+            with self._launch_cv:
+                self._launching -= 1
+                self._launch_cv.notify_all()
+        if self.broken is not None:
+            raise MeshBroken(self.broken)
+
     def replay(self, msg: tuple, run):
         """Send device call ``msg`` to every worker, then return ``run()``,
-        rank 0's share of it.  Whatever raises after the send breaks the
-        mesh: the workers run the call and rank 0 did not."""
-        with self._calls:
+        rank 0's share of it, launched inside ``launching``.  Whatever
+        raises after the send breaks the mesh: the workers run the call
+        and rank 0 did not."""
+        with self._calls, self.launching():
             self.send(*msg)
             try:
                 return run()
             except BaseException as exc:
+                # A worker that died under the call is the cause (gloo's
+                # collective then fails on the dead peer's socket).
+                self._mark_exited()
                 self.mark_broken(f"rank 0's {msg[1]!r} call failed after "
                                  f"the workers were sent it: {exc!r}")
                 if not isinstance(exc, Exception):
                     raise
                 raise MeshBroken(self.broken) from exc
+
+    def _mark_exited(self, timeout: float = 1.0) -> None:
+        """Break the mesh for a worker that has exited, if one has or does
+        within ``timeout`` (a collective can fail on the dead peer's socket
+        before its process is gone; the process is not reaped here)."""
+        from multiprocessing.connection import wait
+
+        sentinels = [p.sentinel for p in self._procs]
+        ready = wait(sentinels, timeout=timeout)
+        if ready:
+            self.mark_broken(f"mesh rank {1 + sentinels.index(ready[0])} "
+                             "exited")
 
     def healthy(self, timeout: float = 60.0) -> bool:
         """True when every worker answers a ping within ``timeout`` (after
@@ -294,8 +373,23 @@ class Mesh:
         return True
 
     def worker_states(self) -> list[dict]:
-        """Each worker's parameters and buffers (CPU tensors), rank 1 on."""
-        return [torch.load(io.BytesIO(b)) for b in self.request("state")]
+        """Each worker's parameters and buffers (CPU tensors), rank 1 on.
+        The bytes come in chunks of ``_CHUNK``: a pipe's ``recv`` of one
+        message of gigabytes allocates the whole message again for every
+        read of the socket (a 2.8 GB state did not arrive in 800 s on the
+        H100 host)."""
+        with self._calls:
+            sizes = self.request("state")
+            out = []
+            for n, conn in zip(sizes, self._conns, strict=True):
+                buf = bytearray(n)
+                off = 0
+                while off < n:
+                    chunk = conn.recv_bytes()
+                    buf[off:off + len(chunk)] = chunk
+                    off += len(chunk)
+                out.append(torch.load(io.BytesIO(buf)))
+            return out
 
     def sync(self) -> None:
         """Wait until every worker has run what it was sent."""
@@ -303,18 +397,28 @@ class Mesh:
 
     def build_on_workers(self, builder: str, *args, **kwargs) -> int:
         """Have every worker build its shard of a model with ``builder``
-        (a name of ``_BUILDERS``) on ``args``; returns the model's token."""
+        (a name of ``_builders()``, or ``"quantize"``: the int8 twin of
+        the model it holds) on ``args``, rank 0 having built its own;
+        returns the model's token."""
         self.send("build", builder, args, kwargs)
+        return self._new_model()
+
+    def build_alongside(self, run, builder: str, *args, **kwargs):
+        """``build_on_workers``, then ``run()``, rank 0's own build, as a
+        replayed call (the ranks' builds meet in their collectives; a
+        ``run`` that raises breaks the mesh).  Returns (the model's token,
+        what ``run`` returned)."""
+        out = self.replay(("build", builder, args, kwargs), run)
+        return self._new_model(), out
+
+    def _new_model(self) -> int:
         self.model_token += 1
         self.engine_token += 1
         return self.model_token
 
     def _watch(self) -> None:
         """Rank 0's watcher: when a worker exits before ``close``, break
-        the mesh; over NCCL also abort the process group, which ends the
-        collectives waiting on the dead rank (gloo's raise by themselves).
-        It waits for the call in progress to be sent and launched, at most
-        5 s: a call that holds the mesh longer waits on the dead rank."""
+        the mesh (``_worker_exited``)."""
         from multiprocessing.connection import wait
 
         ended = wait([p.sentinel for p in self._procs])
@@ -322,13 +426,24 @@ class Mesh:
             return
         r = 1 + [p.sentinel for p in self._procs].index(ended[0])
         self._procs[r - 1].join(timeout=1.0)
-        self.mark_broken(f"mesh rank {r} exited (code "
-                         f"{self._procs[r - 1].exitcode})")
-        if self.backend == "nccl":
-            held = self._calls.acquire(timeout=5.0)
+        self._worker_exited(r, self._procs[r - 1].exitcode)
+
+    def _worker_exited(self, r: int, code) -> None:
+        """Break the mesh for worker ``r``'s exit; over NCCL also abort the
+        process group, which ends the collectives waiting on the dead rank
+        (gloo's raise by themselves).  The broken mark comes first, so no
+        call starts a launch after it; the abort then waits until the call
+        that is launching (``launching``) returns, at most
+        ``LAUNCH_WAIT_S``: a launch that has not returned by then is held
+        by a full queue of kernels behind the dead rank's collective,
+        which only the abort ends (it then raises ``MeshBroken``)."""
+        with self._launch_cv:
+            self.mark_broken(f"mesh rank {r} exited (code {code})")
+            if self.backend != "nccl":
+                return
+            self._launch_cv.wait_for(lambda: not self._launching,
+                                     timeout=self.LAUNCH_WAIT_S)
             self._abort_group()
-            if held:
-                self._calls.release()
 
     def _abort_group(self) -> None:
         """Leave the process group without a word to the other ranks (each
@@ -336,9 +451,10 @@ class Mesh:
         import torch.distributed as dist
         from torch.distributed.distributed_c10d import _abort_process_group
 
-        if not self._aborted and self.tp > 1 and dist.is_initialized():
-            self._aborted = True
-            _abort_process_group()
+        with self._launch_cv:   # the watcher and abort() may race here
+            if not self._aborted and self.tp > 1 and dist.is_initialized():
+                self._aborted = True
+                _abort_process_group()
 
     def abort(self) -> None:
         """Drop a broken mesh: kill the workers and leave the process
@@ -353,8 +469,9 @@ class Mesh:
     def close(self) -> None:
         """Stop the workers and leave the process group.  Every worker
         first answers a ping (so no rank is inside a collective), then
-        every rank leaves on its own; a mesh that cannot get there is
-        aborted."""
+        leaves the group on its own and exits; rank 0 joins them and leaves
+        last, so the store it hosts (``create_mesh``) outlives every
+        worker's leave.  A mesh that cannot get there is aborted."""
         if self.closed:
             return
         if not self.healthy():
@@ -368,12 +485,12 @@ class Mesh:
                 pass    # exited since the ping: joined below
         if self.tp > 1 and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self._abort_group()
         for p in self._procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
                 p.join()
+        self._abort_group()
 
 
 def bench_all_reduce(mesh: Mesh, numel: int, reps: int) -> float:
@@ -500,10 +617,11 @@ def _builders() -> dict:
     ``device=``)."""
     from k8s_llm_monitor_tpu_torch.convert import params_from_jax
     from k8s_llm_monitor_tpu_torch.models.llama import LlamaModel
+    from k8s_llm_monitor_tpu_torch.utils.checkpoint import load_hf_shard
     from k8s_llm_monitor_tpu_torch.utils.quantize import init_params_quantized
 
     return {"llama": LlamaModel, "quantized": init_params_quantized,
-            "jax": params_from_jax}
+            "jax": params_from_jax, "checkpoint": load_hf_shard}
 
 
 class _HostRing:
@@ -557,7 +675,10 @@ def _worker_main(cfg: MeshConfig, rank: int, devices: list, backend: str,
         except OSError:
             pass
         os._exit(1)
+    # Leave while rank 0 (the store's host) waits in close(), then exit
+    # without the interpreter's teardown, which has nothing left to do.
     mesh._abort_group()
+    os._exit(0)
 
 
 def _serve(mesh: Mesh, conn) -> None:
@@ -577,9 +698,17 @@ def _serve(mesh: Mesh, conn) -> None:
             return
         if kind == "build":
             _, name, args, kwargs = msg
-            engine = model = None
-            model = _builders()[name](*args, **dict(kwargs, mesh=mesh,
-                                                    device=mesh.device))
+            engine = None
+            if name == "quantize":
+                # The int8 twin of the model this worker holds.
+                from k8s_llm_monitor_tpu_torch.utils.quantize import (
+                    quantize_params)
+
+                model = quantize_params(model)
+            else:
+                model = None
+                model = _builders()[name](*args, **dict(
+                    kwargs, mesh=mesh, device=mesh.device))
         elif kind == "engine":
             _, kwargs, env = msg
             for key, val in env.items():
@@ -609,7 +738,10 @@ def _serve(mesh: Mesh, conn) -> None:
             torch.save({k: v.detach().cpu() for k, v in
                         list(model.named_parameters())
                         + list(model.named_buffers())}, buf)
-            conn.send(("ok", buf.getvalue()))
+            raw = buf.getbuffer()
+            conn.send(("ok", len(raw)))
+            for i in range(0, len(raw), _CHUNK):
+                conn.send_bytes(raw[i:i + _CHUNK])
         elif kind == "launches":
             from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 

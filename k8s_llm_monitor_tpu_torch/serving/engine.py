@@ -114,7 +114,11 @@ block.
     ``tp_overlap`` "on" swaps the decode step's all-reduces for the
     reduce-scatter / all-gather schedule (parallel/overlap.py).  Under
     gloo the decode programs run eagerly (``decode_graphs`` False).  The
-    host tier and KVX1 export/install raise under a mesh (ROADMAP A7b).
+    host tier and KVX1 blobs hold whole rows (every kv head): a spill or
+    an export gathers the ranks' page slices, a restore or an install
+    broadcasts the rows and each rank writes its slice.  The decode
+    collective shares use the all-reduce's bus rate measured on the mesh
+    at this engine's payload (``Mesh.bus_gbs``).
     A call that raises on this rank after the workers were sent it, or a
     worker that fails or exits, breaks the mesh: the step raises
     ``MeshBroken`` (no retry), and the supervisor's factory builds a new
@@ -129,6 +133,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from collections import deque
@@ -154,6 +159,7 @@ from k8s_llm_monitor_tpu_torch.parallel.overlap import (
     overlap_decode_step,
     overlap_supported,
 )
+from k8s_llm_monitor_tpu_torch.parallel.sharding import kv_sharded
 from k8s_llm_monitor_tpu_torch.ops.sampling import (
     fsm_advance,
     fsm_mask_logits,
@@ -814,11 +820,6 @@ class InferenceEngine:
                     f"this (cfg, mesh): {why_not}")
         self._decode_step = (overlap_decode_step if self.tp_overlap
                              else llama.decode_step)
-        if self.tp > 1 and (host_kv_tier is not None
-                            or ec.host_spill_bytes > 0):
-            raise NotImplementedError(
-                "the host KV tier under a mesh (each rank's page slice) is "
-                "ROADMAP A7b")
         self.pages = llama.init_kv_pages(cfg, ec.num_blocks, ec.block_size,
                                          self.device,
                                          model.dtype,
@@ -974,14 +975,24 @@ class InferenceEngine:
         # cost, set by profile_decode_phases() only.
         # decode_collective_share and decode_collective_hidden_share (the
         # collectives' share of a decode step, and the share of it the
-        # overlap schedule hides): 0.0 off a mesh; NaN on one, where
-        # neither is measured (no all-reduce rate of the card is known).
+        # overlap schedule hides): 0.0 off a mesh; on one the share is
+        # filled by profile_decode_phases(), as in the JAX engine, and the
+        # hidden share stays 0.0 (the port's collectives block the stream,
+        # so the overlap schedule hides nothing).
         self.decode_host_gap_ms = 0.0
         self.decode_attn_ms = 0.0
         self.decode_sample_ms = 0.0
-        self.decode_collective_share = (
-            float("nan") if self.tp > 1 else 0.0)
-        self.decode_collective_hidden_share = self.decode_collective_share
+        self.decode_collective_share = 0.0
+        self.decode_collective_hidden_share = 0.0
+        # The all-reduce's bus rate (GB/s) on the mesh at this engine's
+        # decode payload, measured below (rank 0 only; 0.0 off a mesh).
+        self.collective_bus_gbs = 0.0
+        # Whether the pages split on kv-head boundaries (a spill or an
+        # install then gathers or scatters the ranks' slices).
+        self._kv_sharded = self.tp > 1 and kv_sharded(cfg.num_kv_heads,
+                                                      self.tp)
+        # The host rows an install or a restore hands to _op_write_rows.
+        self._rows_in: Optional[np.ndarray] = None
         # Request-lifecycle histograms per SLO class, with exemplar trace
         # ids, observed on the step thread only.
         _lat = (0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
@@ -1010,6 +1021,7 @@ class InferenceEngine:
                       {k: os.environ.get(k) for k in _ENV_OVERRIDES})
             mesh.engine_token += 1
             self._mesh_token = mesh.engine_token
+            self.collective_bus_gbs = mesh.bus_gbs(self._collective_payload())
 
     # ------------------------------------------------------------------
     # device calls (replayed on a mesh's workers)
@@ -1858,54 +1870,105 @@ class InferenceEngine:
             return list(zip(p.k, p.v, p.k_scale, p.v_scale))
         return list(zip(p.k, p.v))
 
+    def _row_shape(self, a: torch.Tensor) -> tuple[int, ...]:
+        """The shape of one block's rows of pool tensor ``a`` with every kv
+        head (a rank's slice of sharded pages widened ``tp`` times)."""
+        return (*a.shape[1:-1], a.shape[-1] * (self.tp if self._kv_sharded
+                                               else 1))
+
     def _fetch_rows(self, blocks: list[int]) -> SpilledPrefix:
-        """The page rows of ``blocks`` on the host: one gather of every
-        leaf's rows as bytes on the device, then one copy to the host,
+        """The page rows of ``blocks`` on the host, every kv head: one
+        gather of every leaf's rows as bytes on the device (on a mesh with
+        sharded pages, of the ranks' slices), then one copy to the host,
         which waits for the engine's stream (the price of demotion, as in
         the JAX engine).  bf16 and fp8 rows are held as their bytes."""
         k = len(blocks)
-        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        leaves = self._leaves()
-        parts = [a[idx].reshape(-1).view(torch.uint8)
-                 for leaf in leaves for a in leaf]
-        host = torch.cat(parts).cpu().numpy()
+        idx = np.asarray(blocks, np.int64)
+        host = (self._device("fetch_rows", idx) if self._kv_sharded
+                else self._op_fetch_rows(idx))
         layers: list[tuple[np.ndarray, ...]] = []
         off = 0
-        for leaf in leaves:
+        for leaf in self._leaves():
             arrs = []
             for a in leaf:
-                n = k * a[0].numel() * a.element_size()
+                shape = self._row_shape(a)
+                n = k * math.prod(shape) * a.element_size()
                 arrs.append(host[off:off + n].view(_HOST_DTYPE[a.dtype])
-                            .reshape(k, *a.shape[1:]))
+                            .reshape(k, *shape))
                 off += n
             layers.append(tuple(arrs))
         return SpilledPrefix(n_blocks=k, layers=layers)
 
-    def _write_rows(self, blocks: list[int], layers: list[tuple]) -> None:
-        """Write host rows back into the pool at ``blocks``, in place
-        through byte views (torch has no ``index_copy_`` for fp8 on the
-        CPU): the pool keeps its addresses, so the decode and spec CUDA
-        graphs stay valid.  On the card the rows go through pinned memory
-        with ``non_blocking`` copies, queued on the engine's stream before
-        the prefill or chunk call that reads them; block 0, the null
-        block, is never among ``blocks``."""
+    def _op_fetch_rows(self, blocks: np.ndarray) -> Optional[np.ndarray]:
+        """Every leaf's rows at ``blocks`` as one byte vector, leaf by
+        leaf, each [k, ..., every kv head's lanes]: on a mesh with sharded
+        pages the ranks' slices are all-gathered and joined on the lane
+        dim in rank order.  The host copy on rank 0 (None on a worker)."""
         k = len(blocks)
+        idx = torch.from_numpy(blocks).to(self.device)
+        leaves = [a for leaf in self._leaves() for a in leaf]
+        mine = torch.cat([a[idx].reshape(-1).view(torch.uint8)
+                          for a in leaves])
+        if self._kv_sharded:
+            ranks = self.mesh.all_gather(mine).view(self.tp, -1)
+            parts, off = [], 0
+            for a in leaves:
+                n = k * a[0].numel() * a.element_size()
+                rows = ranks[:, off:off + n].reshape(
+                    self.tp, k, *a.shape[1:-1],
+                    a.shape[-1] * a.element_size())
+                parts.append(torch.cat(rows.unbind(0), dim=-1).reshape(-1))
+                off += n
+            mine = torch.cat(parts)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
+        return mine.cpu().numpy()
+
+    def _write_rows(self, blocks: list[int], layers: list[tuple]) -> None:
+        """Write host rows (every kv head) back into the pool at
+        ``blocks``, in place through byte views (torch has no
+        ``index_copy_`` for fp8 on the CPU): the pool keeps its addresses,
+        so the decode and spec CUDA graphs stay valid.  On the card the
+        rows go through pinned memory with ``non_blocking`` copies, queued
+        on the engine's stream before the prefill or chunk call that reads
+        them; on a mesh they are broadcast from rank 0 and each rank
+        writes its slice.  Block 0, the null block, is never among
+        ``blocks``."""
         host = np.concatenate([np.ascontiguousarray(a).reshape(-1)
                                .view(np.uint8)
                                for leaf in layers for a in leaf])
-        h_rows = torch.from_numpy(host)
-        h_idx = torch.tensor(blocks, dtype=torch.long)
-        if self.device.type == "cuda":
-            h_rows = h_rows.pin_memory()
-            h_idx = h_idx.pin_memory()
-        rows = h_rows.to(self.device, non_blocking=True)
+        self._rows_in = host
+        try:
+            self._device("write_rows", np.asarray(blocks, np.int64),
+                         host.size)
+        finally:
+            self._rows_in = None
+
+    def _op_write_rows(self, blocks: np.ndarray, nbytes: int) -> None:
+        k = len(blocks)
+        h_idx = torch.from_numpy(blocks)
+        if self._rows_in is not None:
+            h_rows = torch.from_numpy(self._rows_in)
+            if self.device.type == "cuda":
+                h_rows = h_rows.pin_memory()
+                h_idx = h_idx.pin_memory()
+            rows = h_rows.to(self.device, non_blocking=True)
+        else:   # a worker: rank 0 broadcasts the rows
+            rows = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
         idx = h_idx.to(self.device, non_blocking=True)
+        if self.tp > 1:
+            rows = self.mesh.broadcast(rows)
         off = 0
         for leaf in self._leaves():
             for a in leaf:
                 dst = a.view(torch.uint8)
-                n = k * dst[0].numel()
-                dst[idx] = rows[off:off + n].view(k, *dst.shape[1:])
+                width = dst.shape[-1]
+                full = width * (self.tp if self._kv_sharded else 1)
+                n = k * dst[0].numel() // width * full
+                src = rows[off:off + n].view(k, *dst.shape[1:-1], full)
+                if full != width:
+                    src = src.narrow(-1, self.mesh.rank * width, width)
+                dst[idx] = src
                 off += n
 
     def _try_restore(self, prompt_ids: list[int], shared: list[int],
@@ -1974,12 +2037,6 @@ class InferenceEngine:
             "page_dtype": _page_dtype_name(self._page_dtype),
         }
 
-    def _no_mesh_blobs(self) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(
-                "KVX1 export/install under a mesh (each rank's page slice) "
-                "is ROADMAP A7b")
-
     def export_prefix(self, prompt_ids: list[int], *,
                       tenant: str = DEFAULT_TENANT) -> Optional[bytes]:
         """Frame the longest cached prefix of ``prompt_ids`` (within
@@ -1987,8 +2044,9 @@ class InferenceEngine:
         leaves as raw bytes in the JAX engine's order, so either package's
         engine installs it.  None on a miss.  The lookup's references pin
         the blocks for the fetch, then go: export never changes what the
-        cache holds."""
-        self._no_mesh_blobs()
+        cache holds.  Each leaf holds every kv head (a mesh's ranks'
+        slices gathered), so a blob moves between engines of any TP
+        degree."""
         pc = self.prefix_cache
         if pc is None:
             return None
@@ -2016,7 +2074,6 @@ class InferenceEngine:
         another namespace; the pages are refused unseen) or ``"nospace"``.
         Framing or CRC damage raises :class:`BlobError`: a torn transfer
         is a miss, never a partial install."""
-        self._no_mesh_blobs()
         meta, raw = unpack_prefix_blob(blob)
         geo = self._kv_geometry()
         if any(meta.get(key) != geo[key] for key in geo):
@@ -2051,7 +2108,7 @@ class InferenceEngine:
             for leaf in leaves:
                 layers.append(tuple(
                     np.frombuffer(next(it), _HOST_DTYPE[a.dtype])
-                    .reshape(k, *a.shape[1:]) for a in leaf))
+                    .reshape(k, *self._row_shape(a)) for a in leaf))
         except ValueError as e:
             raise BlobError(f"ARRAY record does not match geometry: {e}") from e
         if not self._ensure_free(k * bs):
@@ -2498,8 +2555,9 @@ class InferenceEngine:
         ``copy_``, before each run; the steps append garbage rows into ``self.pages``, so
         this runs only on an IDLE engine (it raises otherwise), never on a
         /metrics scrape.  Times are CUDA events on the card, the host clock
-        elsewhere.  Returns all four figures and the collective share (0.0
-        off a mesh, NaN on one: not measured)."""
+        elsewhere.  Returns all four figures and the collective share (the
+        byte model of ``_ring_wire_ms`` over the short-context step; 0.0
+        off a mesh)."""
         if self._inflight or any(s is not None for s in self._slots):
             raise RuntimeError(
                 "profile_decode_phases() requires an idle engine "
@@ -2547,6 +2605,7 @@ class InferenceEngine:
         self._device("zero_tok")
         self.decode_attn_ms = max(t_hi - t_lo, 0.0)
         self.decode_sample_ms = max(t_samp - t_lo, 0.0)
+        self.decode_collective_share = self._estimate_collective_share(t_lo)
         return {
             "decode_step_ms_short_ctx": t_lo,
             "decode_step_ms_long_ctx": t_hi,
@@ -2554,6 +2613,32 @@ class InferenceEngine:
             "decode_sample_ms": self.decode_sample_ms,
             "decode_collective_share": self.decode_collective_share,
         }
+
+    def _collective_payload(self) -> int:
+        """Bytes of one decode all-reduce: a [max_slots, hidden]
+        activation."""
+        act_bytes = 4 if self.cfg.dtype == "float32" else 2
+        return self.ecfg.max_slots * self.cfg.hidden_size * act_bytes
+
+    def _ring_wire_ms(self) -> float:
+        """Per-step wire time of the TP decode collectives (the JAX
+        engine's byte model, ms): row-parallel o and down each move
+        ``2 (tp - 1) / tp`` of a [max_slots, hidden] activation per rank
+        per layer, over the all-reduce's bus rate measured on this mesh at
+        that payload (``collective_bus_gbs``).  0.0 off a mesh."""
+        if self.tp <= 1 or self.collective_bus_gbs <= 0.0:
+            return 0.0
+        per_rank = (2 * self.cfg.num_layers * 2.0 * (self.tp - 1) / self.tp
+                    * self._collective_payload())
+        return per_rank / (self.collective_bus_gbs * 1e9) * 1e3
+
+    def _estimate_collective_share(self, step_ms: float) -> float:
+        """``decode_collective_share``: the wire time's share of a decode
+        step of ``step_ms``, in [0, 1] (0.0 off a mesh)."""
+        wire_ms = self._ring_wire_ms()
+        if wire_ms <= 0.0 or step_ms <= 0.0:
+            return 0.0
+        return min(1.0, wire_ms / step_ms)
 
     def mesh_axes(self) -> dict[str, int]:
         """{axis: size} of the serving mesh ({} off a mesh): the exporter's

@@ -14,6 +14,7 @@ tensors, which numpy cannot hold, arrive as torch tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import mmap
 import pathlib
@@ -25,6 +26,8 @@ import torch
 
 from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
 from k8s_llm_monitor_tpu_torch.models.llama import LlamaModel
+from k8s_llm_monitor_tpu_torch.parallel.sharding import (
+    param_partition_specs, shard_tensor)
 
 _DTYPES = {"F32": torch.float32, "F16": torch.float16,
            "BF16": torch.bfloat16, "I8": torch.int8}
@@ -93,48 +96,64 @@ def _tensor(x) -> torch.Tensor:
 @torch.no_grad()
 def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
                           dtype: Optional[str] = None, quantize: bool = False,
-                          device=None) -> LlamaModel:
+                          device=None, mesh=None) -> LlamaModel:
     """Fill a ``LlamaModel`` on ``device`` (default ``cuda``) from a HF
     Llama/Mistral/Qwen2 state dict (torch tensors or numpy arrays), tensor
     by tensor.
 
     ``dtype`` (a torch dtype name, default ``cfg.dtype``) is the model's.
     With ``quantize=True`` every linear and the embedding are int8: each
-    tensor is quantized on the host (``utils/quantize.quantize_array`` over
-    its ``in`` axis) before it moves to the device, so the device never
-    holds the bf16 weights.  A checkpoint without ``lm_head.weight`` whose
-    config does not tie the embeddings takes the embedding as its head.
+    tensor is quantized on the host (``utils/quantize.fill_quantized``
+    over its ``in`` axis) before it moves to the device, so the device
+    never holds the bf16 weights.  A checkpoint without ``lm_head.weight``
+    whose config does not tie the embeddings takes the embedding as its
+    head.
+
+    ``mesh``: the rank's shard (parallel/sharding.py's specs).  Each
+    tensor is sliced on the host before it is read (a view of the mapped
+    file: column-parallel rows, row-parallel columns), so only the rank's
+    bytes reach its device; int8 of a row-parallel weight takes its row
+    scales over every rank's columns (a MAX all-reduce).  Every rank
+    runs it on the same checkpoint.
     """
     from k8s_llm_monitor_tpu_torch.utils.quantize import fill_quantized
 
     dt = getattr(torch, dtype) if dtype else cfg.torch_dtype
     model = LlamaModel(cfg, device=device, dtype=dt, seed=None,
-                       quantized=quantize)
+                       quantized=quantize, mesh=mesh)
+    specs = param_partition_specs(model)
 
-    def weight(dst, key: str) -> None:
-        w = _tensor(state[key])
+    def piece(name: str, key: str) -> torch.Tensor:
+        return shard_tensor(_tensor(state[key]), specs[name], model.rank,
+                            model.tp)
+
+    def weight(name: str, key: str, row: bool = False) -> None:
+        dst = model.get_submodule(name)
         if quantize:
-            fill_quantized(dst.weight_q, dst.scale, w.float().numpy())
+            fill_quantized(dst.weight_q, dst.scale,
+                           piece(name + ".weight_q", key).float().numpy(),
+                           mesh=model.mesh if row else None)
         else:
-            dst.weight.copy_(w)
+            dst.weight.copy_(piece(name + ".weight", key))
 
-    def vector(dst: torch.Tensor, key: str) -> None:
-        dst.copy_(_tensor(state[key]))
+    def vector(name: str, key: str) -> None:
+        model.get_parameter(name).copy_(piece(name, key))
 
-    weight(model.embed, "model.embed_tokens.weight")
-    vector(model.final_norm, "model.norm.weight")
+    weight("embed", "model.embed_tokens.weight")
+    vector("final_norm", "model.norm.weight")
     if model.lm_head is not None:
-        weight(model.lm_head, "lm_head.weight" if "lm_head.weight" in state
+        weight("lm_head", "lm_head.weight" if "lm_head.weight" in state
                else "model.embed_tokens.weight")
     for i, layer in enumerate(model.layers):
-        pre = f"model.layers.{i}."
-        vector(layer.input_norm, pre + "input_layernorm.weight")
-        vector(layer.post_norm, pre + "post_attention_layernorm.weight")
-        for ours, theirs in _LINEAR_MAP.items():
-            lin = getattr(layer, ours)
-            weight(lin, f"{pre}{theirs}.weight")
-            if lin.bias is not None and f"{pre}{theirs}.bias" in state:
-                vector(lin.bias, f"{pre}{theirs}.bias")
+        pre, ours = f"model.layers.{i}.", f"layers.{i}."
+        vector(ours + "input_norm", pre + "input_layernorm.weight")
+        vector(ours + "post_norm", pre + "post_attention_layernorm.weight")
+        for name, theirs in _LINEAR_MAP.items():
+            weight(ours + name, f"{pre}{theirs}.weight",
+                   row=name in ("o", "down"))
+            if (getattr(layer, name).bias is not None
+                    and f"{pre}{theirs}.bias" in state):
+                vector(f"{ours}{name}.bias", f"{pre}{theirs}.bias")
     return model
 
 
@@ -212,19 +231,44 @@ class _SafetensorsDict(Mapping[str, torch.Tensor]):
 
 def load_hf_checkpoint(model_dir: str | pathlib.Path,
                        dtype: Optional[str] = None, quantize: bool = False,
-                       device=None) -> tuple[ModelConfig, LlamaModel]:
+                       device=None, mesh=None, act_quant: bool = False
+                       ) -> tuple[ModelConfig, LlamaModel]:
     """Load a HF-format model directory (config.json + safetensors) onto
     ``device`` (default ``cuda``).  ``quantize=True`` streams each tensor
     through host-side int8 quantization (``convert_hf_state_dict``): the
-    device holds only the int8 weights."""
+    device holds only the int8 weights; ``act_quant`` (W8A8, int8 weights
+    only) goes into the config before the model is built.
+
+    ``mesh`` (parallel/mesh.py) loads the rank's shard; on rank 0 every
+    worker is sent the same load first and reads its own shard from the
+    same directory (no weight crosses the pipe to it)."""
+    model_dir = pathlib.Path(model_dir)
+    if mesh is not None and mesh.is_leader:
+        run = lambda: load_hf_shard(model_dir, dtype, quantize, act_quant,  # noqa: E731
+                                    mesh=mesh, device=device)
+        token, model = mesh.build_alongside(
+            run, "checkpoint", str(model_dir), dtype, quantize, act_quant)
+        model.mesh_token = token
+        return model.cfg, model
+    model = load_hf_shard(model_dir, dtype, quantize, act_quant, mesh=mesh,
+                          device=device)
+    return model.cfg, model
+
+
+def load_hf_shard(model_dir: str | pathlib.Path, dtype: Optional[str] = None,
+                  quantize: bool = False, act_quant: bool = False, *,
+                  mesh=None, device=None) -> LlamaModel:
+    """This rank's model of ``load_hf_checkpoint`` (a mesh worker's
+    builder)."""
     model_dir = pathlib.Path(model_dir)
     hf_cfg = json.loads((model_dir / "config.json").read_text())
     cfg = config_from_hf(hf_cfg, name=model_dir.name)
-    if dtype:
-        cfg = ModelConfig(**{**cfg.__dict__, "dtype": dtype})
+    if dtype or act_quant:
+        cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype,
+                                  act_quant=act_quant)
     state = _SafetensorsDict(model_dir)
-    return cfg, convert_hf_state_dict(state, cfg, dtype=dtype,
-                                      quantize=quantize, device=device)
+    return convert_hf_state_dict(state, cfg, dtype=dtype, quantize=quantize,
+                                 device=device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

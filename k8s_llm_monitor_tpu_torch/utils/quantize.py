@@ -44,29 +44,49 @@ def _host_f32(t: torch.Tensor) -> np.ndarray:
 
 @torch.no_grad()
 def fill_quantized(codes: torch.Tensor, scale: torch.Tensor,
-                   w: np.ndarray) -> None:
-    """Quantize ``w`` [rows, cols] (float32, host) per row with
-    ``quantize_array`` and copy the codes and scales into ``codes`` and
-    ``scale`` (on any device)."""
-    w_q, s = quantize_array(w, axis=1)
-    codes.copy_(torch.from_numpy(w_q))
+                   w: np.ndarray, mesh=None) -> None:
+    """Quantize ``w`` [rows, cols] (float32, host) per row as
+    ``quantize_array(w, axis=1)`` does and copy the codes and scales into
+    ``codes`` and ``scale`` (on any device).
+
+    ``mesh``: ``w`` is the rank's slice of the columns of a row-parallel
+    weight (o, down), whose row scale spans every rank's columns.  Each
+    rank's amax is reduced by a MAX all-reduce (max is exact in any order,
+    and the vector is small), so the scale and the codes equal those of
+    the whole row, bit for bit.  Every rank of the mesh calls it for the
+    same weights in the same order."""
+    w = np.asarray(w, np.float32)
+    amax = np.max(np.abs(w), axis=1)
+    if mesh is not None:
+        amax = mesh.all_reduce(torch.from_numpy(amax).to(mesh.device),
+                               "max").cpu().numpy()
+    s = np.maximum(amax / 127.0, _EPS).astype(np.float32)
+    codes.copy_(torch.from_numpy(np.rint(w / s[:, None]).astype(np.int8)))
     scale.copy_(torch.from_numpy(s))
 
 
-@torch.no_grad()
 def quantize_params(model: LlamaModel) -> LlamaModel:
     """The int8 twin of ``model`` on its device: every linear and the
-    embedding quantized on the host (``quantize_array``, so the codes and
-    scales equal the JAX package's bit for bit); norms and biases copied
-    in the model dtype.  One rank's model only: a mesh's shards quantize
-    from the full tensors (``convert.params_from_jax`` of a quantized
-    tree, ``init_params_quantized``)."""
-    if model.mesh is not None:
-        raise NotImplementedError(
-            "quantize_params of a mesh's shard (ROADMAP A7b): a row-parallel "
-            "weight's scale spans every rank's slice")
+    embedding quantized on the host (``quantize_array``'s scheme, so the
+    codes and scales equal the JAX package's bit for bit); norms and
+    biases copied in the model dtype.  Of a mesh's shard, each rank
+    quantizes its slice (a row-parallel weight's scales through a MAX
+    all-reduce, ``fill_quantized``): the codes and scales are the TP-1
+    twin's sliced.  On rank 0 the workers quantize theirs alongside."""
+    mesh = model.mesh
+    if mesh is not None and mesh.is_leader:
+        model.check_current()
+        token, q = mesh.build_alongside(lambda: _quantized(model),
+                                        "quantize")
+        q.mesh_token = token
+        return q
+    return _quantized(model)
+
+
+@torch.no_grad()
+def _quantized(model: LlamaModel) -> LlamaModel:
     q = LlamaModel(model.cfg, device=model.device, dtype=model.dtype,
-                   seed=None, quantized=True)
+                   seed=None, quantized=True, mesh=model.mesh)
     fill_quantized(q.embed.weight_q, q.embed.scale,
                    _host_f32(model.embed.weight))
     q.final_norm.copy_(model.final_norm)
@@ -76,8 +96,10 @@ def quantize_params(model: LlamaModel) -> LlamaModel:
         dst.post_norm.copy_(src.post_norm)
         pairs += [(getattr(src, n), getattr(dst, n))
                   for n in ("q", "k", "v", "o", "gate", "up", "down")]
+    row = {id(getattr(layer, n)) for layer in q.layers for n in ("o", "down")}
     for src, dst in pairs:
-        fill_quantized(dst.weight_q, dst.scale, _host_f32(src.weight))
+        fill_quantized(dst.weight_q, dst.scale, _host_f32(src.weight),
+                       mesh=model.mesh if id(dst) in row else None)
         if src.bias is not None:
             dst.bias.copy_(src.bias)
     return q
