@@ -15,7 +15,8 @@ SHELL := /bin/bash    # tier1 uses pipefail/PIPESTATUS
         dryrun smoke \
         preflight \
         deploy-agent docker \
-        docker-agent docker-scheduler lint lint-contracts lint-trace clean
+        docker-agent docker-scheduler lint lint-contracts lint-trace \
+        lint-torch clean
 
 run:
 	$(PY) -m k8s_llm_monitor_tpu.cmd.server --cluster fake --port 8081
@@ -246,6 +247,9 @@ lint-contracts:     # fast path: contract-drift checks only (no package import)
 
 lint-trace:         # lint + trace-time guards (jit-compiles a tiny engine)
 	$(TEST_ENV) $(PY) -m k8s_llm_monitor_tpu.devtools.graftcheck --trace $(LINT_PATHS)
+
+lint-torch:         # the PyTorch port's graftcheck: the static passes, on the CPU
+	$(PY) -m k8s_llm_monitor_tpu_torch.devtools.graftcheck --dataflow --contracts
 
 clean:
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null; true

@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases 0,12   # tensor parallelism (A7)
     python3 chip_smoke.py --phases 0,12f  # only 12f: rebuilds of a broken mesh
     python3 chip_smoke.py --phases 0,13   # a checkpoint on a mesh (A7b)
+    python3 chip_smoke.py --phases 0,14   # the port's gates (A12)
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -52,8 +53,10 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          blocks of 12, a 2048 chunk and the verify shape; fused decode over
          the three pools; split paged attention at QS 1, 2, 4, 5 and 8
          (every row-tile count).
-Phase 2  the engine at full Llama-3-8B width (32 layers, random bf16 weights
-         from a seeded generator on the card): a bf16 pool (8 GiB), an int8
+Phase 2  the engine at full Llama-3-8B width (MAIN_LAYERS = 8 of its 32
+         layers, random bf16 weights from a seeded generator on the card;
+         phases 3, 5, 7, 8, 10 and 11 reuse the model): a bf16 pool (2 GiB
+         at 8 layers), an int8
          and an fp8 pool, and decode_path="pallas".  15 prompts of
          20..1500 tokens plus one of 2300 (chunked prefill), greedy, 32 new
          tokens, the prefix cache off.  Each engine runs at the defaults
@@ -214,10 +217,10 @@ Phase 8  llama-1b and speculative decoding (runs after phase 3, before 4:
          id sequences equal the spec-off run's.
 
 Phase 9  weights and Qwen2-7B (runs last: phase 6 has freed the earlier
-         model).  9a: Qwen2-7B at full width (28 layers, hidden 3584, 28/4
-         heads, vocab 152,064, qkv bias; random bf16 weights from a seed,
-         about 15.2 GB; a 4096 x 16 pool), phase 2's 16 prompts and 32 new
-         tokens on bf16 and int8 pools and decode_path="pallas", and on
+         model).  9a: Qwen2-7B at full width (QWEN_LAYERS = 8 of its 28
+         layers, hidden 3584, 28/4 heads, vocab 152,064, qkv bias; random
+         bf16 weights from a seed; a 4096 x 16 pool), phase 2's 16
+         prompts and 32 new tokens on bf16 and int8 pools and decode_path="pallas", and on
          the unscaled fp8 pool with either decode path (flash prefill,
          fused and split paged attention launched at 7 query heads per kv
          head; two identical runs give identical ids); on 4
@@ -313,6 +316,17 @@ Phase 13 a checkpoint on a mesh (A7b): 13a Llama-3-8B at full width (4 of
          Llama-3-70B, bf16 and int8, TP 1-8 at 80 GiB.
          CHIP_SMOKE_CKPT_DIR names where the checkpoints are written
          (default: the temporary directory).
+Phase 14 the port's gates on the card (A12, devtools/traceguard.py):
+         Llama-3-8B at full width and 2 layers (bf16, decode graphs on)
+         through each of traceguard's one-card paths (gather, fused, int8
+         pool, flash prefill, grammar swap, pallas, spec): a warm pass, a
+         same-bucket repeat that builds no decode program and captures no
+         graph, every replay under torch.cuda.set_sync_debug_mode("error"),
+         the captured buffers still the engine's live tensors after a
+         pipeline reset, a preemption, a host-tier restore and a grammar
+         swap, and B1-B4 launched; the static capture-hazard pass; then the
+         same on a TP-2 mesh (NCCL with two cards, gloo on one), B1 and B3
+         launched on each rank.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -347,6 +361,14 @@ LOGIT_ATOL = 0.1                   # bf16 logits after 4 layers
 # run measured 0.0625 (int8) and 0.094 (fp8) against the plain versions.
 QUANT_LOGIT_ATOL = 0.2
 MIN_ARGMAX_AGREE = 0.95            # of the 20 logit rows of phase 3
+# Phase 2's Llama-3-8B runs at full width, cut to MAIN_LAYERS of its 32
+# layers, and phase 9a's Qwen2-7B to QWEN_LAYERS of its 28, so that every
+# phase fits the script's 1,200 s on one card (every phase at full depth
+# took 1,084 s on an H100).  Phases 3, 5, 7, 8, 10 and 11 reuse phase 2's
+# model; phase 12b builds its own at all 32 layers (its TP-1 comparison),
+# phase 6 the server's through the monitor's config.
+MAIN_LAYERS = 8
+QWEN_LAYERS = 8
 
 
 class PhaseError(RuntimeError):
@@ -655,6 +677,21 @@ def graph_ms(torch, fn, reps=20, rounds=5):
             fn()
     return time_ms(torch, graph.replay, reps=1, warmup=1,
                    rounds=rounds) / reps
+
+
+def main_model(st):
+    """Phase 2's model: Llama-3-8B at full width and MAIN_LAYERS layers,
+    random bf16 weights from seed 0 (built here when phase 2 did not
+    run)."""
+    model = st.get("model")
+    if model is None:
+        from k8s_llm_monitor_tpu_torch.models import llama
+        from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+
+        model = llama.LlamaModel(dataclasses.replace(
+            LLAMA3_8B, num_layers=MAIN_LAYERS), seed=0)
+        st["model"] = model
+    return model
 
 
 def truncated(model, n_layers, **cfg):
@@ -1212,15 +1249,14 @@ RUNS = {"bf16": ("eager", "eager+ahead", "graph"), "int8": ("eager", "graph"),
 
 
 def phase2(torch, np, st):
-    from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
     from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
 
-    cfg = LLAMA3_8B
     t0 = time.monotonic()
-    model = llama.LlamaModel(cfg, seed=0)
+    st.pop("model", None)
+    model = main_model(st)
+    cfg = model.cfg
     torch.cuda.synchronize()
-    print(f"phase 2: {cfg.name} ({cfg.num_layers} layers, hidden "
+    print(f"phase 2: {cfg.name} ({cfg.num_layers} of 32 layers, hidden "
           f"{cfg.hidden_size}) random bf16 weights in "
           f"{time.monotonic() - t0:.1f} s")
     rng = np.random.default_rng(2)
@@ -1558,8 +1594,6 @@ def burst(backend, questions, frees, stream_q):
 def phase5(torch, np, st):
     from k8s_llm_monitor_tpu_torch.diagnosis.grammar import (
         parse_verdict, verdict_fsm)
-    from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
     from k8s_llm_monitor_tpu_torch.monitor.analysis import LocalEngineBackend
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.ops import sampling
@@ -1568,7 +1602,7 @@ def phase5(torch, np, st):
     from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
 
     gpu = st["gpu"]
-    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
+    model = main_model(st)
     cfg, tok = model.cfg, ByteTokenizer()
     # 256 blocks of 16 per sequence: a 1500-byte question and the longest
     # verdict (469 tokens) fit, so no verdict is cut.  The prefix cache is
@@ -2345,14 +2379,11 @@ def pressure_engine(model, **overrides):
 
 
 def phase7(torch, np, st):
-    from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
     from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
     from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
 
     gpu = st["gpu"]
-    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
-    st["model"] = model
+    model = main_model(st)
     V = model.cfg.vocab_size
     rng = np.random.default_rng(7)
 
@@ -2754,12 +2785,7 @@ def phase8(torch, np, st):
 
     # (b) phase 2's Llama-3-8B model: verify through flash prefill (B1) on
     # the bf16 pool and through its int8 instance (B5), every call drafting.
-    model = st.get("model")
-    if model is None:
-        from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
-
-        model = llama.LlamaModel(LLAMA3_8B, seed=0)
-        st["model"] = model
+    model = main_model(st)
     cfg = model.cfg
     rng = np.random.default_rng(2)
     prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
@@ -2926,11 +2952,11 @@ def phase9a(torch, np, st):
     from k8s_llm_monitor_tpu_torch.ops.attention import paged_decode_attention
     from k8s_llm_monitor_tpu_torch.utils.quantize import param_bytes
 
-    cfg = QWEN2_7B
+    cfg = dataclasses.replace(QWEN2_7B, num_layers=QWEN_LAYERS)
     t0 = time.monotonic()
     model = llama.LlamaModel(cfg, seed=3)
     torch.cuda.synchronize()
-    print(f"phase 9: {cfg.name} ({cfg.num_layers} layers, hidden "
+    print(f"phase 9: {cfg.name} ({cfg.num_layers} of 28 layers, hidden "
           f"{cfg.hidden_size}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
           f"vocab {cfg.vocab_size}, qkv bias) random bf16 weights in "
           f"{time.monotonic() - t0:.1f} s, {param_bytes(model)} B")
@@ -3690,7 +3716,7 @@ def phase4(torch, np, st):
         per = {k: round(v / steps, 2) for k, v in st["launches"].items()
                if k in dict((e[0], e[3]) for e in ENGINES)[label]}
         print(f"phase 4: {label} engine: launches per engine step {per} over "
-              f"{steps} steps ({dsteps} decode steps x 32 layers)")
+              f"{steps} steps ({dsteps} decode steps x {MAIN_LAYERS} layers)")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -4183,7 +4209,7 @@ def unscaled_engines(torch, np, st, kv, tag, bases, cos_min):
     import gc
 
     from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B, LLAMA_1B
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA_1B
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.serving.kv_cache import page_slice_bytes
 
@@ -4206,8 +4232,7 @@ def unscaled_engines(torch, np, st, kv, tag, bases, cos_min):
         if base == "llama-1b":
             base = llama.LlamaModel(LLAMA_1B, seed=1)
         elif base is None:
-            base = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
-            st["model"] = base
+            base = main_model(st)
         cfg = base.cfg
         mk = pool_model(base, kv)
         big = cfg.head_dim_ == D
@@ -4345,15 +4370,13 @@ def phase10d(torch, np, st):
     a fresh prefill computes the whole prompt in one call, whose rounding
     differs).  The tier's 24 GiB hold the spills of two evicted prompts
     (one evicted prompt spills every prefix length's span, 9.3 GB on
-    bf16), so each second-pass prompt finds its whole prefix."""
-    from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    bf16 at 32 layers, a quarter of it at MAIN_LAYERS), so each
+    second-pass prompt finds its whole prefix."""
     from k8s_llm_monitor_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine, SamplingParams)
 
     gpu = st["gpu"]
-    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
-    st["model"] = model
+    model = main_model(st)
     prompts = tier_prompts(np.random.default_rng(12), model.cfg.vocab_size, 6)
     full = (len(prompts[0]) - 1) // BS * BS      # the shareable prefix
     sp = SamplingParams(max_tokens=8)
@@ -4443,8 +4466,6 @@ def phase10e(torch, np, st):
     """Prefix export/install between two Llama-3-8B engines sharing one
     model's weights: every outcome, the receiver's ids equal the owner's;
     then the same over HTTP through the server's /api/v1/kv routes."""
-    from k8s_llm_monitor_tpu_torch.models import llama
-    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
     from k8s_llm_monitor_tpu_torch.monitor.analysis import (
         AnalysisEngine, LocalEngineBackend)
     from k8s_llm_monitor_tpu_torch.monitor.config import Config
@@ -4456,8 +4477,7 @@ def phase10e(torch, np, st):
     from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
 
     gpu = st["gpu"]
-    model = st.get("model") or llama.LlamaModel(LLAMA3_8B, seed=0)
-    st["model"] = model
+    model = main_model(st)
     prompt = tier_prompts(np.random.default_rng(13), model.cfg.vocab_size,
                           1)[0]
     sp = SamplingParams(max_tokens=16)
@@ -4930,6 +4950,9 @@ TP_HEADS_D64 = ("d64_h16kv4", (16, 4))
 # the smallest logit-row cosine, and to a share of equal id sequences.
 TP_COS_MIN = 0.999
 TP_IDS_MIN_SHARE = 0.25
+# 12f: seconds a break may take before every thread's stack is printed
+# (a rebuild took 16-29 s over NCCL; one hung).
+REBUILD_STACKS_S = 120
 TP_ECFG = dict(max_slots=32, num_blocks=4096, block_size=BS,
                max_blocks_per_seq=ENGINE_TABLE, max_prefills_per_step=8,
                decode_steps_per_iter=8, prefix_cache_entries=0)
@@ -5287,10 +5310,11 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
     block.  12e: a step-loop kill under TP rebuilds the engine on the
     same workers, which serve again.  12f: a decode call that fails on
     rank 0 after its send, then rank 1 killed: each breaks the mesh, the
-    supervisor builds a new one, and a greedy generate gives the text it
+    supervisor builds a new one, and a greedy generate gives the ids it
     gave before either.  Then cmd.server with the mesh shape in its
     environment (ready, the gauge, exit 0).  Its own mesh (one process
     group per process)."""
+    import faulthandler
     import gc
     import os
     import signal
@@ -5303,6 +5327,7 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
     from k8s_llm_monitor_tpu_torch.monitor.server import build_server
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
     from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
 
     gpu = st["gpu"]
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -5322,6 +5347,15 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
     backend_ = srv.analysis.backend
     sup = backend_.supervisor
     mesh = backend_.mesh
+
+    def greedy_ids():
+        """The ids of an 8-token greedy generate through the backend (the
+        text of random weights may decode to '')."""
+        res = backend_._result(backend_._submit(
+            backend_.tokenizer.encode("why crashloop?"),
+            SamplingParams(max_tokens=8, temperature=0.0)), "generation")
+        return list(res.token_ids)
+
     try:
         eng = backend_.engine
         check(eng.mesh_axes() == {"data": 1, "seq": 1, "model": 2}
@@ -5330,10 +5364,9 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
         srv.start()
         port = srv.port
         if "12e" not in subs:
-            # 12f's text without 12e: the first request on a fresh
+            # 12f's ids without 12e: the first request on a fresh
             # engine.
-            want = backend_.generate("why crashloop?", max_tokens=8,
-                                     temperature=0.0)
+            want = greedy_ids()
         if "12c" in subs:
             reset_rank_launches(mesh)
             if backend == "gloo":
@@ -5383,12 +5416,11 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
             rebuilt_s = time.monotonic() - t0
             t0 = time.monotonic()
             # The first request on a fresh engine: 12f's rebuilt meshes must
-            # give its text (greedy; the spec acceptance EMA starts anew on
+            # give its ids (greedy; the spec acceptance EMA starts anew on
             # each engine, so the same first request takes the same path).
-            want = backend_.generate("why crashloop?", max_tokens=8,
-                                     temperature=0.0)
+            want = greedy_ids()
             gen_s = time.monotonic() - t0
-            check(isinstance(want, str), "12e: no text after the rebuild")
+            check(len(want) > 0, "12e: no ids after the rebuild")
             print(f"phase 12e: step_loop_crash under TP: rebuilt in "
                   f"{rebuilt_s:.2f} s (restarts {sup.restarts}), the workers "
                   f"hold the new engine, an 8-token greedy generate after it "
@@ -5406,9 +5438,11 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
                     start=sup.restarts + 1):
                 old = backend_.mesh
                 t0 = time.monotonic()
+                # A rebuild that hangs prints where every thread waits.
+                faulthandler.dump_traceback_later(REBUILD_STACKS_S)
                 brk()
-                text = backend_.generate("why crashloop?", max_tokens=8,
-                                         temperature=0.0)
+                ids = greedy_ids()
+                faulthandler.cancel_dump_traceback_later()
                 took = time.monotonic() - t0
                 new = backend_.mesh
                 check(sup.restarts == n and old.broken is not None
@@ -5416,12 +5450,13 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
                       and not any(p.is_alive() for p in old._procs),
                       f"12f ({how}): restarts {sup.restarts}, broken "
                       f"{old.broken}")
-                check(text == want, f"12f ({how}): {text!r}, {want!r} on "
-                                    "the first fresh engine")
+                check(len(want) > 0 and ids == want,
+                      f"12f ({how}): ids {ids}, {want} on the first fresh "
+                      "engine")
                 print(f"phase 12f: {how} ({mesh_label(new)}): the mesh broke "
                       f"({old.broken[:90]}), a new mesh and the model on it "
                       f"rebuilt and the 8-token greedy generate served in "
-                      f"{took:.2f} s, the fresh engine's text {text!r} "
+                      f"{took:.2f} s, the fresh engine's ids {ids} "
                       f"[{gpu}]")
     finally:
         get_injector().disarm("step_loop_crash")
@@ -5609,8 +5644,12 @@ def phase12(torch, np, st):
 # 1,200 s (PERF.md, phase 13's prediction); full depth with a card per rank.
 CKPT_LAYERS_ONE_CARD = 4
 # Qwen2-72B's depth at TP 4: as many of its 80 layers as the disk holds
-# (1.76 GB a layer in bf16), at most all of them.
+# (1.76 GB a layer in bf16), at most all of them, and no more than
+# QWEN72_MAX_BYTES: a machine may cap what one run writes to its disk
+# (90 GiB on the four-card H100 machine, deletes included), and 13a
+# writes Llama-3-8B at full depth (16 GB) first.
 QWEN72_MAX_LAYERS = 80
+QWEN72_MAX_BYTES = 48 << 30
 # 13's preflight grid (at 80 GiB a card).
 PREFLIGHT_GRID = [(m, q, tp) for m in ("llama3-8b", "qwen2-72b", "llama3-70b")
                   for q in ("none", "int8") for tp in (1, 2, 4, 8)]
@@ -6010,7 +6049,8 @@ def phase13(torch, np, st):
                             hf_shapes(dc.replace(QWEN2_72B, num_layers=1))
                             .items() if ".layers." in key)
             fixed = 2 * QWEN2_72B.vocab_size * QWEN2_72B.hidden_size * 2
-            room = shutil.disk_usage(tmp).free - (8 << 30) - fixed
+            room = min(shutil.disk_usage(tmp).free - (8 << 30),
+                       QWEN72_MAX_BYTES) - fixed
             layers = max(1, min(QWEN72_MAX_LAYERS, room // per_layer))
             cfg = dc.replace(QWEN2_72B, num_layers=int(layers))
             path = tmp / "qwen2-72b"
@@ -6018,7 +6058,8 @@ def phase13(torch, np, st):
             t0 = time.monotonic()
             total = write_hf_checkpoint(torch, path, cfg, seed=72)
             print(f"phase 13d: wrote Qwen2-72B at full width, {layers} of "
-                  f"80 layers (what the disk holds), as bf16 safetensors: "
+                  f"80 layers (what the disk and the write cap hold), as "
+                  f"bf16 safetensors: "
                   f"{total} B in {time.monotonic() - t0:.1f} s")
             t0 = time.monotonic()
             mesh = create_mesh(MeshConfig(model=4))
@@ -6063,9 +6104,131 @@ def phase13(torch, np, st):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 14
+# The port's gates on the card (devtools/traceguard.py): each decode
+# program captured once and then replayed, never recaptured; no host sync
+# in a replay; the captured buffers stay the engine's live tensors.
+
+# Llama-3-8B's depth for the gates: every kernel of a path launches at any
+# depth, and the mesh path runs host-staged over gloo on one card.
+GATE_LAYERS = 2
+# The kernel of each TPU kernel's counterpart, by the wrapper that launches
+# it (B3 through the decode and the verify wrapper).
+GATE_KERNELS = {"B1": ("flash_prefill_attention",),
+                "B2": ("paged_decode_attention_fused",),
+                "B3": ("paged_decode_attention_pallas",
+                       "paged_verify_attention_pallas"),
+                "B4": ("paged_decode_attention_fused_quant",)}
+
+
+def gate_line(rep) -> str:
+    launched = {k: v for k, v in rep.launches.items() if v}
+    return (f"decode {rep.decode_path}, prefill {rep.prefill_path}, pool "
+            f"{rep.kv_quant or 'bf16'}: warm {rep.warm_programs} programs / "
+            f"{rep.warm_captures} captures, repeat {rep.repeat_programs} / "
+            f"{rep.repeat_captures}, {rep.replays_checked} replays under "
+            f"sync debug 'error', live buffers "
+            f"{'held' if all(rep.live.values()) else rep.live} (reset, "
+            f"preemption, restore, grammar swap), launches {launched}")
+
+
+def phase14(torch, np, st):
+    """The port's gates on the card: Llama-3-8B at full width and
+    GATE_LAYERS layers (bf16, random weights from a seed, decode_graphs on)
+    through each of traceguard's one-card paths -- a warm pass, a
+    same-bucket repeat that builds no program and captures no graph, every
+    replay of the repeat and of the live-buffer events under
+    torch.cuda.set_sync_debug_mode("error"), and the captured buffers
+    still the engine's live tensors after a pipeline reset, a preemption,
+    a host-tier restore and a grammar swap -- with B1-B4 launched; the
+    static capture-hazard pass; then the mesh path on a TP-2 mesh (NCCL
+    with two cards, gloo on one) with each rank's launches, and each
+    worker's programs bound to its engine's live tensors."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.devtools import traceguard
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+        MeshConfig, create_mesh)
+
+    gpu = st["gpu"]
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=GATE_LAYERS)
+    t0 = time.monotonic()
+    model = llama.LlamaModel(cfg, device="cuda", seed=14)
+    print(f"phase 14: Llama-3-8B at full width, {GATE_LAYERS} of 32 layers, "
+          f"bf16 from seed 14, in {time.monotonic() - t0:.2f} s")
+    totals: dict[str, int] = {}
+    for path in traceguard.DEFAULT_PATHS:
+        t0 = time.monotonic()
+        rep = traceguard.check_path(path, device="cuda", model=model,
+                                    block_size=BS)
+        print(f"phase 14: {path}: {gate_line(rep)} in "
+              f"{time.monotonic() - t0:.2f} s [{gpu}]")
+        check(rep.ok, f"14 {path}: {rep.as_dict()}")
+        check(rep.warm_captures > 0 and rep.replays_checked > 0,
+              f"14 {path}: no graph captured or replayed")
+        for name, n in rep.launches.items():
+            totals[name] = totals.get(name, 0) + n
+        gc.collect()
+    for label, names in GATE_KERNELS.items():
+        n = sum(totals.get(name, 0) for name in names)
+        check(n > 0, f"14: {label} ({'/'.join(names)}) never launched")
+    print(f"phase 14: launches over the one-card paths: "
+          + ", ".join(f"{label} {sum(totals.get(n, 0) for n in names)}"
+                      for label, names in GATE_KERNELS.items()))
+    hazards = traceguard.capture_hazards()
+    check(not hazards, f"14: capture hazards {hazards}")
+    print("phase 14: capture-hazard over the graph roots: clean")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    t0 = time.monotonic()
+    mesh = create_mesh(MeshConfig(model=2), backend=backend)
+    try:
+        mmodel = llama.LlamaModel(cfg, device="cuda", seed=14, mesh=mesh)
+        print(f"phase 14: mesh: {mesh_label(mesh)} and the model on it in "
+              f"{time.monotonic() - t0:.2f} s")
+        reset_rank_launches(mesh)
+        t0 = time.monotonic()
+        rep = traceguard.check_path("mesh", device="cuda", model=mmodel,
+                                    block_size=BS)
+        ranks = rank_launches(mesh, ["flash_prefill_attention",
+                                     "paged_decode_attention_pallas"])
+        print(f"phase 14: mesh ({mesh_label(mesh)}): {gate_line(rep)}, "
+              f"per rank {ranks} in {time.monotonic() - t0:.2f} s [{gpu}]")
+        check(rep.ok, f"14 mesh: {rep.as_dict()}")
+        check(all(r["flash_prefill_attention"] > 0
+                  and r["paged_decode_attention_pallas"] > 0 for r in ranks),
+              f"14 mesh: B1 / B3 not launched on every rank: {ranks}")
+        # Each worker's programs: bound, and on its engine's live tensors.
+        workers = mesh.request("programs")
+        print(f"phase 14: mesh workers' decode programs {workers}")
+        check(all(w is not None and w["programs"] > 0
+                  and w["bound"] == w["programs"] and not w["stale"]
+                  for w in workers),
+              f"14 mesh: a worker's programs are unbound or stale: {workers}")
+        if mesh.backend == "nccl":     # a gloo mesh runs its programs eagerly
+            check(rep.warm_captures > 0 and rep.replays_checked > 0
+                  and all(w["captures"] > 0 for w in workers),
+                  f"14 mesh: no graph captured or replayed over NCCL: "
+                  f"{workers}")
+        del rep, mmodel
+        gc.collect()
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all); "
                          "a sub-phase by name (12f, 13c) runs only that "
                          "part of its phase")
@@ -6104,7 +6267,7 @@ def main(argv=None) -> int:
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
                (4, phase4), (5, phase5), (7, phase7), (10, phase10),
                (11, phase11), (6, phase6), (9, phase9), (12, phase12),
-               (13, phase13)]
+               (13, phase13), (14, phase14)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

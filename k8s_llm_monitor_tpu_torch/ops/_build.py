@@ -5,7 +5,11 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v --split-compile 0 \\
+         -o build/lib<name>.so csrc/<name>.cu
+
+``--split-compile 0`` lets the compiler optimize a source's kernels on
+every core at once (a source holds dozens of template instances).
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them; a library is rebuilt when its source, or a header of ``csrc/``
@@ -20,17 +24,19 @@ import ctypes
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
+
+from k8s_llm_monitor_tpu_torch.devtools.lockcheck import make_lock
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 KERNELS = ("flash_prefill", "fused_decode", "paged_attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0"]
 
-_lock = threading.Lock()
+_lock = make_lock("ops.build")
 _libs: dict[str, ctypes.CDLL] = {}
 
 

@@ -63,6 +63,8 @@ from typing import Any, Optional
 
 import torch
 
+from k8s_llm_monitor_tpu_torch.devtools.lockcheck import make_lock
+
 AXES = ("data", "seq", "model")
 
 # The bytes of one message of a worker's state (``Mesh.worker_states``).
@@ -126,10 +128,12 @@ class Mesh:
         self.broken: Optional[str] = None
         # Held by rank 0 while it talks to the workers and while it sends a
         # call and runs its share.
-        self._calls = threading.RLock()
+        self._calls = make_lock("mesh.calls", reentrant=True)
         # Rank 0's calls that are launching device work on the process
         # group (``launching``); the watcher aborts the group only when
-        # none is.
+        # none is.  Its own RLock, not ``make_lock``'s: the watcher
+        # re-enters it through ``_abort_group``, and lockcheck's
+        # instrumented lock lacks the owner test a Condition needs.
         self._launch_cv = threading.Condition()
         self._launching = 0
         self._aborted = False
@@ -162,7 +166,8 @@ class Mesh:
     def _staged(self, fn, x: torch.Tensor) -> torch.Tensor:
         if not self.host_staged:
             return fn(x)
-        return fn(x.cpu()).to(x.device)
+        # A gloo mesh on CUDA: the engine runs its programs eagerly there.
+        return fn(x.cpu()).to(x.device)  # graftcheck: disable=capture-hazard -- gloo: no graphs
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The sum (or max) of ``x`` over the ranks, on every rank."""
@@ -469,9 +474,9 @@ class Mesh:
     def close(self) -> None:
         """Stop the workers and leave the process group.  Every worker
         first answers a ping (so no rank is inside a collective), then
-        leaves the group on its own and exits; rank 0 joins them and leaves
-        last, so the store it hosts (``create_mesh``) outlives every
-        worker's leave.  A mesh that cannot get there is aborted."""
+        exits without leaving the group (``_worker_main``); rank 0 joins
+        them and then leaves, alone.  A mesh that cannot get there is
+        aborted."""
         if self.closed:
             return
         if not self.healthy():
@@ -675,9 +680,10 @@ def _worker_main(cfg: MeshConfig, rank: int, devices: list, backend: str,
         except OSError:
             pass
         os._exit(1)
-    # Leave while rank 0 (the store's host) waits in close(), then exit
-    # without the interpreter's teardown, which has nothing left to do.
-    mesh._abort_group()
+    # Exit without leaving the group and without the interpreter's
+    # teardown: over NCCL a rank's abort waits for its peers' (each worker
+    # of a TP-4 mesh held close() for its 30 s join), while a group whose
+    # peers have exited is left at once (rank 0, after the joins).
     os._exit(0)
 
 
@@ -747,6 +753,14 @@ def _serve(mesh: Mesh, conn) -> None:
 
             conn.send(("ok", {fn.__name__: fn.launches
                               for fn in pa.KERNEL_WRAPPERS}))
+        elif kind == "programs":
+            # This rank's decode programs and their captured inputs
+            # against its engine's live tensors.
+            from k8s_llm_monitor_tpu_torch.devtools.traceguard import (
+                program_state)
+
+            conn.send(("ok", None if engine is None
+                       else program_state(engine)))
         elif kind == "reset_launches":
             from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 

@@ -552,9 +552,14 @@ class _DecodeProgram:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         # Kernel launches of one run, per KERNEL_WRAPPERS entry.
         self.launches: list[int] = []
+        # The engine's buffers as the first call found them
+        # (InferenceEngine.live_buffers): the addresses a graph captured.
+        self.bound: Optional[dict[str, tuple[int, ...]]] = None
 
     def __call__(self) -> torch.Tensor:
         eng = self.eng
+        if self.bound is None:
+            self.bound = eng.live_buffers()
         if not eng.decode_graphs:
             self._run()
         elif self.graph is None:
@@ -1158,6 +1163,26 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    def live_buffers(self) -> dict[str, tuple[int, ...]]:
+        """Device addresses of what the decode programs read and write in
+        place: every layer's pages (and scale planes), the packed inputs,
+        the carried token and FSM states, the grammar table and the spec
+        history.  A captured graph replays on the addresses it was
+        captured on (``_DecodeProgram.bound``), so these must never be
+        rebound while the programs live (devtools/traceguard.py)."""
+        pages = self.pages
+        out = {"pages": () if pages is None else tuple(
+            t.data_ptr() for t in (*pages.k, *pages.v, *pages.k_scale,
+                                   *pages.v_scale)),
+               "_dec_in": (self._dec_in.data_ptr(),),
+               "_tok_state": (self._tok_state.data_ptr(),),
+               "_fsm_state": (self._fsm_state.data_ptr(),)}
+        if self._fsm_trans is not None:
+            out["_fsm_trans"] = (self._fsm_trans.data_ptr(),)
+        if self._hist is not None:
+            out["_hist"] = (self._hist.data_ptr(),)
+        return out
 
     @property
     def pool_bytes(self) -> int:

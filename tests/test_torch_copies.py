@@ -31,7 +31,9 @@ COPIES = ("diagnosis/grammar.py", "devtools/lockcheck.py",
           "observability/signals.py", "observability/timeseries.py",
           "remediation/__init__.py", "remediation/plans.py",
           "remediation/executor.py", "monitor/kube_rest.py",
-          "monitor/uav.py")
+          "monitor/uav.py", "monitor/agent.py", "monitor/scheduler.py",
+          "cmd/uav_agent.py", "cmd/scheduler.py", "cmd/demo.py",
+          "cmd/test_k8s.py")
 
 
 def _tree(path: Path, rename: bool) -> ast.Module:

@@ -495,9 +495,9 @@ class _FakeProc:
 
 
 def test_close_joins_workers_before_leaving_the_group(monkeypatch):
-    """C1: the close pings, sends "close", joins every worker (each leaves
-    the group itself while rank 0's store lives) and only then leaves the
-    group on rank 0."""
+    """C1: the close pings, sends "close", joins every worker (each exits
+    without leaving the group: test_a_closed_worker_exits_at_once) and only
+    then leaves the group on rank 0."""
     monkeypatch.setattr(tmesh.Mesh, "_watch", lambda self: None)
     log = []
     mesh = tmesh.Mesh(tmesh.MeshConfig(model=3), 0, ["cpu"] * 3, "gloo",
@@ -508,6 +508,33 @@ def test_close_joins_workers_before_leaving_the_group(monkeypatch):
     mesh.close()
     assert log == [("send", "ping"), ("send", "ping"), ("send", "close"),
                    ("send", "close"), ("join",), ("join",), ("abort",)]
+
+
+def test_a_closed_worker_exits_at_once(monkeypatch):
+    """C1 over NCCL: a worker told to close exits at once, without an abort
+    of the group of its own, which waits for its peers' (a TP-4 mesh's
+    close waited out each worker's 30 s join on four H100s); rank 0 leaves
+    the group after the joins, its peers gone."""
+    calls = []
+
+    class Exited(Exception):
+        pass
+
+    def exit_(code):
+        calls.append(("exit", code))
+        raise Exited
+
+    monkeypatch.setattr(tmesh, "_init_group", lambda *a: None)
+    monkeypatch.setattr(tmesh.torch, "set_num_threads", lambda n: None)
+    monkeypatch.setattr(tmesh.os, "_exit", exit_)
+    monkeypatch.setattr(tmesh.Mesh, "_abort_group",
+                        lambda self: calls.append(("abort",)))
+    conn = _FakeConn([])
+    conn.inbox.append(("close",))
+    with pytest.raises(Exited):
+        tmesh._worker_main(tmesh.MeshConfig(model=2), 1, ["cpu", "cpu"],
+                           "gloo", "tcp://127.0.0.1:1", conn)
+    assert calls == [("exit", 0)]
 
 
 def test_watcher_aborts_only_after_the_launch(monkeypatch):
@@ -586,3 +613,39 @@ def test_watcher_aborts_only_after_the_launch(monkeypatch):
     gloo._worker_exited(1, 1)
     assert gloo.broken and events[-1] == "abort 2"
 
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_launch_watch_under_lockcheck(monkeypatch, backend):
+    """With ``K8SLLM_LOCKCHECK=1`` the mesh's locks are instrumented: a
+    launch still notifies the watcher, and the watcher still waits for it
+    and re-enters the launch lock through ``_abort_group``."""
+    monkeypatch.setenv("K8SLLM_LOCKCHECK", "1")
+    mesh = tmesh.Mesh(tmesh.MeshConfig(model=2), 0, ["cpu"] * 2, backend)
+    inside, release = threading.Event(), threading.Event()
+    raised = []
+
+    def call():
+        try:
+            with mesh._calls, mesh.launching():
+                inside.set()
+                release.wait(10)
+        except tmesh.MeshBroken as exc:
+            raised.append(str(exc))
+
+    with mesh.launching():
+        pass
+    caller = threading.Thread(target=call)
+    caller.start()
+    assert inside.wait(10)
+    watcher = threading.Thread(target=mesh._worker_exited, args=(1, -9))
+    watcher.start()
+    release.set()
+    caller.join(10)
+    watcher.join(10)
+    assert not caller.is_alive() and not watcher.is_alive()
+    assert raised == ["mesh rank 1 exited (code -9)"]
+    mesh._abort_group()
+    with pytest.raises(tmesh.MeshBroken):
+        with mesh.launching():
+            pass
