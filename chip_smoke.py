@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phases 0,11   # e5m2 / f16 pools, default server
     python3 chip_smoke.py --phases 0,12   # tensor parallelism (A7)
     python3 chip_smoke.py --phases 0,12f  # only 12f: rebuilds of a broken mesh
+    python3 chip_smoke.py --phases 0,12g  # a seq mesh (sequence-sharded prefill)
+    python3 chip_smoke.py --phases 0,12h  # seq and TP meshes on four cards
     python3 chip_smoke.py --phases 0,13   # a checkpoint on a mesh (A7b)
     python3 chip_smoke.py --phases 0,14   # the port's gates (A12)
 
@@ -299,8 +301,17 @@ Phase 12 tensor parallelism over the model axis (A7): 12a B1 and B3 at each
          with four cards, else TP 2 at 8) and the mesh's close, timed;
          12c the default config on a mesh through build_server, 12e a
          step-loop kill under TP, 12f two breaks of the mesh, each rebuilt
-         on a new one.  NCCL with a card per rank, else gloo on one card.
-         A sub-phase by name (--phases 0,12f) runs only that part.
+         on a new one (over NCCL rank 0's prefill launches are paced, so
+         the killed rank's break ends in a rebuild).  A7b's rest, the seq
+         axis: 12g a "1,2,1" mesh at Llama-3-8B width and 2 layers against
+         TP 1 (prefill logits in rounds of 2048, greedy ids of 8 prompts,
+         one chunked past the 2048 bucket; B1 launched on both ranks over
+         their query slices; B1's slice record flash_prefill_seq2); 12h,
+         with four cards, Llama-3-8B at 32 layers on "1,2,2" over NCCL:
+         the TTFT of one 8,192-token prompt admitted alone against "1,1,4"
+         and "1,1,2", and phase 2's mix held to TP 1 by 12b's bars.  NCCL
+         with a card per rank, else gloo on one card.  A sub-phase by name
+         (--phases 0,12f) runs only that part.
 Phase 13 a checkpoint on a mesh (A7b): 13a Llama-3-8B at full width (4 of
          32 layers on one card, 32 with a card per rank) written as bf16
          safetensors and loaded at TP 1 and TP 2, every rank's shard
@@ -801,6 +812,11 @@ PREFILL_CASES = [
     # inside a 64-key tile and crosses several
     (H, KVH, 2048, [0], [2048], BS),
     (H, KVH, 512, [1000], [500], BS),
+    # a seq rank's slice (12g, 12h): rank 1 of 2048 rounds split over seq
+    # 2, the slices of a fresh round (start 1024), of a continuation from
+    # 1000 (start 2024, inside a 64-key tile) and of lanes that end in
+    # slice 0 (0 rows) or inside slice 1 (ragged)
+    (H, KVH, 1024, [1024, 2024, 1024, 1024], [1024, 276, 0, 500], BS),
     # qpk 8 (Qwen2-72B: 64 query heads over 8 kv heads) and qpk 1 (32
     # heads, no grouping), ragged
     (64, 8, 256, [0, 700, 5, 0], [256, 200, 77, 0], BS),
@@ -4963,7 +4979,10 @@ def mesh_label(mesh) -> str:
     import torch
 
     cards = sorted({d.index for d in mesh.devices})
-    return (f"TP {mesh.tp} over {mesh.backend}"
+    c = mesh.config
+    what = (f"TP {mesh.tp}" if c.data == c.seq == 1
+            else f"mesh {c.data},{c.seq},{c.model}")
+    return (f"{what} over {mesh.backend}"
             + (" (host-staged)" if mesh.backend == "gloo" else "")
             + f" on {len(cards)} card(s) of {torch.cuda.device_count()}")
 
@@ -5121,8 +5140,8 @@ def tp_engine_run(torch, st, mesh, model, prompts, name, overrides, kernels):
     from k8s_llm_monitor_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine, SamplingParams)
 
-    eng = InferenceEngine(model.cfg, model, EngineConfig(**TP_ECFG,
-                                                         **overrides))
+    eng = InferenceEngine(model.cfg, model, EngineConfig(**{**TP_ECFG,
+                                                           **overrides}))
     sp = SamplingParams(max_tokens=32)
     if mesh is not None:
         reset_rank_launches(mesh)
@@ -5326,6 +5345,7 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
     from k8s_llm_monitor_tpu_torch.monitor.config import load_config
     from k8s_llm_monitor_tpu_torch.monitor.server import build_server
     from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.parallel import mesh as mesh_mod
     from k8s_llm_monitor_tpu_torch.resilience.faults import get_injector
     from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
 
@@ -5462,12 +5482,27 @@ def phase12c(torch, np, st, subs=("12c", "12e", "12f")):
         get_injector().disarm("step_loop_crash")
         get_injector().disarm("prefill_dispatch")
         live = backend_.mesh
+        # A teardown that hangs prints where every thread waits.
+        faulthandler.dump_traceback_later(REBUILD_STACKS_S)
+        t0 = time.monotonic()
         sup.shutdown(grace_s=0.0)
         srv.stop()
+        t1 = time.monotonic()
         live.close()
+        t2 = time.monotonic()
         del backend_, sup, srv
         gc.collect()
         torch.cuda.empty_cache()
+        faulthandler.cancel_dump_traceback_later()
+        print(f"phase 12c: teardown: the supervisor and the server stopped "
+              f"in {t1 - t0:.2f} s, {mesh_label(live)} closed in "
+              f"{t2 - t1:.2f} s, the rest {time.monotonic() - t2:.2f} s",
+              flush=True)
+        # A close that could not leave the process group marks the
+        # process unusable (parallel/mesh.py, ROADMAP C4): no later mesh.
+        stuck = mesh_mod.unusable()
+        if stuck:
+            raise RuntimeError(f"the close of {mesh_label(live)}: {stuck}")
 
     if "12c" in subs:
         # cmd.server with the mesh shape in its environment.
@@ -5596,6 +5631,252 @@ def close_mesh(torch, np, st):
           f"{time.monotonic() - t0:.2f} s")
 
 
+# A7b's rest: sequence-sharded prefill over the mesh's seq axis.  12g, one
+# card or more: a "1,2,1" mesh (gloo on one card) at Llama-3-8B width and
+# SEQ_LAYERS layers against TP 1 on the same weights.  Its table of 192
+# blocks keeps the bucket ladder at 2048 (no 4096 round), so the 2,300-token
+# prompt is chunked: each round's 2048 positions split 1024 / 1024.
+SEQ_LAYERS = 2
+SEQ_ECFG = dict(max_blocks_per_seq=192)
+# 12g's bars (stated in PERF.md before its first run): the logit-row cosine
+# of the prefill rounds against TP 1 (12b's), and a share of equal greedy id
+# sequences (the seq split changes only the rows' batch, not their order of
+# sums, so most are expected equal).
+SEQ_IDS_MIN_SHARE = 0.5
+# 12h (four cards): Llama-3-8B at 32 layers on "1,2,2" over NCCL, a block
+# table of 8,192 tokens and 520 blocks (the 4096 and 8192 buckets join the
+# ladder), one prompt of LONG_PROMPT tokens admitted alone.
+LONG_PROMPT = 8192
+LONG_ECFG = dict(max_blocks_per_seq=520)
+
+
+def seq_logits(torch, np, model, vocab):
+    """``prefill_logits`` of 4 prompts in rounds of 2048 (lengths 4096,
+    2300, 1025 and 700: last tokens in either seq slice of either round)."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+
+    rng = np.random.default_rng(18)
+    toks = torch.from_numpy(rng.integers(3, vocab, size=(4, 4096)).astype(
+        np.int32))
+    lens = torch.tensor([4096, 2300, 1025, 700], dtype=torch.int32)
+    out = llama.prefill_logits(model, toks, lens, 2048)
+    torch.cuda.synchronize()
+    return out
+
+
+def seq_slice_record(torch, np, st):
+    """The B1 record of a seq rank's queries (``flash_prefill_seq2``): seq
+    rank 1's slice of a 2048 round at Llama-3-8B heads, checked against
+    the plain version (a fresh round's slice, a continuation's from inside
+    a key tile, lanes of 0 rows and ragged ones), then timed as 12a times
+    its shapes."""
+    import torch.nn.functional as F
+
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    name = "flash_prefill_seq2"
+    rng = np.random.default_rng(18)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs = st.setdefault("max_abs_err", {})
+    ulps = {}
+    starts, lengths = [1024, 2024, 1024, 1024], [1024, 276, 0, 500]
+    case = prefill_case(torch, rng, gen, 4, 1024, starts, lengths)
+    got = pa.flash_prefill_attention(*case)
+    want = pa.flash_prefill_attention_plain(*case)
+    torch.cuda.synchronize()
+    for b, n in enumerate(lengths):
+        if n == 0:
+            check(bool((got[b] == 0).all()), f"{name}: empty lane {b}")
+            continue
+        check_rows(torch, name, got[b, :n], want[b, :n], slice(None), errs,
+                   ulps)
+    del case, got, want
+    S, starts, lengths = 1024, [1024], [1024]
+    case = prefill_case(torch, rng, gen, 1, S, starts, lengths)
+    ms = time_ms(torch, lambda: pa.flash_prefill_attention(*case), rounds=5)
+    alone = time_ms(torch, flash_alone(torch, pa, case, {}), rounds=5)
+    plain = time_ms(torch, lambda: pa.flash_prefill_attention_plain(*case),
+                    reps=5)
+    ctx_max = starts[0] + lengths[0]
+    pos = torch.arange(S, device="cuda")[None, :, None] + case[4][:, None, None]
+    keys = torch.arange(ctx_max, device="cuda")[None, None, :]
+    qs, k, v, m = sdpa_args(torch, case[0] * D ** -0.5, case[1], case[2],
+                            case[3], ctx_max, keys <= pos, {})
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=m, scale=1.0), reps=5)
+    b_ms, by = bound(*prefill_work(starts, lengths, S))
+    print(f"phase 12g: {name} (seq rank 1 of a 2048 round) H={H} KVH={KVH}: "
+          f"slices ok, max abs err {errs[name]:.4g}, max err "
+          f"{ulps[name]:.3g} ulps of the row; B=1 S={S} start {starts[0]}: "
+          f"kernel {ms:.4f} ms (alone, on pre-scaled q: {alone:.4f} ms), "
+          f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+          f"({by}) [{st['gpu']}]")
+    kernel_record(st, name, "seq rank 1 of a 2048 round, B=1 S=1024", ms,
+                  plain, lib, b_ms, by)
+    del case, qs, k, v, m
+    torch.cuda.empty_cache()
+
+
+def phase12g(torch, np, st):
+    """12g: sequence-sharded prefill on a "1,2,1" mesh (gloo on one card,
+    host-staged) at Llama-3-8B width and SEQ_LAYERS layers against TP 1
+    on the same weights: prefill logits (cosine), greedy ids of 8 prompts
+    with one longer than the top bucket (a share equal), B1 launched on
+    both ranks over their query slices; then B1's slice record."""
+    import dataclasses
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+        MeshConfig, create_mesh)
+
+    gpu = st["gpu"]
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=SEQ_LAYERS)
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    t0 = time.monotonic()
+    mesh = st["mesh"] = create_mesh(MeshConfig(seq=2), backend=backend)
+    ref = llama.LlamaModel(cfg, seed=0)
+    model = llama.LlamaModel(cfg, seed=0, mesh=mesh)
+    mesh.sync()
+    label = mesh_label(mesh)
+    print(f"phase 12g: Llama-3-8B ({SEQ_LAYERS} layers, full width) on "
+          f"{label} and at TP 1, from seed 0, in "
+          f"{time.monotonic() - t0:.2f} s")
+    want = seq_logits(torch, np, ref, cfg.vocab_size)
+    got = seq_logits(torch, np, model, cfg.vocab_size)
+    cos = cosines(torch, [got], [want])
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"phase 12g: prefill logits seq 2 vs TP 1, rounds of 2048 (lanes "
+          f"of 4096, 2300, 1025, 700 tokens): smallest row cosine {cos:.6f} "
+          f"(at least {TP_COS_MIN}), argmax agreement {agree:.3f} [{gpu}]")
+    check(cos >= TP_COS_MIN, f"seq 2 logits cosine {cos:.6f}")
+    lens = prompt_lengths(np.random.default_rng(2))[1::2]
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    ref_ids, _, ref_ttft, _, eng = tp_engine_run(
+        torch, st, None, ref, prompts, f"Llama-3-8B ({SEQ_LAYERS} layers) "
+        "TP 1", SEQ_ECFG, {"flash_prefill": "flash_prefill_attention"})
+    check(max(eng.prefill_bucket_rounds) == 2048,
+          f"12g: buckets {eng.prefill_bucket_rounds}")
+    del eng, ref
+    gc.collect()
+    ids, per_rank, ttft, _, eng = tp_engine_run(
+        torch, st, mesh, model, prompts, f"Llama-3-8B ({SEQ_LAYERS} layers) "
+        f"{label}", SEQ_ECFG,
+        {"flash_prefill_seq2": "flash_prefill_attention"})
+    check(eng.mesh_axes() == {"data": 1, "seq": 2, "model": 1}
+          and eng.prefill_path == "flash",
+          f"12g engine: {eng.mesh_axes()} {eng.prefill_path}")
+    same = sum(a == b for a, b in zip(ids, ref_ids))
+    print(f"phase 12g: greedy ids seq 2 vs TP 1: {same} of {len(prompts)} "
+          f"sequences of 32 tokens equal (at least {SEQ_IDS_MIN_SHARE:.0%}; "
+          f"prompts {lens}); B1 launches per rank {per_rank}; ttft p50 "
+          f"{ttft * 1e3:.1f} ms, TP 1 {ref_ttft * 1e3:.1f} ms [{gpu}]")
+    check(same >= SEQ_IDS_MIN_SHARE * len(prompts),
+          f"12g: only {same} of {len(prompts)} id sequences equal TP 1's")
+    st.setdefault("launches", {})["flash_prefill_seq2"] = (
+        per_rank[0]["flash_prefill_attention"])
+    del eng, model
+    gc.collect()
+    st.pop("mesh").close()
+    torch.cuda.empty_cache()
+    seq_slice_record(torch, np, st)
+
+
+def phase12h(torch, np, st):
+    """12h (four cards): Llama-3-8B at 32 layers on "1,2,2" over NCCL, a
+    table of 8,192 tokens: one prompt of LONG_PROMPT tokens admitted alone
+    (TTFT against "1,1,4" and "1,1,2" on the same cards), then phase 2's
+    16-prompt mix held to TP 1 by 12b's bars (logit cosine, a share of
+    equal id sequences), B1 launched on every rank."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import (
+        create_mesh, parse_mesh_shape)
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+
+    gpu = st["gpu"]
+    if torch.cuda.device_count() < 4:
+        print("phase 12h: skipped (needs four cards, one per rank of "
+              "\"1,2,2\")")
+        return
+    cfg = LLAMA3_8B
+    rng = np.random.default_rng(19)
+    long = [int(t) for t in rng.integers(3, cfg.vocab_size,
+                                         size=LONG_PROMPT)]
+    rng = np.random.default_rng(12)
+    mix = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+           for n in prompt_lengths(np.random.default_rng(2))]
+
+    def long_ttft(model):
+        eng = InferenceEngine(cfg, model, EngineConfig(**{**TP_ECFG,
+                                                          **LONG_ECFG}))
+        check(max(eng.ecfg.prefill_buckets) == LONG_PROMPT,
+              f"12h: buckets {eng.ecfg.prefill_buckets}")
+        out = []
+        for _ in range(2):      # the second is warm
+            res, = eng.generate([long], SamplingParams(max_tokens=8))
+            check(res.finish_reason in ("eos", "length"),
+                  f"12h: long prompt {res.finish_reason} {res.error}")
+            out.append(res.ttft_s)
+        del eng
+        gc.collect()
+        return out
+
+    ref = llama.LlamaModel(cfg, seed=0)
+    want = seq_logits(torch, np, ref, cfg.vocab_size)
+    ref_ids = tp_engine_run(torch, st, None, ref, mix, "Llama-3-8B TP 1",
+                            LONG_ECFG,
+                            {"flash_prefill": "flash_prefill_attention"})[0]
+    ttfts = {"1,1,1": long_ttft(ref)}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape in ("1,2,2", "1,1,4", "1,1,2"):
+        t0 = time.monotonic()
+        mesh = st["mesh"] = create_mesh(parse_mesh_shape(shape))
+        model = llama.LlamaModel(cfg, seed=0, mesh=mesh)
+        mesh.sync()
+        print(f"phase 12h: Llama-3-8B (32 layers) on mesh {shape} over NCCL "
+              f"({mesh.size} cards): up and sharded in "
+              f"{time.monotonic() - t0:.2f} s")
+        if shape == "1,2,2":
+            got = seq_logits(torch, np, model, cfg.vocab_size)
+            cos = cosines(torch, [got], [want])
+            print(f"phase 12h: prefill logits {shape} vs TP 1: smallest row "
+                  f"cosine {cos:.6f} (at least {TP_COS_MIN}) [{gpu}]")
+            check(cos >= TP_COS_MIN, f"12h: cosine {cos:.6f}")
+            ids, per_rank, ttft, tok_s, eng = tp_engine_run(
+                torch, st, mesh, model, mix, f"Llama-3-8B mesh {shape}",
+                LONG_ECFG, {"flash_prefill_seq": "flash_prefill_attention"})
+            same = sum(a == b for a, b in zip(ids, ref_ids))
+            print(f"phase 12h: greedy ids {shape} vs TP 1: {same} of "
+                  f"{len(mix)} sequences of 32 tokens equal (at least "
+                  f"{TP_IDS_MIN_SHARE:.0%}); B1 launches per rank "
+                  f"{[c['flash_prefill_attention'] for c in per_rank]}; "
+                  f"mix ttft p50 {ttft * 1e3:.1f} ms, decode {tok_s:.1f} "
+                  f"tok/s [{gpu}]")
+            check(same >= TP_IDS_MIN_SHARE * len(mix),
+                  f"12h: only {same} of {len(mix)} id sequences equal")
+            del eng
+            gc.collect()
+        ttfts[shape] = long_ttft(model)
+        del model
+        gc.collect()
+        st.pop("mesh").close()
+        torch.cuda.empty_cache()
+    print(f"phase 12h: TTFT of one {LONG_PROMPT}-token prompt admitted alone "
+          f"(one 8192 round; cold, warm ms): "
+          + ", ".join(f"{k} {v[0] * 1e3:.1f} / {v[1] * 1e3:.1f}"
+                      for k, v in ttfts.items()) + f" [{gpu}]")
+    st["seq_long_ttft"] = ttfts
+
+
 def phase12(torch, np, st):
     """A7: the per-rank kernel shapes (12a), Llama-3-8B at TP 2 (12b),
     Qwen2-72B (12d) and the mesh's close, the server on a mesh and
@@ -5604,7 +5885,8 @@ def phase12(torch, np, st):
     this run launched reads 0."""
     import gc
 
-    subs = st["subs"].get(12) or {"12a", "12b", "12c", "12d", "12e", "12f"}
+    subs = st["subs"].get(12) or {"12a", "12b", "12c", "12d", "12e", "12f",
+                                  "12g", "12h"}
     st.pop("model", None)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5613,6 +5895,8 @@ def phase12(torch, np, st):
              if name in subs]
     if subs & {"12b", "12d"}:
         steps.append(close_mesh)
+    steps += [sub for name, sub in (("12g", phase12g), ("12h", phase12h))
+              if name in subs]
     if subs & {"12c", "12e", "12f"}:
         steps.append(lambda torch, np, st: phase12c(torch, np, st, subs))
     try:
@@ -5876,6 +6160,29 @@ def ckpt_preflight(torch, st):
           f"{time.monotonic() - t0:.2f} s (shapes only, on the meta device)")
 
 
+def check_device_quant(torch, np, full, q) -> str:
+    """``q`` (quantized on the card) against ``utils/quantize.py:
+    quantize_array`` on the host, bit for bit: layer 0's q, k, o (a row-
+    parallel weight) and down, and the first 8,192 rows of the embedding
+    and the head (per-row scales: a row's codes do not depend on the
+    others)."""
+    from k8s_llm_monitor_tpu_torch.utils.quantize import quantize_array
+
+    pairs = [(f"layers.0.{n}", getattr(full.layers[0], n).weight,
+              getattr(q.layers[0], n)) for n in ("q", "k", "o", "down")]
+    pairs.append(("embed[:8192]", full.embed.weight[:8192], q.embed))
+    if q.lm_head is not None:
+        pairs.append(("lm_head[:8192]", full.lm_head.weight[:8192],
+                      q.lm_head))
+    for name, w, dst in pairs:
+        n = w.shape[0]
+        codes, scale = quantize_array(w.float().cpu().numpy(), axis=1)
+        check(np.array_equal(dst.weight_q[:n].cpu().numpy(), codes)
+              and np.array_equal(dst.scale[:n].cpu().numpy(), scale),
+              f"13a: {name}: the card's int8 differs from quantize_array")
+    return ", ".join(name for name, _, _ in pairs)
+
+
 def phase13(torch, np, st):
     """A7b: a checkpoint on a tensor-parallel mesh.  13a writes Llama-3-8B
     at full width (depth CKPT_LAYERS_ONE_CARD on one card, 32 with a card
@@ -5949,6 +6256,11 @@ def phase13(torch, np, st):
                 t0 = time.monotonic()
                 q1 = quantize_params(one)
                 print(f"phase 13a: quantize_params at TP 1 in "
+                      f"{time.monotonic() - t0:.1f} s", flush=True)
+                t0 = time.monotonic()
+                k = check_device_quant(torch, np, one, q1)
+                print(f"phase 13a: the card's int8 codes and scales equal "
+                      f"the host's quantize_array bit for bit ({k}) in "
                       f"{time.monotonic() - t0:.1f} s", flush=True)
                 n += check_shards(torch, q1, q2, mesh,
                                   "quantize_params of the bf16 shards")

@@ -23,6 +23,19 @@ replicated.  When the degree does not divide the kv heads the pages
 replicate: k/v are all-gathered after their (column-parallel) projection
 and each local query head reads its kv head of the full pool.
 
+Sequence-sharded prefill (a mesh with ``seq`` > 1; the JAX engine places
+prefill token batches sharded over ``seq`` and GSPMD splits the work):
+in each fresh, chunk or prefix-hit round of ``[B, S]`` tokens, seq rank
+``j`` embeds, projects and ropes its slice of positions ``[j S/s, (j+1)
+S/s)``; each layer's chunk K/V is all-gathered over the seq group before
+the scatter, so every seq rank's pages hold the whole chunk (pages are
+seq-replicated and model-sharded, as JAX's kv specs are); attention runs
+on the slice's queries (flash prefill with the slice's start and clamped
+lengths); the row-parallel o and down run over the model group; the last
+valid token's hidden row comes from the seq rank that holds it through a
+masked sum over the seq group, so the logits end replicated.  Decode and
+verify stay replicated over ``seq`` (and ``data``).
+
 The paged KV cache is one ``[num_blocks, block_size, kv_heads * head_dim]``
 tensor per layer for K and for V (kv-head-major fused rows), block 0 the
 null block that masked lanes write to.  Where the JAX package donates the
@@ -348,9 +361,14 @@ class LlamaModel(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.quantized = quantized
-        self.mesh = mesh if tp > 1 else None
+        # A mesh of more than one rank; ``tp`` is its model degree, ``rank``
+        # this rank's model coordinate (the shard it holds), ``sp`` the seq
+        # degree its prefill rounds split over.
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.tp = tp
-        self.rank = mesh.rank if self.mesh is not None else 0
+        self.rank = mesh.model_rank if self.mesh is not None else 0
+        self.sp = mesh.sp if self.mesh is not None else 1
+        self.seq_rank = mesh.seq_rank if self.mesh is not None else 0
         # Local heads; with the pages replicated, the kv head each local
         # query head reads.
         self.n_heads = cfg.num_heads // tp
@@ -537,7 +555,8 @@ def row_parallel_partial(lin: nn.Module, x: torch.Tensor, act_quant: bool,
         return F.linear(x, lin.weight), lambda y: y
 
     def chunk(vec, n):
-        return vec if vec.shape[0] == n else vec.narrow(0, mesh.rank * n, n)
+        return vec if vec.shape[0] == n else vec.narrow(
+            0, mesh.model_rank * n, n)
 
     if act_quant:
         xf = x.float()
@@ -558,7 +577,7 @@ def _row(model: LlamaModel, lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A row-parallel projection (o, down): ``_linear`` on one rank, the
     partial summed over the ranks under a mesh (the reference schedule)."""
     aq = model.cfg.act_quant
-    if model.mesh is None:
+    if model.tp == 1:
         return _linear(lin, x, aq)
     part, finish = row_parallel_partial(lin, x, aq, model.mesh)
     return finish(model.mesh.all_reduce(part))
@@ -571,7 +590,7 @@ def _embed_lookup(model: LlamaModel, tokens: torch.Tensor) -> torch.Tensor:
     its vocab slice, zeros the rest, and the rows are summed over the
     ranks (exact: one rank contributes each row)."""
     t = tokens.long()
-    mesh = model.mesh
+    mesh = model.mesh if model.tp > 1 else None
     if mesh is not None:
         V = model.embed.weight_q.shape[0] if model.quantized else \
             model.embed.weight.shape[0]
@@ -649,7 +668,7 @@ def _unembed(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
                   * emb.scale.to(x.dtype)).float()
     else:
         logits = F.linear(x, emb.weight).float()
-    if model.mesh is None:
+    if model.tp == 1:
         return logits
     return model.mesh.all_gather(logits, dim=-1)
 
@@ -805,7 +824,7 @@ def _gathered_kv(model: LlamaModel, k, v, pk, pv, psk, psv, block_tables,
 def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                   kv_len, pages: KVPages, block_tables, attend_to_pages: bool,
                   paged_attn_fn=None, on_layer=None,
-                  return_all_logits: bool = False):
+                  return_all_logits: bool = False, seq_shard: bool = False):
     """Shared prefill layer loop: embed, qkv+rope, scatter into the pages,
     attention, residual/MLP, last-valid-token unembed (every position's
     with ``return_all_logits``, for the verify pass).
@@ -825,10 +844,26 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
     ``on_layer``, when given, is called after each layer's launches: the
     host may act on earlier work the device has finished while it waits
     for room in the launch queue.
+
+    ``seq_shard`` (prefill and chunk rounds) on a mesh with a seq axis:
+    this rank computes the queries of its slice of the round's positions
+    (module docstring); ``positions`` / ``valid`` stay the round's, for
+    the scatter of the gathered K/V.
     """
     cfg = model.cfg
     B, S = tokens.shape
-    cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta,
+    sp = model.sp if seq_shard else 1
+    q_pos, q_len, off, Sq = positions, lengths, 0, S
+    if sp > 1:
+        if S % sp:
+            raise ValueError(f"a prefill round of {S} tokens does not "
+                             f"divide over the mesh's seq axis ({sp})")
+        Sq = S // sp
+        off = model.seq_rank * Sq
+        tokens = tokens[:, off:off + Sq]
+        q_pos = positions[:, off:off + Sq]
+        q_len = (lengths - off).clamp(0, Sq)
+    cos, sin = rope_angles(q_pos, cfg.head_dim_, cfg.rope_theta,
                            scaling=cfg.rope_scaling)
     flash = paged_attn_fn is not None and is_flash_prefill_impl(paged_attn_fn)
     quant = pages.quantized
@@ -837,6 +872,9 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, uo)
         q, k, v = _qkv(model, layer, h, cos, sin)
+        if sp > 1:
+            k = model.mesh.seq_all_gather(k, dim=1)
+            v = model.mesh.seq_all_gather(v, dim=1)
         if quant:
             pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
                                            block_tables, positions, valid)
@@ -847,34 +885,41 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
             pv = _scatter_pages(pages.v[li], v, block_tables, positions, valid)
         if flash:
             scales = dict(k_scale=psk, v_scale=psv) if quant else {}
-            attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
-                                 lengths, **scales)
+            attn = paged_attn_fn(q, pk, pv, block_tables, q_pos[:, 0],
+                                 q_len, **scales)
         elif (attend_to_pages and paged_attn_fn is not None and not quant
               and not model.kv_gather):
             # Queries are contiguous at positions[:, 0] + i (verify_step
             # and prefill_chunk guarantee it); a quantized pool takes the
             # gather/dequant branch below, as in the JAX package.
-            attn = paged_attn_fn(q, pk, pv, block_tables, positions[:, 0],
-                                 lengths)
+            attn = paged_attn_fn(q, pk, pv, block_tables, q_pos[:, 0],
+                                 q_len)
         else:
             kk, vv = _gathered_kv(model, k, v, pk, pv,
                                   psk if quant else None,
                                   psv if quant else None, block_tables,
                                   attend_to_pages)
             if model.kv_gather:
-                attn = _replicated_attention(model, q, kk, vv, positions,
+                attn = _replicated_attention(model, q, kk, vv, q_pos,
                                              kv_len)
             else:
-                attn = causal_attention(q, kk, vv, q_positions=positions,
+                attn = causal_attention(q, kk, vv, q_positions=q_pos,
                                         kv_len=kv_len)
-        o = _row(model, layer.o, attn.reshape(B, S, -1))
+        o = _row(model, layer.o, attn.reshape(B, Sq, -1))
         x = _residual_tail(model, layer, x, o)
         if on_layer is not None:
             on_layer()
     if return_all_logits:
         return _unembed(model, x), pages
-    last_idx = (lengths - 1).clamp(min=0).long()
-    x_last = x[torch.arange(B, device=x.device), last_idx][:, None, :]
+    last_idx = (lengths - 1).clamp(min=0).long() - off
+    x_last = x[torch.arange(B, device=x.device),
+               last_idx.clamp(0, Sq - 1)][:, None, :]
+    if sp > 1:
+        # The seq rank that holds each lane's last token gives its row
+        # (the others add zeros: exact).
+        mine = (last_idx >= 0) & (last_idx < Sq)
+        x_last = model.mesh.seq_all_reduce(torch.where(
+            mine[:, None, None], x_last, torch.zeros_like(x_last)))
     return _unembed(model, x_last)[:, 0, :], pages
 
 
@@ -886,7 +931,8 @@ def prefill(model: LlamaModel, tokens, lengths, pages: KVPages, block_tables,
     tokens [B, S_pad]; lengths [B] (0 = inactive lane); ``attn_impl``: the
     flash paged-prefill wrapper (ops/attention.py:select_prefill_impl) or
     None for dense in-flight attention.  Returns (last-token logits [B, V]
-    float32, pages updated in place).
+    float32, pages updated in place).  On a mesh with a seq axis each seq
+    rank computes its slice of the positions (``S_pad`` must divide).
     """
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -894,7 +940,8 @@ def prefill(model: LlamaModel, tokens, lengths, pages: KVPages, block_tables,
     valid = positions < lengths[:, None]
     return _prefill_impl(model, tokens, positions, valid, lengths, lengths,
                          pages, block_tables, attend_to_pages=False,
-                         paged_attn_fn=attn_impl, on_layer=on_layer)
+                         paged_attn_fn=attn_impl, on_layer=on_layer,
+                         seq_shard=True)
 
 
 @torch.no_grad()
@@ -906,6 +953,7 @@ def prefill_chunk(model: LlamaModel, tokens, start, lengths, pages: KVPages,
 
     tokens [B, S]; start, lengths [B] (0 = inactive lane).  Returns
     (last-chunk-token logits [B, V] float32, pages updated in place).
+    Sequence-sharded on a mesh with a seq axis, as ``prefill``.
     """
     B, S = tokens.shape
     offs = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -914,7 +962,7 @@ def prefill_chunk(model: LlamaModel, tokens, start, lengths, pages: KVPages,
     return _prefill_impl(model, tokens, positions, valid, lengths,
                          start + lengths, pages, block_tables,
                          attend_to_pages=True, paged_attn_fn=attn_impl,
-                         on_layer=on_layer)
+                         on_layer=on_layer, seq_shard=True)
 
 
 @torch.no_grad()
@@ -943,6 +991,53 @@ def verify_step(model: LlamaModel, tokens, start, lengths, pages: KVPages,
                          start + lengths, pages, block_tables,
                          attend_to_pages=True, paged_attn_fn=attn_impl,
                          return_all_logits=True)
+
+
+@torch.no_grad()
+def prefill_logits(model: LlamaModel, tokens, lengths, bucket: int, *,
+                   prefill_path: str = "auto", block_size: int = 16):
+    """Each lane's last-token logits from prompts ingested in rounds of
+    ``bucket`` tokens, as the engine's admission and chunk rounds ingest
+    them: ``prefill`` for the first round, then ``prefill_chunk`` over the
+    paged prefix.  tokens [B, T] (T a multiple of ``bucket``); lengths
+    [B] (at least 1).  A pool of its own, ``prefill_path`` as the engine
+    reads it (ops/attention.py:select_prefill_impl).  Returns [B, V]
+    float32.  On rank 0 of a mesh the workers run it too (sent first), so
+    a seq mesh's rounds are split as the engine's are."""
+    from k8s_llm_monitor_tpu_torch.ops.attention import select_prefill_impl
+
+    cfg = model.cfg
+    if model.mesh is not None and model.mesh.is_leader:
+        model.check_current()
+        model.mesh.send("prefill_logits", tokens.cpu().numpy(),
+                        lengths.cpu().numpy(), bucket,
+                        dict(prefill_path=prefill_path,
+                             block_size=block_size))
+    B, T = tokens.shape
+    if T % bucket:
+        raise ValueError(f"{T} tokens are not rounds of {bucket}")
+    dev = model.device
+    tokens, lengths = tokens.to(dev), lengths.to(dev, torch.int32)
+    nb = -(-T // block_size)
+    pages = init_kv_pages(cfg, B * nb + 1, block_size, dev, model.dtype,
+                          tp=model.tp)
+    tables = (1 + torch.arange(B * nb, dtype=torch.int32,
+                               device=dev)).reshape(B, nb)
+    impl = select_prefill_impl(dev, cfg, prefill_path, tp=model.tp)
+    out = None
+    for start in range(0, T, bucket):
+        chunk = tokens[:, start:start + bucket]
+        n = (lengths - start).clamp(0, bucket).to(torch.int32)
+        if start == 0:
+            logits, _ = prefill(model, chunk, n, pages, tables,
+                                attn_impl=impl)
+            out = logits
+        else:
+            logits, _ = prefill_chunk(
+                model, chunk, torch.full_like(n, start), n, pages, tables,
+                attn_impl=impl)
+            out = torch.where((n > 0)[:, None], logits, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -425,8 +425,10 @@ class LocalEngineBackend(LLMBackend):
         (parallel/mesh.py): ranks 1..N-1 start here, one per card, over
         NCCL; ``mesh_backend="gloo"`` asks for gloo (ranks may share a
         card, collectives through host memory; the CPU's only backend).
-        Only the model axis is served (``data``/``seq`` > 1 raise naming
-        ROADMAP A7b).  Each rank loads its shard of a checkpoint (int8 and
+        ``data * seq * model`` ranks, as in the JAX backend: ``seq`` > 1
+        splits every prefill round over the seq axis (``"1,2,4"`` serves
+        long prompts on eight cards), ``data`` > 1 replicates.  Each rank
+        loads its shard of a checkpoint (int8 and
         W8A8 of the shard included) from the same directory.  A rebuild on
         a broken mesh, or one whose workers do not answer, builds a new
         mesh and the model on it again: the checkpoint's shards loaded

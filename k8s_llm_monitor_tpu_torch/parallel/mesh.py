@@ -25,9 +25,20 @@ collectives through host memory ("host-staged"; a CUDA tensor is copied to
 the host and back), several ranks may share a card, and the engine runs
 its decode programs eagerly (no CUDA graphs).  The CPU tests ask for gloo.
 
-Only the ``model`` axis is served.  ``data`` > 1 and ``seq`` > 1 raise
-``NotImplementedError`` naming ROADMAP A7b (sequence-sharded prefill, data
-parallelism, multi-host).
+The ranks form JAX's ``(data, seq, model)`` device array with ``model``
+innermost: rank ``r`` sits at ``data_rank = r // (seq * model)``,
+``seq_rank = r // model % seq`` and ``model_rank = r % model``.  The
+model's collectives (``all_reduce``, ``all_gather``, ``reduce_scatter``)
+run over the rank's **model group**, the ``model`` ranks of its
+``(data, seq)`` coordinate, exactly as on a mesh of the model axis alone;
+``seq_all_gather`` and ``seq_all_reduce`` run over its **seq group**, the
+``seq`` ranks of its ``(data, model)`` coordinate (sequence-sharded
+prefill, models/llama.py); ``broadcast`` reaches every rank.  Ranks of one
+``model_rank`` hold the same shard; a ``data`` replica computes what
+replica 0 computes (the JAX engine's serving ``data`` axis replicates the
+params, the pages and the token batch), so no collective crosses it.
+Every rank builds the groups in the same order (``_init_group``).  One
+host only: the JAX package's ``init_multihost`` is ROADMAP A11.
 
 One model and one engine live on a mesh's workers at a time: building a
 model on the mesh retires the previous one (and its engine), building an
@@ -46,6 +57,22 @@ it; the engine reads nothing a call returned after that.  The abort waits
 for the call of rank 0 that is launching (``Mesh.launching``) to return,
 unless that launch is itself held up behind the dead rank; the call
 raises ``MeshBroken`` once its launch returns.
+
+A launch that is held up is what hung rank 0 over NCCL: its step thread
+sat inside a prefill's ``dist.all_reduce`` behind the dead rank, and the
+watcher's abort waited on that collective.  A prefill round is about a
+thousand eager launches, and the queue of a stream that waits behind a
+dead rank's collective fills, so the next enqueue blocks for room.  Over
+NCCL rank 0 is therefore **paced** (``Mesh.paced``): a prefill round waits
+after each layer until the device has run the layer before
+(``LaunchPacer``), and a reconcile waits for its call's event, both by
+polling the event and ``Mesh.broken`` (``wait_event``), never inside a
+blocking CUDA call.  (Unpaced, a killed rank's break hung rank 0 this way
+on H100s.)  A broken mark then ends rank 0's launch at the next layer
+with ``MeshBroken``; the watcher's abort meets no enqueue of rank 0's and
+leaves every group (the default one and the sub-groups).  Every group's
+communicator is made when the mesh is built (``_init_group``), so no
+first use of one waits on a peer that has died since.
 """
 
 from __future__ import annotations
@@ -54,6 +81,7 @@ import contextlib
 import dataclasses
 import datetime
 import io
+import logging
 import os
 import socket
 import threading
@@ -65,7 +93,13 @@ import torch
 
 from k8s_llm_monitor_tpu_torch.devtools.lockcheck import make_lock
 
+logger = logging.getLogger(__name__)
+
 AXES = ("data", "seq", "model")
+
+# Why this process can build no mesh again (None: it can): a process group
+# it could not leave within ``Mesh.ABORT_WAIT_S`` (``Mesh._abort_group``).
+_STUCK: Optional[str] = None
 
 # The bytes of one message of a worker's state (``Mesh.worker_states``).
 _CHUNK = 8 << 20
@@ -75,6 +109,17 @@ class MeshBroken(RuntimeError):
     """The mesh's ranks may no longer run the same calls: every call on it
     raises this until it is rebuilt (``Mesh.abort``, then ``create_mesh``).
     """
+
+
+class MeshUnusable(RuntimeError):
+    """This process could not leave a mesh's process group: the abort is
+    still running in it, so no mesh can be built here again
+    (``create_mesh`` raises this); the process must be restarted."""
+
+
+def unusable() -> Optional[str]:
+    """Why this process can build no mesh again, or None."""
+    return _STUCK
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +136,25 @@ class MeshConfig:
     def shape(self) -> dict[str, int]:
         return {"data": self.data, "seq": self.seq, "model": self.model}
 
+    def coords(self, rank: int) -> tuple[int, int, int]:
+        """(data, seq, model) coordinate of ``rank``: JAX's device array
+        order, ``model`` innermost."""
+        return (rank // (self.seq * self.model),
+                rank // self.model % self.seq, rank % self.model)
+
+    def groups(self) -> tuple[list[list[int]], list[list[int]]]:
+        """(model groups, seq groups): the ranks of each ``(data, seq)``
+        coordinate in model order, then of each ``(data, model)``
+        coordinate in seq order; a group of one rank, or one that is the
+        whole world, is left out (the default group serves it)."""
+        n, sm = self.size, self.seq * self.model
+        model = [[d * sm + q * self.model + m for m in range(self.model)]
+                 for d in range(self.data) for q in range(self.seq)]
+        seq = [[d * sm + q * self.model + m for q in range(self.seq)]
+               for d in range(self.data) for m in range(self.model)]
+        return ([g for g in model if 1 < len(g) < n],
+                [g for g in seq if 1 < len(g) < n])
+
 
 def parse_mesh_shape(text: str) -> MeshConfig:
     """``llm.tpu.mesh_shape`` ("data,seq,model", e.g. "1,1,2")."""
@@ -99,20 +163,29 @@ def parse_mesh_shape(text: str) -> MeshConfig:
 
 
 class Mesh:
-    """One rank's view of a serving mesh: its rank, its device, the process
-    group's collectives, and on rank 0 the pipes to the workers.
+    """One rank's view of a serving mesh: its rank and its coordinates, its
+    device, the collectives of its model and seq groups, and on rank 0 the
+    pipes to the workers.
 
-    A mesh with ``model`` 1 has no process group and no workers: its
-    collectives return their input."""
+    A mesh of one rank has no process group and no workers; a collective
+    over a group of one rank returns its input."""
 
     # How long the watcher waits for a launching call before it aborts
     # the process group under it (``_worker_exited``).
     LAUNCH_WAIT_S = 5.0
+    # The poll interval of a paced wait (``wait_event``).
+    POLL_S = 0.0002
+    # How long leaving the process group may take (``_abort_group``).
+    ABORT_WAIT_S = 120.0
 
     def __init__(self, cfg: MeshConfig, rank: int, devices: list,
-                 backend: str, conns=(), procs=()):
+                 backend: str, conns=(), procs=(), groups=None):
         self.config = cfg
         self.rank = rank
+        self.data_rank, self.seq_rank, self.model_rank = cfg.coords(rank)
+        # The process groups of this rank's model and seq groups (None: the
+        # default group, or a group of one rank).
+        self._model_group, self._seq_group = groups or (None, None)
         self.devices = [torch.device(d) for d in devices]
         self.device = self.devices[rank]
         self.backend = backend
@@ -149,12 +222,31 @@ class Mesh:
 
     @property
     def tp(self) -> int:
+        """The model (tensor-parallel) degree."""
         return self.config.model
+
+    @property
+    def sp(self) -> int:
+        """The seq (sequence-parallel prefill) degree."""
+        return self.config.seq
+
+    @property
+    def size(self) -> int:
+        """The ranks of the mesh (``data * seq * model``)."""
+        return self.config.size
 
     @property
     def is_leader(self) -> bool:
         """Rank 0 of a mesh with workers: the rank that sends."""
-        return self.rank == 0 and self.tp > 1
+        return self.rank == 0 and self.size > 1
+
+    @property
+    def paced(self) -> bool:
+        """Rank 0 of an NCCL mesh: its launches are paced (``LaunchPacer``)
+        and its waits poll (``wait_event``), so no enqueue of its blocks
+        behind a dead rank's collective."""
+        return (self.is_leader and self.backend == "nccl"
+                and self.device.type == "cuda")
 
     def device_kind(self) -> str:
         if self.device.type == "cuda":
@@ -169,9 +261,8 @@ class Mesh:
         # A gloo mesh on CUDA: the engine runs its programs eagerly there.
         return fn(x.cpu()).to(x.device)  # graftcheck: disable=capture-hazard -- gloo: no graphs
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """The sum (or max) of ``x`` over the ranks, on every rank."""
-        if self.tp == 1:
+    def _all_reduce(self, x: torch.Tensor, op: str, n: int, group):
+        if n == 1:
             return x
         import torch.distributed as dist
 
@@ -179,29 +270,47 @@ class Mesh:
 
         def run(t):
             t = t.contiguous()
-            dist.all_reduce(t, op=rop)
+            dist.all_reduce(t, op=rop, group=group)
             return t
 
         return self._staged(run, x)
 
-    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along ``dim`` in rank order."""
-        if self.tp == 1:
+    def _all_gather(self, x: torch.Tensor, dim: int, n: int, group):
+        if n == 1:
             return x
         import torch.distributed as dist
 
         def run(t):
             t = t.contiguous()
             if self.backend == "gloo":
-                parts = [torch.empty_like(t) for _ in range(self.tp)]
-                dist.all_gather(parts, t)
+                parts = [torch.empty_like(t) for _ in range(n)]
+                dist.all_gather(parts, t, group=group)
             else:
-                out = t.new_empty((self.tp,) + tuple(t.shape))
-                dist.all_gather_into_tensor(out, t)
+                out = t.new_empty((n,) + tuple(t.shape))
+                dist.all_gather_into_tensor(out, t, group=group)
                 parts = list(out.unbind(0))
             return torch.cat(parts, dim=dim)
 
         return self._staged(run, x)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or max) of ``x`` over the model group, on each of its
+        ranks."""
+        return self._all_reduce(x, op, self.tp, self._model_group)
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The model group's ``x`` concatenated along ``dim`` in model-rank
+        order."""
+        return self._all_gather(x, dim, self.tp, self._model_group)
+
+    def seq_all_gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The seq group's ``x`` concatenated along ``dim`` in seq-rank
+        order (a prefill round's K/V slices joined into the chunk's)."""
+        return self._all_gather(x, dim, self.sp, self._seq_group)
+
+    def seq_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the seq group, on each of its ranks."""
+        return self._all_reduce(x, "sum", self.sp, self._seq_group)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """This rank's chunk along ``dim`` of the sum of ``x`` over the
@@ -214,17 +323,18 @@ class Mesh:
             chunks = [c.contiguous() for c in t.chunk(self.tp, dim=dim)]
             out = torch.empty_like(chunks[0])
             if self.backend == "gloo":
-                dist.reduce_scatter(out, chunks)
+                dist.reduce_scatter(out, chunks, group=self._model_group)
             else:
-                dist.reduce_scatter_tensor(out, torch.stack(chunks))
+                dist.reduce_scatter_tensor(out, torch.stack(chunks),
+                                           group=self._model_group)
             return out
 
         return self._staged(run, x)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``x`` on every rank (``x`` gives the shape and dtype
-        on the others)."""
-        if self.tp == 1:
+        """Rank 0's ``x`` on every rank of the mesh (``x`` gives the shape
+        and dtype on the others)."""
+        if self.size == 1:
             return x
         import torch.distributed as dist
 
@@ -239,7 +349,10 @@ class Mesh:
         """The all-reduce's bus rate over this mesh at a payload of
         ``nbytes`` (GB/s: ``2 (tp - 1) / tp`` of the payload per rank over
         the time of one all-reduce), measured with ``bench_all_reduce`` at
-        its first call for that size and kept.  Rank 0, between calls."""
+        its first call for that size and kept.  Rank 0, between calls; 0.0
+        for a model group of one rank (no all-reduce)."""
+        if self.tp == 1:
+            return 0.0
         if nbytes not in self._bus_gbs:
             numel = max(nbytes // 2, 1)
             ms = bench_all_reduce(self, numel, reps)
@@ -326,6 +439,16 @@ class Mesh:
                 self._launch_cv.notify_all()
         if self.broken is not None:
             raise MeshBroken(self.broken)
+
+    def wait_event(self, event) -> None:
+        """Wait until the device has passed ``event`` (a CUDA event) by
+        polling it, raising ``MeshBroken`` as soon as the mesh breaks: the
+        waiting thread is never inside a blocking CUDA call that the
+        watcher's abort would have to end."""
+        while not event.query():
+            if self.broken is not None:
+                raise MeshBroken(self.broken)
+            time.sleep(self.POLL_S)
 
     def replay(self, msg: tuple, run):
         """Send device call ``msg`` to every worker, then return ``run()``,
@@ -446,20 +569,42 @@ class Mesh:
             self.mark_broken(f"mesh rank {r} exited (code {code})")
             if self.backend != "nccl":
                 return
+            # A paced launch sees the mark at its next layer and leaves.
             self._launch_cv.wait_for(lambda: not self._launching,
                                      timeout=self.LAUNCH_WAIT_S)
             self._abort_group()
 
     def _abort_group(self) -> None:
         """Leave the process group without a word to the other ranks (each
-        does the same, so no rank waits on another)."""
+        does the same, so no rank waits on another).  The default group's
+        abort aborts every group this process made, the model and seq
+        groups with it (newest first).
+
+        The abort runs in a thread of its own, waited for at most
+        ``ABORT_WAIT_S``: over NCCL the close of a mesh built after two
+        breaks hung in it (ROADMAP C4).  An abort that does not return by
+        then leaves the group half torn down and still running, so the
+        process is marked unusable (``unusable``): the caller returns,
+        and every later ``create_mesh`` in this process raises
+        ``MeshUnusable``, which ends a supervisor's rebuild (it gives up,
+        and the process's own restart policy replaces it)."""
+        global _STUCK
         import torch.distributed as dist
         from torch.distributed.distributed_c10d import _abort_process_group
 
         with self._launch_cv:   # the watcher and abort() may race here
-            if not self._aborted and self.tp > 1 and dist.is_initialized():
-                self._aborted = True
-                _abort_process_group()
+            if self._aborted or self.size == 1 or not dist.is_initialized():
+                return
+            self._aborted = True
+            done = threading.Event()
+            threading.Thread(target=lambda: (_abort_process_group(),
+                                             done.set()),
+                             daemon=True, name="mesh-abort").start()
+            if not done.wait(self.ABORT_WAIT_S):
+                _STUCK = (f"leaving the process group took more than "
+                          f"{self.ABORT_WAIT_S:.0f} s (rank {self.rank})")
+                logger.error("%s: this process can build no mesh again",
+                             _STUCK)
 
     def abort(self) -> None:
         """Drop a broken mesh: kill the workers and leave the process
@@ -488,7 +633,7 @@ class Mesh:
                 conn.send(("close",))
             except OSError:
                 pass    # exited since the ping: joined below
-        if self.tp > 1 and self.device.type == "cuda":
+        if self.size > 1 and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         for p in self._procs:
             p.join(timeout=30)
@@ -529,12 +674,57 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _init_group(backend: str, addr: str, rank: int, size: int) -> None:
+class LaunchPacer:
+    """Keeps rank 0's launches of one call at most one mark ahead of the
+    device: each call records an event on the current stream and waits
+    (``Mesh.wait_event``) until the device has passed the previous mark.
+    Called after each layer of a prefill round over NCCL, it bounds the
+    launch queue to about two layers' kernels, so no enqueue blocks for
+    room behind a dead rank's collective."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.last = None
+
+    def __call__(self) -> None:
+        ev = torch.cuda.Event()
+        ev.record()
+        if self.last is not None:
+            self.mesh.wait_event(self.last)
+        self.last = ev
+
+
+def _init_group(backend: str, addr: str, rank: int, cfg: MeshConfig,
+                device: torch.device):
+    """Join the default group as ``rank`` of ``cfg.size``, then make every
+    model group and every seq group (every rank makes each, in the same
+    order, as ``new_group`` requires); returns this rank's (model group,
+    seq group), None where the default group serves or no group is
+    needed.
+
+    Each group's communicator is made here, while every rank is alive,
+    by one small all-reduce a group: a communicator made at a later first
+    use would wait inside that enqueue for its peers (a dead one would
+    hold it there, and the abort behind it)."""
     import torch.distributed as dist
 
-    dist.init_process_group(backend, init_method=addr, world_size=size,
-                            rank=rank,
-                            timeout=datetime.timedelta(seconds=600))
+    timeout = datetime.timedelta(seconds=600)
+    dist.init_process_group(backend, init_method=addr, world_size=cfg.size,
+                            rank=rank, timeout=timeout)
+    mine = []
+    for ranks_of in cfg.groups():
+        own = None
+        for ranks in ranks_of:
+            g = dist.new_group(ranks, timeout=timeout)
+            if rank in ranks:
+                own = g
+        mine.append(own)
+    x = torch.zeros(1, device=device if backend == "nccl" else "cpu")
+    for g in [None] + [g for g in mine if g is not None]:
+        dist.all_reduce(x, group=g)
+    if x.is_cuda:
+        torch.cuda.synchronize(device)
+    return tuple(mine)
 
 
 def create_mesh(cfg: Optional[MeshConfig] = None, devices: Optional[list] = None,
@@ -548,18 +738,15 @@ def create_mesh(cfg: Optional[MeshConfig] = None, devices: Optional[list] = None
     the JAX package's ``create_mesh`` does.  ``backend="gloo"`` must be
     asked for by name: it runs the collectives through host memory, lets
     ranks share cards (rank r on card r mod count) and is the CPU's only
-    backend.  ``data`` or ``seq`` above 1 raises ``NotImplementedError``
-    (ROADMAP A7b).  Call ``close()`` to stop the workers.
+    backend.  The mesh has ``data * seq * model`` ranks on one host (module
+    docstring).  Call ``close()`` to stop the workers.
     """
     cfg = cfg or MeshConfig(model=1)
-    if cfg.data > 1 or cfg.seq > 1:
-        raise NotImplementedError(
-            f"mesh {cfg}: only the model axis is served; the data and seq "
-            "axes (sequence-sharded prefill, data parallelism) are ROADMAP "
-            "A7b")
+    if min(cfg.data, cfg.seq, cfg.model) < 1:
+        raise ValueError(f"mesh {cfg}: every axis must be >= 1")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"unknown backend {backend!r} (nccl | gloo)")
-    n = cfg.model
+    n = cfg.size
     if devices is None:
         kind = torch.device("cuda" if device is None else device).type
         if kind == "cuda":
@@ -590,6 +777,9 @@ def create_mesh(cfg: Optional[MeshConfig] = None, devices: Optional[list] = None
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
+    if _STUCK is not None:
+        raise MeshUnusable(f"{_STUCK}: this process can build no mesh "
+                           "again; restart it")
     if dist.is_initialized():
         raise RuntimeError("a process group exists already: close the "
                            "other mesh first")
@@ -608,8 +798,8 @@ def create_mesh(cfg: Optional[MeshConfig] = None, devices: Optional[list] = None
         procs.append(p)
     if devices[0].type == "cuda":
         torch.cuda.set_device(devices[0])
-    _init_group(backend, addr, 0, n)
-    return Mesh(cfg, 0, devices, backend, conns, procs)
+    groups = _init_group(backend, addr, 0, cfg, devices[0])
+    return Mesh(cfg, 0, devices, backend, conns, procs, groups=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -671,8 +861,8 @@ def _worker_main(cfg: MeshConfig, rank: int, devices: list, backend: str,
             torch.set_num_threads(1)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        _init_group(backend, addr, rank, cfg.model)
-        mesh = Mesh(cfg, rank, devices, backend)
+        groups = _init_group(backend, addr, rank, cfg, dev)
+        mesh = Mesh(cfg, rank, devices, backend, groups=groups)
         _serve(mesh, conn)
     except Exception:  # noqa: BLE001 -- reported to rank 0, then exit
         try:
@@ -738,6 +928,10 @@ def _serve(mesh: Mesh, conn) -> None:
                 model, torch.from_numpy(tokens).to(mesh.device),
                 positions=(None if positions is None else
                            torch.from_numpy(positions).to(mesh.device)))
+        elif kind == "prefill_logits":
+            _, tokens, lengths, bucket, kwargs = msg
+            llama.prefill_logits(model, torch.from_numpy(tokens),
+                                 torch.from_numpy(lengths), bucket, **kwargs)
         elif kind == "state":
             # torch.save's bytes: bf16 has no numpy dtype.
             buf = io.BytesIO()

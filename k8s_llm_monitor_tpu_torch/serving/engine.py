@@ -118,7 +118,14 @@ block.
     an export gathers the ranks' page slices, a restore or an install
     broadcasts the rows and each rank writes its slice.  The decode
     collective shares use the all-reduce's bus rate measured on the mesh
-    at this engine's payload (``Mesh.bus_gbs``).
+    at this engine's payload (``Mesh.bus_gbs``).  A mesh with a ``seq``
+    axis splits every admission, chunk and prefix-hit round's positions
+    over it (models/llama.py; a prefill bucket the seq degree does not
+    divide raises at build, as in the JAX engine); decode, verify and
+    spec calls, and the ``data`` axis, are replicated.  Over NCCL this
+    rank's prefill launches are paced and its reconcile waits poll
+    (parallel/mesh.py: ``LaunchPacer``, ``Mesh.wait_event``), so a dead
+    rank's collective never holds it inside an enqueue.
     A call that raises on this rank after the workers were sent it, or a
     worker that fails or exits, breaks the mesh: the step raises
     ``MeshBroken`` (no retry), and the supervisor's factory builds a new
@@ -154,7 +161,7 @@ from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
 from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
 from k8s_llm_monitor_tpu_torch.ops.paged_attention import KERNEL_WRAPPERS
-from k8s_llm_monitor_tpu_torch.parallel.mesh import MeshBroken
+from k8s_llm_monitor_tpu_torch.parallel.mesh import LaunchPacer, MeshBroken
 from k8s_llm_monitor_tpu_torch.parallel.overlap import (
     overlap_decode_step,
     overlap_supported,
@@ -199,6 +206,9 @@ logger = logging.getLogger("k8s_llm_monitor_tpu_torch.serving.engine")
 # The environment overrides a mesh's workers take from rank 0.
 _ENV_OVERRIDES = ("K8SLLM_KV_DTYPE", "K8SLLM_PREFILL_PATH",
                   "K8SLLM_DECODE_PATH", "K8SLLM_TP_OVERLAP")
+
+# Interleaved timing rounds of ``profile_decode_phases`` on the card.
+DECODE_PHASE_TRIALS = 5
 
 
 @dataclasses.dataclass
@@ -731,12 +741,13 @@ class InferenceEngine:
                  host_kv_tier: Optional[HostKVTier] = None, mesh=None):
         if mesh is None:
             mesh = model.mesh
-        elif model.mesh is not (mesh if mesh.tp > 1 else None):
+        elif model.mesh is not (mesh if mesh.size > 1 else None):
             raise ValueError("the model was not built on this mesh")
         self.mesh = mesh
+        # The model (tensor-parallel) degree.
         self.tp = mesh.tp if mesh is not None else 1
         # Rank 0 of a mesh sends every device call to the workers.
-        self._leader = self.tp > 1 and mesh.is_leader
+        self._leader = mesh is not None and mesh.is_leader
         self.device = (mesh.device if mesh is not None and device is None
                        else llama.resolve_device(device))
         if model.device != self.device:
@@ -782,6 +793,16 @@ class InferenceEngine:
                 ec = dataclasses.replace(
                     ec, prefill_buckets=tuple(ec.prefill_buckets) + extra)
                 self.ecfg = ec
+        # Sequence-sharded prefill: every round's positions split evenly
+        # over the seq axis (the JAX engine's check, after the ladder).
+        seq_deg = mesh.sp if mesh is not None else 1
+        if seq_deg > 1:
+            for b in ec.prefill_buckets:
+                if b % seq_deg:
+                    raise ValueError(
+                        f"prefill bucket {b} is not divisible by the mesh "
+                        f"seq axis ({seq_deg}); choose bucket sizes that "
+                        f"split evenly")
         self._decode_attn = select_decode_impl(
             self.device, cfg,
             os.environ.get("K8SLLM_DECODE_PATH", ec.decode_path),
@@ -1074,8 +1095,17 @@ class InferenceEngine:
         buf.copy_(inp, non_blocking=True)
         (tokens, start, lengths, rows, idx, topk, temp, topp, fstate,
          table) = _prefill_inputs(buf, P, S, W, torch.float32)
-        on_layer = self._deliver_first_tokens if self._leader or \
-            self.tp == 1 else None
+        # Rank 0 delivers first tokens between layers; over NCCL it is
+        # paced there too (parallel/mesh.py: LaunchPacer).
+        on_layer = None
+        if self.mesh is None or self.mesh.rank == 0:
+            on_layer = self._deliver_first_tokens
+            if self.mesh is not None and self.mesh.paced:
+                pace = LaunchPacer(self.mesh)
+
+                def on_layer():
+                    pace()
+                    self._deliver_first_tokens()
         if chunked:
             logits, _ = llama.prefill_chunk(
                 self.model, tokens, start, lengths, self.pages, table,
@@ -1929,6 +1959,9 @@ class InferenceEngine:
         leaf, each [k, ..., every kv head's lanes]: on a mesh with sharded
         pages the ranks' slices are all-gathered and joined on the lane
         dim in rank order.  The host copy on rank 0 (None on a worker)."""
+        if self.mesh is not None and (self.mesh.seq_rank
+                                      or self.mesh.data_rank):
+            return None     # replicas of seq coordinate 0's model group
         k = len(blocks)
         idx = torch.from_numpy(blocks).to(self.device)
         leaves = [a for leaf in self._leaves() for a in leaf]
@@ -1947,6 +1980,10 @@ class InferenceEngine:
             mine = torch.cat(parts)
         if self.mesh is not None and self.mesh.rank != 0:
             return None
+        if self.mesh is not None and self.mesh.paced:
+            done = torch.cuda.Event()
+            done.record()
+            self.mesh.wait_event(done)
         return mine.cpu().numpy()
 
     def _write_rows(self, blocks: list[int], layers: list[tuple]) -> None:
@@ -1981,7 +2018,7 @@ class InferenceEngine:
         else:   # a worker: rank 0 broadcasts the rows
             rows = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
         idx = h_idx.to(self.device, non_blocking=True)
-        if self.tp > 1:
+        if self.mesh is not None:
             rows = self.mesh.broadcast(rows)
         off = 0
         for leaf in self._leaves():
@@ -1992,7 +2029,7 @@ class InferenceEngine:
                 n = k * dst[0].numel() // width * full
                 src = rows[off:off + n].view(k, *dst.shape[1:-1], full)
                 if full != width:
-                    src = src.narrow(-1, self.mesh.rank * width, width)
+                    src = src.narrow(-1, self.mesh.model_rank * width, width)
                 dst[idx] = src
                 off += n
 
@@ -2576,6 +2613,12 @@ class InferenceEngine:
             (only paged attention scales with the context), and
           * sampled minus greedy at short context -> ``decode_sample_ms``.
 
+        On the card attention is a fraction of a percent of a step whose
+        weight reads dominate, and the first timed run after an idle spell
+        is slower while the clocks come up; so there every program is
+        warmed first, then timed in ``DECODE_PHASE_TRIALS`` interleaved
+        rounds of ``reps`` calls, and each keeps its fastest round.
+
         The state goes into the programs' fixed input buffers with
         ``copy_``, before each run; the steps append garbage rows into ``self.pages``, so
         this runs only on an IDLE engine (it raises otherwise), never on a
@@ -2595,7 +2638,7 @@ class InferenceEngine:
         cap = ec.sample_topk_cap
         cuda = self.device.type == "cuda"
 
-        def run(key: tuple, ctx_val: int, sampled: bool) -> float:
+        def inputs(ctx_val: int, sampled: bool) -> torch.Tensor:
             inp = torch.zeros(B * (5 + width), dtype=torch.int32)
             ctx, remaining, topk, temp, topp, table = _decode_inputs(
                 inp, B, torch.float32)
@@ -2605,8 +2648,10 @@ class InferenceEngine:
             temp[:] = 0.7 if sampled else 0.0
             topk[:] = max(min(cap, 8), 1) if sampled else 0
             topp[:] = 0.9 if sampled else 1.0
+            return inp
+
+        def run(key: tuple, inp: torch.Tensor) -> float:
             self._device("zero_tok")
-            self._device("decode", inp, key)  # warm: builds or captures once
             if cuda:
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
@@ -2624,9 +2669,15 @@ class InferenceEngine:
             return ms / (reps * K)
 
         sampler = "bounded" if cap > 0 else "full"
-        t_lo = run((K, "greedy", False, 0), 1, sampled=False)
-        t_hi = run((K, "greedy", False, 0), ctx_hi, sampled=False)
-        t_samp = run((K, sampler, False, cap), 1, sampled=True)
+        cases = (((K, "greedy", False, 0), inputs(1, False)),
+                 ((K, "greedy", False, 0), inputs(ctx_hi, False)),
+                 ((K, sampler, False, cap), inputs(1, True)))
+        for key, inp in cases:        # warm: builds or captures once
+            self._device("zero_tok")
+            self._device("decode", inp, key)
+        trials = DECODE_PHASE_TRIALS if cuda else 1
+        t_lo, t_hi, t_samp = (min(ts) for ts in zip(*(
+            [run(key, inp) for key, inp in cases] for _ in range(trials))))
         self._device("zero_tok")
         self.decode_attn_ms = max(t_hi - t_lo, 0.0)
         self.decode_sample_ms = max(t_samp - t_lo, 0.0)
@@ -2872,7 +2923,10 @@ class InferenceEngine:
             if call.event is not None:
                 if self._dispatching and not call.event.query():
                     self._step_waited = True
-                call.event.synchronize()
+                if self.mesh is not None and self.mesh.paced:
+                    self.mesh.wait_event(call.event)
+                else:
+                    call.event.synchronize()
             if call.stuck:
                 raise FaultError("decode_stuck")
             self._mesh_check()

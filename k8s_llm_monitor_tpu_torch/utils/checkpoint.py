@@ -103,11 +103,11 @@ def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
 
     ``dtype`` (a torch dtype name, default ``cfg.dtype``) is the model's.
     With ``quantize=True`` every linear and the embedding are int8: each
-    tensor is quantized on the host (``utils/quantize.fill_quantized``
-    over its ``in`` axis) before it moves to the device, so the device
-    never holds the bf16 weights.  A checkpoint without ``lm_head.weight``
-    whose config does not tie the embeddings takes the embedding as its
-    head.
+    tensor is quantized alone (``utils/quantize.fill_quantized`` over its
+    ``in`` axis, on the model's device, one tensor's float32 copy at a
+    time), so the device never holds the bf16 model.  A
+    checkpoint without ``lm_head.weight`` whose config does not tie the
+    embeddings takes the embedding as its head.
 
     ``mesh``: the rank's shard (parallel/sharding.py's specs).  Each
     tensor is sliced on the host before it is read (a view of the mapped
@@ -131,7 +131,7 @@ def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
         dst = model.get_submodule(name)
         if quantize:
             fill_quantized(dst.weight_q, dst.scale,
-                           piece(name + ".weight_q", key).float().numpy(),
+                           piece(name + ".weight_q", key),
                            mesh=model.mesh if row else None)
         else:
             dst.weight.copy_(piece(name + ".weight", key))
@@ -234,9 +234,9 @@ def load_hf_checkpoint(model_dir: str | pathlib.Path,
                        device=None, mesh=None, act_quant: bool = False
                        ) -> tuple[ModelConfig, LlamaModel]:
     """Load a HF-format model directory (config.json + safetensors) onto
-    ``device`` (default ``cuda``).  ``quantize=True`` streams each tensor
-    through host-side int8 quantization (``convert_hf_state_dict``): the
-    device holds only the int8 weights; ``act_quant`` (W8A8, int8 weights
+    ``device`` (default ``cuda``).  ``quantize=True`` quantizes each
+    tensor to int8 on its own (``convert_hf_state_dict``): the model
+    holds only the int8 weights; ``act_quant`` (W8A8, int8 weights
     only) goes into the config before the model is built.
 
     ``mesh`` (parallel/mesh.py) loads the rank's shard; on rank 0 every

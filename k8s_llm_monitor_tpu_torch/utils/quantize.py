@@ -38,16 +38,20 @@ def quantize_array(w: np.ndarray, axis: int = 0) -> tuple[np.ndarray, np.ndarray
     return w_q, scale
 
 
-def _host_f32(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
-
-
 @torch.no_grad()
 def fill_quantized(codes: torch.Tensor, scale: torch.Tensor,
-                   w: np.ndarray, mesh=None) -> None:
-    """Quantize ``w`` [rows, cols] (float32, host) per row as
-    ``quantize_array(w, axis=1)`` does and copy the codes and scales into
-    ``codes`` and ``scale`` (on any device).
+                   w, mesh=None) -> None:
+    """Quantize ``w`` [rows, cols] (a numpy array or a tensor on any
+    device) per row as ``quantize_array(w, axis=1)`` does and copy the
+    codes and scales into ``codes`` and ``scale``.
+
+    It runs on ``codes``' device, one tensor at a time, with
+    ``quantize_array``'s float32 operations in the same order: ``|w|``'s
+    row max, a division of it by 127 (a tensor on the device: PyTorch on
+    CUDA turns division by a Python number into a reciprocal multiply),
+    the floor at ``_EPS``, the division of ``w`` by the scale and round
+    half to even; the codes and scales equal ``quantize_array``'s bit for
+    bit (the CPU tests and chip_smoke.py phase 13a hold them so).
 
     ``mesh``: ``w`` is the rank's slice of the columns of a row-parallel
     weight (o, down), whose row scale spans every rank's columns.  Each
@@ -55,20 +59,20 @@ def fill_quantized(codes: torch.Tensor, scale: torch.Tensor,
     and the vector is small), so the scale and the codes equal those of
     the whole row, bit for bit.  Every rank of the mesh calls it for the
     same weights in the same order."""
-    w = np.asarray(w, np.float32)
-    amax = np.max(np.abs(w), axis=1)
+    wt = torch.as_tensor(w).to(codes.device, torch.float32)
+    amax = wt.abs().amax(dim=1)
     if mesh is not None:
-        amax = mesh.all_reduce(torch.from_numpy(amax).to(mesh.device),
-                               "max").cpu().numpy()
-    s = np.maximum(amax / 127.0, _EPS).astype(np.float32)
-    codes.copy_(torch.from_numpy(np.rint(w / s[:, None]).astype(np.int8)))
-    scale.copy_(torch.from_numpy(s))
+        amax = mesh.all_reduce(amax, "max")
+    s = torch.clamp(amax / amax.new_full((), 127.0), min=_EPS)
+    codes.copy_(torch.round(wt / s[:, None]).to(torch.int8))
+    scale.copy_(s)
 
 
 def quantize_params(model: LlamaModel) -> LlamaModel:
     """The int8 twin of ``model`` on its device: every linear and the
-    embedding quantized on the host (``quantize_array``'s scheme, so the
-    codes and scales equal the JAX package's bit for bit); norms and
+    embedding quantized by ``fill_quantized`` (``quantize_array``'s
+    scheme, so the codes and scales equal the JAX package's bit for bit;
+    on the card it runs there); norms and
     biases copied in the model dtype.  Of a mesh's shard, each rank
     quantizes its slice (a row-parallel weight's scales through a MAX
     all-reduce, ``fill_quantized``): the codes and scales are the TP-1
@@ -87,8 +91,7 @@ def quantize_params(model: LlamaModel) -> LlamaModel:
 def _quantized(model: LlamaModel) -> LlamaModel:
     q = LlamaModel(model.cfg, device=model.device, dtype=model.dtype,
                    seed=None, quantized=True, mesh=model.mesh)
-    fill_quantized(q.embed.weight_q, q.embed.scale,
-                   _host_f32(model.embed.weight))
+    fill_quantized(q.embed.weight_q, q.embed.scale, model.embed.weight)
     q.final_norm.copy_(model.final_norm)
     pairs = [(model.lm_head, q.lm_head)] if q.lm_head is not None else []
     for src, dst in zip(model.layers, q.layers, strict=True):
@@ -98,7 +101,7 @@ def _quantized(model: LlamaModel) -> LlamaModel:
                   for n in ("q", "k", "v", "o", "gate", "up", "down")]
     row = {id(getattr(layer, n)) for layer in q.layers for n in ("o", "down")}
     for src, dst in pairs:
-        fill_quantized(dst.weight_q, dst.scale, _host_f32(src.weight),
+        fill_quantized(dst.weight_q, dst.scale, src.weight,
                        mesh=model.mesh if id(dst) in row else None)
         if src.bias is not None:
             dst.bias.copy_(src.bias)

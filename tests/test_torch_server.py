@@ -424,8 +424,8 @@ def test_remediation_without_a_cluster_boots():
 def test_from_config_refuses_unported_knobs(knob, value):
     """``mesh_shape`` is served since A7 (tests/test_torch_tp.py): on the
     CPU only over gloo, which the caller must ask for (``mesh_backend``),
-    so the default NCCL refuses the CPU; the
-    data and seq axes are refused by name (ROADMAP A7b).  The weight knobs
+    so the default NCCL refuses the CPU, whatever the mesh's data and seq
+    axes (served since A7b, tests/test_torch_seq.py).  The weight knobs
     are served since A6: ``quantize`` int8 / w8a8 give an int8 model (W8A8
     with int8 activations), and a checkpoint directory that does not exist
     raises, with no random weights in its place."""
@@ -437,7 +437,7 @@ def test_from_config_refuses_unported_knobs(knob, value):
             analysis.LocalEngineBackend.from_config(
                 tc, tenancy=TenancyConfig(), device="cpu")
         tc.mesh_shape = "2,1,4"
-        with pytest.raises(NotImplementedError, match="A7b"):
+        with pytest.raises(ValueError, match="gloo"):
             analysis.LocalEngineBackend.from_config(
                 tc, tenancy=TenancyConfig(), device="cpu")
     elif knob == "checkpoint":

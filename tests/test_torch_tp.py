@@ -175,8 +175,10 @@ def test_more_ranks_than_cards_raise_unless_gloo(monkeypatch):
 
 def test_kv_specs_replicate_where_tp_does_not_divide_and_axes_raise():
     """Pages split on kv-head boundaries, or replicate, as JAX's layout
-    says; the data and seq axes raise naming A7b; NCCL needs a card per
-    rank (asked for by name, gloo shares)."""
+    says; a data or seq mesh is refused only where any mesh is (NCCL
+    needs a card per rank and CUDA; gloo is asked for by name; a device
+    list must name every rank; an axis below 1), before any process
+    starts (the seq bucket check: tests/test_torch_seq.py)."""
     tl, jl = tsharding.DEFAULT_LAYOUT, jsharding.DEFAULT_LAYOUT
     for kvh in (1, 2, 4, 8):
         for tp in (1, 2, 3, 4, 8, 16):
@@ -197,9 +199,15 @@ def test_kv_specs_replicate_where_tp_does_not_divide_and_axes_raise():
         for leaf in ("k", "v", "k_scale", "v_scale"):
             assert [tuple(x) for x in got[leaf]] == [
                 tuple(x) for x in getattr(want, leaf)], (tp, leaf)
-    for bad in (tmesh.MeshConfig(seq=2), tmesh.MeshConfig(data=2, model=2)):
-        with pytest.raises(NotImplementedError, match="A7b"):
-            tmesh.create_mesh(bad, backend="gloo", device="cpu")
+    for grid in (tmesh.MeshConfig(seq=2), tmesh.MeshConfig(data=2, model=2)):
+        with pytest.raises(ValueError, match="gloo"):
+            tmesh.create_mesh(grid, device="cpu")
+        with pytest.raises(ValueError, match=f"needs {grid.size} devices"):
+            tmesh.create_mesh(grid, devices=["cpu"] * 2 * grid.size,
+                              backend="gloo")
+    with pytest.raises(ValueError, match=">= 1"):
+        tmesh.create_mesh(tmesh.MeshConfig(seq=0), backend="gloo",
+                          device="cpu")
     with pytest.raises(ValueError, match="gloo"):
         tmesh.create_mesh(tmesh.MeshConfig(model=2), device="cpu")
     with pytest.raises(ValueError, match="needs 2 devices"):

@@ -615,6 +615,60 @@ def test_watcher_aborts_only_after_the_launch(monkeypatch):
 
 
 
+def test_an_abort_that_does_not_return_marks_the_process_unusable(
+        monkeypatch):
+    """C4: leaving the process group may hang (over NCCL, the close of a
+    mesh built after two breaks).  The abort is waited for at most
+    ``ABORT_WAIT_S``; then the close and the watcher return instead of
+    raising, the process is marked unusable, and a later ``create_mesh``
+    raises ``MeshUnusable`` at once (it spawns no rank), so a supervisor's
+    rebuild ends and the process's restart policy replaces it."""
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+
+    release = threading.Event()
+    aborts = []
+
+    def blocked_abort(group=None):
+        aborts.append(threading.current_thread().name)
+        release.wait(30)
+
+    monkeypatch.setattr(tmesh, "_STUCK", None)
+    monkeypatch.setattr(tmesh.Mesh, "_watch", lambda self: None)
+    monkeypatch.setattr(tmesh.Mesh, "ABORT_WAIT_S", 0.2)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(c10d, "_abort_process_group", blocked_abort)
+    spawned = []
+    monkeypatch.setattr(tmesh, "_init_group",
+                        lambda *a: spawned.append(a) or (None, None))
+    try:
+        log = []
+        mesh = tmesh.Mesh(tmesh.MeshConfig(seq=2, model=2), 0, ["cpu"] * 4,
+                          "gloo", conns=[_FakeConn(log) for _ in range(3)],
+                          procs=[_FakeProc(log) for _ in range(3)])
+        assert tmesh.unusable() is None
+        t0 = time.monotonic()
+        mesh.close()                    # returns: no raise into the caller
+        assert time.monotonic() - t0 < 10 and mesh.closed
+        assert aborts == ["mesh-abort"] and log[-1] == ("join",)
+        assert tmesh.unusable() == ("leaving the process group took more "
+                                    "than 0 s (rank 0)")
+        with pytest.raises(tmesh.MeshUnusable, match="restart it"):
+            tmesh.create_mesh(tmesh.MeshConfig(seq=2, model=2),
+                              device="cpu", backend="gloo")
+        assert spawned == []
+        # The watcher's path over NCCL returns too, the mesh broken.
+        nccl = tmesh.Mesh(tmesh.MeshConfig(model=2), 0, ["cpu"] * 2, "nccl")
+        nccl.LAUNCH_WAIT_S = 0.0
+        nccl._worker_exited(1, -9)
+        assert nccl.broken == "mesh rank 1 exited (code -9)"
+        assert aborts == ["mesh-abort"] * 2
+        # A mesh of one rank has no process group: it is still built.
+        assert tmesh.create_mesh(device="cpu", backend="gloo").size == 1
+    finally:
+        release.set()
+
+
 @pytest.mark.parametrize("backend", ["nccl", "gloo"])
 def test_launch_watch_under_lockcheck(monkeypatch, backend):
     """With ``K8SLLM_LOCKCHECK=1`` the mesh's locks are instrumented: a
