@@ -20,6 +20,7 @@
     python3 chip_smoke.py --phases 0,12h  # seq and TP meshes on four cards
     python3 chip_smoke.py --phases 0,13   # a checkpoint on a mesh (A7b)
     python3 chip_smoke.py --phases 0,14   # the port's gates (A12)
+    python3 chip_smoke.py --phases 0,15   # the fleet router (A8)
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -338,6 +339,33 @@ Phase 14 the port's gates on the card (A12, devtools/traceguard.py):
          swap, and B1-B4 launched; the static capture-hazard pass; then the
          same on a TP-2 mesh (NCCL with two cards, gloo on one), B1 and B3
          launched on each rank.
+Phase 15 the fleet router (A8, fleet/): two replicas of the monitor's
+         default config (llama-1b at 16 layers, W8A8, spec_k 4) built by
+         build_server side by side on one card, and a third engine of it
+         as the one-engine reference.  15a: 24 diagnosis verdicts over 4
+         shared cluster contexts through a FleetRouter (affinity) over the
+         two replicas as LocalReplicas: every verdict parses, greedy ids
+         equal the reference's, the affinity hits and the TTFT p50 / p99
+         through the router, B2 launched on each serving replica's own
+         step thread (ops/paged_attention.py:thread_launches).  15b:
+         one replica prefill, the other decode: every handoff's KVX1
+         prefix installed on D, D's pages of each prompt P's bit for bit,
+         D's prefix hits one a request, the first tokens equal the
+         reference's and the second (D's prefix hit) its own prefix-hit
+         run of the prompt and the first (the decoded rest is counted);
+         then
+         the same at Llama-3-8B width (2 layers, bf16), where B1 runs on
+         P's prefill and D's hit round (llama-1b's head_dim 64 keeps
+         prefill dense, as in JAX).  15d: the router
+         role, build_router_server in front of the two replica servers:
+         /api/v1/query, the fleet block of /api/v1/stats, /metrics lint
+         and its fleet families, /readyz 503 once both replicas stop.
+         15c (last: it kills a replica): a long greedy answer whose
+         replica is killed between two steps finishes on the other, one
+         failover, the stream exactly the delivered tokens and then the
+         survivor's, asked for the prompt and those tokens and the rest of
+         the budget; its ids against the undisturbed run are printed.  A sub-phase by name
+         (--phases 0,15b) runs only that part.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -5131,12 +5159,14 @@ def reset_rank_launches(mesh):
     mesh.send("reset_launches")
 
 
-def tp_engine_run(torch, st, mesh, model, prompts, name, overrides, kernels):
+def tp_engine_run(torch, st, mesh, model, prompts, name, overrides, kernels,
+                  warm=True):
     """One engine over ``mesh`` (None: one card): two identical greedy runs
-    of ``prompts``, launch counts set to 0 on every rank just before the
-    first and read just after it.  Returns (ids, per-rank launches of the
-    wrappers in ``kernels`` ({record: wrapper}), ttft p50 and decode tok/s
-    of the warm run, the engine)."""
+    of ``prompts`` (one with ``warm`` False), launch counts set to 0 on
+    every rank just before the first and read just after it.  Returns
+    (ids, per-rank launches of the wrappers in ``kernels`` ({record:
+    wrapper}), ttft p50 and decode tok/s of the warm run (of the cold one
+    without ``warm``), the engine)."""
     from k8s_llm_monitor_tpu_torch.serving.engine import (
         EngineConfig, InferenceEngine, SamplingParams)
 
@@ -5171,6 +5201,16 @@ def tp_engine_run(torch, st, mesh, model, prompts, name, overrides, kernels):
     check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
           f"{name}: {eng.dispatch_failures} dispatch failures")
     ids = [r.token_ids for r in res]
+    if not warm:
+        ttft = statistics.median(r.ttft_s for r in res)
+        tok_s = eng.decode_tokens / eng.decode_s
+        print(f"phase 12: {name}: paths {eng.prefill_path}/"
+              f"{eng.decode_path}, tp_overlap {eng.tp_overlap}, decode "
+              f"graphs {eng.decode_graphs}; one (cold) run {wall:.2f} s; "
+              f"launches per rank {per_rank}; ttft p50 {ttft * 1e3:.1f} "
+              f"ms, decode {tok_s:.1f} tok/s, pool {eng.pool_bytes} B per "
+              f"rank [{st['gpu']}]")
+        return ids, per_rank, ttft, tok_s, eng
     tokens0, secs0 = eng.decode_tokens, eng.decode_s
     res2 = eng.generate(prompts, sp)
     check([r.token_ids for r in res2] == ids,
@@ -5252,11 +5292,17 @@ def phase12b(torch, np, st):
     runs = {}
     kernels = {"flash_prefill_h16kv4": "flash_prefill_attention",
                "paged_attn_h16kv4": "paged_decode_attention_pallas"}
+    # Each TP-2 engine runs its prompts once (the engine is eager over
+    # gloo, so a second run would time the same work again): off's ids
+    # equal to on's hold them reproducible across both schedules.
     for overlap in ("on", "off"):
+        t1 = time.monotonic()
         ids, per_rank, ttft, tok_s, eng = tp_engine_run(
             torch, st, mesh, model, prompts,
             f"Llama-3-8B {mesh_label(mesh)}, tp_overlap {overlap}",
-            {"tp_overlap": overlap}, kernels)
+            {"tp_overlap": overlap}, kernels, warm=False)
+        print(f"phase 12b: tp_overlap {overlap}: {time.monotonic() - t1:.1f} "
+              f"s with the engine's build")
         check(eng.tp_overlap == (overlap == "on")
               and (eng.prefill_path, eng.decode_path) == ("flash", "pallas"),
               f"TP engine: {eng.prefill_path}/{eng.decode_path} overlap "
@@ -5270,9 +5316,9 @@ def phase12b(torch, np, st):
     first = sum(a[:1] == b[:1] for a, b in zip(runs["on"][0], ref_ids))
     print(f"phase 12b: greedy ids TP 2 vs TP 1: {same} of {len(prompts)} "
           f"sequences of 32 tokens equal (at least {TP_IDS_MIN_SHARE:.0%}), "
-          f"{first} first tokens equal; tp_overlap on = off; TP 2 ttft p50 "
-          f"{runs['on'][2] * 1e3:.1f} / {runs['off'][2] * 1e3:.1f} ms (on / "
-          f"off), TP 1 {ref_ttft * 1e3:.1f} ms; decode "
+          f"{first} first tokens equal; tp_overlap on = off; TP 2 cold "
+          f"ttft p50 {runs['on'][2] * 1e3:.1f} / {runs['off'][2] * 1e3:.1f} "
+          f"ms (on / off), TP 1 warm {ref_ttft * 1e3:.1f} ms; decode "
           f"{runs['on'][3]:.1f} / {runs['off'][3]:.1f} tok/s, TP 1 "
           f"{ref_tok_s:.1f} tok/s [{gpu}]")
     check(same >= TP_IDS_MIN_SHARE * len(prompts),
@@ -6537,10 +6583,651 @@ def phase14(torch, np, st):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 15
+# A8: the fleet router over the port's engines.  Two replicas of the
+# monitor's default config (llama-1b at its 16 layers, W8A8, spec_k 4),
+# built by build_server side by side on one card: 15d serves them over
+# HTTP, 15a-15c drive their supervisors as LocalReplicas; a third engine
+# of the same config is the one-engine reference.  llama-1b's head_dim 64
+# keeps its prefill on the dense path (as in JAX), so 15b also hands off
+# between two engines at Llama-3-8B width, where B1 runs.
+
+FLEET_QUERIES = 24           # 15a: diagnosis verdicts through the router
+FLEET_CONTEXTS = 4           # ... sharing this many cluster contexts
+FLEET_CONTEXT_BYTES = 240    # ... each longer than affinity_prefix_tokens
+FLEET_HANDOFFS = 16          # 15b: free-text requests handed P -> D
+FLEET_HANDOFF_TOKENS = 32
+FLEET_LONG_TOKENS = 160      # 15c: the long greedy answer
+FLEET_KILL_STEP = 8          # ... killed after this many of its steps
+FLEET_B1_LAYERS = 2          # 15b at Llama-3-8B width
+
+
+def fleet_contexts(rng, n):
+    """``n`` cluster-context preambles of FLEET_CONTEXT_BYTES bytes."""
+    return [evidence_question(rng, FLEET_CONTEXT_BYTES).rsplit(
+        "## Question", 1)[0].replace("## Evidence", f"## Cluster {i}")
+        for i in range(n)]
+
+
+def fleet_registry(reps):
+    from k8s_llm_monitor_tpu_torch.fleet import ReplicaRegistry
+
+    reg = ReplicaRegistry()
+    for r in reps:
+        reg.add(r)
+    reg.refresh()
+    return reg
+
+
+def replica_launches(rep):
+    """The kernel launches of the replica's own step thread (its engine's)
+    since the last reset, by wrapper name."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    return rep._call(lambda e: pa.thread_launches())
+
+
+def reset_replica_launches(reps):
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+
+    for rep in reps:
+        rep._call(lambda e: pa.reset_thread_launches())
+    pa.reset_launch_counts()
+
+
+def short_launches(counts):
+    names = {"flash_prefill_attention": "B1",
+             "paged_decode_attention_fused": "B2",
+             "paged_decode_attention_fused_quant": "B4",
+             "paged_verify_attention_pallas": "B3 verify",
+             "paged_decode_attention_pallas": "B3 decode"}
+    return {names[k]: v for k, v in counts.items() if v}
+
+
+def routed_burst(router, prompts, sp):
+    """Submit every prompt through ``router`` at once; returns the results,
+    the streams (equal to the results' ids), the seconds from each submit
+    to its first streamed token, and the burst's wall seconds."""
+    import threading
+
+    out, errors = {}, []
+    t0 = time.monotonic()
+    handles = [(time.monotonic(), router.submit(p, sp)) for p in prompts]
+
+    def consume(i, t_sub, h):
+        try:
+            toks, first = [], None
+            for tok in h.stream(timeout=600):
+                if first is None:
+                    first = time.monotonic() - t_sub
+                toks.append(tok)
+            out[i] = (h.result(timeout=600), toks, first)
+        except Exception as exc:            # reported below
+            errors.append(f"request {i}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=consume, args=(i, t, h))
+               for i, (t, h) in enumerate(handles)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    check(not errors and len(out) == len(prompts),
+          f"routed burst: {errors or 'a request hung'}")
+    res = [out[i][0] for i in range(len(prompts))]
+    for i, (r, toks, _) in sorted(out.items()):
+        check(r.finish_reason in ("stop", "eos", "length")
+              and toks == r.token_ids,
+              f"routed request {i}: {r.finish_reason} {r.error} (stream "
+              f"{len(toks)} tokens, result {len(r.token_ids)})")
+    return res, [out[i][2] for i in range(len(prompts))], wall
+
+
+def direct_burst(rep, prompts, sp, tenant="public"):
+    """The same prompts submitted to one replica at once: its ids
+    (``tenant`` names the prefix-cache namespace they are looked up in)."""
+    handles = [rep.generate(p, sp, tenant=tenant) for p in prompts]
+    res = [h.result(timeout=900) for h in handles]
+    for i, r in enumerate(res):
+        check(r.finish_reason in ("stop", "eos", "length"),
+              f"reference request {i}: {r.finish_reason} {r.error}")
+    return [r.token_ids for r in res]
+
+
+def id_mismatches(got, want):
+    """(index, first differing position) of each sequence that differs."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            out.append((i, next((j for j, (x, y) in enumerate(zip(a, b))
+                                 if x != y), min(len(a), len(b)))))
+    return out
+
+
+def handoff_bar(got, want, cont):
+    """The handoff's ids against one engine's: the first token (P's
+    prefill) against the unified run's, the second (D's prefix hit on the
+    prompt and that token) against the engine's own run of the prompt and
+    that token as a prefix hit.  The rest is decoded, where the default
+    config's acceptance gate picks spec or plain calls by each engine's
+    timing and their bf16 logits flip a random model's near-ties (phase
+    3's rule): counted, not held.  Returns (first tokens equal, second
+    tokens equal, the continuations that differ, whole sequences equal
+    to the unified run's)."""
+    first = sum(g[:1] == w[:1] for g, w in zip(got, want))
+    second = sum(g[1:2] == c[:1] for g, c in zip(got, cont))
+    bad = id_mismatches([g[1:] for g in got], cont)
+    whole = sum(g == w for g, w in zip(got, want))
+    return first, second, bad, whole
+
+
+def record_installs(rep):
+    """Wrap ``rep.install_prefix`` to keep every install's outcome."""
+    outcomes = []
+    real = rep.install_prefix
+
+    def install(blob, tenant=None):
+        outcome = real(blob, tenant=tenant)
+        outcomes.append(outcome)
+        return outcome
+
+    rep.install_prefix = install
+    return outcomes
+
+
+def fleet15a(torch, np, st, reps, ref):
+    """15a: 24 diagnosis verdicts over 4 shared cluster contexts through a
+    FleetRouter (affinity) over the two replicas: every verdict parses, no
+    error, greedy ids equal the reference engine's on the same prompts,
+    the affinity hits and the TTFT through the router, and each replica
+    that served launched B2 on its own step thread (B3 only in spec
+    calls, which the acceptance gate keeps off for these lanes)."""
+    from k8s_llm_monitor_tpu_torch.diagnosis.grammar import parse_verdict
+    from k8s_llm_monitor_tpu_torch.fleet import FleetRouter
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    gpu, fcfg = st["gpu"], st["fleet_cfg"].fleet
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(15)
+    contexts = fleet_contexts(rng, FLEET_CONTEXTS)
+    prompts = [tok.encode(contexts[i % FLEET_CONTEXTS]
+                          + evidence_question(rng, 96)[-60:])
+               for i in range(FLEET_QUERIES)]
+    check(min(len(p) for p in prompts) > fcfg.affinity_prefix_tokens,
+          "a 15a prompt is shorter than the affinity head")
+    sp = SamplingParams(max_tokens=1, temperature=0.0, constrained=True)
+    reg = fleet_registry(reps)
+    router = FleetRouter(reg, policy=fcfg.policy,
+                         affinity_prefix_tokens=fcfg.affinity_prefix_tokens,
+                         max_failovers=fcfg.max_failovers)
+    reset_replica_launches(reps)
+    res, ttft, wall = routed_burst(router, prompts, sp)
+    per_rep = {r.replica_id: replica_launches(r) for r in reps}
+    snap = reg.snapshot()
+    unparsed = []
+    for i, r in enumerate(res):
+        try:
+            check_verdict(parse_verdict(tok.decode(r.token_ids)),
+                          "15a verdict")
+        except Exception as exc:
+            unparsed.append((i, r.finish_reason, len(r.token_ids),
+                             tok.decode(r.token_ids)[:48], str(exc)[:80]))
+    check(not unparsed, f"15a: verdicts that do not parse (request, "
+                        f"finish, tokens, text, why): {unparsed}; "
+                        f"preemptions per replica "
+                        f"{[r.service.engine.preemptions for r in reps]}")
+    c = router.counters()
+    check(c["completed"] == FLEET_QUERIES and c["failed"] == 0
+          and c["sheds"] == 0 and c["failovers"] == 0,
+          f"15a router counters {c}")
+    served = [rid for rid, s in snap.items() if s["dispatches"] > 0]
+    for rid in served:
+        n = per_rep[rid]
+        check(n["paged_decode_attention_fused"] > 0,
+              f"15a: {rid} served {snap[rid]['dispatches']} requests but "
+              f"launched {n} on its step thread")
+    # The same burst again, the graphs captured and the contexts cached:
+    # the warm TTFT through the router.
+    res2, ttft2, wall2 = routed_burst(router, prompts, sp)
+    for r in res2:
+        check_verdict(parse_verdict(tok.decode(r.token_ids)),
+                      "15a verdict (warm)")
+    want = direct_burst(ref, prompts, sp)
+    got = [r.token_ids for r in res]
+    bad = id_mismatches(got, want)
+    st["fleet_unified_ids"] = got
+    print(f"phase 15a: {FLEET_QUERIES} verdicts over {FLEET_CONTEXTS} "
+          f"cluster contexts ({min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens) through FleetRouter "
+          f"({fcfg.policy}, affinity head {fcfg.affinity_prefix_tokens}) "
+          f"over {len(reps)} replicas in {wall:.2f} s: all parse, "
+          f"{c['affinity_hits']} affinity hits, {c['affinity_spills']} "
+          f"spills; dispatches {{{', '.join(f'{k}: {v['dispatches']}' for k, v in snap.items())}}}; "
+          f"TTFT through the router p50 / p99 cold "
+          f"{np.percentile(ttft, 50) * 1e3:.1f} / "
+          f"{np.percentile(ttft, 99) * 1e3:.1f} ms (the engines' own "
+          f"{np.percentile([r.ttft_s for r in res], 50) * 1e3:.1f} / "
+          f"{np.percentile([r.ttft_s for r in res], 99) * 1e3:.1f}; "
+          f"graph captures "
+          f"{sum(r.service.engine.graph_capture_s for r in reps):.2f} s), "
+          f"warm {np.percentile(ttft2, 50) * 1e3:.1f} / "
+          f"{np.percentile(ttft2, 99) * 1e3:.1f} ms (burst {wall2:.2f} s); "
+          f"verdicts "
+          f"{min(map(len, got))}-{max(map(len, got))} tokens; launches per "
+          f"replica (its step thread) "
+          f"{ {k: short_launches(v) for k, v in per_rep.items()} }; greedy "
+          f"ids equal the reference engine's: "
+          f"{FLEET_QUERIES - len(bad)} of {FLEET_QUERIES} [{gpu}]")
+    check(not bad, f"15a: ids differ from one engine's at (request, "
+                   f"position) {bad}")
+
+
+def fleet_handoff(router, p, d, prompts, sp, what):
+    """Prompts through a prefill/decode router: every handoff lands on D
+    with an ``installed`` prefix, D's prefix hits grow by one a request,
+    and the prompt's pages D holds are P's bit for bit (each replica's
+    KVX1 export of the prompt, byte-equal).  Returns the ids and P's and
+    D's step-thread launches."""
+    outcomes = record_installs(d)
+    hits0 = d.service.engine.prefix_cache.hits
+    reset_replica_launches([p, d])
+    res, _, wall = routed_burst(router, prompts, sp)
+    lp, ld = replica_launches(p), replica_launches(d)
+    hand = router.counters()["handoffs"]
+    hits = d.service.engine.prefix_cache.hits - hits0
+    check(hand == {"decode": len(prompts)}
+          and outcomes == ["installed"] * len(prompts),
+          f"{what}: handoffs {hand}, install outcomes {outcomes}")
+    check(hits == len(prompts), f"{what}: D's prefix hits grew by {hits}")
+    same = [p.fetch_prefix(q) == d.fetch_prefix(q) for q in prompts]
+    check(all(same), f"{what}: D's pages of prompts "
+                     f"{[i for i, x in enumerate(same) if not x]} are not P's")
+    return [r.token_ids for r in res], lp, ld, wall
+
+
+def fleet15b(torch, np, st, backends, ref):
+    """15b: the default config's replicas as prefill (P) and decode (D):
+    every handoff installed, D's hits one a request, D decoding (B2, B3),
+    ids equal to the reference engine's unified ids; then the same at
+    Llama-3-8B width (FLEET_B1_LAYERS layers, bf16), where the prefill on
+    P and D's hit round run B1."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.fleet import FleetRouter, LocalReplica
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import LLAMA3_8B
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.serving.service import EngineService
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    gpu, fcfg = st["gpu"], st["fleet_cfg"].fleet
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(151)
+    # A token below block alignment (BOS and 254 bytes): every full block
+    # of the prompt and its first token is shareable (shareable_blocks
+    # keeps the last token out).
+    prompts = [tok.encode(evidence_question(rng, 254))
+               for _ in range(FLEET_HANDOFFS)]
+    check(all(len(p) == 255 for p in prompts), "15b: prompt lengths")
+    sp = SamplingParams(max_tokens=FLEET_HANDOFF_TOKENS, temperature=0.0)
+    p = LocalReplica("prefill-0", supervisor=backends[0].supervisor,
+                     role="prefill")
+    d = LocalReplica("decode-0", supervisor=backends[1].supervisor,
+                     role="decode")
+    router = FleetRouter(fleet_registry([p, d]), policy=fcfg.policy,
+                         affinity_prefix_tokens=fcfg.affinity_prefix_tokens)
+    spec0 = d.service.engine.spec_verify_steps
+    got, lp, ld, wall = fleet_handoff(router, p, d, prompts, sp,
+                                      "15b llama-1b")
+    check(ld["paged_decode_attention_fused"] > 0,
+          f"15b llama-1b: D launched {ld}")
+    spec = d.service.engine.spec_verify_steps - spec0
+    check(spec == 0 or ld["paged_verify_attention_pallas"] > 0,
+          f"15b llama-1b: D ran {spec} spec verify steps with {ld}")
+    want = direct_burst(ref, prompts, sp)
+    cont = direct_burst(ref, [q + g[:1] for q, g in zip(prompts, got)],
+                        dataclasses.replace(sp, max_tokens=sp.max_tokens - 1))
+    first, second, bad, whole = handoff_bar(got, want, cont)
+    print(f"phase 15b: llama-1b (default config) P -> D: {FLEET_HANDOFFS} "
+          f"requests of {len(prompts[0])} tokens + {FLEET_HANDOFF_TOKENS} "
+          f"in {wall:.2f} s, every handoff installed on D (KVX1), D's "
+          f"prefix hits +{FLEET_HANDOFFS}; launches P {short_launches(lp)}, "
+          f"D {short_launches(ld)} (prefill at head_dim 64 is dense, as in "
+          f"JAX); D's prompt pages equal P's bit for bit; the reference "
+          f"engine's ids: first tokens {first} of {FLEET_HANDOFFS}, second "
+          f"tokens (its prefix hit on the prompt and the first, as on D) "
+          f"{second} of {FLEET_HANDOFFS}, whole continuations "
+          f"{FLEET_HANDOFFS - len(bad)} of {FLEET_HANDOFFS} ((request, "
+          f"position) differing {bad}), whole unified sequences {whole} "
+          f"of {FLEET_HANDOFFS} (unified decodes the second token where D "
+          f"prefills it) [{gpu}]")
+    check(first == FLEET_HANDOFFS and second == FLEET_HANDOFFS,
+          f"15b llama-1b: first tokens {first}, second tokens {second} of "
+          f"{FLEET_HANDOFFS} equal the reference engine's")
+
+    # Llama-3-8B width, where the flash prefill kernel (B1) runs.
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=FLEET_B1_LAYERS)
+    model = llama.LlamaModel(cfg, seed=15)
+    ecfg = dict(max_slots=8, num_blocks=512, max_blocks_per_seq=64)
+    engines = [InferenceEngine(cfg, model, EngineConfig(**ecfg))
+               for _ in range(3)]
+    check(all(e.prefill_path == "flash" for e in engines),
+          f"15b 8B: prefill paths {[e.prefill_path for e in engines]}")
+    rng8 = np.random.default_rng(152)
+    prompts8 = [[int(t) for t in rng8.integers(3, cfg.vocab_size, size=n)]
+                for n in (255, 319, 383, 447)]
+    sp8 = SamplingParams(max_tokens=16)
+    want8 = [r.token_ids for r in engines[2].generate(prompts8, sp8)]
+    firsts8 = [w[:1] for w in want8]
+    cont8 = [r.token_ids for r in engines[2].generate(
+        [q + f for q, f in zip(prompts8, firsts8)],
+        dataclasses.replace(sp8, max_tokens=15))]
+    p8 = LocalReplica("prefill-8b", service=EngineService(engines[0]),
+                      role="prefill")
+    d8 = LocalReplica("decode-8b", service=EngineService(engines[1]),
+                      role="decode")
+    try:
+        router8 = FleetRouter(fleet_registry([p8, d8]), policy=fcfg.policy,
+                              affinity_prefix_tokens=fcfg
+                              .affinity_prefix_tokens)
+        got8, lp8, ld8, wall8 = fleet_handoff(router8, p8, d8, prompts8, sp8,
+                                              "15b Llama-3-8B")
+        check(lp8["flash_prefill_attention"] > 0
+              and ld8["flash_prefill_attention"] > 0
+              and ld8["paged_decode_attention_fused"] > 0,
+              f"15b 8B: launches P {lp8}, D {ld8}")
+        first8, second8, bad8, whole8 = handoff_bar(got8, want8, cont8)
+        n8 = len(prompts8)
+        print(f"phase 15b: Llama-3-8B width ({FLEET_B1_LAYERS} layers, bf16) "
+              f"P -> D: {n8} requests in {wall8:.2f} s, every handoff "
+              f"installed; launches P {short_launches(lp8)}, D "
+              f"{short_launches(ld8)} (B1 on P's prefill and D's hit "
+              f"round); D's prompt pages equal P's; one engine's ids: "
+              f"first tokens {first8} of {n8}, second {second8} of {n8}, "
+              f"whole continuations {n8 - len(bad8)} of {n8} (differing "
+              f"{bad8}), whole unified sequences {whole8} of {n8} [{gpu}]")
+        check(first8 == n8 and second8 == n8,
+              f"15b 8B: first tokens {first8}, second tokens {second8} of "
+              f"{n8} equal one engine's")
+    finally:
+        p8.close()
+        d8.close()
+        del p8, d8, engines, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gate_after_steps(rep, n_steps):
+    """Hold the replica's step loop after ``n_steps`` engine steps until
+    its service is stopped (a kill between two steps, mid-stream)."""
+    import threading
+
+    svc = rep.service
+    eng = svc.engine
+    real = eng.step
+    reached = threading.Event()
+    count = [0]
+
+    def step():
+        real()
+        count[0] += 1
+        if count[0] == n_steps:
+            reached.set()
+            svc._stop.wait(120)
+
+    eng.step = step
+    return reached
+
+
+def fleet15c(torch, np, st, reps, ref):
+    """15c: a long greedy answer through the router; the replica serving
+    it is killed mid-stream (LocalReplica.kill between two of its steps):
+    the stream completes on the other replica, no token lost or repeated
+    (the stream is the delivered tokens, then exactly the survivor's),
+    the survivor asked for the prompt and the delivered tokens and the
+    rest of the budget only, one failover; the ids against the reference
+    engine's undisturbed run are printed."""
+    from k8s_llm_monitor_tpu_torch.fleet import FleetRouter
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+    from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    gpu, fcfg = st["gpu"], st["fleet_cfg"].fleet
+    tok = ByteTokenizer()
+    prompt = tok.encode(fleet_contexts(np.random.default_rng(153), 1)[0]
+                        + "## Question\nwhat should I fix first?\n")
+    sp = SamplingParams(max_tokens=FLEET_LONG_TOKENS, temperature=0.0)
+    want = direct_burst(ref, [prompt], sp)[0]
+    reg = fleet_registry(reps)
+    router = FleetRouter(reg, policy=fcfg.policy,
+                         affinity_prefix_tokens=fcfg.affinity_prefix_tokens,
+                         max_failovers=fcfg.max_failovers)
+    digest = router._token_digest(prompt)
+    home_id = router.policy.preferred(reg.candidates(), digest)
+    home = next(r for r in reps if r.replica_id == home_id)
+    other = next(r for r in reps if r is not home)
+    calls = []
+    real_generate = other.generate
+
+    def record(prompt_ids, sampling=None, **kw):
+        handle = real_generate(prompt_ids, sampling, **kw)
+        calls.append((list(prompt_ids), sampling.max_tokens, handle))
+        return handle
+
+    other.generate = record
+    reached = gate_after_steps(home, FLEET_KILL_STEP)
+    t0 = time.monotonic()
+    h = router.submit(prompt, sp)
+    check(reached.wait(300), "15c: the home replica never reached the gate")
+    home.kill("15c: killed mid-stream")
+    toks = list(h.stream(timeout=600))
+    res = h.result(timeout=600)
+    wall = time.monotonic() - t0
+    c = router.counters()
+    check(res.finish_reason in ("length", "stop", "eos")
+          and toks == res.token_ids,
+          f"15c: {res.finish_reason} {res.error}, stream {len(toks)} "
+          f"tokens, result {len(res.token_ids)}")
+    check(c["failovers"] == 1 and c["failed"] == 0 and len(calls) == 1,
+          f"15c: counters {c}, survivor calls {len(calls)}")
+    replay, budget, inner = calls[0]
+    delivered = len(replay) - len(prompt)
+    check(0 < delivered < len(toks) and replay[:len(prompt)] == prompt
+          and budget == FLEET_LONG_TOKENS - delivered,
+          f"15c: the survivor was asked for {len(replay)} prompt tokens "
+          f"and {budget} more after {delivered} delivered tokens")
+    # No token lost or repeated: the stream is what the killed replica
+    # delivered, then exactly what the survivor generated.
+    check(toks == replay[len(prompt):] + inner.result(timeout=60).token_ids,
+          "15c: the stream is not the delivered tokens and the survivor's")
+    # The replay's reference: the reference engine on the prompt and the
+    # delivered tokens as a fresh prefill (another tenant's namespace, so
+    # no cached block is hit), as the survivor ran it.
+    cont = direct_burst(ref, [prompt + toks[:delivered]], dataclasses.replace(
+        sp, max_tokens=FLEET_LONG_TOKENS - delivered), tenant="replay")[0]
+    bad = id_mismatches([toks[:delivered], toks[delivered:]],
+                        [want[:delivered], cont])
+    print(f"phase 15c: {home_id} killed after {delivered} of "
+          f"{len(toks)} tokens ({FLEET_KILL_STEP} steps): the stream "
+          f"finished on {other.replica_id} (asked for the prompt + "
+          f"{delivered} tokens and {budget} more) in {wall:.2f} s, "
+          f"fleet_failovers_total {c['failovers']}, the stream the "
+          f"delivered tokens and then the survivor's; against the "
+          f"reference engine, (part, position) differing from the "
+          f"undisturbed run's delivered tokens and from its run of the "
+          f"prompt and them: {bad}; the whole stream equals the "
+          f"undisturbed run's: {toks == want} [{gpu}]")
+
+
+def fleet15d(torch, np, st, servers):
+    """15d: the router role over HTTP: build_router_server in front of the
+    two replica servers: /api/v1/query answers, /api/v1/stats has the
+    fleet block, /metrics lints clean with the fleet_* families, and
+    /readyz turns 503 once both replicas' listeners stop."""
+    from k8s_llm_monitor_tpu_torch.fleet.frontend import build_router_server
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.exporter import lint_exposition
+
+    gpu = st["gpu"]
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    for s in servers:
+        s.start()
+    cfg.fleet.replicas = [f"http://127.0.0.1:{s.port}" for s in servers]
+    cfg.fleet.probe_interval_s = 0.25
+    router = build_router_server(cfg)
+    router.start()
+    port = router.port
+    try:
+        import threading
+
+        out, errors = {}, []
+
+        def ask(i):
+            try:
+                out[i] = http_call(port, "POST", "/api/v1/query", {
+                    "question": QUERIES[i % len(QUERIES)] + f" (fleet {i})"})
+            except Exception as exc:
+                errors.append(f"query {i}: {type(exc).__name__}: {exc}")
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+        # Random weights: the answers decode to byte soup or to nothing.
+        check(not errors and len(out) == 8 and all(
+            s == 200 and b.get("status") == "success"
+            and "answer" in b["result"] for s, b, _ in out.values()),
+            f"15d queries: {errors or [(s, str(b)[:200]) for s, b, _ in out.values()]}")
+        status, stats, _ = http_call(port, "GET", "/api/v1/stats")
+        fleet = stats.get("fleet") or {}
+        check(status == 200 and set(fleet.get("replicas", ())) == {
+            "replica-0", "replica-1"} and fleet["counters"]["dispatches"] >= 8
+            and "hedge_delay_s" in fleet, f"15d /api/v1/stats: {stats}")
+        status, text, _ = http_call(port, "GET", "/metrics")
+        text = text.decode()
+        lint = lint_exposition(text)
+        fams = [f for f in ("fleet_replica_ready", "fleet_replica_inflight",
+                            "fleet_affinity_hits_total",
+                            "fleet_failovers_total", "fleet_handoffs_total",
+                            "fleet_hedge_delay_seconds", "fleet_sheds_total")
+                if f"k8s_llm_monitor_{f}" not in text]
+        check(status == 200 and not lint and not fams,
+              f"15d /metrics: {status}, lint {lint}, missing {fams}")
+        check(http_call(port, "GET", "/readyz")[0] == 200,
+              "15d: the router is not ready")
+        walls = sorted(w for _, _, w in out.values())
+        for s in servers:
+            s.stop()
+        deadline = time.monotonic() + 30
+        while (http_call(port, "GET", "/readyz")[0] != 503
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        status, health, _ = http_call(port, "GET", "/health")
+        check(http_call(port, "GET", "/readyz")[0] == 503
+              and health["reason"] == "no ready fleet replicas",
+              f"15d: /readyz with both replicas down: {health}")
+        print(f"phase 15d: build_router_server over 2 replica servers "
+              f"(build_server, ephemeral ports): 8 queries in {wall:.2f} s, "
+              f"wall p50 {walls[len(walls) // 2] * 1e3:.1f} ms, all "
+              f"200/success; /api/v1/stats fleet block "
+              f"{sorted(fleet)}; /metrics lint-clean with the fleet "
+              f"families; /readyz 503 ({health['reason']}) once both "
+              f"replicas stopped [{gpu}]")
+    finally:
+        router.analysis.close()
+        router.stop()
+        if router.signals is not None:
+            router.signals.stop()
+
+
+def phase15(torch, np, st):
+    """A8: the fleet router over the port's engines on one card (15a
+    routing, 15b disaggregation, 15d the router role over HTTP, then 15c
+    failover, which kills a replica).  ``--phases 0,15b`` (or 15a, ...)
+    runs only those parts."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.fleet import LocalReplica
+    from k8s_llm_monitor_tpu_torch.monitor.analysis import LocalEngineBackend
+    from k8s_llm_monitor_tpu_torch.monitor.cluster import (
+        FakeCluster, seed_demo_cluster)
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.server import build_server
+
+    subs = st["subs"].get(15) or {"15a", "15b", "15c", "15d"}
+    st.pop("model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    cfg.llm.provider = "tpu"
+    cfg.llm.max_tokens = 64
+    # Replicas behind a router run without a tenant governor of their own
+    # (the router's is the fleet's one).
+    cfg.tenancy.enabled = False
+    st["fleet_cfg"] = cfg
+    servers, backends = [], []
+    t0 = time.monotonic()
+    try:
+        for _ in range(2):
+            srv = build_server(copy.deepcopy(cfg),
+                               backend=seed_demo_cluster(FakeCluster()))
+            servers.append(srv)
+            backends.append(srv.analysis.backend)
+        ref = LocalEngineBackend.from_config(cfg.llm.tpu,
+                                             lifecycle=cfg.lifecycle)
+        backends.append(ref)
+        boot_s = time.monotonic() - t0
+        for b in backends:
+            eng = b.engine
+            check((eng.ecfg.spec_k, eng.decode_path, eng.prefill_path)
+                  == (4, "fused", "dense") and eng.model.cfg.act_quant,
+                  f"not the default config: spec_k {eng.ecfg.spec_k}, "
+                  f"paths {eng.prefill_path}/{eng.decode_path}")
+        print(f"phase 15: 3 engines of the default config ({cfg.llm.tpu.model}"
+              f", W8A8, spec_k {cfg.llm.tpu.spec_k}) built in {boot_s:.2f} s "
+              f"(2 by build_server, the reference by from_config)")
+        reps = [LocalReplica(f"replica-{i}", supervisor=b.supervisor)
+                for i, b in enumerate(backends[:2])]
+        ref_rep = LocalReplica("reference", supervisor=ref.supervisor)
+        steps = [("15a", lambda: fleet15a(torch, np, st, reps, ref_rep)),
+                 ("15b", lambda: fleet15b(torch, np, st, backends, ref_rep)),
+                 ("15d", lambda: fleet15d(torch, np, st, servers)),
+                 ("15c", lambda: fleet15c(torch, np, st, reps, ref_rep))]
+        for name, step in steps:
+            if name not in subs:
+                continue
+            t1 = time.monotonic()
+            step()
+            torch.cuda.synchronize()
+            print(f"phase 15: {name} passed in {time.monotonic() - t1:.1f} s")
+        for b in backends:
+            eng = b.engine
+            check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+                  f"phase 15: {eng.dispatch_failures} dispatch failures, "
+                  f"{eng.watchdog_trips} watchdog trips")
+    finally:
+        for b in backends:
+            b.supervisor.shutdown(grace_s=0.0)
+        for s in servers:
+            if s.signals is not None:
+                s.signals.stop()
+            s.stop()
+        del servers, backends
+        st.pop("fleet_cfg", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all); "
                          "a sub-phase by name (12f, 13c) runs only that "
                          "part of its phase")
@@ -6579,7 +7266,7 @@ def main(argv=None) -> int:
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
                (4, phase4), (5, phase5), (7, phase7), (10, phase10),
                (11, phase11), (6, phase6), (9, phase9), (12, phase12),
-               (13, phase13), (14, phase14)]
+               (13, phase13), (14, phase14), (15, phase15)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

@@ -16,7 +16,10 @@ Cluster selection:
 random ones for the preset ``llm.tpu.model``, or a local HF safetensors
 checkpoint (``LLM_TPU_CHECKPOINT=<dir>``; its tokenizer needs
 ``transformers``), bf16, int8 or W8A8 (``LLM_TPU_QUANTIZE``, ``w8a8`` by
-default).  ``--role router`` is not ported yet (ROADMAP A8).
+default).  ``--role router`` fronts the replica URLs of ``fleet.replicas``
+(or ``--replicas``) with the fleet router (fleet/frontend.py): no local
+engine and no cluster client, the same HTTP API, policy routing and
+failover over the replicas.
 
 The monitor's default config (``load_config(None)``: telemetry and
 remediation on) boots as it is.
@@ -24,6 +27,8 @@ remediation on) boots as it is.
 Usage:
     python -m k8s_llm_monitor_tpu_torch.cmd.server --cluster fake --port 8081
     python -m k8s_llm_monitor_tpu_torch.cmd.server --config config.yaml
+    python -m k8s_llm_monitor_tpu_torch.cmd.server --role router \
+        --replicas http://10.0.0.5:8080,http://10.0.0.6:8080
 """
 
 from __future__ import annotations
@@ -79,6 +84,53 @@ def _graceful_shutdown(srv, grace_s: float, log: logging.Logger) -> None:
     srv.request_shutdown()
 
 
+def _serve_router(config, log: logging.Logger) -> int:
+    """Router role: no local engine, no cluster client, just the fleet
+    behind the same /api/v1/query + /api/v1/analyze API.  SIGTERM/SIGINT
+    dump the flight recorder, stop the autoscaler and the signal scraper,
+    close the replica adapters and unblock ``serve_forever``."""
+    from k8s_llm_monitor_tpu_torch.fleet.frontend import build_router_server
+
+    srv = build_router_server(config)
+    if srv.autoscaler is not None:
+        srv.autoscaler.start()
+    shutdown_started = threading.Event()
+
+    def _on_router_signal(signum, frame):  # noqa: ARG001 — signal API
+        if shutdown_started.is_set():
+            raise SystemExit(128 + signum)
+        shutdown_started.set()
+        log.info("signal %d: router shutting down", signum)
+
+        def _stop() -> None:
+            from k8s_llm_monitor_tpu_torch.observability.flight import (
+                get_flight_recorder)
+
+            get_flight_recorder().dump("sigterm", extra={"role": "router"})
+            if srv.autoscaler is not None:
+                srv.autoscaler.stop()
+            if srv.signals is not None:
+                srv.signals.stop()
+            srv.analysis.close()
+            srv.request_shutdown()
+
+        threading.Thread(target=_stop, name="graceful-shutdown",
+                         daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _on_router_signal)
+    signal.signal(signal.SIGINT, _on_router_signal)
+    try:
+        srv.serve_forever()
+    finally:
+        if not shutdown_started.is_set():
+            if srv.autoscaler is not None:
+                srv.autoscaler.stop()
+            if srv.signals is not None:
+                srv.signals.stop()
+            srv.analysis.close()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         description="k8s-llm-monitor server (PyTorch port)")
@@ -102,7 +154,14 @@ def main(argv: list[str] | None = None) -> int:
         "--role",
         choices=("replica", "router"),
         default="replica",
-        help="replica: serve a local engine (default); router: not ported",
+        help="replica: serve a local engine (default); router: front the "
+             "fleet.replicas URLs with policy routing + failover",
+    )
+    parser.add_argument(
+        "--replicas",
+        default="",
+        help="router role: comma-separated replica base URLs "
+             "(overrides fleet.replicas / FLEET_REPLICAS)",
     )
     parser.add_argument(
         "--device",
@@ -120,10 +179,6 @@ def main(argv: list[str] | None = None) -> int:
     )
     args = parser.parse_args(argv)
 
-    if args.role == "router":
-        raise NotImplementedError(
-            "--role router: the fleet router is not ported (ROADMAP A8)")
-
     from k8s_llm_monitor_tpu_torch.monitor.config import load_config
     from k8s_llm_monitor_tpu_torch.monitor.server import build_server
 
@@ -139,6 +194,12 @@ def main(argv: list[str] | None = None) -> int:
         config.server.port = args.port
     if args.llm:
         config.llm.provider = args.llm
+    if args.replicas:
+        config.fleet.replicas = [
+            u.strip() for u in args.replicas.split(",") if u.strip()]
+
+    if args.role == "router":
+        return _serve_router(config, log)
 
     backend = None
     if args.cluster == "fake":

@@ -40,12 +40,11 @@ sides and diffing them:
     ``_apply_env`` (``fleet.role`` -> ``FLEET_ROLE``) are computed from
     the config dataclass tree and accepted as documented aliases.
 
-What the docs and the copied config and exporter describe but the port
-does not serve yet -- pieces of modules still to port (ROADMAP A8, A10)
--- is listed once, in :data:`DEFERRED`, with its ROADMAP label.  The
-table is not a suppression: :func:`check_deferred` holds it equal to what
-the port refuses (``monitor/server.py:_refuse_unported``) and to the
-exporter families only a fleet router emits, both ways.
+What the docs and the copied config describe but the port does not
+serve yet -- pieces of modules still to port (ROADMAP A10) -- is listed
+once, in :data:`DEFERRED`, with its ROADMAP label.  The table is not a
+suppression: :func:`check_deferred` holds it equal to what the port
+refuses (``monitor/server.py:_refuse_unported``), both ways.
 
 All checkers take source text (so tests can feed deliberately drifted
 fixtures) and anchor findings at real file:line positions, honoring the
@@ -638,42 +637,23 @@ def check_env(py_sources: dict[str, str], config_src: str,
 # ---------------------------------------------------------------------------
 
 #: Contract surface of modules the port has not ported yet: (rule, items,
-#: ROADMAP label, how the port refuses or lacks them).  Documented in
-#: README.md / docs and present in the copied config and exporter, so the
-#: three checkers above see no drift; :func:`check_deferred` holds this
-#: table equal to the code.  Training (A11) has no route, family or env
-#: key on this surface.
+#: ROADMAP label, how the port refuses them).  Documented in README.md /
+#: docs and present in the copied config, so the checkers above see no
+#: drift; :func:`check_deferred` holds this table equal to the code.
+#: Training (A11) has no route, family or env key on this surface, and
+#: every exporter family is served (the fleet families by a router-role
+#: process), so only refused config keys are deferred.
 DEFERRED: tuple[tuple[str, tuple[str, ...], str, str], ...] = (
     ("env-contract", ("ANALYSIS_EMBEDDING_MODEL",), "A10",
      "build_server raises NotImplementedError for analysis.embedding_model "
      "(the embedding anomaly detector)"),
-    ("env-contract", ("FLEET_ROLE",), "A8",
-     "build_server and cmd.server raise NotImplementedError for "
-     "fleet.role 'router' (the fleet router)"),
-    ("metrics-contract", (
-        "fleet_affinity_hits_total", "fleet_affinity_spills_total",
-        "fleet_drain_sweeps_total", "fleet_failovers_total",
-        "fleet_handoffs_total", "fleet_hedge_delay_seconds",
-        "fleet_hedges_fired_total", "fleet_hedges_won_total",
-        "fleet_prefix_migrations_total", "fleet_replica_dispatches_total",
-        "fleet_replica_draining", "fleet_replica_failures_total",
-        "fleet_replica_inflight", "fleet_replica_prefix_hit_rate",
-        "fleet_replica_ready", "fleet_replica_role", "fleet_scrape_age_s",
-        "fleet_sheds_total"), "A8",
-     "emitted by exporter._fleet_metrics, only on a fleet router"),
-    ("metrics-contract", ("autoscale_actions_total",
-                          "autoscale_breaker_open"), "A8",
-     "emitted by exporter._autoscaler_metrics, only on a fleet router "
-     "with autoscale.enabled"),
 )
-
-#: The exporter functions that run only on a fleet router (A8).
-ROUTER_ONLY_EXPORTERS = ("_fleet_metrics", "_autoscaler_metrics")
 
 
 def refused_config_keys(server_src: str) -> dict[str, int]:
     """Env names of the config fields ``_refuse_unported`` refuses
-    (``config.fleet.role`` -> ``FLEET_ROLE``) -> line."""
+    (``config.analysis.embedding_model`` -> ``ANALYSIS_EMBEDDING_MODEL``)
+    -> line."""
     out: dict[str, int] = {}
     for node in ast.walk(ast.parse(server_src)):
         if not (isinstance(node, ast.FunctionDef)
@@ -690,51 +670,33 @@ def refused_config_keys(server_src: str) -> dict[str, int]:
     return out
 
 
-def router_only_families(exporter_src: str) -> dict[str, int]:
-    """Families emitted inside :data:`ROUTER_ONLY_EXPORTERS` -> line."""
-    out: dict[str, int] = {}
-    for node in ast.parse(exporter_src).body:
-        if isinstance(node, ast.FunctionDef) \
-                and node.name in ROUTER_ONLY_EXPORTERS:
-            seg = ast.Module(body=[node], type_ignores=[])
-            for fam, line in extract_exporter_metrics(
-                    ast.unparse(seg)).items():
-                out.setdefault(fam, node.lineno)
-    return out
-
-
-def check_deferred(server_src: str, exporter_src: str,
+def check_deferred(server_src: str,
                    server_path: str =
                    "k8s_llm_monitor_tpu_torch/monitor/server.py",
-                   exporter_path: str =
-                   "k8s_llm_monitor_tpu_torch/monitor/exporter.py",
                    table=DEFERRED) -> list[Finding]:
     """:data:`DEFERRED` against the code, both directions: every refused
-    config key and router-only family is listed, and every listed item is
-    refused or router-only."""
-    listed = {rule: {i for r, items, _, _ in table if r == rule
-                     for i in items}
-              for rule in ("env-contract", "metrics-contract")}
-    actual = {"env-contract": (refused_config_keys(server_src),
-                               server_path),
-              "metrics-contract": (router_only_families(exporter_src),
-                                   exporter_path)}
+    config key is listed, and every listed item is a refused config key
+    (an entry under another rule defers nothing the port refuses)."""
     this = "k8s_llm_monitor_tpu_torch/devtools/contracts.py"
+    refused = refused_config_keys(server_src)
+    listed = {i for r, items, _, _ in table if r == "env-contract"
+              for i in items}
     findings: list[Finding] = []
-    for rule, (found, path) in actual.items():
-        for item, line in sorted(found.items()):
-            if item not in listed[rule]:
-                findings.append(Finding(
-                    path=path, line=line, col=0, rule=rule,
-                    message=(f"the port does not serve '{item}' but "
-                             f"DEFERRED ({this}) does not list it with "
-                             f"its ROADMAP label")))
-        for item in sorted(listed[rule] - set(found)):
+    for item, line in sorted(refused.items()):
+        if item not in listed:
+            findings.append(Finding(
+                path=server_path, line=line, col=0, rule="env-contract",
+                message=(f"the port does not serve '{item}' but "
+                         f"DEFERRED ({this}) does not list it with "
+                         f"its ROADMAP label")))
+    for rule, items, _, _ in table:
+        for item in sorted(items):
+            if rule == "env-contract" and item in refused:
+                continue
             findings.append(Finding(
                 path=this, line=1, col=0, rule=rule,
-                message=(f"DEFERRED lists '{item}' but the port neither "
-                         f"refuses it nor leaves it to a fleet router: "
-                         f"take it out of the table")))
+                message=(f"DEFERRED lists '{item}' but the port does not "
+                         f"refuse it: take it out of the table")))
     return findings
 
 
@@ -781,8 +743,7 @@ def run_contracts(repo_root: Path,
             py_sources, py_sources[f"{PACKAGE}/monitor/config.py"],
             {f: t for f, t in docs.items() if f.endswith(".md")}))
     findings.extend(f for f in check_deferred(
-        py_sources[f"{PACKAGE}/monitor/server.py"],
-        py_sources[f"{PACKAGE}/monitor/exporter.py"], table=deferred)
+        py_sources[f"{PACKAGE}/monitor/server.py"], table=deferred)
         if f.rule in wanted)
     # suppressions on the anchoring line (policy: reconcile, don't
     # suppress — but the mechanism stays uniform across graftcheck)

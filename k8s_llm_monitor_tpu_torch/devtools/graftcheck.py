@@ -86,8 +86,8 @@ def main(argv: list[str] | None = None) -> int:
               "(--dataflow)")
         print("route-contract: routes registered vs documented, both "
               "directions (--contracts)")
-        print("metrics-contract: exporter families vs docs inventory, and "
-              "the router-only families vs DEFERRED (--contracts)")
+        print("metrics-contract: exporter families vs docs inventory "
+              "(--contracts)")
         print("env-contract: env reads vs ENV_KEYS registry vs docs, and "
               "the refused config keys vs DEFERRED (--contracts)")
         assert set(dataflow.DATAFLOW_RULE_NAMES) <= {

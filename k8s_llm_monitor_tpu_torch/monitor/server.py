@@ -16,8 +16,11 @@ prefix as a KVX1 blob) and ``/api/v1/kv/install`` (serving/kv_tier.py),
 (remediation/executor.py), the UAV routes (``/api/v1/metrics/uav[/<n>]``,
 ``/api/v1/uav/{report,command}``, ``/api/v1/crd/uav``) and the static web
 directory.  ``build_server`` refuses a config that turns on what it does
-not serve (an embedding model, ROADMAP A10; the router role, A8) instead
-of booting without it.
+not serve (an embedding model, ROADMAP A10) instead of booting without
+it.  A router-role process is this server over the fleet
+(fleet/frontend.py:build_router_server): the same routes, answered by
+the replicas behind a ``FleetRouter``, with the fleet's health and
+counters in ``/health``, ``/api/v1/stats`` and ``/metrics``.
 
 Stdlib ``ThreadingHTTPServer``: request concurrency is thread-per-
 connection, with the engine doing its own continuous batching underneath.
@@ -123,6 +126,9 @@ class MonitorServer:
         # Flipped by graceful shutdown so /api/v1/stats announces draining
         # one probe before the process leaves.
         self.draining = False
+        # fleet.autoscaler.AutoscaleController on router-role processes
+        # with autoscale.enabled; wired by frontend.build_router_server.
+        self.autoscaler = None
         # remediation.executor.RemediationEngine: the diagnosis pipeline's
         # plan stage, wired by build_server behind RemediationConfig.  None
         # in dev mode (no cluster backend) or remediation.enabled=false.
@@ -203,18 +209,31 @@ class MonitorServer:
                 "trips": breaker.trips,
                 "rejections": breaker.rejections,
             }
+        router = self.fleet_router()
+        if router is not None:
+            replicas = router.registry.snapshot()
+            snap["fleet"] = {
+                "replicas": replicas,
+                "counters": router.counters(),
+            }
+            # A router with zero ready replicas serves nothing: not ready.
+            if not any(r["ready"] for r in replicas.values()):
+                snap["ready"] = False
+                snap["status"] = "degraded"
+                if not snap["reason"]:
+                    snap["reason"] = "no ready fleet replicas"
         return snap
 
     def fleet_router(self):
-        """The FleetRouter of a router-role process: None here (the router
-        role is ROADMAP A8); the signal scraper and the exporter ask."""
+        """The FleetRouter, when this process runs the router role
+        (``FleetAnalysis.router``); None on a replica."""
         return getattr(self.analysis, "router", None)
 
     def stats_snapshot(self) -> dict[str, Any]:
         """Load-signal snapshot: the body of ``GET /api/v1/stats``.  The
         ``engine`` block carries the queue backlog, slot occupancy and the
-        counters of the engine's mechanisms; ``fleet`` stays None (the
-        router role is ROADMAP A8)."""
+        counters of the engine's mechanisms (the fleet router's probe
+        payload); the ``fleet`` block appears on router-role processes."""
         snap: dict[str, Any] = {
             "engine": None,
             "fleet": None,
@@ -259,6 +278,15 @@ class MonitorServer:
                     tp_overlap=engine.tp_overlap,
                     decode_path=engine.decode_path,
                     prefill_path=engine.prefill_path)
+        router = self.fleet_router()
+        if router is not None:
+            snap["fleet"] = {
+                "replicas": router.registry.snapshot(),
+                "counters": router.counters(),
+                "hedge_delay_s": round(router.hedge_delay_s(), 4),
+            }
+            if self.autoscaler is not None:
+                snap["fleet"]["autoscaler"] = self.autoscaler.snapshot()
         if self.governor is not None:
             # Per-tenant accounting: admissions, quota refusals, sheds,
             # charged (delivered) tokens, in-flight reservations, and the
@@ -636,8 +664,11 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
 
 
         def h_trace(self, ref: str) -> None:
-            """One trace by request id or 32-hex trace id, from the local
-            span ring."""
+            """One trace by request id or 32-hex trace id.  On router
+            roles the local spans are merged with every registered
+            replica's ring (dedup by span id, ordered by wall-clock
+            start) so a hedged / failed-over request reads as ONE
+            timeline across processes."""
             ref = ref.strip().rstrip("/")
             if not ref:
                 return self._send_error_text(
@@ -648,12 +679,28 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
                 return self._send_error_text(
                     f"unknown trace or request id: {ref}", 404)
             spans = tracer.spans_for(trace_id)
+            sources = ["local"]
+            router = srv.fleet_router()
+            if router is not None:
+                seen = {s["span_id"] for s in spans}
+                for rid, replica in router.replicas():
+                    try:
+                        remote = replica.fetch_trace(trace_id)
+                    except Exception:  # noqa: BLE001 — merge best-effort
+                        continue
+                    fresh = [s for s in remote
+                             if s.get("span_id") not in seen]
+                    if fresh:
+                        seen.update(s["span_id"] for s in fresh)
+                        spans.extend(fresh)
+                        sources.append(rid)
+                spans.sort(key=lambda s: s.get("start_unix", 0.0))
             self._send_json({
                 "status": "success",
                 "trace_id": trace_id,
                 "spans": spans,
                 "n_spans": len(spans),
-                "sources": ["local"],
+                "sources": sources,
                 "timestamp": _now(),
             })
 
@@ -774,6 +821,9 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
             # context whose token prefix replays every turn — PrefixCache
             # hits locally, prefix-affinity in fleet mode.
             if "session_id" in body:
+                if not hasattr(srv.analysis, "query_session"):
+                    return self._send_error_text(
+                        "sessions are not supported on this role", 400)
                 resp = srv.analysis.query_session(
                     question, str(body.get("session_id") or ""),
                     slo_class=slo_class, tenant=tenant)
@@ -783,7 +833,8 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
             self._send_json(resp, status=200 if resp.status == "success" else 500)
 
         def h_diagnoses(self) -> None:
-            """Verdict history from the standing diagnosis pipeline."""
+            """Verdict history from the standing diagnosis pipeline; on
+            router roles this proxies to a replica (FleetAnalysis)."""
             query = parse_qs(urlparse(self.path).query)
             try:
                 limit = int((query.get("limit", ["0"])[0]) or 0)
@@ -806,6 +857,15 @@ def _make_handler(srv: MonitorServer) -> type[BaseHTTPRequestHandler]:
                     },
                     "timestamp": _now(),
                 })
+            proxy = getattr(srv.analysis, "diagnoses", None)
+            if callable(proxy):
+                try:
+                    return self._send_json(proxy(limit))
+                except OverloadedError:
+                    raise
+                except Exception as exc:  # noqa: BLE001 — fleet edge
+                    return self._send_error_text(
+                        f"diagnoses unavailable: {exc}", 502)
             return self._send_error_text(
                 "Diagnosis pipeline not available - running in development "
                 "mode", 503)
@@ -1314,10 +1374,6 @@ def _refuse_unported(config: Config) -> None:
         raise NotImplementedError(
             f"analysis.embedding_model={config.analysis.embedding_model!r}: "
             "the embedding anomaly detector is not ported (ROADMAP A10)")
-    if config.fleet.role == "router":
-        raise NotImplementedError(
-            "fleet.role='router': the fleet router is not ported "
-            "(ROADMAP A8)")
 
 
 def build_server(

@@ -10,11 +10,17 @@ counts the launch in its ``launches`` attribute; for CPU tensors it runs its
 plain PyTorch version (``*_plain``) beside it, built from the oracles of
 ops/attention.py.  There is no fallback between the two: a CUDA tensor that
 the kernel cannot take, a failed build or a refused launch raises.
+
+Each launch is also counted for the thread that made it
+(:func:`thread_launches`): an engine's launches are those of its step
+thread, so several engines in one process (a fleet's local replicas) keep
+their counts apart.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -243,7 +249,7 @@ def flash_prefill_attention(q, k_pages, v_pages, block_table, start, lengths,
         table.data_ptr(), st.data_ptr(), ln.data_ptr(), out.data_ptr(),
         B, S, H, KVH, bs, table.shape[1], _stream(q.device))
     _raise_on(err, f"flash_prefill_{suffix}")
-    flash_prefill_attention.launches += 1
+    count_launches(flash_prefill_attention)
     return out
 
 
@@ -348,7 +354,7 @@ def paged_decode_attention_fused(q, k_new, v_new, cos, sin, k_pages, v_pages,
                          "fused decode")
     out = _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
                         block_table, positions)
-    paged_decode_attention_fused.launches += 1
+    count_launches(paged_decode_attention_fused)
     return out, k_pages, v_pages
 
 
@@ -453,7 +459,7 @@ def paged_decode_attention_fused_quant(q, k_new, v_new, cos, sin, k_pages,
                          "fused quant decode")
     out = _fused_decode(suffix, q, k_new, v_new, cos, sin, k_pages, v_pages,
                         block_table, positions, (k_scale, v_scale))
-    paged_decode_attention_fused_quant.launches += 1
+    count_launches(paged_decode_attention_fused_quant)
     return out, k_pages, v_pages, k_scale, v_scale
 
 
@@ -535,7 +541,7 @@ def paged_verify_attention_pallas(q, k_pages, v_pages, block_table, start,
                                              start, lengths)
     out = _paged_attn(q, k_pages, v_pages, block_table, starts=start,
                       qlens=lengths)
-    paged_verify_attention_pallas.launches += 1
+    count_launches(paged_verify_attention_pallas)
     return out
 
 
@@ -558,7 +564,7 @@ def paged_decode_attention_pallas(q, k_pages, v_pages, block_table, lengths):
         raise ValueError(f"paged decode takes one query token, got "
                          f"{q.shape[1]}")
     out = _paged_attn(q, k_pages, v_pages, block_table, lengths=lengths)
-    paged_decode_attention_pallas.launches += 1
+    count_launches(paged_decode_attention_pallas)
     return out
 
 
@@ -573,3 +579,29 @@ KERNEL_WRAPPERS = (flash_prefill_attention, paged_decode_attention_fused,
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    reset_thread_launches()
+
+
+_thread = threading.local()
+
+
+def count_launches(fn, n: int = 1) -> None:
+    """Add ``n`` launches of the wrapper ``fn`` to its ``launches`` and to
+    the calling thread's count (a CUDA graph's replay adds the launches
+    its capture recorded)."""
+    fn.launches += n
+    counts = getattr(_thread, "counts", None)
+    if counts is None:
+        counts = _thread.counts = {}
+    counts[fn.__name__] = counts.get(fn.__name__, 0) + n
+
+
+def thread_launches() -> dict[str, int]:
+    """The launches the calling thread made since its last
+    :func:`reset_thread_launches`, by wrapper name."""
+    return {fn.__name__: getattr(_thread, "counts", {}).get(fn.__name__, 0)
+            for fn in KERNEL_WRAPPERS}
+
+
+def reset_thread_launches() -> None:
+    _thread.counts = {}

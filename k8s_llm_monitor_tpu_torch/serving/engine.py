@@ -149,6 +149,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from k8s_llm_monitor_tpu_torch.devtools.lockcheck import make_lock
 from k8s_llm_monitor_tpu_torch.models import llama
 from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
 from k8s_llm_monitor_tpu_torch.ops.attention import (
@@ -160,7 +161,11 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
 from k8s_llm_monitor_tpu_torch.observability.flight import get_flight_recorder
 from k8s_llm_monitor_tpu_torch.observability.metrics import ClassHistogram
 from k8s_llm_monitor_tpu_torch.observability.tracing import get_tracer
-from k8s_llm_monitor_tpu_torch.ops.paged_attention import KERNEL_WRAPPERS
+from k8s_llm_monitor_tpu_torch.ops.paged_attention import (
+    KERNEL_WRAPPERS,
+    count_launches,
+    thread_launches,
+)
 from k8s_llm_monitor_tpu_torch.parallel.mesh import LaunchPacer, MeshBroken
 from k8s_llm_monitor_tpu_torch.parallel.overlap import (
     overlap_decode_step,
@@ -524,6 +529,10 @@ class _Stage:
         self.out_np = self.out.numpy()
 
 
+# Serializes decode-graph captures across the engines of a process.
+_CAPTURE_LOCK = make_lock("engine.graph_capture")
+
+
 class _DecodeProgram:
     """K decode steps with on-device token feedback: the counterpart of the
     JAX engine's ``_decode_program`` (``serving/engine.py:2379``, a
@@ -577,10 +586,17 @@ class _DecodeProgram:
         else:
             self.graph.replay()
             for fn, n in zip(KERNEL_WRAPPERS, self.launches):
-                fn.launches += n
+                count_launches(fn, n)
         return self.out
 
     def _capture(self) -> None:
+        # One capture at a time in the process: the step threads of two
+        # engines on one card (a fleet's local replicas) capturing at once
+        # recorded graphs whose replays decoded nothing.
+        with _CAPTURE_LOCK:
+            self._capture_locked()
+
+    def _capture_locked(self) -> None:
         eng = self.eng
         t0 = time.monotonic()
         main = torch.cuda.current_stream(eng.device)
@@ -589,18 +605,21 @@ class _DecodeProgram:
         with torch.cuda.stream(side):
             self._run()
         main.wait_stream(side)
-        before = [fn.launches for fn in KERNEL_WRAPPERS]
+        before = thread_launches()
         graph = torch.cuda.CUDAGraph()
         if self.sampler != "greedy":
             graph.register_generator_state(eng._gen)
         with torch.cuda.graph(graph, pool=eng._graph_pool, stream=side,
                               capture_error_mode="thread_local"):
             self._run()
-        # The capture launched nothing: take back what the wrappers counted.
-        self.launches = [fn.launches - b
-                         for fn, b in zip(KERNEL_WRAPPERS, before)]
-        for fn, b in zip(KERNEL_WRAPPERS, before):
-            fn.launches = b
+        # The capture launched nothing: take back what the wrappers counted
+        # (this thread's counts: another engine's step thread may launch
+        # meanwhile).
+        after = thread_launches()
+        self.launches = [after[fn.__name__] - before[fn.__name__]
+                         for fn in KERNEL_WRAPPERS]
+        for fn, n in zip(KERNEL_WRAPPERS, self.launches):
+            count_launches(fn, -n)
         self.graph = graph
         eng.graph_captures += 1
         eng.graph_capture_s += time.monotonic() - t0

@@ -41,6 +41,17 @@ from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 from k8s_llm_monitor_tpu_torch.utils import checkpoint as tckpt
 from k8s_llm_monitor_tpu_torch.utils.tokenizer import HFTokenizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORDS = (
     "pod service node event warning error restart backoff oom killed "
     "pending running failed ready probe liveness readiness image pull "

@@ -8,8 +8,8 @@ JAX package's.
   fixtures (the bench-key part is the JAX package's alone: the port has no
   bench yet).
 * The live port: clean, with zero contract suppressions, and the table of
-  what it does not serve yet (``DEFERRED``) equal to what it refuses and
-  to the families only a fleet router emits.
+  what it does not serve yet (``DEFERRED``) equal to what it refuses; a
+  replica's exposition carries none of the families a fleet router emits.
 """
 
 from __future__ import annotations
@@ -244,25 +244,41 @@ def test_live_port_has_zero_contract_suppressions():
     assert hits == []
 
 
+def _router_families(exporter_src: str) -> set[str]:
+    """The families the exporter emits only on a fleet router."""
+    import ast
+
+    out: set[str] = set()
+    for node in ast.parse(exporter_src).body:
+        if isinstance(node, ast.FunctionDef) and node.name in (
+                "_fleet_metrics", "_autoscaler_metrics"):
+            out |= set(tc.extract_exporter_metrics(ast.unparse(
+                ast.Module(body=[node], type_ignores=[]))))
+    return out
+
+
 def test_deferred_equals_what_the_port_refuses_and_lacks():
     server = _src(TPKG, "monitor/server.py")
-    exporter = _src(TPKG, "monitor/exporter.py")
     listed = {rule: {i for r, items, _, _ in tc.DEFERRED if r == rule
                      for i in items}
               for rule in ("env-contract", "metrics-contract")}
     assert listed["env-contract"] == set(tc.refused_config_keys(server))
-    assert listed["metrics-contract"] == set(
-        tc.router_only_families(exporter))
-    assert tc.check_deferred(server, exporter) == []
+    assert listed["env-contract"] == {"ANALYSIS_EMBEDDING_MODEL"}
+    # The router serves its env key and its families (A8): none deferred.
+    assert listed["metrics-contract"] == set()
+    assert tc.check_deferred(server) == []
     labels = {label for _, _, label, _ in tc.DEFERRED}
-    assert labels <= {"A8", "A10", "A11"}
+    assert labels == {"A10"}
     # Drift either way is a finding.
     short = tc.DEFERRED[1:]
-    assert [f.message for f in tc.check_deferred(server, exporter,
-                                                 table=short)]
+    assert [f.message for f in tc.check_deferred(server, table=short)]
     extra = tc.DEFERRED + (("env-contract", ("LLM_MODEL",), "A8", "x"),)
     assert any("LLM_MODEL" in f.message for f in tc.check_deferred(
-        server, exporter, table=extra))
+        server, table=extra))
+    fams = tc.DEFERRED + (("metrics-contract", ("fleet_sheds_total",),
+                           "A8", "x"),)
+    assert any("fleet_sheds_total" in f.message for f in tc.check_deferred(
+        server, table=fams))
 
 
 @pytest.mark.parametrize("field,value,label", [
@@ -270,6 +286,9 @@ def test_deferred_equals_what_the_port_refuses_and_lacks():
     ("fleet.role", "router", "A8"),
 ])
 def test_the_refused_keys_are_refused(field, value, label):
+    """A10's key is refused and listed; A8's ``fleet.role`` is served as
+    in the JAX server (a replica's disaggregation role, reported in its
+    stats), and no longer listed."""
     from k8s_llm_monitor_tpu_torch.monitor.config import Config
     from k8s_llm_monitor_tpu_torch.monitor.server import build_server
 
@@ -279,8 +298,16 @@ def test_the_refused_keys_are_refused(field, value, label):
     section, name = field.split(".")
     setattr(getattr(cfg, section), name, value)
     env = "_".join(field.split(".")).upper()
-    assert any(env in items and lab == label
-               for _, items, lab, _ in tc.DEFERRED)
+    deferred = any(env in items and lab == label
+                   for _, items, lab, _ in tc.DEFERRED)
+    if label == "A8":
+        assert not deferred
+        assert not any(lab == "A8" for _, _, lab, _ in tc.DEFERRED)
+        srv = build_server(cfg, device="cpu")
+        assert srv.config.fleet.role == value
+        assert srv.fleet_router() is None
+        return
+    assert deferred
     with pytest.raises(NotImplementedError, match=label):
         build_server(cfg, device="cpu")
 
@@ -299,6 +326,8 @@ def test_a_live_exposition_has_no_router_family():
                        device="cpu")
     text = render_prometheus(srv)
     assert "k8s_llm_monitor_build_info" in text
-    for _, items, _, _ in tc.DEFERRED:
-        for fam in items:
-            assert f"k8s_llm_monitor_{fam}" not in text
+    fams = _router_families(_src(TPKG, "monitor/exporter.py"))
+    assert "fleet_failovers_total" in fams and "autoscale_actions_total" \
+        in fams
+    for fam in fams:
+        assert f"k8s_llm_monitor_{fam}" not in text

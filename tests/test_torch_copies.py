@@ -33,7 +33,9 @@ COPIES = ("diagnosis/grammar.py", "devtools/lockcheck.py",
           "remediation/executor.py", "monitor/kube_rest.py",
           "monitor/uav.py", "monitor/agent.py", "monitor/scheduler.py",
           "cmd/uav_agent.py", "cmd/scheduler.py", "cmd/demo.py",
-          "cmd/test_k8s.py")
+          "cmd/test_k8s.py", "fleet/__init__.py", "fleet/registry.py",
+          "fleet/replica.py", "fleet/router.py", "fleet/frontend.py",
+          "fleet/autoscaler.py")
 
 
 def _tree(path: Path, rename: bool) -> ast.Module:
@@ -78,6 +80,7 @@ PIECES = (
         "log_message", "_send_json", "_send_overloaded", "_send_error_text",
         "_parse_tenant", "_read_json", "do_GET", "do_POST", "_route",
         "h_static", "h_health", "h_readyz", "h_stats", "h_trace_recent",
+        "h_trace", "h_query", "h_diagnoses",
         "h_cluster_status", "h_pods", "h_pod_comm", "_stream_query",
         "h_analyze", "_need_manager", "h_metrics_cluster", "h_metrics_nodes",
         "h_metrics_node", "h_metrics_pods", "h_metrics_snapshot",

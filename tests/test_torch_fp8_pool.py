@@ -46,6 +46,17 @@ from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 from k8s_llm_monitor_tpu_torch.ops.rope import rope_angles as t_rope_angles
 from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 THETA = 10_000.0
 FP8 = "float8_e4m3fn"

@@ -25,6 +25,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from k8s_llm_monitor_tpu.diagnosis.grammar import compile_schema as jcompile
 from k8s_llm_monitor_tpu.diagnosis.grammar import token_fsm as jtoken_fsm
@@ -43,6 +44,17 @@ from k8s_llm_monitor_tpu_torch.diagnosis.grammar import (
 from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
 from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG_KW = dict(name="t", vocab_size=300, hidden_size=32, intermediate_size=64,
               num_layers=2, num_heads=4, num_kv_heads=2, dtype="float32",

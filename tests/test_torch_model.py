@@ -32,6 +32,17 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
     select_prefill_impl as t_select_prefill,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 CPU = torch.device("cpu")
 _FIELDS = [f.name for f in dataclasses.fields(tconfig.ModelConfig)]

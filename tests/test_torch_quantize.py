@@ -33,6 +33,17 @@ from k8s_llm_monitor_tpu_torch.models import llama as tllama
 from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 from k8s_llm_monitor_tpu_torch.utils import quantize as tqz
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LIN_TOL = dict(atol=1e-6, rtol=1e-6)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 CFG_KW = dict(name="t", vocab_size=256, hidden_size=64, intermediate_size=128,

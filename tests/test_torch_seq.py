@@ -36,6 +36,17 @@ from k8s_llm_monitor_tpu_torch.models.config import ModelConfig as TConfig
 from k8s_llm_monitor_tpu_torch.parallel import mesh as tmesh
 from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 _CFG = dict(name="t", vocab_size=512, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=8, num_kv_heads=8, dtype="float32",

@@ -8,7 +8,8 @@ tiny float32 engine on each side, from one set of weights and at
 temperature 0, ``/api/v1/query`` and a root-cause ``/api/v1/analyze`` give
 the same answer text and verdict (after the two evidence prompts are shown
 equal).  ``build_server`` and ``LocalEngineBackend.from_config`` refuse
-every knob the port does not serve and serve telemetry and remediation,
+every knob the port does not serve and serve telemetry, remediation and
+a replica's ``fleet.role``,
 ``from_config(device="cpu")`` builds a supervised backend, the ``tpu``
 provider does not fall back to the template backend, and ``python -m
 k8s_llm_monitor_tpu_torch.cmd.server`` boots on the default config (and
@@ -71,6 +72,17 @@ from k8s_llm_monitor_tpu_torch.serving.engine import (
     InferenceEngine,
 )
 from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 NODE = "k3d-demo-agent-0"
@@ -372,13 +384,25 @@ def test_tiny_engine_answers_like_jax(prefix_cache):
 
 @pytest.mark.parametrize("knob", ["embedding_model", "router"])
 def test_build_server_refuses_unported_knobs(knob):
+    """An embedding model (A10) is refused.  ``fleet.role`` "router" is not
+    a knob either server refuses: in both it is a replica's role, reported
+    in its stats; the router is ``build_router_server`` (A8)."""
     cfg = _config(Config)
     if knob == "embedding_model":
         cfg.analysis.embedding_model = "tiny-encoder"
-    else:
-        cfg.fleet.role = "router"
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+        return
+    cfg.fleet.role = "router"
+    jcfg = _config(JConfig)
+    jcfg.fleet.role = "router"
+    srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+    jsrv = jbuild_server(jcfg, backend=jseed_demo_cluster(JFakeCluster()))
+    assert srv.fleet_router() is None and jsrv.fleet_router() is None
+    assert (_normalize(srv.stats_snapshot())
+            == _normalize(jsrv.stats_snapshot()))
+    assert srv.health_snapshot()["ready"] and "fleet" not in \
+        srv.health_snapshot()
 
 
 @pytest.mark.parametrize("knob", ["telemetry", "remediation"])
@@ -515,7 +539,9 @@ def test_tpu_provider_does_not_fall_back_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [(["--role", "router"], "A8")])
 def test_cmd_server_refuses_unported_modes(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The router role is served (A8): with no replica URL it refuses to
+    boot as the JAX command does, naming ``fleet.replicas``."""
+    with pytest.raises(ValueError, match="fleet.replicas"):
         cmd_server.main(argv)
 
 

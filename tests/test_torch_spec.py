@@ -45,6 +45,17 @@ from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
 from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 from k8s_llm_monitor_tpu_torch.serving import spec as tspec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG_KW = dict(name="t", vocab_size=300, hidden_size=32, intermediate_size=64,
               num_layers=2, num_heads=4, num_kv_heads=2, dtype="float32",
               rope_theta=1e4)

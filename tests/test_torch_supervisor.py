@@ -20,6 +20,7 @@ import weakref
 import jax
 import numpy as np
 import pytest
+import torch
 
 from k8s_llm_monitor_tpu.models import llama as jllama
 from k8s_llm_monitor_tpu.models.config import ModelConfig as JModelConfig
@@ -50,6 +51,17 @@ from k8s_llm_monitor_tpu_torch.serving.engine import (
     SamplingParams,
 )
 from k8s_llm_monitor_tpu_torch.serving.supervisor import EngineSupervisor
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG_KW = dict(name="t", vocab_size=300, hidden_size=32, intermediate_size=64,
               num_layers=2, num_heads=4, num_kv_heads=2, dtype="float32",

@@ -27,6 +27,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from k8s_llm_monitor_tpu.models import llama as jllama
 from k8s_llm_monitor_tpu.models.config import ModelConfig as JModelConfig
@@ -85,6 +86,17 @@ from k8s_llm_monitor_tpu_torch.serving.engine import (
     SamplingParams,
 )
 from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 NODE = "k3d-demo-agent-0"
 _TS = re.compile(r"^\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d(\.\d+)?(Z|[+-]\d\d:\d\d)?$")

@@ -46,6 +46,17 @@ from k8s_llm_monitor_tpu_torch.parallel import sharding as tsharding
 from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 from k8s_llm_monitor_tpu_torch.utils.tokenizer import ByteTokenizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 TOK = ByteTokenizer()
 # One kv head per rank at TP 2 (tiny), Qwen2's biases (tiny-qwen), and a

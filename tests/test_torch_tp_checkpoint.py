@@ -44,6 +44,17 @@ from k8s_llm_monitor_tpu_torch.serving import engine as tengine
 from k8s_llm_monitor_tpu_torch.utils import checkpoint as tckpt
 from k8s_llm_monitor_tpu_torch.utils.quantize import quantize_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny engines run fastest on one intra-op thread, and many threads
+    per test worker crowd the other workers out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 T = tengine.DEFAULT_TENANT
 ECFG = dict(max_slots=2, num_blocks=64, block_size=8, max_blocks_per_seq=16,
