@@ -18,9 +18,11 @@
     python3 chip_smoke.py --phases 0,12f  # only 12f: rebuilds of a broken mesh
     python3 chip_smoke.py --phases 0,12g  # a seq mesh (sequence-sharded prefill)
     python3 chip_smoke.py --phases 0,12h  # seq and TP meshes on four cards
+    python3 chip_smoke.py --phases 0,12i  # meshes in processes of their own
     python3 chip_smoke.py --phases 0,13   # a checkpoint on a mesh (A7b)
     python3 chip_smoke.py --phases 0,14   # the port's gates (A12)
     python3 chip_smoke.py --phases 0,15   # the fleet router (A8)
+    python3 chip_smoke.py --phases 0,16   # Mixtral and Gemma-2 (A9)
 
 Phase 0  card name and power limit, torch/CUDA versions, builds the CUDA
          kernels from k8s_llm_monitor_tpu_torch/csrc (one nvcc per source,
@@ -366,6 +368,34 @@ Phase 15 the fleet router (A8, fleet/): two replicas of the monitor's
          survivor's, asked for the prompt and those tokens and the rest of
          the budget; its ids against the undisturbed run are printed.  A sub-phase by name
          (--phases 0,15b) runs only that part.
+
+Phase 16 A9 (attention extras and dropless experts) at full width.  16a:
+         Mixtral-8x7B at 8 of its 32 layers, bf16 (about 23.7 GB, seed
+         0): phase 2's 16 prompts (20..2300 tokens) at once through an
+         EngineService twice (the ids equal), B1 and B2 launched on its
+         step thread (the kernels line's _mixtral rows); the engine's
+         prefill logits (llama.prefill_logits, B1 in rounds of 2048)
+         against forward_full (dense) at the cosine bar and phase 3's
+         argmax bar; the int8 twin (quantize_params on the card) and its
+         warm tok/s beside bf16's; a 1-layer Mixtral-format safetensors
+         checkpoint (router, w1/w3/w2 of 8 experts) written from the
+         seeded model and read back bit for bit.  16b: build_server with
+         llm.tpu.model mixtral-8x7b, all 32 layers, the default W8A8
+         (about 47 GB of int8 weights from the per-tensor seeded init;
+         phase 6's max_tokens 64 and kv_blocks 4096):
+         a warm-up verdict, then 24 root-cause verdicts over HTTP at
+         once, every one of the grammar's schema; TTFT p50 / p99, warm
+         decode tok/s, weight bytes, B1 and B2 launched.  16c: Gemma-2-9B
+         at full width and depth, bf16 (about 18.5 GB): 8 prompts (one of
+         5,000 tokens, past the 4,096 window of the sliding layers)
+         through an EngineService, B1, B2 and B3 launched 0 times (dense
+         prefill and the gather, the JAX package's selection), its
+         prefill logits against forward_full at 16a's bars.  16d:
+         Mixtral at full width and 2 layers, TP 2 (gloo on one card,
+         four experts a rank) against TP 1: 12b's cosine and id bars;
+         with four cards, bf16 at 32 layers on "1,1,4" over NCCL, TTFT
+         and tok/s.  A sub-phase by name (--phases 0,16b) runs only that
+         part.
 
 Prints one JSON line of kernel records, the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
@@ -5923,6 +5953,91 @@ def phase12h(torch, np, st):
     st["seq_long_ttft"] = ttfts
 
 
+def _c4_child(i, how, queue):
+    """12i: one mesh's life in a process of its own: the default config on
+    a "1,1,2" NCCL mesh through from_config, an 8-token greedy generate,
+    then rank 1 killed and the mesh aborted ("kill") or the mesh closed
+    ("close").  The process then exits, and every communicator it made
+    with it."""
+    from k8s_llm_monitor_tpu_torch.monitor.analysis import LocalEngineBackend
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.parallel import mesh as mesh_mod
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+
+    out = {"i": i, "how": how}
+    try:
+        cfg = load_config(None)
+        cfg.llm.tpu.mesh_shape = "1,1,2"
+        t0 = time.monotonic()
+        b = LocalEngineBackend.from_config(cfg.llm.tpu,
+                                           lifecycle=cfg.lifecycle)
+        out["boot_s"] = time.monotonic() - t0
+        res = b._result(b._submit(
+            b.tokenizer.encode("why crashloop?"),
+            SamplingParams(max_tokens=8, temperature=0.0)), "generation")
+        out["ids"] = list(res.token_ids)
+        mesh = b.mesh
+        b.supervisor.shutdown(grace_s=0.0)
+        t0 = time.monotonic()
+        if how == "kill":
+            mesh._procs[0].kill()
+            while mesh.broken is None and time.monotonic() - t0 < 60:
+                time.sleep(0.05)
+            mesh.abort()
+        else:
+            mesh.close()
+        out["leave_s"] = time.monotonic() - t0
+        out["broken"] = mesh.broken
+        out["stuck"] = mesh_mod.unusable()
+    except Exception as exc:  # noqa: BLE001 -- reported to the parent
+        out["error"] = repr(exc)
+    queue.put(out)
+    queue.close()
+    queue.join_thread()
+    os._exit(0)
+
+
+def phase12i(torch, np, st):
+    """12i (ROADMAP C4, design b; run by name only, with two cards): three
+    meshes in turn, each with rank 0 in a spawned process of its own (the
+    old communicators die with their process): the first two broken by a
+    killed rank and aborted, the third closed.  Each process's leave must
+    return within Mesh.ABORT_WAIT_S and mark nothing unusable, and the
+    three generates give the same ids."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import Mesh
+
+    check(torch.cuda.device_count() >= 2, "12i needs two cards (NCCL)")
+    ctx = mp.get_context("spawn")
+    results = []
+    for i, how in enumerate(("kill", "kill", "close")):
+        q = ctx.Queue()
+        p = ctx.Process(target=_c4_child, args=(i, how, q),
+                        name=f"c4-mesh-{i}")
+        t0 = time.monotonic()
+        p.start()
+        try:
+            r = q.get(timeout=600)
+        except queue_mod.Empty:
+            r = {"i": i, "how": how, "error": "no answer in 600 s"}
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+            p.join()
+        r["wall_s"], r["exitcode"] = time.monotonic() - t0, p.exitcode
+        print(f"phase 12i: process {i} ({how}): {r} [{st['gpu']}]",
+              flush=True)
+        results.append(r)
+    for r in results:
+        check("error" not in r and not r["stuck"]
+              and r["leave_s"] < Mesh.ABORT_WAIT_S,
+              f"12i: process {r['i']} ({r['how']}): {r}")
+    check(all(r["ids"] == results[0]["ids"] for r in results),
+          f"12i: ids {[r['ids'] for r in results]}")
+
+
 def phase12(torch, np, st):
     """A7: the per-rank kernel shapes (12a), Llama-3-8B at TP 2 (12b),
     Qwen2-72B (12d) and the mesh's close, the server on a mesh and
@@ -5945,6 +6060,8 @@ def phase12(torch, np, st):
               if name in subs]
     if subs & {"12c", "12e", "12f"}:
         steps.append(lambda torch, np, st: phase12c(torch, np, st, subs))
+    if "12i" in subs:
+        steps.append(phase12i)
     try:
         for sub in steps:
             t0 = time.monotonic()
@@ -7224,10 +7341,680 @@ def phase15(torch, np, st):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 16
+# A9: Gemma-2's attention extras and Mixtral's dropless experts served on
+# the card at full width.  Mixtral's attention is Llama-3-8B's geometry
+# (32/8 heads, head_dim 128), so B1 and B2 run on its path; Gemma-2 runs no
+# kernel (dense prefill, gather decode: the JAX package's selection for a
+# model with attention extras, and head_dim 256).
+
+MIXTRAL_LAYERS = 8        # 16a: 8 of Mixtral-8x7B's 32 layers, bf16
+MOE_TP_LAYERS = 2         # 16d: Mixtral at TP 2 over gloo on one card
+GEMMA_LONG = 5000         # 16c: one prompt past the 4,096-token window
+ANALYZE_PARAMS = (        # 16b: phase 6's root-cause analyses
+    ("default", "web-frontend-7d4b9c6f5-x2x1p"),
+    ("default", "api-backend-6f5d8b7c9-k3k2m"), ("default", ""),
+    ("default", ""))
+SYMPTOMS = ("restarts and timeouts", "OOMKilled after deploy",
+            "readiness probe failing", "5xx from the ingress",
+            "slow responses since noon", "CrashLoopBackOff")
+
+
+def service_burst(torch, svc, prompts, max_tokens=32, limit_s=300.0):
+    """``prompts`` submitted at once to an EngineService (greedy), the
+    launch counts of its step thread set to 0 just before and read just
+    after.  Returns (results, {wrapper: launches}, wall s, decode tok/s of
+    the burst).  A burst not done within ``limit_s`` fails with the
+    engine's dispatch failures (a dispatch that fails is retried on the
+    next step, so a failure that repeats stalls the request)."""
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.serving.engine import SamplingParams
+
+    eng = svc.engine
+    svc.call(lambda e: pa.reset_thread_launches())
+    tokens0, secs0 = eng.decode_tokens, eng.decode_s
+    t0 = time.monotonic()
+    handles = [svc.submit(p, SamplingParams(max_tokens=max_tokens))
+               for p in prompts]
+    try:
+        res = [h.result(timeout=max(1.0, limit_s - (time.monotonic() - t0)))
+               for h in handles]
+    except TimeoutError as exc:
+        fails = [e for e in eng._flight.events()
+                 if e.get("kind") == "dispatch_failure"][-3:]
+        raise PhaseError(
+            f"{exc}: {eng.dispatch_failures} dispatch failures, the last "
+            f"{fails}; {torch.cuda.memory_allocated()} B allocated") from exc
+    wall = time.monotonic() - t0
+    launches = svc.call(lambda e: (torch.cuda.synchronize(),
+                                   pa.thread_launches())[1])
+    for r in res:
+        check(r.finish_reason in ("eos", "length"),
+              f"{r.request_id}: {r.finish_reason} {r.error}")
+    tok_s = (eng.decode_tokens - tokens0) / max(eng.decode_s - secs0, 1e-9)
+    return res, launches, wall, tok_s
+
+
+class ExpertChoices:
+    """``torch.topk`` swapped, inside ``with``, for a mixture of experts'
+    routing (``_moe_mlp_dropless`` calls it once a layer, on this
+    process's rank): each call's chosen experts and the margin between the
+    k-th and (k+1)-th router probability are appended to ``tape``, or,
+    given ``replay`` (a function of the call's number and the chosen
+    indices, returning the indices to use), other experts are used."""
+
+    def __init__(self, torch, tape=None, replay=None):
+        self.torch, self.tape, self.replay = torch, tape, replay
+        self.real = torch.topk
+
+    def __enter__(self):
+        calls = iter(range(10 ** 6))
+
+        def topk(probs, k, dim=-1, **kw):
+            top = self.real(probs, k + 1, dim=dim, **kw)
+            idx = top.indices[..., :k]
+            if self.tape is not None:
+                self.tape.append((idx, top.values[..., k - 1]
+                                  - top.values[..., k]))
+            if self.replay is None:
+                return top.values[..., :k], idx
+            idx = self.replay(next(calls), idx.clone())
+            return probs.gather(-1, idx), idx
+
+        self.torch.topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.topk = self.real
+
+
+def route_flips(got, want):
+    """(decisions whose expert sets differ, decisions) between two tapes
+    of the same calls."""
+    flips = total = 0
+    for (a, _), (w, _) in zip(got, want, strict=True):
+        flips += int((a.sort(-1).values != w.sort(-1).values).any(-1).sum())
+        total += a[..., 0].numel()
+    return flips, total
+
+
+def last_logits_check(torch, np, model, lens, tag, gpu, bucket=2048,
+                      routed=False):
+    """The engine's prefill logits (``llama.prefill_logits``: rounds of
+    ``bucket`` as the engine ingests them, on the engine's prefill path)
+    against ``forward_full`` (dense) of each prompt alone: the smallest row
+    cosine (TP_COS_MIN) and the argmax agreement at phase 3's bar, the
+    dense path's near-ties within LOGIT_ATOL counted as agreeing.
+
+    ``routed`` (a mixture of experts): a router's top-k is a discrete
+    choice, and in bf16 two paths' sums move the experts a token picks
+    where the k-th and (k+1)-th router probabilities nearly tie; each such
+    flip swaps an expert's whole output.  So the dense pass records every
+    MoE layer's choice (``torch.topk`` inside ``_moe_mlp_dropless``), the
+    engine's path runs once free (its choices that differ are counted,
+    with the dense pass's margin between the k-th and (k+1)-th
+    probability at each) and once replaying the dense pass's choices, and
+    the bars hold on the replayed run."""
+    from k8s_llm_monitor_tpu_torch.models import llama
+
+    rng = np.random.default_rng(16)
+    T = -(-max(lens) // bucket) * bucket
+    toks = np.zeros((len(lens), T), np.int32)
+    for b, n in enumerate(lens):
+        toks[b, :n] = rng.integers(3, model.cfg.vocab_size, size=n)
+    tok_t = torch.from_numpy(toks).cuda()
+    len_t = torch.tensor(lens)
+    routes = []
+    want = []
+    for b, n in enumerate(lens):
+        tape = []
+        with ExpertChoices(torch, tape if routed else None):
+            want.append(llama.forward_full(model, tok_t[b:b + 1, :n])[0, -1])
+        routes.append([(i[0], m[0]) for i, m in tape])
+    want = torch.stack(want)
+    L = model.cfg.num_layers
+    line = ""
+    if routed:
+        tape = []
+        with ExpertChoices(torch, tape):
+            free = llama.prefill_logits(model, tok_t, len_t, bucket)
+        flips = total = 0
+        margins = []
+        for call, (idx, _) in enumerate(tape):
+            r, li = divmod(call, L)
+            for b, n in enumerate(lens):
+                lo, hi = r * bucket, min((r + 1) * bucket, n)
+                if hi <= lo:
+                    continue
+                ref_i, ref_m = routes[b][li]
+                a = idx[b, :hi - lo].sort(-1).values
+                w = ref_i[lo:hi].sort(-1).values
+                diff = (a != w).any(-1)
+                flips += int(diff.sum())
+                total += hi - lo
+                margins.append(ref_m[lo:hi][diff])
+        margins = torch.cat(margins)
+        free_cos = cosines(torch, [free], [want])
+
+        def replay(call, idx):
+            r, li = divmod(call, L)
+            for b, n in enumerate(lens):
+                lo, hi = r * bucket, min((r + 1) * bucket, n)
+                if hi > lo:
+                    idx[b, :hi - lo] = routes[b][li][0][lo:hi]
+            return idx
+
+        with ExpertChoices(torch, replay=replay):
+            got = llama.prefill_logits(model, tok_t, len_t, bucket)
+        line = (f"; run free, the engine's path chose other experts at "
+                f"{flips} of {total} (token, layer) decisions (dense-pass "
+                f"margins between the k-th and (k+1)-th router probability "
+                f"there: max {float(margins.max()) if flips else 0.0:.3g}, "
+                f"median {float(margins.median()) if flips else 0.0:.3g}) "
+                f"and its logits' smallest row cosine was {free_cos:.6f}; "
+                f"with the dense pass's choices replayed")
+    else:
+        got = llama.prefill_logits(model, tok_t, len_t, bucket)
+    torch.cuda.synchronize()
+    cos = cosines(torch, [got], [want])
+    agree, ties, rows = argmax_agreement([got], [want], LOGIT_ATOL)
+    err = float((got - want).abs().max())
+    print(f"phase 16: {tag}: the engine's prefill logits (rounds of "
+          f"{bucket}) against forward_full of prompts of {lens} tokens"
+          f"{line}: smallest row cosine {cos:.6f} (at least {TP_COS_MIN}), "
+          f"argmax agreement {agree:.3f} (at least {MIN_ARGMAX_AGREE}; "
+          f"{ties} of {rows} rows near-ties within {LOGIT_ATOL}), max abs "
+          f"err {err:.4g} [{gpu}]")
+    check(cos >= TP_COS_MIN, f"{tag}: prefill logits cosine {cos:.6f}")
+    check(agree >= MIN_ARGMAX_AGREE, f"{tag}: argmax agreement {agree:.3f}")
+
+
+def mixtral_hf_state(model):
+    """A Mixtral model's weights under the HF Mixtral names (an expert's
+    ``w1`` / ``w3`` / ``w2`` [out, in] is its stacked kernel transposed)."""
+    from k8s_llm_monitor_tpu_torch.utils.checkpoint import (
+        _EXPERT_MAP, _LINEAR_MAP)
+
+    state = {"model.embed_tokens.weight": model.embed.weight,
+             "model.norm.weight": model.final_norm,
+             "lm_head.weight": model.lm_head.weight}
+    for i, layer in enumerate(model.layers):
+        pre = f"model.layers.{i}."
+        state[pre + "input_layernorm.weight"] = layer.input_norm
+        state[pre + "post_attention_layernorm.weight"] = layer.post_norm
+        for ours in ("q", "k", "v", "o"):
+            state[f"{pre}{_LINEAR_MAP[ours]}.weight"] = getattr(
+                layer, ours).weight
+        state[pre + "block_sparse_moe.gate.weight"] = layer.router.weight
+        for ours, theirs in _EXPERT_MAP.items():
+            kernel = getattr(layer, ours).kernel
+            for e in range(kernel.shape[0]):
+                state[f"{pre}block_sparse_moe.experts.{e}.{theirs}.weight"] = \
+                    kernel[e].t()
+    return state
+
+
+def mixtral_checkpoint(torch, st, model):
+    """16a: a 1-layer Mixtral-format safetensors checkpoint written from the
+    seeded model and loaded back through the key map, bit for bit."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from k8s_llm_monitor_tpu_torch.utils.checkpoint import load_hf_checkpoint
+
+    one = truncated(model, 1)
+    cfg = one.cfg
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mixtral_",
+                                dir=os.environ.get("CHIP_SMOKE_CKPT_DIR")))
+    try:
+        t0 = time.monotonic()
+        total = write_safetensors(torch, tmp / "model.safetensors",
+                                  mixtral_hf_state(one))
+        (tmp / "config.json").write_text(json.dumps({
+            "model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": 1, "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_seq_len,
+            "num_local_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "sliding_window": None, "tie_word_embeddings": False,
+            "torch_dtype": "bfloat16"}))
+        wrote = time.monotonic() - t0
+        t0 = time.monotonic()
+        lcfg, loaded = load_hf_checkpoint(tmp)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        check(dataclasses.replace(lcfg, name=cfg.name) == cfg,
+              f"config.json read back as {lcfg}")
+        want, got = one.state_dict(), loaded.state_dict()
+        check(got.keys() == want.keys()
+              and all(torch.equal(got[k], want[k]) for k in want),
+              "a Mixtral tensor read back differs from the one written")
+        print(f"phase 16a: a 1-layer Mixtral-format checkpoint ({total} B, "
+              f"8 experts' w1/w3/w2 and the router) written in {wrote:.1f} s "
+              f"and read back through the key map bit for bit in "
+              f"{secs:.2f} s, {total / secs / 1e9:.2f} GB/s (page cache "
+              f"warm) [{st['gpu']}]")
+        del loaded, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def moe_records(st, launches):
+    """The kernels line's Mixtral rows: phase 4's B1 (admission shape) and
+    B2 (engine shape) records at Llama-3-8B's geometry, which Mixtral's
+    attention shares, with 16a's launches (when phase 4 ran)."""
+    for rec in list(st.get("records", [])):
+        for kernel in ("flash_prefill", "fused_decode"):
+            if rec["name"] == kernel and not any(
+                    r["name"] == kernel + "_mixtral" for r in st["records"]):
+                st["records"].append(dict(
+                    {k: v for k, v in rec.items()
+                     if k != "launches_front_door"},
+                    name=kernel + "_mixtral",
+                    shape=f"{rec.get('shape', '')} (Mixtral-8x7B's "
+                          "attention: 32/8 heads, head_dim 128)".strip()))
+    st.setdefault("launches", {}).update(
+        flash_prefill_mixtral=launches["flash_prefill_attention"],
+        fused_decode_mixtral=launches["paged_decode_attention_fused"])
+
+
+def phase16a(torch, np, st):
+    """Mixtral-8x7B at full width, 8 of 32 layers, bf16: a burst through
+    EngineService (B1, B2 on its step thread), the prefill logits against
+    forward_full, the int8 twin's tok/s, a 1-layer checkpoint."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import MIXTRAL_8X7B
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, SamplingParams)
+    from k8s_llm_monitor_tpu_torch.serving.service import EngineService
+    from k8s_llm_monitor_tpu_torch.utils.quantize import (
+        param_bytes, quantize_params)
+
+    gpu = st["gpu"]
+    cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=MIXTRAL_LAYERS)
+    t0 = time.monotonic()
+    model = llama.LlamaModel(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"phase 16a: {cfg.name} ({MIXTRAL_LAYERS} of 32 layers, full "
+          f"width, bf16) built from seed 0 in {time.monotonic() - t0:.1f} s: "
+          f"{param_bytes(model)} B of weights [{gpu}]")
+    rng = np.random.default_rng(16)
+    lens = prompt_lengths(rng)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    ecfg = EngineConfig(max_slots=32, num_blocks=4096, block_size=16,
+                        max_blocks_per_seq=ENGINE_TABLE,
+                        max_prefills_per_step=8, decode_steps_per_iter=8,
+                        prefix_cache_entries=0)
+    eng = InferenceEngine(cfg, model, ecfg)
+    check((eng.prefill_path, eng.decode_path) == ("flash", "fused"),
+          f"Mixtral engine paths {eng.prefill_path}/{eng.decode_path}")
+    svc = EngineService(eng)
+    try:
+        res, launches, wall, tok_s = service_burst(torch, svc, prompts)
+        ids = [r.token_ids for r in res]
+        res2, _, _, tok_s2 = service_burst(torch, svc, prompts)
+    finally:
+        svc.stop()
+    check([r.token_ids for r in res2] == ids,
+          "Mixtral: the second identical burst gave other ids")
+    b12 = {k: launches[k] for k in ("flash_prefill_attention",
+                                    "paged_decode_attention_fused")}
+    check(all(n > 0 for n in b12.values()),
+          f"Mixtral: B1/B2 not launched on the step thread: {launches}")
+    ttft = [r.ttft_s for r in res2]
+    print(f"phase 16a: a burst of {len(prompts)} prompts of {lens[0]}.."
+          f"{lens[-1]} tokens through EngineService ({eng.prefill_path}/"
+          f"{eng.decode_path}): done in {wall:.2f} s cold; warm ttft p50 "
+          f"{statistics.median(ttft) * 1e3:.1f} ms, p99 "
+          f"{np.percentile(ttft, 99) * 1e3:.1f} ms, decode {tok_s2:.1f} "
+          f"tok/s (cold {tok_s:.1f}); launches on the step thread {b12} "
+          f"[{gpu}]")
+    moe_records(st, launches)
+    del eng
+    gc.collect()
+    last_logits_check(torch, np, model, [20, 517, 1500, 2300],
+                      f"{cfg.name} ({MIXTRAL_LAYERS} layers, bf16)", gpu,
+                      routed=True)
+    q = quantize_params(model)
+    qeng = InferenceEngine(cfg, q, ecfg)
+    sp = SamplingParams(max_tokens=32)
+    qres = qeng.generate(prompts, sp)
+    tokens0, secs0 = qeng.decode_tokens, qeng.decode_s
+    qres2 = qeng.generate(prompts, sp)
+    check([r.token_ids for r in qres] == [r.token_ids for r in qres2],
+          "Mixtral int8: the second identical run gave other ids")
+    q_tok_s = (qeng.decode_tokens - tokens0) / (qeng.decode_s - secs0)
+    same = sum(a.token_ids[:1] == b for a, b in
+               zip(qres2, [i[:1] for i in ids]))
+    print(f"phase 16a: the int8 twin (quantize_params on the card, "
+          f"{param_bytes(q)} B, weight-only): warm decode {q_tok_s:.1f} "
+          f"tok/s against bf16's {tok_s2:.1f}; first tokens equal bf16's "
+          f"{same} of {len(prompts)} [{gpu}]")
+    del qeng, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_checkpoint(torch, st, model)
+    st["mixtral_runs"] = dict(tok_s=tok_s2, int8_tok_s=q_tok_s,
+                              ttft=statistics.median(ttft))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase16b(torch, np, st):
+    """The monitor's server with llm.tpu.model mixtral-8x7b, all 32 layers,
+    the default quantize (W8A8): 24 root-cause verdicts over HTTP at once,
+    every one of the grammar's schema; TTFT, warm decode tok/s, the weight
+    bytes, B1 and B2 launched."""
+    import gc
+    import threading
+
+    from k8s_llm_monitor_tpu_torch.monitor.cluster import (
+        FakeCluster, seed_demo_cluster)
+    from k8s_llm_monitor_tpu_torch.monitor.config import load_config
+    from k8s_llm_monitor_tpu_torch.monitor.server import build_server
+    from k8s_llm_monitor_tpu_torch.ops import paged_attention as pa
+    from k8s_llm_monitor_tpu_torch.utils.quantize import param_bytes
+
+    gpu = st["gpu"]
+    cfg = load_config(None)
+    cfg.server.host, cfg.server.port = "127.0.0.1", 0
+    cfg.llm.provider = "tpu"
+    # Phase 6's answer length and pool: a root-cause analysis writes a
+    # free-text answer of llm.max_tokens (2,000 by default, which random
+    # weights always reach) before its verdict, and 512 blocks hold a
+    # third of the burst.
+    cfg.llm.max_tokens = 64
+    cfg.llm.tpu.model = "mixtral-8x7b"
+    cfg.llm.tpu.kv_blocks = 4096
+    check(cfg.llm.tpu.quantize == "w8a8", "the default quantize is not W8A8")
+    t0 = time.monotonic()
+    srv = build_server(cfg, backend=seed_demo_cluster(FakeCluster()))
+    boot_s = time.monotonic() - t0
+    backend = srv.analysis.backend
+    svc = backend.service
+    eng = backend.engine
+    try:
+        check(eng.model.cfg.num_layers == 32 and eng.model.cfg.act_quant
+              and eng.model.quantized
+              and (eng.prefill_path, eng.decode_path) == ("flash", "fused"),
+              f"16b engine: {eng.model.cfg.name} paths {eng.prefill_path}/"
+              f"{eng.decode_path}")
+        weights = param_bytes(eng.model)
+        srv.start()
+        port = srv.port
+        # A short free-text generate first: the unconstrained decode
+        # graphs are captured in it (the constrained ones in the burst).
+        t0 = time.monotonic()
+        backend.generate("warm-up", max_tokens=8, temperature=0.0)
+        warm_s = time.monotonic() - t0
+        results = []
+        svc.observer = (lambda rid, toks, res:
+                        res is not None and results.append(res))
+        svc.call(lambda e: pa.reset_thread_launches())
+        tokens0, secs0 = eng.decode_tokens, eng.decode_s
+        out, errors = {}, []
+        go = threading.Event()
+
+        def run(i):
+            ns, pod = ANALYZE_PARAMS[i % len(ANALYZE_PARAMS)]
+            go.wait()
+            try:
+                out[i] = http_call(port, "POST", "/api/v1/analyze", {
+                    "type": "root_cause", "parameters": {
+                        "namespace": ns, "pod": pod,
+                        "symptom": f"{SYMPTOMS[i % len(SYMPTOMS)]} (case {i})"}})
+            except Exception as exc:            # reported below
+                errors.append(f"analyze-{i}: {type(exc).__name__}: {exc}")
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(24)]
+        for t in threads:
+            t.start()
+        t0 = time.monotonic()
+        go.set()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+        svc.observer = None
+        launches = svc.call(lambda e: (torch.cuda.synchronize(),
+                                       pa.thread_launches())[1])
+        check(not any(t.is_alive() for t in threads) and not errors,
+              f"16b burst: {errors}")
+        for i, (status, body, _) in sorted(out.items()):
+            check(status == 200 and body.get("status") == "success",
+                  f"analyze-{i}: HTTP {status} {str(body)[:300]}")
+            check_verdict(body["result"]["verdict"], f"analyze-{i}")
+        check(len(out) == 24, f"{len(out)} verdicts of 24")
+        tok_s = (eng.decode_tokens - tokens0) / (eng.decode_s - secs0)
+        ttft = [r.ttft_s for r in results]
+        b12 = {k: launches[k] for k in ("flash_prefill_attention",
+                                        "paged_decode_attention_fused")}
+        check(all(n > 0 for n in b12.values()),
+              f"16b: B1/B2 not launched: {launches}")
+        check(eng.dispatch_failures == 0 and eng.watchdog_trips == 0,
+              f"16b: {eng.dispatch_failures} dispatch failures")
+        print(f"phase 16b: build_server with llm.tpu.model mixtral-8x7b "
+              f"(32 layers, W8A8, spec_k {cfg.llm.tpu.spec_k}) booted in "
+              f"{boot_s:.1f} s, weights {weights} B; an 8-token warm-up in "
+              f"{warm_s:.1f} s; 24 root-cause verdicts over HTTP at once in "
+              f"{wall:.2f} s, all 200 and of the schema; ttft p50 "
+              f"{np.percentile(ttft, 50) * 1e3:.1f} ms, p99 "
+              f"{np.percentile(ttft, 99) * 1e3:.1f} ms over {len(ttft)} "
+              f"requests; warm decode {tok_s:.1f} tok/s "
+              f"({eng.decode_tokens - tokens0} tokens); launches on the step "
+              f"thread {b12} [{gpu}]")
+        st["mixtral_server"] = dict(ttft=ttft, tok_s=tok_s, weights=weights)
+    finally:
+        srv.engine_supervisor().shutdown(grace_s=0.0)
+        if srv.signals is not None:
+            srv.signals.stop()
+        srv.stop()
+        del srv, backend, svc, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase16c(torch, np, st):
+    """Gemma-2-9B at full width and depth, bf16: a burst through
+    EngineService with one prompt past the sliding layers' 4,096-token
+    window; no kernel launched (dense prefill, gather decode); the prefill
+    logits against forward_full."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import GEMMA2_9B
+    from k8s_llm_monitor_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine)
+    from k8s_llm_monitor_tpu_torch.serving.service import EngineService
+    from k8s_llm_monitor_tpu_torch.utils.quantize import param_bytes
+
+    gpu, cfg = st["gpu"], GEMMA2_9B
+    t0 = time.monotonic()
+    model = llama.LlamaModel(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"phase 16c: {cfg.name} (42 layers, full width, bf16, head_dim "
+          f"256, window {cfg.sliding_window} on alternate layers) built "
+          f"from seed 0 in {time.monotonic() - t0:.1f} s: "
+          f"{param_bytes(model)} B [{gpu}]")
+    rng = np.random.default_rng(17)
+    lens = sorted(int(x) for x in rng.integers(20, 1501, size=7)) + [
+        GEMMA_LONG]
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in lens]
+    ecfg = EngineConfig(max_slots=16, num_blocks=1024, block_size=16,
+                        max_blocks_per_seq=-(-(GEMMA_LONG + 32) // 16),
+                        max_prefills_per_step=8, decode_steps_per_iter=8,
+                        prefix_cache_entries=0)
+    eng = InferenceEngine(cfg, model, ecfg)
+    check((eng.prefill_path, eng.decode_path) == ("dense", "gather")
+          and eng._verify_attn is None,
+          f"Gemma-2 engine paths {eng.prefill_path}/{eng.decode_path}")
+    svc = EngineService(eng)
+    try:
+        res, launches, wall, tok_s = service_burst(torch, svc, prompts)
+    finally:
+        svc.stop()
+    check(all(n == 0 for n in launches.values()),
+          f"Gemma-2 launched a kernel: {launches}")
+    ttft = [r.ttft_s for r in res]
+    print(f"phase 16c: a burst of {len(prompts)} prompts of {lens} tokens "
+          f"through EngineService (dense/gather) in {wall:.2f} s: ttft p50 "
+          f"{statistics.median(ttft) * 1e3:.1f} ms, p99 "
+          f"{np.percentile(ttft, 99) * 1e3:.1f} ms, decode {tok_s:.1f} "
+          f"tok/s; no kernel launched (B1, B2, B3 all 0, as the JAX "
+          f"package selects) [{gpu}]")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    last_logits_check(torch, np, model, [64, 1500, GEMMA_LONG],
+                      f"{cfg.name} (42 layers, bf16)", gpu)
+    st["gemma_runs"] = dict(ttft=statistics.median(ttft), tok_s=tok_s)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase16d(torch, np, st):
+    """Mixtral at full width, MOE_TP_LAYERS layers, TP 2 (gloo on one card,
+    NCCL on two) against TP 1: forward_full cosine (with TP 2's expert
+    choices replayed on TP 1, as 16a's logits check replays), equal greedy
+    id sequences (12b's bars), B1 and B3 on every rank.  With four cards:
+    bf16 at all 32 layers on "1,1,4" over NCCL (two experts a rank), tok/s
+    and TTFT."""
+    import gc
+
+    from k8s_llm_monitor_tpu_torch.models import llama
+    from k8s_llm_monitor_tpu_torch.models.config import MIXTRAL_8X7B
+    from k8s_llm_monitor_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    gpu = st["gpu"]
+    cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=MOE_TP_LAYERS)
+    rng = np.random.default_rng(18)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, size=n)]
+               for n in rng.integers(64, 513, size=8)]
+    kernels = {"flash_prefill_h16kv4": "flash_prefill_attention",
+               "paged_attn_h16kv4": "paged_decode_attention_pallas"}
+    ref = llama.LlamaModel(cfg, seed=0)
+    ref_routes = []
+    with ExpertChoices(torch, ref_routes):
+        free = tp_logits(torch, np, ref, cfg.vocab_size)
+    ref_ids, _, ref_ttft, ref_tok_s, eng = tp_engine_run(
+        torch, st, None, ref, prompts, f"Mixtral {MOE_TP_LAYERS} layers TP 1",
+        {"decode_path": "pallas"},
+        {"flash_prefill": "flash_prefill_attention",
+         "paged_attn": "paged_decode_attention_pallas"})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    mesh = create_mesh(MeshConfig(model=2), backend=backend)
+    try:
+        model = llama.LlamaModel(cfg, seed=0, mesh=mesh)
+        check(model.layers[0].gate_e.num_experts == 4,
+              "TP 2 does not hold four experts a rank")
+        # As in 16a's logits check: the experts TP 2 chose (rank 0's
+        # choices, made on the replicated activations every rank holds)
+        # replayed on TP 1, so the bar holds the arithmetic, and the
+        # choices that moved are counted.
+        routes = []
+        with ExpertChoices(torch, routes):
+            got = tp_logits(torch, np, model, cfg.vocab_size)
+        flips, total = route_flips(routes, ref_routes)
+        with ExpertChoices(torch, replay=lambda call, idx: routes[call][0]):
+            want = tp_logits(torch, np, ref, cfg.vocab_size)
+        del ref
+        free_cos, cos = (cosines(torch, [got.reshape(-1, got.shape[-1])],
+                                 [w.reshape(-1, w.shape[-1])])
+                         for w in (free, want))
+        ids, per_rank, ttft, tok_s, eng = tp_engine_run(
+            torch, st, mesh, model, prompts,
+            f"Mixtral {MOE_TP_LAYERS} layers {mesh_label(mesh)}", {},
+            kernels, warm=False)
+        same = sum(a == b for a, b in zip(ids, ref_ids))
+        print(f"phase 16d: Mixtral ({MOE_TP_LAYERS} layers, full width, "
+              f"bf16) on {mesh_label(mesh)} (four experts a rank) against "
+              f"TP 1: forward_full chose other experts at {flips} of "
+              f"{total} (token, layer) decisions, smallest row cosine "
+              f"{free_cos:.6f} run free, {cos:.6f} with TP 2's choices "
+              f"replayed on TP 1 (at least {TP_COS_MIN}); greedy ids "
+              f"{same} of {len(prompts)} sequences "
+              f"of 32 tokens equal (at least {TP_IDS_MIN_SHARE:.0%}); TP 2 "
+              f"ttft p50 {ttft * 1e3:.1f} ms cold, {tok_s:.1f} tok/s; TP 1 "
+              f"warm {ref_ttft * 1e3:.1f} ms, {ref_tok_s:.1f} tok/s; B1 and "
+              f"B3 per rank {per_rank} [{gpu}]")
+        check(cos >= TP_COS_MIN, f"Mixtral TP 2 logits cosine {cos:.6f}")
+        check(same >= TP_IDS_MIN_SHARE * len(prompts),
+              f"Mixtral TP 2: only {same} of {len(prompts)} id sequences "
+              "equal TP 1's")
+        del eng, model
+        gc.collect()
+    finally:
+        mesh.close()
+        torch.cuda.empty_cache()
+    if torch.cuda.device_count() < 4:
+        print("phase 16d: fewer than four cards: Mixtral's 32 layers on "
+              "1,1,4 not run")
+        return
+    mesh = create_mesh(MeshConfig(model=4), backend="nccl")
+    try:
+        t0 = time.monotonic()
+        model = llama.LlamaModel(MIXTRAL_8X7B, seed=0, mesh=mesh)
+        mesh.sync()
+        build_s = time.monotonic() - t0
+        ids, per_rank, ttft, tok_s, eng = tp_engine_run(
+            torch, st, mesh, model, prompts,
+            f"Mixtral-8x7B (32 layers, bf16) {mesh_label(mesh)}", {},
+            {"flash_prefill_h8kv2": "flash_prefill_attention",
+             "paged_attn_h8kv2": "paged_decode_attention_pallas"})
+        print(f"phase 16d: Mixtral-8x7B at full width and depth, bf16, on "
+              f"{mesh_label(mesh)} (two experts a rank) built in "
+              f"{build_s:.1f} s: warm ttft p50 {ttft * 1e3:.1f} ms, decode "
+              f"{tok_s:.1f} tok/s; B1 and B3 per rank {per_rank} [{gpu}]")
+        st["mixtral_tp4"] = dict(ttft=ttft, tok_s=tok_s)
+        del eng, model
+        gc.collect()
+    finally:
+        mesh.close()
+        torch.cuda.empty_cache()
+
+
+def phase16(torch, np, st):
+    """A9 on the card: 16a Mixtral (8 layers, bf16) through EngineService,
+    16b the server on mixtral-8x7b (W8A8, 32 layers), 16c Gemma-2-9B, 16d
+    Mixtral on a TP mesh.  ``--phases 0,16b`` (or 16a, ...) runs only
+    those parts."""
+    import gc
+
+    subs = st["subs"].get(16) or {"16a", "16b", "16c", "16d"}
+    free_model(torch, st)
+    # The server (16b) last: its model is the largest, and a part that
+    # leaves memory behind must not starve the parts after it.
+    for name, sub in (("16a", phase16a), ("16c", phase16c),
+                      ("16d", phase16d), ("16b", phase16b)):
+        if name not in subs:
+            continue
+        t0 = time.monotonic()
+        sub(torch, np, st)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 16: {name} passed in {time.monotonic() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated()} B still allocated",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all); "
                          "a sub-phase by name (12f, 13c) runs only that "
                          "part of its phase")
@@ -7237,7 +8024,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     phases, subs, whole = set(), {}, set()
     for p in args.phases.split(","):
-        n = int(p.rstrip("abcdefgh"))
+        n = int(p.rstrip("abcdefghi"))
         phases.add(n)
         if p == str(n):
             whole.add(n)
@@ -7266,7 +8053,8 @@ def main(argv=None) -> int:
     runners = [(0, phase0), (1, phase1), (2, phase2), (3, phase3), (8, phase8),
                (4, phase4), (5, phase5), (7, phase7), (10, phase10),
                (11, phase11), (6, phase6), (9, phase9), (12, phase12),
-               (13, phase13), (14, phase14), (15, phase15)]
+               (13, phase13), (14, phase14), (15, phase15),
+               (16, phase16)]
     for n, fn in runners:
         if n not in phases and n != 0:
             continue

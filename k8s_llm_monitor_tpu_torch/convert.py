@@ -6,7 +6,11 @@
 (``embed.weight_q`` / ``scale``, ``layers[i][name]["kernel_q"|"scale"]``),
 given as numpy arrays, and fills a ``LlamaModel``.  It is the one place
 where the JAX ``[in, out]`` kernels become ``nn.Linear``'s ``[out, in]``
-weights.
+weights.  A mixture of experts' ``router`` kernel is transposed likewise;
+its stacked expert kernels ``gate_e`` / ``up_e`` / ``down_e`` (``kernel``
+or ``kernel_q`` + ``scale``) keep the JAX ``[E, in, out]`` layout
+(``models/llama.py:ExpertStack``).  Gemma-2's sandwich norms
+(``post_attn_norm``, ``post_mlp_norm``) are copied as the others.
 
 Under a mesh (``mesh=``, parallel/mesh.py) each rank keeps its slice of
 every full tensor (parallel/sharding.py), the shard the JAX package's
@@ -25,6 +29,7 @@ from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
 from k8s_llm_monitor_tpu_torch.models.llama import LlamaModel
 
 _LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
+_EXPERTS = ("gate_e", "up_e", "down_e")
 
 
 def _t(x, device, dtype) -> torch.Tensor:
@@ -58,8 +63,13 @@ def _full(tree: dict[str, Any], name: str, dev, dt) -> torch.Tensor:
         src = tree
     leaf = parts[-1]
     node = src[parts[0]]
-    if leaf in ("input_norm", "post_norm", "final_norm"):
+    if leaf.endswith("norm"):
         return _t(node, dev, dt)
+    if parts[0] in _EXPERTS:
+        # [E, in, out] as in the JAX tree; under a mesh the expert axis
+        # is sliced (parallel/sharding.py).
+        return (_t(node["kernel"], dev, dt) if leaf == "kernel"
+                else _exact(node[leaf]))
     if leaf in ("weight_q", "scale"):
         key = leaf if parts[0] == "embed" else {
             "weight_q": "kernel_q", "scale": "scale"}[leaf]
@@ -98,8 +108,17 @@ def params_from_jax(tree: dict[str, Any], cfg: ModelConfig, device=None,
     if not cfg.tie_embeddings:
         _linear(model.lm_head, tree["lm_head"], dev, dt)
     for layer, src in zip(model.layers, tree["layers"], strict=True):
-        layer.input_norm.copy_(_t(src["input_norm"], dev, dt))
-        layer.post_norm.copy_(_t(src["post_norm"], dev, dt))
-        for name in _LINEARS:
-            _linear(getattr(layer, name), src[name], dev, dt)
+        for name, p in layer.named_parameters():
+            if name.endswith("norm"):
+                p.copy_(_t(src[name], dev, dt))
+        for name in _LINEARS + ("router",):
+            if hasattr(layer, name):
+                _linear(getattr(layer, name), src[name], dev, dt)
+        for name in _EXPERTS if cfg.num_experts > 0 else ():
+            stack = getattr(layer, name)
+            if stack.quantized:
+                stack.kernel_q.copy_(_exact(src[name]["kernel_q"]))
+                stack.scale.copy_(_exact(src[name]["scale"]))
+            else:
+                stack.kernel.copy_(_t(src[name]["kernel"], dev, dt))
     return model

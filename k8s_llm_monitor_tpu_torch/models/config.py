@@ -1,15 +1,16 @@
-"""Model configurations for the Llama/Qwen2-family decoder.
+"""Model configurations for the decoder family.
 
-A copy of the JAX package's ``models/config.py`` restricted to what this
-port runs: dense Llama-3 / Mistral / Qwen2 decoders.  ``dtype`` stays a
-string (``"bfloat16"`` / ``"float32"``); ``torch_dtype`` maps it.  The Gemma-2
-knobs survive only as far as ``has_attn_extras`` needs them, so a config
-asking for them is refused (models/llama.py:LlamaModel) instead of
-silently served without them.  ``kv_dtype`` takes ``""``, the model's own
-dtype, ``"float8_e4m3fn"`` (the unscaled fp8 pool, ROADMAP B8),
-``"float8_e5m2"`` or ``"float16"`` (ROADMAP B9); the rest of B9 --
-``float32`` pages, ``bfloat16`` pages under a float32 model -- raises
-``NotImplementedError``.
+A copy of the JAX package's ``models/config.py`` for what this port
+serves: dense Llama-3 / Mistral / Qwen2 decoders, Mixtral's mixture of
+experts (``num_experts``: dropless top-k routing at inference,
+models/llama.py:_moe_mlp_dropless) and Gemma-2's extras (GeGLU, sandwich
+norms, the unit-offset RMSNorm, attention and final logit soft caps, a
+query scale, ``embed_scale`` and per-layer sliding windows).  ``dtype``
+stays a string (``"bfloat16"`` / ``"float32"``); ``torch_dtype`` maps it.
+``kv_dtype`` takes ``""``, the model's own dtype, ``"float8_e4m3fn"`` (the
+unscaled fp8 pool, ROADMAP B8), ``"float8_e5m2"`` or ``"float16"``
+(ROADMAP B9); the rest of B9 -- ``float32`` pages, ``bfloat16`` pages under
+a float32 model -- raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,12 +63,38 @@ class ModelConfig:
     # (utils/quantize.py); a model built with it on bf16 weights raises.
     # Attention, norms, residuals and the vocab projection stay in dtype.
     act_quant: bool = False
+    # Mixture-of-experts MLP (Mixtral family): > 0 replaces every layer's
+    # SwiGLU with num_experts expert FFNs behind a top-k router.  Serving
+    # runs every expert on every token and weighs them by the renormalized
+    # top-k router probabilities (dropless, models/llama.py:
+    # _moe_mlp_dropless); under a mesh each rank holds E/tp whole experts
+    # (the expert axis rides ``model``, parallel/sharding.py).
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # Per-expert token capacity of the JAX package's training dispatch
+    # (``_moe_mlp``, ROADMAP A11); kept so the configs compare equal.
+    capacity_factor: float = 1.25
+    # --- Gemma-2 family knobs (defaults = Llama conventions) -----------
+    # MLP activation: "silu" (SwiGLU) or "gelu_tanh" (Gemma GeGLU).
+    mlp_activation: str = "silu"
+    # Sandwich norms: an RMSNorm on the attention and MLP outputs
+    # (post_attn_norm / post_mlp_norm) before each residual add; post_norm
+    # plays Gemma's pre_feedforward role.
+    sandwich_norms: bool = False
     # Gemma RMSNorm convention (effective scale = 1 + w); ops/norms.py.
     rmsnorm_unit_offset: bool = False
-    # Gemma-2 attention extras; not served by this port (has_attn_extras).
+    # tanh soft caps (0 = off): attention logits and final logits.
     attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    # Query scale = query_pre_attn_scalar**-0.5 (None = head_dim**-0.5).
     query_pre_attn_scalar: Optional[float] = None
+    # Multiply embeddings by sqrt(hidden_size), rounded to the dtype.
+    embed_scale: bool = False
+    # Sliding-window attention: the window (0 = global) and the per-layer
+    # pattern ("sliding_attention" / "full_attention"; None = every layer
+    # slides when sliding_window > 0).
     sliding_window: int = 0
+    layer_types: Optional[tuple] = None
 
     def __post_init__(self):
         if self.kv_dtype not in ("", self.dtype) + UNSCALED_KV_DTYPES:
@@ -78,10 +105,27 @@ class ModelConfig:
                 f"{self.dtype!r} or one of {UNSCALED_KV_DTYPES}")
 
     @property
+    def attn_scale(self) -> Optional[float]:
+        """Explicit query scale, or None for the default head_dim**-0.5."""
+        if self.query_pre_attn_scalar is not None:
+            return float(self.query_pre_attn_scalar) ** -0.5
+        return None
+
+    def layer_window(self, i: int) -> int:
+        """Sliding-window size of layer ``i`` (0 = global attention)."""
+        if self.sliding_window <= 0:
+            return 0
+        if self.layer_types is not None:
+            return (self.sliding_window
+                    if self.layer_types[i] == "sliding_attention" else 0)
+        return self.sliding_window
+
+    @property
     def has_attn_extras(self) -> bool:
         """True when attention needs non-Llama parameters (query scale,
-        logit softcap, sliding window); the kernel selection refuses such
-        models (ops/attention.py)."""
+        logit softcap, sliding window): such models prefill dense and
+        decode through the gather, as the JAX package selects
+        (ops/attention.py)."""
         return bool(self.attn_logit_softcap or self.sliding_window
                     or self.query_pre_attn_scalar is not None)
 
@@ -107,6 +151,9 @@ class ModelConfig:
 TINY = ModelConfig(name="tiny")
 
 TINY_QWEN = ModelConfig(name="tiny-qwen", qkv_bias=True)
+
+# 8 experts so the expert axis divides TP-8 like the production MoE preset.
+TINY_MOE = ModelConfig(name="tiny-moe", num_experts=8, num_experts_per_tok=2)
 
 LLAMA3_8B = ModelConfig(
     name="llama3-8b",
@@ -190,5 +237,64 @@ QWEN2_72B = ModelConfig(
     qkv_bias=True,
 )
 
-PRESETS = {c.name: c for c in [TINY, TINY_QWEN, LLAMA3_8B, LLAMA3_70B,
-                               MISTRAL_7B, QWEN2_7B, QWEN2_72B, LLAMA_1B]}
+# Mixtral-8x7B: Mistral-7B's attention (32/8 heads, head_dim 128) over 8
+# SwiGLU experts a layer, 2 routed per token; 46.7 B parameters, more than
+# one 80 GB card holds in bf16.
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    vocab_size=32_000,
+    hidden_size=4096,
+    intermediate_size=14_336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    rope_theta=1_000_000.0,
+    max_seq_len=32_768,
+    num_experts=8,
+    num_experts_per_tok=2,
+)
+
+
+def gemma2_layer_types(n_layers: int) -> tuple:
+    """Gemma-2's attention pattern: alternating sliding/full, sliding
+    first; shared by the presets and the HF-config fallback
+    (utils/checkpoint.py)."""
+    return tuple("sliding_attention" if i % 2 == 0 else "full_attention"
+                 for i in range(n_layers))
+
+
+def _gemma2(name: str, *, hidden: int, inter: int, layers: int, heads: int,
+            kv: int, qpas: float) -> ModelConfig:
+    return ModelConfig(
+        name=name,
+        vocab_size=256_000,
+        hidden_size=hidden,
+        intermediate_size=inter,
+        num_layers=layers,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=256,
+        rope_theta=10_000.0,
+        rms_norm_eps=1e-6,
+        max_seq_len=8192,
+        tie_embeddings=True,
+        mlp_activation="gelu_tanh",
+        sandwich_norms=True,
+        rmsnorm_unit_offset=True,
+        attn_logit_softcap=50.0,
+        final_logit_softcap=30.0,
+        query_pre_attn_scalar=qpas,
+        embed_scale=True,
+        sliding_window=4096,
+        layer_types=gemma2_layer_types(layers),
+    )
+
+
+GEMMA2_2B = _gemma2("gemma2-2b", hidden=2304, inter=9216, layers=26,
+                    heads=8, kv=4, qpas=256.0)
+GEMMA2_9B = _gemma2("gemma2-9b", hidden=3584, inter=14_336, layers=42,
+                    heads=16, kv=8, qpas=256.0)
+
+PRESETS = {c.name: c for c in [TINY, TINY_QWEN, TINY_MOE, LLAMA3_8B,
+                               LLAMA3_70B, MISTRAL_7B, MIXTRAL_8X7B, QWEN2_7B,
+                               QWEN2_72B, GEMMA2_2B, GEMMA2_9B, LLAMA_1B]}

@@ -1,4 +1,4 @@
-"""Llama-3 / Qwen2-family decoder LM in PyTorch.
+"""Llama-3 / Qwen2 / Mixtral / Gemma-2-family decoder LM in PyTorch.
 
 ``LlamaModel`` is an ``nn.Module`` holding the weights; the forward passes
 are module-level functions named as in the JAX package
@@ -10,6 +10,16 @@ transposed.  An int8 model (``LlamaModel(quantized=True)``) holds
 ``QuantLinear`` / ``QuantEmbedding`` codes and scales in the same layout;
 ``_linear`` runs them weight-only or, under ``cfg.act_quant``, as W8A8.
 
+A mixture-of-experts layer (``cfg.num_experts``, Mixtral) holds a bf16
+``router`` and stacked expert kernels ``gate_e`` / ``up_e`` / ``down_e``
+(``ExpertStack``: ``[E, in, out]``, the JAX package's layout) and serves
+dropless (``_moe_mlp_dropless``).  Gemma-2's extras (a query scale, the
+attention logit cap, per-layer sliding windows) reach the plain attention
+of the dense and gather paths, the only paths such a model takes, as in
+the JAX package; its GeGLU, sandwich norms, ``embed_scale`` and final
+logit cap live in ``_mlp_act``, ``_residual_tail``, ``_embed_lookup`` and
+``_unembed``.
+
 Tensor parallelism (``LlamaModel(..., mesh=)``, parallel/mesh.py): each
 rank holds its shard of the weights (parallel/sharding.py: column-parallel
 q/k/v/gate/up/lm_head, row-parallel o/down, a vocab-parallel embedding) and
@@ -19,7 +29,10 @@ down (``row_parallel_partial``: under W8A8 a max of the activation amax
 over the ranks and a sum of the int32 partials before the float scales, so
 the product is TP-1's exactly), a masked embedding lookup summed over the
 ranks, and an all-gather of the vocab-parallel logits, which end
-replicated.  When the degree does not divide the kv heads the pages
+replicated.  A mixture of experts shards its expert axis instead of the
+FFN: each rank runs the dropless MLP of its ``E / tp`` whole experts on
+the replicated activations, and the combine over E is a partial sum
+all-reduced like a row projection's.  When the degree does not divide the kv heads the pages
 replicate: k/v are all-gathered after their (column-parallel) projection
 and each local query head reads its kv head of the full pool.
 
@@ -280,9 +293,45 @@ def _linear_module(quantized: bool, in_f: int, out_f: int, bias: bool, kw):
     return nn.Linear(in_f, out_f, bias=bias, **kw)
 
 
+class ExpertStack(nn.Module):
+    """Stacked expert kernels of one projection in the JAX package's
+    ``[E, in, out]`` layout (``E`` the rank's local experts): ``kernel`` in
+    the model dtype, or the int8 twin's codes ``kernel_q`` [E, in, out] and
+    float32 per-(expert, out-channel) scales ``scale`` [E, out]
+    (utils/quantize.py:fill_quantized_experts).  The codes are stored
+    ``in``-contiguous (an [E, out, in] tensor transposed): each expert's
+    ``kernel_q[e].t()`` is then the [out, in] operand ``torch._int_mm``
+    takes without a copy, as ``QuantLinear.weight_q`` is."""
+
+    def __init__(self, num_experts: int, in_features: int,
+                 out_features: int, quantized: bool, device, dtype):
+        super().__init__()
+        self.num_experts = num_experts
+        self.in_features, self.out_features = in_features, out_features
+        if quantized:
+            self.register_buffer("kernel_q", torch.zeros(
+                num_experts, out_features, in_features, dtype=torch.int8,
+                device=device).transpose(1, 2))
+            self.register_buffer("scale", torch.ones(
+                num_experts, out_features, dtype=torch.float32,
+                device=device))
+        else:
+            self.kernel = nn.Parameter(torch.empty(
+                num_experts, in_features, out_features, device=device,
+                dtype=dtype))
+
+    @property
+    def quantized(self) -> bool:
+        return hasattr(self, "kernel_q")
+
+
 class LlamaLayer(nn.Module):
     """One decoder layer's weights; at TP degree ``tp`` the rank's shard
-    (out_features of q/k/v/gate/up and in_features of o/down split)."""
+    (out_features of q/k/v/gate/up and in_features of o/down split; a
+    mixture of experts splits its expert axis, the router replicated).
+    Sandwich norms add ``post_attn_norm`` and ``post_mlp_norm``.  Norms
+    start at the identity: ones, or zeros under the unit-offset
+    convention."""
 
     def __init__(self, cfg: ModelConfig, device, dtype,
                  quantized: bool = False, tp: int = 1):
@@ -290,8 +339,12 @@ class LlamaLayer(nn.Module):
         H, D = cfg.hidden_size, cfg.head_dim_
         nH, inter = cfg.num_heads // tp, cfg.intermediate_size // tp
         kw = dict(device=device, dtype=dtype)
-        self.input_norm = nn.Parameter(torch.ones(H, **kw))
-        self.post_norm = nn.Parameter(torch.ones(H, **kw))
+        norm = torch.zeros if cfg.rmsnorm_unit_offset else torch.ones
+        self.input_norm = nn.Parameter(norm(H, **kw))
+        self.post_norm = nn.Parameter(norm(H, **kw))
+        if cfg.sandwich_norms:
+            self.post_attn_norm = nn.Parameter(norm(H, **kw))
+            self.post_mlp_norm = nn.Parameter(norm(H, **kw))
 
         def lin(in_f, out_f, bias=False):
             return _linear_module(quantized, in_f, out_f, bias, kw)
@@ -301,9 +354,18 @@ class LlamaLayer(nn.Module):
         self.k = lin(H, kv_out, cfg.qkv_bias)
         self.v = lin(H, kv_out, cfg.qkv_bias)
         self.o = lin(nH * D, H)
-        self.gate = lin(H, inter)
-        self.up = lin(H, inter)
-        self.down = lin(inter, H)
+        if cfg.num_experts > 0:
+            # The router stays in the model dtype under int8 (the JAX
+            # package's rule: tiny, and routing decisions are sensitive).
+            E, I = cfg.num_experts // tp, cfg.intermediate_size
+            self.router = nn.Linear(H, cfg.num_experts, bias=False, **kw)
+            self.gate_e = ExpertStack(E, H, I, quantized, **kw)
+            self.up_e = ExpertStack(E, H, I, quantized, **kw)
+            self.down_e = ExpertStack(E, I, H, quantized, **kw)
+        else:
+            self.gate = lin(H, inter)
+            self.up = lin(H, inter)
+            self.down = lin(inter, H)
 
 
 class LlamaModel(nn.Module):
@@ -338,10 +400,6 @@ class LlamaModel(nn.Module):
         why = check_tp(cfg, tp)
         if why:
             raise ValueError(f"{cfg.name}: {why}")
-        if cfg.has_attn_extras:
-            raise ValueError(f"{cfg.name}: Gemma-2 attention extras (query "
-                             "scale, logit softcap, sliding window) are not "
-                             "ported")
         if cfg.act_quant and not quantized:
             raise ValueError(f"{cfg.name}: act_quant (W8A8) needs int8 "
                              "weights (utils/quantize.py)")
@@ -386,7 +444,9 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             LlamaLayer(cfg, device, dtype, quantized, tp)
             for _ in range(cfg.num_layers))
-        self.final_norm = nn.Parameter(torch.ones(cfg.hidden_size, **kw))
+        self.final_norm = nn.Parameter(
+            (torch.zeros if cfg.rmsnorm_unit_offset else torch.ones)(
+                cfg.hidden_size, **kw))
         self.lm_head = (None if cfg.tie_embeddings else _linear_module(
             quantized, cfg.hidden_size, V, False, kw))
         self.requires_grad_(False)
@@ -433,14 +493,19 @@ class LlamaModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
+        """The seeded draws: the embedding (std 0.02), then every linear
+        (the router included) and expert stack in module order, each a
+        normal of std ``in_features**-0.5``; zero biases; norms at the
+        identity (``norm_fill``)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         if self.tp > 1:
-            # TP-1's draws in TP-1's order (embed, then every linear in
-            # module order), each full tensor sliced.
+            # TP-1's draws in TP-1's order, each full tensor sliced.
             meta = self.full_meta()
-            fan_in = {n + ".weight": m.in_features
+            fan_in = {n + suffix: m.in_features
                       for n, m in meta.named_modules()
-                      if isinstance(m, nn.Linear)}
+                      for suffix, kind in ((".weight", nn.Linear),
+                                           (".kernel", ExpertStack))
+                      if isinstance(m, kind)}
 
             def draw(name, t):
                 if name == "embed.weight":
@@ -451,8 +516,8 @@ class LlamaModel(nn.Module):
                     return torch.zeros(t.shape, dtype=t.dtype,
                                        device=self.device)
                 else:
-                    return torch.ones(t.shape, dtype=t.dtype,
-                                      device=self.device)
+                    return torch.full(t.shape, self.norm_fill(),
+                                      dtype=t.dtype, device=self.device)
                 return torch.empty(t.shape, dtype=t.dtype,
                                    device=self.device).normal_(
                     0.0, std, generator=gen)
@@ -460,15 +525,20 @@ class LlamaModel(nn.Module):
             self.fill_from_full(draw)
             return
         self.embed.weight.normal_(0.0, 0.02, generator=gen)
-        linears = [m for m in self.modules() if isinstance(m, nn.Linear)]
-        for lin in linears:
-            lin.weight.normal_(0.0, lin.in_features ** -0.5, generator=gen)
-            if lin.bias is not None:
-                lin.bias.zero_()
-        for p in [self.final_norm] + [p for layer in self.layers
-                                      for p in (layer.input_norm,
-                                                layer.post_norm)]:
-            p.fill_(1.0)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, ExpertStack):
+                m.kernel.normal_(0.0, m.in_features ** -0.5, generator=gen)
+        for name, p in self.named_parameters():
+            if name.endswith("norm"):
+                p.fill_(self.norm_fill())
+
+    def norm_fill(self) -> float:
+        """A norm weight's identity: 1, or 0 under the unit offset."""
+        return 0.0 if self.cfg.rmsnorm_unit_offset else 1.0
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward_full(self, tokens)
@@ -603,10 +673,16 @@ def _embed_lookup(model: LlamaModel, tokens: torch.Tensor) -> torch.Tensor:
         rows = emb.weight_q[t].to(dt) * emb.scale[t][..., None].to(dt)
     else:
         rows = emb.weight[t]
-    if mesh is None:
-        return rows
-    return mesh.all_reduce(torch.where(mine[..., None], rows,
-                                       torch.zeros_like(rows)))
+    if mesh is not None:
+        rows = mesh.all_reduce(torch.where(mine[..., None], rows,
+                                           torch.zeros_like(rows)))
+    if model.cfg.embed_scale:
+        # Gemma: sqrt(H), rounded to the dtype first as the JAX package
+        # does; ``torch.full`` fills it on the device (no host copy in a
+        # captured graph).
+        rows = rows * torch.full((), model.cfg.hidden_size ** 0.5,
+                                 dtype=rows.dtype, device=rows.device)
+    return rows
 
 
 def _qkv_proj(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor):
@@ -633,22 +709,126 @@ def _qkv(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The gated MLP's activation: SiLU (SwiGLU) or Gemma's tanh GELU."""
+    if cfg.mlp_activation == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _expert_weights(stack: ExpertStack, e: int, dtype):
+    """Expert ``e``'s kernel [in, out] for the weight-only product: the
+    model-dtype kernel, or the int8 codes cast to ``dtype`` with their
+    [out] scales (applied to the result: they commute with the
+    contraction)."""
+    if stack.quantized:
+        return stack.kernel_q[e].to(dtype), stack.scale[e]
+    return stack.kernel[e], None
+
+
+def _expert_w8a8(x_q: torch.Tensor, x_s: torch.Tensor, stack: ExpertStack,
+                 e: int, dtype) -> torch.Tensor:
+    """Expert ``e``'s s8 x s8 product of per-token int8 activations
+    (``_quant_act``), int32 sums, then ``(y32 * x_s) * w_scale`` in float32,
+    cast to ``dtype``: ``_linear``'s W8A8 order with the (expert,
+    out-channel) scale."""
+    y32 = _int8_matmul(x_q, stack.kernel_q[e].t())
+    return ((y32.float() * x_s) * stack.scale[e]).to(dtype)
+
+
+def _moe_mlp_dropless(model: LlamaModel, layer: LlamaLayer,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Dropless mixture of experts (the JAX package's
+    ``_moe_mlp_dropless``): every token gets its full top-k experts.
+
+    Softmax router (float32), top-k, the top-k weights renormalized and
+    scattered back to [B, S, E] (zero for unchosen experts); every expert's
+    SwiGLU runs on every token and the results are summed weighted by
+    them, in float32, then cast to x's dtype.  The JAX package keeps E as
+    an einsum axis; here an index loop runs each local expert in turn (a
+    transient of one expert's [B, S, I], not E of them).  Under a mesh a
+    rank holds ``E / tp`` whole experts: its loop covers them, on the
+    replicated activations, and the float32 partial sum is all-reduced
+    over the ranks like a row projection's.  An expert's int8 scale is
+    per (expert, out channel), so a rank's scales are the whole model's
+    sliced: no MAX all-reduce, unlike a row-parallel weight.  W8A8 (int8
+    experts under ``cfg.act_quant``) quantizes the tokens once per layer
+    and each expert's SwiGLU output per token, as the JAX package does."""
+    cfg = model.cfg
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    dtype = x.dtype
+    logits = _linear(layer.router, x)
+    probs = torch.softmax(logits.float(), dim=-1)
+    topv, topi = torch.topk(probs, K, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    w = torch.zeros_like(probs).scatter_(-1, topi, topv).to(dtype)
+    n_local = layer.gate_e.num_experts
+    first = model.rank * n_local
+    w8a8 = cfg.act_quant and layer.gate_e.quantized
+    if w8a8:
+        x_q, x_s = _quant_act(x)
+    y = None
+    for e in range(n_local):
+        if w8a8:
+            gate = _expert_w8a8(x_q, x_s, layer.gate_e, e, dtype)
+            up = _expert_w8a8(x_q, x_s, layer.up_e, e, dtype)
+            h_q, h_s = _quant_act(F.silu(gate) * up)
+            ys = _expert_w8a8(h_q, h_s, layer.down_e, e, dtype)
+        else:
+            gk, gs = _expert_weights(layer.gate_e, e, dtype)
+            uk, us = _expert_weights(layer.up_e, e, dtype)
+            dk, ds = _expert_weights(layer.down_e, e, dtype)
+            gate, up = x @ gk, x @ uk
+            if gs is not None:
+                gate, up = gate * gs.to(dtype), up * us.to(dtype)
+            ys = (F.silu(gate) * up) @ dk
+            if ds is not None:
+                ys = ys * ds.to(dtype)
+        part = ys.float() * w[..., first + e:first + e + 1].float()
+        y = part if y is None else y + part
+    if model.tp > 1:
+        y = model.mesh.all_reduce(y)
+    return y.to(dtype)
+
+
 def _mlp(model: LlamaModel, layer: LlamaLayer,
          x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (gate/up column-parallel, down row-parallel)."""
-    aq = model.cfg.act_quant
-    return _row(model, layer.down, F.silu(_linear(layer.gate, x, aq))
+    """The gated MLP (gate/up column-parallel, down row-parallel), or the
+    dropless mixture of experts."""
+    cfg = model.cfg
+    if cfg.num_experts > 0:
+        return _moe_mlp_dropless(model, layer, x)
+    aq = cfg.act_quant
+    return _row(model, layer.down, _mlp_act(cfg, _linear(layer.gate, x, aq))
                 * _linear(layer.up, x, aq))
 
 
 def _residual_tail(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor,
                    o: torch.Tensor) -> torch.Tensor:
-    """Attention residual, pre-MLP norm, MLP, MLP residual: the one
-    definition shared by layer_block, _prefill_impl and decode_step."""
+    """The (sandwich-normed, under ``cfg.sandwich_norms``) attention
+    residual, the pre-MLP norm, the MLP, and the (sandwich-normed) MLP
+    residual: the one definition shared by layer_block, _prefill_impl and
+    decode_step."""
     cfg = model.cfg
+    eps, uo = cfg.rms_norm_eps, cfg.rmsnorm_unit_offset
+    if cfg.sandwich_norms:
+        o = rms_norm(o, layer.post_attn_norm, eps, uo)
     x = x + o
-    h = rms_norm(x, layer.post_norm, cfg.rms_norm_eps, cfg.rmsnorm_unit_offset)
-    return x + _mlp(model, layer, h)
+    y = _mlp(model, layer, rms_norm(x, layer.post_norm, eps, uo))
+    if cfg.sandwich_norms:
+        y = rms_norm(y, layer.post_mlp_norm, eps, uo)
+    return x + y
+
+
+def _attn_extras(cfg: ModelConfig, layer_idx: int) -> dict:
+    """Layer ``layer_idx``'s attention kwargs for a Gemma-style model (the
+    query scale, the logit cap, the window); {} for the Llama conventions,
+    so the kernel wrappers never see them."""
+    if not cfg.has_attn_extras:
+        return {}
+    return {"scale": cfg.attn_scale,
+            "logit_softcap": cfg.attn_logit_softcap,
+            "window": cfg.layer_window(layer_idx)}
 
 
 def _unembed(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
@@ -656,7 +836,8 @@ def _unembed(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
     stays weight-only under ``act_quant``, tied or not: int8 noise on the
     pre-logits hidden state flips near-tied argmax (the JAX package's
     rule).  Under a mesh each rank projects onto its vocab slice and the
-    logits are all-gathered (replicated on every rank)."""
+    logits are all-gathered (replicated on every rank).  Gemma's final
+    soft cap ``cap * tanh(logits / cap)`` applies last, in float32."""
     cfg = model.cfg
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                  cfg.rmsnorm_unit_offset)
@@ -668,19 +849,22 @@ def _unembed(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
                   * emb.scale.to(x.dtype)).float()
     else:
         logits = F.linear(x, emb.weight).float()
-    if model.tp == 1:
-        return logits
-    return model.mesh.all_gather(logits, dim=-1)
+    if model.tp > 1:
+        logits = model.mesh.all_gather(logits, dim=-1)
+    cap = cfg.final_logit_softcap
+    if cap:
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def _replicated_attention(model: LlamaModel, q, kk, vv, q_positions,
-                          kv_len) -> torch.Tensor:
+                          kv_len, **extras) -> torch.Tensor:
     """Attention of the rank's query heads over every kv head's K/V
     [B, T, KVH, D] (pages replicated): each local head reads its own kv
     head, then dense causal attention with one query head per kv head."""
     idx = model.kv_index
     return causal_attention(q, kk.index_select(2, idx), vv.index_select(2, idx),
-                            q_positions=q_positions, kv_len=kv_len)
+                            q_positions=q_positions, kv_len=kv_len, **extras)
 
 
 def is_fused_decode_impl(attn_impl) -> bool:
@@ -707,16 +891,20 @@ def is_flash_prefill_impl(attn_impl) -> bool:
 
 
 def layer_block(model: LlamaModel, layer: LlamaLayer, x: torch.Tensor, cos,
-                sin, positions: torch.Tensor) -> torch.Tensor:
-    """One transformer layer with dense causal attention."""
+                sin, positions: torch.Tensor,
+                layer_idx: int = 0) -> torch.Tensor:
+    """One transformer layer with dense causal attention; ``layer_idx``
+    picks its sliding window (Gemma-2 alternates local and global)."""
     cfg = model.cfg
     B, S = x.shape[:2]
     h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps, cfg.rmsnorm_unit_offset)
     q, k, v = _qkv(model, layer, h, cos, sin)
+    extras = _attn_extras(cfg, layer_idx)
     if model.kv_gather:
-        attn = _replicated_attention(model, q, k, v, positions, None)
+        attn = _replicated_attention(model, q, k, v, positions, None,
+                                     **extras)
     else:
-        attn = causal_attention(q, k, v, q_positions=positions)
+        attn = causal_attention(q, k, v, q_positions=positions, **extras)
     o = _row(model, layer.o, attn.reshape(B, S, -1))
     return _residual_tail(model, layer, x, o)
 
@@ -739,8 +927,8 @@ def forward_full(model: LlamaModel, tokens: torch.Tensor, *,
                                  device=tokens.device).expand(B, S)
     cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta,
                            scaling=cfg.rope_scaling)
-    for layer in model.layers:
-        x = layer_block(model, layer, x, cos, sin, positions)
+    for li, layer in enumerate(model.layers):
+        x = layer_block(model, layer, x, cos, sin, positions, li)
     return _unembed(model, x)
 
 
@@ -834,7 +1022,10 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
     chunks are the same call); a paged multi-query impl (the verify path,
     ops/attention.py:select_verify_impl) reads them over a bf16 pool;
     otherwise ``attend_to_pages`` gathers the paged prefix (chunks) or uses
-    the in-flight k/v (fresh prefill).
+    the in-flight k/v (fresh prefill).  That gather branch is the one a
+    model with attention extras takes (the selectors give it no kernel),
+    with each layer's scale, cap and window (``_attn_extras``); it also
+    serves such a model's verify pass.
 
     A quantized pool quantizes on scatter; the flash kernel takes the
     scale planes and dequantizes inside, a chunk's gather dequantizes the
@@ -899,12 +1090,13 @@ def _prefill_impl(model: LlamaModel, tokens, positions, valid, lengths,
                                   psk if quant else None,
                                   psv if quant else None, block_tables,
                                   attend_to_pages)
+            extras = _attn_extras(cfg, li)
             if model.kv_gather:
                 attn = _replicated_attention(model, q, kk, vv, q_pos,
-                                             kv_len)
+                                             kv_len, **extras)
             else:
                 attn = causal_attention(q, kk, vv, q_positions=q_pos,
-                                        kv_len=kv_len)
+                                        kv_len=kv_len, **extras)
         o = _row(model, layer.o, attn.reshape(B, Sq, -1))
         x = _residual_tail(model, layer, x, o)
         if on_layer is not None:
@@ -1099,8 +1291,11 @@ def decode_attention_split(model: LlamaModel, layer: LlamaLayer, li: int, h,
     PyTorch, the new token's K/V scattered into the pages, then the paged
     attention ``attn_impl`` (the split kernel wrapper or the gather); a
     quantized pool, or replicated pages under a mesh, take the gather
-    (and dequant).  Shared with parallel/overlap.py."""
+    (and dequant).  A model with attention extras is handed the gather,
+    which takes layer ``li``'s scale, cap and window (``_attn_extras``).
+    Shared with parallel/overlap.py."""
     q, k, v = _qkv(model, layer, h, cos, sin)
+    extras = _attn_extras(model.cfg, li)
     if pages.quantized:
         pk, psk = _scatter_pages_quant(pages.k[li], pages.k_scale[li], k,
                                        block_tables, positions, active)
@@ -1108,12 +1303,14 @@ def decode_attention_split(model: LlamaModel, layer: LlamaLayer, li: int, h,
                                        block_tables, positions, active)
         if not model.kv_gather:
             return paged_decode_attention_quant(q, pk, pv, psk, psv,
-                                                block_tables, new_lens)
+                                                block_tables, new_lens,
+                                                **extras)
     else:
         pk = _scatter_pages(pages.k[li], k, block_tables, positions, active)
         pv = _scatter_pages(pages.v[li], v, block_tables, positions, active)
         psk = psv = None
         if not model.kv_gather:
-            return attn_impl(q, pk, pv, block_tables, new_lens)
+            return attn_impl(q, pk, pv, block_tables, new_lens, **extras)
     kk, vv = _gathered_kv(model, k, v, pk, pv, psk, psv, block_tables, True)
-    return _replicated_attention(model, q, kk, vv, positions, new_lens)
+    return _replicated_attention(model, q, kk, vv, positions, new_lens,
+                                 **extras)

@@ -52,14 +52,18 @@ def causal_attention(
     q_positions: torch.Tensor | None = None,
     kv_len: torch.Tensor | None = None,
     scale: float | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Dense causal attention for prefill.
 
     q: [B, S, H, D]; k, v: [B, T, KVH, D] with T >= S.  ``q_positions``
     [B, S] are absolute query positions (default: the last S of T);
     ``kv_len`` [B] masks keys at index >= kv_len.  ``scale`` defaults to
-    D**-0.5.  Returns [B, S, H, D] in q.dtype.  (The JAX oracle's Gemma-2
-    logit cap and sliding window are not ported.)
+    D**-0.5 (Gemma-2 uses query_pre_attn_scalar**-0.5).  ``logit_softcap``
+    caps the scaled logits with ``cap * tanh(logits / cap)`` (0 = off);
+    ``window`` keeps the keys of the last ``window`` positions up to each
+    query (0 = global).  Returns [B, S, H, D] in q.dtype.
     """
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
@@ -68,6 +72,8 @@ def causal_attention(
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if logit_softcap:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
     if q_positions is None:
         q_positions = (torch.arange(S, dtype=torch.int32, device=q.device)
                        + (T - S)).expand(B, S)
@@ -75,6 +81,9 @@ def causal_attention(
     causal = q_positions[:, :, None] >= kv_positions[None, None, :]
     if kv_len is not None:
         causal = causal & (kv_positions[None, None, :] < kv_len[:, None, None])
+    if window > 0:
+        causal = causal & (kv_positions[None, None, :]
+                           > q_positions[:, :, None] - window)
     logits = torch.where(causal[:, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
@@ -88,12 +97,16 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     scale: float | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Single-token decode against a contiguous cache.
 
     q: [B, 1, H, D]; k_cache, v_cache: [B, T, KVH, D]; ``lengths`` [B]
     valid entries per sequence (the new token already written at
-    lengths-1).
+    lengths-1).  ``scale`` / ``logit_softcap`` / ``window`` as in
+    ``causal_attention`` (the query sits at lengths-1, so the window keeps
+    keys in ``(lengths-1-window, lengths)``).
     """
     B, _, H, D = q.shape
     T, KVH = k_cache.shape[1], k_cache.shape[2]
@@ -102,8 +115,12 @@ def decode_attention(
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if logit_softcap:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
     kv_positions = torch.arange(T, dtype=torch.int32, device=q.device)[None, :]
     valid = kv_positions < lengths[:, None]
+    if window > 0:
+        valid = valid & (kv_positions > (lengths - 1)[:, None] - window)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
@@ -146,16 +163,21 @@ def paged_decode_attention(
     lengths: torch.Tensor,
     *,
     scale: float | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Single-token decode against the paged cache: gather, then masked
-    ``decode_attention``.  The gather path of ``decode_step``."""
+    ``decode_attention``.  The gather path of ``decode_step``, and the
+    only decode path that takes the Gemma-2 extras (``scale``,
+    ``logit_softcap``, ``window``), as in the JAX package."""
     B = q.shape[0]
     D = q.shape[-1]
     k = widen_pages(gather_pages(k_pages, block_table)).reshape(
         B, -1, k_pages.shape[2] // D, D)
     v = widen_pages(gather_pages(v_pages, block_table)).reshape(
         B, -1, v_pages.shape[2] // D, D)
-    return decode_attention(q, k, v, lengths, scale=scale)
+    return decode_attention(q, k, v, lengths, scale=scale,
+                            logit_softcap=logit_softcap, window=window)
 
 
 def gather_dequant(pages: torch.Tensor, scales: torch.Tensor,
@@ -180,15 +202,18 @@ def paged_decode_attention_quant(
     lengths: torch.Tensor,
     *,
     scale: float | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Quantized-pool twin of ``paged_decode_attention``: gather pages and
     per-(token, head) scales, dequantize, cast to q.dtype (as the JAX
-    oracle does), then masked ``decode_attention``.  The gather/dequant
-    branch of ``decode_step``."""
+    oracle does), then masked ``decode_attention`` (extras as there).
+    The gather/dequant branch of ``decode_step``."""
     D = q.shape[-1]
     k = gather_dequant(k_pages, k_scale, block_table, D).to(q.dtype)
     v = gather_dequant(v_pages, v_scale, block_table, D).to(q.dtype)
-    return decode_attention(q, k, v, lengths, scale=scale)
+    return decode_attention(q, k, v, lengths, scale=scale,
+                            logit_softcap=logit_softcap, window=window)
 
 
 def paged_verify_attention(
@@ -200,11 +225,14 @@ def paged_verify_attention(
     lengths: torch.Tensor,
     *,
     scale: float | None = None,
+    logit_softcap: float = 0.0,
+    window: int = 0,
 ) -> torch.Tensor:
     """Multi-query paged attention: query ``i`` of lane ``b`` sits at
     ``start[b] + i`` and attends causally through itself over the gathered
     pages; ``lengths`` counts valid queries (0 = inactive lane, rows
-    garbage).  ``scale`` as in ``causal_attention``."""
+    garbage).  ``scale`` / ``logit_softcap`` / ``window`` as in
+    ``causal_attention``."""
     B, S, H, D = q.shape
     KVH = k_pages.shape[2] // D
     kk = widen_pages(gather_pages(k_pages, block_table)).reshape(B, -1, KVH, D)
@@ -212,7 +240,8 @@ def paged_verify_attention(
     positions = start[:, None] + torch.arange(S, dtype=torch.int32,
                                               device=q.device)[None, :]
     return causal_attention(q, kk, vv, q_positions=positions,
-                            kv_len=start + lengths, scale=scale)
+                            kv_len=start + lengths, scale=scale,
+                            logit_softcap=logit_softcap, window=window)
 
 
 def _decode_geometry_ok(cfg, device: torch.device) -> bool:
@@ -366,7 +395,8 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
         tensors); raises ``ValueError`` when the model cannot take it;
       * ``"pallas"`` -- the split path: RoPE and the page scatter in
         PyTorch around the paged-attention kernel wrapper (the name of
-        the JAX package's mode); raises like ``"fused"``;
+        the JAX package's mode); raises like ``"fused"``, but a model
+        with attention extras gets the gather, as in the JAX package;
       * ``"gather"`` -- ``paged_decode_attention`` (the numerics oracle).
     ``kv_quant`` ("int8"/"fp8", EngineConfig.kv_dtype) selects the
     quantized pool: the fused path becomes the fused quant kernel (marked
@@ -394,6 +424,10 @@ def select_decode_impl(device: torch.device, cfg=None, mode: str = "auto",
         logger.warning(
             "decode_path='pallas' has no quantized-KV support; the split "
             "kernel is bypassed for the gather/dequant reference")
+        return paged_decode_attention
+    if mode == "pallas" and cfg is not None and cfg.has_attn_extras:
+        # The JAX package's split path hands an extras model the gather,
+        # the only decode attention that takes its cap and window.
         return paged_decode_attention
     if tp > 1:
         if mode == "fused":

@@ -34,7 +34,6 @@ elementwise, and the reductions go through ``row_parallel_partial``
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
 from k8s_llm_monitor_tpu_torch.models.llama import (
@@ -42,6 +41,7 @@ from k8s_llm_monitor_tpu_torch.models.llama import (
     LlamaModel,
     _embed_lookup,
     _linear,
+    _mlp_act,
     _unembed,
     decode_attention_split,
     row_parallel_partial,
@@ -70,6 +70,10 @@ def overlap_supported(cfg: ModelConfig, mesh, model=None) -> str:
     if cfg.hidden_size % tp or cfg.intermediate_size % tp:
         return (f"TP={tp} does not divide hidden {cfg.hidden_size} / "
                 f"intermediate {cfg.intermediate_size} (uneven scatter)")
+    if cfg.num_experts > 0:
+        return "MoE layers route through expert all-to-alls"
+    if cfg.sandwich_norms:
+        return "sandwich norms consume the full o projection pre-residual"
     if model is not None:
         layer0 = model.layers[0]
         if layer0.o.bias is not None or layer0.down.bias is not None:
@@ -106,7 +110,8 @@ def overlap_decode_step(model: LlamaModel, tokens, context_lens,
                                          mesh)
         x_scat = x_scat + fin(mesh.reduce_scatter(part))
         h = rms_norm(mesh.all_gather(x_scat), layer.post_norm, eps, uo)
-        act = F.silu(_linear(layer.gate, h, aq)) * _linear(layer.up, h, aq)
+        act = (_mlp_act(cfg, _linear(layer.gate, h, aq))
+               * _linear(layer.up, h, aq))
         part, fin = row_parallel_partial(layer.down, act, aq, mesh)
         x_scat = x_scat + fin(mesh.reduce_scatter(part))
     return _unembed(model, mesh.all_gather(x_scat))[:, 0, :], pages

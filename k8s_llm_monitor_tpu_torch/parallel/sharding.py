@@ -5,6 +5,7 @@ Megatron-style tensor parallelism over the ``model`` axis:
   - column-parallel (shard out_features): q/k/v, gate/up, lm_head
   - row-parallel    (shard in_features):  o, down
   - vocab-parallel embedding
+  - expert-parallel MoE stacks (the expert axis), the router replicated
   - norms replicated
 Where the JAX package lets XLA insert the collectives from these specs, the
 port's forward passes run them by hand (models/llama.py: the all-reduce
@@ -82,8 +83,17 @@ class SpecLayout:
         projections split with the out dim."""
         return P(self.model_axis)
 
+    def expert_kernel(self) -> P:
+        """Stacked MoE kernels [E, in, out] (the JAX layout): the expert
+        axis rides ``model``, each rank holding whole experts."""
+        return P(self.model_axis, None, None)
+
+    def expert_scale(self) -> P:
+        """MoE int8 scales [E, out] shard their expert axis the same."""
+        return P(self.model_axis, None)
+
     def layer_norm(self) -> P:
-        """Norms are O(H): replicate."""
+        """Norms (and the MoE router) are O(H): replicate."""
         return P(None)
 
     def replicated(self) -> P:
@@ -119,10 +129,13 @@ DEFAULT_LAYOUT = SpecLayout()
 def partition_rules(layout: SpecLayout = DEFAULT_LAYOUT
                     ) -> tuple[tuple[str, P], ...]:
     """(name-regex, spec) pairs over ``named_parameters`` / ``named_buffers``
-    names, first match wins; unmatched names replicate."""
+    names, first match wins; unmatched names (the router) replicate.
+    Expert rules come first, as in the JAX package."""
     return (
         (r"(^|\.)embed\.(weight|weight_q)$", layout.embedding()),
         (r"(^|\.)embed\.scale$", layout.embedding_scale()),
+        (r"(^|\.)(gate_e|up_e|down_e)\.scale$", layout.expert_scale()),
+        (r"(^|\.)(gate_e|up_e|down_e)\.", layout.expert_kernel()),
         (r"(^|\.)(q|k|v|gate|up|lm_head)\.(weight|weight_q)$",
          layout.column_kernel()),
         (r"(^|\.)(o|down)\.(weight|weight_q)$", layout.row_kernel()),
@@ -216,8 +229,10 @@ def check_tp(cfg, tp: int) -> Optional[str]:
     if tp <= 1:
         return None
     D = cfg.head_dim_
-    for what, n in (("query heads", cfg.num_heads),
-                    ("intermediate size", cfg.intermediate_size),
+    # A mixture of experts splits its expert axis, not the FFN.
+    split = (("experts", cfg.num_experts) if cfg.num_experts > 0 else
+             ("intermediate size", cfg.intermediate_size))
+    for what, n in (("query heads", cfg.num_heads), split,
                     ("vocab size", cfg.vocab_size),
                     ("kv lanes", cfg.num_kv_heads * D)):
         if n % tp:

@@ -3,9 +3,11 @@ torch-native save/restore.
 
 HF stores ``nn.Linear`` weights ``[out, in]``, which is this port's layout,
 so nothing is transposed (the JAX package transposes here, once).
-Supports the dense checkpoint families of the JAX package's loader: Llama
-(no biases), Mistral (v0.3+: no sliding window) and Qwen2 (QKV biases), in
-single-file or index-sharded safetensors form.  The safetensors files are
+Supports the checkpoint families of the JAX package's loader: Llama (no
+biases), Mistral (a live sliding window in v0.1), Qwen2 (QKV biases),
+Mixtral (``block_sparse_moe``: the router and per-expert ``w1`` / ``w3``
+/ ``w2``, stacked into ``[E, in, out]``) and Gemma-2 (sandwich norms,
+tied embeddings), in single-file or index-sharded safetensors form.  The safetensors files are
 read by this module itself (an 8-byte little-endian header length, a JSON
 header, then the raw bytes), mapped with ``mmap`` and viewed with
 ``torch.frombuffer``: it needs no ``safetensors`` package, and bf16
@@ -24,7 +26,8 @@ from typing import Any, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
-from k8s_llm_monitor_tpu_torch.models.config import ModelConfig
+from k8s_llm_monitor_tpu_torch.models.config import (
+    ModelConfig, gemma2_layer_types)
 from k8s_llm_monitor_tpu_torch.models.llama import LlamaModel
 from k8s_llm_monitor_tpu_torch.parallel.sharding import (
     param_partition_specs, shard_tensor)
@@ -34,32 +37,25 @@ _DTYPES = {"F32": torch.float32, "F16": torch.float16,
 
 
 def config_from_hf(hf: Mapping[str, Any], name: str = "hf-model") -> ModelConfig:
-    """Translate a HF ``config.json`` dict (Llama, Mistral, Qwen2) to ours.
+    """Translate a HF ``config.json`` dict (Llama, Mistral, Qwen2, Mixtral,
+    Gemma-2) to ours, as the JAX package's ``config_from_hf`` does.
 
     Keys equal to a HF class default are omitted from a saved config.json,
     so family defaults are reproduced here.  Qwen2 ships a
     ``sliding_window`` beside ``use_sliding_window: false``: the raw value
-    alone does not turn windows on.  What the port's ``ModelConfig`` cannot
-    hold raises ``NotImplementedError`` naming ROADMAP A9: Gemma-2, a
-    mixture of experts (``num_local_experts``), a live sliding window
-    (Mistral v0.1) and logit soft caps."""
-    if hf.get("model_type") == "gemma2":
-        raise NotImplementedError(
-            "Gemma-2 checkpoints are not ported (ROADMAP A9)")
-    if hf.get("num_local_experts", 0):
-        raise NotImplementedError(
-            "mixture-of-experts checkpoints are not ported (ROADMAP A9)")
-    sliding = hf.get("sliding_window", 0) or 0
+    alone does not turn windows on.  Gemma-2's class defaults (a 4,096
+    window, caps 50 and 30, ``query_pre_attn_scalar`` 256, tied
+    embeddings) apply when its keys are absent, and its layers alternate
+    sliding and full attention when the config lists no ``layer_types``."""
+    num_heads = hf["num_attention_heads"]
+    gemma2 = hf.get("model_type") == "gemma2"
+    n_layers = hf["num_hidden_layers"]
+    sliding = hf.get("sliding_window", 4096 if gemma2 else 0) or 0
     if hf.get("use_sliding_window") is False:
         sliding = 0
-    if sliding:
-        raise NotImplementedError(
-            f"sliding-window attention (sliding_window={sliding}) is not "
-            "ported (ROADMAP A9)")
-    if hf.get("attn_logit_softcapping") or hf.get("final_logit_softcapping"):
-        raise NotImplementedError(
-            "logit soft caps are not ported (ROADMAP A9)")
-    num_heads = hf["num_attention_heads"]
+    layer_types = tuple(hf["layer_types"]) if hf.get("layer_types") else None
+    if gemma2 and sliding and layer_types is None:
+        layer_types = gemma2_layer_types(n_layers)
     return ModelConfig(
         name=name,
         vocab_size=hf["vocab_size"],
@@ -74,7 +70,22 @@ def config_from_hf(hf: Mapping[str, Any], name: str = "hf-model") -> ModelConfig
         rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
         max_seq_len=hf.get("max_position_embeddings", 8192),
         qkv_bias=hf.get("model_type") == "qwen2",
-        tie_embeddings=hf.get("tie_word_embeddings", False),
+        tie_embeddings=hf.get("tie_word_embeddings", gemma2),
+        num_experts=hf.get("num_local_experts", 0),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+        mlp_activation=("gelu_tanh" if gemma2 or hf.get("hidden_activation")
+                        == "gelu_pytorch_tanh" else "silu"),
+        sandwich_norms=gemma2,
+        rmsnorm_unit_offset=gemma2,
+        attn_logit_softcap=hf.get(
+            "attn_logit_softcapping", 50.0 if gemma2 else 0.0) or 0.0,
+        final_logit_softcap=hf.get(
+            "final_logit_softcapping", 30.0 if gemma2 else 0.0) or 0.0,
+        query_pre_attn_scalar=(hf.get("query_pre_attn_scalar", 256.0)
+                               if gemma2 else None),
+        embed_scale=gemma2,
+        sliding_window=sliding,
+        layer_types=layer_types,
     )
 
 
@@ -88,6 +99,19 @@ _LINEAR_MAP = {
     "down": "mlp.down_proj",
 }
 
+# Gemma-2's norms: post_attention_layernorm applies to the attention
+# output, pre_/post_feedforward_layernorm sandwich the MLP (post_norm plays
+# the pre-feedforward role).
+_NORM_MAP = {"input_norm": "input_layernorm",
+             "post_norm": "post_attention_layernorm"}
+_SANDWICH_NORM_MAP = {"input_norm": "input_layernorm",
+                      "post_attn_norm": "post_attention_layernorm",
+                      "post_norm": "pre_feedforward_layernorm",
+                      "post_mlp_norm": "post_feedforward_layernorm"}
+
+# Mixtral's experts: w1 is the gate, w3 the up, w2 the down projection.
+_EXPERT_MAP = {"gate_e": "w1", "up_e": "w3", "down_e": "w2"}
+
 
 def _tensor(x) -> torch.Tensor:
     return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
@@ -98,8 +122,11 @@ def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
                           dtype: Optional[str] = None, quantize: bool = False,
                           device=None, mesh=None) -> LlamaModel:
     """Fill a ``LlamaModel`` on ``device`` (default ``cuda``) from a HF
-    Llama/Mistral/Qwen2 state dict (torch tensors or numpy arrays), tensor
-    by tensor.
+    Llama/Mistral/Qwen2/Mixtral/Gemma-2 state dict (torch tensors or numpy
+    arrays), tensor by tensor.  A Mixtral expert stack is filled one
+    expert at a time (``w.T`` into ``[in, out]``; int8 quantized per
+    expert on load), and under a mesh a rank reads only its own experts;
+    the router stays in the model dtype.
 
     ``dtype`` (a torch dtype name, default ``cfg.dtype``) is the model's.
     With ``quantize=True`` every linear and the embedding are int8: each
@@ -139,21 +166,42 @@ def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
     def vector(name: str, key: str) -> None:
         model.get_parameter(name).copy_(piece(name, key))
 
+    def experts(stack, pre: str, hf_name: str) -> None:
+        n = stack.num_experts
+        for j in range(n):
+            w = _tensor(state[f"{pre}block_sparse_moe.experts."
+                              f"{model.rank * n + j}.{hf_name}.weight"])
+            if quantize:
+                # Expert j's codes [in, out] filled through their
+                # transpose, per output channel as a linear's.
+                fill_quantized(stack.kernel_q[j].t(), stack.scale[j], w)
+            else:
+                stack.kernel[j].copy_(w.t())
+
     weight("embed", "model.embed_tokens.weight")
     vector("final_norm", "model.norm.weight")
     if model.lm_head is not None:
         weight("lm_head", "lm_head.weight" if "lm_head.weight" in state
                else "model.embed_tokens.weight")
+    norms = _SANDWICH_NORM_MAP if cfg.sandwich_norms else _NORM_MAP
+    moe = cfg.num_experts > 0
     for i, layer in enumerate(model.layers):
         pre, ours = f"model.layers.{i}.", f"layers.{i}."
-        vector(ours + "input_norm", pre + "input_layernorm.weight")
-        vector(ours + "post_norm", pre + "post_attention_layernorm.weight")
+        for name, theirs in norms.items():
+            vector(ours + name, f"{pre}{theirs}.weight")
         for name, theirs in _LINEAR_MAP.items():
+            if moe and name in ("gate", "up", "down"):
+                continue
             weight(ours + name, f"{pre}{theirs}.weight",
                    row=name in ("o", "down"))
             if (getattr(layer, name).bias is not None
                     and f"{pre}{theirs}.bias" in state):
                 vector(f"{ours}{name}.bias", f"{pre}{theirs}.bias")
+        if moe:
+            layer.router.weight.copy_(
+                _tensor(state[f"{pre}block_sparse_moe.gate.weight"]))
+            for name, theirs in _EXPERT_MAP.items():
+                experts(getattr(layer, name), pre, theirs)
     return model
 
 

@@ -7,8 +7,8 @@ biases, 14 query heads over 2 kv heads: 7 per kv head) as one bfloat16
 file, each beside an in-code word-level tokenizer.
 
   * ``config_from_hf`` gives the JAX package's fields (the Qwen2 sliding
-    rule included) and refuses by name what the port's config cannot hold
-    (ROADMAP A9), where the JAX package translates it;
+    rule included; Gemma-2, Mixtral and Mistral v0.1's window, ROADMAP
+    A9, too);
   * the loaded weights, bf16 and int8, equal the JAX package's
     ``load_hf_checkpoint`` through ``params_from_jax``, bit for bit;
   * float32 greedy ids of the port's engine equal ``transformers.generate``
@@ -142,13 +142,17 @@ HF_CONFIGS = {
     "llama3.1-rope": dict(model_type="llama", rope_scaling={
         "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
         "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}),
-}
-REFUSED = {
+    # ROADMAP A9: Gemma-2 (its class defaults: a 4,096 window over
+    # alternating layers, caps 50 / 30, query scale 256**-0.5, tied
+    # embeddings), Mixtral's experts, Mistral v0.1's live window.
     "gemma2": dict(model_type="gemma2", head_dim=256),
     "mixtral": dict(model_type="mixtral", num_local_experts=8,
                     num_experts_per_tok=2),
     "mistral-v0.1": dict(model_type="mistral", sliding_window=4096),
 }
+# The configs whose attention takes the extras (a window, a cap or a
+# query scale): dense prefill and the gather, as in the JAX package.
+EXTRAS = {"gemma2": 4096, "mistral-v0.1": 4096}
 BASE = dict(vocab_size=320, hidden_size=256, intermediate_size=512,
             num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2,
             rms_norm_eps=1e-6, max_position_embeddings=4096)
@@ -160,15 +164,9 @@ def test_config_from_hf_matches_jax(name):
     got = tckpt.config_from_hf(hf, name=name)
     want = jckpt.config_from_hf(hf, name=name)
     assert got.name == want.name and _fields(got) == _fields(want)
-    assert got.sliding_window == 0 and not got.has_attn_extras
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_config_from_hf_refuses_what_the_port_lacks(name):
-    hf = dict(BASE, **REFUSED[name])
-    jckpt.config_from_hf(hf)            # the JAX package translates it
-    with pytest.raises(NotImplementedError, match="A9"):
-        tckpt.config_from_hf(hf)
+    assert got.sliding_window == EXTRAS.get(name, 0)
+    assert got.has_attn_extras == (name in EXTRAS)
+    assert got.num_experts == (8 if name == "mixtral" else 0)
 
 
 @pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])

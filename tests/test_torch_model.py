@@ -31,6 +31,12 @@ from k8s_llm_monitor_tpu_torch.ops.attention import (
 from k8s_llm_monitor_tpu_torch.ops.attention import (
     select_prefill_impl as t_select_prefill,
 )
+from k8s_llm_monitor_tpu_torch.ops.attention import (
+    paged_decode_attention as t_gather,
+)
+from k8s_llm_monitor_tpu_torch.ops.attention import (
+    select_verify_impl as t_select_verify,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -185,8 +191,14 @@ def test_selection_modes():
         t_select_prefill(CPU, gemma_like, "flash")
     with pytest.raises(ValueError):
         t_select_decode(CPU, gemma_like, "fused")
-    with pytest.raises(ValueError, match="not ported"):
-        tllama.LlamaModel(gemma_like, device="cpu")
+    # An extras model builds and takes JAX's paths: dense prefill, the
+    # gather on "auto" and on "pallas", no verify kernel.
+    assert tllama.LlamaModel(gemma_like, device="cpu").cfg.has_attn_extras
+    assert t_select_prefill(CPU, gemma_like, "auto") is None
+    assert t_select_decode(CPU, gemma_like, "auto") is t_gather
+    assert t_select_decode(torch.device("cuda", 0), gemma_like,
+                           "pallas") is t_gather
+    assert t_select_verify(CPU, gemma_like) is None
     # "pallas" is the split path (the paged-attention wrapper); unknown
     # modes raise.
     split = t_select_decode(CPU, tcfg, "pallas")
